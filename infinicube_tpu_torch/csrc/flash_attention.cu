@@ -12,8 +12,9 @@
 // flash_attn_bf16 (K2) replaces the library Pallas TPU flash attention
 //   (jax.experimental.pallas.ops.tpu.flash_attention) that
 //   infinicube_tpu/ops/attention.py:25 `multi_head_attention` reaches on the
-//   TPU: bf16 Q, K, V, Nq != Nk allowed, keys past Nk masked. It serves the
-//   DiT's cross-attention to the text tokens.
+//   TPU: bf16 Q, K, V, Nq != Nk allowed, keys past Nk masked, head dim 64,
+//   96 or 128. It serves the DiT's cross-attention to the text tokens and the
+//   voxel UNet's SelfAttention3D (d = 96, N = 4,096 and 512).
 //
 // What bounds them: at the DiT's shapes both do ~4*Nq*Nk*d flops for
 // ~(Nq + Nk)*d*6 bytes, far above the card's ~295 flop/byte ridge, so both are
@@ -370,6 +371,9 @@ int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
   auto op = static_cast<__nv_bfloat16*>(o);
   if (d == 128)
     flash_bf16_kernel<128><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, op, H, nq, nk, sq, sk, sv, so, scale_log2);
+  else if (d == 96)
+    flash_bf16_kernel<96><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, H, nq, nk, sq, sk, sv, so, scale_log2);
   else if (d == 64)
     flash_bf16_kernel<64><<<grid, kThreads, 0, st>>>(

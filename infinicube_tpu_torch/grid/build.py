@@ -1,0 +1,75 @@
+"""Grid constructors; counterpart of ``infinicube_tpu/grid/build.py`` for
+what the structure decoder uses.
+
+Output capacity is fixed by the caller; overflow drops the HIGHEST keys, in
+the JAX package's key order, and reports the count in ``Grid.num_dropped``.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+from infinicube_tpu_torch.grid import keys as K
+from infinicube_tpu_torch.grid.grid import Grid, as_vec3
+
+
+def _unique_sorted_keys(qkeys: torch.Tensor, capacity: int):
+    """Per-row sort + dedup into a fixed-capacity row.
+
+    qkeys int64 [B, N] (invalid = INVALID_KEY) -> (int64 [B, capacity]
+    ascending with INVALID_KEY padding, int32 [B] dropped count)."""
+    B, N = qkeys.shape
+    rk = torch.sort(qkeys, dim=1).values
+    first = torch.ones_like(rk, dtype=torch.bool)
+    first[:, 1:] = rk[:, 1:] != rk[:, :-1]
+    first &= rk != K.INVALID_KEY
+    pos = torch.cumsum(first, dim=1) - 1
+    dst = torch.where(first & (pos < capacity), pos,
+                      torch.full_like(pos, capacity))
+    out = torch.full((B, capacity + 1), K.INVALID_KEY, dtype=torch.int64,
+                     device=qkeys.device)
+    out.scatter_(1, dst, rk)
+    n_unique = first.sum(dim=1)
+    return out[:, :capacity].contiguous(), \
+        (n_unique - capacity).clamp_min(0).to(torch.int32)
+
+
+def grid_from_keys(qkeys: torch.Tensor, capacity: int, voxel_size,
+                   origin) -> Grid:
+    """int64 [B, N] possibly duplicated keys -> deduplicated sorted Grid."""
+    ukeys, dropped = _unique_sorted_keys(qkeys, capacity)
+    mask = ukeys != K.INVALID_KEY
+    ijk = torch.where(mask[..., None], K.unpack(ukeys),
+                      torch.zeros((), dtype=torch.int32, device=ukeys.device))
+    return Grid(ijk=ijk, mask=mask, keys=ukeys,
+                voxel_size=as_vec3(voxel_size, qkeys.device),
+                origin=as_vec3(origin, qkeys.device), num_dropped=dropped)
+
+
+def grid_from_ijk(ijk: torch.Tensor, mask: torch.Tensor, voxel_size, origin,
+                  capacity: int) -> Grid:
+    """fvdb gridbatch_from_ijk. ijk int [B, N, 3], mask bool [B, N]."""
+    return grid_from_keys(K.pack(ijk, mask), capacity, voxel_size, origin)
+
+
+def subdivided_grid(grid: Grid, factor, submask: torch.Tensor | None = None,
+                    capacity: int | None = None) -> Grid:
+    """Each (optionally masked) voxel spawns prod(factor) children."""
+    fx, fy, fz = (int(f) for f in torch.as_tensor(factor).expand(3))
+    nch = fx * fy * fz
+    capacity = capacity or grid.capacity * nch
+    dev = grid.ijk.device
+    offs = torch.tensor(list(itertools.product(range(fx), range(fy),
+                                               range(fz))),
+                        dtype=torch.int32, device=dev)
+    f = torch.tensor((fx, fy, fz), dtype=torch.int32, device=dev)
+    child = grid.ijk[:, :, None, :] * f + offs[None, None]   # [B, C, nch, 3]
+    m = grid.mask if submask is None else (grid.mask & submask)
+    cmask = m[:, :, None].expand(child.shape[:3])
+    vs = grid.voxel_size / f.float()
+    org = grid.origin - (grid.voxel_size - vs) / 2.0
+    B = grid.batch_size
+    return grid_from_keys(K.pack(child, cmask).reshape(B, -1), capacity, vs,
+                          org)

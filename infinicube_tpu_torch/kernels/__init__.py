@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels: build, load, launch, count.
 
-``infinicube_tpu_torch/csrc/flash_attention.cu`` is compiled at first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-under ``infinicube_tpu_torch/_build`` (named by a hash of source and flags,
-so an edited source is rebuilt), and loaded with ``ctypes``. Every entry
-point returns ``cudaGetLastError()``; the wrappers raise when it is not 0.
+Every ``infinicube_tpu_torch/csrc/*.cu`` source is compiled at first use with
+``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C
+interface under ``infinicube_tpu_torch/_build`` (named by a hash of source and
+flags, so an edited source is rebuilt), and loaded with ``ctypes``. ``build``
+starts one ``nvcc`` per source, all at once. Every entry point returns
+``cudaGetLastError()``; the wrappers raise when it is not 0.
 
 The wrappers take CUDA tensors only. Each adds one to its entry in
 ``launches`` where it launches its kernel and nowhere else, so a run can show
@@ -24,13 +25,26 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_attention.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-launches: dict[str, int] = {"flash_attn_int8qk": 0, "flash_attn_bf16": 0}
-_lib_handle: ctypes.CDLL | None = None
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+# source stem -> {entry point: ctypes argtypes}
+SIGNATURES = {
+    "flash_attention": {
+        "flash_attn_bf16": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
+        "flash_attn_int8qk": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    },
+    "dense_conv": {"conv3x3x3_bf16": [_P] * 4 + [_I] * 6 + [_P]},
+    "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
+}
+
+launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
+                            for name in fns}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -46,41 +60,50 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _target() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libflash_attention-{key.hexdigest()[:16]}.so"
+def _target(stem: str) -> Path:
+    src = CSRC / f"{stem}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}-{key.hexdigest()[:16]}.so"
 
 
 def build() -> float:
-    """Compile the kernels unless they are built already. Returns the
-    seconds ``nvcc`` took (0.0 when nothing was built)."""
-    out = _target()
-    if out.exists():
+    """Compile every source that is not built already, one ``nvcc`` each,
+    all started together. Returns the seconds the builds took (0.0 when
+    nothing was built)."""
+    todo = [s for s in SIGNATURES if not _target(s).exists()]
+    if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{res.stdout}"
-                           f"{res.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    jobs = []
+    for stem in todo:
+        tmp = _target(stem).with_suffix(f".{os.getpid()}.tmp")
+        jobs.append((stem, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for stem, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {stem}.cu:\n{log}")
+        else:
+            os.replace(tmp, _target(stem))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
+def _fn(stem: str, name: str):
+    lib = _libs.get(stem)
+    if lib is None:
         build()
-        lib = ctypes.CDLL(str(_target()))
-        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-            ctypes.c_float
-        lib.flash_attn_bf16.argtypes = [P] * 4 + [I] * 5 + [L] * 12 + [F, P]
-        lib.flash_attn_int8qk.argtypes = [P] * 6 + [I] * 6 + [L] * 12 + [F, P]
-        lib.flash_attn_bf16.restype = lib.flash_attn_int8qk.restype = I
-        _lib_handle = lib
-    return _lib_handle
+        lib = ctypes.CDLL(str(_target(stem)))
+        for fn_name, argtypes in SIGNATURES[stem].items():
+            getattr(lib, fn_name).argtypes = argtypes
+            getattr(lib, fn_name).restype = _I
+        _libs[stem] = lib
+    return getattr(lib, name)
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -102,8 +125,19 @@ def _check_bnhd(x: torch.Tensor, name: str, elem_align: int) -> None:
                          "16-byte aligned")
 
 
-def _run(name: str, *args) -> None:
-    err = getattr(_lib(), name)(*args)
+def _check_dense(x: torch.Tensor, name: str, shape: tuple,
+                 dtype: torch.dtype) -> None:
+    if tuple(x.shape) != shape or x.dtype != dtype or \
+            not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: need a contiguous, 16-byte aligned {dtype}"
+                         f" tensor of shape {shape}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+
+
+def _run(stem: str, name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(stem, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
@@ -112,15 +146,15 @@ def _run(name: str, *args) -> None:
 def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float) -> torch.Tensor:
     """K2: softmax(q k^T * sm_scale) v, non-causal. q [B, Nq, h, d], k/v
-    [B, Nk, h, d], bf16, d in {64, 128}. Returns [B, Nq, h, d] bf16."""
+    [B, Nk, h, d], bf16, d in {64, 96, 128}. Returns [B, Nq, h, d] bf16."""
     _check_cuda(q, k, v)
     B, nq, h, d = q.shape
     nk = k.shape[1]
     if k.shape != (B, nk, h, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}"
                          f" v{tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d} not supported (64 or 128)")
+    if d not in (64, 96, 128):
+        raise ValueError(f"head dim {d} not supported (64, 96 or 128)")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError("flash_attn_bf16 takes bf16 q, k, v")
     if nq == 0 or nk == 0:
@@ -128,12 +162,10 @@ def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         _check_bnhd(t, n, 8)
     o = torch.empty((B, nq, h, d), dtype=torch.bfloat16, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _run("flash_attn_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), B, h, nq, nk, d,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *o.stride()[:3], float(sm_scale), stream)
+    _run("flash_attention", "flash_attn_bf16", q.device, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), o.data_ptr(), B, h, nq, nk, d,
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+         *o.stride()[:3], float(sm_scale))
     return o
 
 
@@ -168,10 +200,61 @@ def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
     _check_bnhd(v, "v", 8)
     o = torch.empty((B, n, h, d), dtype=torch.bfloat16, device=v.device)
     fold = (h * npad * d, d, npad * d)  # batch, token, head strides of q8/k8
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _run("flash_attn_int8qk", q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
-             o.data_ptr(), qscale.data_ptr(), kscale.data_ptr(), B, h, n, d,
-             block, nb, *fold, *fold, *v.stride()[:3],
-             *o.stride()[:3], float(sm_scale), stream)
+    _run("flash_attention", "flash_attn_int8qk", v.device, q8.data_ptr(),
+         k8.data_ptr(), v.data_ptr(), o.data_ptr(), qscale.data_ptr(),
+         kscale.data_ptr(), B, h, n, d, block, nb, *fold, *fold,
+         *v.stride()[:3], *o.stride()[:3], float(sm_scale))
     return o
+
+
+def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """K3: 3x3x3 stride-1 SAME conv. x bf16 [B, D, H, W, C] contiguous;
+    w_packed bf16 [O, 27*C] (``pack_conv_weight``); bias f32 [O]. C and O
+    multiples of 8. Returns bf16 [B, D, H, W, O]."""
+    _check_cuda(x, w_packed, bias)
+    if x.dim() != 5:
+        raise ValueError(f"x must be [B, D, H, W, C], got {tuple(x.shape)}")
+    B, D, H, W, C = x.shape
+    O = w_packed.shape[0]
+    if C % 8 or O % 8 or min(B, D, H, W) < 1:
+        raise ValueError(f"conv3x3x3_bf16 takes C, O multiples of 8, got "
+                         f"x{tuple(x.shape)} -> {O}")
+    M = B * D * H * W
+    if M >= 2 ** 31 or -(-M // 128) * -(-O // 64) >= 2 ** 31:
+        raise ValueError(f"too many voxels for one launch: {tuple(x.shape)}"
+                         f" -> {O}")
+    _check_dense(x, "x", (B, D, H, W, C), torch.bfloat16)
+    _check_dense(w_packed, "w_packed", (O, 27 * C), torch.bfloat16)
+    _check_dense(bias, "bias", (O,), torch.float32)
+    out = torch.empty((B, D, H, W, O), dtype=torch.bfloat16, device=x.device)
+    _run("dense_conv", "conv3x3x3_bf16", x.device, x.data_ptr(),
+         w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(), B, D, H, W, C,
+         O)
+    return out
+
+
+def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                    poison: torch.Tensor) -> torch.Tensor:
+    """K4: out[b, m] = sum_t feats[b, nbr[b, m, t]] @ w[t] over present
+    taps (nbr -1 = absent); every row of batch b is NaN where poison[b] != 0.
+    feats f32 [B, C, F]; nbr int32 [B, C, 27]; w f32 [27, F, Fo]; poison
+    int32 [B]; F and Fo multiples of 4. Returns f32 [B, C, Fo]."""
+    _check_cuda(feats, nbr, w, poison)
+    if feats.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"feats [B, C, F] and w [27, F, Fo], got "
+                         f"{tuple(feats.shape)}, {tuple(w.shape)}")
+    B, C, F = feats.shape
+    Fo = w.shape[2]
+    if F % 4 or Fo % 4 or B > 65535:
+        raise ValueError(f"sparse_conv_f32 takes F, Fo multiples of 4, got "
+                         f"{F} -> {Fo}")
+    _check_dense(feats, "feats", (B, C, F), torch.float32)
+    _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
+    _check_dense(w, "w", (27, F, Fo), torch.float32)
+    _check_dense(poison, "poison", (B,), torch.int32)
+    out = torch.empty((B, C, Fo), dtype=torch.float32, device=feats.device)
+    _run("sparse_conv", "sparse_conv_f32", feats.device, feats.data_ptr(),
+         nbr.data_ptr(), w.data_ptr(), poison.data_ptr(), out.data_ptr(), B,
+         C, F, Fo)
+    return out

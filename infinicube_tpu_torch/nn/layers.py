@@ -44,6 +44,16 @@ class RMSNorm(nn.Module):
         return y * self.weight.float()
 
 
+def conv3d_ndhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 dtype: torch.dtype, stride: int = 1,
+                 padding=0) -> torch.Tensor:
+    """flax ``nn.Conv(dtype)`` on an NDHWC tensor: input, kernel [O, C, k,
+    k, k] and bias cast to ``dtype``."""
+    out = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3), weight.to(dtype),
+                   bias.to(dtype), stride=stride, padding=padding)
+    return out.permute(0, 2, 3, 4, 1)
+
+
 def layer_norm(x: torch.Tensor, weight=None, bias=None) -> torch.Tensor:
     """flax ``nn.LayerNorm(dtype=float32)`` over the last dim, in f32."""
     w = None if weight is None else weight.float()

@@ -7,10 +7,14 @@ plain re-layout:
 
 - flax Dense ``kernel`` [in, out] -> ``weight`` [out, in];
 - flax Conv ``kernel`` DHWIO -> ``weight`` OIDHW;
-- RMSNorm / LayerNorm ``scale`` and Embed ``embedding`` -> ``weight``;
+- a rank-3 ``kernel`` (SparseConv3d, [27, F_in, F_out]) keeps its name and
+  layout;
+- RMSNorm / LayerNorm / GroupNorm ``scale`` and Embed ``embedding`` ->
+  ``weight``;
 - ``block{i}`` / ``layer{i}`` / ``downsamples_{i}`` / ``upsamples_{i}`` ->
   ``blocks.{i}`` / ``layers.{i}`` / ``downsamples.{i}`` / ``upsamples.{i}``;
-- the DiT's scan-stacked ``blocks`` (leading layer axis) -> ``blocks.{i}``.
+- the DiT's scan-stacked ``blocks`` (leading layer axis) -> ``blocks.{i}``,
+  and so is the voxel UNet's ``middle_transformer/blocks``.
 
 Imports numpy and torch only."""
 
@@ -44,6 +48,8 @@ def _leaf(name: str, a: np.ndarray) -> tuple[str, np.ndarray]:
             return "weight", a.T
         if a.ndim == 5:
             return "weight", a.transpose(4, 3, 0, 1, 2)
+        if a.ndim == 3:
+            return "kernel", a
         raise ValueError(f"kernel of rank {a.ndim}")
     if name in ("scale", "embedding"):
         return "weight", a
@@ -62,17 +68,36 @@ def _convert(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _unstack_blocks(tree: dict) -> dict:
+    """A scan-stacked ``blocks`` entry (one scanned module, leading layer
+    axis) becomes ``block{i}`` entries; other layouts pass through."""
+    tree = dict(tree)
+    stacked = tree.pop("blocks", None)
+    if stacked is not None:
+        (body,) = stacked.values()       # the scanned block module
+        n = len(next(iter(_flatten(body)))[1])
+        for i in range(n):
+            tree[f"block{i}"] = _index(body, i)
+    return tree
+
+
 def dit_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """WanDiT params, either layout: scan-stacked ``blocks`` or
     ``block{i}``."""
+    return _convert(_unstack_blocks(_params(tree)))
+
+
+def unet_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """UNet3D params (flax auto-names); the scan-stacked
+    ``middle_transformer/blocks`` is unstacked into ``blocks.{i}``."""
     p = dict(_params(tree))
-    stacked = p.pop("blocks", None)
-    if stacked is not None:
-        (body,) = stacked.values()       # the scanned WanBlock
-        n = len(next(iter(_flatten(body)))[1])
-        for i in range(n):
-            p[f"block{i}"] = _index(body, i)
+    p["middle_transformer"] = _unstack_blocks(p["middle_transformer"])
     return _convert(p)
+
+
+def sparse_vae_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """SparseStructureVAE params."""
+    return _convert(_params(tree))
 
 
 def _index(tree: dict, i: int) -> dict:

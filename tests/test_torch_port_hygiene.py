@@ -69,7 +69,42 @@ def test_cpu_tensors_take_plain_versions():
     dit = WanDiT(cfg, device="cpu")
     with torch.no_grad():
         dit(torch.randn(1, 1, 4, 4, 4), torch.ones(1), torch.randn(1, 3, 16))
-    assert kernels.launches == {"flash_attn_int8qk": 0, "flash_attn_bf16": 0}
+    _stage1_on_cpu()
+    assert kernels.launches and all(v == 0 for v in kernels.launches.values())
+
+
+def _stage1_on_cpu():
+    """The stage-1 ops and models on CPU tensors: the dense conv, the sparse
+    conv, a small UNet and a small VAE decode."""
+    from infinicube_tpu_torch.grid.build import grid_from_ijk
+    from infinicube_tpu_torch.models.diffusion.model import (
+        DiffusionConfig, VoxelDiffusion)
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig)
+    from infinicube_tpu_torch.nn.sparse import conv_plan
+    from infinicube_tpu_torch.ops.dense_conv import conv3x3x3
+    from infinicube_tpu_torch.ops.window_conv import window_sparse_conv
+    g = torch.Generator().manual_seed(0)
+    conv3x3x3(torch.randn((1, 4, 4, 4, 8)), torch.randn((8, 8, 3, 3, 3)),
+              torch.zeros(8))
+    grid = grid_from_ijk(torch.randint(-4, 4, (1, 50, 3), generator=g),
+                         torch.ones((1, 50), dtype=torch.bool), 0.2, 0.1, 64)
+    window_sparse_conv(conv_plan(grid, ((-8, -8, -8), (16, 16, 16))),
+                       torch.randn((1, 64, 4)), torch.randn((27, 4, 4)))
+    vd = VoxelDiffusion(DiffusionConfig(
+        cube_dims=(4, 4, 4), model_channels=32, channel_mult=(1, 2),
+        attention_ds=(2,), num_heads=4, transformer_depth=1,
+        dtype=torch.float32), device="cpu")
+    vd.init_params(g, zero_init_layers=False)
+    vd.sample(vd.encode_conditions(
+        torch.zeros((1, 3, 4, 3)), torch.ones((1, 3, 4), dtype=torch.bool),
+        torch.eye(4).expand(1, 2, 4, 4), torch.ones((1, 2, 3)),
+        torch.ones((1, 2), dtype=torch.bool)), num_steps=1, generator=g)
+    vae = SparseStructureVAE(SparseVAEConfig(
+        f_maps=8, c_dim=8, sem_embed_dim=4, neck_dims=(4, 4, 4),
+        neck_ijk_min=(-2, -2, -2), capacities=(512, 256, 64)), device="cpu")
+    vae.init_params(g)
+    vae.decode(torch.randn((1, 4, 4, 4, 8), generator=g))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -81,10 +116,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     s = torch.ones((1, 1))
     with pytest.raises(ValueError):
         kernels.flash_attn_int8qk(q8, q8, s, s, x, 128, 0.125)
-    assert kernels.launches == {"flash_attn_int8qk": 0, "flash_attn_bf16": 0}
+    with pytest.raises(ValueError):
+        kernels.conv3x3x3_bf16(torch.zeros((1, 4, 4, 4, 8),
+                                           dtype=torch.bfloat16),
+                               torch.zeros((8, 216), dtype=torch.bfloat16),
+                               torch.zeros(8))
+    with pytest.raises(ValueError):
+        kernels.sparse_conv_f32(torch.zeros((1, 64, 4)),
+                                torch.zeros((1, 64, 27), dtype=torch.int32),
+                                torch.zeros((27, 4, 4)),
+                                torch.zeros(1, dtype=torch.int32))
+    assert kernels.launches and all(v == 0 for v in kernels.launches.values())
 
 
-@pytest.mark.parametrize("entry", ["dit", "vae", "t5", "generator"])
+@pytest.mark.parametrize("entry", ["dit", "vae", "t5", "generator",
+                                   "voxel_diffusion", "sparse_vae",
+                                   "world_generator"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -95,8 +142,17 @@ def test_entry_points_default_to_the_card(entry):
     from infinicube_tpu_torch.models.wan.t5 import T5Config, T5Encoder
     from infinicube_tpu_torch.models.wan.vae3d import (VideoVAE,
                                                        VideoVAEConfig)
+    from infinicube_tpu_torch.inference.voxel_world_generation import \
+        VoxelWorldGenerator
+    from infinicube_tpu_torch.models.diffusion.model import (
+        DiffusionConfig, VoxelDiffusion)
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig)
     tiny_vae = VideoVAEConfig(latent_channels=4, base_channels=8,
                               channel_mult=(1, 2), num_res_blocks=1)
+    tiny_unet = DiffusionConfig(cube_dims=(4, 4, 4), model_channels=32,
+                                channel_mult=(1,), attention_ds=(),
+                                transformer_depth=1)
     build = {
         "dit": lambda: WanDiT(WanDiTConfig(dim=64, ffn_dim=64, num_layers=1,
                                            num_heads=1)),
@@ -106,6 +162,11 @@ def test_entry_points_default_to_the_card(entry):
             dit=WanDiTConfig(dim=64, ffn_dim=64, num_layers=1, num_heads=1,
                              text_dim=64), vae=tiny_vae,
             t5=T5Config.tiny())),
+        "voxel_diffusion": lambda: VoxelDiffusion(tiny_unet),
+        "sparse_vae": lambda: SparseStructureVAE(SparseVAEConfig(
+            f_maps=8, neck_dims=(4, 4, 4), capacities=(64, 32, 16))),
+        "world_generator": lambda: VoxelWorldGenerator(
+            VoxelDiffusion(tiny_unet), lambda latents: None),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()

@@ -86,7 +86,7 @@ def test_dit_serving_flags_match_jax():
                          WanDiTConfig(**TINY, **serve, dtype=torch.float32),
                          _inputs(2))
     assert _cos(out, ref) >= 0.999
-    assert kernels.launches == {"flash_attn_int8qk": 0, "flash_attn_bf16": 0}
+    assert kernels.launches and all(v == 0 for v in kernels.launches.values())
 
 
 def test_dit_bf16_serving_profile_matches_jax():

@@ -114,7 +114,7 @@ def test_pipeline_matches_jax(cfg_batch):
     u8_t = tgen.vae.decode(torch.from_numpy(z_j))[0]
     u8_t = (torch.clamp(u8_t * 0.5 + 0.5, 0, 1) * 255).to(torch.uint8)
     assert np.abs(u8_t.numpy().astype(int) - u8_j.astype(int)).max() <= 1
-    assert kernels.launches == {"flash_attn_int8qk": 0, "flash_attn_bf16": 0}
+    assert kernels.launches and all(v == 0 for v in kernels.launches.values())
 
 
 def test_generate_runs_and_caches_text():
