@@ -41,6 +41,31 @@ Then stage 1, the voxel-world generator (the Wan towers freed first):
    plain version on the decoded grids at capacities 131,072 and 32,768, with
    a dense-bounds violation NaN-poisoning exactly its batch row.
 
+Then training the voxel diffusion model (stage 1's models freed first):
+
+10. kernel checks: K2 with its log-sum-exp store against
+    ``attention_plain``'s output and lse, and K5 (the flash-attention
+    backward) against ``attention_bwd_plain``, at the UNet's shapes
+    (N = 4,096 and 512, h = 8, d = 96) and at d = 128 with Nq != Nk,
+    neither a multiple of 64; K3 as
+    the conv's input gradient against ``conv3x3x3_bwd_plain``'s dx at the six
+    release shapes with C and O swapped; each timed beside its plain version,
+    its bound and the library call (the backward of
+    ``scaled_dot_product_attention``, cuDNN's backward-data);
+11. model check: the release-width UNet on a 16^3 cube, ``train_loss``
+    gradients on the card (bf16, K2/K3/K5) against the CPU (f32, plain
+    versions), zero-init layers filled: every parameter's gradient finite
+    and non-zero, the per-tensor cosines, the worst one gated;
+12. training: ``infinicube_tpu_torch.train.main`` on
+    ``configs/train_diffusion.yaml`` at full width (750M UNet, bf16 over f32
+    parameters, 64^3 cube), batch 1, EMA on, 3 steps: finite losses,
+    parameters moved, no skipped step, exact launch counts per step (K3 48
+    forward + 47 input-gradient, K2 10, K5 10), the JSONL log, the final
+    checkpoint written to a temporary directory and read back;
+13. where the time goes: one train step split into forward, backward and
+    optimizer + EMA, the whole step under ``torch.profiler``, and peak
+    memory, without and with ``remat`` (and at batch 2 with ``remat``).
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -49,8 +74,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -665,33 +692,421 @@ def stage1(kernels, att, dense_conv):
         stage1_launches
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    from infinicube_tpu_torch import kernels
+# ---------------------------------------------------------------------------
+# training the voxel diffusion model
+# ---------------------------------------------------------------------------
+
+# per train step at batch 1 without remat: every 3x3x3 conv forward (48), its
+# input gradient except in_conv's (47), every SelfAttention3D forward and
+# backward (10 each); remat runs the 22 ResBlocks' two convs once more
+STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
+                 "flash_attn_bf16": 10, "flash_attn_bf16_bwd": 10,
+                 "flash_attn_int8qk": 0, "sparse_conv_f32": 0}
+REMAT_EXTRA_K3 = 44
+TRAIN_STEPS = 3
+
+
+def gate(got, ref, label):
+    """cosine >= 0.9999 and max-abs within 2e-2 of the largest reference
+    value. Returns the max-abs error."""
+    got, ref = got.float(), ref.float()
+    c, err = cos(got, ref), (got - ref).abs().max().item()
+    lim = 2e-2 * ref.abs().max().item()
+    print(f"{label}: cosine {c:.7f} max_abs_err {err:.3e} (limit {lim:.3e})")
+    check(torch.isfinite(got).all().item(), f"{label}: not finite")
+    check(c >= 0.9999 and err <= lim, f"{label}: cos {c} err {err}")
+    return err
+
+
+def k5_checks(kernels, att):
+    """K2 with the log-sum-exp store (the variant the training forward
+    launches) against ``attention_plain``'s output and lse, then K5 against
+    ``attention_bwd_plain`` on the plain f32 output and lse, so that neither
+    side of K5's gate takes anything from K2; K5 timed beside the plain
+    version, its bound (10*Nq*Nk*d*B*h bf16 operations) and the backward of
+    ``scaled_dot_product_attention``."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for nq, nk, h, d in ((4096, 4096, H96, D96), (512, 512, H96, D96),
+                         (1000, 777, H, D)):
+        q, k, v, do = (rand((1, n, h, d), g) for n in (nq, nk, nk, nq))
+        scale = d ** -0.5
+        shape = f"Nq={nq} Nk={nk} h={h} d={d}"
+        o, lse = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
+        ref_o, ref_lse = att.attention_plain(q.float(), k.float(), v.float(),
+                                             scale, return_lse=True)
+        o_err = k2_gate(o, ref_o, f"[k5] {shape} K2 with the lse store, o")
+        lse_err = (lse - ref_lse).abs().max().item()
+        print(f"[k5] {shape} K2 with the lse store, lse: max_abs_err "
+              f"{lse_err:.3e} (limit 1.000e-03)")
+        check(lse.shape == (1, h, nq) and lse.dtype == torch.float32 and
+              lse_err <= 1e-3, f"{shape}: lse {lse.shape} err {lse_err}")
+        delta = att.attention_delta(o, do)
+        got = kernels.flash_attn_bf16_bwd(q, k, v, do, lse, delta, scale)
+        ref = att.attention_bwd_plain(q.float(), k.float(), v.float(),
+                                      ref_o, do.float(), ref_lse, scale)
+        del ref_o, ref_lse
+        err = max(gate(a, b, f"[k5] {shape} d{name}")
+                  for a, b, name in zip(got, ref, "qkv"))
+        ms = cuda_ms(lambda: kernels.flash_attn_bf16_bwd(q, k, v, do, lse,
+                                                         delta, scale))
+        delta_ms = cuda_ms(lambda: att.attention_delta(o, do))
+        fwd_ms = cuda_ms(lambda: kernels.flash_attn_bf16(q, k, v, scale))
+        fwd_lse_ms = cuda_ms(lambda: kernels.flash_attn_bf16(
+            q, k, v, scale, return_lse=True))
+        plain = cuda_ms(lambda: att.attention_bwd_plain(q, k, v, o, do, lse,
+                                                        scale), 1, 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+        flops = 10.0 * nq * nk * d * h
+        nbytes = 2 * d * h * (3 * nq + 4 * nk) + 2 * 4 * h * nq
+        b_ms, b_by = bound_ms([(flops, PEAK_BF16)], nbytes)
+        print(f"[k5] {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s of the 5 products counted), delta {delta_ms:.4f} ms,"
+              f" plain {plain:.3f} ms, sdpa backward {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); K2 forward {fwd_ms:.4f} ms, with "
+              f"the lse store {fwd_lse_ms:.4f} ms")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         delta_ms=delta_ms, k2_ms=fwd_ms,
+                         k2_with_lse_ms=fwd_lse_ms,
+                         k2_with_lse_o_max_abs_err=o_err,
+                         k2_with_lse_max_abs_err=lse_err))
+        del out, qt, kt, vt
+    return rows
+
+
+def k3_dgrad_checks(kernels, dc):
+    """K3 on the output gradient with the flipped, in/out-swapped pack and no
+    bias, against the dx of ``conv3x3x3_bwd_plain`` on the same bf16 values,
+    at the release convs' shapes (n, C, O: the forward conv is C -> O, the
+    input gradient O -> C); timed beside the plain dx (an f32 conv), its
+    bound (2*V*27*C*O at the bf16 peak) and cuDNN's bf16 backward-data."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for n, C, O in K3_SHAPES:
+        x = rand((1, n, n, n, C), g)
+        w = (torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") /
+             math.sqrt(27 * C)).to(torch.bfloat16)
+        go = rand((1, n, n, n, O), g)
+        wp = dc.pack_conv_weight(dc.dgrad_weight(w))
+        got = kernels.conv3x3x3_bf16(go, wp, None)
+        ref = dc.conv3x3x3_bwd_plain(x, w, go)[0]
+        shape = f"[1,{n},{n},{n},{O}]->{C}"
+        err = gate(got, ref, f"[k3 dgrad] {shape}")
+        del got, ref
+        ms = cuda_ms(lambda: kernels.conv3x3x3_bf16(go, wp, None), 2, 5)
+        wd, zero = dc.dgrad_weight(w), torch.zeros(C, device="cuda")
+        plain = cuda_ms(lambda: dc.conv3x3x3_plain(go, wd, zero), 1, 2)
+        gl, xl = go.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3)
+        wl = w.contiguous(memory_format=torch.channels_last_3d)
+        lib = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gl, xl, wl, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
+            [0, 0, 0], 1, [True, False, False]), 2, 5)
+        V = n ** 3
+        flops = 2.0 * V * 27 * C * O
+        b_ms, b_by = bound_ms([(flops, PEAK_BF16)],
+                              2 * (V * C + 27 * C * O + V * O))
+        print(f"[k3 dgrad] {shape}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f}"
+              f" TFLOP/s), plain {plain:.3f} ms, cudnn backward-data "
+              f"{lib:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del x, w, go, wp, wd, gl, xl, wl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_grad_check(mods):
+    """``train_loss`` gradients of the release-width UNet on a 16^3 cube:
+    card (bf16, kernels) against the CPU (f32, plain versions), same weights
+    (zero-init layers filled), batch and draws."""
+    base = mods.DiffusionConfig(cube_dims=(16, 16, 16))
+    cpu = mods.VoxelDiffusion(dataclasses.replace(base, dtype=torch.float32),
+                              device="cpu", trainable=True)
+    cpu.init_params(torch.Generator().manual_seed(13),
+                    zero_init_layers=False)
+    card = mods.VoxelDiffusion(base, device="cuda", trainable=True)
+    card.load_params(cpu.unet.state_dict())
+    rng = np.random.default_rng(13)
+    B = 2
+    lat = torch.from_numpy(rng.standard_normal((B, 16, 16, 16, 8),
+                                               dtype=np.float32))
+    noise = torch.from_numpy(rng.standard_normal((B, 16, 16, 16, 8),
+                                                 dtype=np.float32))
+    cond = mods.CondCubes(
+        torch.from_numpy((rng.random((B, 16, 16, 16, 3)) < 0.1)
+                         .astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((B, 16, 16, 16, 2),
+                                             dtype=np.float32)))
+    draws = dict(t=torch.tensor([700, 150]), noise=noise,
+                 drop=(torch.tensor([False, True]),
+                       torch.tensor([False, False])))
+    losses = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        t0 = time.perf_counter()
+        loss, _ = model.train_loss(lat, cond, **draws)
+        loss.backward()
+        losses[name] = (loss.item(), time.perf_counter() - t0)
+    grads_cpu = {k: p.grad for k, p in cpu.named_parameters().items()}
+    # A key bias shifts every logit of a query alike, so the softmax does not
+    # see it: the gradient of each self_k.bias is exactly zero and both sides
+    # hold rounding noise there (bf16 noise on the card). Such tensors
+    # (reference below 1e-6 of the largest gradient) must be finite on the
+    # card; all others must be non-zero and are held by their cosine.
+    g_max = max(gr.abs().max().item() for gr in grads_cpu.values())
+    floor = 1e-6 * g_max
+    cosines, zero, bad = {}, {}, []
+    for k, p in card.named_parameters().items():
+        gr = p.grad
+        if gr is None or not torch.isfinite(gr).all():
+            bad.append(k)
+        elif grads_cpu[k].abs().max().item() < floor:
+            zero[k] = gr.abs().max().item()
+        elif not gr.any():
+            bad.append(k)
+        else:
+            cosines[k] = cos(gr.cpu(), grads_cpu[k])
+    check(not bad, f"parameters without a finite, non-zero gradient: {bad}")
+    check(all(k.endswith("self_k.bias") for k in zero),
+          f"zero reference gradients: {zero}")
+    order = sorted(cosines, key=cosines.get)
+    vals = np.array([cosines[k] for k in order])
+    print(f"[model] release-width UNet on 16^3, train_loss: loss card "
+          f"{losses['card'][0]:.6f} vs cpu {losses['cpu'][0]:.6f} (cpu "
+          f"{losses['cpu'][1]:.1f} s); {len(cosines)} parameter tensors "
+          f"with finite, non-zero gradients and {len(zero)} whose gradient "
+          f"is zero by construction (the key biases; on the card at most "
+          f"{max(zero.values()) / g_max:.1e} of the largest gradient); "
+          f"gradient cosine card vs cpu: median {np.median(vals):.6f}, 1st percentile "
+          f"{np.percentile(vals, 1):.6f}, worst {vals[0]:.6f}")
+    for k in order[:6]:
+        print(f"[model]   cosine {cosines[k]:.6f}  {k} "
+              f"(|g| max {grads_cpu[k].abs().max().item():.3e})")
+    check(abs(losses["card"][0] - losses["cpu"][0]) <=
+          2e-2 * abs(losses["cpu"][0]), f"loss {losses}")
+    check(vals[0] >= 0.99, f"worst gradient cosine {vals[0]} ({order[0]})")
+    return float(vals[0])
+
+
+def train_main_path(kernels):
+    """The trainer's CLI path at full width: 3 optimizer steps at batch 1."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.training import loop
+    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    per_step, make_step = [], loop.make_train_step
+
+    def counted_make_step(cfg, loss_fn):
+        step = make_step(cfg, loss_fn)
+
+        def counted(state, generator, batch):
+            before = dict(kernels.launches)
+            out = step(state, generator, batch)
+            per_step.append({k: v - before[k]
+                             for k, v in kernels.launches.items()})
+            return out
+        return counted
+
+    loop.make_train_step = counted_make_step
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_cli.main(
+            [os.path.join(ROOT, "configs", "train_diffusion.yaml"), "--name",
+             "smoke", "--logdir", tmp, "--exec", "batch_size=1",
+             f"max_steps={TRAIN_STEPS}", "log_every=1",
+             f"ckpt_dir={tmp}/ck"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in state.params.values())
+        check(n_params == 750_431_048, f"{n_params} parameters")
+        logs = [json.loads(line) for line in
+                open(os.path.join(tmp, "smoke.jsonl"))]
+        print(f"[train] {n_params:,} parameters, {TRAIN_STEPS} steps at "
+              f"batch 1 through train.main in {wall:.1f} s (model build, "
+              f"steps and the final checkpoint), peak {peak:.1f} GiB")
+        check(len(logs) == TRAIN_STEPS and
+              [r["step"] for r in logs] == list(range(1, TRAIN_STEPS + 1)),
+              f"JSONL log {logs}")
+        for r, delta in zip(logs, per_step):
+            print(f"[train] step {r['step']}: loss {r['loss']:.6f}, "
+                  f"grad_finite {r['grad_finite']:.0f}, "
+                  f"{r['steps_per_sec']:.3f} steps/s; launches {delta}")
+            check(math.isfinite(r["loss"]) and r["grad_finite"] == 1.0,
+                  f"step {r['step']}: {r}")
+            check(delta == STEP_LAUNCHES,
+                  f"step {r['step']} launches {delta}, want {STEP_LAUNCHES}")
+        check(len(per_step) == TRAIN_STEPS, f"{len(per_step)} steps counted")
+        check(state.step == TRAIN_STEPS and state.num_nan_skips == 0,
+              f"step {state.step}, {state.num_nan_skips} skipped")
+        # the true initialiser: the parameters the EMA shadow lags behind
+        # are the ones that moved
+        moved = [k for k, p in state.params.items()
+                 if not torch.equal(p.detach(), state.ema.params[k])]
+        print(f"[train] {len(moved)} of {len(state.params)} parameter "
+              f"tensors moved in {TRAIN_STEPS} steps from the zero-init "
+              f"start (out_conv first)")
+        check("out_conv.weight" in moved and len(moved) > 1,
+              f"parameters moved: {moved[:5]}")
+        mgr = CheckpointManager(os.path.join(tmp, "ck"))
+        check(mgr.all_steps() == [TRAIN_STEPS], f"steps {mgr.all_steps()}")
+        size = os.path.getsize(mgr._path(TRAIN_STEPS))
+        t0 = time.perf_counter()
+        sd = mgr.restore()
+        read_s = time.perf_counter() - t0
+        same = all(torch.equal(sd["params"][k], p.detach()) and
+                   torch.equal(sd["ema"]["params"][k], state.ema.params[k])
+                   for k, p in state.params.items())
+        mu, _ = state.moments()
+        same = same and all(torch.equal(sd["mu"][k], m)
+                            for k, m in mu.items())
+        print(f"[train] final checkpoint: {size / 1e9:.2f} GB, read back in "
+              f"{read_s:.1f} s, parameters, moments and EMA "
+              f"{'identical' if same else 'DIFFER'}")
+        check(same and sd["step"] == TRAIN_STEPS, "checkpoint differs")
+        del sd
+    finally:
+        loop.make_train_step = make_step
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[train] main path launches {launches}")
+    return launches
+
+
+def train_time(kernels, mods, dense_conv):
+    """One train step of the release UNet split into its parts (and the
+    time its backward spends in the plain-PyTorch dW tap products), then
+    under the profiler, without and with remat; peak memory incl. batch 2."""
+    from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
+                                                     grads_finite,
+                                                     make_train_step)
+    cfg = TrainConfig()
+    model = mods.VoxelDiffusion(mods.DiffusionConfig(), device="cuda",
+                                trainable=True)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    model.init_params(g, zero_init_layers=False)
+    state = TrainState.create(cfg, model.named_parameters())
+    params = state.params
+
+    def batch(B):
+        return (torch.randn((B, 64, 64, 64, 8), generator=g, device="cuda"),
+                mods.CondCubes.null(B, model.cfg, "cuda"))
+
+    def loss_fn(p, gen, b):
+        return model.train_loss(*b, generator=gen, params=p)
+
+    step_fn = make_train_step(cfg, loss_fn)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def optimize():
+        finite = grads_finite([p.grad for p in params.values()])
+        torch.nn.utils.clip_grad_value_(list(params.values()),
+                                        cfg.grad_clip_value)
+        state.opt.step()
+        state.ema.update(params, cfg.ema_decay, apply=finite)
+        return finite
+
+    # CUDA events around every conv_weight_grad call of one backward
+    wgrad, spans = dense_conv.conv_weight_grad, []
+
+    def timed_wgrad(x, go):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        dw = wgrad(x, go)
+        ev[1].record()
+        spans.append(ev)
+        return dw
+
+    out = {}
+    for remat, B in ((False, 1), (True, 1), (True, 2)):
+        model.unet.remat = remat
+        label = f"batch {B}{' remat' if remat else ''}"
+        b = batch(B)
+        for _ in range(2):                           # warm-up
+            step_fn(state, g, b)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        _, step_ms = timed(lambda: step_fn(state, g, b))
+        counts = dict(kernels.launches)
+        _, more_ms = timed(lambda: [step_fn(state, g, b) for _ in range(2)])
+        step_ms = (step_ms + more_ms) / 3            # mean of 3 steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = dict(STEP_LAUNCHES)
+        want["conv3x3x3_bf16"] += REMAT_EXTRA_K3 if remat else 0
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        for p in params.values():
+            p.grad = None
+        (loss, _), fwd_ms = timed(lambda: loss_fn(params, g, b))
+        dense_conv.conv_weight_grad = timed_wgrad
+        try:
+            _, bwd_ms = timed(loss.backward)
+        finally:
+            dense_conv.conv_weight_grad = wgrad
+        dw_ms = sum(a.elapsed_time(b_) for a, b_ in spans)
+        check(len(spans) == 48, f"{len(spans)} conv weight gradients")
+        spans.clear()
+        finite, opt_ms = timed(optimize)
+        del loss
+        print(f"[train time] {label}: step {step_ms:.1f} ms "
+              f"({1e3 / step_ms:.2f} steps/s), peak {peak:.1f} GiB; split "
+              f"forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (of it "
+              f"{dw_ms:.1f} ms in the 48 convs' dW tap products), clip + "
+              f"AdamW + EMA + finiteness {opt_ms:.1f} ms (finite {finite}); "
+              f"launches {counts}")
+        out[label] = dict(step_ms=step_ms, peak_gib=peak, forward_ms=fwd_ms,
+                          backward_ms=bwd_ms, wgrad_ms=dw_ms,
+                          optimizer_ms=opt_ms)
+        if B == 1:
+            profile(lambda: step_fn(state, g, b), f"train step, {label}")
+    return out
+
+
+def diffusion_train(kernels, att, dense_conv):
+    """Phases 10-13. Returns the summary entries of K5 and K3-dgrad and the
+    launch counts of the training main path."""
+    from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
+                                                             DiffusionConfig,
+                                                             VoxelDiffusion)
+    mods = types.SimpleNamespace(VoxelDiffusion=VoxelDiffusion,
+                                 DiffusionConfig=DiffusionConfig,
+                                 CondCubes=CondCubes)
+    k5_rows = k5_checks(kernels, att)
+    dgrad_rows = k3_dgrad_checks(kernels, dense_conv)
+    train_grad_check(mods)
+    torch.cuda.empty_cache()
+    launches = train_main_path(kernels)
+    torch.cuda.empty_cache()
+    train_time(kernels, mods, dense_conv)
+    return {"flash_attn_bf16_bwd": entry(
+                "flash_attn_bf16_bwd",
+                "infinicube_tpu_torch/csrc/flash_attention_bwd.cu",
+                "infinicube_tpu/ops/attention.py:72", k5_rows, 0),
+            "conv3x3x3_bf16_dgrad": entry(
+                "conv3x3x3_bf16_dgrad",
+                "infinicube_tpu_torch/csrc/dense_conv.cu",
+                "infinicube_tpu/ops/dense_conv.py:302", dgrad_rows, 1)}, \
+        launches
+
+
+def wan_serve(kernels, att, fa):
+    """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
+    counts of the video-serving main path."""
     from infinicube_tpu_torch.models.wan.dit import WanDiT
     from infinicube_tpu_torch.models.wan.pipeline import (WanPipelineConfig,
                                                           WanVideoGenerator)
-    from infinicube_tpu_torch.ops import attention as att
-    from infinicube_tpu_torch.ops import dense_conv
-    from infinicube_tpu_torch.ops import flash_attention as fa
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"[setup] {smi}")
-    t0 = time.perf_counter()
-    nvcc_s = kernels.build()
-    print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {nvcc_s:.1f} s)")
-
     # ---- 2. kernels against their plain versions ----------------------------
     report = kernel_checks(kernels, att, fa)
 
@@ -767,18 +1182,48 @@ def main() -> int:
     # ---- where the time goes: one profiled step at each shape ---------------
     for frames in (17, 93):
         profile_step(gen, text, null, frames, seed=4)
+    return report, serve_launches
 
-    # ---- stage 1: the voxel-world generator ----------------------------------
-    del gen, text, null, buf, noise, z
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from infinicube_tpu_torch import kernels
+    from infinicube_tpu_torch.ops import attention as att
+    from infinicube_tpu_torch.ops import dense_conv
+    from infinicube_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"[setup] {smi}")
+    t0 = time.perf_counter()
+    nvcc_s = kernels.build()
+    print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {nvcc_s:.1f} s)")
+
+    # each part frees its models when it returns
+    report, serve_launches = wan_serve(kernels, att, fa)
     torch.cuda.empty_cache()
     stage1_report, stage1_launches = stage1(kernels, att, dense_conv)
+    torch.cuda.empty_cache()
+    train_report, train_launches = diffusion_train(kernels, att, dense_conv)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
     report.update(stage1_report)
+    report.update(train_report)
     for name, e in report.items():
         e["paths"] = {"wan_serve": serve_launches[name],
-                      "stage1": stage1_launches[name]}
+                      "stage1": stage1_launches[name],
+                      "diffusion_train": train_launches[name]}
         e["launches"] = sum(e["paths"].values())
         check(e["launches"] > 0, f"{name} never launched on a main path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -2,11 +2,15 @@
 // behind a plain C interface (loaded with ctypes by
 // infinicube_tpu_torch/kernels).
 //
-// conv3x3x3_bf16 (K3) replaces the forward of the TPU kernel
+// conv3x3x3_bf16 (K3) replaces the TPU kernel
 //   infinicube_tpu/ops/dense_conv.py:177 `_pallas_conv` (reached through
 //   `conv3x3x3` and the `Conv3x3x3` module), which runs every 3x3x3 conv of
 //   the voxel-diffusion UNet: 48 per UNet call at C in {16 .. 1536},
-//   O in {192, 384, 768}, on 64^3 .. 8^3 cubes.
+//   O in {192, 384, 768}, on 64^3 .. 8^3 cubes. As on the TPU
+//   (`_conv_bwd`, dense_conv.py:302), the same kernel also computes the
+//   conv's input gradient: the output gradient [B, D, H, W, O] goes through
+//   it with the weights flipped along dz, dy, dx and in/out swapped, packed
+//   as [C, 27*O], and a null bias (47 more launches per training step).
 //   out[b, z, y, x, o] = bias[o] + sum_{dz, dy, dx, c}
 //       x[b, z+dz-1, y+dy-1, x+dx-1, c] * w[o, dz, dy, dx, c]
 //   with zeros outside the volume, f32 accumulation and bf16 output.
@@ -24,7 +28,8 @@
 // rows (zero-filled at the volume's borders, the SAME halo, and past C) and
 // the matching weight rows in shared memory with cp.async, three stages deep,
 // reads them with ldmatrix and multiplies with mma.sync m16n8k16 bf16 into
-// f32 registers. The epilogue adds the f32 bias and stores bf16. No TMA or
+// f32 registers. The epilogue adds the f32 bias (none when the pointer is
+// null) and stores bf16. No TMA or
 // wgmma yet. The weights arrive packed once per module as [O, 27*C] bf16
 // (k = tap*C + c, tap = dz*9 + dy*3 + dx) by the caller.
 //
@@ -198,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int nj = 0; nj < 4; ++nj) {
     const int n = n0 + wn + nj * 8 + 2 * t;
     if (n >= O) continue;
-    const float b0 = bias[n], b1 = bias[n + 1];
+    const float b0 = bias ? bias[n] : 0.f, b1 = bias ? bias[n + 1] : 0.f;
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll

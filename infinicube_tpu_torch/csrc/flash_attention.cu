@@ -1,5 +1,7 @@
-// Non-causal flash attention for Hopper (sm_90a), two kernels behind a plain
-// C interface (loaded with ctypes by infinicube_tpu_torch/kernels).
+// Non-causal flash attention for Hopper (sm_90a), forward: two kernels behind
+// a plain C interface (loaded with ctypes by infinicube_tpu_torch/kernels).
+// The backward of flash_attn_bf16 is flash_attn_bf16_bwd (K5) in
+// flash_attention_bwd.cu; flash_common.cuh holds what the two files share.
 //
 // flash_attn_int8qk (K1) replaces the int8-QK branch of the TPU kernel
 //   infinicube_tpu/ops/flash_attention.py:263 `flash_attention`
@@ -9,19 +11,24 @@
 //   `_block_quantize` makes them; QK^T runs on the int8 tensor cores with
 //   int32 accumulation, the logits are scaled by sq * sk * sm_scale, and PV
 //   runs in bf16 with f32 accumulation.
-// flash_attn_bf16 (K2) replaces the library Pallas TPU flash attention
-//   (jax.experimental.pallas.ops.tpu.flash_attention) that
+// flash_attn_bf16 (K2) replaces the forward of the library Pallas TPU flash
+//   attention (jax.experimental.pallas.ops.tpu.flash_attention) that
 //   infinicube_tpu/ops/attention.py:25 `multi_head_attention` reaches on the
 //   TPU: bf16 Q, K, V, Nq != Nk allowed, keys past Nk masked, head dim 64,
 //   96 or 128. It serves the DiT's cross-attention to the text tokens and the
-//   voxel UNet's SelfAttention3D (d = 96, N = 4,096 and 512).
+//   voxel UNet's SelfAttention3D (d = 96, N = 4,096 and 512). Like the
+//   library kernel, which saves its row statistics l and m for the backward,
+//   it can write one: with a non-null `lse` pointer it stores the natural
+//   log-sum-exp of every query row's scaled logits, f32 [B, h, Nq], the only
+//   statistic K5 needs. The serving paths pass null and store nothing more.
 //
 // What bounds them: at the DiT's shapes both do ~4*Nq*Nk*d flops for
 // ~(Nq + Nk)*d*6 bytes, far above the card's ~295 flop/byte ridge, so both are
 // tensor-core bound (K1 half int8, half bf16). The TPU kernel's fixed-max
 // softmax and closed-form removal of padding mass were workarounds for the
 // v5e's vector unit; here the softmax is the usual online running max in f32
-// (exp2, log2(e) folded into the logit scale), and keys >= n_real are masked.
+// (exp2, log2(e) folded into the logit scale; the stored lse is converted to
+// base e at the store), and keys >= n_real are masked.
 //
 // Design (a first, simple version): one block of 4 warps per (batch*head,
 // tile of 64 query rows); each warp owns 16 rows and keeps its Q fragments,
@@ -35,31 +42,9 @@
 // wrappers pass [B, N, h, d] views and folded [B*h, N, d] buffers alike
 // without copies. Each entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;       // query rows per block (16 per warp)
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-struct Strides {
-  long long b, n, h;  // elements between batches, tokens, heads
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -68,38 +53,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy `rows` x `row_bytes` from global (row pitch `pitch_bytes`) into shared
-// memory (row pitch `ld_bytes`), zero-filling rows at or past `valid`.
-// 16 bytes per thread per step.
-__device__ __forceinline__ void load_tile(unsigned char* dst, int ld_bytes,
-                                          const unsigned char* src,
-                                          long long pitch_bytes, int rows,
-                                          int row_bytes, int valid) {
-  const int vpr = row_bytes / 16;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i % vpr) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid)
-      val = *reinterpret_cast<const uint4*>(src + r * pitch_bytes + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_bytes + c) = val;
-  }
 }
 
 // Online-softmax update of one 16 x 64 logit tile held as mma accumulators
@@ -179,12 +132,15 @@ __device__ __forceinline__ void pv_tile(const __nv_bfloat16* sV, int ldv,
   }
 }
 
-// Normalise and store the warp's 16 rows (bf16), rows >= nq skipped.
+// Normalise and store the warp's 16 rows (bf16), rows >= nq skipped. With
+// `lse` (this batch*head's f32 [nq] row, or null) also store each row's
+// natural log-sum-exp, (m + log2 l) * ln 2 from the base-2 running max m.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, Strides so,
                                            int row0, int nq, int g, int t,
-                                           float (&l)[2],
-                                           const float (&o)[D / 8][4]) {
+                                           const float (&m)[2], float (&l)[2],
+                                           const float (&o)[D / 8][4],
+                                           float* lse) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -193,6 +149,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, Strides so,
   const float inv0 = 1.f / fmaxf(l[0], 1e-37f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-37f);
   const int ra = row0 + g, rb = row0 + g + 8;
+  if (lse != nullptr && t == 0) {
+    if (ra < nq) lse[ra] = (m[0] + log2f(fmaxf(l[0], 1e-37f))) * kLn2;
+    if (rb < nq) lse[rb] = (m[1] + log2f(fmaxf(l[1], 1e-37f))) * kLn2;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
@@ -205,14 +165,17 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, Strides so,
   }
 }
 
-template <int D>
+// kLse: store the rows' log-sum-exp too. A compile-time switch, so that the
+// serving instantiation carries nothing of it (a run-time null check alone
+// cost the d = 128 kernel 8 % through its register allocation).
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, int H, int nq, int nk,
-                      Strides sq, Strides sk, Strides sv, Strides so,
-                      float scale_log2) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int H, int nq, int nk, Strides sq, Strides sk,
+                      Strides sv, Strides so, float scale_log2) {
   constexpr int LD = D + 8;  // bf16 row pitch in shared memory (bank spread)
   __shared__ __align__(16) __nv_bfloat16 sK[kBK * LD];  // Q staged here first
   __shared__ __align__(16) __nv_bfloat16 sV[kBK * LD];
@@ -269,8 +232,24 @@ __global__ void __launch_bounds__(kThreads)
     softmax_tile<D>(s, nk - k0, t, m, l, o_acc, pa);
     pv_tile<D>(sV, LD, pa, g, t, o_acc);
   }
-  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, nq, g, t, l,
-                o_acc);
+  float* lse_row = nullptr;
+  if constexpr (kLse) lse_row = lse + (long long)bh * nq;
+  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, nq, g, t, m, l,
+                o_acc, lse_row);
+}
+
+template <int D>
+void launch_bf16(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+                 const __nv_bfloat16* k, const __nv_bfloat16* v,
+                 __nv_bfloat16* o, float* lse, int H, int nq, int nk,
+                 Strides sq, Strides sk, Strides sv, Strides so,
+                 float scale_log2) {
+  if (lse != nullptr)
+    flash_bf16_kernel<D, true><<<grid, kThreads, 0, st>>>(
+        q, k, v, o, lse, H, nq, nk, sq, sk, sv, so, scale_log2);
+  else
+    flash_bf16_kernel<D, false><<<grid, kThreads, 0, st>>>(
+        q, k, v, o, lse, H, nq, nk, sq, sk, sv, so, scale_log2);
 }
 
 template <int D>
@@ -345,16 +324,18 @@ __global__ void __launch_bounds__(kThreads)
     softmax_tile<D>(s, n - k0, t, m, l, o_acc, pa);
     pv_tile<D>(sV, LDV, pa, g, t, o_acc);
   }
-  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, n, g, t, l,
-                o_acc);
+  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, n, g, t, m, l,
+                o_acc, nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
+// `lse`: f32 [B, H, nq] to receive the rows' log-sum-exp, or null.
 int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
-                    int B, int H, int nq, int nk, int d, long long q_sb,
+                    void* lse, int B, int H, int nq, int nk, int d,
+                    long long q_sb,
                     long long q_sn, long long q_sh, long long k_sb,
                     long long k_sn, long long k_sh, long long v_sb,
                     long long v_sn, long long v_sh, long long o_sb,
@@ -369,15 +350,16 @@ int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
   auto kp = static_cast<const __nv_bfloat16*>(k);
   auto vp = static_cast<const __nv_bfloat16*>(v);
   auto op = static_cast<__nv_bfloat16*>(o);
+  auto lp = static_cast<float*>(lse);
   if (d == 128)
-    flash_bf16_kernel<128><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, H, nq, nk, sq, sk, sv, so, scale_log2);
+    launch_bf16<128>(grid, st, qp, kp, vp, op, lp, H, nq, nk, sq, sk, sv, so,
+                     scale_log2);
   else if (d == 96)
-    flash_bf16_kernel<96><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, H, nq, nk, sq, sk, sv, so, scale_log2);
+    launch_bf16<96>(grid, st, qp, kp, vp, op, lp, H, nq, nk, sq, sk, sv, so,
+                    scale_log2);
   else if (d == 64)
-    flash_bf16_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, H, nq, nk, sq, sk, sv, so, scale_log2);
+    launch_bf16<64>(grid, st, qp, kp, vp, op, lp, H, nq, nk, sq, sk, sv, so,
+                    scale_log2);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

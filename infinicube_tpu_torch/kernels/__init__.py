@@ -2,8 +2,9 @@
 
 Every ``infinicube_tpu_torch/csrc/*.cu`` source is compiled at first use with
 ``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C
-interface under ``infinicube_tpu_torch/_build`` (named by a hash of source and
-flags, so an edited source is rebuilt), and loaded with ``ctypes``. ``build``
+interface under ``infinicube_tpu_torch/_build`` (named by a hash of source,
+the ``*.cuh`` headers and flags, so an edited source is rebuilt), and loaded
+with ``ctypes``. ``build``
 starts one ``nvcc`` per source, all at once. Every entry point returns
 ``cudaGetLastError()``; the wrappers raise when it is not 0.
 
@@ -35,15 +36,21 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # source stem -> {entry point: ctypes argtypes}
 SIGNATURES = {
     "flash_attention": {
-        "flash_attn_bf16": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
+        "flash_attn_bf16": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
         "flash_attn_int8qk": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    },
+    "flash_attention_bwd": {
+        "flash_attn_bf16_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
     "dense_conv": {"conv3x3x3_bf16": [_P] * 4 + [_I] * 6 + [_P]},
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
 }
 
+# K3 serves two rows of the kernel table, so its launches are counted apart:
+# the forward under its own name, the input gradient under this one
+K3_DGRAD = "conv3x3x3_bf16_dgrad"
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
-                            for name in fns}
+                            for name in fns} | {K3_DGRAD: 0}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -63,6 +70,8 @@ def _nvcc() -> str:
 def _target(stem: str) -> Path:
     src = CSRC / f"{stem}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
     return BUILD_DIR / f"lib{stem}-{key.hexdigest()[:16]}.so"
 
 
@@ -134,19 +143,19 @@ def _check_dense(x: torch.Tensor, name: str, shape: tuple,
                          f"{tuple(x.shape)}")
 
 
-def _run(stem: str, name: str, device: torch.device, *args) -> None:
+def _run(stem: str, name: str, device: torch.device, *args,
+         count_as: str | None = None) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn(stem, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
+    launches[count_as or name] += 1
 
 
-def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    sm_scale: float) -> torch.Tensor:
-    """K2: softmax(q k^T * sm_scale) v, non-causal. q [B, Nq, h, d], k/v
-    [B, Nk, h, d], bf16, d in {64, 96, 128}. Returns [B, Nq, h, d] bf16."""
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What K2 and K5 take: bf16 [B, N, h, d] views on one card, d in
+    {64, 96, 128}, 16-byte aligned."""
     _check_cuda(q, k, v)
     B, nq, h, d = q.shape
     nk = k.shape[1]
@@ -161,12 +170,53 @@ def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty sequence")
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         _check_bnhd(t, n, 8)
+
+
+def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: float, return_lse: bool = False):
+    """K2: softmax(q k^T * sm_scale) v, non-causal. q [B, Nq, h, d], k/v
+    [B, Nk, h, d], bf16, d in {64, 96, 128}. Returns [B, Nq, h, d] bf16 and,
+    with ``return_lse``, also the natural log-sum-exp of each row's scaled
+    logits, f32 [B, h, Nq] (what K5 needs; the kernel stores it only then)."""
+    _check_qkv(q, k, v)
+    B, nq, h, d = q.shape
     o = torch.empty((B, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((B, h, nq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     _run("flash_attention", "flash_attn_bf16", q.device, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), o.data_ptr(), B, h, nq, nk, d,
+         k.data_ptr(), v.data_ptr(), o.data_ptr(),
+         lse.data_ptr() if return_lse else None, B, h, nq, k.shape[1], d,
          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *o.stride()[:3], float(sm_scale))
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attn_bf16_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, sm_scale: float):
+    """K5: the gradients of K2's function. q, k, v as K2 took them; dout bf16
+    [B, Nq, h, d] (the output's gradient); lse f32 [B, h, Nq] as K2 stored
+    it; delta f32 [B, h, Nq] = sum_d o * dout. Returns (dq, dk, dv), bf16,
+    shaped like q, k, v. One call launches the dK/dV kernel and the dQ
+    kernel and counts once."""
+    _check_qkv(q, k, v)
+    _check_cuda(q, dout, lse, delta)
+    B, nq, h, d = q.shape
+    if dout.shape != q.shape or dout.dtype != torch.bfloat16:
+        raise ValueError(f"dout must be bf16 {tuple(q.shape)}, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
+    _check_bnhd(dout, "dout", 8)
+    _check_dense(lse, "lse", (B, h, nq), torch.float32)
+    _check_dense(delta, "delta", (B, h, nq), torch.float32)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.bfloat16, device=q.device)
+                  for t in (q, k, v))
+    _run("flash_attention_bwd", "flash_attn_bf16_bwd", q.device, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, h,
+         nq, k.shape[1], d, *q.stride()[:3], *k.stride()[:3],
+         *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
+         *dk.stride()[:3], *dv.stride()[:3], float(sm_scale))
+    return dq, dk, dv
 
 
 def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
@@ -208,11 +258,12 @@ def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
 
 
 def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
-                   bias: torch.Tensor) -> torch.Tensor:
+                   bias: torch.Tensor | None) -> torch.Tensor:
     """K3: 3x3x3 stride-1 SAME conv. x bf16 [B, D, H, W, C] contiguous;
-    w_packed bf16 [O, 27*C] (``pack_conv_weight``); bias f32 [O]. C and O
-    multiples of 8. Returns bf16 [B, D, H, W, O]."""
-    _check_cuda(x, w_packed, bias)
+    w_packed bf16 [O, 27*C] (``pack_conv_weight``); bias f32 [O] or None
+    (the input-gradient call has none, and is counted under ``K3_DGRAD``).
+    C and O multiples of 8. Returns bf16 [B, D, H, W, O]."""
+    _check_cuda(x, w_packed, *(() if bias is None else (bias,)))
     if x.dim() != 5:
         raise ValueError(f"x must be [B, D, H, W, C], got {tuple(x.shape)}")
     B, D, H, W, C = x.shape
@@ -226,11 +277,13 @@ def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
                          f" -> {O}")
     _check_dense(x, "x", (B, D, H, W, C), torch.bfloat16)
     _check_dense(w_packed, "w_packed", (O, 27 * C), torch.bfloat16)
-    _check_dense(bias, "bias", (O,), torch.float32)
+    if bias is not None:
+        _check_dense(bias, "bias", (O,), torch.float32)
     out = torch.empty((B, D, H, W, O), dtype=torch.bfloat16, device=x.device)
     _run("dense_conv", "conv3x3x3_bf16", x.device, x.data_ptr(),
-         w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(), B, D, H, W, C,
-         O)
+         w_packed.data_ptr(), None if bias is None else bias.data_ptr(),
+         out.data_ptr(), B, D, H, W, C, O,
+         count_as=K3_DGRAD if bias is None else None)
     return out
 
 

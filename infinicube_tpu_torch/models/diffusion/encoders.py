@@ -80,3 +80,18 @@ def encode_boxes(box_poses: torch.Tensor, box_lwhs: torch.Tensor,
         -1, -1, enc.shape[-1]))
     out = torch.where((last > 0)[..., None], got, torch.zeros_like(got))
     return out.reshape(B, D, H, W, enc.shape[-1])
+
+
+def classifier_free_drop(cond: torch.Tensor, prob: float,
+                         generator: torch.Generator | None = None,
+                         drop: torch.Tensor | None = None) -> torch.Tensor:
+    """Zero the condition per sample with probability ``prob`` (the
+    training-time dropout of classifier-free guidance). ``drop`` bool [B] is
+    the per-sample mask; it is drawn from ``generator`` (uniform < prob)
+    when not given."""
+    B = cond.shape[0]
+    if drop is None:
+        drop = torch.rand((B,), generator=generator,
+                          device=cond.device) < prob
+    drop = drop.to(cond.device).reshape((-1,) + (1,) * (cond.dim() - 1))
+    return torch.where(drop, torch.zeros_like(cond), cond)

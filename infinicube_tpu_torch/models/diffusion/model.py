@@ -1,15 +1,19 @@
-"""Voxel latent diffusion model: conditioning and guided DDIM sampling;
-counterpart of ``infinicube_tpu/models/diffusion/model.py``.
+"""Voxel latent diffusion model: conditioning, the training loss and DDIM
+sampling with guidance; counterpart of
+``infinicube_tpu/models/diffusion/model.py``.
 
 Release conditioning (concat of pos-embed, map cube and box cube onto the
 8-channel 64^3 latent cube), v-prediction, DDIM with classifier-free
 guidance as a doubled batch when the guidance scale is not 1, and SDEdit
-overlap injection. The random numbers (x_T and the per-step SDEdit noise)
-come from a ``torch.Generator`` unless the caller passes them in, which is
-how the tests feed the JAX package's numbers through.
+overlap injection, and ``train_loss`` (per-sample timesteps, v-prediction
+or epsilon target, classifier-free dropout of the map and box cubes). The
+random numbers (x_T and the per-step SDEdit noise; the timesteps, noise and
+drop masks of the loss) come from a ``torch.Generator`` unless the caller
+passes them in, which is how the tests feed the JAX package's numbers
+through.
 
-Waits: ``train_loss`` and EMA, DDPM / DPM++, the alt condition encoders
-(semantic, single scan, image, class, context) and ``serve_quant``."""
+Waits: DDPM / DPM++, the alt condition encoders (semantic, single scan,
+image, class, context) and ``serve_quant``."""
 
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import dataclasses
 from typing import Callable, Sequence
 
 import torch
+from torch.func import functional_call
 
 from infinicube_tpu_torch.device import resolve_device
 from infinicube_tpu_torch.models.diffusion import encoders
@@ -41,10 +46,12 @@ class DiffusionConfig:
     num_heads: int = 8
     transformer_depth: int = 12
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False      # recompute res / transformer blocks in backward
     num_map_types: int = 3
     use_map_cond: bool = True
     use_box_cond: bool = True
     use_pos_embed: bool = True
+    classifier_free_prob: float = 0.1
     num_train_timesteps: int = 1000
     beta_start: float = 1e-4
     beta_end: float = 0.02
@@ -71,11 +78,12 @@ class CondCubes:
 
 
 class VoxelDiffusion:
-    """The UNet denoiser with its schedule and samplers. Built on the card
-    unless ``device="cpu"``."""
+    """The UNet denoiser with its schedule, loss and samplers. Built on the
+    card unless ``device="cpu"``. The parameters are frozen (serving) unless
+    ``trainable``."""
 
     def __init__(self, cfg: DiffusionConfig = DiffusionConfig(),
-                 device="cuda"):
+                 device="cuda", trainable: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.unet = UNet3D(
@@ -84,7 +92,8 @@ class VoxelDiffusion:
             model_channels=cfg.model_channels, channel_mult=cfg.channel_mult,
             num_res_blocks=cfg.num_res_blocks, attention_ds=cfg.attention_ds,
             num_heads=cfg.num_heads, transformer_depth=cfg.transformer_depth,
-            dtype=cfg.dtype, device=self.device).eval().requires_grad_(False)
+            dtype=cfg.dtype, remat=cfg.remat,
+            device=self.device).eval().requires_grad_(trainable)
         self.schedule = NoiseSchedule.linear(
             cfg.num_train_timesteps, cfg.beta_start, cfg.beta_end,
             device=self.device)
@@ -128,10 +137,55 @@ class VoxelDiffusion:
             parts.append(cond.box_cube)
         return torch.cat(parts, dim=-1)
 
-    @torch.no_grad()
-    def denoise(self, x: torch.Tensor, t: torch.Tensor,
-                cond: CondCubes) -> torch.Tensor:
-        return self.unet(self._assemble(x, cond), t)
+    def denoise(self, x: torch.Tensor, t: torch.Tensor, cond: CondCubes,
+                params: dict | None = None) -> torch.Tensor:
+        """The UNet on the assembled input; with ``params`` (name ->
+        tensor) on those instead of the model's own (EMA validation)."""
+        inp = self._assemble(x, cond)
+        if params is None:
+            return self.unet(inp, t)
+        return functional_call(self.unet, params, (inp, t))
+
+    def named_parameters(self) -> dict[str, torch.Tensor]:
+        return dict(self.unet.named_parameters())
+
+    # ---- training ---------------------------------------------------------
+    def train_loss(self, latents: torch.Tensor, cond: CondCubes,
+                   scale_factor: float = 1.0,
+                   generator: torch.Generator | None = None,
+                   t: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None,
+                   drop: tuple | None = None, params: dict | None = None):
+        """v-prediction (or epsilon) MSE with per-sample timesteps and
+        classifier-free dropout of the map and box cubes, each on its own
+        draw. ``scale_factor`` is the scale_by_std normalizer and must match
+        the one given to ``sample``. The three draws come from ``generator``
+        unless injected: ``t`` int [B], ``noise`` like latents, ``drop`` =
+        (map mask, box mask), bool [B] each. Returns ``(loss, {"mse":
+        loss})``."""
+        cfg, dev = self.cfg, self.device
+        latents = latents.to(dev, torch.float32) * scale_factor
+        B = latents.shape[0]
+        if t is None:
+            t = torch.randint(0, cfg.num_train_timesteps, (B,),
+                              generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=dev)
+        t, noise = t.to(dev), noise.to(dev, torch.float32)
+        x_t = self.schedule.add_noise(latents, noise, t)
+        target = self.schedule.v_target(latents, noise, t) \
+            if cfg.prediction_type == "v_prediction" else noise
+        drop_map, drop_box = drop if drop is not None else (None, None)
+        p = cfg.classifier_free_prob
+        cond = CondCubes(
+            encoders.classifier_free_drop(cond.map_cube.to(dev), p,
+                                          generator, drop_map),
+            encoders.classifier_free_drop(cond.box_cube.to(dev), p,
+                                          generator, drop_box))
+        pred = self.denoise(x_t, t, cond, params)
+        loss = torch.mean((pred - target) ** 2)
+        return loss, {"mse": loss}
 
     # ---- sampling ---------------------------------------------------------
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Noise schedule and the DDIM sampler; counterpart of
+"""Noise schedule, the training targets and the DDIM sampler; counterpart of
 ``infinicube_tpu/models/diffusion/schedulers.py`` (the release's linear
 betas, v-prediction and deterministic DDIM). ``lax.scan`` becomes a Python
 loop over the static timestep list; the schedule stays f32 as in JAX."""
@@ -33,6 +33,18 @@ class NoiseSchedule:
         a = self.alphas_cumprod[t]
         shape = (-1,) + (1,) * (ndim - 1)
         return a.sqrt().reshape(shape), (1.0 - a).sqrt().reshape(shape)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0). t int [B], per sample."""
+        sa, sb = self._ab(t, x0.dim())
+        return sa * x0 + sb * noise
+
+    def v_target(self, x0: torch.Tensor, noise: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: sqrt(a) * eps - sqrt(1 - a) * x0."""
+        sa, sb = self._ab(t, x0.dim())
+        return sa * noise - sb * x0
 
     def to_eps_x0(self, model_out: torch.Tensor, x_t: torch.Tensor,
                   t: torch.Tensor, prediction_type: str = "v_prediction"):

@@ -10,11 +10,14 @@ is a re-layout. Layout is NDHWC throughout, as in JAX.
 Dtypes follow the reference: activations in ``dtype`` (bf16 at release)
 with f32 parameters cast per call, GroupNorm and softmax in f32, the f32
 ``out_conv``. The 3x3x3 stride-1 convs are ``Conv3x3x3`` (kernel K3 on the
-card) and the UNet's ``SelfAttention3D`` goes through ``multi_head_attention``
-(K2, head dim 96 at release). The stride-2 ``down{l}``, the 1x1 ``skip`` and
-``out_conv`` were flax ``nn.Conv`` (XLA) in JAX and are
-``torch.nn.functional.conv3d`` here; so are the Dense layers and the middle
-transformer's einsum attention."""
+card, forward and input gradient) and the UNet's ``SelfAttention3D`` goes
+through ``multi_head_attention`` (K2 forward, K5 backward, head dim 96 at
+release). The stride-2 ``down{l}``, the 1x1 ``skip`` and ``out_conv`` were
+flax ``nn.Conv`` (XLA) in JAX and are ``torch.nn.functional.conv3d`` here;
+so are the Dense layers and the middle transformer's einsum attention.
+``remat`` recomputes each ``ResBlock3D`` and the middle transformer in the
+backward pass instead of keeping their activations (flax ``nn.remat`` over
+the same two block kinds)."""
 
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from infinicube_tpu_torch.nn.layers import (Dense, conv3d_ndhwc, layer_norm,
                                             lecun_normal_)
@@ -223,9 +227,10 @@ class UNet3D(nn.Module):
                  model_channels: int = 192, channel_mult=(1, 2, 4, 4),
                  num_res_blocks: int = 2, attention_ds=(4, 8),
                  num_heads: int = 8, transformer_depth: int = 12,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.channel_mult, self.num_res_blocks = channel_mult, num_res_blocks
         self.attention_ds = attention_ds
         ch = model_channels
@@ -306,13 +311,20 @@ class UNet3D(nn.Module):
         if zero_init_layers:
             self.out_conv.weight.zero_()
 
+    def _block(self, block: nn.Module):
+        """``block``, rematerialized in the backward pass when ``remat``."""
+        if self.remat and torch.is_grad_enabled():
+            return lambda *a: checkpoint(block, *a, use_reentrant=False)
+        return block
+
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         ch = self.Dense_0.in_features
         emb = self.Dense_0(timestep_embedding(t, ch))
         emb = self.Dense_1(F.silu(emb))
         n_res, n_att = self._counts
-        res = (getattr(self, f"ResBlock3D_{i}") for i in range(n_res))
+        res = (self._block(getattr(self, f"ResBlock3D_{i}"))
+               for i in range(n_res))
         att = (getattr(self, f"SelfAttention3D_{i}") for i in range(n_att))
         h = self.in_conv(x.to(dt))
         skips, ds = [h], 1
@@ -329,7 +341,7 @@ class UNet3D(nn.Module):
                 ds *= 2
                 skips.append(h)
         h = next(res)(h, emb)
-        h = self.middle_transformer(h)
+        h = self._block(self.middle_transformer)(h)
         h = next(res)(h, emb)
         for level, _ in reversed(list(enumerate(self.channel_mult))):
             for _ in range(self.num_res_blocks + 1):

@@ -43,6 +43,13 @@ class SparseConv3d(nn.Module):
 
     def forward(self, feats: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
         dt = self.dtype
+        if feats.is_cuda and torch.is_grad_enabled() and (
+                feats.requires_grad or self.kernel.requires_grad):
+            raise NotImplementedError(
+                "SparseConv3d has no gradient on the card yet: K4's dx and "
+                "dW kernels (the window conv's _wc_bwd and _dw_core) are "
+                "still to be ported, ROADMAP section 2; run it under "
+                "torch.no_grad() with parameters that need no gradient")
         out = window_sparse_conv(plan, feats.to(dt), self.kernel.to(dt))
         return out + self.bias.to(dt)
 

@@ -1,11 +1,15 @@
-"""Attention for [B, N, heads, head_dim] tensors: kernel K2 on the card, the
-plain einsum version on the CPU.
+"""Attention for [B, N, heads, head_dim] tensors, forward and backward:
+kernels K2 and K5 on the card, the plain einsum versions on the CPU.
 
 Counterpart of ``infinicube_tpu/ops/attention.py``. There the library Pallas
-flash kernel serves long sequences on the TPU; here every CUDA tensor goes to
-the hand-written ``flash_attn_bf16`` (csrc/flash_attention.cu), and a CPU
-tensor goes to the plain version. Nothing falls back: a CUDA call the kernel
-does not take raises."""
+flash kernel serves long sequences on the TPU, and its fused backward (a
+dK/dV and a dQ kernel) their gradients; here every CUDA tensor goes to the
+hand-written ``flash_attn_bf16`` (csrc/flash_attention.cu) and, when a
+gradient is asked for, through a ``torch.autograd.Function`` whose forward
+also takes the rows' log-sum-exp from K2 and whose backward launches
+``flash_attn_bf16_bwd`` (csrc/flash_attention_bwd.cu). A CPU tensor goes to
+the plain version and autograd. Nothing falls back: a CUDA call the kernels
+do not take raises."""
 
 from __future__ import annotations
 
@@ -25,25 +29,86 @@ def _row_chunk(n_q: int, per_row: int) -> int:
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, return_lse: bool = False):
     """The einsum attention of the reference (f32 softmax), computed in
-    chunks of query rows so the logits stay bounded."""
+    chunks of query rows so the logits stay bounded. With ``return_lse``
+    also the natural log-sum-exp of each row's scaled logits, f32
+    [B, h, Nq]."""
     B, nq, h, _ = q.shape
     nk = k.shape[1]
     step = _row_chunk(nq, B * h * nk)
-    outs = []
+    outs, lses = [], []
     for i in range(0, nq, step):
         logits = torch.einsum("bqhd,bkhd->bhqk", q[:, i:i + step], k)
-        attn = torch.softmax(logits.float() * scale, dim=-1).to(v.dtype)
+        logits = logits.float() * scale
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", attn, v))
-    return torch.cat(outs, dim=1)
+        if return_lse:
+            lses.append(torch.logsumexp(logits, dim=-1))
+    out = torch.cat(outs, dim=1)
+    return (out, torch.cat(lses, dim=2)) if return_lse else out
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D_i = sum_d o_i * do_i, f32 [B, h, Nq], the row term of the softmax
+    gradient (the TPU library computes it outside its kernels too)."""
+    return (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        scale: float):
+    """(dq, dk, dv) of ``attention_plain`` written out from the formulas K5
+    follows, in f32, in chunks of query rows: P = exp(S - lse), dV = P^T dO,
+    dP = dO V^T, dS = P o (dP - D), dQ = dS K * scale, dK = dS^T Q * scale.
+    Results come back in the inputs' dtypes."""
+    B, nq, h, _ = q.shape
+    nk = k.shape[1]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = attention_delta(o, do)                       # [B, h, Nq]
+    step = _row_chunk(nq, B * h * nk)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i in range(0, nq, step):
+        sl = slice(i, i + step)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, sl], kf) * scale
+        p = torch.exp(s - lse[:, :, sl, None])
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, dof[:, sl])
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, sl], vf)
+        ds = p * (dp - delta[:, :, sl, None])
+        dq[:, sl] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qf[:, sl]) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 forward (keeping q, k, v, o and the log-sum-exp), K5 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = kernels.flash_attn_bf16_bwd(
+            q, k, v, do, lse, attention_delta(o, do), ctx.scale)
+        return dq, dk, dv, None
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
-    """q [B, Nq, h, d], k/v [B, Nk, h, d] -> [B, Nq, h, d], non-causal."""
+    """q [B, Nq, h, d], k/v [B, Nk, h, d] -> [B, Nq, h, d], non-causal,
+    differentiable in q, k and v."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
+        if torch.is_grad_enabled() and \
+                (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, scale)
         return kernels.flash_attn_bf16(q, k, v, scale)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")

@@ -1,15 +1,23 @@
-"""3x3x3 stride-1 SAME convolution on NDHWC tensors: kernel K3 on the card,
-the plain version on the CPU.
+"""3x3x3 stride-1 SAME convolution on NDHWC tensors, forward and backward:
+kernel K3 on the card, the plain versions on the CPU.
 
-Counterpart of ``infinicube_tpu/ops/dense_conv.py`` (forward). There the
-Pallas implicit-GEMM kernel serves the UNet's convs on the TPU where its plan
-fits and XLA's conv the rest; here every CUDA tensor goes to the hand-written
-``conv3x3x3_bf16`` (csrc/dense_conv.cu), whatever its width, and a CPU tensor
-goes to the plain version. A CUDA call the kernel does not take raises.
+Counterpart of ``infinicube_tpu/ops/dense_conv.py``. There the Pallas
+implicit-GEMM kernel serves the UNet's convs on the TPU where its plan fits
+and XLA's conv the rest, and its ``custom_vjp`` sends the output gradient
+through the same kernel with flipped, in/out-swapped weights while the weight
+gradient (27 tap contractions) and the bias gradient stay XLA. Here every
+CUDA tensor goes to the hand-written ``conv3x3x3_bf16`` (csrc/dense_conv.cu),
+whatever its width; when a gradient is asked for, a
+``torch.autograd.Function`` launches K3 forward and K3 again for the input
+gradient, and computes the weight gradient as 27 tap matrix products in plain
+PyTorch (bf16 operands, f32 accumulation, one f32 result per tap; TF32 is
+never used) and the bias gradient as a sum. A CPU tensor goes to the plain
+version and autograd. A CUDA call the kernel does not take raises.
 
 Weights keep torch's conv layout [O, C, 3, 3, 3] (``weights/from_jax.py``
-turns flax's DHWIO into it). The kernel reads them as [O, 27*C] bf16, which
-``Conv3x3x3`` packs once per weight and caches, not on every call."""
+turns flax's DHWIO into it). The kernel reads them as [O, 27*C] bf16 for the
+forward and as [C, 27*O] bf16 (flipped, swapped) for the input gradient;
+``Conv3x3x3`` packs each once per weight version and caches it."""
 
 from __future__ import annotations
 
@@ -30,6 +38,13 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
         torch.bfloat16).contiguous()
 
 
+def dgrad_weight(w: torch.Tensor) -> torch.Tensor:
+    """[O, C, 3, 3, 3] -> [C, O, 3, 3, 3], flipped along dz, dy and dx: the
+    weights whose conv over the output gradient is the input gradient (the
+    reference's ``w[::-1, ::-1, ::-1]`` with in/out swapped)."""
+    return w.flip(2, 3, 4).transpose(0, 1)
+
+
 def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """The reference's ``_xla_conv``: f32 accumulation of x's values against
@@ -40,18 +55,87 @@ def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype)
 
 
+def conv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dW of the conv, f32 [O, C, 3, 3, 3]: for each of the 27 taps the
+    contraction over all voxels of the tap-shifted input [V, C] with the
+    output gradient [V, O] (the reference's 27 einsums). Operands keep their
+    dtype (bf16 on the card), sums and results are f32."""
+    B, D, H, W, C = x.shape
+    O = g.shape[-1]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    gt = g.reshape(-1, O).t()
+    taps = []
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                xs = xp[:, dz:dz + D, dy:dy + H, dx:dx + W].reshape(-1, C)
+                taps.append(_mm_f32(gt, xs))
+    return torch.stack(taps, dim=-1).reshape(O, C, 3, 3, 3)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 accumulation and an f32 result, whatever the operands'
+    dtype (cuBLAS takes bf16 operands with an f32 output directly)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def conv3x3x3_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """(dx, dw, db) of ``conv3x3x3_plain`` written as the reference's
+    ``_conv_bwd``: dx is the conv of g with the flipped, in/out-swapped
+    weights and no bias, in x's dtype; dw the 27 tap contractions and db the
+    sum of g over all voxels, both in f32 arithmetic (dw in w's dtype)."""
+    C = w.shape[1]
+    dx = conv3x3x3_plain(g, dgrad_weight(w), torch.zeros(C, device=g.device))
+    dw = conv_weight_grad(x.float(), g.float()).to(w.dtype)
+    return dx.to(x.dtype), dw, g.float().sum(dim=(0, 1, 2, 3))
+
+
+class _Conv3x3x3(torch.autograd.Function):
+    """K3 forward; backward K3 on the output gradient for dx, the tap
+    products for dW, a sum for db."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, w_packed, w_packed_dgrad):
+        ctx.save_for_backward(x, w_packed_dgrad)
+        ctx.w_dtype = weight.dtype
+        return kernels.conv3x3x3_bf16(x, w_packed, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_packed_dgrad = ctx.saved_tensors
+        g = g.to(torch.bfloat16).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            if w_packed_dgrad is None:
+                raise ValueError("the input gradient needs w_packed_dgrad "
+                                 "(pack_conv_weight(dgrad_weight(w)))")
+            dx = kernels.conv3x3x3_bf16(g, w_packed_dgrad, None)
+        if ctx.needs_input_grad[1]:
+            dw = conv_weight_grad(x, g).to(ctx.w_dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=(0, 1, 2, 3))
+        return dx, dw, db, None, None
+
+
 def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              w_packed: torch.Tensor | None = None) -> torch.Tensor:
-    """x [B, D, H, W, C] @ w [O, C, 3, 3, 3] + bias [O], SAME padding.
-    On the card x must be bf16 and the kernel reads ``w_packed``
-    (``pack_conv_weight(w)``, packed once by the caller); on the CPU the
-    plain version runs."""
+              w_packed: torch.Tensor | None = None,
+              w_packed_dgrad: torch.Tensor | None = None) -> torch.Tensor:
+    """x [B, D, H, W, C] @ w [O, C, 3, 3, 3] + bias [O], SAME padding,
+    differentiable in x, w and bias. On the card x must be bf16 and the
+    kernel reads ``w_packed`` (``pack_conv_weight(w)``) and, for x's
+    gradient, ``w_packed_dgrad`` (``pack_conv_weight(dgrad_weight(w))``),
+    both packed once by the caller; on the CPU the plain version runs."""
     if x.is_cuda:
         if w_packed is None:
             raise ValueError("the card's conv3x3x3 needs w_packed "
                              "(pack_conv_weight(w), packed once)")
-        return kernels.conv3x3x3_bf16(x.contiguous(), w_packed,
-                                      bias.float().contiguous())
+        x, bias = x.contiguous(), bias.float().contiguous()
+        if torch.is_grad_enabled() and \
+                (x.requires_grad or w.requires_grad or bias.requires_grad):
+            return _Conv3x3x3.apply(x, w, bias, w_packed, w_packed_dgrad)
+        return kernels.conv3x3x3_bf16(x, w_packed, bias)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return conv3x3x3_plain(x, w, bias)
@@ -80,12 +164,21 @@ class Conv3x3x3(nn.Module):
                                 generator=generator)
             self.bias.zero_()
 
-    def _packed_weight(self) -> torch.Tensor:
+    def _packed_weight(self, dgrad: bool = False) -> torch.Tensor:
+        """The forward pack or the input-gradient pack of the current
+        weight, cached against its address and version (every in-place
+        update of the parameter, an optimizer step or ``load_state_dict``,
+        raises the version)."""
         w = self.weight
         key = (w.data_ptr(), w._version, w.device)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_conv_weight(w.detach()))
-        return self._packed[1]
+            self._packed = (key, {})
+        packs = self._packed[1]
+        if dgrad not in packs:
+            src = w.detach()
+            packs[dgrad] = pack_conv_weight(dgrad_weight(src) if dgrad
+                                            else src)
+        return packs[dgrad]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -94,6 +187,9 @@ class Conv3x3x3(nn.Module):
             if dt != torch.bfloat16:
                 raise ValueError("the card's conv3x3x3 kernel takes bf16; "
                                  f"this module computes in {dt}")
+            need_dx = torch.is_grad_enabled() and x.requires_grad
             return conv3x3x3(x.to(dt), self.weight, bias,
-                             self._packed_weight())
+                             self._packed_weight(),
+                             self._packed_weight(dgrad=True) if need_dx
+                             else None)
         return conv3x3x3(x.to(dt), self.weight.to(dt), bias)

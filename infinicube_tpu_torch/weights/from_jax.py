@@ -95,6 +95,29 @@ def unet_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return _convert(p)
 
 
+def diffusion_train_state_from_jax(params: dict, mu: dict, nu: dict,
+                                   count: int, step: int,
+                                   num_nan_skips: int,
+                                   ema_params: dict | None = None,
+                                   ema_step: int = 0) -> dict:
+    """A JAX ``TrainState`` of the voxel-diffusion trainer, given as numpy
+    trees, as the ``state_dict`` that the port's
+    ``training.state.TrainState.load_state_dict`` takes: the UNet parameters,
+    the optax AdamW moments ``mu`` / ``nu`` (same tree as the parameters)
+    with their ``count``, the EMA shadow with its step, ``step`` and
+    ``num_nan_skips``. The port derives Adam's count as ``step -
+    num_nan_skips``, so ``count`` must equal it."""
+    if int(count) != int(step) - int(num_nan_skips):
+        raise ValueError(f"Adam count {count} != step {step} - skips "
+                         f"{num_nan_skips}")
+    return {"step": int(step), "num_nan_skips": int(num_nan_skips),
+            "params": unet_from_jax(params), "mu": unet_from_jax(mu),
+            "nu": unet_from_jax(nu),
+            "ema": None if ema_params is None else
+            {"params": unet_from_jax(ema_params), "step": int(ema_step)},
+            "rng_state": None}
+
+
 def sparse_vae_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """SparseStructureVAE params."""
     return _convert(_params(tree))

@@ -16,14 +16,19 @@ import torch
 from infinicube_tpu_torch import kernels
 from infinicube_tpu_torch.grid.build import grid_from_ijk
 from infinicube_tpu_torch.nn.sparse import conv_plan
-from infinicube_tpu_torch.ops.attention import attention_plain, \
-    multi_head_attention
+from infinicube_tpu_torch.ops.attention import (attention_bwd_plain,
+                                                attention_delta,
+                                                attention_plain,
+                                                multi_head_attention)
 from infinicube_tpu_torch.ops.flash_attention import (block_quantize,
                                                       fold_heads,
                                                       int8qk_attention_plain,
                                                       mha_quantized,
                                                       quant_blocks)
-from infinicube_tpu_torch.ops.dense_conv import (conv3x3x3, conv3x3x3_plain,
+from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3,
+                                                 conv3x3x3_bwd_plain,
+                                                 conv3x3x3_plain,
+                                                 dgrad_weight,
                                                  pack_conv_weight)
 from infinicube_tpu_torch.ops.window_conv import (sparse_conv_plain,
                                                   window_sparse_conv)
@@ -41,7 +46,7 @@ def gen():
 
 
 def _cos(a, b):
-    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
     return float(a @ b / (a.norm() * b.norm() + 1e-30))
 
 
@@ -232,3 +237,157 @@ def test_k4_poisons_the_violating_batch_row(gen):
     assert torch.isnan(out[1]).all() and torch.isfinite(out[0]).all()
     assert (out[0] - ref[0]).abs().max().item() <= \
         1e-4 * ref[0].abs().max().item()
+
+
+def _close(got, ref, rel=2e-2, cos=0.9999):
+    """The kernels' gate: cosine and max-abs relative to the largest
+    reference value (bf16 rounding of the operands and of the result)."""
+    got, ref = got.float(), ref.float()
+    assert _cos(got, ref) >= cos
+    assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("nq,nk,h,d", [(4096, 4096, 8, 96), (512, 512, 8, 96),
+                                       (333, 77, 4, 64), (130, 1000, 3, 128),
+                                       (1, 5, 1, 64), (200, 200, 2, 128)])
+def test_k2_stores_the_log_sum_exp(gen, nq, nk, h, d):
+    q, k, v = _rand((2, nq, h, d), gen), _rand((2, nk, h, d), gen), \
+        _rand((2, nk, h, d), gen)
+    o, lse = kernels.flash_attn_bf16(q, k, v, d ** -0.5, return_lse=True)
+    ref_o, ref_lse = attention_plain(q.float(), k.float(), v.float(),
+                                     d ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, h, nq) and lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert torch.equal(o, kernels.flash_attn_bf16(q, k, v, d ** -0.5))
+
+
+@pytest.mark.parametrize("nq,nk,h,d", [(4096, 4096, 8, 96), (512, 512, 8, 96),
+                                       (333, 77, 4, 64), (130, 1000, 3, 128),
+                                       (1, 5, 1, 64), (200, 200, 2, 128)])
+def test_k5_matches_plain(gen, nq, nk, h, d):
+    """K5 against the formulas in f32 on the same bf16 inputs and the same
+    lse: P and dS are rounded to bf16 before their products, the results to
+    bf16 at the store. Lengths that are not multiples of 64 check that rows
+    >= Nq and keys >= Nk contribute nothing."""
+    q, k, v = _rand((2, nq, h, d), gen), _rand((2, nk, h, d), gen), \
+        _rand((2, nk, h, d), gen)
+    do = _rand((2, nq, h, d), gen)
+    scale = d ** -0.5
+    o, lse = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
+    before = kernels.launches["flash_attn_bf16_bwd"]
+    got = kernels.flash_attn_bf16_bwd(q, k, v, do, lse,
+                                      attention_delta(o, do), scale)
+    assert kernels.launches["flash_attn_bf16_bwd"] == before + 1
+    ref = attention_bwd_plain(q.float(), k.float(), v.float(), o.float(),
+                              do.float(), lse, scale)
+    torch.cuda.synchronize()
+    for a, b, x in zip(got, ref, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all()
+        _close(a, b)
+
+
+def test_attention_gradients_through_k5(gen):
+    """autograd through ``multi_head_attention`` on strided views of one
+    fused qkv projection (as SelfAttention3D passes them) against autograd
+    through the plain version in f32."""
+    qkv = _rand((1, 700, 3, 8, 96), gen).requires_grad_()
+    w = _rand((1, 700, 8, 96), gen)
+    k2, k5 = (kernels.launches[n] for n in ("flash_attn_bf16",
+                                            "flash_attn_bf16_bwd"))
+    out = multi_head_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    (out.float() * w.float()).sum().backward()
+    assert kernels.launches["flash_attn_bf16"] == k2 + 1
+    assert kernels.launches["flash_attn_bf16_bwd"] == k5 + 1
+    ref_in = qkv.detach().float().requires_grad_()
+    ref = attention_plain(ref_in[:, :, 0], ref_in[:, :, 1], ref_in[:, :, 2],
+                          96 ** -0.5)
+    (ref * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    _close(qkv.grad, ref_in.grad)
+    with torch.no_grad():                       # no gradient: K2 alone
+        multi_head_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    assert kernels.launches["flash_attn_bf16_bwd"] == k5 + 1
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8, 8, 192, 16),
+                                   (2, 6, 5, 7, 64, 72),
+                                   (1, 16, 16, 16, 192, 192),
+                                   (1, 4, 4, 4, 768, 1536)])
+def test_k3_dgrad_matches_plain(gen, shape):
+    """K3 on the output gradient with the flipped, swapped pack and no bias
+    against ``conv3x3x3_bwd_plain``'s dx; shape = (B, D, H, W, C, O) of the
+    forward conv."""
+    B, D, H, W, C, O = shape
+    x = _rand((B, D, H, W, C), gen)
+    w = (_rand((O, C, 3, 3, 3), gen).float() / (27 * C) ** 0.5).to(
+        torch.bfloat16)
+    g = _rand((B, D, H, W, O), gen)
+    got = kernels.conv3x3x3_bf16(g, pack_conv_weight(dgrad_weight(w)), None)
+    ref, _, _ = conv3x3x3_bwd_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    _close(got, ref)
+
+
+def test_conv_gradients_through_k3(gen):
+    """autograd through the ``Conv3x3x3`` module on the card (K3 forward,
+    K3 dgrad, tap products for dW) against ``conv3x3x3_bwd_plain``; the
+    output gradient arrives expanded (non-contiguous)."""
+    m = Conv3x3x3(64, 72, dtype=torch.bfloat16, device="cuda")
+    m.reset_parameters(gen)
+    with torch.no_grad():
+        m.bias.normal_(generator=gen)
+    x = _rand((2, 6, 5, 7, 64), gen).requires_grad_()
+    before = dict(kernels.launches)
+    out = m(x)
+    g = _rand((1, 1, 1, 1, 72), gen).expand(out.shape)
+    out.backward(g)
+    assert kernels.launches["conv3x3x3_bf16"] == \
+        before["conv3x3x3_bf16"] + 1
+    assert kernels.launches[kernels.K3_DGRAD] == before[kernels.K3_DGRAD] + 1
+    dx, dw, db = conv3x3x3_bwd_plain(x.detach(), m.weight.detach().to(
+        torch.bfloat16), g)
+    torch.cuda.synchronize()
+    _close(x.grad, dx)
+    assert m.weight.grad.dtype == torch.float32
+    _close(m.weight.grad, dw, rel=1e-2)
+    # the bias enters through a bf16 cast, so its gradient is rounded to bf16
+    _close(m.bias.grad, db, rel=5e-3)
+    # an input without a gradient: no dgrad launch, dW all the same
+    m.zero_grad()
+    before = dict(kernels.launches)
+    m(x.detach()).backward(g)
+    assert kernels.launches["conv3x3x3_bf16"] == \
+        before["conv3x3x3_bf16"] + 1
+    assert kernels.launches[kernels.K3_DGRAD] == before[kernels.K3_DGRAD]
+    _close(m.weight.grad, dw, rel=1e-2)
+
+
+def test_packed_weights_follow_an_optimizer_step(gen):
+    """Both packs are rebuilt after an in-place update of the weight."""
+    m = Conv3x3x3(16, 16, dtype=torch.bfloat16, device="cuda")
+    m.reset_parameters(gen)
+    x = _rand((1, 4, 4, 4, 16), gen).requires_grad_()
+    m(x).float().sum().backward()
+    old = m._packed_weight().clone(), m._packed_weight(dgrad=True).clone()
+    torch.optim.SGD(m.parameters(), lr=1.0).step()
+    out = m(x)
+    ref = conv3x3x3_plain(x.detach(), m.weight.detach().to(torch.bfloat16),
+                          m.bias.detach())
+    _close(out, ref)
+    assert not torch.equal(old[0], m._packed_weight())
+    assert not torch.equal(old[1], m._packed_weight(dgrad=True))
+
+
+def test_sparse_conv_refuses_a_gradient(gen):
+    from infinicube_tpu_torch.nn.sparse import SparseConv3d
+    g, feats, w = _sparse_case(gen, 500, 1024, 8, 8)
+    conv = SparseConv3d(8, 8, device="cuda")
+    conv.reset_parameters(gen)
+    plan = conv_plan(g, dense_bounds=((-16, -16, -16), (32, 32, 32)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conv(feats.requires_grad_(), plan)
+    with torch.no_grad():
+        conv(feats, plan)

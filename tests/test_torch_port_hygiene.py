@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "flax", "infinicube_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_time_kernels.py"]
 
 
 def _imported(tree):
@@ -70,6 +71,7 @@ def test_cpu_tensors_take_plain_versions():
     with torch.no_grad():
         dit(torch.randn(1, 1, 4, 4, 4), torch.ones(1), torch.randn(1, 3, 16))
     _stage1_on_cpu()
+    _train_step_on_cpu()
     assert kernels.launches and all(v == 0 for v in kernels.launches.values())
 
 
@@ -107,6 +109,32 @@ def _stage1_on_cpu():
     vae.decode(torch.randn((1, 4, 4, 4, 8), generator=g))
 
 
+def _train_step_on_cpu():
+    """Gradients through the attention, the dense conv and a small trainable
+    UNet on CPU tensors: plain versions and autograd."""
+    from infinicube_tpu_torch.models.diffusion.model import (
+        CondCubes, DiffusionConfig, VoxelDiffusion)
+    from infinicube_tpu_torch.ops.attention import multi_head_attention
+    from infinicube_tpu_torch.ops.dense_conv import Conv3x3x3
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 9, 2, 64), generator=g, requires_grad=True)
+    multi_head_attention(q, q, q).sum().backward()
+    conv = Conv3x3x3(8, 8)
+    conv.reset_parameters(g)
+    conv(torch.randn((1, 3, 3, 3, 8), generator=g,
+                     requires_grad=True)).sum().backward()
+    cfg = DiffusionConfig(cube_dims=(4, 4, 4), model_channels=32,
+                          channel_mult=(1, 2), attention_ds=(2,), num_heads=4,
+                          transformer_depth=1, dtype=torch.float32,
+                          remat=True)
+    vd = VoxelDiffusion(cfg, device="cpu", trainable=True)
+    vd.init_params(g, zero_init_layers=False)
+    loss, _ = vd.train_loss(torch.randn((1, 4, 4, 4, 8), generator=g),
+                            CondCubes.null(1, cfg), generator=g)
+    loss.backward()
+    assert all(p.grad is not None for p in vd.unet.parameters())
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback inside the wrappers: a tensor off the card is an error."""
     x = torch.zeros((1, 64, 1, 64), dtype=torch.bfloat16)
@@ -122,6 +150,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                torch.zeros((8, 216), dtype=torch.bfloat16),
                                torch.zeros(8))
     with pytest.raises(ValueError):
+        kernels.conv3x3x3_bf16(torch.zeros((1, 4, 4, 4, 8),
+                                           dtype=torch.bfloat16),
+                               torch.zeros((8, 216), dtype=torch.bfloat16),
+                               None)
+    with pytest.raises(ValueError):
+        kernels.flash_attn_bf16(x, x, x, 0.125, return_lse=True)
+    with pytest.raises(ValueError):
+        kernels.flash_attn_bf16_bwd(x, x, x, x, torch.zeros((1, 1, 64)),
+                                    torch.zeros((1, 1, 64)), 0.125)
+    with pytest.raises(ValueError):
         kernels.sparse_conv_f32(torch.zeros((1, 64, 4)),
                                 torch.zeros((1, 64, 27), dtype=torch.int32),
                                 torch.zeros((27, 4, 4)),
@@ -131,7 +169,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("entry", ["dit", "vae", "t5", "generator",
                                    "voxel_diffusion", "sparse_vae",
-                                   "world_generator"])
+                                   "world_generator", "trainable_diffusion",
+                                   "train_loop", "train_cli"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -148,6 +187,9 @@ def test_entry_points_default_to_the_card(entry):
         DiffusionConfig, VoxelDiffusion)
     from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
                                                        SparseVAEConfig)
+    from infinicube_tpu_torch.train import main as train_main
+    from infinicube_tpu_torch.training.loop import LoopConfig, train
+    from infinicube_tpu_torch.training.state import TrainConfig
     tiny_vae = VideoVAEConfig(latent_channels=4, base_channels=8,
                               channel_mult=(1, 2), num_res_blocks=1)
     tiny_unet = DiffusionConfig(cube_dims=(4, 4, 4), model_channels=32,
@@ -167,6 +209,49 @@ def test_entry_points_default_to_the_card(entry):
             f_maps=8, neck_dims=(4, 4, 4), capacities=(64, 32, 16))),
         "world_generator": lambda: VoxelWorldGenerator(
             VoxelDiffusion(tiny_unet), lambda latents: None),
+        "trainable_diffusion": lambda: VoxelDiffusion(tiny_unet,
+                                                      trainable=True),
+        "train_loop": lambda: train(
+            LoopConfig(max_steps=1, resume=False), TrainConfig(),
+            {"w": torch.zeros(2, requires_grad=True)},
+            lambda p, g, b: (p["w"].sum(), {}), [None]),
+        "train_cli": lambda: train_main(
+            ["none", "--exec", "max_steps=1", "diffusion.cube_dims=(4,4,4)",
+             "diffusion.model_channels=32", "diffusion.channel_mult=(1,)",
+             "diffusion.attention_ds=()", "diffusion.transformer_depth=1"]),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+
+
+def test_train_loop_refuses_parameters_on_another_device():
+    """A loop asked for one device does not train parameters that lie on
+    another."""
+    from infinicube_tpu_torch.training.loop import LoopConfig, train
+    from infinicube_tpu_torch.training.state import TrainConfig
+    with pytest.raises(ValueError, match="is on"):
+        train(LoopConfig(max_steps=1, resume=False), TrainConfig(),
+              {"w": torch.zeros(2, device="meta", requires_grad=True)},
+              lambda p, g, b: (p["w"].sum(), {}), [None], device="cpu")
+
+
+def test_sparse_conv_refuses_a_gradient_on_the_card(monkeypatch):
+    """K4 has no backward kernel yet: on a CUDA tensor that needs a gradient
+    ``SparseConv3d`` raises instead of returning a tensor without one.
+    Checked without a card by letting the tensor claim to be on one."""
+    from infinicube_tpu_torch.nn import sparse
+    conv = sparse.SparseConv3d(4, 4)
+    called = []
+    monkeypatch.setattr(sparse, "window_sparse_conv",
+                        lambda plan, f, w: called.append(1) or f)
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    feats = torch.zeros((1, 8, 4)).as_subclass(OnCard)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conv(feats, None)                  # the kernel is a parameter
+    assert not called
+    with torch.no_grad():
+        conv(feats, None)
+    assert called
