@@ -66,6 +66,27 @@ Then training the voxel diffusion model (stage 1's models freed first):
     optimizer + EMA, the whole step under ``torch.profiler``, and peak
     memory, without and with ``remat`` (and at batch 2 with ``remat``).
 
+Then training the sparse structure VAE (the UNet freed first):
+
+14. kernel checks: K4 as the sparse conv's input gradient (on the output
+    gradient, with the reversed, transposed weights and no poison) and K6
+    (the weight gradient) against ``sparse_conv_bwd_plain`` on real grids:
+    phase 9's decoded grids and the three levels of a 200,000-point training
+    batch, at the VAE's (F, Fo); the plain dW also summed in f64; K6 run
+    twice, bit-identical; each timed beside its plain version and its bound;
+15. model check: the release-width VAE on a small scene, ``vae_loss`` and
+    every parameter's gradient on the card (K4, K4-dgrad, K6) against the
+    CPU (plain versions), same weights and reparametrize noise;
+16. training: ``infinicube_tpu_torch.train.main`` on
+    ``configs/train_vae.yaml`` with 200,000 points per sample, 3 steps: finite
+    losses, parameters moved, no skipped step, exact launch counts per step
+    (K4 24, K4-dgrad 24, K6 24), no plain version called, the active voxels
+    of every level, the JSONL log, the checkpoint written and read back; then
+    ``evaluate_reconstruction`` with the trained weights;
+17. where the time goes: one train step split into batch making, plans,
+    forward, backward (of it K4-dgrad and K6) and optimizer + EMA, the whole
+    step under ``torch.profiler``, and peak memory.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -652,7 +673,8 @@ def entry(name, source, replaces, rows, headline):
 
 def stage1(kernels, att, dense_conv):
     """Phases 6-9. Returns the summary entries of K3 and K4 (and K2's d=96
-    rows) and the launch counts of the stage-1 main path."""
+    rows), the launch counts of the stage-1 main path and the decoded grids
+    of phase 9 (coarsest first)."""
     from infinicube_tpu_torch.grid.build import grid_from_ijk
     from infinicube_tpu_torch.inference.voxel_world_generation import (
         VoxelWorldGenerator, WorldGenConfig, vae_decode_fn)
@@ -689,7 +711,7 @@ def stage1(kernels, att, dense_conv):
             "sparse_conv_f32": entry(
                 "sparse_conv_f32", "infinicube_tpu_torch/csrc/sparse_conv.cu",
                 "infinicube_tpu/ops/window_conv.py:222", k4_rows, 1)}, \
-        stage1_launches
+        stage1_launches, dec["grids"]
 
 
 # ---------------------------------------------------------------------------
@@ -701,7 +723,8 @@ def stage1(kernels, att, dense_conv):
 # backward (10 each); remat runs the 22 ResBlocks' two convs once more
 STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "flash_attn_bf16": 10, "flash_attn_bf16_bwd": 10,
-                 "flash_attn_int8qk": 0, "sparse_conv_f32": 0}
+                 "flash_attn_int8qk": 0, "sparse_conv_f32": 0,
+                 "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
 
@@ -893,12 +916,9 @@ def train_grad_check(mods):
     return float(vals[0])
 
 
-def train_main_path(kernels):
-    """The trainer's CLI path at full width: 3 optimizer steps at batch 1."""
-    from infinicube_tpu_torch import train as train_cli
-    from infinicube_tpu_torch.training import loop
-    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+def counting_steps(kernels, loop):
+    """Make ``loop.make_train_step`` record every step's launches. Returns
+    (the list they go to, the function that undoes the patch)."""
     per_step, make_step = [], loop.make_train_step
 
     def counted_make_step(cfg, loss_fn):
@@ -913,6 +933,19 @@ def train_main_path(kernels):
         return counted
 
     loop.make_train_step = counted_make_step
+
+    def undo():
+        loop.make_train_step = make_step
+    return per_step, undo
+
+
+def train_main_path(kernels):
+    """The trainer's CLI path at full width: 3 optimizer steps at batch 1."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.training import loop
+    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    per_step, undo = counting_steps(kernels, loop)
     try:
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -974,7 +1007,7 @@ def train_main_path(kernels):
         check(same and sd["step"] == TRAIN_STEPS, "checkpoint differs")
         del sd
     finally:
-        loop.make_train_step = make_step
+        undo()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[train] main path launches {launches}")
     return launches
@@ -1101,6 +1134,428 @@ def diffusion_train(kernels, att, dense_conv):
         launches
 
 
+# ---------------------------------------------------------------------------
+# training the sparse structure VAE
+# ---------------------------------------------------------------------------
+
+# per train step: every SparseConv3d forward (6 encoder and 6 decoder
+# SparseResBlocks, two convs each), its input gradient and its weight gradient
+VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
+                     "sparse_conv_f32_wgrad": 24, "conv3x3x3_bf16": 0,
+                     "conv3x3x3_bf16_dgrad": 0, "flash_attn_bf16": 0,
+                     "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0}
+VAE_POINTS = 200_000
+
+
+def vae_points(seed, n=VAE_POINTS, batch=1):
+    """The synthetic stream's kind of sample: uniform points in a +-5 m cube
+    with random labels (``train.build_vae``)."""
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.uniform(-5, 5, (batch, n, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 23, (batch, n)).astype(
+        np.int32))
+    return pts, labels
+
+
+def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
+    """K4 as the input gradient and K6 against ``sparse_conv_bwd_plain`` on
+    the decoded grids of the stage-1 part and on the three levels of a
+    200,000-point training batch. Gates: dx max-abs <= 1e-4 * max|ref|, dW
+    max-abs <= 5e-4 * max|ref| (a dW element sums up to 10^5 products in f32,
+    in another order than the plain version's matmul; its distance from the
+    plain version summed in f64 is printed beside); K6 twice, bit-identical.
+    Timed beside the plain versions and the bound (2 * present (row, tap)
+    pairs * F * Fo at the f32 CUDA-core peak against the bytes)."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    ws = mods.window_conv
+    pts, _ = vae_points(15)
+    tree = mods.build_hash_tree(vcfg, pts.cuda(), torch.ones(
+        (1, VAE_POINTS), dtype=torch.bool, device="cuda"))
+    cases = [("decoded", dec_grids[-1], 0, 64, 64),
+             ("decoded", dec_grids[0], 2, 256, 256),
+             ("batch", tree[0], 0, 32, 64), ("batch", tree[0], 0, 64, 64),
+             ("batch", tree[1], 1, 128, 128), ("batch", tree[1], 1, 256, 128),
+             ("batch", tree[2], 2, 256, 256)]
+    dx_rows, dw_rows = [], []
+    for origin, grid, level, F, Fo in cases:
+        plan = mods.conv_plan(grid,
+                              dense_bounds=vcfg.level_dense_bounds(level))
+        check(int(plan.violations.sum()) == 0, f"{origin} level {level}: "
+              f"violations {plan.violations.tolist()}")
+        cap, m = grid.capacity, grid.mask[..., None]
+        feats = torch.where(m, torch.randn((1, cap, F), generator=g,
+                                           device="cuda"), 0.0)
+        gout = torch.where(m, torch.randn((1, cap, Fo), generator=g,
+                                          device="cuda"), 0.0)
+        w = torch.randn((27, F, Fo), generator=g, device="cuda") / \
+            math.sqrt(27 * F)
+        w_rev = ws.rev_w(w).contiguous()
+        zero = torch.zeros_like(plan.violations)
+        dx = kernels.sparse_conv_f32(gout, plan.nbr, w_rev, zero, dgrad=True)
+        dw = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
+        dw2 = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
+        ref_dx, ref_dw = ws.sparse_conv_bwd_plain(plan, feats, w, gout)
+        _, dw64 = ws.sparse_conv_bwd_plain(plan, feats.double(), w.double(),
+                                           gout.double())
+        pairs = int((plan.nbr >= 0).sum())
+        shape = f"{origin} L{level} {cap} x ({F}->{Fo})"
+        dx_err = (dx - ref_dx).abs().max().item()
+        dw_err = (dw - ref_dw).abs().max().item()
+        dx_lim = 1e-4 * ref_dx.abs().max().item()
+        dw_lim = 5e-4 * ref_dw.abs().max().item()
+        print(f"[k4 dgrad] {shape}: {int(grid.mask.sum())} voxels, {pairs} "
+              f"neighbour pairs; dx max_abs_err {dx_err:.3e} (limit "
+              f"{dx_lim:.3e})")
+        print(f"[k6] {shape}: dW max_abs_err {dw_err:.3e} (limit "
+              f"{dw_lim:.3e}); against the plain dW summed in f64: kernel "
+              f"{(dw.double() - dw64).abs().max().item():.3e}, plain f32 "
+              f"{(ref_dw.double() - dw64).abs().max().item():.3e}; two runs "
+              f"{'bit-identical' if torch.equal(dw, dw2) else 'DIFFER'}")
+        check(torch.isfinite(dx).all().item() and dx_err <= dx_lim,
+              f"K4 dgrad at {shape}: err {dx_err}")
+        check(torch.isfinite(dw).all().item() and dw_err <= dw_lim,
+              f"K6 at {shape}: err {dw_err}")
+        check(torch.equal(dw, dw2), f"K6 at {shape}: two runs differ")
+        check(bool((dx[~grid.mask] == 0).all()), f"{shape}: dx padding rows")
+        del dw64, dw2
+        flops = 2.0 * pairs * F * Fo
+        nbytes = 4 * (cap * F + cap * Fo + 27 * F * Fo + 27 * cap)
+        b_ms, b_by = bound_ms([(flops, PEAK_F32)], nbytes)
+        fwd_ms = cuda_ms(lambda: kernels.sparse_conv_f32(
+            feats, plan.nbr, w, plan.violations), 2, 5)
+        dx_ms = cuda_ms(lambda: kernels.sparse_conv_f32(
+            gout, plan.nbr, w_rev, zero, dgrad=True), 2, 5)
+        dw_ms = cuda_ms(lambda: kernels.sparse_conv_f32_wgrad(
+            feats, plan.nbr, gout), 2, 5)
+        # the plain version computes both gradients in one pass over the
+        # taps: its time stands beside each kernel
+        plain = cuda_ms(lambda: ws.sparse_conv_bwd_plain(plan, feats, w,
+                                                         gout), 1, 2)
+        print(f"[k4 dgrad] {shape}: kernel {dx_ms:.3f} ms ("
+              f"{flops / dx_ms / 1e9:.2f} TFLOP/s; the forward K4 {fwd_ms:.3f}"
+              f" ms); [k6] kernel {dw_ms:.3f} ms ({flops / dw_ms / 1e9:.2f} "
+              f"TFLOP/s); plain dx + dW {plain:.3f} ms; bound {b_ms:.3f} ms "
+              f"({b_by}, f32 CUDA-core peak); no single library call")
+        common = dict(shape=shape, plain_ms=plain, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None, pairs=pairs)
+        dx_rows.append(dict(common, max_abs_err=dx_err, ms=dx_ms,
+                            k4_forward_ms=fwd_ms))
+        dw_rows.append(dict(common, max_abs_err=dw_err, ms=dw_ms))
+        del feats, gout, dx, dw, ref_dx, ref_dw, plan
+    torch.cuda.empty_cache()
+    # launches made here to compare and time are no main-path launches
+    return dx_rows, dw_rows
+
+
+def vae_grad_check(mods):
+    """``vae_loss`` and every parameter's gradient of the release-width VAE
+    (f_maps 64) on a small scene with reduced capacities: card (K4,
+    K4-dgrad, K6) against the CPU (plain versions), same weights, batch and
+    reparametrize noise. f32 on both sides."""
+    cfg = mods.SparseVAEConfig(neck_dims=(8, 8, 16), neck_ijk_min=(-4, -4, -8),
+                               capacities=(8192, 4096, 1024),
+                               dense_lookup_ijk_min=(-18, -18, -18),
+                               dense_lookup_dims=(36, 36, 36))
+    cpu = mods.SparseStructureVAE(cfg, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(16))
+    card = mods.SparseStructureVAE(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(16)
+    B, N = 2, 3000
+    pts = torch.from_numpy(rng.uniform(-3, 3, (B, N, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 23, (B, N)).astype(np.int32))
+    noise = torch.from_numpy(rng.standard_normal((B, 8, 8, 16, 8),
+                                                 dtype=np.float32))
+    losses, sizes = {}, None
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = model.device
+        mask = torch.ones((B, N), dtype=torch.bool, device=dev)
+        t0 = time.perf_counter()
+        grids = mods.build_hash_tree(cfg, pts.to(dev), mask)
+        sem = mods.majority_label(grids[0], pts.to(dev), labels.to(dev), mask,
+                                  cfg.num_semantic)
+        out = model(grids, sem, noise=noise)
+        loss, metrics = mods.vae_loss(mods.VAELossConfig(), out, grids[0],
+                                      sem)
+        loss.backward()
+        losses[name] = (loss.item(), time.perf_counter() - t0)
+        n_vox = [int(gr.mask.sum()) for gr in grids]
+        check(sizes in (None, n_vox), f"voxels {n_vox} vs {sizes}")
+        check(all(int(gr.num_dropped.sum()) == 0 for gr in grids),
+              "the scene overflows a capacity")
+        sizes = n_vox
+    grads_cpu = {k: p.grad for k, p in cpu.named_parameters()}
+    g_max = max(gr.abs().max().item() for gr in grads_cpu.values())
+    floor = 1e-6 * g_max
+    cosines, zero, bad = {}, {}, []
+    for k, p in card.named_parameters():
+        gr = p.grad
+        if gr is None or not torch.isfinite(gr).all():
+            bad.append(k)
+        elif grads_cpu[k].abs().max().item() < floor:
+            zero[k] = gr.abs().max().item()
+        elif not gr.any():
+            bad.append(k)
+        else:
+            cosines[k] = cos(gr.cpu(), grads_cpu[k])
+    check(not bad, f"parameters without a finite, non-zero gradient: {bad}")
+    order = sorted(cosines, key=cosines.get)
+    vals = np.array([cosines[k] for k in order])
+    rel = abs(losses["card"][0] - losses["cpu"][0]) / abs(losses["cpu"][0])
+    print(f"[model] release-width VAE, voxels per level {sizes} (batch {B}),"
+          f" vae_loss: card {losses['card'][0]:.6f} vs cpu "
+          f"{losses['cpu'][0]:.6f} (relative {rel:.2e}; cpu "
+          f"{losses['cpu'][1]:.1f} s); {len(cosines)} parameter tensors with "
+          f"finite, non-zero gradients; tensors whose reference gradient is "
+          f"below 1e-6 of the largest: {sorted(zero) or 'none'}; gradient "
+          f"cosine card vs cpu: median {np.median(vals):.7f}, worst "
+          f"{vals[0]:.7f}")
+    for k in order[:4]:
+        print(f"[model]   cosine {cosines[k]:.7f}  {k} "
+              f"(|g| max {grads_cpu[k].abs().max().item():.3e})")
+    check(rel <= 1e-4, f"loss {losses}")
+    check(len(zero) <= 2, f"zero reference gradients: {zero}")
+    check(vals[0] >= 0.999, f"worst gradient cosine {vals[0]} ({order[0]})")
+
+
+def vae_train_main_path(kernels, mods):
+    """The VAE trainer's CLI path at the release config: 3 optimizer steps
+    on 200,000-point samples, then a reconstruction with the trained
+    weights."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.inference.voxel_vae import \
+        evaluate_reconstruction
+    from infinicube_tpu_torch.training import loop
+    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
+    ws = mods.window_conv
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vae_")
+    per_step, undo = counting_steps(kernels, loop)
+    plain_calls, plains = [], (ws.sparse_conv_plain, ws.sparse_conv_bwd_plain)
+
+    def no_plain(*a, **kw):
+        plain_calls.append(1)
+        raise RuntimeError("a plain version was called on the card")
+
+    ws.sparse_conv_plain = ws.sparse_conv_bwd_plain = no_plain
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_cli.main(
+            [os.path.join(ROOT, "configs", "train_vae.yaml"), "--name",
+             "smoke", "--logdir", tmp, "--exec", f"max_steps={TRAIN_STEPS}",
+             f"points_per_sample={VAE_POINTS}", "log_every=1",
+             f"ckpt_dir={tmp}/ck"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in state.params.values())
+        logs = [json.loads(line) for line in
+                open(os.path.join(tmp, "smoke.jsonl"))]
+        print(f"[vae train] {n_params:,} parameters, {TRAIN_STEPS} steps at "
+              f"batch 1, {VAE_POINTS:,} points per sample, through "
+              f"train.main in {wall:.1f} s (model build, batches, steps and "
+              f"the final checkpoint), peak {peak:.1f} GiB")
+        check(len(logs) == TRAIN_STEPS and
+              [r["step"] for r in logs] == list(range(1, TRAIN_STEPS + 1)),
+              f"JSONL log {logs}")
+        for r, delta in zip(logs, per_step):
+            vox = [int(r[f"voxels{l}"]) for l in range(3)]
+            print(f"[vae train] step {r['step']}: loss {r['loss']:.4f} "
+                  f"(struct ce {r['struct0_ce']:.3f} {r['struct1_ce']:.3f} "
+                  f"{r['struct2_ce']:.3f}, semantic ce "
+                  f"{r['semantic_ce']:.3f}, kl {r['kl']:.4f}), grad_finite "
+                  f"{r['grad_finite']:.0f}, {r['steps_per_sec']:.3f} steps/s,"
+                  f" active voxels per level {vox}; launches {delta}")
+            check(math.isfinite(r["loss"]) and r["grad_finite"] == 1.0,
+                  f"step {r['step']}: {r}")
+            check(delta == VAE_STEP_LAUNCHES, f"step {r['step']} launches "
+                  f"{delta}, want {VAE_STEP_LAUNCHES}")
+            check(vox[0] > 90_000 and vox[0] > vox[1] > vox[2] > 0,
+                  f"step {r['step']}: active voxels {vox}")
+        check(len(per_step) == TRAIN_STEPS, f"{len(per_step)} steps counted")
+        check(not plain_calls, "a plain version ran on the card")
+        check(state.step == TRAIN_STEPS and state.num_nan_skips == 0,
+              f"step {state.step}, {state.num_nan_skips} skipped")
+        moved = [k for k, p in state.params.items()
+                 if not torch.equal(p.detach(), state.ema.params[k])]
+        print(f"[vae train] {len(moved)} of {len(state.params)} parameter "
+              f"tensors moved in {TRAIN_STEPS} steps")
+        check(len(moved) == len(state.params),
+              f"parameters that did not move: "
+              f"{sorted(set(state.params) - set(moved))[:5]}")
+        mgr = CheckpointManager(os.path.join(tmp, "ck"))
+        check(mgr.all_steps() == [TRAIN_STEPS], f"steps {mgr.all_steps()}")
+        size = os.path.getsize(mgr._path(TRAIN_STEPS))
+        sd = mgr.restore()
+        mu, _ = state.moments()
+        same = all(torch.equal(sd["params"][k], p.detach()) and
+                   torch.equal(sd["ema"]["params"][k], state.ema.params[k])
+                   and torch.equal(sd["mu"][k], mu[k])
+                   for k, p in state.params.items())
+        print(f"[vae train] final checkpoint: {size / 1e6:.1f} MB, read "
+              f"back: parameters, moments and EMA "
+              f"{'identical' if same else 'DIFFER'}")
+        check(same and sd["step"] == TRAIN_STEPS, "checkpoint differs")
+        # reconstruction with the trained weights (random after 3 steps, so
+        # the scores are only held to be finite)
+        vae = mods.SparseStructureVAE(mods.SparseVAEConfig(), device="cuda")
+        vae.load_state_dict(sd["params"])
+        vae.eval().requires_grad_(False)
+        pts, labels = vae_points(17)
+        t0 = time.perf_counter()
+        res = evaluate_reconstruction(vae, pts, labels)
+        torch.cuda.synchronize()
+        print(f"[vae train] evaluate_reconstruction on {VAE_POINTS:,} points "
+              f"({int(res['gt_grid'].mask.sum())} input voxels, "
+              f"{int(res['pred_grid'].mask.sum())} predicted): grid IoU "
+              f"{res['grid_iou']:.4f}, semantic accuracy "
+              f"{res['semantic_acc']:.4f}, {time.perf_counter() - t0:.2f} s")
+        check(math.isfinite(res["grid_iou"]) and
+              math.isfinite(res["semantic_acc"]) and
+              0.0 <= res["grid_iou"] <= 1.0, f"reconstruction {res}")
+        check(not plain_calls, "a plain version ran on the card")
+    finally:
+        undo()
+        ws.sparse_conv_plain, ws.sparse_conv_bwd_plain = plains
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[vae train] main path launches {launches}")
+    return launches
+
+
+def vae_train_time(kernels, mods):
+    """One train step of the release VAE on a 200,000-point sample, split
+    into batch making (grids and labels), conv plans, forward (plans
+    included), backward (of it K4-dgrad and K6, by CUDA events) and
+    optimizer + EMA; then under the profiler; peak memory."""
+    from torch.func import functional_call
+
+    from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
+                                                     grads_finite,
+                                                     make_train_step)
+    cfg, vcfg = TrainConfig(), mods.SparseVAEConfig()
+    model = mods.SparseStructureVAE(vcfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    model.init_params(g)
+    state = TrainState.create(cfg, dict(model.named_parameters()))
+    params = state.params
+    pts, labels = (a.cuda() for a in vae_points(18))
+    mask = torch.ones((1, VAE_POINTS), dtype=torch.bool, device="cuda")
+
+    def make_batch():
+        grids = mods.build_hash_tree(vcfg, pts, mask)
+        return grids, mods.majority_label(grids[0], pts, labels, mask,
+                                          vcfg.num_semantic)
+
+    def loss_fn(p, gen, b):
+        out = functional_call(model, p, b, {"generator": gen})
+        return mods.vae_loss(mods.VAELossConfig(), out, b[0][0], b[1])
+
+    step_fn = make_train_step(cfg, loss_fn)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def optimize():
+        finite = grads_finite([p.grad for p in params.values()])
+        torch.nn.utils.clip_grad_value_(list(params.values()),
+                                        cfg.grad_clip_value)
+        state.opt.step()
+        state.ema.update(params, cfg.ema_decay, apply=finite)
+        return finite
+
+    spans = {"dgrad": [], "wgrad": [], "fwd": []}
+    k4, k6 = kernels.sparse_conv_f32, kernels.sparse_conv_f32_wgrad
+
+    def with_events(fn, key):
+        def wrapped(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans[key(kw)].append(ev)
+            return out
+        return wrapped
+
+    for _ in range(2):                               # warm-up
+        step_fn(state, g, make_batch())
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    (_, step_ms) = timed(lambda: [step_fn(state, g, make_batch())
+                                  for _ in range(3)])
+    step_ms /= 3
+    counts = {k: v // 3 for k, v in kernels.launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(counts == VAE_STEP_LAUNCHES, f"launches per step {counts}")
+    b, batch_ms = timed(make_batch)
+    _, plan_ms = timed(lambda: model.level_plans(b[0]))
+    for p in params.values():
+        p.grad = None
+    kernels.sparse_conv_f32 = with_events(
+        k4, lambda kw: "dgrad" if kw.get("dgrad") else "fwd")
+    kernels.sparse_conv_f32_wgrad = with_events(k6, lambda kw: "wgrad")
+    try:
+        (loss, _), fwd_ms = timed(lambda: loss_fn(params, g, b))
+        _, bwd_ms = timed(loss.backward)
+    finally:
+        kernels.sparse_conv_f32, kernels.sparse_conv_f32_wgrad = k4, k6
+    ms = {k: sum(a.elapsed_time(b_) for a, b_ in v) for k, v in spans.items()}
+    check([len(v) for v in spans.values()] == [24, 24, 24],
+          f"timed launches {[len(v) for v in spans.values()]}")
+    finite, opt_ms = timed(optimize)
+    vox = [int(gr.mask.sum()) for gr in b[0]]
+    print(f"[vae train time] batch 1, {VAE_POINTS:,} points, active voxels "
+          f"per level {vox}: step with its batch {step_ms:.1f} ms "
+          f"({1e3 / step_ms:.2f} steps/s), peak {peak:.2f} GiB; split: batch "
+          f"(hash tree + labels) {batch_ms:.1f} ms, forward {fwd_ms:.1f} ms "
+          f"(of it the 3 conv plans {plan_ms:.1f} ms, the 24 K4 "
+          f"{ms['fwd']:.1f} ms), backward {bwd_ms:.1f} ms (of it the 24 "
+          f"K4-dgrad {ms['dgrad']:.1f} ms, the 24 K6 {ms['wgrad']:.1f} ms), "
+          f"clip + AdamW + EMA + finiteness {opt_ms:.1f} ms (finite "
+          f"{finite}); launches {counts}")
+    del loss
+    profile(lambda: step_fn(state, g, make_batch()), "VAE train step")
+
+
+def vae_train(kernels, dec_grids):
+    """Phases 14-17. Returns the summary entries of K4-dgrad and K6 and the
+    launch counts of the VAE-training main path."""
+    from infinicube_tpu_torch.grid.ops import majority_label
+    from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig,
+                                                       build_hash_tree)
+    from infinicube_tpu_torch.nn.sparse import conv_plan
+    from infinicube_tpu_torch.ops import window_conv
+    mods = types.SimpleNamespace(
+        SparseStructureVAE=SparseStructureVAE,
+        SparseVAEConfig=SparseVAEConfig, build_hash_tree=build_hash_tree,
+        majority_label=majority_label, VAELossConfig=VAELossConfig,
+        vae_loss=vae_loss, conv_plan=conv_plan, window_conv=window_conv)
+    dx_rows, dw_rows = sparse_bwd_checks(kernels, mods, dec_grids,
+                                         SparseVAEConfig())
+    vae_grad_check(mods)
+    torch.cuda.empty_cache()
+    launches = vae_train_main_path(kernels, mods)
+    torch.cuda.empty_cache()
+    vae_train_time(kernels, mods)
+    return {"sparse_conv_f32_dgrad": entry(
+                "sparse_conv_f32_dgrad",
+                "infinicube_tpu_torch/csrc/sparse_conv.cu",
+                "infinicube_tpu/ops/window_conv.py:320", dx_rows, 1),
+            "sparse_conv_f32_wgrad": entry(
+                "sparse_conv_f32_wgrad",
+                "infinicube_tpu_torch/csrc/sparse_conv_bwd.cu",
+                "infinicube_tpu/ops/window_conv.py:252", dw_rows, 1)}, \
+        launches
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -1212,18 +1667,23 @@ def main() -> int:
     # each part frees its models when it returns
     report, serve_launches = wan_serve(kernels, att, fa)
     torch.cuda.empty_cache()
-    stage1_report, stage1_launches = stage1(kernels, att, dense_conv)
+    stage1_report, stage1_launches, dec_grids = stage1(kernels, att,
+                                                       dense_conv)
     torch.cuda.empty_cache()
     train_report, train_launches = diffusion_train(kernels, att, dense_conv)
+    torch.cuda.empty_cache()
+    vae_report, vae_launches = vae_train(kernels, dec_grids)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
     report.update(stage1_report)
     report.update(train_report)
+    report.update(vae_report)
     for name, e in report.items():
         e["paths"] = {"wan_serve": serve_launches[name],
                       "stage1": stage1_launches[name],
-                      "diffusion_train": train_launches[name]}
+                      "diffusion_train": train_launches[name],
+                      "vae_train": vae_launches[name]}
         e["launches"] = sum(e["paths"].values())
         check(e["launches"] > 0, f"{name} never launched on a main path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -1,5 +1,5 @@
 """Grid constructors; counterpart of ``infinicube_tpu/grid/build.py`` for
-what the structure decoder uses.
+what the sparse VAE uses.
 
 Output capacity is fixed by the caller; overflow drops the HIGHEST keys, in
 the JAX package's key order, and reports the count in ``Grid.num_dropped``.
@@ -48,16 +48,46 @@ def grid_from_keys(qkeys: torch.Tensor, capacity: int, voxel_size,
                 origin=as_vec3(origin, qkeys.device), num_dropped=dropped)
 
 
+def grid_from_points(points: torch.Tensor, point_mask: torch.Tensor,
+                     voxel_size, origin, capacity: int) -> Grid:
+    """fvdb gridbatch_from_points: one voxel per occupied cell. points f32
+    [B, N, 3]; point_mask bool [B, N]; ijk = round((p - origin) / vs) in
+    f32, half to even."""
+    vs, org = as_vec3(voxel_size, points.device), \
+        as_vec3(origin, points.device)
+    ijk = torch.round((points - org) / vs).to(torch.int32)
+    return grid_from_keys(K.pack(ijk, point_mask), capacity, vs, org)
+
+
 def grid_from_ijk(ijk: torch.Tensor, mask: torch.Tensor, voxel_size, origin,
                   capacity: int) -> Grid:
     """fvdb gridbatch_from_ijk. ijk int [B, N, 3], mask bool [B, N]."""
     return grid_from_keys(K.pack(ijk, mask), capacity, voxel_size, origin)
 
 
+def _factor3(factor) -> tuple[int, int, int]:
+    fx, fy, fz = (int(f) for f in torch.as_tensor(factor).expand(3))
+    return fx, fy, fz
+
+
+def coarsened_grid(grid: Grid, factor, capacity: int | None = None) -> Grid:
+    """fvdb coarsened_grid: parent ijk = floor(ijk / factor) (voxel
+    coordinates go negative) at voxel_size * factor; the origin shifts by
+    vs * (factor - 1) / 2 so that a parent's centre is the centre of its
+    children."""
+    f = torch.tensor(_factor3(factor), dtype=torch.int32,
+                     device=grid.ijk.device)
+    cijk = torch.div(grid.ijk, f, rounding_mode="floor")
+    vs = grid.voxel_size * f.float()
+    org = grid.origin + grid.voxel_size * (f.float() - 1.0) / 2.0
+    return grid_from_keys(K.pack(cijk, grid.mask), capacity or grid.capacity,
+                          vs, org)
+
+
 def subdivided_grid(grid: Grid, factor, submask: torch.Tensor | None = None,
                     capacity: int | None = None) -> Grid:
     """Each (optionally masked) voxel spawns prod(factor) children."""
-    fx, fy, fz = (int(f) for f in torch.as_tensor(factor).expand(3))
+    fx, fy, fz = _factor3(factor)
     nch = fx * fy * fz
     capacity = capacity or grid.capacity * nch
     dev = grid.ijk.device

@@ -42,6 +42,12 @@ class Grid:
     def grid_to_world(self, ijk: torch.Tensor) -> torch.Tensor:
         return ijk * self.voxel_size + self.origin
 
+    def world_to_ijk(self, points: torch.Tensor) -> torch.Tensor:
+        """Voxel coordinates containing world points (..., 3): round half to
+        even, as ``jnp.round``, of the f32 grid coordinates."""
+        return torch.round((points - self.origin) / self.voxel_size).to(
+            torch.int32)
+
     def voxel_centers(self) -> torch.Tensor:
         """f32 [B, C, 3] world centers of all slots (padding included)."""
         return self.grid_to_world(self.ijk.float())

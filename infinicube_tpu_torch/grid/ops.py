@@ -1,8 +1,9 @@
 """Data-carrying grid ops; counterpart of ``infinicube_tpu/grid/ops.py`` for
-what the structure decoder and the sparse convs use: dense <-> sparse
-gathers and scatters, same-position index maps, the 3x3x3 neighbour table
-and nearest upsampling onto a subdivided grid. Parent indices are floor
-divisions, since voxel coordinates go negative."""
+what the sparse VAE and the sparse convs use: dense <-> sparse gathers and
+scatters, same-position index maps, the 3x3x3 neighbour table, point ->
+voxel reductions, max pooling into a coarser grid and nearest upsampling
+onto a subdivided grid. Parent indices are floor divisions, since voxel
+coordinates go negative."""
 
 from __future__ import annotations
 
@@ -12,8 +13,57 @@ import numpy as np
 import torch
 
 from infinicube_tpu_torch.grid import keys as K
-from infinicube_tpu_torch.grid.build import subdivided_grid
+from infinicube_tpu_torch.grid.build import coarsened_grid, subdivided_grid
 from infinicube_tpu_torch.grid.grid import Grid
+
+
+# Masked-max sentinel. Finite, so that no arithmetic on an empty row makes a
+# NaN; large enough that no feature value reaches it.
+_NEG_SENTINEL = -7.0e37
+
+
+class _ScatterMaxSafe(torch.autograd.Function):
+    """Masked scatter-max with a NaN-safe backward (the reference's
+    ``_scatter_max_safe``). ``flat`` int64 [B, N] target rows (== C drops
+    the entry); ``vals`` f32 [B, N, F], sentinel-filled on masked rows.
+    Returns f32 [B, C, F]; empty rows hold the sentinel. The backward sends
+    each row's gradient to the entries that attain the maximum, split evenly
+    among ties with a guarded division, and nothing to the others."""
+
+    @staticmethod
+    def forward(ctx, flat, vals, C):
+        B, _, F = vals.shape
+        idx = flat[..., None].expand(-1, -1, F)
+        out = torch.full((B, C + 1, F), _NEG_SENTINEL, dtype=vals.dtype,
+                         device=vals.device)
+        out.scatter_reduce_(1, idx, vals, "amax", include_self=True)
+        out = out[:, :C].contiguous()
+        ctx.save_for_backward(flat, vals, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, vals, out = ctx.saved_tensors
+        C, F = out.shape[1], out.shape[2]
+        safe = flat.clamp(0, C - 1)[..., None].expand(-1, -1, F)
+        hit = (vals == torch.gather(out, 1, safe)) & (flat < C)[..., None]
+        ties = torch.zeros((out.shape[0], C + 1, F), dtype=vals.dtype,
+                           device=vals.device)
+        ties.scatter_add_(1, flat[..., None].expand(-1, -1, F),
+                          hit.to(vals.dtype))
+        share = torch.gather(g, 1, safe) / \
+            torch.gather(ties, 1, safe).clamp_min(1.0)
+        return None, torch.where(hit, share, torch.zeros_like(share)), None
+
+
+def _masked_max(flat: torch.Tensor, ok: torch.Tensor, data: torch.Tensor,
+                C: int) -> torch.Tensor:
+    """Max of data [B, N, F] over the entries (ok) that target each of C
+    rows, in f32; 0 for rows that no entry targets."""
+    vals = torch.where(ok[..., None], data.float(),
+                       torch.full((), _NEG_SENTINEL, device=data.device))
+    out = _ScatterMaxSafe.apply(flat, vals, C)
+    return torch.where(out > _NEG_SENTINEL / 2, out, torch.zeros_like(out))
 
 
 def _flat_in_bounds(ijk: torch.Tensor, valid: torch.Tensor, ijk_min,
@@ -127,3 +177,67 @@ def upsample_nearest(grid: Grid, data: torch.Tensor, factor,
         -1, -1, F))
     ok = (pidx >= 0) & fine.mask
     return fine, torch.where(ok[..., None], got, torch.zeros_like(got))
+
+
+def _scatter_sum(flat: torch.Tensor, values: torch.Tensor,
+                 C: int) -> torch.Tensor:
+    """Sum of values [B, N, F] into C rows by flat [B, N] (== C drops)."""
+    out = torch.zeros((values.shape[0], C + 1, values.shape[-1]),
+                      dtype=values.dtype, device=values.device)
+    out = out.scatter_add(1, flat[..., None].expand(-1, -1,
+                                                    values.shape[-1]), values)
+    return out[:, :C]
+
+
+def scatter_to_grid(grid: Grid, points: torch.Tensor, values: torch.Tensor,
+                    point_mask: torch.Tensor,
+                    reduce: str = "sum") -> torch.Tensor:
+    """Reduce per-point values [B, N, F] into the voxel containing each
+    point -> [B, C, F]; reduce in {sum, max, mean}."""
+    idx = grid.ijk_to_index(grid.world_to_ijk(points), point_mask).long()
+    ok = (idx >= 0) & point_mask
+    C = grid.capacity
+    flat = torch.where(ok, idx, torch.full_like(idx, C))
+    if reduce in ("sum", "mean"):
+        out = _scatter_sum(flat, torch.where(ok[..., None], values,
+                                             torch.zeros_like(values)), C)
+        if reduce == "mean":
+            cnt = _scatter_sum(flat, ok[..., None].float(), C)
+            out = out / cnt.clamp_min(1.0)
+        return out
+    if reduce == "max":
+        return _masked_max(flat, ok, values, C).to(values.dtype)
+    raise ValueError(f"unknown reduce {reduce}")
+
+
+def majority_label(grid: Grid, points: torch.Tensor, labels: torch.Tensor,
+                   point_mask: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Per-voxel argmax over one-hot label counts: labels int [B, N] ->
+    int32 [B, C]. Among tied classes the first wins, on every device (the
+    counts are whole numbers, so their sums are exact)."""
+    onehot = torch.nn.functional.one_hot(labels.long(), num_classes).float()
+    votes = scatter_to_grid(grid, points, onehot, point_mask, reduce="sum")
+    best = votes == votes.amax(dim=-1, keepdim=True)
+    cls = torch.arange(num_classes, device=votes.device)
+    return torch.where(best, cls, torch.full_like(cls, num_classes)).amin(
+        dim=-1).to(torch.int32)
+
+
+def max_pool(grid: Grid, data: torch.Tensor, factor,
+             coarse: Grid | None = None, capacity: int | None = None):
+    """fvnn.MaxPool: coarsen the grid and max child data [B, C, F] into the
+    parents. Returns (coarse grid, coarse data). With ``coarse`` (the hash
+    tree's next level) it pools into that grid instead of deriving one.
+    Differentiable in data: the gradient goes to each parent's maximal
+    children, split evenly among ties, and is finite everywhere."""
+    f3 = tuple(int(x) for x in np.broadcast_to(np.asarray(factor), (3,)))
+    if coarse is None:
+        coarse = coarsened_grid(grid, f3, capacity=capacity or grid.capacity)
+    f = torch.tensor(f3, dtype=torch.int32, device=grid.ijk.device)
+    pidx = coarse.ijk_to_index(torch.div(grid.ijk, f, rounding_mode="floor"),
+                               grid.mask).long()
+    ok = (pidx >= 0) & grid.mask
+    flat = torch.where(ok, pidx, torch.full_like(pidx, coarse.capacity))
+    out = _masked_max(flat, ok, data, coarse.capacity).to(data.dtype)
+    return coarse, torch.where(coarse.mask[..., None], out,
+                               torch.zeros_like(out))

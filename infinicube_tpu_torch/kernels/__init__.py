@@ -44,13 +44,16 @@ SIGNATURES = {
     },
     "dense_conv": {"conv3x3x3_bf16": [_P] * 4 + [_I] * 6 + [_P]},
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
+    "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
-# K3 serves two rows of the kernel table, so its launches are counted apart:
-# the forward under its own name, the input gradient under this one
+# K3 and K4 each serve two rows of the kernel table, so their launches are
+# counted apart: the forward under its own name, the input gradient under
+# these
 K3_DGRAD = "conv3x3x3_bf16_dgrad"
+K4_DGRAD = "sparse_conv_f32_dgrad"
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
-                            for name in fns} | {K3_DGRAD: 0}
+                            for name in fns} | {K3_DGRAD: 0, K4_DGRAD: 0}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -288,11 +291,14 @@ def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-                    poison: torch.Tensor) -> torch.Tensor:
+                    poison: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
     """K4: out[b, m] = sum_t feats[b, nbr[b, m, t]] @ w[t] over present
     taps (nbr -1 = absent); every row of batch b is NaN where poison[b] != 0.
     feats f32 [B, C, F]; nbr int32 [B, C, 27]; w f32 [27, F, Fo]; poison
-    int32 [B]; F and Fo multiples of 4. Returns f32 [B, C, Fo]."""
+    int32 [B]; F and Fo multiples of 4. Returns f32 [B, C, Fo]. With
+    ``dgrad`` the call is the conv's input gradient (feats the output
+    gradient, w the reversed, transposed weights, poison zeros) and is
+    counted under ``K4_DGRAD``."""
     _check_cuda(feats, nbr, w, poison)
     if feats.dim() != 3 or w.dim() != 3:
         raise ValueError(f"feats [B, C, F] and w [27, F, Fo], got "
@@ -309,5 +315,43 @@ def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     out = torch.empty((B, C, Fo), dtype=torch.float32, device=feats.device)
     _run("sparse_conv", "sparse_conv_f32", feats.device, feats.data_ptr(),
          nbr.data_ptr(), w.data_ptr(), poison.data_ptr(), out.data_ptr(), B,
-         C, F, Fo)
+         C, F, Fo, count_as=K4_DGRAD if dgrad else None)
     return out
+
+
+def wgrad_rows_per_split(rows: int) -> int:
+    """Voxel rows per partial sum of K6: 2,048, or more (a multiple of 16)
+    so that at most 64 partials exist. A function of the shape only, so the
+    summation order is fixed."""
+    return max(2048, -(-rows // (64 * 16)) * 16)
+
+
+def sparse_conv_f32_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
+                          g: torch.Tensor) -> torch.Tensor:
+    """K6: dw[t] = sum_{b, m} feats[b, nbr[b, m, t]]^T g[b, m] over present
+    taps, the weight gradient of K4. feats f32 [B, C, F]; nbr int32
+    [B, C, 27]; g f32 [B, C, Fo]; F and Fo multiples of 4. Returns f32
+    [27, F, Fo], bit-identical from run to run (partial sums over fixed row
+    ranges, reduced in a fixed order by a second kernel; one call launches
+    both and counts once)."""
+    _check_cuda(feats, nbr, g)
+    if feats.dim() != 3 or g.dim() != 3:
+        raise ValueError(f"feats [B, C, F] and g [B, C, Fo], got "
+                         f"{tuple(feats.shape)}, {tuple(g.shape)}")
+    B, C, F = feats.shape
+    Fo = g.shape[2]
+    if F % 4 or Fo % 4 or min(B, C, F, Fo) < 1:
+        raise ValueError(f"sparse_conv_f32_wgrad takes F, Fo multiples of 4, "
+                         f"got {F} -> {Fo}")
+    _check_dense(feats, "feats", (B, C, F), torch.float32)
+    _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
+    _check_dense(g, "g", (B, C, Fo), torch.float32)
+    per = wgrad_rows_per_split(B * C)
+    splits = -(-B * C // per)
+    partial = torch.empty((splits, 27, F, Fo), dtype=torch.float32,
+                          device=feats.device)
+    dw = torch.empty((27, F, Fo), dtype=torch.float32, device=feats.device)
+    _run("sparse_conv_bwd", "sparse_conv_f32_wgrad", feats.device,
+         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(),
+         dw.data_ptr(), B, C, F, Fo, per)
+    return dw

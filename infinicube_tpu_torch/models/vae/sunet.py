@@ -4,15 +4,17 @@
 The module holds the JAX module's whole parameter tree under the flax names
 (``featurizer``, ``enc{l}_{i}``, ``neck``, ``dec{l}_{i}``, ``struct{l}``,
 ``sem_head``), so ``weights/from_jax.sparse_vae_from_jax`` loads it strictly.
-Ported so far: the inference branch of ``decode`` (latents -> dense neck ->
-per-level struct decisions that grow a capacity-bounded sparse grid ->
-semantic logits on the finest grid), with the subpixel struct heads and the
-unstable-structure cutoff. ``encode`` (it needs ``max_pool``'s scatter-max),
-the teacher-forced training branch, the normal and color heads and the
-attention levels (all off at release) wait.
+Ported: the hash tree, the voxel featurizer, ``encode`` (sparse res blocks
+with max pooling into the hash tree's next level, then the dense neck), ``reparametrize``
+with injectable noise, both branches of ``decode`` (inference: per-level
+struct decisions grow a capacity-bounded sparse grid, under ``no_grad``;
+training: teacher forcing on the hash tree's grids and plans, returning the
+per-level struct triples) and ``forward``. The normal and color heads, the
+attention levels and the featurizer's ``extra_feats`` (all off at release)
+wait.
 
-The sparse convs of the decoder are K4 on the card; the release VAE
-computes in f32 end to end."""
+The sparse convs are K4 on the card, their gradients K4 again and K6; the
+release VAE computes in f32 end to end."""
 
 from __future__ import annotations
 
@@ -26,9 +28,11 @@ from torch import nn
 
 from infinicube_tpu_torch.device import resolve_device
 from infinicube_tpu_torch.grid import keys as GK
-from infinicube_tpu_torch.grid.build import grid_from_keys
+from infinicube_tpu_torch.grid.build import (coarsened_grid, grid_from_keys,
+                                             grid_from_points)
 from infinicube_tpu_torch.grid.grid import Grid
-from infinicube_tpu_torch.grid.ops import (index_map, read_from_dense,
+from infinicube_tpu_torch.grid.ops import (index_map, max_pool,
+                                           read_from_dense, to_dense,
                                            upsample_nearest)
 from infinicube_tpu_torch.nn.layers import Dense, conv3d_ndhwc, lecun_normal_
 from infinicube_tpu_torch.nn.sparse import (GroupNormSparse, SparseConv3d,
@@ -77,16 +81,51 @@ class SparseVAEConfig:
                 tuple(int(v) for v in (mx - mn + 1)))
 
 
+def build_hash_tree(cfg: SparseVAEConfig, points: torch.Tensor,
+                    point_mask: torch.Tensor) -> list[Grid]:
+    """Grid pyramid [G0 (finest) ... G_L (coarsest)] from input points
+    [B, N, 3] and their mask [B, N]."""
+    g = grid_from_points(points, point_mask, cfg.finest_voxel_size,
+                         cfg.origin, capacity=cfg.capacities[0])
+    grids = [g]
+    for lvl, f in enumerate(cfg.pooling_factors):
+        g = coarsened_grid(g, tuple(f), capacity=cfg.capacities[lvl + 1])
+        grids.append(g)
+    return grids
+
+
+def posenc(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
+    """NeRF positional encoding incl. identity."""
+    out = [x]
+    for i in range(num_freqs):
+        out.append(torch.sin(x * (2.0 ** i)))
+        out.append(torch.cos(x * (2.0 ** i)))
+    return torch.cat(out, dim=-1)
+
+
 class VoxelFeaturizer(nn.Module):
-    """posenc(world xyz) + semantic embedding -> c_dim (parameters only: it
-    feeds ``encode``, which waits)."""
+    """posenc(world xyz) + semantic embedding -> c_dim features per voxel."""
 
     def __init__(self, cfg: SparseVAEConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.Embed_0 = nn.Embedding(cfg.num_semantic, cfg.sem_embed_dim,
                                     device=device)
         self.Dense_0 = Dense(3 * (1 + 2 * cfg.posenc_freqs) +
                              cfg.sem_embed_dim, cfg.c_dim, device=device)
+
+    def forward(self, grid: Grid, semantics: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dev = grid.ijk.device
+        # normalize by the crop extent for stable scales
+        extent = torch.tensor(cfg.neck_dims, dtype=torch.float32,
+                              device=dev) * \
+            torch.tensor(cfg.finest_voxel_size, dtype=torch.float32,
+                         device=dev) * 4.0
+        pe = posenc(grid.voxel_centers() / extent, cfg.posenc_freqs)
+        sem = self.Embed_0(semantics.long().clamp(0, cfg.num_semantic - 1))
+        h = self.Dense_0(torch.cat([pe, sem], dim=-1))
+        return torch.where(grid.mask[..., None], h, torch.zeros_like(h))
 
 
 class DenseNeck(nn.Module):
@@ -101,6 +140,16 @@ class DenseNeck(nn.Module):
                                   device=device)
         self.post = nn.Conv3d(cfg.latent_channels, c, 3, device=device)
         self.dtype = cfg.dtype
+
+    def encode(self, dense: torch.Tensor):
+        """Dense [B, D, H, W, c] -> (mu, logvar), each [B, D, H, W, latent]
+        f32; logvar clipped to [-30, 20]."""
+        h = F.silu(conv3d_ndhwc(dense, self.pre.weight, self.pre.bias,
+                                self.dtype, padding=1))
+        stats = conv3d_ndhwc(h, self.to_stats.weight, self.to_stats.bias,
+                             torch.float32)
+        mu, logvar = stats.chunk(2, dim=-1)
+        return mu, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return F.silu(conv3d_ndhwc(z, self.post.weight, self.post.bias,
@@ -125,8 +174,7 @@ def compact_dense_to_grid(occ_mask: torch.Tensor, cfg: SparseVAEConfig,
 
 
 class SparseStructureVAE(nn.Module):
-    """The VAE's parameters and its inference decode. Built on the card
-    unless ``device="cpu"``."""
+    """The full VAE. Built on the card unless ``device="cpu"``."""
 
     def __init__(self, cfg: SparseVAEConfig = SparseVAEConfig(),
                  device="cuda"):
@@ -154,6 +202,9 @@ class SparseStructureVAE(nn.Module):
                 fin, fout = lf(l), 2
             setattr(self, f"struct{l}", Dense(fin, fout, device=dev))
         self.sem_head = Dense(lf(0), cfg.num_semantic, device=dev)
+
+    def enc_blocks(self, level: int) -> list[SparseResBlock]:
+        return [getattr(self, f"enc{level}_{i}") for i in range(2)]
 
     def dec_blocks(self, level: int) -> list[SparseResBlock]:
         return [getattr(self, f"dec{level}_{i}") for i in range(2)]
@@ -188,26 +239,88 @@ class SparseStructureVAE(nn.Module):
         return (torch.tensor(vs, dtype=torch.float32, device=self.device),
                 torch.tensor(org, dtype=torch.float32, device=self.device))
 
-    @torch.no_grad()
-    def decode(self, z: torch.Tensor) -> dict:
+    def level_plans(self, grids: list[Grid]) -> list:
+        """The conv plan of every level of a hash tree."""
+        return [conv_plan(g, dense_bounds=self.cfg.level_dense_bounds(l))
+                for l, g in enumerate(grids)]
+
+    # ------------------------------------------------------------------ enc
+    def encode(self, grids: list[Grid], semantics: torch.Tensor,
+               plans: list | None = None):
+        """grids: hash tree [G0..G_L]; semantics int [B, C0] on G0. Returns
+        (mu, logvar), dense [B, D, H, W, latent]. ``plans``: the conv plan
+        of every level, shared with the teacher-forced decoder."""
+        cfg = self.cfg
+        plans = plans if plans is not None else self.level_plans(grids)
+        h = self.featurizer(grids[0], semantics.to(self.device))
+        for l, g in enumerate(grids):
+            for blk in self.enc_blocks(l):
+                h = blk(h.to(cfg.dtype), plans[l], g.mask)
+            if l < len(cfg.pooling_factors):
+                _, h = max_pool(g, h, cfg.pooling_factors[l],
+                                coarse=grids[l + 1])
+        dense = to_dense(grids[-1], h.float(), cfg.neck_ijk_min,
+                         cfg.neck_dims)
+        return self.neck.encode(dense)
+
+    @staticmethod
+    def reparametrize(mu: torch.Tensor, logvar: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      noise: torch.Tensor | None = None) -> torch.Tensor:
+        """mu + exp(logvar / 2) * noise; the noise is the given tensor or a
+        standard-normal draw from ``generator``."""
+        if noise is None:
+            noise = torch.randn(mu.shape, generator=generator,
+                                device=mu.device, dtype=mu.dtype)
+        return mu + torch.exp(0.5 * logvar) * noise.to(mu.device, mu.dtype)
+
+    # ------------------------------------------------------------------ dec
+    def decode(self, z: torch.Tensor, guide_grids: list[Grid] | None = None,
+               guide_plans: list | None = None) -> dict:
         """Latents [B, D, H, W, latent] (the dense neck cube) -> dict with
         ``grid`` (finest Grid), ``grids`` (the grid of every level, coarsest
-        first), ``semantic_logits`` [B, C0, num_semantic] and ``features``
-        [B, C0, f_maps]."""
+        first), ``semantic_logits`` [B, C0, num_semantic], ``features``
+        [B, C0, f_maps] and ``struct``.
+
+        Inference (``guide_grids`` None) runs under ``no_grad``: predicted
+        masks grow the grid, and ``struct`` is empty. Training
+        (``guide_grids`` = the hash tree) is teacher-forced and
+        differentiable: the pruned grid at each level equals the hash
+        tree's (every voxel's parent is in the tree), so its grids and
+        their conv plans (``guide_plans``) are reused, and
+        ``struct`` lists per level, coarsest first, (logits [B, Ck, 2],
+        target bool, candidate mask)."""
+        if guide_grids is None:
+            with torch.no_grad():
+                return self._decode(z, None, None)
+        return self._decode(z, guide_grids, guide_plans)
+
+    def _decode(self, z, guide_grids, guide_plans) -> dict:
         cfg = self.cfg
         L = cfg.tree_depth
+        forced = guide_grids is not None
         z = z.to(self.device)
         B = z.shape[0]
         h_dense = self.neck.decode(z).float()
         logits_top = self.struct_head(L - 1)(h_dense)
-        vs, org = self._level_voxel_size(L - 1)
-        grid = compact_dense_to_grid(logits_top.argmax(-1) > 0, cfg,
-                                     cfg.capacities[L - 1], vs, org)
+        struct_out = []
+        if forced:
+            grid = guide_grids[L - 1]
+            occ = to_dense(grid, grid.mask[..., None].float(),
+                           cfg.neck_ijk_min, cfg.neck_dims)[..., 0] > 0
+            struct_out.append((logits_top.reshape(B, -1, 2),
+                               occ.reshape(B, -1),
+                               torch.ones_like(occ.reshape(B, -1))))
+        else:
+            vs, org = self._level_voxel_size(L - 1)
+            grid = compact_dense_to_grid(logits_top.argmax(-1) > 0, cfg,
+                                         cfg.capacities[L - 1], vs, org)
         h = read_from_dense(grid, h_dense, cfg.neck_ijk_min)
         del h_dense, logits_top
         grids = [grid]
         for l in range(L - 1, -1, -1):
-            plan = conv_plan(grid, dense_bounds=cfg.level_dense_bounds(l))
+            plan = guide_plans[l] if forced and guide_plans is not None \
+                else conv_plan(grid, dense_bounds=cfg.level_dense_bounds(l))
             for blk in self.dec_blocks(l):
                 h = blk(h.to(cfg.dtype), plan, grid.mask)
             if l == 0:
@@ -230,20 +343,13 @@ class SparseStructureVAE(nn.Module):
             ok = (pidx >= 0) & cand.mask
             logits = torch.where(ok[..., None], logits,
                                  torch.zeros_like(logits))
-            keep = (logits.argmax(-1) > 0) & cand.mask
-            if cfg.unstable_cutoff:
-                # runaway-structure guard: drop the decision where the
-                # predicted occupancy exceeds the threshold share of the
-                # dense bound at the candidate level
-                bound = float(np.prod(cfg.neck_dims))
-                for fac in cfg.pooling_factors[l - 1:]:
-                    bound *= float(np.prod(fac))
-                ratio = keep.sum(dim=1) / bound
-                keep = keep & (ratio[:, None] <= cfg.unstable_cutoff_threshold)
-            kept = torch.where(keep, cand.keys,
-                               torch.full_like(cand.keys, GK.INVALID_KEY))
-            new_grid = grid_from_keys(kept, cfg.capacities[l - 1],
-                                      cand.voxel_size, cand.origin)
+            if forced:
+                # teacher forcing: the surviving set is the hash tree's grid
+                new_grid = guide_grids[l - 1]
+                member = index_map(cand, new_grid) >= 0
+                struct_out.append((logits, member & cand.mask, cand.mask))
+            else:
+                new_grid = self._pruned_grid(logits, cand, l)
             move = index_map(new_grid, cand).long()
             h = torch.gather(h_cand, 1, move.clamp_min(0)[..., None].expand(
                 -1, -1, h_cand.shape[-1]))
@@ -251,4 +357,39 @@ class SparseStructureVAE(nn.Module):
             grid = new_grid
             grids.append(grid)
         return {"grid": grid, "grids": grids,
-                "semantic_logits": self.sem_head(h.float()), "features": h}
+                "semantic_logits": self.sem_head(h.float()), "features": h,
+                "struct": struct_out}
+
+    def _pruned_grid(self, logits: torch.Tensor, cand: Grid,
+                     level: int) -> Grid:
+        """The candidates of ``cand`` (the subdivision of level ``level``)
+        that the struct head keeps, re-compacted to the next finer level's
+        capacity."""
+        cfg = self.cfg
+        keep = (logits.argmax(-1) > 0) & cand.mask
+        if cfg.unstable_cutoff:
+            # runaway-structure guard: drop the decision where the
+            # predicted occupancy exceeds the threshold share of the
+            # dense bound at the candidate level
+            bound = float(np.prod(cfg.neck_dims))
+            for fac in cfg.pooling_factors[level - 1:]:
+                bound *= float(np.prod(fac))
+            ratio = keep.sum(dim=1) / bound
+            keep = keep & (ratio[:, None] <= cfg.unstable_cutoff_threshold)
+        kept = torch.where(keep, cand.keys,
+                           torch.full_like(cand.keys, GK.INVALID_KEY))
+        return grid_from_keys(kept, cfg.capacities[level - 1],
+                              cand.voxel_size, cand.origin)
+
+    # ------------------------------------------------------------- combined
+    def forward(self, grids: list[Grid], semantics: torch.Tensor,
+                generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None) -> dict:
+        """Encode, reparametrize (``noise`` given, or drawn from
+        ``generator``) and decode teacher-forced on the same grids and
+        plans."""
+        plans = self.level_plans(grids)
+        mu, logvar = self.encode(grids, semantics, plans=plans)
+        z = self.reparametrize(mu, logvar, generator, noise)
+        dec = self.decode(z, guide_grids=grids, guide_plans=plans)
+        return {"mu": mu, "logvar": logvar, "z": z, **dec}

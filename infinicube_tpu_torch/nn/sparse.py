@@ -3,7 +3,8 @@ the window/gather contract (the brick backend is not ported).
 
 - ``SparseConv3d``: 3x3x3 submanifold conv with kernel [27, F_in, F_out] in
   ``neighbor_offsets`` tap order, the JAX parameter layout, on a
-  ``ConvPlan``; K4 on the card, the gather version on the CPU.
+  ``ConvPlan``; K4 (and K4 again and K6 for its gradients) on the card, the
+  gather versions on the CPU.
 - ``GroupNormSparse``: masked per-sample statistics over active voxels.
 - ``SparseResBlock``: GroupNorm -> SiLU -> conv, twice, with a skip.
 Padding rows stay exactly zero through every layer."""
@@ -43,13 +44,6 @@ class SparseConv3d(nn.Module):
 
     def forward(self, feats: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
         dt = self.dtype
-        if feats.is_cuda and torch.is_grad_enabled() and (
-                feats.requires_grad or self.kernel.requires_grad):
-            raise NotImplementedError(
-                "SparseConv3d has no gradient on the card yet: K4's dx and "
-                "dW kernels (the window conv's _wc_bwd and _dw_core) are "
-                "still to be ported, ROADMAP section 2; run it under "
-                "torch.no_grad() with parameters that need no gradient")
         out = window_sparse_conv(plan, feats.to(dt), self.kernel.to(dt))
         return out + self.bias.to(dt)
 

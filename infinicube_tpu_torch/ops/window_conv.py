@@ -1,19 +1,30 @@
-"""Sparse submanifold 3x3x3 convolution on voxel rows: kernel K4 on the
-card, the plain gather version on the CPU.
+"""Sparse submanifold 3x3x3 convolution on voxel rows, forward and backward:
+kernels K4 and K6 on the card, the plain gather versions on the CPU.
 
 Counterpart of ``window_sparse_conv`` in ``infinicube_tpu/ops/window_conv.py``
-(forward). There a window plan (directional windows, one-hot selection
-matmuls and a miss list replayed by an exact fallback) works around the
-TPU's slow gathers. Here the plan is the neighbour table itself: ``ConvPlan``
-holds ``int32 [B, C, 27]`` slot indices from ``grid.ops.neighbor_indexes``
-(built on the card over the declared dense bounds) and the per-batch count of
-active voxels outside those bounds. K4 (``sparse_conv_f32``,
-csrc/sparse_conv.cu) gathers the neighbour rows itself, so nothing is missed
-and there is no fallback.
+and its ``custom_vjp``. There a window plan (directional windows, one-hot
+selection matmuls and a miss list replayed by an exact fallback) works around
+the TPU's slow gathers. Here the plan is the neighbour table itself:
+``ConvPlan`` holds ``int32 [B, C, 27]`` slot indices from
+``grid.ops.neighbor_indexes`` (built on the card over the declared dense
+bounds) and the per-batch count of active voxels outside those bounds. K4
+(``sparse_conv_f32``, csrc/sparse_conv.cu) gathers the neighbour rows itself,
+so nothing is missed and there is no fallback.
+
+When a gradient is asked for, a ``torch.autograd.Function`` runs the forward
+and, as the JAX ``_wc_bwd`` does, the input gradient as the same stencil on
+the output gradient with the reversed, transposed weights (the neighbour
+relation is symmetric: ``nbr(m, t) = n`` iff ``nbr(n, 26 - t) = m``), K4 again
+on the card, and the weight gradient ``dw[t] = sum feats[nbr(., t)]^T g``,
+K6 (``sparse_conv_f32_wgrad``, csrc/sparse_conv_bwd.cu) on the card. On the
+CPU both come from ``sparse_conv_bwd_plain``. A CUDA tensor never takes a
+plain version.
 
 The loud policy stays: a batch element whose active voxels fall outside the
-declared dense bounds (its lookup would be wrong) gets NaN in every row, as
-an overflowed window plan does in JAX."""
+declared dense bounds (its lookup would be wrong) gets NaN in every row of
+the forward output, as an overflowed window plan does in JAX; as there, the
+backward itself poisons nothing (the NaN output has made the loss NaN
+already)."""
 
 from __future__ import annotations
 
@@ -57,12 +68,32 @@ def sparse_conv_plain(plan: ConvPlan, feats: torch.Tensor,
                        torch.full_like(out, float("nan")), out)
 
 
-def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor,
-                       w: torch.Tensor) -> torch.Tensor:
-    """Sparse submanifold 3^3 conv: feats [B, C, F], w [27, F, Fo]
-    (``neighbor_offsets`` tap order, SparseConv3d's kernel layout) ->
-    [B, C, Fo]. Rows of a batch element with dense-bounds violations are NaN.
-    On the card feats and w must be f32."""
+def rev_w(w: torch.Tensor) -> torch.Tensor:
+    """The transposed stencil: ``w_rev[t] = w[26 - t].T`` ([27, F, Fo] ->
+    [27, Fo, F]; offsets negate under reversal of the row-major 3^3 tap
+    list)."""
+    return w.flip(0).transpose(1, 2)
+
+
+def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,
+                          w: torch.Tensor, g: torch.Tensor):
+    """(dx, dw) of the conv for the output gradient g [B, C, Fo], written as
+    the reference's ``_wc_bwd``: dx[m] = sum_t g[nbr(m, t)] @ w_rev[t]
+    (nothing poisoned), dw[t] = sum over batch and rows of
+    feats[nbr(., t)]^T g."""
+    w_rev = rev_w(w)
+    dx = torch.zeros_like(feats)
+    dw = []
+    for t in range(w.shape[0]):
+        dx = dx + gather_neighbor_features(g, plan.nbr, t) @ w_rev[t]
+        tap = gather_neighbor_features(feats, plan.nbr, t)
+        dw.append(tap.reshape(-1, tap.shape[-1]).t() @
+                  g.reshape(-1, g.shape[-1]))
+    return dx, torch.stack(dw)
+
+
+def _forward(plan: ConvPlan, feats: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
     if feats.is_cuda:
         return kernels.sparse_conv_f32(
             feats.contiguous(), plan.nbr.contiguous(), w.contiguous(),
@@ -70,3 +101,48 @@ def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor,
     if feats.device.type != "cpu":
         raise ValueError(f"unsupported device {feats.device}")
     return sparse_conv_plain(plan, feats, w)
+
+
+class _WindowSparseConv(torch.autograd.Function):
+    """K4 forward; backward K4 on the output gradient with ``rev_w(w)`` and
+    no poison for dx, K6 for dw (the plain versions on the CPU), each only
+    when asked for."""
+
+    @staticmethod
+    def forward(ctx, feats, w, plan):
+        ctx.plan, ctx.on_card = plan, feats.is_cuda
+        ctx.save_for_backward(feats, w)
+        return _forward(plan, feats, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, w = ctx.saved_tensors
+        plan = ctx.plan
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        g = g.to(feats.dtype).contiguous()
+        if not ctx.on_card:
+            dx, dw = sparse_conv_bwd_plain(plan, feats, w, g)
+            return (dx if need_dx else None, dw if need_dw else None, None)
+        dx = dw = None
+        nbr = plan.nbr.contiguous()
+        if need_dx:
+            # rebuilt per call (27 * F * Fo values), so it follows every
+            # in-place update of the weight
+            dx = kernels.sparse_conv_f32(
+                g, nbr, rev_w(w).contiguous(),
+                torch.zeros_like(plan.violations, dtype=torch.int32),
+                dgrad=True)
+        if need_dw:
+            dw = kernels.sparse_conv_f32_wgrad(feats.contiguous(), nbr, g)
+        return dx, dw, None
+
+
+def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """Sparse submanifold 3^3 conv: feats [B, C, F], w [27, F, Fo]
+    (``neighbor_offsets`` tap order, SparseConv3d's kernel layout) ->
+    [B, C, Fo], differentiable in feats and w. Rows of a batch element with
+    dense-bounds violations are NaN. On the card feats and w must be f32."""
+    if torch.is_grad_enabled() and (feats.requires_grad or w.requires_grad):
+        return _WindowSparseConv.apply(feats, w, plan)
+    return _forward(plan, feats, w)

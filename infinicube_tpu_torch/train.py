@@ -6,14 +6,16 @@ logger selection, checkpoint auto-resume. Runs on the card unless
 ``main(argv, device="cpu")``.
 
 Ported so far: the voxel-diffusion trainer on the synthetic latent stream
-(what the JAX CLI trains on when no ``data.root`` is configured). Real data
-(``data.root``: the Waymo clips, the frozen VAE's ``encode``,
-``scale_by_std``) and the VAE and GSM trainers raise
-``NotImplementedError``.
+and the sparse-VAE trainer on the synthetic point stream (what the JAX CLI
+trains on when no ``data.root`` is configured). Real data (``data.root``: the
+Waymo clips, ``vae_batches``, ``diffusion_batches``, ``scale_by_std``) and
+the GSM trainer raise ``NotImplementedError``.
 
 Usage:
   python -m infinicube_tpu_torch.train configs/train_diffusion.yaml \\
       --name myrun --exec batch_size=1 max_steps=3
+  python -m infinicube_tpu_torch.train configs/train_vae.yaml \\
+      --name myvae --exec max_steps=3 points_per_sample=200000
 """
 
 from __future__ import annotations
@@ -29,10 +31,23 @@ from infinicube_tpu_torch.training.logging import make_logger
 from infinicube_tpu_torch.training.loop import LoopConfig, train
 from infinicube_tpu_torch.training.state import TrainConfig
 
-_WAITS = ("not ported yet: {what} (ROADMAP section 1, items 8, 17 and 18: "
-          "the VAE encode, the training data glue and the Waymo data path)")
+_WAITS = ("not ported yet: {what} (ROADMAP section 1, items 17 and 18: the "
+          "training data glue and the Waymo data path)")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def _dataclass_kwargs(section) -> dict:
+    """A YAML section as keyword arguments of a frozen config dataclass:
+    lists become tuples and a ``dtype`` name the torch type."""
+    kw = {k: _tuples(v) for k, v in section.items()}
+    if isinstance(kw.get("dtype"), str):
+        kw["dtype"] = _DTYPES[kw["dtype"]]
+    return kw
 
 
 def build_diffusion(cfg: Config, device: torch.device):
@@ -42,11 +57,7 @@ def build_diffusion(cfg: Config, device: torch.device):
     if cfg.get_path("data.root"):
         raise NotImplementedError(_WAITS.format(
             what="diffusion training on real data (data.root)"))
-    kw = {k: tuple(v) if isinstance(v, list) else v
-          for k, v in cfg.get_path("diffusion", {}).items()}
-    if isinstance(kw.get("dtype"), str):
-        kw["dtype"] = _DTYPES[kw["dtype"]]
-    dc = DiffusionConfig(**kw)
+    dc = DiffusionConfig(**_dataclass_kwargs(cfg.get_path("diffusion", {})))
     model = VoxelDiffusion(dc, device=device, trainable=True)
     model.init_params(torch.Generator(device=device).manual_seed(
         cfg.get_path("seed", 0)))
@@ -70,9 +81,58 @@ def build_diffusion(cfg: Config, device: torch.device):
 
 
 def build_vae(cfg: Config, device: torch.device):
-    raise NotImplementedError(_WAITS.format(
-        what="the VAE trainer (it also needs the sparse conv's gradient "
-        "kernels, ROADMAP section 2)"))
+    """(params, loss_fn, batches) of the sparse-VAE trainer: hash-tree
+    batches from uniform points in a +-5 m cube with random labels, drawn
+    from ``numpy.random.default_rng(0)`` in the JAX CLI's order (its first
+    draw shapes the parameters and is not trained on, so it is drawn and
+    dropped here too). The metrics carry the active voxels of every level
+    as ``voxels{l}``."""
+    from torch.func import functional_call
+
+    from infinicube_tpu_torch.grid.ops import majority_label
+    from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
+    from infinicube_tpu_torch.models.vae.sunet import (
+        SparseStructureVAE, SparseVAEConfig, build_hash_tree)
+    if cfg.get_path("data.root"):
+        raise NotImplementedError(_WAITS.format(
+            what="VAE training on real data (data.root)"))
+    vc = SparseVAEConfig(**_dataclass_kwargs(cfg.get_path("vae", {})))
+    lcfg = VAELossConfig(**cfg.get_path("vae_loss", {}))
+    model = SparseStructureVAE(vc, device=device)
+    model.init_params(torch.Generator(device=device).manual_seed(
+        cfg.get_path("seed", 0)))
+    rng0 = np.random.default_rng(0)
+    B = cfg.get_path("batch_size", 1)
+    N = cfg.get_path("points_per_sample", 2048)
+
+    def draw():
+        pts = rng0.uniform(-5, 5, (B, N, 3)).astype(np.float32)
+        labels = rng0.integers(0, vc.num_semantic, (B, N)).astype(np.int32)
+        return pts, labels
+
+    def make_batch():
+        pts, labels = (torch.from_numpy(a).to(device) for a in draw())
+        mask = torch.ones((B, N), dtype=torch.bool, device=device)
+        grids = build_hash_tree(vc, pts, mask)
+        sem = majority_label(grids[0], pts, labels, mask, vc.num_semantic)
+        return grids, sem
+
+    draw()
+
+    def loss_fn(params, generator, batch):
+        grids, sem = batch
+        out = functional_call(model, params, (grids, sem),
+                              {"generator": generator})
+        loss, metrics = vae_loss(lcfg, out, grids[0], sem)
+        for l, g in enumerate(grids):
+            metrics[f"voxels{l}"] = g.mask.sum() / g.batch_size
+        return loss, metrics
+
+    def batches():
+        while True:
+            yield make_batch()
+
+    return dict(model.named_parameters()), loss_fn, batches()
 
 
 def build_gsm(cfg: Config, device: torch.device):

@@ -95,6 +95,19 @@ def unet_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return _convert(p)
 
 
+def _train_state_from_jax(convert, params: dict, mu: dict, nu: dict,
+                          count: int, step: int, num_nan_skips: int,
+                          ema_params: dict | None, ema_step: int) -> dict:
+    if int(count) != int(step) - int(num_nan_skips):
+        raise ValueError(f"Adam count {count} != step {step} - skips "
+                         f"{num_nan_skips}")
+    return {"step": int(step), "num_nan_skips": int(num_nan_skips),
+            "params": convert(params), "mu": convert(mu), "nu": convert(nu),
+            "ema": None if ema_params is None else
+            {"params": convert(ema_params), "step": int(ema_step)},
+            "rng_state": None}
+
+
 def diffusion_train_state_from_jax(params: dict, mu: dict, nu: dict,
                                    count: int, step: int,
                                    num_nan_skips: int,
@@ -107,20 +120,24 @@ def diffusion_train_state_from_jax(params: dict, mu: dict, nu: dict,
     with their ``count``, the EMA shadow with its step, ``step`` and
     ``num_nan_skips``. The port derives Adam's count as ``step -
     num_nan_skips``, so ``count`` must equal it."""
-    if int(count) != int(step) - int(num_nan_skips):
-        raise ValueError(f"Adam count {count} != step {step} - skips "
-                         f"{num_nan_skips}")
-    return {"step": int(step), "num_nan_skips": int(num_nan_skips),
-            "params": unet_from_jax(params), "mu": unet_from_jax(mu),
-            "nu": unet_from_jax(nu),
-            "ema": None if ema_params is None else
-            {"params": unet_from_jax(ema_params), "step": int(ema_step)},
-            "rng_state": None}
+    return _train_state_from_jax(unet_from_jax, params, mu, nu, count, step,
+                                 num_nan_skips, ema_params, ema_step)
 
 
 def sparse_vae_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """SparseStructureVAE params."""
     return _convert(_params(tree))
+
+
+def vae_train_state_from_jax(params: dict, mu: dict, nu: dict, count: int,
+                             step: int, num_nan_skips: int,
+                             ema_params: dict | None = None,
+                             ema_step: int = 0) -> dict:
+    """``diffusion_train_state_from_jax`` for the sparse-VAE trainer: every
+    tree is re-laid out by ``sparse_vae_from_jax``, so gradients and Adam
+    moments given in the flax layout compare name by name with the port's."""
+    return _train_state_from_jax(sparse_vae_from_jax, params, mu, nu, count,
+                                 step, num_nan_skips, ema_params, ema_step)
 
 
 def _index(tree: dict, i: int) -> dict:

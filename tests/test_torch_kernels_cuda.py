@@ -30,7 +30,9 @@ from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3,
                                                  conv3x3x3_plain,
                                                  dgrad_weight,
                                                  pack_conv_weight)
-from infinicube_tpu_torch.ops.window_conv import (sparse_conv_plain,
+from infinicube_tpu_torch.ops.window_conv import (rev_w,
+                                                  sparse_conv_bwd_plain,
+                                                  sparse_conv_plain,
                                                   window_sparse_conv)
 
 pytestmark = pytest.mark.cuda
@@ -381,13 +383,150 @@ def test_packed_weights_follow_an_optimizer_step(gen):
     assert not torch.equal(old[1], m._packed_weight(dgrad=True))
 
 
-def test_sparse_conv_refuses_a_gradient(gen):
-    from infinicube_tpu_torch.nn.sparse import SparseConv3d
-    g, feats, w = _sparse_case(gen, 500, 1024, 8, 8)
-    conv = SparseConv3d(8, 8, device="cuda")
-    conv.reset_parameters(gen)
+def _sparse_bwd_case(gen, B, n_pts, cap, F, Fo):
+    """B grids in one batch (the last half the size when B > 1), features,
+    weights and an output gradient; extent 12 inside bounds of +-16."""
+    pts = torch.randint(-12, 12, (B, n_pts, 3), generator=gen, device="cuda")
+    mask = torch.ones((B, n_pts), dtype=torch.bool, device="cuda")
+    if B > 1:
+        mask[-1, n_pts // 2:] = False
+    g = grid_from_ijk(pts, mask, 0.2, 0.1, cap)
     plan = conv_plan(g, dense_bounds=((-16, -16, -16), (32, 32, 32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv(feats.requires_grad_(), plan)
+    m = g.mask[..., None]
+    feats = torch.where(m, torch.randn((B, cap, F), generator=gen,
+                                       device="cuda"), 0.0)
+    gout = torch.where(m, torch.randn((B, cap, Fo), generator=gen,
+                                      device="cuda"), 0.0)
+    w = torch.randn((27, F, Fo), generator=gen, device="cuda") / \
+        (27 * F) ** 0.5
+    return g, plan, feats, w, gout
+
+
+@pytest.mark.parametrize("B,cap,F,Fo", [(1, 8192, 64, 64), (2, 5001, 256, 128),
+                                        (2, 777, 32, 64), (1, 4099, 8, 12)])
+def test_k4_dgrad_and_k6_match_plain(gen, B, cap, F, Fo):
+    """The sparse conv's two gradient kernels against
+    ``sparse_conv_bwd_plain`` on the card, f32 on both sides (only the
+    summation order differs): odd capacities, B = 2, F != Fo; K6 twice,
+    bit-identical."""
+    g, plan, feats, w, gout = _sparse_bwd_case(gen, B, min(cap, 6000) - 50,
+                                               cap, F, Fo)
+    before = dict(kernels.launches)
+    dx = kernels.sparse_conv_f32(gout, plan.nbr, rev_w(w).contiguous(),
+                                 torch.zeros_like(plan.violations),
+                                 dgrad=True)
+    dw = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
+    again = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
+    assert kernels.launches["sparse_conv_f32_dgrad"] == \
+        before["sparse_conv_f32_dgrad"] + 1
+    assert kernels.launches["sparse_conv_f32_wgrad"] == \
+        before["sparse_conv_f32_wgrad"] + 2
+    assert kernels.launches["sparse_conv_f32"] == before["sparse_conv_f32"]
+    ref_dx, ref_dw = sparse_conv_bwd_plain(plan, feats, w, gout)
+    torch.cuda.synchronize()
+    assert dx.shape == feats.shape and dw.shape == w.shape
+    assert (dx - ref_dx).abs().max().item() <= \
+        1e-4 * ref_dx.abs().max().item()
+    assert (dw - ref_dw).abs().max().item() <= \
+        5e-4 * ref_dw.abs().max().item()
+    assert torch.equal(dw, again)
+    assert (dx[~g.mask] == 0).all()
+
+
+def test_k6_gives_zero_for_a_tap_no_row_has(gen):
+    """Voxels on one z plane: no row has a neighbour at dz = +-1, so 18 of
+    the 27 taps get an exactly zero weight gradient; padding rows, whose
+    features and gradients are garbage here, contribute nothing."""
+    pts = torch.randint(-12, 12, (1, 900, 3), generator=gen, device="cuda")
+    pts[..., 2] = 3
+    g = grid_from_ijk(pts, torch.ones((1, 900), dtype=torch.bool,
+                                      device="cuda"), 0.2, 0.1, 2048)
+    plan = conv_plan(g, dense_bounds=((-16, -16, -16), (32, 32, 32)))
+    feats = torch.randn((1, 2048, 16), generator=gen, device="cuda")
+    gout = torch.randn((1, 2048, 16), generator=gen, device="cuda")
+    dw = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
+    ref = sparse_conv_bwd_plain(plan, feats, torch.zeros((27, 16, 16),
+                                                         device="cuda"),
+                                gout)[1]
+    in_plane = torch.arange(27, device="cuda") % 3 == 1
+    assert (dw[~in_plane] == 0).all() and (dw[in_plane] != 0).any()
+    assert (dw - ref).abs().max().item() <= 5e-4 * ref.abs().max().item()
+
+
+def test_wgrad_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    feats = torch.zeros((1, 64, 8), device="cuda")
+    nbr = torch.full((1, 64, 27), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):                  # F not a multiple of 4
+        kernels.sparse_conv_f32_wgrad(feats[..., :6].contiguous(), nbr, feats)
+    with pytest.raises(ValueError):                  # not contiguous
+        kernels.sparse_conv_f32_wgrad(feats, nbr, torch.zeros(
+            (1, 8, 64), device="cuda").transpose(1, 2))
+    with pytest.raises(ValueError):                  # int64 table
+        kernels.sparse_conv_f32_wgrad(feats, nbr.long(), feats)
+    assert (kernels.sparse_conv_f32_wgrad(feats, nbr, feats) == 0).all()
+
+
+def test_sparse_conv_refuses_a_gradient(gen):
+    """``SparseConv3d`` trains on the card: what it refused while the
+    gradient kernels were missing now matches the plain gradients (B = 2,
+    F != Fo), through K4, K4-dgrad and K6 once each, and follows an in-place
+    update of the kernel."""
+    from infinicube_tpu_torch.nn.sparse import SparseConv3d
+    g, plan, feats, _, gout = _sparse_bwd_case(gen, 2, 900, 1024, 8, 16)
+    conv = SparseConv3d(8, 16, device="cuda")
+    conv.reset_parameters(gen)
+    before = dict(kernels.launches)
+    x = feats.clone().requires_grad_()
+    # a non-contiguous output gradient, as autograd hands them over
+    (conv(x, plan).transpose(1, 2) * gout.transpose(1, 2)).sum().backward()
+    delta = {k: v - before[k] for k, v in kernels.launches.items()}
+    assert {k: v for k, v in delta.items() if v} == {
+        "sparse_conv_f32": 1, "sparse_conv_f32_dgrad": 1,
+        "sparse_conv_f32_wgrad": 1}
+    ref_dx, ref_dw = sparse_conv_bwd_plain(plan, feats, conv.kernel.detach(),
+                                           gout)
+    assert (x.grad - ref_dx).abs().max().item() <= \
+        1e-4 * ref_dx.abs().max().item()
+    assert (conv.kernel.grad - ref_dw).abs().max().item() <= \
+        5e-4 * ref_dw.abs().max().item()
+    torch.testing.assert_close(conv.bias.grad, gout.sum((0, 1)), rtol=1e-4,
+                               atol=1e-3)
+    first = x.grad.clone()
     with torch.no_grad():
-        conv(feats, plan)
+        conv.kernel.mul_(2.0)
+    x.grad = None
+    (conv(x, plan) * gout).sum().backward()
+    torch.testing.assert_close(x.grad, 2.0 * first, rtol=1e-5, atol=1e-6)
+    # only the weight needs a gradient: no dgrad launch
+    before = dict(kernels.launches)
+    (conv(feats, plan) * gout).sum().backward()
+    assert kernels.launches["sparse_conv_f32_dgrad"] == \
+        before["sparse_conv_f32_dgrad"]
+    assert kernels.launches["sparse_conv_f32_wgrad"] == \
+        before["sparse_conv_f32_wgrad"] + 1
+
+
+def test_backward_on_the_card_poisons_nothing(gen):
+    """A batch row outside the dense bounds: NaN forward rows, finite
+    gradients equal to the plain ones."""
+    pts = torch.stack([
+        torch.randint(-4, 4, (500, 3), generator=gen, device="cuda"),
+        torch.randint(-12, 12, (500, 3), generator=gen, device="cuda")])
+    g = grid_from_ijk(pts, torch.ones((2, 500), dtype=torch.bool,
+                                      device="cuda"), 0.2, 0.1, 1024)
+    plan = conv_plan(g, dense_bounds=((-8, -8, -8), (16, 16, 16)))
+    assert plan.violations[1].item() > 0
+    x = torch.randn((2, 1024, 16), generator=gen,
+                    device="cuda").requires_grad_()
+    w = torch.randn((27, 16, 8), generator=gen,
+                    device="cuda").requires_grad_()
+    gout = torch.randn((2, 1024, 8), generator=gen, device="cuda")
+    out = window_sparse_conv(plan, x, w)
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[0]).all()
+    out.backward(gout)
+    ref_dx, ref_dw = sparse_conv_bwd_plain(plan, x.detach(), w.detach(), gout)
+    assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
+    assert (x.grad - ref_dx).abs().max().item() <= \
+        1e-4 * ref_dx.abs().max().item()
+    assert (w.grad - ref_dw).abs().max().item() <= \
+        5e-4 * ref_dw.abs().max().item()

@@ -133,6 +133,30 @@ def _train_step_on_cpu():
                             CondCubes.null(1, cfg), generator=g)
     loss.backward()
     assert all(p.grad is not None for p in vd.unet.parameters())
+    _vae_train_step_on_cpu(g)
+
+
+def _vae_train_step_on_cpu(g):
+    """The sparse VAE's teacher-forced forward, loss and backward on CPU
+    tensors: the sparse conv's plain forward and backward."""
+    from infinicube_tpu_torch.grid.ops import majority_label
+    from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig,
+                                                       build_hash_tree)
+    vae = SparseStructureVAE(SparseVAEConfig(
+        f_maps=8, c_dim=8, sem_embed_dim=4, neck_dims=(4, 4, 4),
+        neck_ijk_min=(-2, -2, -2), capacities=(128, 64, 32)), device="cpu")
+    vae.init_params(g)
+    pts = torch.rand((1, 60, 3), generator=g) * 2.0 - 1.0
+    mask = torch.ones((1, 60), dtype=torch.bool)
+    grids = build_hash_tree(vae.cfg, pts, mask)
+    sem = majority_label(grids[0], pts, torch.randint(0, 23, (1, 60),
+                                                      generator=g), mask, 23)
+    loss, _ = vae_loss(VAELossConfig(), vae(grids, sem, generator=g),
+                       grids[0], sem)
+    loss.backward()
+    assert all(p.grad is not None for p in vae.parameters())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -164,13 +188,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 torch.zeros((1, 64, 27), dtype=torch.int32),
                                 torch.zeros((27, 4, 4)),
                                 torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.sparse_conv_f32_wgrad(
+            torch.zeros((1, 64, 4)),
+            torch.zeros((1, 64, 27), dtype=torch.int32),
+            torch.zeros((1, 64, 4)))
     assert kernels.launches and all(v == 0 for v in kernels.launches.values())
 
 
 @pytest.mark.parametrize("entry", ["dit", "vae", "t5", "generator",
                                    "voxel_diffusion", "sparse_vae",
                                    "world_generator", "trainable_diffusion",
-                                   "train_loop", "train_cli"])
+                                   "train_loop", "train_cli",
+                                   "train_vae_cli", "voxel_vae_cli"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -187,6 +217,7 @@ def test_entry_points_default_to_the_card(entry):
         DiffusionConfig, VoxelDiffusion)
     from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
                                                        SparseVAEConfig)
+    from infinicube_tpu_torch.inference.voxel_vae import main as eval_main
     from infinicube_tpu_torch.train import main as train_main
     from infinicube_tpu_torch.training.loop import LoopConfig, train
     from infinicube_tpu_torch.training.state import TrainConfig
@@ -219,6 +250,11 @@ def test_entry_points_default_to_the_card(entry):
             ["none", "--exec", "max_steps=1", "diffusion.cube_dims=(4,4,4)",
              "diffusion.model_channels=32", "diffusion.channel_mult=(1,)",
              "diffusion.attention_ds=()", "diffusion.transformer_depth=1"]),
+        "train_vae_cli": lambda: train_main(
+            ["none", "--exec", "model=vae", "max_steps=1", "vae.f_maps=8",
+             "vae.neck_dims=(4,4,4)", "vae.capacities=(64,32,16)"]),
+        "voxel_vae_cli": lambda: eval_main(
+            ["--points", str(ROOT / "README.md"), "--output", "unused"]),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
@@ -236,22 +272,64 @@ def test_train_loop_refuses_parameters_on_another_device():
 
 
 def test_sparse_conv_refuses_a_gradient_on_the_card(monkeypatch):
-    """K4 has no backward kernel yet: on a CUDA tensor that needs a gradient
-    ``SparseConv3d`` raises instead of returning a tensor without one.
-    Checked without a card by letting the tensor claim to be on one."""
+    """What this test guarded while K4 had no backward (``SparseConv3d``
+    raised on a CUDA tensor that needs a gradient) now holds the other way:
+    a gradient on the card goes through the kernels' wrappers, K4 for the
+    forward, K4 counted as dgrad with the reversed weights and a zero poison
+    vector for dx, K6 for dW, and never through a plain version. Checked
+    without a card: the tensors claim to be on one, and stand-ins that
+    record their calls take the wrappers' place."""
+    from infinicube_tpu_torch.grid.build import grid_from_ijk
     from infinicube_tpu_torch.nn import sparse
-    conv = sparse.SparseConv3d(4, 4)
-    called = []
-    monkeypatch.setattr(sparse, "window_sparse_conv",
-                        lambda plan, f, w: called.append(1) or f)
+    from infinicube_tpu_torch.ops import window_conv
 
     class OnCard(torch.Tensor):
         is_cuda = True
 
-    feats = torch.zeros((1, 8, 4)).as_subclass(OnCard)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv(feats, None)                  # the kernel is a parameter
-    assert not called
+    def plain(t):
+        return t.as_subclass(torch.Tensor)
+
+    g = torch.Generator().manual_seed(0)
+    grid = grid_from_ijk(torch.randint(-3, 3, (1, 40, 3), generator=g),
+                         torch.ones((1, 40), dtype=torch.bool), 0.2, 0.1, 64)
+    plan = sparse.conv_plan(grid, ((-8, -8, -8), (16, 16, 16)))
+    conv = sparse.SparseConv3d(4, 8)
+    conv.reset_parameters(g)
+    calls = []
+    conv_plain, bwd_plain = (window_conv.sparse_conv_plain,
+                             window_conv.sparse_conv_bwd_plain)
+
+    def fake_k4(feats, nbr, w, poison, dgrad=False):
+        calls.append(("dgrad" if dgrad else "fwd", tuple(w.shape),
+                      poison.tolist()))
+        return conv_plain(plan, plain(feats), plain(w))
+
+    def fake_k6(feats, nbr, gout):
+        calls.append(("wgrad", tuple(gout.shape), None))
+        zero_w = torch.zeros((27, feats.shape[-1], gout.shape[-1]))
+        return bwd_plain(plan, plain(feats), zero_w, plain(gout))[1]
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(window_conv.kernels, "sparse_conv_f32", fake_k4)
+    monkeypatch.setattr(window_conv.kernels, "sparse_conv_f32_wgrad", fake_k6)
+    monkeypatch.setattr(window_conv, "sparse_conv_plain", refuse)
+    monkeypatch.setattr(window_conv, "sparse_conv_bwd_plain", refuse)
+    x = torch.randn((1, 64, 4), generator=g)
+    feats = x.clone().as_subclass(OnCard).requires_grad_()
+    cot = torch.randn((1, 64, 8), generator=g)
+    conv(feats, plan).backward(cot)
+    assert [c[0] for c in calls] == ["fwd", "dgrad", "wgrad"]
+    assert calls[0][1] == (27, 4, 8) and calls[1][1] == (27, 8, 4)
+    assert calls[1][2] == [0] and calls[2][1] == (1, 64, 8)
+    monkeypatch.undo()
+    ref_dx, ref_dw = bwd_plain(plan, x, conv.kernel.detach(), cot)
+    torch.testing.assert_close(plain(feats.grad), ref_dx)
+    torch.testing.assert_close(conv.kernel.grad, ref_dw)
+    # nothing asks for a gradient: the forward alone
+    calls.clear()
+    monkeypatch.setattr(window_conv.kernels, "sparse_conv_f32", fake_k4)
     with torch.no_grad():
-        conv(feats, None)
-    assert called
+        conv(feats, plan)
+    assert [c[0] for c in calls] == ["fwd"]

@@ -315,8 +315,9 @@ def test_train_cli_reads_the_release_yaml(tmp_path):
     assert state.step == 1 and state.num_nan_skips == 0
 
 
-@pytest.mark.parametrize("overrides", [["model=vae"], ["model=gsm"],
-                                       ["data.root=/data/waymo"]])
+@pytest.mark.parametrize("overrides", [
+    ["model=vae", "data.root=/data/waymo"], ["model=gsm"],
+    ["data.root=/data/waymo"]])
 def test_train_cli_names_what_is_not_ported(tmp_path, overrides):
     from infinicube_tpu_torch.train import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
