@@ -87,6 +87,29 @@ Then training the sparse structure VAE (the UNet freed first):
     forward, backward (of it K4-dgrad and K6) and optimizer + EMA, the whole
     step under ``torch.profiler``, and peak memory.
 
+Then int8 serving (the VAE trainer freed first):
+
+18. kernel checks: K7 (the int8 dense conv) against
+    ``conv3x3x3_int8_plain`` at six of the release UNet's 23 int8 shapes at
+    CFG batch 2, each input channel with its own range, timed beside the
+    plain version, its bound, K3 and cuDNN's bf16 conv3d; K8 (int8-PV flash
+    attention) against ``int8qkv_attention_plain`` at N = 7,800 and 37,440
+    (a scale per 1,536-row block of q and k and per channel of v), timed
+    beside K1 on the same inputs;
+19. model checks: the release-width UNet's int8 serving twin on a 16^3 cube,
+    card against the CPU and against the card's bf16 forward; the 2-layer
+    full-width DiT with ``attn_quant="qkv"``, card against the CPU;
+20. serving: ``generate_trajectory`` with ``DiffusionConfig(serve_quant=
+    True)`` and CFG 2.0 (3 chunks of DDIM-10; per chunk exactly K7 23 x 10,
+    K3 25 x 10, K2 10 x 10, K4 12, the 23 derived with the port's rule),
+    ``generate_blocks`` over a 2 x 2 tiling with one tile skipped, one chunk
+    each through DDPM and DPM++, the single-chunk CLI into a temporary
+    directory, and one 17-frame, 4-step video request with int8-PV
+    self-attention (K8 240 launches, K1 none);
+21. where the time goes: one CFG DDIM step at batch 2, int8 and bf16,
+    timed, profiled and with peak memory; the final-latent cosine of a
+    DDIM-10 chunk, int8 against bf16, from the same noise.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -173,17 +196,18 @@ def k2_gate(got, ref, label):
     return err
 
 
+def scale_blocks(x, block, lo, hi):
+    """Each block of rows times its own factor, lo to hi, so that every
+    quantization block of q and of k gets a different scale."""
+    n = x.shape[1]
+    f = torch.logspace(math.log10(lo), math.log10(hi), -(-n // block),
+                       device=x.device)
+    return x * f.repeat_interleave(block)[:n, None, None].to(x.dtype)
+
+
 def kernel_checks(kernels, att, fa):
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-
-    def scale_blocks(x, block, lo, hi):
-        """Each block of rows times its own factor, lo to hi, so that every
-        quantization block of q and of k gets a different scale."""
-        n = x.shape[1]
-        f = torch.logspace(math.log10(lo), math.log10(hi), -(-n // block),
-                           device=x.device)
-        return x * f.repeat_interleave(block)[:n, None, None].to(x.dtype)
 
     def k1_inputs(n):
         block, npad = fa.quant_blocks(n)
@@ -514,22 +538,61 @@ def stage1_scene():
     return ego, maps, boxes
 
 
-def serve_stage1(kernels, mods):
-    """The main path: 3 chunks of release stage 1, per-chunk launch counts."""
+def build_stage1(mods, label, **cfg):
+    """The release UNet (``DiffusionConfig(**cfg)``) and VAE with random
+    weights, the zero-init layers filled."""
     t0 = time.perf_counter()
-    diffusion = mods.VoxelDiffusion(mods.DiffusionConfig(), device="cuda")
+    diffusion = mods.VoxelDiffusion(mods.DiffusionConfig(**cfg),
+                                    device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     diffusion.init_params(g, zero_init_layers=False)
     vae = mods.SparseStructureVAE(mods.SparseVAEConfig(), device="cuda")
     vae.init_params(g)
     n_params = sum(p.numel() for p in diffusion.unet.parameters())
-    gen = mods.VoxelWorldGenerator(
-        diffusion, mods.vae_decode_fn(vae),
-        mods.WorldGenConfig(ddim_steps=STAGE1_DDIM))
     torch.cuda.synchronize()
-    print(f"[stage1] UNet {n_params:,} parameters and the VAE built with "
+    print(f"[{label}] UNet {n_params:,} parameters and the VAE built with "
           f"random weights in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB resident")
+    return diffusion, vae
+
+
+def chunk_launches(diffusion, steps, unet_calls=None):
+    """Exact launches of one chunk of ``steps`` sampler steps (one UNet call
+    a step; CFG batches its pair) and a VAE decode, derived with the port's
+    own rule: one UNet call of the serving twin runs with hooks on its 3x3x3
+    convs, and a conv is int8 (K7) where it quantizes and
+    ``int8_conv_applies`` holds for its input, else K3."""
+    from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3,
+                                                     int8_conv_applies)
+    net = diffusion.unet_serve
+    seen = []
+
+    def hook(m, args):
+        x = args[0]
+        seen.append(m.quant and int8_conv_applies(x.shape[:4], x.shape[-1],
+                                                  m.weight.shape[0]))
+    hooks = [m.register_forward_pre_hook(hook) for m in net.modules()
+             if isinstance(m, Conv3x3x3)]
+    try:
+        D, H, W = diffusion.cfg.cube_dims
+        with torch.no_grad():
+            net(torch.zeros((2, D, H, W, 16), device="cuda"),
+                torch.tensor([500, 500], device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    n_int8 = sum(seen)
+    return n_int8, {"conv3x3x3_int8": n_int8 * steps,
+                    "conv3x3x3_bf16": (len(seen) - n_int8) * steps,
+                    "flash_attn_bf16": 10 * steps, "sparse_conv_f32": 12,
+                    "flash_attn_int8qk": 0, "flash_attn_int8qkv": 0,
+                    "conv3x3x3_bf16_dgrad": 0}
+
+
+def run_chunks(kernels, gen, label, run, want, n_chunks):
+    """``run()`` (a generation through ``gen``) with the launch counts set to
+    0 first; each chunk's launches held to ``want``. Returns the world and
+    the run's launches."""
     snaps = []
     sample_chunk = gen._sample_chunk
 
@@ -538,31 +601,49 @@ def serve_stage1(kernels, mods):
         return sample_chunk(*a, **kw)
 
     gen._sample_chunk = counted_sample_chunk
-    ego, maps, boxes = stage1_scene()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    world = gen.generate_trajectory(ego, map_points=maps, boxes=boxes, seed=0)
+    try:
+        world = run()
+    finally:
+        gen._sample_chunk = sample_chunk
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    want = {"conv3x3x3_bf16": 48 * STAGE1_DDIM,
-            "flash_attn_bf16": 10 * STAGE1_DDIM, "sparse_conv_f32": 12,
-            "flash_attn_int8qk": 0}
     ends = snaps[1:] + [launches]
-    check(len(gen.last_chunks) == 3, f"{len(gen.last_chunks)} chunks")
+    check(len(gen.last_chunks) == n_chunks,
+          f"{len(gen.last_chunks)} chunks, want {n_chunks}")
     for i, (chunk, a, b) in enumerate(zip(gen.last_chunks, snaps, ends)):
         delta = {k: b[k] - a[k] for k in b}
         lat = chunk["latents"]
-        print(f"[stage1] chunk {i}: sample {chunk['sample_s']:.2f} s, decode "
+        print(f"[{label}] chunk {i}: sample {chunk['sample_s']:.2f} s, decode "
               f"{chunk['decode_s']:.2f} s, {chunk['merged']} voxels merged, "
               f"overlap {chunk['overlap']} cells, |latents| max "
-              f"{lat.abs().max().item():.3f}; launches {delta}")
+              f"{lat.abs().max().item():.3f}; launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
         check(all(delta[k] == v for k, v in want.items()),
               f"chunk {i} launches {delta}, want {want}")
         check(torch.isfinite(lat).all().item(), f"chunk {i} latents")
         check(i == 0 or chunk["overlap"] > 0, f"chunk {i} has no overlap")
-    print(f"[stage1] world: {world.num_voxels} voxels after {wall:.2f} s; "
-          f"main path launches {launches}")
+    print(f"[{label}] world: {world.num_voxels} voxels after {wall:.2f} s; "
+          f"launches {launches}")
     check(world.num_voxels > 0, "empty world")
+    return world, launches
+
+
+def serve_stage1(kernels, mods):
+    """The main path: 3 chunks of release stage 1, per-chunk launch counts."""
+    diffusion, vae = build_stage1(mods, "stage1")
+    gen = mods.VoxelWorldGenerator(
+        diffusion, mods.vae_decode_fn(vae),
+        mods.WorldGenConfig(ddim_steps=STAGE1_DDIM))
+    n_int8, want = chunk_launches(diffusion, STAGE1_DDIM)
+    check(n_int8 == 0 and want["conv3x3x3_bf16"] == 48 * STAGE1_DDIM,
+          f"bf16 serving: {want}")
+    ego, maps, boxes = stage1_scene()
+    _, launches = run_chunks(
+        kernels, gen, "stage1",
+        lambda: gen.generate_trajectory(ego, map_points=maps, boxes=boxes,
+                                        seed=0), want, 3)
     return diffusion, vae, gen, launches
 
 
@@ -724,7 +805,8 @@ def stage1(kernels, att, dense_conv):
 STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "flash_attn_bf16": 10, "flash_attn_bf16_bwd": 10,
                  "flash_attn_int8qk": 0, "sparse_conv_f32": 0,
-                 "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0}
+                 "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0,
+                 "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
 
@@ -1143,7 +1225,8 @@ def diffusion_train(kernels, att, dense_conv):
 VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
                      "sparse_conv_f32_wgrad": 24, "conv3x3x3_bf16": 0,
                      "conv3x3x3_bf16_dgrad": 0, "flash_attn_bf16": 0,
-                     "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0}
+                     "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0,
+                     "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0}
 VAE_POINTS = 200_000
 
 
@@ -1556,6 +1639,355 @@ def vae_train(kernels, dec_grids):
         launches
 
 
+# ---------------------------------------------------------------------------
+# int8 serving: stage 1 in its tracked configuration, the DiT with int8 PV
+# ---------------------------------------------------------------------------
+
+# K7 at six of the release UNet's 23 int8 shapes, CFG batch 2: (cube edge,
+# C, O)
+K7_SHAPES = ((64, 192, 192), (64, 576, 192), (32, 384, 384),
+             (32, 1152, 384), (32, 768, 768), (16, 384, 768))
+GUIDANCE = 2.0      # the tracked stage-1 configuration serves with CFG
+INT8_CONVS = 23     # int8 convs of one release UNet call (the port's rule)
+
+
+def k7_checks(kernels, dc):
+    """K7 against ``conv3x3x3_int8_plain`` on the same int8 inputs (one
+    prologue, so the integer sums are exact on both sides; each input
+    channel has its own range), gated at max-abs <= 8e-3 * max|ref| and
+    cosine >= 0.99999; timed beside the plain version, its bound (2*V*27*C*O
+    int8 operations at 1,979 TOP/s against the bytes), K3 on the same bf16
+    input and cuDNN's bf16 conv3d."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for n, C, O in K7_SHAPES:
+        x = (torch.randn((2, n, n, n, C), generator=g, device="cuda") *
+             torch.logspace(-1, 1, C, device="cuda")).to(torch.bfloat16)
+        w = (torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") /
+             math.sqrt(27 * C)).to(torch.bfloat16)
+        b = 0.1 * torch.randn(O, generator=g, device="cuda")
+        x8, w8, sw = dc.quantize_for_conv(x, w)
+        w8p = dc.pack_int8_weight(w8)
+        got = kernels.conv3x3x3_int8(x8, w8p, sw, b)
+        ref = dc.conv3x3x3_int8_plain(x8, w8, sw, b, torch.bfloat16)
+        c = cos(got.float(), ref.float())
+        err = (got.float() - ref.float()).abs().max().item()
+        lim = 8e-3 * ref.abs().max().item()
+        same = (got == ref).float().mean().item()
+        shape = f"[2,{n},{n},{n},{C}]->{O}"
+        print(f"[k7] {shape}: cosine {c:.8f} max_abs_err {err:.3e} (limit "
+              f"{lim:.3e}), {100 * same:.4f} % of outputs equal")
+        check(c >= 0.99999 and err <= lim, f"K7 at {shape}: cos {c} err {err}")
+        del got, ref
+        ms = cuda_ms(lambda: kernels.conv3x3x3_int8(x8, w8p, sw, b), 2, 5)
+        full_ms = cuda_ms(lambda: dc.conv3x3x3(x, w, b, quant=True), 2, 5)
+        plain = cuda_ms(lambda: dc.conv3x3x3_int8_plain(x8, w8, sw, b,
+                                                        torch.bfloat16), 1, 1)
+        wp = dc.pack_conv_weight(w)
+        k3 = cuda_ms(lambda: kernels.conv3x3x3_bf16(x, wp, b), 2, 5)
+        xl = x.permute(0, 4, 1, 2, 3)
+        wl = w.contiguous(memory_format=torch.channels_last_3d)
+        bb = b.to(torch.bfloat16)
+        lib = cuda_ms(lambda: torch.nn.functional.conv3d(xl, wl, bb,
+                                                         padding=1), 2, 5)
+        V = 2 * n ** 3
+        ops = 2.0 * V * 27 * C * O
+        b_ms, b_by = bound_ms([(ops, PEAK_INT8)],
+                              V * C + 27 * C * O + 2 * V * O + 16 * O)
+        print(f"[k7] {shape}: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} "
+              f"TOP/s), with the quantize prologue {full_ms:.3f} ms, plain "
+              f"{plain:.2f} ms, bound {b_ms:.3f} ms ({b_by}); K3 {k3:.3f} ms,"
+              f" cudnn bf16 {lib:.3f} ms")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         k3_ms=k3, with_prologue_ms=full_ms))
+        del x, w, x8, w8, w8p, wp, xl, wl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k8_checks(kernels, fa):
+    """K8 against ``int8qkv_attention_plain`` on the same int8 inputs at the
+    DiT's 17- and 93-frame N (a different scale in every 1,536-row block of
+    q and k and in every channel of v), gated at the int8 cosine >= 0.999;
+    timed beside K1 on the same q, k (and bf16 v) and the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for n in (N_SERVE, N_RELEASE):
+        block, npad = fa.quant_blocks(n)
+        q = scale_blocks(rand((1, n, H, D), g), block, 0.25, 4.0)
+        k = scale_blocks(rand((1, n, H, D), g), block, 4.0, 0.25)
+        v = rand((1, n, H, D), g) * torch.logspace(
+            -1, 1, D, device="cuda").to(torch.bfloat16)
+        q8, sq = fa.block_quantize(fa.fold_heads(q, npad), block)
+        k8, sk = fa.block_quantize(fa.fold_heads(k, npad), block)
+        v8, sv = fa.channel_quantize(fa.fold_heads(v, npad))
+        v8t = v8.transpose(1, 2).contiguous()
+        args = (q8, k8, sq, sk, v8t, sv, 1, n, block, D ** -0.5)
+        got = kernels.flash_attn_int8qkv(*args)
+        ref = fa.int8qkv_attention_plain(q8, k8, sq, sk, v8, sv, n, block,
+                                         D ** -0.5, torch.float32)
+        ref = ref.reshape(1, H, n, D).permute(0, 2, 1, 3)
+        c, err = cos(got, ref), (got.float() - ref).abs().max().item()
+        print(f"[k8] N={n}: cosine {c:.6f} (gate 0.999) max_abs_err "
+              f"{err:.3e}")
+        check(c >= 0.999, f"K8 cosine {c} at N={n}")
+        del got, ref
+        ms = cuda_ms(lambda: kernels.flash_attn_int8qkv(*args), 2, 5)
+        k1 = cuda_ms(lambda: kernels.flash_attn_int8qk(
+            q8, k8, sq, sk, v, block, D ** -0.5), 2, 5)
+        e2e = cuda_ms(lambda: fa.mha_quantized(q, k, v, quant="qkv"), 1, 5)
+        plain = cuda_ms(lambda: fa.int8qkv_attention_plain(
+            q8, k8, sq, sk, v8, sv, n, block, D ** -0.5, torch.float32), 0, 1)
+        ops = 4.0 * n * n * D * H        # QK^T and PV, both int8
+        b_ms, b_by = bound_ms([(ops, PEAK_INT8)], 3 * n * D * H +
+                              2 * n * D * H + 4 * H * (D + 2 * npad // block))
+        print(f"[k8] N={n}: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), "
+              f"with the quantize prologue {e2e:.3f} ms, K1 {k1:.3f} ms, "
+              f"plain {plain:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+        rows.append(dict(shape=f"N={n} h={H} d={D}", max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, k1_ms=k1, with_prologue_ms=e2e,
+                         cosine=c))
+        del q, k, v, q8, k8, v8, v8t, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def unet_int8_check(VoxelDiffusion, DiffusionConfig):
+    """The release-width UNet's serving twin on a 16^3 cube at batch 2: the
+    card (K7 where the rule holds, K3, K2) against the CPU (the plain
+    versions and the same int8 rule, bf16 like the card), and against the
+    card's full-precision forward (the reference's int8 gate, 0.999). Card
+    and CPU round bf16 sums in other orders, and int8 rounding turns an
+    activation's last-bit difference into a whole int8 step wherever it
+    sits near a rounding boundary, so the two int8 forwards differ by about
+    as much as int8 from bf16: gated at 0.9995."""
+    base = DiffusionConfig(cube_dims=(16, 16, 16), serve_quant=True)
+    cpu = VoxelDiffusion(base, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(14),
+                    zero_init_layers=False)
+    card = VoxelDiffusion(base, device="cuda")
+    card.load_params(cpu.unet.state_dict())
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 16, 16),
+                                             dtype=np.float32))
+    t = torch.tensor([500, 500])
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = cpu.unet_serve(x, t)
+        cpu_s = time.perf_counter() - t0
+        got = card.unet_serve(x.cuda(), t.cuda()).cpu()
+        full = card.unet(x.cuda(), t.cuda()).cpu()
+    c, c_full = cos(got, ref), cos(got, full)
+    print(f"[model] release-width int8 UNet on 16^3, batch 2: card vs cpu "
+          f"cosine {c:.7f} (gate 0.9995), int8 vs bf16 on the card "
+          f"{c_full:.6f} (gate 0.999), |out| max "
+          f"{ref.abs().max().item():.3f} (cpu {cpu_s:.1f} s)")
+    check(torch.isfinite(got).all().item(), "int8 UNet output not finite")
+    check(c >= 0.9995 and c_full >= 0.999,
+          f"int8 UNet cosines {c}, {c_full}")
+
+
+def serve_int8(kernels, mods, sc):
+    """Phase 20: stage 1 in its tracked configuration (int8 convs, CFG
+    2.0): 3 trajectory chunks, a 2 x 2 block tiling with one tile skipped,
+    one chunk each of DDPM and DPM++, and the single-chunk CLI; each with
+    exact launch counts. Returns the model, VAE, generator and the launches
+    of each path."""
+    diffusion, vae = build_stage1(mods, "int8", serve_quant=True)
+    n_int8, want = chunk_launches(diffusion, STAGE1_DDIM)
+    print(f"[int8] the port's rule makes {n_int8} of 48 convs of a UNet "
+          f"call int8; per chunk of DDIM-{STAGE1_DDIM} with CFG: {want}")
+    check(n_int8 == INT8_CONVS, f"{n_int8} int8 convs, want {INT8_CONVS}")
+    gen = mods.VoxelWorldGenerator(
+        diffusion, mods.vae_decode_fn(vae),
+        mods.WorldGenConfig(ddim_steps=STAGE1_DDIM, guidance_scale=GUIDANCE))
+    ego, maps, boxes = stage1_scene()
+    paths = {}
+    _, paths["stage1_int8"] = run_chunks(
+        kernels, gen, "int8",
+        lambda: gen.generate_trajectory(ego, map_points=maps, boxes=boxes,
+                                        seed=0), want, 3)
+    # blocks: 51.2 m tiles every 38.4 m over [0, 60]^2, the far corner out
+    centers = gen._block_centers((0.0, 0.0), (60.0, 60.0))
+    check(len(centers) == 4, f"{len(centers)} blocks")
+    skip = lambda c: bool(c[0] > 40 and c[1] > 40)   # noqa: E731
+    _, paths["stage1_blocks"] = run_chunks(
+        kernels, gen, "blocks",
+        lambda: gen.generate_blocks((0.0, 0.0), (60.0, 60.0), maps, boxes,
+                                    seed=1, skip_empty_fn=skip), want, 3)
+    print(f"[blocks] latent table: {len(gen._table_keys)} cells")
+    check(len(gen._table_keys) > 64 ** 3, "latent table")
+    cond = gen._cond_for_chunk(np.eye(4), maps, boxes)
+    kernels.reset_launches()
+    for sampler in ("ddpm", "dpmpp"):
+        before = dict(kernels.launches)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        t0 = time.perf_counter()
+        lat, (ijk, sem) = diffusion.evaluation_api(
+            cond, mods.vae_decode_fn(vae), num_steps=STAGE1_DDIM,
+            guidance_scale=GUIDANCE, sampler=sampler, generator=g)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in kernels.launches.items()}
+        print(f"[{sampler}] one chunk, {STAGE1_DDIM} steps: "
+              f"{time.perf_counter() - t0:.2f} s, {len(ijk)} voxels, "
+              f"|latents| max {lat.abs().max().item():.3f}; launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
+        check(torch.isfinite(lat).all().item() and len(ijk) > 0,
+              f"{sampler} chunk")
+        check(all(delta[k] == v for k, v in want.items()),
+              f"{sampler} launches {delta}, want {want}")
+    paths["stage1_samplers"] = dict(kernels.launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sc.main(["--output", tmp, "--ddim_steps", str(STAGE1_DDIM)])
+        torch.cuda.synchronize()
+        paths["single_chunk"] = dict(kernels.launches)
+        out = np.load(os.path.join(tmp, "chunk.npz"))
+        print(f"[single chunk] the CLI at the release config (bf16, no "
+              f"guidance): {len(out['ijk'])} voxels in "
+              f"{time.perf_counter() - t0:.1f} s; launches "
+              f"{ {k: v for k, v in paths['single_chunk'].items() if v} }")
+        check(paths["single_chunk"]["conv3x3x3_bf16"] == 48 * STAGE1_DDIM,
+              f"single chunk launches {paths['single_chunk']}")
+    torch.cuda.empty_cache()
+    return diffusion, vae, gen, paths
+
+
+def wan_qkv(kernels, WanPipelineConfig, WanVideoGenerator):
+    """Phase 20's video request: the serving profile with int8-PV
+    self-attention (K8), one 17-frame, 4-step request."""
+    serve = WanPipelineConfig.serving()
+    cfg = dataclasses.replace(serve, dit=dataclasses.replace(
+        serve.dit, attn_quant="qkv"))
+    t0 = time.perf_counter()
+    gen = WanVideoGenerator(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    gen.init_params(g)
+    fill_zero_init(gen.dit, g)
+    gen.cast_params_bf16()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    sem = rng.integers(0, 256, (17, 480, 832, 3), dtype=np.uint8)
+    coo = rng.integers(0, 256, (17, 480, 832, 3), dtype=np.uint8)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    frames = gen.generate(sem, coo, "a realistic driving scene at dusk",
+                          negative_prompt="blurry", seed=0, num_steps=4)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    print(f"[wan qkv] towers built in {build_s:.1f} s; one request "
+          f"(17f, 4 steps) {wall:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(isinstance(frames, np.ndarray) and frames.shape ==
+          (17, 480, 832, 3) and frames.min() != frames.max(), "qkv frames")
+    check(launches["flash_attn_int8qkv"] == 30 * 2 * 4 and
+          launches["flash_attn_int8qk"] == 0 and
+          launches["flash_attn_bf16"] == 30 * 2 * 4,
+          f"qkv request launches {launches}")
+    return launches
+
+
+def int8_time(diffusion, gen, mods):
+    """Phase 21: one CFG DDIM step (batch 2) through the int8 twin and
+    through the bf16 UNet, timed, profiled, with peak memory; then a DDIM-10
+    chunk from the same noise through each, and their final latents'
+    cosine."""
+    ego, maps, boxes = stage1_scene()
+    cond = gen._cond_for_chunk(np.eye(4), maps, boxes)
+    null = mods.CondCubes.null(1, diffusion.cfg, "cuda")
+    cond2 = mods.CondCubes(torch.cat([cond.map_cube, null.map_cube]),
+                           torch.cat([cond.box_cube, null.box_cube]))
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((2, 64, 64, 64, 8), generator=g, device="cuda")
+    t = torch.tensor([500, 500], device="cuda")
+    for label, serve in (("int8", True), ("bf16", False)):
+        def step():
+            with torch.no_grad():
+                return diffusion.denoise(x, t, cond2, serve=serve)
+        step()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"[time] one CFG DDIM step (batch 2, 64^3), {label}: "
+              f"{np.mean(times):.1f} ms (runs {[round(v, 1) for v in times]}"
+              f"), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile(step, f"CFG DDIM step, {label}")
+    bf16 = mods.VoxelDiffusion(mods.DiffusionConfig(), device="cuda")
+    bf16.load_params(diffusion.unet.state_dict())
+    x_T = torch.randn((1, 64, 64, 64, 8), generator=g, device="cuda")
+    lat = [m.sample(cond, STAGE1_DDIM, GUIDANCE, noise=x_T)
+           for m in (diffusion, bf16)]
+    c = cos(lat[0], lat[1])
+    print(f"[time] DDIM-{STAGE1_DDIM} chunk with CFG {GUIDANCE}, same noise: "
+          f"final latents int8 vs bf16 cosine {c:.6f}")
+    check(c >= 0.99, f"int8 vs bf16 chunk cosine {c}")
+
+
+def int8_serving(kernels, dense_conv, fa):
+    """Phases 18-21. Returns the summary entries of K7 and K8 and the
+    launches of the new paths."""
+    from infinicube_tpu_torch.inference import \
+        voxel_generation_single_chunk as sc
+    from infinicube_tpu_torch.inference.voxel_world_generation import (
+        VoxelWorldGenerator, WorldGenConfig, vae_decode_fn)
+    from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
+                                                             DiffusionConfig,
+                                                             VoxelDiffusion)
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig)
+    from infinicube_tpu_torch.models.wan.dit import WanDiT
+    from infinicube_tpu_torch.models.wan.pipeline import (WanPipelineConfig,
+                                                          WanVideoGenerator)
+    mods = types.SimpleNamespace(
+        VoxelDiffusion=VoxelDiffusion, DiffusionConfig=DiffusionConfig,
+        CondCubes=CondCubes, SparseStructureVAE=SparseStructureVAE,
+        SparseVAEConfig=SparseVAEConfig,
+        VoxelWorldGenerator=VoxelWorldGenerator,
+        WorldGenConfig=WorldGenConfig, vae_decode_fn=vae_decode_fn)
+    t0 = time.perf_counter()
+
+    def phase(n):
+        print(f"[int8] phase {n} at {time.perf_counter() - t0:.1f} s")
+    # ---- 18. kernel checks ------------------------------------------------
+    phase(18)
+    k7_rows = k7_checks(kernels, dense_conv)
+    k8_rows = k8_checks(kernels, fa)
+    # ---- 19. model checks -------------------------------------------------
+    phase(19)
+    unet_int8_check(VoxelDiffusion, DiffusionConfig)
+    serve = WanPipelineConfig.serving()
+    model_check(WanDiT, dataclasses.replace(serve.dit, num_layers=2,
+                                            attn_quant="qkv"))
+    # ---- 20. serving ------------------------------------------------------
+    phase(20)
+    diffusion, vae, gen, paths = serve_int8(kernels, mods, sc)
+    # ---- 21. where the time goes ------------------------------------------
+    phase(21)
+    int8_time(diffusion, gen, mods)
+    del diffusion, vae, gen
+    torch.cuda.empty_cache()
+    phase("20, video")
+    paths["wan_qkv"] = wan_qkv(kernels, WanPipelineConfig, WanVideoGenerator)
+    phase("end")
+    return {"conv3x3x3_int8": entry(
+                "conv3x3x3_int8", "infinicube_tpu_torch/csrc/dense_conv.cu",
+                "infinicube_tpu/ops/dense_conv.py:136", k7_rows, 0),
+            "flash_attn_int8qkv": entry(
+                "flash_attn_int8qkv",
+                "infinicube_tpu_torch/csrc/flash_attention.cu",
+                "infinicube_tpu/ops/flash_attention.py:159", k8_rows, 1)}, \
+        paths
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -1673,17 +2105,21 @@ def main() -> int:
     train_report, train_launches = diffusion_train(kernels, att, dense_conv)
     torch.cuda.empty_cache()
     vae_report, vae_launches = vae_train(kernels, dec_grids)
+    del dec_grids
+    torch.cuda.empty_cache()
+    int8_report, int8_paths = int8_serving(kernels, dense_conv, fa)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
     report.update(stage1_report)
     report.update(train_report)
     report.update(vae_report)
+    report.update(int8_report)
+    paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
+             "diffusion_train": train_launches, "vae_train": vae_launches,
+             **int8_paths}
     for name, e in report.items():
-        e["paths"] = {"wan_serve": serve_launches[name],
-                      "stage1": stage1_launches[name],
-                      "diffusion_train": train_launches[name],
-                      "vae_train": vae_launches[name]}
+        e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())
         check(e["launches"] > 0, f"{name} never launched on a main path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -1,6 +1,6 @@
-"""Time K2 (bf16 flash attention) and K3 (dense 3x3x3 conv) of one checkout
-of the PyTorch port at shapes of ``chip_smoke.py``'s paths, with its CUDA-event
-timer, on one NVIDIA GPU.
+"""Time K1 (int8-QK flash attention), K2 (bf16 flash attention) and K3
+(dense 3x3x3 conv) of one checkout of the PyTorch port at shapes of
+``chip_smoke.py``'s paths, with its CUDA-event timer, on one NVIDIA GPU.
 
     python3 chip_time_kernels.py <checkout>
 
@@ -21,8 +21,20 @@ def main(checkout: str) -> None:
     sys.path.insert(0, checkout)
     from infinicube_tpu_torch import kernels
     from infinicube_tpu_torch.ops import dense_conv
+    from infinicube_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(0)
     out = []
+    for n in (N_RELEASE, N_SERVE):
+        block, npad = fa.quant_blocks(n)
+        q8, sq = fa.block_quantize(fa.fold_heads(rand((1, n, H, D), g),
+                                                 npad), block)
+        k8, sk = fa.block_quantize(fa.fold_heads(rand((1, n, H, D), g),
+                                                 npad), block)
+        v = rand((1, n, H, D), g)
+        ms = cuda_ms(lambda: kernels.flash_attn_int8qk(q8, k8, sq, sk, v,
+                                                       block, D ** -0.5),
+                     2, 5)
+        out.append(f"k1 {n}: {ms:.3f}")
     for nq, nk, h, d in ((N_RELEASE, TEXT_LEN, H, D),
                          (N_SERVE, TEXT_LEN, H, D),
                          (4096, 4096, H96, D96), (512, 512, H96, D96)):

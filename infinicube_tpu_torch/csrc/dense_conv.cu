@@ -33,7 +33,31 @@
 // wgmma yet. The weights arrive packed once per module as [O, 27*C] bf16
 // (k = tap*C + c, tap = dz*9 + dy*3 + dx) by the caller.
 //
-// The entry point returns cudaGetLastError().
+// conv3x3x3_int8 (K7) replaces the int8 branch of the same TPU kernel
+//   (`_pallas_conv` with `swx`, dense_conv.py:136-174, fed by
+//   `_quantize_for_conv` :251), which serves the UNet's convs under
+//   `DiffusionConfig.serve_quant` where the reference's plan fits (23 of the
+//   48 at release). x arrives as int8 with one scale per input channel
+//   folded into the int8 weights, which carry one f32 scale per (dx, output
+//   channel), sw [3, O]:
+//   out[v, o] = bias[o] + sum_dx sw[dx, o] * f32(sum_{dz, dy, c} x8 * w8)
+//   with each dx group's sum exact in int32 and the three added as the
+//   reference does (t1 + t0, then + t2), then the bias, then bf16.
+//
+// What bounds it: the same 2 * 27 * C * O operations per voxel as K3 on the
+// int8 tensor cores (1,979 TOP/s on an H100 SXM), against (C + 2 * O) bytes.
+//
+// Design (a first, simple version): K3's implicit GEMM with int8 operands.
+// The weights arrive packed [O, 27*C] int8 with k = (dx*9 + dz*3 + dy)*C + c,
+// so K runs one dx group after the other; a stage holds 64 channels (64
+// bytes a row, K3's shared-memory geometry), ldmatrix reads the byte tiles
+// as b16 tiles (which is the s8 fragment layout) and mma.sync m16n8k32 s8
+// accumulates into int32 registers. At the end of each dx group the int32
+// sums are converted, scaled by sw[dx, o] and added into f32 registers
+// (rounded multiply and add, no fused multiply-add, so the result equals the
+// plain version's), and the int32 registers restart at 0.
+//
+// The entry points return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -218,6 +242,173 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int kBK8 = 64;        // int8 input channels per pipeline stage
+constexpr int kLd8 = kBK8 + 16;  // byte row pitch in shared memory (80)
+
+__global__ void __launch_bounds__(kThreads)
+    conv3x3x3_int8_kernel(const int8_t* __restrict__ x,
+                          const int8_t* __restrict__ w,
+                          const float* __restrict__ sw,
+                          const float* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ out, int D, int H,
+                          int W, int C, int O, int M) {
+  __shared__ __align__(128) int8_t sA[kStages][kBM * kLd8];
+  __shared__ __align__(128) int8_t sB[kStages][kBN * kLd8];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int n_tiles = (O + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x / n_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_tiles) * kBN;
+  const int cv = (tid % 4) * 16;  // this thread's 16-channel column
+
+  int rb[4], rz[4], ry[4], rx[4];
+  bool rok[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int m = m0 + tid / 4 + 32 * j;
+    rok[j] = m < M;
+    const int mm = rok[j] ? m : 0;
+    rx[j] = mm % W;
+    ry[j] = (mm / W) % H;
+    rz[j] = (mm / (W * H)) % D;
+    rb[j] = mm / (W * H * D);
+  }
+
+  const int kc = (C + kBK8 - 1) / kBK8;
+  const int group = 9 * kc;  // iterations of one dx group
+  const int iters = 3 * group;
+  const long long wrow = 27LL * C;
+
+  // tap index in packing order: tp = dx*9 + dz*3 + dy
+  auto load_stage = [&](int stage, int it) {
+    const int tp = it / kc;
+    const int c = (it % kc) * kBK8 + cv;
+    const int dx = tp / 9 - 1, dz = (tp / 3) % 3 - 1, dy = tp % 3 - 1;
+    const bool cok = c < C;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int z = rz[j] + dz, y = ry[j] + dy, xx = rx[j] + dx;
+      const bool ok = cok && rok[j] && z >= 0 && z < D && y >= 0 && y < H &&
+                      xx >= 0 && xx < W;
+      const int8_t* src =
+          ok ? x + ((((long long)rb[j] * D + z) * H + y) * W + xx) * C + c
+             : x;
+      cp_async16(&sA[stage][(tid / 4 + 32 * j) * kLd8 + cv], src, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = tid / 4 + 32 * j;
+      const bool ok = cok && n0 + n < O;
+      const int8_t* src =
+          ok ? w + (long long)(n0 + n) * wrow + (long long)tp * C + c : w;
+      cp_async16(&sB[stage][n * kLd8 + cv], src, ok);
+    }
+  };
+
+  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
+  const int g = lane / 4, t = lane % 4;
+  int acc[4][4][4];
+  float accf[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0;
+        accf[i][j][e] = 0.f;
+      }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < iters) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = it + kStages - 1;
+    if (nxt < iters) load_stage(nxt % kStages, nxt);
+    cp_async_commit();
+
+    const int8_t* a_s = sA[it % kStages];
+    const int8_t* b_s = sB[it % kStages];
+#pragma unroll
+    for (int kk = 0; kk < kBK8; kk += 32) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi], a_s + (wm + mi * 16 + lane % 16) * kLd8 + kk +
+                                (lane / 16) * 16);
+#pragma unroll
+      for (int nj = 0; nj < 4; nj += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, b_s + (wn + nj * 8 + lane % 8 + (lane / 16) * 8) *
+                                 kLd8 +
+                           kk + ((lane / 8) % 2) * 16);
+        bf[nj][0] = r[0];
+        bf[nj][1] = r[1];
+        bf[nj + 1][0] = r[2];
+        bf[nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          mma_s8(acc[mi][nj], af[mi], bf[nj][0], bf[nj][1]);
+    }
+
+    if ((it + 1) % group == 0) {  // a dx group is complete: dequantize it
+      const float* s_dx = sw + (long long)(it / group) * O;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int n = n0 + wn + nj * 8 + 2 * t;
+        const float s0 = n < O ? s_dx[n] : 0.f;
+        const float s1 = n < O ? s_dx[n + 1] : 0.f;
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            accf[mi][nj][e] = __fadd_rn(
+                accf[mi][nj][e],
+                __fmul_rn(__int2float_rn(acc[mi][nj][e]), e % 2 ? s1 : s0));
+            acc[mi][nj][e] = 0;
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    const int n = n0 + wn + nj * 8 + 2 * t;
+    if (n >= O) continue;
+    const float b0 = bias[n], b1 = bias[n + 1];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + mi * 16 + g + 8 * h;
+        if (m >= M) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)m * O + n) =
+            __floats2bfloat162_rn(__fadd_rn(accf[mi][nj][2 * h], b0),
+                                  __fadd_rn(accf[mi][nj][2 * h + 1], b1));
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -232,6 +423,23 @@ int conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* out,
   conv3x3x3_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), D, H, W, C, O, static_cast<int>(M));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int conv3x3x3_int8(const void* x8, const void* w8, const void* sw,
+                   const void* bias, void* out, int B, int D, int H, int W,
+                   int C, int O, void* stream) {
+  const long long M = (long long)B * D * H * W;
+  const long long blocks = (M + kBM - 1) / kBM * ((O + kBN - 1) / kBN);
+  if (M <= 0 || M >= (1LL << 31) || blocks >= (1LL << 31) || C % 32 ||
+      O % 32 || sw == nullptr || bias == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  conv3x3x3_int8_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x8), static_cast<const int8_t*>(w8),
+      static_cast<const float*>(sw), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), D, H, W, C, O, static_cast<int>(M));
   return static_cast<int>(cudaGetLastError());
 }

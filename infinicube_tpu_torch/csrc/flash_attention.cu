@@ -11,6 +11,15 @@
 //   `_block_quantize` makes them; QK^T runs on the int8 tensor cores with
 //   int32 accumulation, the logits are scaled by sq * sk * sm_scale, and PV
 //   runs in bf16 with f32 accumulation.
+// flash_attn_int8qkv (K8) replaces the int8-PV branch of the same TPU kernel
+//   (quant="qkv", `_kernel_body` :159-164 with `_channel_quantize` :239),
+//   which the DiT's self-attention runs under WanDiTConfig(attn_quant="qkv").
+//   Q and K as for K1; V arrives as int8 with one f32 scale per (batch*head,
+//   channel), transposed to [batch*head, d, Npad] by the wrapper so that the
+//   keys of one channel are contiguous. P is rounded to int8 at the fixed
+//   scale 127 against the running max, int8(p * 127 + 0.5), and PV runs on
+//   the int8 tensor cores with int32 accumulation, dequantized by sv / 127
+//   per channel; the denominator sums the f32 P, as in the reference.
 // flash_attn_bf16 (K2) replaces the forward of the library Pallas TPU flash
 //   attention (jax.experimental.pallas.ops.tpu.flash_attention) that
 //   infinicube_tpu/ops/attention.py:25 `multi_head_attention` reaches on the
@@ -23,8 +32,9 @@
 //   statistic K5 needs. The serving paths pass null and store nothing more.
 //
 // What bounds them: at the DiT's shapes both do ~4*Nq*Nk*d flops for
-// ~(Nq + Nk)*d*6 bytes, far above the card's ~295 flop/byte ridge, so both are
-// tensor-core bound (K1 half int8, half bf16). The TPU kernel's fixed-max
+// ~(Nq + Nk)*d*6 bytes, far above the card's ~295 flop/byte ridge, so all
+// three are tensor-core bound (K1 half int8, half bf16; K8 int8). The TPU
+// kernel's fixed-max
 // softmax and closed-form removal of padding mass were workarounds for the
 // v5e's vector unit; here the softmax is the usual online running max in f32
 // (exp2, log2(e) folded into the logit scale; the stored lse is converted to
@@ -35,8 +45,17 @@
 // its running max/denominator and its 16 x d f32 output in registers. The
 // block loops over tiles of 64 keys staged in shared memory, with
 // mma.sync m16n8k32 (s8) or m16n8k16 (bf16) for QK^T and m16n8k16 (bf16) for
-// PV; P goes from the QK^T accumulator layout straight into the A operand of
-// PV without touching shared memory. No TMA, wgmma or load pipelining yet.
+// PV (m16n8k32 s8 in K8); P goes from the QK^T accumulator layout straight
+// into the A operand of PV without touching shared memory. In K8 a thread's
+// accumulators hold keys {2t, 2t+1, 2t+8, 2t+9} of each 16 where the s8 A
+// operand wants {4t .. 4t+3}: the contraction does not care about the order
+// of its keys, so the packed P keeps the accumulator order and the B operand
+// reads V's keys in the same order (two 16-bit loads a register from the
+// transposed tile). K8's running max is over 64-key tiles where the
+// reference's is over 1,536-key blocks, so P rounds to int8 at other maxima
+// and the two agree to the int8 gate, not bit for bit. K8 is a kernel of its
+// own beside K1, which stays as it was (K1's register allocation decides
+// its speed). No TMA, wgmma or load pipelining yet.
 //
 // Tensors are addressed by element strides (batch, token, head), so the
 // wrappers pass [B, N, h, d] views and folded [B*h, N, d] buffers alike
@@ -129,6 +148,60 @@ __device__ __forceinline__ void pv_tile(const __nv_bfloat16* sV, int ldv,
       const uint32_t b1 = pack_bf16(p[8 * ldv], p[9 * ldv]);
       mma_bf16(o[j], pa[kk], b0, b1);
     }
+  }
+}
+
+// p in [0, 1] -> int8(p * 127 + 0.5), the reference's rounding.
+__device__ __forceinline__ uint32_t p8(float p) {
+  return static_cast<uint32_t>(
+      __float2int_rz(__fadd_rn(__fmul_rn(p, 127.f), 0.5f)));
+}
+
+// P (left in s by softmax_tile) as int8 A operands of m16n8k32, 32 keys per
+// operand in accumulator order: register 0 of chunk kk holds keys 2t, 2t+1,
+// 2t+8, 2t+9 of its first 16 (row g), register 1 the same keys of row g+8,
+// registers 2 and 3 those of the second 16. pv_tile_s8 reads V alike.
+__device__ __forceinline__ void pack_p_s8(const float (&s)[kBK / 8][4],
+                                          uint32_t (&pa)[kBK / 32][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 32; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* a = s[4 * kk + 2 * (r / 2)];
+      const float* b = s[4 * kk + 2 * (r / 2) + 1];
+      const int e = 2 * (r % 2);  // row g: elements 0, 1; row g+8: 2, 3
+      pa[kk][r] = p8(a[e]) | (p8(a[e + 1]) << 8) | (p8(b[e]) << 16) |
+                  (p8(b[e + 1]) << 24);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t ld16(const int8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// o += dequant(P8 @ V8) for one tile; V8 staged transposed in shared memory
+// as [D][ldv] int8 (channel rows, keys along the row), svs = sv / 127.
+template <int D>
+__device__ __forceinline__ void pv_tile_s8(const int8_t* sVt, int ldv,
+                                           const uint32_t (&pa)[kBK / 32][4],
+                                           const float* svs, int g, int t,
+                                           float (&o)[D / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    int acc[4] = {0, 0, 0, 0};
+    const int8_t* row = sVt + (j * 8 + g) * ldv + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      const int8_t* r = row + kk * 32;
+      mma_s8(acc, pa[kk], ld16(r) | (ld16(r + 8) << 16),
+             ld16(r + 16) | (ld16(r + 24) << 16));
+    }
+    const float s0 = svs[j * 8 + 2 * t], s1 = svs[j * 8 + 2 * t + 1];
+    o[j][0] += static_cast<float>(acc[0]) * s0;
+    o[j][1] += static_cast<float>(acc[1]) * s1;
+    o[j][2] += static_cast<float>(acc[2]) * s0;
+    o[j][3] += static_cast<float>(acc[3]) * s1;
   }
 }
 
@@ -328,6 +401,89 @@ __global__ void __launch_bounds__(kThreads)
                 o_acc, nullptr);
 }
 
+// K8: K1's loop with V int8 and transposed, vt [B*H, D, npad] addressed by
+// sv (batch and head strides, and the byte pitch of a channel row in sv.n),
+// and the f32 per-(batch*head, channel) scales vscale [B*H, D].
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_int8qkv_kernel(const int8_t* __restrict__ q8,
+                         const int8_t* __restrict__ k8,
+                         const int8_t* __restrict__ vt,
+                         __nv_bfloat16* __restrict__ o,
+                         const float* __restrict__ qscale,
+                         const float* __restrict__ kscale,
+                         const float* __restrict__ vscale, int H, int n,
+                         int block, int nb, Strides sq, Strides sk,
+                         Strides sv, Strides so, float sm_log2) {
+  constexpr int LDI = D + 16;    // int8 row pitch in shared memory
+  constexpr int LDT = kBK + 16;  // int8 pitch of the transposed V tile
+  __shared__ __align__(16) int8_t sK[kBK * LDI];  // Q staged here first
+  __shared__ __align__(16) int8_t sVt[D * LDT];
+  __shared__ float svs[D];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kBQ;
+  const int8_t* qb = q8 + b * sq.b + h * sq.h;
+  const int8_t* kb = k8 + b * sk.b + h * sk.h;
+  const int8_t* vb = vt + b * sv.b + h * sv.h;
+  const float q_scale = qscale[bh * nb + q0 / block] * sm_log2;
+  for (int i = threadIdx.x; i < D; i += kThreads)
+    svs[i] = __fmul_rn(vscale[bh * D + i], 1.f / 127.f);
+
+  load_tile(reinterpret_cast<unsigned char*>(sK), LDI,
+            reinterpret_cast<const unsigned char*>(qb + q0 * sq.n), sq.n,
+            kBQ, D, n - q0);
+  __syncthreads();
+  uint32_t qf[D / 32][4];
+  {
+    const int8_t* r0 = sK + (warp * 16 + g) * LDI + 4 * t;
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) {
+      qf[kk][0] = ld32(r0 + kk * 32);
+      qf[kk][1] = ld32(r0 + 8 * LDI + kk * 32);
+      qf[kk][2] = ld32(r0 + kk * 32 + 16);
+      qf[kk][3] = ld32(r0 + 8 * LDI + kk * 32 + 16);
+    }
+  }
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+
+  for (int k0 = 0; k0 < n; k0 += kBK) {
+    __syncthreads();
+    load_tile(reinterpret_cast<unsigned char*>(sK), LDI,
+              reinterpret_cast<const unsigned char*>(kb + k0 * sk.n), sk.n,
+              kBK, D, n - k0);
+    // D channel rows of kBK keys; npad (a multiple of the block) covers them
+    load_tile(reinterpret_cast<unsigned char*>(sVt), LDT,
+              reinterpret_cast<const unsigned char*>(vb + k0), sv.n, D, kBK,
+              D);
+    __syncthreads();
+    const float scale = q_scale * kscale[bh * nb + k0 / block];
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      int acc[4] = {0, 0, 0, 0};
+      const int8_t* r0 = sK + (j * 8 + g) * LDI + 4 * t;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        mma_s8(acc, qf[kk], ld32(r0 + kk * 32), ld32(r0 + kk * 32 + 16));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = static_cast<float>(acc[e]) * scale;
+    }
+    uint32_t pa_bf16[kBK / 16][4];  // unused here: the compiler drops it
+    softmax_tile<D>(s, n - k0, t, m, l, o_acc, pa_bf16);
+    uint32_t pa[kBK / 32][4];
+    pack_p_s8(s, pa);
+    pv_tile_s8<D>(sVt, LDT, pa, svs, g, t, o_acc);
+  }
+  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, n, g, t, m, l,
+                o_acc, nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -389,6 +545,39 @@ int flash_attn_int8qk(const void* q8, const void* k8, const void* v, void* o,
   else if (d == 64)
     flash_int8qk_kernel<64><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, op, qs, ks, H, n, block, nb, sq, sk, sv, so, sm_log2);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vt: int8 [B*H, d, Npad] (V transposed), vscale: f32 [B*H, d]; v_sb, v_sh
+// and v_sn are its element strides between batches, heads and channel rows.
+int flash_attn_int8qkv(const void* q8, const void* k8, const void* vt,
+                       void* o, const void* qscale, const void* kscale,
+                       const void* vscale, int B, int H, int n, int d,
+                       int block, int nb, long long q_sb, long long q_sn,
+                       long long q_sh, long long k_sb, long long k_sn,
+                       long long k_sh, long long v_sb, long long v_sn,
+                       long long v_sh, long long o_sb, long long o_sn,
+                       long long o_sh, float sm_scale, void* stream) {
+  const dim3 grid((n + kBQ - 1) / kBQ, B * H);
+  const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh},
+      sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
+  const float sm_log2 = sm_scale * kLog2e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const int8_t*>(q8);
+  auto kp = static_cast<const int8_t*>(k8);
+  auto vp = static_cast<const int8_t*>(vt);
+  auto op = static_cast<__nv_bfloat16*>(o);
+  auto qs = static_cast<const float*>(qscale);
+  auto ks = static_cast<const float*>(kscale);
+  auto vs = static_cast<const float*>(vscale);
+  if (d == 128)
+    flash_int8qkv_kernel<128><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, op, qs, ks, vs, H, n, block, nb, sq, sk, sv, so, sm_log2);
+  else if (d == 64)
+    flash_int8qkv_kernel<64><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, op, qs, ks, vs, H, n, block, nb, sq, sk, sv, so, sm_log2);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

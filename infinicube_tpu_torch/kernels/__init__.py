@@ -38,11 +38,13 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attn_bf16": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
         "flash_attn_int8qk": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
+        "flash_attn_int8qkv": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_F, _P],
     },
     "flash_attention_bwd": {
         "flash_attn_bf16_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
-    "dense_conv": {"conv3x3x3_bf16": [_P] * 4 + [_I] * 6 + [_P]},
+    "dense_conv": {"conv3x3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
+                   "conv3x3x3_int8": [_P] * 5 + [_I] * 6 + [_P]},
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
     "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 5 + [_I] * 5 + [_P]},
 }
@@ -260,6 +262,45 @@ def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
     return o
 
 
+def flash_attn_int8qkv(q8: torch.Tensor, k8: torch.Tensor,
+                       qscale: torch.Tensor, kscale: torch.Tensor,
+                       v8t: torch.Tensor, vscale: torch.Tensor, B: int,
+                       n: int, block: int, sm_scale: float) -> torch.Tensor:
+    """K8: attention with int8 QK^T and int8 PV. q8/k8 int8 [B*h, Npad, d]
+    with f32 scales [B*h, Npad/block] as for K1; v8t int8 [B*h, d, Npad], V
+    quantized per channel (``channel_quantize``) and transposed, with f32
+    scales vscale [B*h, d]; the first n of Npad tokens are real, keys >= n
+    are masked. Returns [B, n, h, d] bf16."""
+    _check_cuda(q8, k8, qscale, kscale, v8t, vscale)
+    BH, npad, d = q8.shape
+    h = BH // B
+    if BH != B * h or k8.shape != q8.shape or \
+            v8t.shape != (BH, d, npad) or not 0 < n <= npad:
+        raise ValueError(f"shape mismatch q8{tuple(q8.shape)} "
+                         f"k8{tuple(k8.shape)} v8t{tuple(v8t.shape)} B={B} "
+                         f"n={n}")
+    if d not in (64, 128):
+        raise ValueError(f"head dim {d} not supported (64 or 128)")
+    if block % 64 or npad % block:
+        raise ValueError(f"block {block} must be a multiple of 64 that "
+                         f"divides Npad={npad}")
+    nb = npad // block
+    for t, nm in ((q8, "q8"), (k8, "k8")):
+        _check_dense(t, nm, (BH, npad, d), torch.int8)
+    _check_dense(v8t, "v8t", (BH, d, npad), torch.int8)
+    _check_dense(qscale, "qscale", (BH, nb), torch.float32)
+    _check_dense(kscale, "kscale", (BH, nb), torch.float32)
+    _check_dense(vscale, "vscale", (BH, d), torch.float32)
+    o = torch.empty((B, n, h, d), dtype=torch.bfloat16, device=q8.device)
+    fold = (h * npad * d, d, npad * d)  # batch, token, head strides of q8/k8
+    _run("flash_attention", "flash_attn_int8qkv", q8.device, q8.data_ptr(),
+         k8.data_ptr(), v8t.data_ptr(), o.data_ptr(), qscale.data_ptr(),
+         kscale.data_ptr(), vscale.data_ptr(), B, h, n, d, block, nb, *fold,
+         *fold, h * d * npad, npad, d * npad, *o.stride()[:3],
+         float(sm_scale))
+    return o
+
+
 def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
                    bias: torch.Tensor | None) -> torch.Tensor:
     """K3: 3x3x3 stride-1 SAME conv. x bf16 [B, D, H, W, C] contiguous;
@@ -287,6 +328,35 @@ def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
          w_packed.data_ptr(), None if bias is None else bias.data_ptr(),
          out.data_ptr(), B, D, H, W, C, O,
          count_as=K3_DGRAD if bias is None else None)
+    return out
+
+
+def conv3x3x3_int8(x8: torch.Tensor, w8_packed: torch.Tensor,
+                   sw: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K7: the int8 3x3x3 stride-1 SAME conv. x8 int8 [B, D, H, W, C]
+    contiguous; w8_packed int8 [O, 27*C] (``pack_int8_weight``, dx-major);
+    sw f32 [3, O], the per-(dx, output channel) scales; bias f32 [O]. C and
+    O multiples of 32. Returns bf16 [B, D, H, W, O]."""
+    _check_cuda(x8, w8_packed, sw, bias)
+    if x8.dim() != 5:
+        raise ValueError(f"x8 must be [B, D, H, W, C], got {tuple(x8.shape)}")
+    B, D, H, W, C = x8.shape
+    O = w8_packed.shape[0]
+    if C % 32 or O % 32 or min(B, D, H, W) < 1:
+        raise ValueError(f"conv3x3x3_int8 takes C, O multiples of 32, got "
+                         f"x{tuple(x8.shape)} -> {O}")
+    M = B * D * H * W
+    if M >= 2 ** 31 or -(-M // 128) * -(-O // 64) >= 2 ** 31:
+        raise ValueError(f"too many voxels for one launch: {tuple(x8.shape)}"
+                         f" -> {O}")
+    _check_dense(x8, "x8", (B, D, H, W, C), torch.int8)
+    _check_dense(w8_packed, "w8_packed", (O, 27 * C), torch.int8)
+    _check_dense(sw, "sw", (3, O), torch.float32)
+    _check_dense(bias, "bias", (O,), torch.float32)
+    out = torch.empty((B, D, H, W, O), dtype=torch.bfloat16, device=x8.device)
+    _run("dense_conv", "conv3x3x3_int8", x8.device, x8.data_ptr(),
+         w8_packed.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+         out.data_ptr(), B, D, H, W, C, O)
     return out
 
 

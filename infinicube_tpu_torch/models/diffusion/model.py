@@ -1,19 +1,20 @@
-"""Voxel latent diffusion model: conditioning, the training loss and DDIM
-sampling with guidance; counterpart of
-``infinicube_tpu/models/diffusion/model.py``.
+"""Voxel latent diffusion model: conditioning, the training loss and guided
+sampling; counterpart of ``infinicube_tpu/models/diffusion/model.py``.
 
 Release conditioning (concat of pos-embed, map cube and box cube onto the
-8-channel 64^3 latent cube), v-prediction, DDIM with classifier-free
-guidance as a doubled batch when the guidance scale is not 1, and SDEdit
-overlap injection, and ``train_loss`` (per-sample timesteps, v-prediction
-or epsilon target, classifier-free dropout of the map and box cubes). The
-random numbers (x_T and the per-step SDEdit noise; the timesteps, noise and
-drop masks of the loss) come from a ``torch.Generator`` unless the caller
-passes them in, which is how the tests feed the JAX package's numbers
-through.
+8-channel 64^3 latent cube), v-prediction, DDIM, DDPM or DPM-Solver++ with
+classifier-free guidance as a doubled batch when the guidance scale is not
+1, and SDEdit overlap injection, and ``train_loss`` (per-sample timesteps,
+v-prediction or epsilon target, classifier-free dropout of the map and box
+cubes). ``sample`` always runs the serving twin of the UNet, which is the
+UNet itself unless ``serve_quant`` makes its convs int8 (K7); training and
+``train_loss`` keep full precision. The random numbers (x_T, the per-step
+SDEdit and DDPM noise; the timesteps, noise and drop masks of the loss) come
+from a ``torch.Generator`` unless the caller passes them in, which is how
+the tests feed the JAX package's numbers through.
 
-Waits: DDPM / DPM++, the alt condition encoders (semantic, single scan,
-image, class, context) and ``serve_quant``."""
+Waits: the alt condition encoders (semantic, single scan, image, class,
+context)."""
 
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from torch.func import functional_call
 from infinicube_tpu_torch.device import resolve_device
 from infinicube_tpu_torch.models.diffusion import encoders
 from infinicube_tpu_torch.models.diffusion.schedulers import (NoiseSchedule,
-                                                              ddim_sample)
+                                                              ddim_sample,
+                                                              ddpm_sample,
+                                                              dpmpp_sample)
 from infinicube_tpu_torch.models.diffusion.sdedit import (SDEditState,
                                                           make_sdedit_callback)
 from infinicube_tpu_torch.models.diffusion.unet3d import UNet3D
@@ -47,6 +50,7 @@ class DiffusionConfig:
     transformer_depth: int = 12
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False      # recompute res / transformer blocks in backward
+    serve_quant: bool = False  # int8 convs (K7) in sample() only
     num_map_types: int = 3
     use_map_cond: bool = True
     use_box_cond: bool = True
@@ -94,6 +98,9 @@ class VoxelDiffusion:
             num_heads=cfg.num_heads, transformer_depth=cfg.transformer_depth,
             dtype=cfg.dtype, remat=cfg.remat,
             device=self.device).eval().requires_grad_(trainable)
+        # serving twin: the same parameters, int8 convs under serve_quant
+        self.unet_serve = self.unet.serving_twin() if cfg.serve_quant \
+            else self.unet
         self.schedule = NoiseSchedule.linear(
             cfg.num_train_timesteps, cfg.beta_start, cfg.beta_end,
             device=self.device)
@@ -138,13 +145,16 @@ class VoxelDiffusion:
         return torch.cat(parts, dim=-1)
 
     def denoise(self, x: torch.Tensor, t: torch.Tensor, cond: CondCubes,
-                params: dict | None = None) -> torch.Tensor:
-        """The UNet on the assembled input; with ``params`` (name ->
-        tensor) on those instead of the model's own (EMA validation)."""
+                params: dict | None = None,
+                serve: bool = False) -> torch.Tensor:
+        """The UNet (its serving twin with ``serve``) on the assembled
+        input; with ``params`` (name -> tensor) on those instead of the
+        model's own (EMA validation)."""
         inp = self._assemble(x, cond)
+        net = self.unet_serve if serve else self.unet
         if params is None:
-            return self.unet(inp, t)
-        return functional_call(self.unet, params, (inp, t))
+            return net(inp, t)
+        return functional_call(net, params, (inp, t))
 
     def named_parameters(self) -> dict[str, torch.Tensor]:
         return dict(self.unet.named_parameters())
@@ -194,12 +204,17 @@ class VoxelDiffusion:
                sdedit: SDEditState | None = None,
                generator: torch.Generator | None = None,
                noise: torch.Tensor | None = None,
-               sdedit_noise: Sequence[torch.Tensor] | None = None
+               sdedit_noise: Sequence[torch.Tensor] | None = None,
+               sampler: str = "ddim",
+               step_noise: Sequence[torch.Tensor] | None = None
                ) -> torch.Tensor:
-        """Generate latents (divided by scale_factor back to VAE space).
-        ``noise`` is x_T [B, D, H, W, latent] and ``sdedit_noise[i]`` the
-        re-noising of step i; both are drawn from ``generator`` when not
-        given."""
+        """Generate latents (divided by scale_factor back to VAE space) with
+        ``sampler`` "ddim", "ddpm" or "dpmpp" through the serving twin.
+        ``noise`` is x_T [B, D, H, W, latent], ``sdedit_noise[i]`` the
+        re-noising of step i and ``step_noise[i]`` DDPM's noise of step i;
+        each is drawn from ``generator`` when not given."""
+        if sampler not in ("ddim", "ddpm", "dpmpp"):
+            raise ValueError(f"unknown sampler {sampler!r}")
         cfg = self.cfg
         dev = self.device
         B = cond.map_cube.shape[0]
@@ -216,11 +231,11 @@ class VoxelDiffusion:
 
             def model_fn(x, t):
                 c, u = self.denoise(torch.cat([x, x]), torch.cat([t, t]),
-                                    cond2).chunk(2)
+                                    cond2, serve=True).chunk(2)
                 return u + guidance_scale * (c - u)
         else:
             def model_fn(x, t):
-                return self.denoise(x, t, cond)
+                return self.denoise(x, t, cond, serve=True)
 
         callback = None
         if sdedit is not None:
@@ -230,9 +245,14 @@ class VoxelDiffusion:
                 (lambda i, shp: sdedit_noise[i].to(dev, torch.float32)) \
                 if sdedit_noise is not None else (lambda i, shp: draw(shp))
             callback = make_sdedit_callback(sd, self.schedule, noise_fn)
-        x = ddim_sample(self.schedule, model_fn, x_T, num_steps,
-                        prediction_type=cfg.prediction_type,
-                        step_callback=callback)
+        kw = dict(prediction_type=cfg.prediction_type, step_callback=callback)
+        if sampler == "ddim":
+            x = ddim_sample(self.schedule, model_fn, x_T, num_steps, **kw)
+        elif sampler == "ddpm":
+            x = ddpm_sample(self.schedule, model_fn, x_T, num_steps,
+                            generator=generator, step_noise=step_noise, **kw)
+        else:
+            x = dpmpp_sample(self.schedule, model_fn, x_T, num_steps, **kw)
         return x / scale_factor
 
     @staticmethod
@@ -243,11 +263,12 @@ class VoxelDiffusion:
     def evaluation_api(self, cond: CondCubes, decode_fn=None,
                        num_steps: int = 100, guidance_scale: float = 1.0,
                        scale_factor: float = 1.0,
-                       sdedit: SDEditState | None = None, **noise_kw):
+                       sdedit: SDEditState | None = None,
+                       sampler: str = "ddim", **noise_kw):
         """Sample latents, then decode them with ``decode_fn(latents) ->
         (ijk, semantics)`` when given. ``noise_kw``: ``generator``,
-        ``noise``, ``sdedit_noise`` as for ``sample``."""
+        ``noise``, ``sdedit_noise``, ``step_noise`` as for ``sample``."""
         latents = self.sample(cond, num_steps, guidance_scale, scale_factor,
-                              sdedit, **noise_kw)
+                              sdedit, sampler=sampler, **noise_kw)
         return latents, (decode_fn(latents) if decode_fn is not None
                          else None)

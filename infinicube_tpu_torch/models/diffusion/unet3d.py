@@ -17,10 +17,14 @@ flax ``nn.Conv`` (XLA) in JAX and are ``torch.nn.functional.conv3d`` here;
 so are the Dense layers and the middle transformer's einsum attention.
 ``remat`` recomputes each ``ResBlock3D`` and the middle transformer in the
 backward pass instead of keeping their activations (flax ``nn.remat`` over
-the same two block kinds)."""
+the same two block kinds). ``conv_quant`` makes every ``Conv3x3x3`` int8
+where ``int8_conv_applies`` holds for its input (K7 on the card);
+``serving_twin`` gives that UNet on this one's parameters."""
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 
 import torch
@@ -89,15 +93,17 @@ class _ConvParams(nn.Module):
 
 class ResBlock3D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, conv_quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.GroupNorm32_0 = GroupNorm32(in_ch, device=device)
-        self.conv1 = Conv3x3x3(in_ch, out_ch, dtype, device=device)
+        self.conv1 = Conv3x3x3(in_ch, out_ch, dtype, device=device,
+                               quant=conv_quant)
         self.emb_proj = Dense(emb_ch, 2 * out_ch, compute_dtype=dtype,
                               device=device)
         self.GroupNorm32_1 = GroupNorm32(out_ch, device=device)
-        self.conv2 = Conv3x3x3(out_ch, out_ch, dtype, device=device)
+        self.conv2 = Conv3x3x3(out_ch, out_ch, dtype, device=device,
+                               quant=conv_quant)
         self.skip = _ConvParams(in_ch, out_ch, 1, device=device) \
             if in_ch != out_ch else None
 
@@ -228,20 +234,21 @@ class UNet3D(nn.Module):
                  num_res_blocks: int = 2, attention_ds=(4, 8),
                  num_heads: int = 8, transformer_depth: int = 12,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 device=None):
+                 device=None, conv_quant: bool = False):
         super().__init__()
-        self.dtype, self.remat = dtype, remat
+        self.dtype, self.remat, self.conv_quant = dtype, remat, conv_quant
         self.channel_mult, self.num_res_blocks = channel_mult, num_res_blocks
         self.attention_ds = attention_ds
         ch = model_channels
         emb = 4 * ch
         self.Dense_0 = Dense(ch, emb, compute_dtype=dtype, device=device)
         self.Dense_1 = Dense(emb, emb, compute_dtype=dtype, device=device)
-        self.in_conv = Conv3x3x3(in_channels, ch, dtype, device=device)
+        self.in_conv = Conv3x3x3(in_channels, ch, dtype, device=device,
+                                 quant=conv_quant)
         res, att = [], []
 
         def resblock(cin, cout):
-            res.append(ResBlock3D(cin, cout, emb, dtype, device))
+            res.append(ResBlock3D(cin, cout, emb, dtype, device, conv_quant))
 
         def attn(c):
             att.append(SelfAttention3D(c, num_heads, dtype, device))
@@ -271,7 +278,8 @@ class UNet3D(nn.Module):
                     attn(c)
             if level != 0:
                 setattr(self, f"up{level}",
-                        Conv3x3x3(c, c, dtype, device=device))
+                        Conv3x3x3(c, c, dtype, device=device,
+                                  quant=conv_quant))
                 ds //= 2
         for i, m in enumerate(res):
             setattr(self, f"ResBlock3D_{i}", m)
@@ -310,6 +318,18 @@ class UNet3D(nn.Module):
                     m.proj_out.weight.zero_()
         if zero_init_layers:
             self.out_conv.weight.zero_()
+
+    def serving_twin(self) -> "UNet3D":
+        """This UNet with ``conv_quant`` on, holding the same parameter
+        tensors (a load or an update of either reaches both): the
+        reference's ``unet.clone(conv_quant=True)``."""
+        shared = itertools.chain(self.parameters(), self.buffers())
+        twin = copy.deepcopy(self, memo={id(t): t for t in shared})
+        twin.conv_quant = True
+        for m in twin.modules():
+            if isinstance(m, Conv3x3x3):
+                m.quant, m._packed = True, None
+        return twin
 
     def _block(self, block: nn.Module):
         """``block``, rematerialized in the backward pass when ``remat``."""

@@ -10,9 +10,9 @@ half-split RoPE, a per-block ``mod_bias``, the zero-initialized
 
 Dtypes follow the reference: projections in ``cfg.dtype``; norms, adaLN
 modulation, the time MLP and the head in f32; the carried residual in
-``cfg.residual_dtype``. Self-attention goes through ``mha_quantized`` (K1) when
-``attn_quant`` is set, else, like cross-attention, ``multi_head_attention``
-(K2)."""
+``cfg.residual_dtype``. Self-attention goes through ``mha_quantized`` when
+``attn_quant`` is set (K1 for ``"qk"``, K8 for ``"qkv"``), else, like
+cross-attention, ``multi_head_attention`` (K2)."""
 
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ class WanDiTConfig:
     text_dim: int = 4096            # umt5-xxl hidden
     freq_dim: int = 256
     sp_axis: str | None = None      # ring attention: not ported yet
-    attn_quant: str | None = None   # "qk": int8-QK self-attention (K1)
+    attn_quant: str | None = None   # "qk" (K1) / "qkv" (K8): int8 self-attn
     quant_linear: bool = False      # int8 block projections / FFN
     residual_dtype: torch.dtype = torch.float32
     patch_size: tuple = (1, 2, 2)

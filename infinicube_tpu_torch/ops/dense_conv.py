@@ -1,5 +1,6 @@
 """3x3x3 stride-1 SAME convolution on NDHWC tensors, forward and backward:
-kernel K3 on the card, the plain versions on the CPU.
+kernel K3 on the card, the plain versions on the CPU; and its int8 serving
+variant, kernel K7 on the card.
 
 Counterpart of ``infinicube_tpu/ops/dense_conv.py``. There the Pallas
 implicit-GEMM kernel serves the UNet's convs on the TPU where its plan fits
@@ -17,7 +18,19 @@ version and autograd. A CUDA call the kernel does not take raises.
 Weights keep torch's conv layout [O, C, 3, 3, 3] (``weights/from_jax.py``
 turns flax's DHWIO into it). The kernel reads them as [O, 27*C] bf16 for the
 forward and as [C, 27*O] bf16 (flipped, swapped) for the input gradient;
-``Conv3x3x3`` packs each once per weight version and caches it."""
+``Conv3x3x3`` packs each once per weight version and caches it.
+
+The int8 variant (``quant=True``, the reference's ``quant=True`` path,
+selected by ``DiffusionConfig.serve_quant``) quantizes x per input channel
+over the whole batch and folds those scales into the weights, which are then
+quantized per (dx, output channel) (``quantize_for_conv``, plain PyTorch
+like K1's prologue, so the int8 inputs equal the reference's bit for bit).
+K7 (``conv3x3x3_int8``, csrc/dense_conv.cu) sums the int8 products in int32
+per dx group, dequantizes each group with its scales and adds the three in
+the reference's order. It applies only where ``int8_conv_applies`` holds, as
+the reference quantizes only where its plan fits; elsewhere the conv stays
+bf16 (K3). The weights are quantized anew on every call: their scales depend
+on that call's activations."""
 
 from __future__ import annotations
 
@@ -28,6 +41,101 @@ import torch.nn.functional as F
 from torch import nn
 
 from infinicube_tpu_torch import kernels
+
+
+# the reference kernel's VMEM budget, which decides where it quantizes
+_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def int8_conv_applies(shape, C: int, O: int) -> bool:
+    """Whether the reference quantizes the conv of x [B, D, H, W, C] -> O:
+    the ``quant=True`` branch of its ``conv_plan_feasible`` (dense_conv.py
+    :74-126), which looks for a row tile and channel chunks of its Pallas
+    kernel that fit the TPU's 12 MiB VMEM budget with 32-row int8 tiles.
+    The budget means nothing on this card; the rule is kept because it
+    decides which convs of the UNet are int8, and with it the outputs."""
+    _, D, H, W = shape
+    if C < 64 or O < 64 or min(D, H, W) < 3:
+        return False
+    if C % 8 or O % 8 or W % 8:
+        return False
+
+    def divisors_desc(n):
+        return [d for d in range(n, 0, -1) if n % d == 0]
+
+    oblks = [O] + [o for o in divisors_desc(O) if o % 128 == 0 and o < O]
+    cblks = [C] + [c for c in divisors_desc(C) if c % 128 == 0 and c < C]
+    for oblk in oblks:
+        for cblk in cblks:
+            chunks = (O // oblk) * (C // cblk)
+            wbuf = 1 if chunks == 1 else 2
+            for by in divisors_desc(H):
+                R = by * W
+                if R < 128 or R > 4096 or R % 32:
+                    continue
+                if chunks > 1 and R < 512:
+                    continue
+                vmem = (2 * 9 * R * cblk + R * 9 * cblk
+                        + wbuf * 9 * cblk * 3 * oblk + R * 3 * oblk * 4
+                        + R * 3 * oblk * 4 + 2 * R * oblk * 2)
+                if vmem <= _VMEM_BUDGET:
+                    return True
+    return False
+
+
+def quantize_for_conv(x: torch.Tensor, w: torch.Tensor):
+    """The reference's ``_quantize_for_conv``: x [B, D, H, W, C] gets one
+    scale per input channel over the whole batch (a CFG pair's two halves
+    share them), folded exactly into w [O, C, 3, 3, 3], which gets one scale
+    per (dx, output channel). Returns x8 int8 like x, w8 int8 like w and
+    sw f32 [3, O]."""
+    xf = x.float()
+    sc = xf.abs().amax(dim=(0, 1, 2, 3)).clamp_min(1e-8) / 127.0
+    x8 = torch.round(xf / sc).to(torch.int8)
+    wf = w.float() * sc[None, :, None, None, None]
+    sw = wf.abs().amax(dim=(1, 2, 3)).clamp_min(1e-8).t() / 127.0  # [3, O]
+    w8 = torch.round(wf / sw.t()[:, None, None, None, :]).to(torch.int8)
+    return x8, w8, sw.contiguous()
+
+
+def pack_int8_weight(w8: torch.Tensor) -> torch.Tensor:
+    """int8 [O, C, 3, 3, 3] -> [O, 27*C] with k = (dx*9 + dz*3 + dy)*C + c:
+    each dx group is one contiguous third of a row, so K7 sums it in int32
+    and dequantizes it with its own scales."""
+    O, C = w8.shape[:2]
+    return w8.permute(0, 4, 2, 3, 1).reshape(O, 27 * C).contiguous()
+
+
+# keeps every f32 partial sum of int8 products below 2^24 (exact)
+_EXACT_CHUNK = 1024
+
+
+def conv3x3x3_int8_plain(x8: torch.Tensor, w8: torch.Tensor,
+                         sw: torch.Tensor, bias: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """What K7 computes, as the reference's int8 kernel does: for each dx the
+    exact integer sum over (dz, dy, c) of x8 * w8, rounded to f32 and times
+    sw[dx]; then t1 + t0, + t2, + the f32 bias, cast to ``out_dtype``. A dx
+    group sums up to 9*C products of up to 127^2, above 2^24 at the UNet's
+    widths, so the sums are taken as f32 products over at most 1,024
+    channels (exact) added in f64 (exact)."""
+    B, D, H, W, C = x8.shape
+    O = w8.shape[0]
+    xp = torch.nn.functional.pad(x8.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    t = []
+    for dx in range(3):
+        acc = torch.zeros((B * D * H * W, O), dtype=torch.float64,
+                          device=x8.device)
+        for dz in range(3):
+            for dy in range(3):
+                xs = xp[:, dz:dz + D, dy:dy + H, dx:dx + W].reshape(-1, C)
+                wt = w8[:, :, dz, dy, dx].float().t()          # [C, O]
+                for c0 in range(0, C, _EXACT_CHUNK):
+                    acc += (xs[:, c0:c0 + _EXACT_CHUNK] @
+                            wt[c0:c0 + _EXACT_CHUNK]).double()
+        t.append(acc.float() * sw[dx])
+    out = (t[1] + t[0]) + t[2]
+    return (out + bias.float()).reshape(B, D, H, W, O).to(out_dtype)
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
@@ -121,12 +229,28 @@ class _Conv3x3x3(torch.autograd.Function):
 
 def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               w_packed: torch.Tensor | None = None,
-              w_packed_dgrad: torch.Tensor | None = None) -> torch.Tensor:
+              w_packed_dgrad: torch.Tensor | None = None,
+              quant: bool = False) -> torch.Tensor:
     """x [B, D, H, W, C] @ w [O, C, 3, 3, 3] + bias [O], SAME padding,
     differentiable in x, w and bias. On the card x must be bf16 and the
     kernel reads ``w_packed`` (``pack_conv_weight(w)``) and, for x's
     gradient, ``w_packed_dgrad`` (``pack_conv_weight(dgrad_weight(w))``),
-    both packed once by the caller; on the CPU the plain version runs."""
+    both packed once by the caller; on the CPU the plain version runs.
+    ``quant=True`` serves the int8 variant instead (K7 on the card, no
+    gradient, packs made here from this call's quantization)."""
+    if quant:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise ValueError("the int8 conv serves only: no gradient")
+        x8, w8, sw = quantize_for_conv(x, w)
+        if x.is_cuda:
+            if x.dtype != torch.bfloat16:
+                raise ValueError("the card's int8 conv writes bf16; got "
+                                 f"{x.dtype} input")
+            return kernels.conv3x3x3_int8(x8, pack_int8_weight(w8), sw,
+                                          bias.float().contiguous())
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return conv3x3x3_int8_plain(x8, w8, sw, bias, x.dtype)
     if x.is_cuda:
         if w_packed is None:
             raise ValueError("the card's conv3x3x3 needs w_packed "
@@ -145,12 +269,16 @@ class Conv3x3x3(nn.Module):
     """flax ``nn.Conv(features, (3, 3, 3))`` with promote-dtype semantics
     (input, kernel and bias cast to ``dtype``; the bias then enters in f32),
     the counterpart of the JAX ``Conv3x3x3`` module. Parameters ``weight``
-    [O, C, 3, 3, 3] and ``bias`` [O] stay f32."""
+    [O, C, 3, 3, 3] and ``bias`` [O] stay f32. With ``quant`` the conv is
+    int8 wherever ``int8_conv_applies`` holds for its input (the weights are
+    quantized from their ``dtype`` cast, as the reference's promote_dtype
+    runs first)."""
 
     def __init__(self, in_ch: int, out_ch: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 quant: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.quant = dtype, quant
         self.weight = nn.Parameter(torch.empty((out_ch, in_ch, 3, 3, 3),
                                                device=device))
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
@@ -183,6 +311,9 @@ class Conv3x3x3(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = self.bias.to(dt).float()
+        if self.quant and int8_conv_applies(x.shape[:4], x.shape[-1],
+                                            self.weight.shape[0]):
+            return conv3x3x3(x.to(dt), self.weight.to(dt), bias, quant=True)
         if x.is_cuda:
             if dt != torch.bfloat16:
                 raise ValueError("the card's conv3x3x3 kernel takes bf16; "

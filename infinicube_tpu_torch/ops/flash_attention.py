@@ -1,5 +1,5 @@
-"""Int8-QK attention of the serving DiT: kernel K1 on the card, the plain
-version on the CPU.
+"""Int8 attention of the serving DiT: kernels K1 (int8 QK^T) and K8 (int8
+QK^T and PV) on the card, the plain versions on the CPU.
 
 Counterpart of ``mha_quantized`` in ``infinicube_tpu/ops/flash_attention.py``
 with the same quantization contract: heads are folded into the batch, N is
@@ -11,6 +11,15 @@ XLA outside the Pallas call in JAX, so the int8 inputs of K1 are the JAX
 function's int8 inputs bit for bit. K1 (``flash_attn_int8qk``,
 csrc/flash_attention.cu) then computes softmax over the N real keys of
 ``int32(q8 k8^T) * sq * sk * sm_scale`` and a bf16 PV with f32 accumulation.
+
+``quant="qkv"`` quantizes v as well, with one scale per (batch*head,
+channel) (``channel_quantize``), and runs PV in int8: the softmax keeps a
+running base-2 max, P is rounded to int8 at the fixed scale 127 against that
+max (``int8(p * 127 + 0.5)``), the denominator sums the f32 P, and the int32
+P8 V8 sums are dequantized by ``sv / 127``. K8 (``flash_attn_int8qkv``,
+csrc/flash_attention.cu) keeps its running max over 64-key tiles where the
+reference keeps it over 1,536-key blocks, so P rounds at other maxima: the
+two agree to the repo's int8 gate (cosine >= 0.999), not bit for bit.
 """
 
 from __future__ import annotations
@@ -76,22 +85,93 @@ def int8qk_attention_plain(q8, k8, qscale, kscale, v, block: int,
     return out.reshape(B, h, N, d).permute(0, 2, 1, 3)
 
 
+def channel_quantize(x: torch.Tensor):
+    """x [BH, N, d] -> int8 values and f32 per-(BH, channel) scales [BH, d]
+    (the reference's ``_channel_quantize``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale[:, None, :]).to(torch.int8), scale
+
+
+# f32 sums of int8 products stay exact below 2^24: 1,024 keys of 127^2
+_EXACT_KEYS = 1024
+_LOG2E = 1.4426950408889634
+
+
+def int8qkv_attention_plain(q8, k8, qscale, kscale, v8, vscale, n: int,
+                            block: int, sm_scale: float,
+                            out_dtype: torch.dtype) -> torch.Tensor:
+    """What the reference's int8-PV kernel computes, with its blocking:
+    q8/k8/v8 int8 [BH, Npad, d], q/k scales per (BH, block of rows), v
+    scales [BH, d]. For each block of ``block`` keys: exact integer logits
+    times sq * sk * sm_scale * log2(e), keys >= n at -1e30, a running
+    base-2 max m, p = 2^(s - m), l = l * 2^(m_old - m) + sum p, and the
+    numerator rescaled likewise plus int32(int8(p * 127 + 0.5) v8) *
+    sv / 127 (exact integer sums, rounded to f32). Returns [BH, n, d] in
+    ``out_dtype``; chunked over query rows so the logits stay bounded."""
+    BH, npad, d = q8.shape
+    nkb = npad // block
+    qf, kf, vf = q8.float(), k8.float(), v8.float()
+    rows_q = qscale.repeat_interleave(block, dim=1)[:, :n]
+    sv127 = vscale * (1.0 / 127.0)
+    step = _row_chunk(n, BH * block)
+    outs = []
+    for i in range(0, n, step):
+        rows = min(step, n - i)
+        m = torch.full((BH, rows, 1), -1e30, device=q8.device)
+        l = torch.zeros((BH, rows, 1), device=q8.device)
+        acc = torch.zeros((BH, rows, d), device=q8.device)
+        for j in range(nkb):
+            ks = slice(j * block, (j + 1) * block)
+            scale = rows_q[:, i:i + rows, None] * \
+                kscale[:, j, None, None] * (sm_scale * _LOG2E)
+            s = torch.bmm(qf[:, i:i + rows], kf[:, ks].transpose(1, 2)) * \
+                scale
+            if (j + 1) * block > n:
+                s[..., max(n - j * block, 0):] = -1e30
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            p8 = torch.trunc(p * 127.0 + 0.5)
+            pv = torch.zeros((BH, rows, d), dtype=torch.float64,
+                             device=q8.device)
+            for k0 in range(0, block, _EXACT_KEYS):
+                kk = slice(j * block + k0,
+                           j * block + min(k0 + _EXACT_KEYS, block))
+                pv += torch.bmm(p8[..., k0:k0 + _EXACT_KEYS],
+                                vf[:, kk]).double()
+            acc = acc * alpha + pv.float() * sv127[:, None, :]
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-37)).to(out_dtype))
+    return torch.cat(outs, dim=1)
+
+
 def mha_quantized(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   quant: str = "qk") -> torch.Tensor:
-    """[B, N, h, d] self-attention with int8 QK^T. ``quant="none"`` computes
-    the same function in bf16 through ``multi_head_attention`` (K2);
-    ``"qkv"`` is not ported yet."""
+    """[B, N, h, d] self-attention with int8 QK^T (``"qk"``) or int8 QK^T
+    and PV (``"qkv"``). ``quant="none"`` computes the same function in bf16
+    through ``multi_head_attention`` (K2)."""
     if quant == "none":
         return multi_head_attention(q, k, v)
-    if quant == "qkv":
-        raise NotImplementedError("int8 PV (quant='qkv') is not ported yet")
-    if quant != "qk":
+    if quant not in ("qk", "qkv"):
         raise ValueError(f"unknown quant {quant!r}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {q.device}")
     B, N, h, d = q.shape
     sm_scale = 1.0 / math.sqrt(d)
     block, n_pad = quant_blocks(N)
     q8, sq = block_quantize(fold_heads(q, n_pad), block)
     k8, sk = block_quantize(fold_heads(k, n_pad), block)
+    if quant == "qkv":
+        v8, sv = channel_quantize(fold_heads(v, n_pad))
+        if q.is_cuda:
+            return kernels.flash_attn_int8qkv(
+                q8, k8, sq, sk, v8.transpose(1, 2).contiguous(), sv, B, N,
+                block, sm_scale)
+        out = int8qkv_attention_plain(q8, k8, sq, sk, v8, sv, N, block,
+                                      sm_scale, q.dtype)
+        return out.reshape(B, h, N, d).permute(0, 2, 1, 3)
     if q.is_cuda:
         return kernels.flash_attn_int8qk(q8, k8, sq, sk, v, block, sm_scale)
     if q.device.type != "cpu":

@@ -1,7 +1,7 @@
 """Host-side unbounded world voxel grid (int64 keys, NumPy); the port's own
 copy of what it needs from ``infinicube_tpu/utils/world_grid.py``: packing,
-``WorldGrid`` with merge semantics where existing voxels win, and the rigid
-voxel warp. (The connected-component filter is not ported.)"""
+``WorldGrid`` with merge semantics where existing voxels win, the rigid
+voxel warp and the connected-component filter (scipy)."""
 
 from __future__ import annotations
 
@@ -81,3 +81,32 @@ def transform_ijk(ijk: np.ndarray, transform: np.ndarray, voxel_size,
     world = ijk * vs + org
     warped = world @ np.asarray(transform)[:3, :3].T + transform[:3, 3]
     return np.round((warped - org) / vs).astype(np.int64)
+
+
+def connected_component_filter(ijk: np.ndarray, min_size: int = 10,
+                               keep_largest: bool = False) -> np.ndarray:
+    """bool [N] keep-mask that removes the 6-connected components with fewer
+    than ``min_size`` voxels (or keeps only the largest)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = len(ijk)
+    if n == 0:
+        return np.zeros((0,), bool)
+    keys = pack64(ijk)
+    order = np.argsort(keys)
+    skeys = keys[order]
+    rows, cols = [], []
+    for shift in (1 << (2 * _B), 1 << _B, 1):
+        nb = skeys + shift
+        pos = np.clip(np.searchsorted(skeys, nb), 0, n - 1)
+        hit = skeys[pos] == nb
+        rows.append(order[np.nonzero(hit)[0]])
+        cols.append(order[pos[hit]])
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    adj = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    ncomp, labels = connected_components(adj, directed=False)
+    sizes = np.bincount(labels, minlength=ncomp)
+    if keep_largest:
+        return labels == np.argmax(sizes)
+    return sizes[labels] >= min_size

@@ -108,12 +108,15 @@ def test_plain_int8_path_chunks_rows(monkeypatch):
 
 
 def test_mha_quantized_routes():
+    """"none" is the bf16 attention, "qkv" the int8-PV plain version (it no
+    longer raises), anything else an error."""
     q, k, v = (torch.from_numpy(np.random.default_rng(i).normal(
         size=(1, 40, 2, 16)).astype(np.float32)) for i in range(3))
     np.testing.assert_array_equal(mha_quantized(q, k, v, quant="none"),
                                   multi_head_attention(q, k, v))
-    with pytest.raises(NotImplementedError):
-        mha_quantized(q, k, v, quant="qkv")
+    out = mha_quantized(q, k, v, quant="qkv")
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert not torch.equal(out, mha_quantized(q, k, v, quant="qk"))
     with pytest.raises(ValueError):
         mha_quantized(q, k, v, quant="fp8")
 

@@ -21,15 +21,21 @@ from infinicube_tpu_torch.ops.attention import (attention_bwd_plain,
                                                 attention_plain,
                                                 multi_head_attention)
 from infinicube_tpu_torch.ops.flash_attention import (block_quantize,
+                                                      channel_quantize,
                                                       fold_heads,
                                                       int8qk_attention_plain,
+                                                      int8qkv_attention_plain,
                                                       mha_quantized,
                                                       quant_blocks)
 from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3,
                                                  conv3x3x3_bwd_plain,
+                                                 conv3x3x3_int8_plain,
                                                  conv3x3x3_plain,
                                                  dgrad_weight,
-                                                 pack_conv_weight)
+                                                 int8_conv_applies,
+                                                 pack_conv_weight,
+                                                 pack_int8_weight,
+                                                 quantize_for_conv)
 from infinicube_tpu_torch.ops.window_conv import (rev_w,
                                                   sparse_conv_bwd_plain,
                                                   sparse_conv_plain,
@@ -466,7 +472,7 @@ def test_wgrad_wrapper_refuses_what_the_kernel_does_not_take(gen):
     assert (kernels.sparse_conv_f32_wgrad(feats, nbr, feats) == 0).all()
 
 
-def test_sparse_conv_refuses_a_gradient(gen):
+def test_sparse_conv_trains_through_the_kernels(gen):
     """``SparseConv3d`` trains on the card: what it refused while the
     gradient kernels were missing now matches the plain gradients (B = 2,
     F != Fo), through K4, K4-dgrad and K6 once each, and follows an in-place
@@ -530,3 +536,95 @@ def test_backward_on_the_card_poisons_nothing(gen):
         1e-4 * ref_dx.abs().max().item()
     assert (w.grad - ref_dw).abs().max().item() <= \
         5e-4 * ref_dw.abs().max().item()
+
+
+def _int8_conv_case(gen, B, n, C, O):
+    """bf16 x with a different range in every input channel (a kernel that
+    reads the wrong channel's scale fails) and its quantization."""
+    x = (torch.randn((B, n, n, n, C), generator=gen, device="cuda") *
+         torch.logspace(-1, 1, C, device="cuda")).to(torch.bfloat16)
+    w = (torch.randn((O, C, 3, 3, 3), generator=gen, device="cuda") /
+         math.sqrt(27 * C)).to(torch.bfloat16)
+    b = 0.1 * torch.randn(O, generator=gen, device="cuda")
+    return x, w, b, quantize_for_conv(x, w)
+
+
+@pytest.mark.parametrize("B,n,C,O", [(2, 8, 64, 64), (1, 12, 96, 160),
+                                     (2, 16, 384, 768), (1, 32, 1152, 384),
+                                     (1, 5, 32, 32)])
+def test_k7_matches_plain(gen, B, n, C, O):
+    """The same int8 inputs, exact int32 sums and the reference's order of
+    the dequantized adds on both sides: equal outputs."""
+    x, w, b, (x8, w8, sw) = _int8_conv_case(gen, B, n, C, O)
+    before = kernels.launches["conv3x3x3_int8"]
+    got = kernels.conv3x3x3_int8(x8, pack_int8_weight(w8), sw, b)
+    assert kernels.launches["conv3x3x3_int8"] == before + 1
+    ref = conv3x3x3_int8_plain(x8, w8, sw, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (B, n, n, n, O) and got.dtype == torch.bfloat16
+    assert torch.equal(got, ref)
+    # and the int8 conv is within the int8 gate of the bf16 one
+    assert _cos(got.float(), conv3x3x3_plain(x, w, b).float()) >= 0.999
+
+
+def test_k7_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x8 = torch.zeros((1, 4, 4, 4, 48), dtype=torch.int8, device="cuda")
+    w8 = torch.zeros((64, 27 * 48), dtype=torch.int8, device="cuda")
+    sw, b = (torch.ones((3, 64), device="cuda"),
+             torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError):                  # C not a multiple of 32
+        kernels.conv3x3x3_int8(x8, w8, sw, b)
+    x8 = torch.zeros((1, 4, 4, 4, 64), dtype=torch.int8, device="cuda")
+    w8 = torch.zeros((64, 27 * 64), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):                  # sw the wrong way round
+        kernels.conv3x3x3_int8(x8, w8, sw.t().contiguous(), b)
+    with pytest.raises(ValueError):                  # bf16 weights
+        kernels.conv3x3x3_int8(x8, w8.to(torch.bfloat16), sw, b)
+    assert (kernels.conv3x3x3_int8(x8, w8, sw, b) == 0).all()
+
+
+def test_int8_conv_module_routes_on_the_card(gen):
+    """Conv3x3x3(quant=True): K7 where int8_conv_applies holds, K3 at
+    in_conv's width and on an 8^3 cube."""
+    for (B, n, C, O), want in (((2, 16, 64, 128), "conv3x3x3_int8"),
+                               ((2, 16, 16, 64), "conv3x3x3_bf16"),
+                               ((2, 8, 128, 128), "conv3x3x3_bf16")):
+        assert int8_conv_applies((B, n, n, n), C, O) == \
+            (want == "conv3x3x3_int8")
+        m = Conv3x3x3(C, O, dtype=torch.bfloat16, device="cuda", quant=True)
+        m.reset_parameters(gen)
+        x = torch.randn((B, n, n, n, C), generator=gen, device="cuda")
+        before = dict(kernels.launches)
+        with torch.no_grad():
+            out = m(x)
+        delta = {k: v - before[k] for k, v in kernels.launches.items() if
+                 v != before[k]}
+        assert delta == {want: 1}
+        xb, wb = x.to(torch.bfloat16), m.weight.to(torch.bfloat16)
+        ref = conv3x3x3_plain(xb, wb, m.bias)
+        assert _cos(out.float(), ref.float()) >= 0.999
+
+
+@pytest.mark.parametrize("n,h,d", [(7800, 12, 128), (1000, 12, 128),
+                                   (2000, 2, 64), (300, 4, 64), (65, 2, 128)])
+def test_k8_matches_plain(gen, n, h, d):
+    """Same int8 inputs on both sides, a different scale in every 1536-row
+    block of q and k and in every channel of v. K8 rounds P to int8 against
+    its running max over 64-key tiles, the plain version over 1,536-key
+    blocks: gated at the repo's int8 cosine >= 0.999."""
+    block, npad = quant_blocks(n)
+    q = _scale_blocks(_rand((1, n, h, d), gen), block, 0.25, 4.0)
+    k = _scale_blocks(_rand((1, n, h, d), gen), block, 4.0, 0.25)
+    v = _rand((1, n, h, d), gen) * torch.logspace(
+        -1, 1, d, device="cuda").to(torch.bfloat16)
+    before = kernels.launches["flash_attn_int8qkv"]
+    got = mha_quantized(q, k, v, quant="qkv")
+    assert kernels.launches["flash_attn_int8qkv"] == before + 1
+    q8, sq = block_quantize(fold_heads(q, npad), block)
+    k8, sk = block_quantize(fold_heads(k, npad), block)
+    v8, sv = channel_quantize(fold_heads(v, npad))
+    ref = int8qkv_attention_plain(q8, k8, sq, sk, v8, sv, n, block,
+                                  d ** -0.5, torch.float32)
+    ref = ref.reshape(1, h, n, d).permute(0, 2, 1, 3)
+    assert got.shape == (1, n, h, d) and got.dtype == torch.bfloat16
+    assert _cos(got.float(), ref) >= 0.999

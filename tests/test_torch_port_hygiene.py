@@ -4,6 +4,7 @@ CUDA-only wrappers refuse CPU tensors, and entry points do not carry on
 quietly on the CPU when no card is present."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +17,11 @@ from infinicube_tpu_torch import kernels
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "infinicube_tpu_torch"
 FORBIDDEN = ("jax", "flax", "infinicube_tpu")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that claims to lie on the card (so are its results)."""
+    is_cuda = True
 
 
 def _port_files():
@@ -63,13 +69,16 @@ def test_cpu_tensors_take_plain_versions():
     q, k, v = (torch.randn((1, 40, 2, 64), generator=g) for _ in range(3))
     multi_head_attention(q, k, v)
     mha_quantized(q, k, v)
-    cfg = WanDiTConfig(dim=64, ffn_dim=64, num_layers=1, num_heads=1,
-                       in_channels=4, out_channels=4, text_dim=16,
-                       freq_dim=16, buffer_channels=4, attn_quant="qk",
-                       quant_linear=True)
-    dit = WanDiT(cfg, device="cpu")
-    with torch.no_grad():
-        dit(torch.randn(1, 1, 4, 4, 4), torch.ones(1), torch.randn(1, 3, 16))
+    mha_quantized(q, k, v, quant="qkv")
+    for quant in ("qk", "qkv"):
+        cfg = WanDiTConfig(dim=64, ffn_dim=64, num_layers=1, num_heads=1,
+                           in_channels=4, out_channels=4, text_dim=16,
+                           freq_dim=16, buffer_channels=4, attn_quant=quant,
+                           quant_linear=True)
+        dit = WanDiT(cfg, device="cpu")
+        with torch.no_grad():
+            dit(torch.randn(1, 1, 4, 4, 4), torch.ones(1),
+                torch.randn(1, 3, 16))
     _stage1_on_cpu()
     _train_step_on_cpu()
     assert kernels.launches and all(v == 0 for v in kernels.launches.values())
@@ -80,7 +89,7 @@ def _stage1_on_cpu():
     conv, a small UNet and a small VAE decode."""
     from infinicube_tpu_torch.grid.build import grid_from_ijk
     from infinicube_tpu_torch.models.diffusion.model import (
-        DiffusionConfig, VoxelDiffusion)
+        CondCubes, DiffusionConfig, VoxelDiffusion)
     from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
                                                        SparseVAEConfig)
     from infinicube_tpu_torch.nn.sparse import conv_plan
@@ -102,6 +111,15 @@ def _stage1_on_cpu():
         torch.zeros((1, 3, 4, 3)), torch.ones((1, 3, 4), dtype=torch.bool),
         torch.eye(4).expand(1, 2, 4, 4), torch.ones((1, 2, 3)),
         torch.ones((1, 2), dtype=torch.bool)), num_steps=1, generator=g)
+    # int8 serving: the level-0 convs of a 4 x 8 x 16 cube quantize
+    vq = VoxelDiffusion(DiffusionConfig(
+        cube_dims=(4, 8, 16), model_channels=64, channel_mult=(1,),
+        attention_ds=(), transformer_depth=1, dtype=torch.float32,
+        serve_quant=True), device="cpu")
+    vq.init_params(g, zero_init_layers=False)
+    for sampler in ("ddim", "ddpm", "dpmpp"):
+        vq.sample(CondCubes.null(1, vq.cfg), num_steps=1, generator=g,
+                  guidance_scale=2.0, sampler=sampler)
     vae = SparseStructureVAE(SparseVAEConfig(
         f_maps=8, c_dim=8, sem_embed_dim=4, neck_dims=(4, 4, 4),
         neck_ijk_min=(-2, -2, -2), capacities=(512, 256, 64)), device="cpu")
@@ -193,6 +211,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros((1, 64, 4)),
             torch.zeros((1, 64, 27), dtype=torch.int32),
             torch.zeros((1, 64, 4)))
+    with pytest.raises(ValueError):
+        kernels.conv3x3x3_int8(torch.zeros((1, 4, 4, 4, 32),
+                                           dtype=torch.int8),
+                               torch.zeros((32, 864), dtype=torch.int8),
+                               torch.ones((3, 32)), torch.zeros(32))
+    with pytest.raises(ValueError):
+        kernels.flash_attn_int8qkv(q8, q8, s, s,
+                                   torch.zeros((1, 64, 128),
+                                               dtype=torch.int8),
+                                   torch.ones((1, 64)), 1, 100, 128, 0.125)
     assert kernels.launches and all(v == 0 for v in kernels.launches.values())
 
 
@@ -200,7 +228,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    "voxel_diffusion", "sparse_vae",
                                    "world_generator", "trainable_diffusion",
                                    "train_loop", "train_cli",
-                                   "train_vae_cli", "voxel_vae_cli"])
+                                   "train_vae_cli", "voxel_vae_cli",
+                                   "single_chunk_cli",
+                                   "serve_quant_diffusion"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -218,6 +248,8 @@ def test_entry_points_default_to_the_card(entry):
     from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
                                                        SparseVAEConfig)
     from infinicube_tpu_torch.inference.voxel_vae import main as eval_main
+    from infinicube_tpu_torch.inference.voxel_generation_single_chunk \
+        import main as single_chunk_main
     from infinicube_tpu_torch.train import main as train_main
     from infinicube_tpu_torch.training.loop import LoopConfig, train
     from infinicube_tpu_torch.training.state import TrainConfig
@@ -255,6 +287,10 @@ def test_entry_points_default_to_the_card(entry):
              "vae.neck_dims=(4,4,4)", "vae.capacities=(64,32,16)"]),
         "voxel_vae_cli": lambda: eval_main(
             ["--points", str(ROOT / "README.md"), "--output", "unused"]),
+        "single_chunk_cli": lambda: single_chunk_main(
+            ["--output", "unused", "--ddim_steps", "1"]),
+        "serve_quant_diffusion": lambda: VoxelDiffusion(
+            dataclasses.replace(tiny_unet, serve_quant=True)),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
@@ -271,7 +307,8 @@ def test_train_loop_refuses_parameters_on_another_device():
               lambda p, g, b: (p["w"].sum(), {}), [None], device="cpu")
 
 
-def test_sparse_conv_refuses_a_gradient_on_the_card(monkeypatch):
+def test_sparse_conv_gradient_on_the_card_goes_through_the_kernels(
+        monkeypatch):
     """What this test guarded while K4 had no backward (``SparseConv3d``
     raised on a CUDA tensor that needs a gradient) now holds the other way:
     a gradient on the card goes through the kernels' wrappers, K4 for the
@@ -282,9 +319,6 @@ def test_sparse_conv_refuses_a_gradient_on_the_card(monkeypatch):
     from infinicube_tpu_torch.grid.build import grid_from_ijk
     from infinicube_tpu_torch.nn import sparse
     from infinicube_tpu_torch.ops import window_conv
-
-    class OnCard(torch.Tensor):
-        is_cuda = True
 
     def plain(t):
         return t.as_subclass(torch.Tensor)
@@ -317,7 +351,7 @@ def test_sparse_conv_refuses_a_gradient_on_the_card(monkeypatch):
     monkeypatch.setattr(window_conv, "sparse_conv_plain", refuse)
     monkeypatch.setattr(window_conv, "sparse_conv_bwd_plain", refuse)
     x = torch.randn((1, 64, 4), generator=g)
-    feats = x.clone().as_subclass(OnCard).requires_grad_()
+    feats = x.clone().as_subclass(_OnCard).requires_grad_()
     cot = torch.randn((1, 64, 8), generator=g)
     conv(feats, plan).backward(cot)
     assert [c[0] for c in calls] == ["fwd", "dgrad", "wgrad"]
@@ -333,3 +367,63 @@ def test_sparse_conv_refuses_a_gradient_on_the_card(monkeypatch):
     with torch.no_grad():
         conv(feats, plan)
     assert [c[0] for c in calls] == ["fwd"]
+
+
+def test_int8_conv_on_the_card_takes_k7_where_the_rule_holds(monkeypatch):
+    """``Conv3x3x3(quant=True)`` on a CUDA-claiming input: K7's wrapper
+    exactly where ``int8_conv_applies`` holds for the input (the reference's
+    rule), K3's wrapper elsewhere, and never a plain version. Checked
+    without a card: stand-ins that record their calls take the wrappers'
+    place and compute the plain results on the CPU."""
+    from infinicube_tpu_torch.ops import dense_conv
+    int8_plain, bf16_plain = (dense_conv.conv3x3x3_int8_plain,
+                              dense_conv.conv3x3x3_plain)
+    calls = []
+
+    def plain(t):
+        return t.as_subclass(torch.Tensor)
+
+    def fake_k7(x8, w8_packed, sw, bias):
+        calls.append("k7")
+        O, C = w8_packed.shape[0], x8.shape[-1]
+        w8 = plain(w8_packed).reshape(O, 3, 3, 3, C).permute(0, 4, 2, 3, 1)
+        return int8_plain(plain(x8), w8, plain(sw), plain(bias),
+                          torch.bfloat16)
+
+    def fake_k3(x, w_packed, bias):
+        calls.append("k3")
+        O, C = w_packed.shape[0], x.shape[-1]
+        w = plain(w_packed).reshape(O, 3, 3, 3, C).permute(0, 4, 1, 2, 3)
+        return bf16_plain(plain(x), w, plain(bias))
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(dense_conv.kernels, "conv3x3x3_int8", fake_k7)
+    monkeypatch.setattr(dense_conv.kernels, "conv3x3x3_bf16", fake_k3)
+    monkeypatch.setattr(dense_conv, "conv3x3x3_int8_plain", refuse)
+    monkeypatch.setattr(dense_conv, "conv3x3x3_plain", refuse)
+    g = torch.Generator().manual_seed(0)
+    # (B, D, H, W, C, O): int8 at 4 x 8 x 16 and 64 channels; not at C = 16,
+    # not on a 4^3 cube, not with W = 12
+    for shape in [(2, 4, 8, 16, 64, 64), (2, 4, 8, 16, 16, 64),
+                  (1, 4, 4, 4, 64, 64), (1, 4, 8, 12, 64, 96),
+                  (1, 3, 4, 32, 128, 64)]:
+        B, D, H, W, C, O = shape
+        conv = dense_conv.Conv3x3x3(C, O, dtype=torch.bfloat16, quant=True)
+        conv.reset_parameters(g)
+        x = torch.randn((B, D, H, W, C), generator=g).to(torch.bfloat16)
+        calls.clear()
+        with torch.no_grad():
+            out = conv(x.as_subclass(_OnCard))
+        want = "k7" if dense_conv.int8_conv_applies((B, D, H, W), C, O) \
+            else "k3"
+        assert calls == [want], (shape, calls)
+        wq = conv.weight.to(torch.bfloat16)
+        bias = conv.bias.to(torch.bfloat16).float()
+        ref = int8_plain(*dense_conv.quantize_for_conv(x, wq), bias,
+                         torch.bfloat16) if want == "k7" else \
+            bf16_plain(x, wq, bias)
+        assert torch.equal(plain(out), ref)
+    assert dense_conv.int8_conv_applies((2, 4, 8, 16), 64, 64)
+    assert dense_conv.int8_conv_applies((1, 3, 4, 32), 128, 64)
