@@ -110,6 +110,19 @@ Then int8 serving (the VAE trainer freed first):
     timed, profiled and with peak memory; the final-latent cosine of a
     DDIM-10 chunk, int8 against bf16, from the same noise.
 
+Then every width and f32 (the int8 models freed first):
+
+22. kernel checks: the int8 conv at 16^3, 64 -> 72 and 72 -> 104 (K7 on
+    operands zero-padded to multiples of 32) equal to the unpadded
+    ``conv3x3x3_int8_plain``; ``conv3x3x3_f32`` against the plain f32 conv
+    at the six release shapes (and as dgrad at 16^3), timed beside it, its
+    bound and cuDNN's f32 conv3d;
+23. model check: the f32 release-width UNet without SelfAttention3D (K2
+    takes bf16 only) on a 16^3 cube, card against the CPU;
+24. the f32 stage-1 path: one chunk of ``evaluation_api`` with that UNet on
+    the 64^3 cube (DDIM-2) and the release VAE's decode, exactly 96 f32
+    conv launches and 12 of K4.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -586,7 +599,7 @@ def chunk_launches(diffusion, steps, unet_calls=None):
                     "conv3x3x3_bf16": (len(seen) - n_int8) * steps,
                     "flash_attn_bf16": 10 * steps, "sparse_conv_f32": 12,
                     "flash_attn_int8qk": 0, "flash_attn_int8qkv": 0,
-                    "conv3x3x3_bf16_dgrad": 0}
+                    "conv3x3x3_bf16_dgrad": 0, "conv3x3x3_f32": 0}
 
 
 def run_chunks(kernels, gen, label, run, want, n_chunks):
@@ -806,7 +819,8 @@ STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "flash_attn_bf16": 10, "flash_attn_bf16_bwd": 10,
                  "flash_attn_int8qk": 0, "sparse_conv_f32": 0,
                  "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0,
-                 "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0}
+                 "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
+                 "conv3x3x3_f32": 0}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
 
@@ -1226,7 +1240,8 @@ VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
                      "sparse_conv_f32_wgrad": 24, "conv3x3x3_bf16": 0,
                      "conv3x3x3_bf16_dgrad": 0, "flash_attn_bf16": 0,
                      "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0,
-                     "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0}
+                     "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
+                     "conv3x3x3_f32": 0}
 VAE_POINTS = 200_000
 
 
@@ -1988,6 +2003,190 @@ def int8_serving(kernels, dense_conv, fa):
         paths
 
 
+# ---------------------------------------------------------------------------
+# every width and f32: K7 at widths that are not multiples of 32, the f32
+# conv, an f32 stage-1 model
+# ---------------------------------------------------------------------------
+
+# K7 at widths the int8 rule admits and the kernel takes only padded to 32
+K7_PADDED_SHAPES = ((16, 64, 72), (16, 72, 104))
+F32_STEPS = 2       # DDIM steps of the f32 main path
+
+
+def k7_padded_checks(dc):
+    """The int8 conv through ``conv3x3x3(quant=True)`` (K7 on operands
+    zero-padded to multiples of 32, the output sliced back) against the
+    unpadded ``conv3x3x3_int8_plain``: equal outputs."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for n, C, O in K7_PADDED_SHAPES:
+        check(dc.int8_conv_applies((2, n, n, n), C, O),
+              f"the int8 rule does not hold at {n}^3 {C}->{O}")
+        x = (torch.randn((2, n, n, n, C), generator=g, device="cuda") *
+             torch.logspace(-1, 1, C, device="cuda")).to(torch.bfloat16)
+        w = (torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") /
+             math.sqrt(27 * C)).to(torch.bfloat16)
+        b = 0.1 * torch.randn(O, generator=g, device="cuda")
+        with torch.no_grad():
+            got = dc.conv3x3x3(x, w, b, quant=True)
+        x8, w8, sw = dc.quantize_for_conv(x, w)
+        ref = dc.conv3x3x3_int8_plain(x8, w8, sw, b, torch.bfloat16)
+        err = (got.float() - ref.float()).abs().max().item()
+        print(f"[k7 padded] [2,{n}^3] {C}->{O} (K7 at {-(-C // 32) * 32}->"
+              f"{-(-O // 32) * 32}): max_abs_err {err:.3e}, outputs equal "
+              f"{torch.equal(got, ref)}")
+        check(got.shape == ref.shape and torch.equal(got, ref),
+              f"padded K7 at {n}^3 {C}->{O}: err {err}")
+
+
+def f32_conv_checks(kernels, dc):
+    """``conv3x3x3_f32`` at the release UNet's conv shapes against the plain
+    f32 conv (cuDNN, TF32 off) on the same inputs, max-abs <= 1e-4 *
+    max|ref|, forward and, at one shape, as dgrad; timed beside the plain
+    version, its bound (2*V*27*C*O f32 operations at the CUDA-core peak)
+    and cuDNN's f32 conv3d (channels_last_3d)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for n, C, O in K3_SHAPES:
+        x = torch.randn((1, n, n, n, C), generator=g, device="cuda")
+        w = torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") / \
+            math.sqrt(27 * C)
+        b = 0.1 * torch.randn(O, generator=g, device="cuda")
+        wp = dc.pack_conv_weight(w, torch.float32)
+        got = kernels.conv3x3x3_f32(x, wp, b)
+        ref = dc.conv3x3x3_plain(x, w, b)
+        err = (got - ref).abs().max().item()
+        lim = 1e-4 * ref.abs().max().item()
+        shape = f"[1,{n},{n},{n},{C}]->{O}"
+        print(f"[f32 conv] {shape}: cosine {cos(got, ref):.8f} max_abs_err "
+              f"{err:.3e} (limit {lim:.3e})")
+        check(err <= lim, f"conv3x3x3_f32 at {shape}: err {err}")
+        if n == 16:
+            go = torch.randn((1, n, n, n, O), generator=g, device="cuda")
+            dx = kernels.conv3x3x3_f32(
+                go, dc.pack_conv_weight(dc.dgrad_weight(w), torch.float32),
+                None)
+            ref_dx = dc.conv3x3x3_bwd_plain(x, w, go)[0]
+            d_err = (dx - ref_dx).abs().max().item()
+            print(f"[f32 conv] dgrad [1,{n},{n},{n},{O}]->{C}: max_abs_err "
+                  f"{d_err:.3e} (limit {1e-4 * ref_dx.abs().max().item():.3e})")
+            check(d_err <= 1e-4 * ref_dx.abs().max().item(),
+                  f"conv3x3x3_f32 dgrad: err {d_err}")
+            del go, dx, ref_dx
+        del got, ref
+        ms = cuda_ms(lambda: kernels.conv3x3x3_f32(x, wp, b), 1, 3)
+        plain = cuda_ms(lambda: dc.conv3x3x3_plain(x, w, b), 1, 3)
+        xl = x.permute(0, 4, 1, 2, 3)
+        wl = w.contiguous(memory_format=torch.channels_last_3d)
+        lib = cuda_ms(lambda: torch.nn.functional.conv3d(xl, wl, b,
+                                                         padding=1), 1, 3)
+        V = n ** 3
+        flops = 2.0 * V * 27 * C * O
+        b_ms, b_by = bound_ms([(flops, PEAK_F32)],
+                              4 * (V * C + 27 * C * O + V * O + O))
+        print(f"[f32 conv] {shape}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f}"
+              f" TFLOP/s), plain {plain:.3f} ms, cudnn f32 {lib:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}, f32 CUDA-core peak)")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del x, w, wp, xl, wl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_config(DiffusionConfig, **kw):
+    """The release UNet computing in f32; without its SelfAttention3D
+    blocks, since the card's attention (K2) takes bf16 only."""
+    return DiffusionConfig(dtype=torch.float32, attention_ds=(), **kw)
+
+
+def unet_f32_check(VoxelDiffusion, DiffusionConfig):
+    """The f32 release-width UNet on a 16^3 cube: card (``conv3x3x3_f32``,
+    TF32 off) against the CPU (plain versions), same weights: cosine >=
+    0.99999 and max-abs <= 1e-3 * max|ref|."""
+    base = f32_config(DiffusionConfig, cube_dims=(16, 16, 16))
+    cpu = VoxelDiffusion(base, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(18), zero_init_layers=False)
+    card = VoxelDiffusion(base, device="cuda")
+    card.load_params(cpu.unet.state_dict())
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 16, 16, 16),
+                                             dtype=np.float32))
+    t = torch.tensor([500])
+    with torch.no_grad():
+        ref = cpu.unet(x, t)
+        got = card.unet(x.cuda(), t.cuda()).cpu()
+    c, err = cos(got, ref), (got - ref).abs().max().item()
+    lim = 1e-3 * ref.abs().max().item()
+    print(f"[model] f32 release-width UNet (no SelfAttention3D) on 16^3: card "
+          f"vs cpu cosine {c:.8f}, max_abs_err {err:.3e} (limit {lim:.3e})")
+    check(torch.isfinite(got).all().item(), "f32 UNet output not finite")
+    check(c >= 0.99999 and err <= lim, f"f32 UNet: cos {c} err {err}")
+
+
+def serve_f32(kernels, mods):
+    """The f32 stage-1 path: one chunk of ``evaluation_api`` with the f32
+    UNet at release widths on the 64^3 cube (DDIM-2) and the release VAE's
+    decode; exactly 48 f32 conv launches a step and K4 12, nothing else."""
+    diffusion = mods.VoxelDiffusion(f32_config(mods.DiffusionConfig),
+                                    device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    diffusion.init_params(g, zero_init_layers=False)
+    vae = mods.SparseStructureVAE(mods.SparseVAEConfig(), device="cuda")
+    vae.init_params(g)
+    gen = mods.VoxelWorldGenerator(
+        diffusion, mods.vae_decode_fn(vae),
+        mods.WorldGenConfig(ddim_steps=F32_STEPS))
+    _, maps, boxes = stage1_scene()
+    cond = gen._cond_for_chunk(np.eye(4), maps, boxes)
+    want = {k: 0 for k in kernels.launches} | {
+        "conv3x3x3_f32": 48 * F32_STEPS, "sparse_conv_f32": 12}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lat, (ijk, _) = diffusion.evaluation_api(
+        cond, mods.vae_decode_fn(vae), num_steps=F32_STEPS,
+        guidance_scale=1.0, generator=g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    print(f"[f32] one chunk, f32 UNet, DDIM-{F32_STEPS} and decode: "
+          f"{wall:.2f} s, {len(ijk)} voxels, |latents| max "
+          f"{lat.abs().max().item():.3f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(lat.dtype == torch.float32 and torch.isfinite(lat).all().item(),
+          "f32 chunk latents")
+    check(launches == want, f"f32 chunk launches {launches}, want {want}")
+    return launches
+
+
+def widths_and_f32(kernels, dense_conv):
+    """Phases 22-24. Returns the summary entry of ``conv3x3x3_f32`` and the
+    launches of the f32 path."""
+    from infinicube_tpu_torch.inference.voxel_world_generation import (
+        VoxelWorldGenerator, WorldGenConfig, vae_decode_fn)
+    from infinicube_tpu_torch.models.diffusion.model import (DiffusionConfig,
+                                                             VoxelDiffusion)
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig)
+    mods = types.SimpleNamespace(
+        VoxelDiffusion=VoxelDiffusion, DiffusionConfig=DiffusionConfig,
+        SparseStructureVAE=SparseStructureVAE,
+        SparseVAEConfig=SparseVAEConfig,
+        VoxelWorldGenerator=VoxelWorldGenerator,
+        WorldGenConfig=WorldGenConfig, vae_decode_fn=vae_decode_fn)
+    # ---- 22. kernel checks --------------------------------------------------
+    k7_padded_checks(dense_conv)
+    rows = f32_conv_checks(kernels, dense_conv)
+    # ---- 23. model check ----------------------------------------------------
+    unet_f32_check(VoxelDiffusion, DiffusionConfig)
+    # ---- 24. the f32 stage-1 path -------------------------------------------
+    launches = serve_f32(kernels, mods)
+    torch.cuda.empty_cache()
+    return {"conv3x3x3_f32": entry(
+        "conv3x3x3_f32", "infinicube_tpu_torch/csrc/dense_conv.cu",
+        "infinicube_tpu/ops/dense_conv.py:177", rows, 1)}, launches
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -2108,6 +2307,8 @@ def main() -> int:
     del dec_grids
     torch.cuda.empty_cache()
     int8_report, int8_paths = int8_serving(kernels, dense_conv, fa)
+    torch.cuda.empty_cache()
+    f32_report, f32_launches = widths_and_f32(kernels, dense_conv)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -2115,9 +2316,10 @@ def main() -> int:
     report.update(train_report)
     report.update(vae_report)
     report.update(int8_report)
+    report.update(f32_report)
     paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
              "diffusion_train": train_launches, "vae_train": vae_launches,
-             **int8_paths}
+             **int8_paths, "stage1_f32": f32_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

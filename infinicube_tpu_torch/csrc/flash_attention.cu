@@ -40,9 +40,38 @@
 // (exp2, log2(e) folded into the logit scale; the stored lse is converted to
 // base e at the store), and keys >= n_real are masked.
 //
-// Design (a first, simple version): one block of 4 warps per (batch*head,
-// tile of 64 query rows); each warp owns 16 rows and keeps its Q fragments,
-// its running max/denominator and its 16 x d f32 output in registers. The
+// K2's design (on wgmma and TMA): persistent blocks, one per SM, each
+// walking work items of (batch*head, 128 query rows): two consumer
+// warpgroups of 64 rows and a producer warpgroup whose registers go to the
+// consumers (setmaxnreg: 240 each, 24 left).
+// The first version (4 warps of mma.sync per
+// 64 rows, K and V loaded by the threads and then a barrier, K fragments
+// read as scalar 32-bit words, the PV B operand built from four scalar bf16
+// loads and two packs per mma) is gone; now:
+// - Q is loaded once an item and K and V stream through a 3-stage mbarrier
+//   ring of 128-key tiles that runs on from item to item, all by TMA from
+//   tensor maps built on the views' strides (dims d, h, N, B), so loads
+//   overlap the math and no thread computes an address; the next item's Q
+//   loads beside the current item's last PV and its stores. Rows past Nq
+//   or Nk read as zeros; keys >= Nk are still masked.
+// - Every tile is stored as slabs of 32 columns (64 bytes) under the 64-byte
+//   swizzle: d = 96 rows are 192 bytes, no multiple of the 128-byte span,
+//   and three 64-byte slabs describe d = 64, 96 and 128 alike.
+// - S = Q K^T is wgmma m64n128k16 with Q and K both K-major in shared
+//   memory; the online softmax runs on the f32 accumulators in registers
+//   (exp2, log2 e folded into the scale, running max and sum per row).
+// - PV is wgmma m64n{d}k16 with P as the A operand straight from registers
+//   (the S accumulator layout is the A fragment layout, packed to bf16) and
+//   V as the B operand in shared memory, read d-major through wgmma's
+//   transpose bit: nothing transposes V, and no scalar loads remain.
+// - Each warpgroup issues tile t's QK^T and then tile t-1's PV, waits for
+//   the QK^T only, and runs tile t's softmax while that PV is on the tensor
+//   cores; the output is rescaled and the new P packed once the PV is done.
+//
+// K1 and K8 (a first, simple version): one block of 4 warps per
+// (batch*head, tile of 64 query rows); each warp owns 16 rows and keeps its
+// Q fragments, its running max/denominator and its 16 x d f32 output in
+// registers. The
 // block loops over tiles of 64 keys staged in shared memory, with
 // mma.sync m16n8k32 (s8) or m16n8k16 (bf16) for QK^T and m16n8k16 (bf16) for
 // PV (m16n8k32 s8 in K8); P goes from the QK^T accumulator layout straight
@@ -55,13 +84,14 @@
 // reference's is over 1,536-key blocks, so P rounds to int8 at other maxima
 // and the two agree to the int8 gate, not bit for bit. K8 is a kernel of its
 // own beside K1, which stays as it was (K1's register allocation decides
-// its speed). No TMA, wgmma or load pipelining yet.
+// its speed). Neither uses TMA, wgmma or load pipelining yet.
 //
 // Tensors are addressed by element strides (batch, token, head), so the
 // wrappers pass [B, N, h, d] views and folded [B*h, N, d] buffers alike
 // without copies. Each entry point returns cudaGetLastError().
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -238,91 +268,348 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, Strides so,
   }
 }
 
+// ---- K2 on wgmma and TMA ----------------------------------------------------
+
+constexpr int kK2K = 128;        // keys per tile
+constexpr int kK2Stages = 3;
+constexpr int kK2Slab = 32;      // columns of a slab: 64 bytes, 64-byte swizzle
+// with two consumer warpgroups, registers a thread after the hand-over: the
+// producer warpgroup keeps 24, each consumer takes 240 (2 x 128 x 240 +
+// 128 x 24 = 384 x 168, the pool of a block launched with 168 a thread)
+constexpr int kK2ProducerRegs = 24, kK2ConsumerRegs = 240, kK2LaunchRegs = 168;
+
+// two consumer warpgroups of 64 query rows each, and a producer warpgroup
+template <int D>
+struct K2Smem {
+  static constexpr int kRows = 128;                   // query rows a block
+  static constexpr int kThreads = 384;
+  static constexpr int kSlabQ = kRows * kK2Slab * 2;  // bytes of a Q slab
+  static constexpr int kSlabKV = kK2K * kK2Slab * 2;
+  static constexpr int kQ = (D / kK2Slab) * kSlabQ;
+  static constexpr int kKV = (D / kK2Slab) * kSlabKV;  // one K or V tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kSmem = kQ + kK2Stages * kStage + 1024 + 64;
+};
+
+// Scale to base 2, mask keys >= kvalid, and run the online softmax over one
+// 64 x 128 logit tile (rows g: s[4j], s[4j+1]; rows g+8: s[4j+2], s[4j+3]):
+// s becomes P (f32), m and l are updated, and alpha[r] is the factor the
+// output rows must be rescaled by.
+__device__ __forceinline__ void k2_softmax(float (&s)[kK2K / 2], int kvalid,
+                                           int q, float scale_log2,
+                                           float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kK2K / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] *= scale_log2;
+      if (j * 8 + 2 * q + (e & 1) >= kvalid) s[4 * j + e] = neg_inf();
+    }
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  // every tile holds at least one real key, so mx is finite here
+  alpha[0] = exp2f(m[0] - mx[0]);
+  alpha[1] = exp2f(m[1] - mx[1]);
+  m[0] = mx[0];
+  m[1] = mx[1];
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kK2K / 8; ++j) {
+    s[4 * j] = exp2f(s[4 * j] - mx[0]);
+    s[4 * j + 1] = exp2f(s[4 * j + 1] - mx[0]);
+    s[4 * j + 2] = exp2f(s[4 * j + 2] - mx[1]);
+    s[4 * j + 3] = exp2f(s[4 * j + 3] - mx[1]);
+    sum0 += s[4 * j] + s[4 * j + 1];
+    sum1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l[0] = l[0] * alpha[0] + sum0;
+  l[1] = l[1] * alpha[1] + sum1;
+}
+
 // kLse: store the rows' log-sum-exp too. A compile-time switch, so that the
-// serving instantiation carries nothing of it (a run-time null check alone
-// cost the d = 128 kernel 8 % through its register allocation).
+// serving instantiation carries nothing of it. Persistent: each block walks
+// the work items (batch*head, query tile) blockIdx.x, + gridDim.x, ...; the
+// ring runs on across items, and the next item's Q is loaded as soon as the
+// last QK^T of the current one is done, beside its last PV and its stores.
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int H, int nq, int nk, Strides sq, Strides sk,
-                      Strides sv, Strides so, float scale_log2) {
-  constexpr int LD = D + 8;  // bf16 row pitch in shared memory (bank spread)
-  __shared__ __align__(16) __nv_bfloat16 sK[kBK * LD];  // Q staged here first
-  __shared__ __align__(16) __nv_bfloat16 sV[kBK * LD];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+                      int H, int nq, int nk, int q_tiles, int n_items,
+                      Strides so, float scale_log2) {
+  using S = K2Smem<D>;
+  constexpr int kSlabs = D / kK2Slab;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* skv = sq + S::kQ;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + kK2Stages * S::kStage);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_full + 2;
+  uint64_t* empty = full + kK2Stages;
 
-  load_tile(reinterpret_cast<unsigned char*>(sK), LD * 2,
-            reinterpret_cast<const unsigned char*>(qb + q0 * sq.n), sq.n * 2,
-            kBQ, D * 2, nq - q0);
+  const int n_tiles = (nk + kK2K - 1) / kK2K;
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    hop::mbar_init(q_empty, 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < kK2Stages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);
+    }
+    hop::fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* r0 = sK + (warp * 16 + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = ld32(r0 + kk * 16);
-      qf[kk][1] = ld32(r0 + 8 * LD + kk * 16);
-      qf[kk][2] = ld32(r0 + kk * 16 + 8);
-      qf[kk][3] = ld32(r0 + 8 * LD + kk * 16 + 8);
-    }
-  }
-  float o_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < nk; k0 += kBK) {
-    __syncthreads();  // Q fragments read / previous tile consumed
-    load_tile(reinterpret_cast<unsigned char*>(sK), LD * 2,
-              reinterpret_cast<const unsigned char*>(kb + k0 * sk.n),
-              sk.n * 2, kBK, D * 2, nk - k0);
-    load_tile(reinterpret_cast<unsigned char*>(sV), LD * 2,
-              reinterpret_cast<const unsigned char*>(vb + k0 * sv.n),
-              sv.n * 2, kBK, D * 2, nk - k0);
-    __syncthreads();
-    float s[kBK / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: per item Q, then K and V tiles through the ring ----
+    hop::setmaxnreg_dec<kK2ProducerRegs>();
+    if (threadIdx.x == 256) {
+      hop::prefetch_map(&tmq);
+      hop::prefetch_map(&tmk);
+      hop::prefetch_map(&tmv);
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int bh = item / q_tiles, b = bh / H, h = bh % H;
+        const int q0 = item % q_tiles * S::kRows;
+        hop::mbar_wait(q_empty, q_phase ^ 1);
+        hop::mbar_expect_tx(q_full, S::kQ);
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* r0 = sK + (j * 8 + g) * LD + 2 * t;
+        for (int j = 0; j < kSlabs; ++j)
+          hop::tma_load_4d(sq + j * S::kSlabQ, &tmq, q_full, j * kK2Slab, h,
+                           q0, b);
+        q_phase ^= 1;
+        for (int t = 0; t < n_tiles; ++t) {
+          hop::mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* sk = skv + stage * S::kStage;
+          hop::mbar_expect_tx(&full[stage], S::kStage);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_bf16(s[j], qf[kk], ld32(r0 + kk * 16), ld32(r0 + kk * 16 + 8));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+          for (int j = 0; j < kSlabs; ++j) {
+            hop::tma_load_4d(sk + j * S::kSlabKV, &tmk, &full[stage],
+                             j * kK2Slab, h, t * kK2K, b);
+            hop::tma_load_4d(sk + S::kKV + j * S::kSlabKV, &tmv,
+                             &full[stage], j * kK2Slab, h, t * kK2K, b);
+          }
+          if (++stage == kK2Stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
-    uint32_t pa[kBK / 16][4];
-    softmax_tile<D>(s, nk - k0, t, m, l, o_acc, pa);
-    pv_tile<D>(sV, LD, pa, g, t, o_acc);
+  } else {
+    // ---- consumers: 64 query rows each ----
+    hop::setmaxnreg_inc<kK2ConsumerRegs>();
+    const int lane = threadIdx.x % 32, w = threadIdx.x % 128 / 32;
+    const int g = lane / 4, q = lane % 4;
+    const uint8_t* q_rows = sq + wg * 64 * (kK2Slab * 2);
+    float o_acc[D / 2];
+    float m[2], l[2], alpha[2];
+    float s[kK2K / 2];
+    uint32_t pa[kK2K / 16][4];
+
+    // S = Q K^T into s: both K-major under the 64-byte swizzle, one slab
+    // per two k16 steps
+    auto issue_s = [&](const uint8_t* sk) {
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 2) * 32;  // bytes into the slab's rows
+        hop::Wgmma<kK2K>::ss(
+            s,
+            hop::make_desc(q_rows + (kk / 2) * S::kSlabQ + off, 64, 16, 512),
+            hop::make_desc(sk + (kk / 2) * S::kSlabKV + off, 64, 16, 512),
+            kk > 0);
+      }
+      hop::wgmma_commit();
+    };
+    // O += P V: P from registers (the S accumulator layout is the A
+    // fragment layout), V d-major in shared memory read with the transpose
+    // bit; 16 keys are 2 groups of 8 rows (SBO 512), d/32 slabs (LBO)
+    auto issue_pv = [&](const uint8_t* sv) {
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK2K / 16; ++kk)
+        hop::Wgmma<D>::rs_t(o_acc, pa[kk],
+                            hop::make_desc(sv + kk * 1024, 64, S::kSlabKV,
+                                           512),
+                            1);
+      hop::wgmma_commit();
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kK2K / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto next_stage = [&](int& stage, uint32_t& phase) {
+      if (++stage == kK2Stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int bh = item / q_tiles, b = bh / H, h = bh % H;
+      const int q0 = item % q_tiles * S::kRows;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+      m[0] = m[1] = neg_inf();
+      l[0] = l[1] = 0.f;
+
+      hop::mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      hop::mbar_wait(&full[stage], phase);
+      issue_s(skv + stage * S::kStage);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(s);
+      if (n_tiles == 1 && lane == 0) hop::mbar_arrive(q_empty);
+      k2_softmax(s, nk, q, scale_log2, m, l, alpha);
+      pack_p();
+      int prev = stage;
+      next_stage(stage, phase);
+      // tile t's QK^T runs on the tensor cores beside tile t-1's PV, and
+      // t's softmax overlaps that PV
+      for (int t = 1; t < n_tiles; ++t) {
+        hop::mbar_wait(&full[stage], phase);
+        issue_s(skv + stage * S::kStage);
+        issue_pv(skv + prev * S::kStage + S::kKV);
+        hop::wgmma_wait<1>();  // S of tile t is done, t-1's PV may run on
+        hop::fence_regs(s);
+        if (t == n_tiles - 1 && lane == 0) hop::mbar_arrive(q_empty);
+        k2_softmax(s, nk - t * kK2K, q, scale_log2, m, l, alpha);
+        hop::wgmma_wait<0>();
+        hop::fence_regs(o_acc);
+        hop::fence_regs(pa);
+        if (lane == 0) hop::mbar_arrive(&empty[prev]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o_acc[4 * j] *= alpha[0];
+          o_acc[4 * j + 1] *= alpha[0];
+          o_acc[4 * j + 2] *= alpha[1];
+          o_acc[4 * j + 3] *= alpha[1];
+        }
+        pack_p();
+        prev = stage;
+        next_stage(stage, phase);
+      }
+      issue_pv(skv + prev * S::kStage + S::kKV);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o_acc);
+      if (lane == 0) hop::mbar_arrive(&empty[prev]);
+
+      // ---- normalise and store rows < nq (and their log-sum-exp) ----
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      const float inv0 = 1.f / fmaxf(l[0], 1e-37f);
+      const float inv1 = 1.f / fmaxf(l[1], 1e-37f);
+      const int ra = q0 + wg * 64 + w * 16 + g, rb = ra + 8;
+      if constexpr (kLse) {
+        float* lse_row = lse + (long long)bh * nq;
+        if (q == 0) {
+          if (ra < nq)
+            lse_row[ra] = (m[0] + log2f(fmaxf(l[0], 1e-37f))) * kLn2;
+          if (rb < nq)
+            lse_row[rb] = (m[1] + log2f(fmaxf(l[1], 1e-37f))) * kLn2;
+        }
+      }
+      __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = j * 8 + 2 * q;
+        if (ra < nq)
+          *reinterpret_cast<uint32_t*>(ob + ra * so.n + c) =
+              pack_bf16(o_acc[4 * j] * inv0, o_acc[4 * j + 1] * inv0);
+        if (rb < nq)
+          *reinterpret_cast<uint32_t*>(ob + rb * so.n + c) =
+              pack_bf16(o_acc[4 * j + 2] * inv1, o_acc[4 * j + 3] * inv1);
+      }
+    }
   }
-  float* lse_row = nullptr;
-  if constexpr (kLse) lse_row = lse + (long long)bh * nq;
-  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, nq, g, t, m, l,
-                o_acc, lse_row);
+}
+
+template <int D, bool kLse>
+cudaError_t launch_bf16_k(int blocks, cudaStream_t st, const CUtensorMap& tq,
+                          const CUtensorMap& tk, const CUtensorMap& tv,
+                          __nv_bfloat16* o, float* lse, int H, int nq, int nk,
+                          int q_tiles, int n_items, Strides so,
+                          float scale_log2) {
+  using S = K2Smem<D>;
+  static cudaError_t attr =
+      hop_host::allow_smem(flash_bf16_kernel<D, kLse>, S::kSmem);
+  if (attr != cudaSuccess) return attr;
+  // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
+  static const int regs = [] {
+    cudaFuncAttributes fa;
+    return cudaFuncGetAttributes(&fa, flash_bf16_kernel<D, kLse>) ==
+                   cudaSuccess
+               ? fa.numRegs
+               : 0;
+  }();
+  if (regs < kK2LaunchRegs) return cudaErrorInvalidConfiguration;
+  flash_bf16_kernel<D, kLse><<<blocks, S::kThreads, S::kSmem, st>>>(
+      tq, tk, tv, o, lse, H, nq, nk, q_tiles, n_items, so, scale_log2);
+  return cudaGetLastError();
+}
+
+// The tensor map of a [B, N, h, d] view with element strides s, as dims
+// (d, h, N, B) in boxes of 32 columns x `rows` rows of one head.
+bool bnhd_map(CUtensorMap* map, const void* p, int B, int N, int H, int d,
+              Strides s, int rows) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)H, (uint64_t)N,
+                            (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)s.h * 2, (uint64_t)s.n * 2,
+                               (uint64_t)s.b * 2};
+  const uint32_t box[4] = {(uint32_t)kK2Slab, 1, (uint32_t)rows, 1};
+  return hop_host::make_map(map, p, 4, dims, strides, box, 64);
 }
 
 template <int D>
-void launch_bf16(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-                 const __nv_bfloat16* k, const __nv_bfloat16* v,
-                 __nv_bfloat16* o, float* lse, int H, int nq, int nk,
-                 Strides sq, Strides sk, Strides sv, Strides so,
-                 float scale_log2) {
+cudaError_t launch_bf16(cudaStream_t st, const void* q, const void* k,
+                        const void* v, __nv_bfloat16* o, float* lse, int B,
+                        int H, int nq, int nk, Strides sq, Strides sk,
+                        Strides sv, Strides so, float scale_log2) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  constexpr int rows = K2Smem<D>::kRows;
+  CUtensorMap tq, tk, tv;
+  if (!bnhd_map(&tq, q, B, nq, H, D, sq, rows) ||
+      !bnhd_map(&tk, k, B, nk, H, D, sk, kK2K) ||
+      !bnhd_map(&tv, v, B, nk, H, D, sv, kK2K))
+    return cudaErrorInvalidValue;
+  const int q_tiles = (nq + rows - 1) / rows;
+  const long long items = (long long)q_tiles * B * H;
+  if (items >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int n_items = static_cast<int>(items);
+  const int blocks = n_items < sms ? n_items : sms;  // one block per SM
   if (lse != nullptr)
-    flash_bf16_kernel<D, true><<<grid, kThreads, 0, st>>>(
-        q, k, v, o, lse, H, nq, nk, sq, sk, sv, so, scale_log2);
-  else
-    flash_bf16_kernel<D, false><<<grid, kThreads, 0, st>>>(
-        q, k, v, o, lse, H, nq, nk, sq, sk, sv, so, scale_log2);
+    return launch_bf16_k<D, true>(blocks, st, tq, tk, tv, o, lse, H, nq, nk,
+                                  q_tiles, n_items, so, scale_log2);
+  return launch_bf16_k<D, false>(blocks, st, tq, tk, tv, o, lse, H, nq, nk,
+                                 q_tiles, n_items, so, scale_log2);
 }
 
 template <int D>
@@ -497,28 +784,25 @@ int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
                     long long v_sn, long long v_sh, long long o_sb,
                     long long o_sn, long long o_sh, float sm_scale,
                     void* stream) {
-  const dim3 grid((nq + kBQ - 1) / kBQ, B * H);
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh},
       sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
   const float scale_log2 = sm_scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto kp = static_cast<const __nv_bfloat16*>(k);
-  auto vp = static_cast<const __nv_bfloat16*>(v);
   auto op = static_cast<__nv_bfloat16*>(o);
   auto lp = static_cast<float*>(lse);
+  cudaError_t e;
   if (d == 128)
-    launch_bf16<128>(grid, st, qp, kp, vp, op, lp, H, nq, nk, sq, sk, sv, so,
-                     scale_log2);
+    e = launch_bf16<128>(st, q, k, v, op, lp, B, H, nq, nk, sq, sk, sv, so,
+                         scale_log2);
   else if (d == 96)
-    launch_bf16<96>(grid, st, qp, kp, vp, op, lp, H, nq, nk, sq, sk, sv, so,
-                    scale_log2);
+    e = launch_bf16<96>(st, q, k, v, op, lp, B, H, nq, nk, sq, sk, sv, so,
+                        scale_log2);
   else if (d == 64)
-    launch_bf16<64>(grid, st, qp, kp, vp, op, lp, H, nq, nk, sq, sk, sv, so,
-                    scale_log2);
+    e = launch_bf16<64>(st, q, k, v, op, lp, B, H, nq, nk, sq, sk, sv, so,
+                        scale_log2);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 int flash_attn_int8qk(const void* q8, const void* k8, const void* v, void* o,

@@ -23,6 +23,7 @@ from infinicube_tpu_torch.inference.voxel_world_generation import (
 from infinicube_tpu_torch.models.diffusion.model import (DiffusionConfig,
                                                          VoxelDiffusion)
 from infinicube_tpu_torch.utils.fileio import save_grid_semantic
+from infinicube_tpu_torch.utils.precision import set_float32_precision
 
 
 def sample_single_chunk(diffusion: VoxelDiffusion, decode_fn,
@@ -66,6 +67,7 @@ def main(argv=None, device="cuda",
     ap.add_argument("--ddim_steps", type=int, default=100)
     ap.add_argument("--guidance", type=float, default=1.0)
     args = ap.parse_args(argv)
+    set_float32_precision()
     diffusion = VoxelDiffusion(cfg, device=device)
     generator = torch.Generator(device=diffusion.device)
     generator.manual_seed(0)

@@ -23,6 +23,7 @@ from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
                                                    SparseVAEConfig,
                                                    build_hash_tree)
 from infinicube_tpu_torch.utils.fileio import save_grid_semantic
+from infinicube_tpu_torch.utils.precision import set_float32_precision
 
 
 @torch.no_grad()
@@ -61,6 +62,7 @@ def main(argv=None, device="cuda"):
                     help="checkpoint directory of the VAE trainer")
     ap.add_argument("--output", required=True)
     args = ap.parse_args(argv)
+    set_float32_precision()
     model = SparseStructureVAE(SparseVAEConfig(), device=device)
     d = np.load(args.points)
     if args.checkpoint:

@@ -16,6 +16,7 @@ that it went through the kernel. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,7 +44,9 @@ SIGNATURES = {
     "flash_attention_bwd": {
         "flash_attn_bf16_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
-    "dense_conv": {"conv3x3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "dense_conv": {"conv3x3x3_bf16": [_P] * 5 + [_I] * 8 + [_P],
+                   "conv3x3x3_bf16_splits": [_I] * 7,
+                   "conv3x3x3_f32": [_P] * 4 + [_I] * 6 + [_P],
                    "conv3x3x3_int8": [_P] * 5 + [_I] * 6 + [_P]},
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
     "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 5 + [_I] * 5 + [_P]},
@@ -54,8 +57,12 @@ SIGNATURES = {
 # these
 K3_DGRAD = "conv3x3x3_bf16_dgrad"
 K4_DGRAD = "sparse_conv_f32_dgrad"
+# K3's split-K plan query launches nothing
+_NOT_COUNTED = ("conv3x3x3_bf16_splits",)
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
-                            for name in fns} | {K3_DGRAD: 0, K4_DGRAD: 0}
+                            for name in fns if name not in _NOT_COUNTED} | \
+    {K3_DGRAD: 0, K4_DGRAD: 0}
+_sms: dict[int, int] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -301,33 +308,79 @@ def flash_attn_int8qkv(q8: torch.Tensor, k8: torch.Tensor,
     return o
 
 
-def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
-                   bias: torch.Tensor | None) -> torch.Tensor:
-    """K3: 3x3x3 stride-1 SAME conv. x bf16 [B, D, H, W, C] contiguous;
-    w_packed bf16 [O, 27*C] (``pack_conv_weight``); bias f32 [O] or None
-    (the input-gradient call has none, and is counted under ``K3_DGRAD``).
-    C and O multiples of 8. Returns bf16 [B, D, H, W, O]."""
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _check_conv(x: torch.Tensor, w_packed: torch.Tensor,
+                bias: torch.Tensor | None, dtype: torch.dtype, name: str):
     _check_cuda(x, w_packed, *(() if bias is None else (bias,)))
     if x.dim() != 5:
         raise ValueError(f"x must be [B, D, H, W, C], got {tuple(x.shape)}")
     B, D, H, W, C = x.shape
     O = w_packed.shape[0]
-    if C % 8 or O % 8 or min(B, D, H, W) < 1:
-        raise ValueError(f"conv3x3x3_bf16 takes C, O multiples of 8, got "
-                         f"x{tuple(x.shape)} -> {O}")
-    M = B * D * H * W
-    if M >= 2 ** 31 or -(-M // 128) * -(-O // 64) >= 2 ** 31:
-        raise ValueError(f"too many voxels for one launch: {tuple(x.shape)}"
-                         f" -> {O}")
-    _check_dense(x, "x", (B, D, H, W, C), torch.bfloat16)
-    _check_dense(w_packed, "w_packed", (O, 27 * C), torch.bfloat16)
+    if min(B, D, H, W, C, O) < 1 or B * D * H * W >= 2 ** 31:
+        raise ValueError(f"{name}: cannot take x{tuple(x.shape)} -> {O}")
+    _check_dense(x, "x", (B, D, H, W, C), dtype)
+    _check_dense(w_packed, "w_packed", (O, 27 * C), dtype)
     if bias is not None:
         _check_dense(bias, "bias", (O,), torch.float32)
+    return B, D, H, W, C, O
+
+
+def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
+                   bias: torch.Tensor | None) -> torch.Tensor:
+    """K3: 3x3x3 stride-1 SAME conv. x bf16 [B, D, H, W, C] contiguous;
+    w_packed bf16 [O, 27*C] (``pack_conv_weight``); bias f32 [O] or None
+    (the input-gradient call has none, and is counted under ``K3_DGRAD``).
+    C and O multiples of 8. Returns bf16 [B, D, H, W, O]. Where the output
+    tiles fall short of the card's SMs the kernel splits its K range
+    (``k3_splits``): this wrapper then allocates the f32 partials
+    [S, B*D*H*W, O], and the call launches the kernel and the fixed-order
+    sum of the slices (counted once)."""
+    B, D, H, W, C, O = _check_conv(x, w_packed, bias, torch.bfloat16,
+                                   "conv3x3x3_bf16")
+    if C % 8 or O % 8:
+        raise ValueError(f"conv3x3x3_bf16 takes C, O multiples of 8, got "
+                         f"x{tuple(x.shape)} -> {O}")
     out = torch.empty((B, D, H, W, O), dtype=torch.bfloat16, device=x.device)
+    sms = _sm_count(x.device)
+    splits = k3_splits(B, D, H, W, C, O, sms)
+    partial = None if splits == 1 else torch.empty(
+        (splits, B * D * H * W, O), dtype=torch.float32, device=x.device)
     _run("dense_conv", "conv3x3x3_bf16", x.device, x.data_ptr(),
          w_packed.data_ptr(), None if bias is None else bias.data_ptr(),
-         out.data_ptr(), B, D, H, W, C, O,
+         out.data_ptr(), None if partial is None else partial.data_ptr(),
+         splits, B, D, H, W, C, O, sms,
          count_as=K3_DGRAD if bias is None else None)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def k3_splits(B: int, D: int, H: int, W: int, C: int, O: int,
+              sms: int) -> int:
+    """The number of K slices K3 takes at this shape on a card with ``sms``
+    SMs (1: no split), from the kernel's own plan, asked once a shape."""
+    return _fn("dense_conv", "conv3x3x3_bf16_splits")(B, D, H, W, C, O, sms)
+
+
+def conv3x3x3_f32(x: torch.Tensor, w_packed: torch.Tensor,
+                  bias: torch.Tensor | None) -> torch.Tensor:
+    """The f32 3x3x3 stride-1 SAME conv (CUDA cores, f32 FMA). x f32
+    [B, D, H, W, C] contiguous; w_packed f32 [O, 27*C]
+    (``pack_conv_weight(w, torch.float32)``); bias f32 [O] or None (the
+    input-gradient call). Any C and O. Returns f32 [B, D, H, W, O]; every
+    call counts under ``conv3x3x3_f32``."""
+    B, D, H, W, C, O = _check_conv(x, w_packed, bias, torch.float32,
+                                   "conv3x3x3_f32")
+    out = torch.empty((B, D, H, W, O), dtype=torch.float32, device=x.device)
+    _run("dense_conv", "conv3x3x3_f32", x.device, x.data_ptr(),
+         w_packed.data_ptr(), None if bias is None else bias.data_ptr(),
+         out.data_ptr(), B, D, H, W, C, O)
     return out
 
 

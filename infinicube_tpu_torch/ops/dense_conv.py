@@ -18,7 +18,12 @@ version and autograd. A CUDA call the kernel does not take raises.
 Weights keep torch's conv layout [O, C, 3, 3, 3] (``weights/from_jax.py``
 turns flax's DHWIO into it). The kernel reads them as [O, 27*C] bf16 for the
 forward and as [C, 27*O] bf16 (flipped, swapped) for the input gradient;
-``Conv3x3x3`` packs each once per weight version and caches it.
+``Conv3x3x3`` packs each once per weight version and caches it. K3 takes C
+and O that are multiples of 8: other widths are zero-padded on the way in
+(``pad_channels``; the packs are padded when they are made) and the
+output sliced back, which leaves the result exact. An f32 model's convs run
+on ``conv3x3x3_f32`` (f32 FMA on the CUDA cores, any width), forward and
+input gradient alike.
 
 The int8 variant (``quant=True``, the reference's ``quant=True`` path,
 selected by ``DiffusionConfig.serve_quant``) quantizes x per input channel
@@ -29,8 +34,9 @@ K7 (``conv3x3x3_int8``, csrc/dense_conv.cu) sums the int8 products in int32
 per dx group, dequantizes each group with its scales and adds the three in
 the reference's order. It applies only where ``int8_conv_applies`` holds, as
 the reference quantizes only where its plan fits; elsewhere the conv stays
-bf16 (K3). The weights are quantized anew on every call: their scales depend
-on that call's activations."""
+bf16 (K3). K7 takes C and O that are multiples of 32, so the int8 operands
+are zero-padded to them on the way in, like K3's. The weights are quantized
+anew on every call: their scales depend on that call's activations."""
 
 from __future__ import annotations
 
@@ -98,6 +104,24 @@ def quantize_for_conv(x: torch.Tensor, w: torch.Tensor):
     return x8, w8, sw.contiguous()
 
 
+# the channel multiples the card's kernels take: K3 8, K7 32, the f32 conv 1
+K3_MULTIPLE, K7_MULTIPLE = 8, 32
+_MULTIPLE = {torch.bfloat16: K3_MULTIPLE, torch.float32: 1}
+
+
+def pad_channels(t: torch.Tensor, multiple: int, *dims: int) -> torch.Tensor:
+    """t with each of ``dims`` zero-padded at its end up to a multiple of
+    ``multiple``. The card's convs take x [..., C] padded along -1, w
+    [O, C, 3, 3, 3] along 0 and 1, the bias [O] along 0 and the int8 scales
+    sw [3, O] along 1: the padded input channels meet zero weights and the
+    caller drops the padded outputs (``out[..., :O]``), so the conv's result
+    is unchanged."""
+    pad = [0] * (2 * t.dim())
+    for d in dims:
+        pad[2 * (t.dim() - 1 - d % t.dim()) + 1] = -t.shape[d] % multiple
+    return F.pad(t, pad) if any(pad) else t
+
+
 def pack_int8_weight(w8: torch.Tensor) -> torch.Tensor:
     """int8 [O, C, 3, 3, 3] -> [O, 27*C] with k = (dx*9 + dz*3 + dy)*C + c:
     each dx group is one contiguous third of a row, so K7 sums it in int32
@@ -138,12 +162,14 @@ def conv3x3x3_int8_plain(x8: torch.Tensor, w8: torch.Tensor,
     return (out + bias.float()).reshape(B, D, H, W, O).to(out_dtype)
 
 
-def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """[O, C, 3, 3, 3] -> bf16 [O, 27*C] with k = (dz*9 + dy*3 + dx)*C + c,
-    the layout K3 reads."""
+def pack_conv_weight(w: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """[O, C, 3, 3, 3] -> [O, 27*C] in ``dtype`` with k = (dz*9 + dy*3 +
+    dx)*C + c, the layout the card's kernels read: bf16 for K3, with O and C
+    zero-padded to multiples of 8; f32 for ``conv3x3x3_f32``, as it is."""
+    w = pad_channels(w, _MULTIPLE[dtype], 0, 1)
     O, C = w.shape[:2]
-    return w.permute(0, 2, 3, 4, 1).reshape(O, 27 * C).to(
-        torch.bfloat16).contiguous()
+    return w.permute(0, 2, 3, 4, 1).reshape(O, 27 * C).to(dtype).contiguous()
 
 
 def dgrad_weight(w: torch.Tensor) -> torch.Tensor:
@@ -200,26 +226,51 @@ def conv3x3x3_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     return dx.to(x.dtype), dw, g.float().sum(dim=(0, 1, 2, 3))
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether x goes to the card's kernels (the tests route CPU tensors
+    through this branch with the kernels' plain versions in their place)."""
+    return x.is_cuda
+
+
+def _card_conv(x: torch.Tensor, w_packed: torch.Tensor,
+               bias: torch.Tensor | None, O: int) -> torch.Tensor:
+    """x [..., C] through the card's kernel for x's dtype (K3 for bf16,
+    ``conv3x3x3_f32`` for f32) against a pack from ``pack_conv_weight``:
+    x and the bias zero-padded to the pack's widths, the output sliced back
+    to O channels."""
+    if x.dtype not in _MULTIPLE:
+        raise ValueError(f"the card's conv3x3x3 takes bf16 or f32, got "
+                         f"{x.dtype}")
+    m = _MULTIPLE[x.dtype]
+    x = pad_channels(x, m, -1).contiguous()
+    if bias is not None:
+        bias = pad_channels(bias, m, 0)
+    run = kernels.conv3x3x3_bf16 if x.dtype == torch.bfloat16 else \
+        kernels.conv3x3x3_f32
+    out = run(x, w_packed, bias)
+    return out if out.shape[-1] == O else out[..., :O].contiguous()
+
+
 class _Conv3x3x3(torch.autograd.Function):
-    """K3 forward; backward K3 on the output gradient for dx, the tap
-    products for dW, a sum for db."""
+    """The card's conv forward; backward the same kernel on the output
+    gradient for dx, the tap products for dW, a sum for db."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, w_packed, w_packed_dgrad):
         ctx.save_for_backward(x, w_packed_dgrad)
         ctx.w_dtype = weight.dtype
-        return kernels.conv3x3x3_bf16(x, w_packed, bias)
+        return _card_conv(x, w_packed, bias, weight.shape[0])
 
     @staticmethod
     def backward(ctx, g):
         x, w_packed_dgrad = ctx.saved_tensors
-        g = g.to(torch.bfloat16).contiguous()
+        g = g.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             if w_packed_dgrad is None:
                 raise ValueError("the input gradient needs w_packed_dgrad "
                                  "(pack_conv_weight(dgrad_weight(w)))")
-            dx = kernels.conv3x3x3_bf16(g, w_packed_dgrad, None)
+            dx = _card_conv(g, w_packed_dgrad, None, x.shape[-1])
         if ctx.needs_input_grad[1]:
             dw = conv_weight_grad(x, g).to(ctx.w_dtype)
         if ctx.needs_input_grad[2]:
@@ -232,9 +283,10 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               w_packed_dgrad: torch.Tensor | None = None,
               quant: bool = False) -> torch.Tensor:
     """x [B, D, H, W, C] @ w [O, C, 3, 3, 3] + bias [O], SAME padding,
-    differentiable in x, w and bias. On the card x must be bf16 and the
-    kernel reads ``w_packed`` (``pack_conv_weight(w)``) and, for x's
-    gradient, ``w_packed_dgrad`` (``pack_conv_weight(dgrad_weight(w))``),
+    differentiable in x, w and bias. On the card x is bf16 (K3) or f32
+    (``conv3x3x3_f32``), of any width, and the kernel reads ``w_packed``
+    (``pack_conv_weight(w, x.dtype)``) and, for x's gradient,
+    ``w_packed_dgrad`` (``pack_conv_weight(dgrad_weight(w), x.dtype)``),
     both packed once by the caller; on the CPU the plain version runs.
     ``quant=True`` serves the int8 variant instead (K7 on the card, no
     gradient, packs made here from this call's quantization)."""
@@ -242,16 +294,21 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             raise ValueError("the int8 conv serves only: no gradient")
         x8, w8, sw = quantize_for_conv(x, w)
-        if x.is_cuda:
+        if _on_card(x):
             if x.dtype != torch.bfloat16:
                 raise ValueError("the card's int8 conv writes bf16; got "
                                  f"{x.dtype} input")
-            return kernels.conv3x3x3_int8(x8, pack_int8_weight(w8), sw,
-                                          bias.float().contiguous())
+            O, m = w.shape[0], K7_MULTIPLE
+            out = kernels.conv3x3x3_int8(
+                pad_channels(x8, m, -1).contiguous(),
+                pack_int8_weight(pad_channels(w8, m, 0, 1)),
+                pad_channels(sw, m, 1).contiguous(),
+                pad_channels(bias.float(), m, 0).contiguous())
+            return out if out.shape[-1] == O else out[..., :O].contiguous()
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         return conv3x3x3_int8_plain(x8, w8, sw, bias, x.dtype)
-    if x.is_cuda:
+    if _on_card(x):
         if w_packed is None:
             raise ValueError("the card's conv3x3x3 needs w_packed "
                              "(pack_conv_weight(w), packed once)")
@@ -259,7 +316,7 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         if torch.is_grad_enabled() and \
                 (x.requires_grad or w.requires_grad or bias.requires_grad):
             return _Conv3x3x3.apply(x, w, bias, w_packed, w_packed_dgrad)
-        return kernels.conv3x3x3_bf16(x, w_packed, bias)
+        return _card_conv(x, w_packed, bias, w.shape[0])
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return conv3x3x3_plain(x, w, bias)
@@ -292,21 +349,22 @@ class Conv3x3x3(nn.Module):
                                 generator=generator)
             self.bias.zero_()
 
-    def _packed_weight(self, dgrad: bool = False) -> torch.Tensor:
+    def _packed_weight(self, dgrad: bool = False,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         """The forward pack or the input-gradient pack of the current
-        weight, cached against its address and version (every in-place
-        update of the parameter, an optimizer step or ``load_state_dict``,
-        raises the version)."""
+        weight in ``dtype``, cached against its address and version (every
+        in-place update of the parameter, an optimizer step or
+        ``load_state_dict``, raises the version)."""
         w = self.weight
         key = (w.data_ptr(), w._version, w.device)
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, {})
         packs = self._packed[1]
-        if dgrad not in packs:
+        if (dgrad, dtype) not in packs:
             src = w.detach()
-            packs[dgrad] = pack_conv_weight(dgrad_weight(src) if dgrad
-                                            else src)
-        return packs[dgrad]
+            packs[dgrad, dtype] = pack_conv_weight(
+                dgrad_weight(src) if dgrad else src, dtype)
+        return packs[dgrad, dtype]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -314,13 +372,13 @@ class Conv3x3x3(nn.Module):
         if self.quant and int8_conv_applies(x.shape[:4], x.shape[-1],
                                             self.weight.shape[0]):
             return conv3x3x3(x.to(dt), self.weight.to(dt), bias, quant=True)
-        if x.is_cuda:
-            if dt != torch.bfloat16:
-                raise ValueError("the card's conv3x3x3 kernel takes bf16; "
-                                 f"this module computes in {dt}")
+        if _on_card(x):
+            if dt not in _MULTIPLE:
+                raise ValueError("the card's conv3x3x3 kernels take bf16 or "
+                                 f"f32; this module computes in {dt}")
             need_dx = torch.is_grad_enabled() and x.requires_grad
             return conv3x3x3(x.to(dt), self.weight, bias,
-                             self._packed_weight(),
-                             self._packed_weight(dgrad=True) if need_dx
-                             else None)
+                             self._packed_weight(dtype=dt),
+                             self._packed_weight(dgrad=True, dtype=dt)
+                             if need_dx else None)
         return conv3x3x3(x.to(dt), self.weight.to(dt), bias)

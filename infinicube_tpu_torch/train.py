@@ -3,7 +3,7 @@
 YAML config with includes and interpolation plus ``--k.e.y v`` / ``--exec``
 overrides (``ConfigArgumentParser``), model selection by the ``model:`` key,
 logger selection, checkpoint auto-resume. Runs on the card unless
-``main(argv, device="cpu")``.
+``main(argv, device="cpu")``, with TF32 off (``utils/precision.py``).
 
 Ported so far: the voxel-diffusion trainer on the synthetic latent stream
 and the sparse-VAE trainer on the synthetic point stream (what the JAX CLI
@@ -30,6 +30,7 @@ from infinicube_tpu_torch.device import resolve_device
 from infinicube_tpu_torch.training.logging import make_logger
 from infinicube_tpu_torch.training.loop import LoopConfig, train
 from infinicube_tpu_torch.training.state import TrainConfig
+from infinicube_tpu_torch.utils.precision import set_float32_precision
 
 _WAITS = ("not ported yet: {what} (ROADMAP section 1, items 17 and 18: the "
           "training data glue and the Waymo data path)")
@@ -148,6 +149,7 @@ def main(argv=None, device="cuda"):
     parser.add_argument("--logger", type=str, default="jsonl")
     parser.add_argument("--logdir", type=str, default="logs")
     cfg = parser.parse_config(argv)
+    set_float32_precision()
     device = resolve_device(device)
     model_kind = cfg.get_path("model", "diffusion")
     if model_kind not in BUILDERS:
