@@ -5,12 +5,13 @@
 Builds the port's CUDA kernels from ``infinicube_tpu_torch/csrc`` and then:
 
 1. setup: torch version, the card's name and power limit, build seconds;
-2. kernel checks: K1 (int8-QK flash attention) and K2 (bf16 flash
-   attention) against their plain PyTorch versions at the DiT's head shape
-   (h=12, d=128), with a different quantization scale in every block of q
-   and k; then held against them again at the release shape (N=37,440) and
-   timed there beside the plain versions, their bounds and, for K2,
-   ``scaled_dot_product_attention`` as a yardstick;
+2. kernel checks: K1 (int8-QK flash attention, on wgmma and TMA) and K2
+   (bf16 flash attention) against their plain PyTorch versions at the DiT's
+   head shape (h=12, d=128), with a different quantization scale in every
+   block of q and k; then held against them again at the release shape
+   (N=37,440) and timed there beside the plain versions, their bounds (and
+   the share of it reached) and, for K2, ``scaled_dot_product_attention`` as
+   a yardstick;
 3. model check: a full-width 2-layer serving DiT on the card (kernels)
    against the same weights on the CPU (plain versions);
 4. serving: ``WanVideoGenerator(WanPipelineConfig.serving())`` with random
@@ -45,13 +46,15 @@ Then training the voxel diffusion model (stage 1's models freed first):
 
 10. kernel checks: K2 with its log-sum-exp store against
     ``attention_plain``'s output and lse, and K5 (the flash-attention
-    backward) against ``attention_bwd_plain``, at the UNet's shapes
-    (N = 4,096 and 512, h = 8, d = 96) and at d = 128 with Nq != Nk,
-    neither a multiple of 64; K3 as
-    the conv's input gradient against ``conv3x3x3_bwd_plain``'s dx at the six
-    release shapes with C and O swapped; each timed beside its plain version,
-    its bound and the library call (the backward of
-    ``scaled_dot_product_attention``, cuDNN's backward-data);
+    backward, on wgmma and TMA) against ``attention_bwd_plain`` on the plain
+    output and lse, at the UNet's shapes (N = 4,096 and 512, h = 8, d = 96)
+    and at d = 128 with Nq != Nk, neither a multiple of 64, twice,
+    bit-identical; K3 as the conv's input gradient against
+    ``conv3x3x3_bwd_plain``'s dx at the six release shapes with C and O
+    swapped; each timed beside its plain version, its bound and the library
+    call (cuDNN's backward-data; for K5 the backward of
+    ``scaled_dot_product_attention`` with its backend pinned, which computes
+    D itself, against K5 plus ``attention_delta``);
 11. model check: the release-width UNet on a 16^3 cube, ``train_loss``
     gradients on the card (bf16, K2/K3/K5) against the CPU (f32, plain
     versions), zero-init layers filled: every parameter's gradient finite
@@ -116,12 +119,16 @@ Then every width and f32 (the int8 models freed first):
     operands zero-padded to multiples of 32) equal to the unpadded
     ``conv3x3x3_int8_plain``; ``conv3x3x3_f32`` against the plain f32 conv
     at the six release shapes (and as dgrad at 16^3), timed beside it, its
-    bound and cuDNN's f32 conv3d;
-23. model check: the f32 release-width UNet without SelfAttention3D (K2
-    takes bf16 only) on a 16^3 cube, card against the CPU;
-24. the f32 stage-1 path: one chunk of ``evaluation_api`` with that UNet on
-    the 64^3 cube (DDIM-2) and the release VAE's decode, exactly 96 f32
-    conv launches and 12 of K4.
+    bound and cuDNN's f32 conv3d; ``flash_attn_f32`` against the plain f32
+    attention at the UNet's two SelfAttention3D shapes and at Nq != Nk,
+    d = 64, timed beside it, its bound and ``scaled_dot_product_attention``
+    in f32;
+23. model check: the f32 release-width UNet, SelfAttention3D included, on a
+    16^3 cube, card against the CPU;
+24. the f32 stage-1 path: one chunk of ``evaluation_api`` with the release
+    ``DiffusionConfig(dtype=torch.float32)`` UNet on the 64^3 cube (DDIM-2)
+    and the release VAE's decode, exactly 96 f32 conv launches, 20 of
+    ``flash_attn_f32`` (10 a UNet call) and 12 of K4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
@@ -276,8 +283,9 @@ def kernel_checks(kernels, att, fa):
     nbytes = 2 * n * D * bh + 2 * 2 * n * D * bh
     b_ms, b_by = bound_ms([(flops, PEAK_INT8), (flops, PEAK_BF16)], nbytes)
     print(f"[k1] N={n}: kernel {k1_ms:.3f} ms ({2 * flops / k1_ms / 1e9:.1f}"
-          f" TFLOP/s), with quantize prologue {k1_e2e:.3f} ms, plain "
-          f"{k1_plain:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+          f" TFLOP/s, {100 * b_ms / k1_ms:.1f} % of its bound), with quantize"
+          f" prologue {k1_e2e:.3f} ms, plain {k1_plain:.1f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}); no single PyTorch call computes it")
     out["flash_attn_int8qk"] = dict(
         name="flash_attn_int8qk", route="cuda",
         source="infinicube_tpu_torch/csrc/flash_attention.cu",
@@ -599,7 +607,8 @@ def chunk_launches(diffusion, steps, unet_calls=None):
                     "conv3x3x3_bf16": (len(seen) - n_int8) * steps,
                     "flash_attn_bf16": 10 * steps, "sparse_conv_f32": 12,
                     "flash_attn_int8qk": 0, "flash_attn_int8qkv": 0,
-                    "conv3x3x3_bf16_dgrad": 0, "conv3x3x3_f32": 0}
+                    "conv3x3x3_bf16_dgrad": 0, "conv3x3x3_f32": 0,
+                    "flash_attn_f32": 0}
 
 
 def run_chunks(kernels, gen, label, run, want, n_chunks):
@@ -820,7 +829,7 @@ STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "flash_attn_int8qk": 0, "sparse_conv_f32": 0,
                  "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0,
                  "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
-                 "conv3x3x3_f32": 0}
+                 "conv3x3x3_f32": 0, "flash_attn_f32": 0}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
 
@@ -837,13 +846,37 @@ def gate(got, ref, label):
     return err
 
 
+def sdpa_backward_ms(q, k, v, do):
+    """The backward of ``scaled_dot_product_attention`` on the same inputs,
+    its backend pinned (``torch.nn.attention.sdpa_kernel``): flash where it
+    takes the shape, else the memory-efficient one. SDPA's backward computes
+    D = sum(o * do) itself, so it is the yardstick of K5 plus
+    ``attention_delta``. Returns (ms, the backend's name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt)
+            return cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True)), backend.name
+        except RuntimeError:
+            continue
+    raise RuntimeError("no pinned SDPA backend takes this shape")
+
+
 def k5_checks(kernels, att):
     """K2 with the log-sum-exp store (the variant the training forward
     launches) against ``attention_plain``'s output and lse, then K5 against
     ``attention_bwd_plain`` on the plain f32 output and lse, so that neither
-    side of K5's gate takes anything from K2; K5 timed beside the plain
-    version, its bound (10*Nq*Nk*d*B*h bf16 operations) and the backward of
-    ``scaled_dot_product_attention``."""
+    side of K5's gate takes anything from K2, run twice (bit-identical); K5
+    timed beside the plain version, its bound (10*Nq*Nk*d*B*h bf16
+    operations) and, with ``attention_delta`` on its side, the pinned
+    backward of ``scaled_dot_product_attention``."""
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
     for nq, nk, h, d in ((4096, 4096, H96, D96), (512, 512, H96, D96),
@@ -860,42 +893,48 @@ def k5_checks(kernels, att):
               f"{lse_err:.3e} (limit 1.000e-03)")
         check(lse.shape == (1, h, nq) and lse.dtype == torch.float32 and
               lse_err <= 1e-3, f"{shape}: lse {lse.shape} err {lse_err}")
-        delta = att.attention_delta(o, do)
-        got = kernels.flash_attn_bf16_bwd(q, k, v, do, lse, delta, scale)
+        ref_delta = att.attention_delta(ref_o, do)
+        got = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, ref_delta,
+                                          scale)
         ref = att.attention_bwd_plain(q.float(), k.float(), v.float(),
                                       ref_o, do.float(), ref_lse, scale)
-        del ref_o, ref_lse
         err = max(gate(a, b, f"[k5] {shape} d{name}")
                   for a, b, name in zip(got, ref, "qkv"))
+        again = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, ref_delta,
+                                            scale)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"[k5] {shape}: two runs differ")
+        del ref_o, ref_lse, ref_delta, ref, again
+        delta = att.attention_delta(o, do)
         ms = cuda_ms(lambda: kernels.flash_attn_bf16_bwd(q, k, v, do, lse,
                                                          delta, scale))
         delta_ms = cuda_ms(lambda: att.attention_delta(o, do))
         fwd_ms = cuda_ms(lambda: kernels.flash_attn_bf16(q, k, v, scale))
         fwd_lse_ms = cuda_ms(lambda: kernels.flash_attn_bf16(
             q, k, v, scale, return_lse=True))
+        with_delta = cuda_ms(lambda: kernels.flash_attn_bf16_bwd(
+            q, k, v, do, lse, att.attention_delta(o, do), scale))
         plain = cuda_ms(lambda: att.attention_bwd_plain(q, k, v, o, do, lse,
                                                         scale), 1, 3)
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
-        lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                  retain_graph=True))
+        lib, backend = sdpa_backward_ms(q, k, v, do)
         flops = 10.0 * nq * nk * d * h
         nbytes = 2 * d * h * (3 * nq + 4 * nk) + 2 * 4 * h * nq
         b_ms, b_by = bound_ms([(flops, PEAK_BF16)], nbytes)
         print(f"[k5] {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s of the 5 products counted), delta {delta_ms:.4f} ms,"
-              f" plain {plain:.3f} ms, sdpa backward {lib:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); K2 forward {fwd_ms:.4f} ms, with "
-              f"the lse store {fwd_lse_ms:.4f} ms")
+              f"TFLOP/s of the 5 products counted, {100 * b_ms / ms:.1f} % "
+              f"of its bound), delta {delta_ms:.4f} ms, kernel + delta "
+              f"{with_delta:.4f} ms, plain {plain:.3f} ms, sdpa backward "
+              f"({backend}, pinned) {lib:.4f} ms: kernel + delta / sdpa "
+              f"{with_delta / lib:.2f}x; bound {b_ms:.4f} ms ({b_by}); K2 "
+              f"forward {fwd_ms:.4f} ms, with the lse store "
+              f"{fwd_lse_ms:.4f} ms")
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                         delta_ms=delta_ms, k2_ms=fwd_ms,
+                         library_backend=backend, delta_ms=delta_ms,
+                         with_delta_ms=with_delta, k2_ms=fwd_ms,
                          k2_with_lse_ms=fwd_lse_ms,
                          k2_with_lse_o_max_abs_err=o_err,
                          k2_with_lse_max_abs_err=lse_err))
-        del out, qt, kt, vt
     return rows
 
 
@@ -1241,7 +1280,7 @@ VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
                      "conv3x3x3_bf16_dgrad": 0, "flash_attn_bf16": 0,
                      "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0,
                      "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
-                     "conv3x3x3_f32": 0}
+                     "conv3x3x3_f32": 0, "flash_attn_f32": 0}
 VAE_POINTS = 200_000
 
 
@@ -2093,16 +2132,60 @@ def f32_conv_checks(kernels, dc):
     return rows
 
 
+def f32_attn_checks(kernels, att):
+    """``flash_attn_f32`` (through ``multi_head_attention``, no gradient)
+    against ``attention_plain`` in f32 on the same inputs, max-abs <= 1e-4 *
+    max|ref| (as ``conv3x3x3_f32``), at the UNet's two SelfAttention3D
+    shapes and at Nq != Nk with d = 64; timed beside the plain version, its
+    bound (4*Nq*Nk*d*B*h f32 operations at the CUDA-core peak) and
+    ``scaled_dot_product_attention`` on f32 inputs (TF32 off)."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for nq, nk, h, d in ((4096, 4096, H96, D96), (512, 512, H96, D96),
+                         (1000, 777, 4, 64)):
+        q, k, v = (rand((1, n, h, d), g, torch.float32) for n in (nq, nk, nk))
+        scale = d ** -0.5
+        shape = f"Nq={nq} Nk={nk} h={h} d={d}"
+        before = kernels.launches["flash_attn_f32"]
+        with torch.no_grad():
+            got = att.multi_head_attention(q, k, v)
+        check(kernels.launches["flash_attn_f32"] == before + 1,
+              f"[f32 attn] {shape}: not through flash_attn_f32")
+        ref = att.attention_plain(q, k, v, scale)
+        err = (got - ref).abs().max().item()
+        lim = 1e-4 * ref.abs().max().item()
+        print(f"[f32 attn] {shape}: cosine {cos(got, ref):.8f} max_abs_err "
+              f"{err:.3e} (limit {lim:.3e})")
+        check(torch.isfinite(got).all().item() and err <= lim,
+              f"flash_attn_f32 at {shape}: err {err}")
+        ms = cuda_ms(lambda: kernels.flash_attn_f32(q, k, v, scale), 1, 5)
+        plain = cuda_ms(lambda: att.attention_plain(q, k, v, scale), 1, 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = cuda_ms(lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qt, kt, vt), 1, 5)
+        flops = 4.0 * nq * nk * d * h
+        b_ms, b_by = bound_ms([(flops, PEAK_F32)], 4 * 2 * (nq + nk) * d * h)
+        print(f"[f32 attn] {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
+              f" TFLOP/s, {100 * b_ms / ms:.1f} % of its bound), plain "
+              f"{plain:.3f} ms, sdpa f32 {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, f32 CUDA-core peak)")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del q, k, v, qt, kt, vt, got, ref
+    return rows
+
+
 def f32_config(DiffusionConfig, **kw):
-    """The release UNet computing in f32; without its SelfAttention3D
-    blocks, since the card's attention (K2) takes bf16 only."""
-    return DiffusionConfig(dtype=torch.float32, attention_ds=(), **kw)
+    """The release UNet computing in f32, SelfAttention3D blocks at the
+    release ``attention_ds`` included (``flash_attn_f32``)."""
+    return DiffusionConfig(dtype=torch.float32, **kw)
 
 
-def unet_f32_check(VoxelDiffusion, DiffusionConfig):
+def unet_f32_check(kernels, VoxelDiffusion, DiffusionConfig):
     """The f32 release-width UNet on a 16^3 cube: card (``conv3x3x3_f32``,
-    TF32 off) against the CPU (plain versions), same weights: cosine >=
-    0.99999 and max-abs <= 1e-3 * max|ref|."""
+    ``flash_attn_f32`` in its 10 SelfAttention3D blocks, TF32 off) against
+    the CPU (plain versions), same weights: cosine >= 0.99999 and max-abs
+    <= 1e-3 * max|ref|."""
     base = f32_config(DiffusionConfig, cube_dims=(16, 16, 16))
     cpu = VoxelDiffusion(base, device="cpu")
     cpu.init_params(torch.Generator().manual_seed(18), zero_init_layers=False)
@@ -2112,21 +2195,26 @@ def unet_f32_check(VoxelDiffusion, DiffusionConfig):
     x = torch.from_numpy(rng.standard_normal((1, 16, 16, 16, 16),
                                              dtype=np.float32))
     t = torch.tensor([500])
+    before = kernels.launches["flash_attn_f32"]
     with torch.no_grad():
         ref = cpu.unet(x, t)
         got = card.unet(x.cuda(), t.cuda()).cpu()
+    attn = kernels.launches["flash_attn_f32"] - before
     c, err = cos(got, ref), (got - ref).abs().max().item()
     lim = 1e-3 * ref.abs().max().item()
-    print(f"[model] f32 release-width UNet (no SelfAttention3D) on 16^3: card "
-          f"vs cpu cosine {c:.8f}, max_abs_err {err:.3e} (limit {lim:.3e})")
+    print(f"[model] f32 release-width UNet (with SelfAttention3D, "
+          f"{attn} flash_attn_f32 launches) on 16^3: card vs cpu cosine "
+          f"{c:.8f}, max_abs_err {err:.3e} (limit {lim:.3e})")
+    check(attn == 10, f"f32 UNet: {attn} f32 attention launches, want 10")
     check(torch.isfinite(got).all().item(), "f32 UNet output not finite")
     check(c >= 0.99999 and err <= lim, f"f32 UNet: cos {c} err {err}")
 
 
 def serve_f32(kernels, mods):
     """The f32 stage-1 path: one chunk of ``evaluation_api`` with the f32
-    UNet at release widths on the 64^3 cube (DDIM-2) and the release VAE's
-    decode; exactly 48 f32 conv launches a step and K4 12, nothing else."""
+    release UNet on the 64^3 cube (DDIM-2) and the release VAE's decode;
+    exactly 48 f32 conv and 10 f32 attention launches a step and K4 12,
+    nothing else."""
     diffusion = mods.VoxelDiffusion(f32_config(mods.DiffusionConfig),
                                     device="cuda")
     g = torch.Generator(device="cuda").manual_seed(19)
@@ -2139,7 +2227,8 @@ def serve_f32(kernels, mods):
     _, maps, boxes = stage1_scene()
     cond = gen._cond_for_chunk(np.eye(4), maps, boxes)
     want = {k: 0 for k in kernels.launches} | {
-        "conv3x3x3_f32": 48 * F32_STEPS, "sparse_conv_f32": 12}
+        "conv3x3x3_f32": 48 * F32_STEPS, "flash_attn_f32": 10 * F32_STEPS,
+        "sparse_conv_f32": 12}
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2159,9 +2248,9 @@ def serve_f32(kernels, mods):
     return launches
 
 
-def widths_and_f32(kernels, dense_conv):
-    """Phases 22-24. Returns the summary entry of ``conv3x3x3_f32`` and the
-    launches of the f32 path."""
+def widths_and_f32(kernels, att, dense_conv):
+    """Phases 22-24. Returns the summary entries of ``conv3x3x3_f32`` and
+    ``flash_attn_f32`` and the launches of the f32 path."""
     from infinicube_tpu_torch.inference.voxel_world_generation import (
         VoxelWorldGenerator, WorldGenConfig, vae_decode_fn)
     from infinicube_tpu_torch.models.diffusion.model import (DiffusionConfig,
@@ -2177,14 +2266,20 @@ def widths_and_f32(kernels, dense_conv):
     # ---- 22. kernel checks --------------------------------------------------
     k7_padded_checks(dense_conv)
     rows = f32_conv_checks(kernels, dense_conv)
+    attn_rows = f32_attn_checks(kernels, att)
     # ---- 23. model check ----------------------------------------------------
-    unet_f32_check(VoxelDiffusion, DiffusionConfig)
+    unet_f32_check(kernels, VoxelDiffusion, DiffusionConfig)
     # ---- 24. the f32 stage-1 path -------------------------------------------
     launches = serve_f32(kernels, mods)
     torch.cuda.empty_cache()
     return {"conv3x3x3_f32": entry(
-        "conv3x3x3_f32", "infinicube_tpu_torch/csrc/dense_conv.cu",
-        "infinicube_tpu/ops/dense_conv.py:177", rows, 1)}, launches
+                "conv3x3x3_f32", "infinicube_tpu_torch/csrc/dense_conv.cu",
+                "infinicube_tpu/ops/dense_conv.py:177", rows, 1),
+            "flash_attn_f32": entry(
+                "flash_attn_f32",
+                "infinicube_tpu_torch/csrc/flash_attention_f32.cu",
+                "infinicube_tpu/ops/attention.py:72", attn_rows, 0)}, \
+        launches
 
 
 def wan_serve(kernels, att, fa):
@@ -2308,7 +2403,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_report, int8_paths = int8_serving(kernels, dense_conv, fa)
     torch.cuda.empty_cache()
-    f32_report, f32_launches = widths_and_f32(kernels, dense_conv)
+    f32_report, f32_launches = widths_and_f32(kernels, att, dense_conv)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")

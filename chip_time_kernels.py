@@ -5,22 +5,25 @@ clock around work that ends in a synchronize).
 
     python3 chip_time_kernels.py <checkout> [--json FILE]
 
-- K3 forward at the six release conv shapes and as dgrad at their six;
-- K2 at d = 96 (N = 4,096 and 512, 8 heads) and d = 128 (37,440 x 512, 12
-  heads);
-- guards, timed first: K1 (N = 37,440 and 7,800), K7 at its six shapes,
-  K5 (d = 96 at 4,096 and 512);
+- guards, timed first: K2 at d = 96 (N = 4,096 and 512, 8 heads) and
+  d = 128 (37,440 x 512, 12 heads), K3 forward at [1,64^3,192]->192, K7 at
+  its six shapes, K8 (N = 37,440 and 7,800) and, where the checkout has it,
+  ``flash_attn_f32`` at the UNet's two SelfAttention3D shapes;
+- the redesigned kernels: K1 (N = 37,440 and 7,800) and K5 (d = 96 at
+  4,096 and 512), K5 also plus ``attention_delta`` (the function SDPA's
+  backward computes), beside the backward of
+  ``scaled_dot_product_attention`` with its backend pinned (flash where it
+  takes the shape; the row names the backend that ran);
 - K2 and K5 also as device time alone (``torch.profiler``), which the
   small calls need: at N = 512 launching from Python takes about as long
-  as the kernel;
-- the host's time to issue one call (rows ending in "issue"): K3 at the six
-  forward shapes and K2 at N = 512, queued behind a kernel that keeps the
-  card busy, so that no launch waits for the card;
-- steps: one DDIM step of the release UNet (bf16, guidance 1), one CFG DDIM
-  step at batch 2 through its int8 twin and through the bf16 UNet, one
-  sequential-CFG step of the 1.3B DiT at 93f@480p, one diffusion train step
-  (batch 1, no remat: forward, backward, clip, AdamW, EMA). Random weights,
-  null conditions (the dense work does not depend on them).
+  as the kernel; and the host's time to issue one K2 call at N = 512 (the
+  row ending in "issue"), queued behind a kernel that keeps the card busy,
+  so that no launch waits for the card;
+- steps: one sequential-CFG step of the 1.3B DiT at 93f@480p, one diffusion
+  train step (batch 1, no remat: forward, backward, clip, AdamW, EMA) and,
+  where the checkout serves f32 attention, one DDIM step of the release
+  UNet in f32 with its SelfAttention3D blocks (guidance 1). Random
+  weights, null conditions (the dense work does not depend on them).
 
 Prints one line of milliseconds and, with ``--json``, writes them there. To
 compare two checkouts, run it on each in turns inside one job on one card
@@ -31,13 +34,14 @@ of such a comparison have."""
 import argparse
 import json
 import math
+import subprocess
 import sys
 import time
 
 import torch
 
-from chip_smoke import (D, D96, H, H96, K3_SHAPES, K7_SHAPES, N_RELEASE,
-                        N_SERVE, TEXT_LEN, cuda_ms, rand)
+from chip_smoke import (D, D96, H, H96, K7_SHAPES, N_RELEASE, N_SERVE,
+                        TEXT_LEN, cuda_ms, rand, sdpa_backward_ms)
 
 
 def device_ms(fn, iters=20):
@@ -77,9 +81,64 @@ def issue_ms(fn, calls=100):
     return host / calls if host < 0.9 * start.elapsed_time(end) else math.nan
 
 
-def kernel_rows(kernels, dc, fa, g):
-    """The guards first (K1, K7, K5), then K2 and K3, so that no guard is
-    timed right after a run of the redesigned kernels at full power."""
+def guard_rows(kernels, dc, fa, g):
+    """The kernels this redesign leaves as they are, timed first, so that
+    none is timed right after a run of the redesigned kernels at full
+    power."""
+    out = {}
+    for nq, nk, h, d in ((N_RELEASE, TEXT_LEN, H, D), (4096, 4096, H96, D96),
+                         (512, 512, H96, D96)):
+        q, k, v = (rand((1, n, h, d), g) for n in (nq, nk, nk))
+
+        def k2():
+            return kernels.flash_attn_bf16(q, k, v, d ** -0.5)
+        # at N = 512 the host's time to issue the call bounds it: more calls
+        # average out the host's spread
+        calls = 500 if nq == 512 else 20
+        out[f"k2 {nq}x{nk} h{h} d{d}"] = cuda_ms(k2, 3, calls)
+        out[f"k2 {nq}x{nk} h{h} d{d} device"] = device_ms(k2)
+        if nq == 512:
+            out[f"k2 {nq}x{nk} h{h} d{d} issue"] = issue_ms(k2, calls)
+    x = rand((1, 64, 64, 64, 192), g)
+    w = rand((192, 192, 3, 3, 3), g) / math.sqrt(27 * 192)
+    wp, b = dc.pack_conv_weight(w), torch.zeros(192, device="cuda")
+    out["k3 64^3 192->192"] = cuda_ms(
+        lambda: kernels.conv3x3x3_bf16(x, wp, b), 2, 10)
+    del x, w, wp
+    for n, C, O in K7_SHAPES:
+        x = rand((2, n, n, n, C), g)
+        w = rand((O, C, 3, 3, 3), g) / math.sqrt(27 * C)
+        x8, w8, sw = dc.quantize_for_conv(x, w)
+        w8p = dc.pack_int8_weight(w8)
+        b = torch.zeros(O, device="cuda")
+        out[f"k7 [2,{n}^3] {C}->{O}"] = cuda_ms(
+            lambda: kernels.conv3x3x3_int8(x8, w8p, sw, b), 2, 10)
+        del x, w, x8, w8, w8p
+    for n in (N_RELEASE, N_SERVE):
+        block, npad = fa.quant_blocks(n)
+        q8, sq = fa.block_quantize(fa.fold_heads(rand((1, n, H, D), g),
+                                                 npad), block)
+        k8, sk = fa.block_quantize(fa.fold_heads(rand((1, n, H, D), g),
+                                                 npad), block)
+        v8, sv = fa.channel_quantize(fa.fold_heads(rand((1, n, H, D), g),
+                                                   npad))
+        v8t = v8.transpose(1, 2).contiguous()
+        out[f"k8 N={n}"] = cuda_ms(lambda: kernels.flash_attn_int8qkv(
+            q8, k8, sq, sk, v8t, sv, 1, n, block, D ** -0.5), 2, 5)
+        del q8, k8, v8, v8t
+    if hasattr(kernels, "flash_attn_f32"):
+        for n in (4096, 512):
+            q, k, v = (rand((1, n, H96, D96), g, torch.float32)
+                       for _ in range(3))
+            out[f"f32 attn {n}x{n} h{H96} d{D96}"] = cuda_ms(
+                lambda: kernels.flash_attn_f32(q, k, v, D96 ** -0.5), 1, 5)
+    torch.cuda.empty_cache()
+    return out
+
+
+def redesign_rows(kernels, att, fa, g):
+    """K1 and K5, with K5's yardstick: K5 plus ``attention_delta`` against
+    the pinned backward of ``scaled_dot_product_attention``."""
     out = {}
     for n in (N_RELEASE, N_SERVE):
         block, npad = fa.quant_blocks(n)
@@ -91,58 +150,26 @@ def kernel_rows(kernels, dc, fa, g):
         out[f"k1 N={n}"] = cuda_ms(lambda: kernels.flash_attn_int8qk(
             q8, k8, sq, sk, v, block, D ** -0.5), 2, 5)
         del q8, k8, v
-    for n, C, O in K7_SHAPES:
-        x = rand((2, n, n, n, C), g)
-        w = rand((O, C, 3, 3, 3), g) / math.sqrt(27 * C)
-        x8, w8, sw = dc.quantize_for_conv(x, w)
-        w8p = dc.pack_int8_weight(w8)
-        b = torch.zeros(O, device="cuda")
-        out[f"k7 [2,{n}^3] {C}->{O}"] = cuda_ms(
-            lambda: kernels.conv3x3x3_int8(x8, w8p, sw, b), 2, 10)
-        del x, w, x8, w8, w8p
     for n in (4096, 512):
         q, k, v, do = (rand((1, n, H96, D96), g) for _ in range(4))
         o, lse = kernels.flash_attn_bf16(q, k, v, D96 ** -0.5,
                                          return_lse=True)
-        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        delta = att.attention_delta(o, do)
 
         def k5():
             return kernels.flash_attn_bf16_bwd(q, k, v, do, lse, delta,
                                                D96 ** -0.5)
-        out[f"k5 {n}x{n} h{H96} d{D96}"] = cuda_ms(k5, 3, 20)
-        out[f"k5 {n}x{n} h{H96} d{D96} device"] = device_ms(k5)
-    for nq, nk, h, d in ((N_RELEASE, TEXT_LEN, H, D), (4096, 4096, H96, D96),
-                         (512, 512, H96, D96)):
-        q, k, v = (rand((1, n, h, d), g) for n in (nq, nk, nk))
 
-        def k2():
-            return kernels.flash_attn_bf16(q, k, v, d ** -0.5)
-        out[f"k2 {nq}x{nk} h{h} d{d}"] = cuda_ms(k2, 3, 20)
-        out[f"k2 {nq}x{nk} h{h} d{d} device"] = device_ms(k2)
-        if nq == 512:
-            out[f"k2 {nq}x{nk} h{h} d{d} issue"] = issue_ms(k2)
-    out.update(k3_rows(kernels, dc, g))
-    return out
-
-
-def k3_rows(kernels, dc, g):
-    """K3 forward and as dgrad at the six release conv shapes."""
-    out = {}
-    for n, C, O in K3_SHAPES:
-        x = rand((1, n, n, n, C), g)
-        w = rand((O, C, 3, 3, 3), g) / math.sqrt(27 * C)
-        wp = dc.pack_conv_weight(w)
-        b = torch.zeros(O, device="cuda")
-
-        def k3():
-            return kernels.conv3x3x3_bf16(x, wp, b)
-        out[f"k3 {n}^3 {C}->{O}"] = cuda_ms(k3, 2, 10)
-        out[f"k3 {n}^3 {C}->{O} issue"] = issue_ms(k3)
-        go = rand((1, n, n, n, O), g)
-        wd = dc.pack_conv_weight(dc.dgrad_weight(w))
-        out[f"k3 dgrad {n}^3 {O}->{C}"] = cuda_ms(
-            lambda: kernels.conv3x3x3_bf16(go, wd, None), 2, 10)
-        del x, w, wp, go, wd
+        def k5_delta():
+            return kernels.flash_attn_bf16_bwd(
+                q, k, v, do, lse, att.attention_delta(o, do), D96 ** -0.5)
+        shape = f"{n}x{n} h{H96} d{D96}"
+        out[f"k5 {shape}"] = cuda_ms(k5, 3, 20)
+        out[f"k5 {shape} device"] = device_ms(k5)
+        out[f"k5+delta {shape}"] = cuda_ms(k5_delta, 3, 20)
+        out[f"k5+delta {shape} device"] = device_ms(k5_delta)
+        lib, backend = sdpa_backward_ms(q, k, v, do)
+        out[f"sdpa bwd ({backend}) {shape}"] = lib
     torch.cuda.empty_cache()
     return out
 
@@ -160,7 +187,7 @@ def host_ms(fn, runs=3):
     return sum(times) / runs
 
 
-def step_rows(g):
+def step_rows(kernels, g):
     from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
                                                              DiffusionConfig,
                                                              VoxelDiffusion)
@@ -169,23 +196,18 @@ def step_rows(g):
     from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
                                                      make_train_step)
     out = {}
-    diffusion = VoxelDiffusion(DiffusionConfig(serve_quant=True),
-                               device="cuda")
-    diffusion.init_params(g, zero_init_layers=False)
-    x1 = torch.randn((1, 64, 64, 64, 8), generator=g, device="cuda")
-    x2 = torch.randn((2, 64, 64, 64, 8), generator=g, device="cuda")
-    c1 = CondCubes.null(1, diffusion.cfg, "cuda")
-    c2 = CondCubes.null(2, diffusion.cfg, "cuda")
-    t1 = torch.tensor([500], device="cuda")
-    t2 = torch.tensor([500, 500], device="cuda")
-    with torch.no_grad():
-        out["ddim step bf16"] = host_ms(lambda: diffusion.denoise(x1, t1, c1))
-        out["cfg step int8"] = host_ms(
-            lambda: diffusion.denoise(x2, t2, c2, serve=True))
-        out["cfg step bf16"] = host_ms(
-            lambda: diffusion.denoise(x2, t2, c2, serve=False))
-    del diffusion, x1, x2, c1, c2
-    torch.cuda.empty_cache()
+    if hasattr(kernels, "flash_attn_f32"):
+        diffusion = VoxelDiffusion(DiffusionConfig(dtype=torch.float32),
+                                   device="cuda")
+        diffusion.init_params(g, zero_init_layers=False)
+        x1 = torch.randn((1, 64, 64, 64, 8), generator=g, device="cuda")
+        c1 = CondCubes.null(1, diffusion.cfg, "cuda")
+        t1 = torch.tensor([500], device="cuda")
+        with torch.no_grad():
+            out["ddim step f32"] = host_ms(
+                lambda: diffusion.denoise(x1, t1, c1))
+        del diffusion, x1, c1
+        torch.cuda.empty_cache()
 
     cfg = WanPipelineConfig.serving()
     dit = WanDiT(cfg.dit, device="cuda").eval().requires_grad_(False)
@@ -225,6 +247,7 @@ def main() -> None:
     args = ap.parse_args()
     sys.path.insert(0, args.checkout)
     from infinicube_tpu_torch import kernels
+    from infinicube_tpu_torch.ops import attention as att
     from infinicube_tpu_torch.ops import dense_conv
     from infinicube_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -233,14 +256,19 @@ def main() -> None:
     kernels.build()
     built = time.perf_counter() - t0
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = kernel_rows(kernels, dense_conv, fa, g)
-    rows.update(step_rows(g))
-    print(f"{args.checkout} (build {built:.1f} s) | " +
+    rows = guard_rows(kernels, dense_conv, fa, g)
+    rows.update(redesign_rows(kernels, att, fa, g))
+    rows.update(step_rows(kernels, g))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"{args.checkout} ({smi}; build {built:.1f} s) | " +
           " | ".join(f"{k}: {v:.4f}" for k, v in rows.items()), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"checkout": args.checkout, "build_s": built,
-                       "device": torch.cuda.get_device_name(0), "ms": rows},
+                       "device": smi, "ms": rows},
                       f, indent=1)
 
 

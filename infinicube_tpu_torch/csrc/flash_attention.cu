@@ -31,7 +31,7 @@
 //   log-sum-exp of every query row's scaled logits, f32 [B, h, Nq], the only
 //   statistic K5 needs. The serving paths pass null and store nothing more.
 //
-// What bounds them: at the DiT's shapes both do ~4*Nq*Nk*d flops for
+// What bounds them: at the DiT's shapes all three do ~4*Nq*Nk*d flops for
 // ~(Nq + Nk)*d*6 bytes, far above the card's ~295 flop/byte ridge, so all
 // three are tensor-core bound (K1 half int8, half bf16; K8 int8). The TPU
 // kernel's fixed-max
@@ -40,51 +40,57 @@
 // (exp2, log2(e) folded into the logit scale; the stored lse is converted to
 // base e at the store), and keys >= n_real are masked.
 //
-// K2's design (on wgmma and TMA): persistent blocks, one per SM, each
-// walking work items of (batch*head, 128 query rows): two consumer
-// warpgroups of 64 rows and a producer warpgroup whose registers go to the
-// consumers (setmaxnreg: 240 each, 24 left).
-// The first version (4 warps of mma.sync per
-// 64 rows, K and V loaded by the threads and then a barrier, K fragments
-// read as scalar 32-bit words, the PV B operand built from four scalar bf16
-// loads and two packs per mma) is gone; now:
+// K2's and K1's design (on wgmma and TMA; one kernel template, K1 its int8
+// instantiation): persistent blocks, one per SM, each walking work items of
+// (batch*head, 128 query rows): two consumer warpgroups of 64 rows and a
+// producer warpgroup whose registers go to the consumers (setmaxnreg: 240
+// each, 24 left). The first versions (4 warps of mma.sync per 64 rows, K and
+// V loaded by the threads and then a barrier, K fragments read as scalar
+// 32-bit words, the PV B operand built from four scalar bf16 loads and two
+// packs per mma) are gone; now:
 // - Q is loaded once an item and K and V stream through a 3-stage mbarrier
 //   ring of 128-key tiles that runs on from item to item, all by TMA from
 //   tensor maps built on the views' strides (dims d, h, N, B), so loads
 //   overlap the math and no thread computes an address; the next item's Q
 //   loads beside the current item's last PV and its stores. Rows past Nq
 //   or Nk read as zeros; keys >= Nk are still masked.
-// - Every tile is stored as slabs of 32 columns (64 bytes) under the 64-byte
-//   swizzle: d = 96 rows are 192 bytes, no multiple of the 128-byte span,
-//   and three 64-byte slabs describe d = 64, 96 and 128 alike.
+// - Every bf16 tile is stored as slabs of 32 columns (64 bytes) under the
+//   64-byte swizzle: d = 96 rows are 192 bytes, no multiple of the 128-byte
+//   span, and three 64-byte slabs describe d = 64, 96 and 128 alike.
 // - S = Q K^T is wgmma m64n128k16 with Q and K both K-major in shared
 //   memory; the online softmax runs on the f32 accumulators in registers
 //   (exp2, log2 e folded into the scale, running max and sum per row).
+// - K1: Q8 and K8 are whole d-byte int8 rows (the folded [B*h, Npad, d]
+//   buffers) under the d-byte swizzle (128 bytes at d = 128, 64 at d = 64),
+//   both K-major, and S = Q8 K8^T is wgmma m64n128k32 .s32.s8.s8 (8-bit
+//   wgmma has no transpose bit, and needs none: d is contiguous in both).
+//   The int32 accumulators (|acc| <= 127^2 d < 2^24: exact in f32) are
+//   converted and scaled by one float a tile, sq * sk * sm_scale * log2 e:
+//   Npad and the blocks are multiples of 128, so a 128-row query tile and a
+//   128-key tile each lie in one quantization block.
 // - PV is wgmma m64n{d}k16 with P as the A operand straight from registers
-//   (the S accumulator layout is the A fragment layout, packed to bf16) and
-//   V as the B operand in shared memory, read d-major through wgmma's
-//   transpose bit: nothing transposes V, and no scalar loads remain.
+//   (the S accumulator layout, f32 or s32, is the A fragment layout, packed
+//   to bf16) and V as the B operand in shared memory, read d-major through
+//   wgmma's transpose bit: nothing transposes V, and no scalar loads remain.
 // - Each warpgroup issues tile t's QK^T and then tile t-1's PV, waits for
 //   the QK^T only, and runs tile t's softmax while that PV is on the tensor
 //   cores; the output is rescaled and the new P packed once the PV is done.
 //
-// K1 and K8 (a first, simple version): one block of 4 warps per
+// K8 (a first, simple version): one block of 4 warps per
 // (batch*head, tile of 64 query rows); each warp owns 16 rows and keeps its
 // Q fragments, its running max/denominator and its 16 x d f32 output in
 // registers. The
 // block loops over tiles of 64 keys staged in shared memory, with
-// mma.sync m16n8k32 (s8) or m16n8k16 (bf16) for QK^T and m16n8k16 (bf16) for
-// PV (m16n8k32 s8 in K8); P goes from the QK^T accumulator layout straight
-// into the A operand of PV without touching shared memory. In K8 a thread's
-// accumulators hold keys {2t, 2t+1, 2t+8, 2t+9} of each 16 where the s8 A
-// operand wants {4t .. 4t+3}: the contraction does not care about the order
-// of its keys, so the packed P keeps the accumulator order and the B operand
-// reads V's keys in the same order (two 16-bit loads a register from the
-// transposed tile). K8's running max is over 64-key tiles where the
+// mma.sync m16n8k32 (s8) for QK^T and PV; P goes from the QK^T accumulator
+// layout straight into the A operand of PV without touching shared memory.
+// A thread's accumulators hold keys {2t, 2t+1, 2t+8, 2t+9} of each 16 where
+// the s8 A operand wants {4t .. 4t+3}: the contraction does not care about
+// the order of its keys, so the packed P keeps the accumulator order and the
+// B operand reads V's keys in the same order (two 16-bit loads a register
+// from the transposed tile). K8's running max is over 64-key tiles where the
 // reference's is over 1,536-key blocks, so P rounds to int8 at other maxima
-// and the two agree to the int8 gate, not bit for bit. K8 is a kernel of its
-// own beside K1, which stays as it was (K1's register allocation decides
-// its speed). Neither uses TMA, wgmma or load pipelining yet.
+// and the two agree to the int8 gate, not bit for bit. It uses no TMA,
+// wgmma or load pipelining yet.
 //
 // Tensors are addressed by element strides (batch, token, head), so the
 // wrappers pass [B, N, h, d] views and folded [B*h, N, d] buffers alike
@@ -107,13 +113,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 // Online-softmax update of one 16 x 64 logit tile held as mma accumulators
 // (s[j] covers keys 8j..8j+7; elements 0,1 belong to row g, 2,3 to row g+8),
 // already scaled to base 2. Masks keys >= kvalid, updates m/l, rescales o,
-// and returns P packed as bf16 A-operands for the PV product.
+// and leaves P (f32) in s.
 template <int D>
 __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 8][4],
                                              int kvalid, int t, float (&m)[2],
                                              float (&l)[2],
-                                             float (&o)[D / 8][4],
-                                             uint32_t (&pa)[kBK / 16][4]) {
+                                             float (&o)[D / 8][4]) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j) {
@@ -153,31 +158,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 8][4],
     o[j][1] *= alpha0;
     o[j][2] *= alpha1;
     o[j][3] *= alpha1;
-  }
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-// o += P @ V for one tile; V staged in shared memory as [kBK][ldv] bf16.
-template <int D>
-__device__ __forceinline__ void pv_tile(const __nv_bfloat16* sV, int ldv,
-                                        const uint32_t (&pa)[kBK / 16][4],
-                                        int g, int t, float (&o)[D / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const __nv_bfloat16* r0 = sV + (kk * 16 + 2 * t) * ldv + g;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const __nv_bfloat16* p = r0 + j * 8;
-      const uint32_t b0 = pack_bf16(p[0], p[ldv]);
-      const uint32_t b1 = pack_bf16(p[8 * ldv], p[9 * ldv]);
-      mma_bf16(o[j], pa[kk], b0, b1);
-    }
   }
 }
 
@@ -268,7 +248,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, Strides so,
   }
 }
 
-// ---- K2 on wgmma and TMA ----------------------------------------------------
+// ---- K2 and K1 on wgmma and TMA ---------------------------------------------
 
 constexpr int kK2K = 128;        // keys per tile
 constexpr int kK2Stages = 3;
@@ -278,16 +258,19 @@ constexpr int kK2Slab = 32;      // columns of a slab: 64 bytes, 64-byte swizzle
 // 128 x 24 = 384 x 168, the pool of a block launched with 168 a thread)
 constexpr int kK2ProducerRegs = 24, kK2ConsumerRegs = 240, kK2LaunchRegs = 168;
 
-// two consumer warpgroups of 64 query rows each, and a producer warpgroup
-template <int D>
+// two consumer warpgroups of 64 query rows each, and a producer warpgroup.
+// kI8 (K1): Q and K tiles are int8 rows of D bytes; otherwise (K2) bf16
+// slabs. V is a bf16 slab tile in both.
+template <int D, bool kI8>
 struct K2Smem {
   static constexpr int kRows = 128;                   // query rows a block
   static constexpr int kThreads = 384;
   static constexpr int kSlabQ = kRows * kK2Slab * 2;  // bytes of a Q slab
   static constexpr int kSlabKV = kK2K * kK2Slab * 2;
-  static constexpr int kQ = (D / kK2Slab) * kSlabQ;
-  static constexpr int kKV = (D / kK2Slab) * kSlabKV;  // one K or V tile
-  static constexpr int kStage = 2 * kKV;
+  static constexpr int kQ = kI8 ? kRows * D : (D / kK2Slab) * kSlabQ;
+  static constexpr int kK = kI8 ? kK2K * D : (D / kK2Slab) * kSlabKV;
+  static constexpr int kV = (D / kK2Slab) * kSlabKV;
+  static constexpr int kStage = kK + kV;
   static constexpr int kSmem = kQ + kK2Stages * kStage + 1024 + 64;
 };
 
@@ -334,20 +317,24 @@ __device__ __forceinline__ void k2_softmax(float (&s)[kK2K / 2], int kvalid,
   l[1] = l[1] * alpha[1] + sum1;
 }
 
-// kLse: store the rows' log-sum-exp too. A compile-time switch, so that the
-// serving instantiation carries nothing of it. Persistent: each block walks
-// the work items (batch*head, query tile) blockIdx.x, + gridDim.x, ...; the
-// ring runs on across items, and the next item's Q is loaded as soon as the
-// last QK^T of the current one is done, beside its last PV and its stores.
-template <int D, bool kLse>
-__global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
-    flash_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
-                      const __grid_constant__ CUtensorMap tmk,
-                      const __grid_constant__ CUtensorMap tmv,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int H, int nq, int nk, int q_tiles, int n_items,
-                      Strides so, float scale_log2) {
-  using S = K2Smem<D>;
+// kLse: store the rows' log-sum-exp too. kI8: K1 (int8 Q and K with per-block
+// scales qscale, kscale [B*H, nb]; `block` rows a scale). Compile-time
+// switches, so that each instantiation carries nothing of the others.
+// Persistent: each block walks the work items (batch*head, query tile)
+// blockIdx.x, + gridDim.x, ...; the ring runs on across items, and the next
+// item's Q is loaded as soon as the last QK^T of the current one is done,
+// beside its last PV and its stores.
+template <int D, bool kLse, bool kI8>
+__global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
+    flash_kernel(const __grid_constant__ CUtensorMap tmq,
+                 const __grid_constant__ CUtensorMap tmk,
+                 const __grid_constant__ CUtensorMap tmv,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 const float* __restrict__ qscale,
+                 const float* __restrict__ kscale, int H, int nq, int nk,
+                 int q_tiles, int n_items, int block, int nb, Strides so,
+                 float scale_log2) {
+  using S = K2Smem<D, kI8>;
   constexpr int kSlabs = D / kK2Slab;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
@@ -385,20 +372,27 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
         const int q0 = item % q_tiles * S::kRows;
         hop::mbar_wait(q_empty, q_phase ^ 1);
         hop::mbar_expect_tx(q_full, S::kQ);
+        if constexpr (kI8) {
+          hop::tma_load_4d(sq, &tmq, q_full, 0, h, q0, b);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kSlabs; ++j)
-          hop::tma_load_4d(sq + j * S::kSlabQ, &tmq, q_full, j * kK2Slab, h,
-                           q0, b);
+          for (int j = 0; j < kSlabs; ++j)
+            hop::tma_load_4d(sq + j * S::kSlabQ, &tmq, q_full, j * kK2Slab,
+                             h, q0, b);
+        }
         q_phase ^= 1;
         for (int t = 0; t < n_tiles; ++t) {
           hop::mbar_wait(&empty[stage], phase ^ 1);
           uint8_t* sk = skv + stage * S::kStage;
           hop::mbar_expect_tx(&full[stage], S::kStage);
+          if constexpr (kI8)
+            hop::tma_load_4d(sk, &tmk, &full[stage], 0, h, t * kK2K, b);
 #pragma unroll
           for (int j = 0; j < kSlabs; ++j) {
-            hop::tma_load_4d(sk + j * S::kSlabKV, &tmk, &full[stage],
-                             j * kK2Slab, h, t * kK2K, b);
-            hop::tma_load_4d(sk + S::kKV + j * S::kSlabKV, &tmv,
+            if constexpr (!kI8)
+              hop::tma_load_4d(sk + j * S::kSlabKV, &tmk, &full[stage],
+                               j * kK2Slab, h, t * kK2K, b);
+            hop::tma_load_4d(sk + S::kK + j * S::kSlabKV, &tmv,
                              &full[stage], j * kK2Slab, h, t * kK2K, b);
           }
           if (++stage == kK2Stages) {
@@ -413,26 +407,47 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
     hop::setmaxnreg_inc<kK2ConsumerRegs>();
     const int lane = threadIdx.x % 32, w = threadIdx.x % 128 / 32;
     const int g = lane / 4, q = lane % 4;
-    const uint8_t* q_rows = sq + wg * 64 * (kK2Slab * 2);
+    const uint8_t* q_rows = sq + wg * 64 * (kI8 ? D : kK2Slab * 2);
     float o_acc[D / 2];
     float m[2], l[2], alpha[2];
     float s[kK2K / 2];
+    int si[kI8 ? kK2K / 2 : 1];  // K1's int32 logits
     uint32_t pa[kK2K / 16][4];
 
-    // S = Q K^T into s: both K-major under the 64-byte swizzle, one slab
-    // per two k16 steps
+    // S = Q K^T into s (K2: both K-major under the 64-byte swizzle, one slab
+    // per two k16 steps) or into si (K1: int8 rows of D bytes under the
+    // D-byte swizzle, a k32 step 32 bytes in)
     auto issue_s = [&](const uint8_t* sk) {
       hop::wgmma_fence();
+      if constexpr (kI8) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk % 2) * 32;  // bytes into the slab's rows
-        hop::Wgmma<kK2K>::ss(
-            s,
-            hop::make_desc(q_rows + (kk / 2) * S::kSlabQ + off, 64, 16, 512),
-            hop::make_desc(sk + (kk / 2) * S::kSlabKV + off, 64, 16, 512),
-            kk > 0);
+        for (int kk = 0; kk < D / 32; ++kk)
+          hop::WgmmaS8<kK2K>::ss(
+              si, hop::make_desc(q_rows + kk * 32, D, 16, 8 * D),
+              hop::make_desc(sk + kk * 32, D, 16, 8 * D), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk % 2) * 32;  // bytes into the slab's rows
+          hop::Wgmma<kK2K>::ss(
+              s,
+              hop::make_desc(q_rows + (kk / 2) * S::kSlabQ + off, 64, 16,
+                             512),
+              hop::make_desc(sk + (kk / 2) * S::kSlabKV + off, 64, 16, 512),
+              kk > 0);
+        }
       }
       hop::wgmma_commit();
+    };
+    // the logits of a finished QK^T as f32 in s (K1: converted, exactly)
+    auto take_s = [&]() {
+      if constexpr (kI8) {
+        hop::fence_regs(si);
+#pragma unroll
+        for (int i = 0; i < kK2K / 2; ++i) s[i] = static_cast<float>(si[i]);
+      } else {
+        hop::fence_regs(s);
+      }
     };
     // O += P V: P from registers (the S accumulator layout is the A
     // fragment layout), V d-major in shared memory read with the transpose
@@ -468,6 +483,13 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int bh = item / q_tiles, b = bh / H, h = bh % H;
       const int q0 = item % q_tiles * S::kRows;
+      // the logit scale of key tile t (base 2); K1: sq * sk * sm_scale,
+      // one query block and one key block a tile
+      const float q_scale =
+          kI8 ? qscale[bh * nb + q0 / block] * scale_log2 : scale_log2;
+      auto tile_scale = [&](int t) {
+        return kI8 ? q_scale * kscale[bh * nb + t * kK2K / block] : q_scale;
+      };
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
       m[0] = m[1] = neg_inf();
@@ -478,9 +500,9 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
       hop::mbar_wait(&full[stage], phase);
       issue_s(skv + stage * S::kStage);
       hop::wgmma_wait<0>();
-      hop::fence_regs(s);
+      take_s();
       if (n_tiles == 1 && lane == 0) hop::mbar_arrive(q_empty);
-      k2_softmax(s, nk, q, scale_log2, m, l, alpha);
+      k2_softmax(s, nk, q, tile_scale(0), m, l, alpha);
       pack_p();
       int prev = stage;
       next_stage(stage, phase);
@@ -489,11 +511,11 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
       for (int t = 1; t < n_tiles; ++t) {
         hop::mbar_wait(&full[stage], phase);
         issue_s(skv + stage * S::kStage);
-        issue_pv(skv + prev * S::kStage + S::kKV);
+        issue_pv(skv + prev * S::kStage + S::kK);
         hop::wgmma_wait<1>();  // S of tile t is done, t-1's PV may run on
-        hop::fence_regs(s);
+        take_s();
         if (t == n_tiles - 1 && lane == 0) hop::mbar_arrive(q_empty);
-        k2_softmax(s, nk - t * kK2K, q, scale_log2, m, l, alpha);
+        k2_softmax(s, nk - t * kK2K, q, tile_scale(t), m, l, alpha);
         hop::wgmma_wait<0>();
         hop::fence_regs(o_acc);
         hop::fence_regs(pa);
@@ -509,7 +531,7 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
         prev = stage;
         next_stage(stage, phase);
       }
-      issue_pv(skv + prev * S::kStage + S::kKV);
+      issue_pv(skv + prev * S::kStage + S::kK);
       hop::wgmma_wait<0>();
       hop::fence_regs(o_acc);
       if (lane == 0) hop::mbar_arrive(&empty[prev]);
@@ -547,40 +569,43 @@ __global__ void __launch_bounds__(K2Smem<D>::kThreads, 1)
   }
 }
 
-template <int D, bool kLse>
-cudaError_t launch_bf16_k(int blocks, cudaStream_t st, const CUtensorMap& tq,
-                          const CUtensorMap& tk, const CUtensorMap& tv,
-                          __nv_bfloat16* o, float* lse, int H, int nq, int nk,
-                          int q_tiles, int n_items, Strides so,
-                          float scale_log2) {
-  using S = K2Smem<D>;
+template <int D, bool kLse, bool kI8>
+cudaError_t launch_k(int blocks, cudaStream_t st, const CUtensorMap& tq,
+                     const CUtensorMap& tk, const CUtensorMap& tv,
+                     __nv_bfloat16* o, float* lse, const float* qscale,
+                     const float* kscale, int H, int nq, int nk, int q_tiles,
+                     int n_items, int block, int nb, Strides so,
+                     float scale_log2) {
+  using S = K2Smem<D, kI8>;
   static cudaError_t attr =
-      hop_host::allow_smem(flash_bf16_kernel<D, kLse>, S::kSmem);
+      hop_host::allow_smem(flash_kernel<D, kLse, kI8>, S::kSmem);
   if (attr != cudaSuccess) return attr;
   // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
   static const int regs = [] {
     cudaFuncAttributes fa;
-    return cudaFuncGetAttributes(&fa, flash_bf16_kernel<D, kLse>) ==
+    return cudaFuncGetAttributes(&fa, flash_kernel<D, kLse, kI8>) ==
                    cudaSuccess
                ? fa.numRegs
                : 0;
   }();
   if (regs < kK2LaunchRegs) return cudaErrorInvalidConfiguration;
-  flash_bf16_kernel<D, kLse><<<blocks, S::kThreads, S::kSmem, st>>>(
-      tq, tk, tv, o, lse, H, nq, nk, q_tiles, n_items, so, scale_log2);
+  flash_kernel<D, kLse, kI8><<<blocks, S::kThreads, S::kSmem, st>>>(
+      tq, tk, tv, o, lse, qscale, kscale, H, nq, nk, q_tiles, n_items, block,
+      nb, so, scale_log2);
   return cudaGetLastError();
 }
 
-// The tensor map of a [B, N, h, d] view with element strides s, as dims
-// (d, h, N, B) in boxes of 32 columns x `rows` rows of one head.
-bool bnhd_map(CUtensorMap* map, const void* p, int B, int N, int H, int d,
-              Strides s, int rows) {
-  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)H, (uint64_t)N,
-                            (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)s.h * 2, (uint64_t)s.n * 2,
-                               (uint64_t)s.b * 2};
-  const uint32_t box[4] = {(uint32_t)kK2Slab, 1, (uint32_t)rows, 1};
-  return hop_host::make_map(map, p, 4, dims, strides, box, 64);
+// Work items of 128 query rows for every (batch, head); one block per SM,
+// or fewer when the items are fewer. False when they overflow an int.
+bool plan_items(int B, int H, int nq, int* q_tiles, int* n_items,
+                int* blocks) {
+  *q_tiles = (nq + 127) / 128;
+  const long long items = (long long)*q_tiles * B * H;
+  if (items >= (1LL << 31)) return false;
+  *n_items = static_cast<int>(items);
+  const int sms = hop_host::sm_count();
+  *blocks = *n_items < sms ? *n_items : sms;
+  return true;
 }
 
 template <int D>
@@ -588,109 +613,51 @@ cudaError_t launch_bf16(cudaStream_t st, const void* q, const void* k,
                         const void* v, __nv_bfloat16* o, float* lse, int B,
                         int H, int nq, int nk, Strides sq, Strides sk,
                         Strides sv, Strides so, float scale_log2) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  constexpr int rows = K2Smem<D>::kRows;
+  constexpr int rows = K2Smem<D, false>::kRows;
   CUtensorMap tq, tk, tv;
+  int q_tiles, n_items, blocks;
   if (!bnhd_map(&tq, q, B, nq, H, D, sq, rows) ||
       !bnhd_map(&tk, k, B, nk, H, D, sk, kK2K) ||
-      !bnhd_map(&tv, v, B, nk, H, D, sv, kK2K))
+      !bnhd_map(&tv, v, B, nk, H, D, sv, kK2K) ||
+      !plan_items(B, H, nq, &q_tiles, &n_items, &blocks))
     return cudaErrorInvalidValue;
-  const int q_tiles = (nq + rows - 1) / rows;
-  const long long items = (long long)q_tiles * B * H;
-  if (items >= (1LL << 31)) return cudaErrorInvalidValue;
-  const int n_items = static_cast<int>(items);
-  const int blocks = n_items < sms ? n_items : sms;  // one block per SM
   if (lse != nullptr)
-    return launch_bf16_k<D, true>(blocks, st, tq, tk, tv, o, lse, H, nq, nk,
-                                  q_tiles, n_items, so, scale_log2);
-  return launch_bf16_k<D, false>(blocks, st, tq, tk, tv, o, lse, H, nq, nk,
-                                 q_tiles, n_items, so, scale_log2);
+    return launch_k<D, true, false>(blocks, st, tq, tk, tv, o, lse, nullptr,
+                                    nullptr, H, nq, nk, q_tiles, n_items, 1,
+                                    0, so, scale_log2);
+  return launch_k<D, false, false>(blocks, st, tq, tk, tv, o, lse, nullptr,
+                                   nullptr, H, nq, nk, q_tiles, n_items, 1, 0,
+                                   so, scale_log2);
 }
 
+// K1: q8, k8 int8 rows of D bytes (maps of whole rows under the D-byte
+// swizzle), v bf16 as K2 takes it.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_int8qk_kernel(const int8_t* __restrict__ q8,
-                        const int8_t* __restrict__ k8,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ o,
-                        const float* __restrict__ qscale,
-                        const float* __restrict__ kscale, int H, int n,
-                        int block, int nb, Strides sq, Strides sk,
-                        Strides sv, Strides so, float sm_log2) {
-  constexpr int LDI = D + 16;  // int8 row pitch in shared memory
-  constexpr int LDV = D + 8;   // bf16 row pitch
-  __shared__ __align__(16) int8_t sK[kBK * LDI];  // Q staged here first
-  __shared__ __align__(16) __nv_bfloat16 sV[kBK * LDV];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int8_t* qb = q8 + b * sq.b + h * sq.h;
-  const int8_t* kb = k8 + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-  // kBQ and kBK divide block (checked by the wrapper): one q scale per
-  // query tile, one k scale per key tile
-  const float q_scale = qscale[bh * nb + q0 / block] * sm_log2;
-
-  load_tile(reinterpret_cast<unsigned char*>(sK), LDI,
-            reinterpret_cast<const unsigned char*>(qb + q0 * sq.n), sq.n,
-            kBQ, D, n - q0);
-  __syncthreads();
-  uint32_t qf[D / 32][4];
-  {
-    const int8_t* r0 = sK + (warp * 16 + g) * LDI + 4 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-      qf[kk][0] = ld32(r0 + kk * 32);
-      qf[kk][1] = ld32(r0 + 8 * LDI + kk * 32);
-      qf[kk][2] = ld32(r0 + kk * 32 + 16);
-      qf[kk][3] = ld32(r0 + 8 * LDI + kk * 32 + 16);
-    }
-  }
-  float o_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    __syncthreads();
-    load_tile(reinterpret_cast<unsigned char*>(sK), LDI,
-              reinterpret_cast<const unsigned char*>(kb + k0 * sk.n), sk.n,
-              kBK, D, n - k0);
-    load_tile(reinterpret_cast<unsigned char*>(sV), LDV * 2,
-              reinterpret_cast<const unsigned char*>(vb + k0 * sv.n),
-              sv.n * 2, kBK, D * 2, n - k0);
-    __syncthreads();
-    const float scale = q_scale * kscale[bh * nb + k0 / block];
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      int acc[4] = {0, 0, 0, 0};
-      const int8_t* r0 = sK + (j * 8 + g) * LDI + 4 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
-        mma_s8(acc, qf[kk], ld32(r0 + kk * 32), ld32(r0 + kk * 32 + 16));
-      // |acc| <= 127*127*d < 2^24: the int32 -> f32 conversion is exact
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = static_cast<float>(acc[e]) * scale;
-    }
-    uint32_t pa[kBK / 16][4];
-    softmax_tile<D>(s, n - k0, t, m, l, o_acc, pa);
-    pv_tile<D>(sV, LDV, pa, g, t, o_acc);
-  }
-  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, n, g, t, m, l,
-                o_acc, nullptr);
+cudaError_t launch_int8qk(cudaStream_t st, const void* q8, const void* k8,
+                          const void* v, __nv_bfloat16* o,
+                          const float* qscale, const float* kscale, int B,
+                          int H, int n, int block, int nb, Strides sq,
+                          Strides sk, Strides sv, Strides so,
+                          float scale_log2) {
+  constexpr int rows = K2Smem<D, true>::kRows;
+  CUtensorMap tq, tk, tv;
+  int q_tiles, n_items, blocks;
+  if (!bnhd_map(&tq, q8, B, n, H, D, sq, rows, D, 1, D,
+                CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !bnhd_map(&tk, k8, B, n, H, D, sk, kK2K, D, 1, D,
+                CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !bnhd_map(&tv, v, B, n, H, D, sv, kK2K) ||
+      !plan_items(B, H, n, &q_tiles, &n_items, &blocks))
+    return cudaErrorInvalidValue;
+  return launch_k<D, false, true>(blocks, st, tq, tk, tv, o, nullptr, qscale,
+                                  kscale, H, n, n, q_tiles, n_items, block,
+                                  nb, so, scale_log2);
 }
 
-// K8: K1's loop with V int8 and transposed, vt [B*H, D, npad] addressed by
-// sv (batch and head strides, and the byte pitch of a channel row in sv.n),
-// and the f32 per-(batch*head, channel) scales vscale [B*H, D].
+// K8: q8, k8 int8 rows as K1 takes them; V int8 and transposed, vt
+// [B*H, D, npad] addressed by sv (batch and head strides, and the byte pitch
+// of a channel row in sv.n), and the f32 per-(batch*head, channel) scales
+// vscale [B*H, D].
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_int8qkv_kernel(const int8_t* __restrict__ q8,
@@ -761,8 +728,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = static_cast<float>(acc[e]) * scale;
     }
-    uint32_t pa_bf16[kBK / 16][4];  // unused here: the compiler drops it
-    softmax_tile<D>(s, n - k0, t, m, l, o_acc, pa_bf16);
+    softmax_tile<D>(s, n - k0, t, m, l, o_acc);
     uint32_t pa[kBK / 32][4];
     pack_p_s8(s, pa);
     pv_tile_s8<D>(sVt, LDT, pa, svs, g, t, o_acc);
@@ -805,6 +771,9 @@ int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(e);
 }
 
+// q8, k8: int8, addressed by element strides (the folded [B*H, Npad, d]
+// buffers); v, o: bf16 [B, n, H, d] views; qscale, kscale: f32 [B*H, nb], one
+// scale per `block` rows (a multiple of 128).
 int flash_attn_int8qk(const void* q8, const void* k8, const void* v, void* o,
                       const void* qscale, const void* kscale, int B, int H,
                       int n, int d, int block, int nb, long long q_sb,
@@ -812,26 +781,24 @@ int flash_attn_int8qk(const void* q8, const void* k8, const void* v, void* o,
                       long long v_sb, long long v_sn, long long v_sh,
                       long long o_sb, long long o_sn, long long o_sh,
                       float sm_scale, void* stream) {
-  const dim3 grid((n + kBQ - 1) / kBQ, B * H);
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh},
       sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
-  const float sm_log2 = sm_scale * kLog2e;
+  const float scale_log2 = sm_scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const int8_t*>(q8);
-  auto kp = static_cast<const int8_t*>(k8);
-  auto vp = static_cast<const __nv_bfloat16*>(v);
   auto op = static_cast<__nv_bfloat16*>(o);
   auto qs = static_cast<const float*>(qscale);
   auto ks = static_cast<const float*>(kscale);
+  if (block % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
   if (d == 128)
-    flash_int8qk_kernel<128><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, qs, ks, H, n, block, nb, sq, sk, sv, so, sm_log2);
+    e = launch_int8qk<128>(st, q8, k8, v, op, qs, ks, B, H, n, block, nb, sq,
+                           sk, sv, so, scale_log2);
   else if (d == 64)
-    flash_int8qk_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, qs, ks, H, n, block, nb, sq, sk, sv, so, sm_log2);
+    e = launch_int8qk<64>(st, q8, k8, v, op, qs, ks, B, H, n, block, nb, sq,
+                          sk, sv, so, scale_log2);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 // vt: int8 [B*H, d, Npad] (V transposed), vscale: f32 [B*H, d]; v_sb, v_sh

@@ -19,331 +19,401 @@
 //   reach device memory. It runs the 10 SelfAttention3D backwards of one
 //   training step of the voxel UNet (d = 96, N = 4,096 and 512).
 //
-// What bounds it: 10*Nq*Nk*d operations per (batch, head) (S, dP, dV, dK, dQ)
-// against (3 inputs + dO + 3 outputs)*N*d*2 bytes: tensor-core bound.
+// What bounds it: 10*Nq*Nk*d operations per (batch, head) (S, dP, dV, dK, dQ;
+// the dQ pass recomputes S and dP, so 14 are done) against
+// (3 inputs + dO + 3 outputs)*N*d*2 bytes: tensor-core bound.
 //
-// Design (a first, simple version): two kernels like the library's, so no
-// atomics and a deterministic result. The dK/dV kernel gives each block of 4
-// warps one tile of 64 keys (16 per warp) and loops over the tiles of 64
-// queries; the dQ kernel gives each block one tile of 64 queries and loops
-// over the key tiles. Both stage their four 64 x d tiles (Q, dO, K, V) in
-// shared memory, compute the 16 x 64 logit and dP tiles of each warp with
-// mma.sync m16n8k16 (the A rows from the block's own tile, the B rows from
-// the streamed tile), turn them into P and dS in registers, and feed those
-// straight into the A operand of the second products, whose B operand (the
-// streamed tile, read across its rows) comes through ldmatrix.trans. The
-// dK/dV kernel computes the transposed tiles S^T and dP^T (keys as rows), so
-// that dV and dK accumulate per key row in registers; its per-query lse and
-// D sit in shared memory, the dQ kernel's per-row ones in registers. No TMA,
-// wgmma or load pipelining yet.
+// Design (on wgmma and TMA, after K2): two kernels like the library's, the
+// dK/dV one and then the dQ one, so no atomics and a result that is
+// bit-identical from run to run. They are one template, mirrored:
+//   item tile (loaded once an item)   streamed tiles (the TMA ring)
+//   dK/dV: 128 keys of K and V         64 queries of Q and dO, with their
+//                                      lse and D
+//   dQ:    128 queries of Q and dO     64 keys of K and V
+// Persistent blocks, one per SM, walk the items (batch*head, 128 rows); two
+// consumer warpgroups own 64 item rows each, and a producer warpgroup hands
+// them its registers (setmaxnreg: 240 each, 24 left) and keeps the 3-stage
+// ring full by TMA from tensor maps built on the views' strides, as K2's.
+// For each streamed tile a consumer warpgroup
+// - computes X = A1 B1^T and Y = A2 B2^T with wgmma m64n64k16, both operands
+//   K-major on d in shared memory (A = the item rows, B = the tile's rows):
+//   S (dQ) or S^T (dK/dV), and dP or dP^T;
+// - turns them into P = exp2(S scale log2 e - lse log2 e) and dS = P o
+//   (dP - D) in registers, masking keys >= Nk and queries >= Nq to exactly
+//   0 (the dQ pass keeps its rows' lse and D in registers; the dK/dV pass
+//   reads its columns' from shared memory, where the producer warpgroup's
+//   second warp stages them beside each tile with plain loads, queries >= Nq
+//   as lse = +inf, D = 0: no TMA zero fill is relied on);
+// - packs them to bf16 as the A operands of wgmma m64n{d}k16 whose B operand
+//   is the streamed tile read d-major through the transpose bit:
+//   dQ += dS K, or dV += P^T dO and dK += dS^T Q.
+// Tiles are 32-column slabs under the 64-byte swizzle, as in K2, so d = 96
+// (192-byte rows) takes the same path as 64 and 128. The streamed tile is 64
+// rows, not 128: the dK/dV warpgroups hold two 64 x d f32 accumulators (128
+// registers a thread at d = 128) beside X and Y.
 //
 // Tensors are addressed by element strides (batch, token, head) as in K2.
 // The entry point returns cudaGetLastError().
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kItemRows = 128;  // item rows a block, 64 per consumer
+constexpr int kTile = 64;       // rows of a streamed tile
+constexpr int kStages = 3;
+constexpr int kSlab = 32;       // columns of a slab: 64 bytes, 64-byte swizzle
+// as K2: 2 x 128 x 240 + 128 x 24 = 384 x 168, a 168-register launch's pool
+constexpr int kProducerRegs = 24, kConsumerRegs = 240, kLaunchRegs = 168;
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[j] += A[16 x D] * B[64 x D]^T for the 8 column blocks j of 8: `a` points
-// at the warp's 16 rows, `b` at the 64 rows of the other tile (both [.][LD]
-// bf16 in shared memory).
 template <int D>
-__device__ __forceinline__ void mma_abt(float (&c)[kBK / 8][4],
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b, int g, int t) {
-  constexpr int LD = D + 8;
-  const __nv_bfloat16* ar = a + g * LD + 2 * t;
-  const __nv_bfloat16* br = b + g * LD + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    af[0] = ld32(ar + kk * 16);
-    af[1] = ld32(ar + 8 * LD + kk * 16);
-    af[2] = ld32(ar + kk * 16 + 8);
-    af[3] = ld32(ar + 8 * LD + kk * 16 + 8);
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-      mma_bf16(c[j], af, ld32(br + j * 8 * LD + kk * 16),
-               ld32(br + j * 8 * LD + kk * 16 + 8));
-  }
-}
+struct BwdSmem {
+  static constexpr int kThreads = 384;
+  static constexpr int kSlabItem = kItemRows * kSlab * 2;
+  static constexpr int kSlabTile = kTile * kSlab * 2;
+  static constexpr int kItem = (D / kSlab) * kSlabItem;  // one item tensor
+  static constexpr int kTileB = (D / kSlab) * kSlabTile;  // one tile tensor
+  static constexpr int kStage = 2 * kTileB;
+  static constexpr int kStats = kStages * 2 * kTile * 4;  // lse, D a stage
+  static constexpr int kSmem = 2 * kItem + kStages * kStage + kStats + 1024 +
+                               64;
+};
 
-// acc[16 x D] += P[16 x 64] * B[64 x D]: P as packed bf16 A operands (four
-// chunks of 16 columns), B the 64 rows of a tile in shared memory, read
-// transposed with ldmatrix (two 8-wide column blocks of D per instruction).
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
-                                       const uint32_t (&pa)[kBK / 16][4],
-                                       const __nv_bfloat16* b, int lane) {
-  constexpr int LD = D + 8;
-  const __nv_bfloat16* br = b + (lane % 16) * LD + (lane / 16) * 8;
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, br + kk * 16 * LD + j * 8);
-      mma_bf16(acc[j], pa[kk], r[0], r[1]);
-      mma_bf16(acc[j + 1], pa[kk], r[2], r[3]);
+// kDKV: the dK/dV pass (item = keys, tiles = queries); otherwise the dQ pass
+// (item = queries, tiles = keys). Maps: a1, a2 the item tensors (K, V or Q,
+// dO) in boxes of 128 rows; b1, b2 the streamed ones (Q, dO or K, V) in
+// boxes of 64. out1 gets dK or dQ (times sm_scale), out2 dV.
+template <int D, bool kDKV>
+__global__ void __launch_bounds__(BwdSmem<D>::kThreads, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tma1,
+                     const __grid_constant__ CUtensorMap tma2,
+                     const __grid_constant__ CUtensorMap tmb1,
+                     const __grid_constant__ CUtensorMap tmb2,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ out1,
+                     __nv_bfloat16* __restrict__ out2, Strides so1,
+                     Strides so2, int H, int nq, int nk, int item_tiles,
+                     int n_items, float sm_scale) {
+  using S = BwdSmem<D>;
+  constexpr int kSlabs = D / kSlab;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = sa + 2 * S::kItem;
+  float* stats = reinterpret_cast<float*>(ring + kStages * S::kStage);
+  uint64_t* it_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(stats) + S::kStats);
+  uint64_t* it_empty = it_full + 1;
+  uint64_t* full = it_full + 2;
+  uint64_t* empty = full + kStages;
+
+  const int n_item_rows = kDKV ? nk : nq, n_tile_rows = kDKV ? nq : nk;
+  const int n_tiles = (n_tile_rows + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    hop::mbar_init(it_full, 1);
+    hop::mbar_init(it_empty, 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread, and in the dK/dV pass the 32 lanes that stage lse, D
+      hop::mbar_init(&full[s], kDKV ? 33 : 1);
+      hop::mbar_init(&empty[s], 8);
     }
+    hop::fence_barrier_init();
   }
-}
+  __syncthreads();
 
-// accumulator tile (column blocks of 8) -> bf16 A operands (chunks of 16)
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[kBK / 16][4],
-                                       const float (&s)[kBK / 8][4]) {
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: per item A1, A2; then B1, B2 tiles through the ring ----
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      hop::prefetch_map(&tma1);
+      hop::prefetch_map(&tma2);
+      hop::prefetch_map(&tmb1);
+      hop::prefetch_map(&tmb2);
+      int stage = 0;
+      uint32_t phase = 0, it_phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int bh = item / item_tiles, b = bh / H, h = bh % H;
+        const int r0 = item % item_tiles * kItemRows;
+        hop::mbar_wait(it_empty, it_phase ^ 1);
+        hop::mbar_expect_tx(it_full, 2 * S::kItem);
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N][4]) {
+        for (int j = 0; j < kSlabs; ++j) {
+          hop::tma_load_4d(sa + j * S::kSlabItem, &tma1, it_full, j * kSlab,
+                           h, r0, b);
+          hop::tma_load_4d(sa + S::kItem + j * S::kSlabItem, &tma2, it_full,
+                           j * kSlab, h, r0, b);
+        }
+        it_phase ^= 1;
+        for (int t = 0; t < n_tiles; ++t) {
+          hop::mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* sb = ring + stage * S::kStage;
+          hop::mbar_expect_tx(&full[stage], S::kStage);
 #pragma unroll
-  for (int j = 0; j < N; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
-}
-
-// Store the warp's 16 x D accumulator times `scale` as bf16 rows, rows >=
-// nrows skipped.
-template <int D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* ob, Strides so,
-                                          int row0, int nrows, int g, int t,
-                                          const float (&o)[D / 8][4],
-                                          float scale) {
-  const int ra = row0 + g, rb = row0 + g + 8;
+          for (int j = 0; j < kSlabs; ++j) {
+            hop::tma_load_4d(sb + j * S::kSlabTile, &tmb1, &full[stage],
+                             j * kSlab, h, t * kTile, b);
+            hop::tma_load_4d(sb + S::kTileB + j * S::kSlabTile, &tmb2,
+                             &full[stage], j * kSlab, h, t * kTile, b);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (kDKV && threadIdx.x / 32 == 9) {
+      // lse (base 2) and D of each query tile into its stage's stats
+      const int lane = threadIdx.x % 32;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int bh = item / item_tiles;
+        const float* lse_row = lse + (long long)bh * nq;
+        const float* d_row = delta + (long long)bh * nq;
+        for (int t = 0; t < n_tiles; ++t) {
+          hop::mbar_wait(&empty[stage], phase ^ 1);
+          float* st = stats + stage * 2 * kTile;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (ra < nrows)
-      *reinterpret_cast<uint32_t*>(ob + ra * so.n + c) =
-          pack_bf16(o[j][0] * scale, o[j][1] * scale);
-    if (rb < nrows)
-      *reinterpret_cast<uint32_t*>(ob + rb * so.n + c) =
-          pack_bf16(o[j][2] * scale, o[j][3] * scale);
-  }
-}
-
-template <int D>
-constexpr int bwd_smem_bytes() {
-  return 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
-}
-
-// One block per (batch*head, tile of 64 keys): dK and dV of its keys.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int nq, int nk,
-                         Strides sq, Strides sk, Strides sv, Strides sdo,
-                         Strides sdk, Strides sdv, float sm_scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + 64 * LD;
-  __nv_bfloat16* sQ = sV + 64 * LD;
-  __nv_bfloat16* sDO = sQ + 64 * LD;
-  float* sLse = reinterpret_cast<float*>(sDO + 64 * LD);  // base 2
-  float* sDelta = sLse + 64;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBK;
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* dob = dout + b * sdo.b + h * sdo.h;
-  const float scale_log2 = sm_scale * kLog2e;
-
-  load_tile(reinterpret_cast<unsigned char*>(sK), LD * 2,
-            reinterpret_cast<const unsigned char*>(k + b * sk.b + h * sk.h +
-                                                   k0 * sk.n),
-            sk.n * 2, kBK, D * 2, nk - k0);
-  load_tile(reinterpret_cast<unsigned char*>(sV), LD * 2,
-            reinterpret_cast<const unsigned char*>(v + b * sv.b + h * sv.h +
-                                                   k0 * sv.n),
-            sv.n * 2, kBK, D * 2, nk - k0);
-  // this thread's two key rows; a key >= nk gives P = 0
-  const bool ka_ok = k0 + warp * 16 + g < nk;
-  const bool kb_ok = k0 + warp * 16 + g + 8 < nk;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int q0 = 0; q0 < nq; q0 += kBQ) {
-    __syncthreads();  // previous query tile consumed
-    load_tile(reinterpret_cast<unsigned char*>(sQ), LD * 2,
-              reinterpret_cast<const unsigned char*>(qb + q0 * sq.n),
-              sq.n * 2, kBQ, D * 2, nq - q0);
-    load_tile(reinterpret_cast<unsigned char*>(sDO), LD * 2,
-              reinterpret_cast<const unsigned char*>(dob + q0 * sdo.n),
-              sdo.n * 2, kBQ, D * 2, nq - q0);
-    {
-      // a query >= nq gets lse = +inf, so its P is 0
-      const int i = threadIdx.x % 64, r = q0 + i;
-      if (threadIdx.x < 64)
-        sLse[i] = r < nq ? lse[(long long)bh * nq + r] * kLog2e
-                         : __int_as_float(0x7f800000);
-      else
-        sDelta[i] = r < nq ? delta[(long long)bh * nq + r] : 0.f;
-    }
-    __syncthreads();
-    // S^T and dP^T: rows are this warp's keys, columns the tile's queries
-    float s[kBQ / 8][4], dp[kBQ / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<D>(s, sK + warp * 16 * LD, sQ, g, t);
-    mma_abt<D>(dp, sV + warp * 16 * LD, sDO, g, t);
-#pragma unroll
-    for (int j = 0; j < kBQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const bool ok = (e < 2) ? ka_ok : kb_ok;
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - sLse[col]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sDelta[col]);
+          for (int i = lane; i < kTile; i += 32) {
+            const int r = t * kTile + i;
+            st[i] = r < nq ? lse_row[r] * kLog2e : __int_as_float(0x7f800000);
+            st[kTile + i] = r < nq ? d_row[r] : 0.f;
+          }
+          hop::mbar_arrive(&full[stage]);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-    uint32_t pa[kBQ / 16][4];
-    pack_a(pa, s);
-    mma_pb<D>(dv_acc, pa, sDO, lane);   // dV += P^T dO
-    pack_a(pa, dp);
-    mma_pb<D>(dk_acc, pa, sQ, lane);    // dK += dS^T Q
-  }
-  store_acc<D>(dk + b * sdk.b + h * sdk.h, sdk, k0 + warp * 16, nk, g, t,
-               dk_acc, sm_scale);
-  store_acc<D>(dv + b * sdv.b + h * sdv.h, sdv, k0 + warp * 16, nk, g, t,
-               dv_acc, 1.f);
-}
+  } else {
+    // ---- consumers: 64 item rows each ----
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    const int lane = threadIdx.x % 32, w = threadIdx.x % 128 / 32;
+    const int g = lane / 4, c4 = lane % 4;
+    const float scale_log2 = sm_scale * kLog2e;
+    const uint8_t* a1_rows = sa + wg * 64 * (kSlab * 2);
+    const uint8_t* a2_rows = a1_rows + S::kItem;
+    float acc1[D / 2];                 // dQ or dK
+    float acc2[kDKV ? D / 2 : 1];      // dV
+    float x[kTile / 2], y[kTile / 2];  // S and dP, or S^T and dP^T
+    uint32_t pp[kTile / 16][4], pd[kTile / 16][4];  // P^T and dS (or dS^T)
 
-// One block per (batch*head, tile of 64 queries): dQ of its rows.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int nq, int nk,
-                        Strides sq, Strides sk, Strides sv, Strides sdo,
-                        Strides sdq, float sm_scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + 64 * LD;
-  __nv_bfloat16* sQ = sV + 64 * LD;
-  __nv_bfloat16* sDO = sQ + 64 * LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-  const float scale_log2 = sm_scale * kLog2e;
+    // X = A1 B1^T and Y = A2 B2^T: K-major on d under the 64-byte swizzle,
+    // one slab per two k16 steps
+    auto issue_xy = [&](const uint8_t* sb) {
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 2) * S::kSlabItem + (kk % 2) * 32;
+        const int toff = (kk / 2) * S::kSlabTile + (kk % 2) * 32;
+        hop::Wgmma<kTile>::ss(x, hop::make_desc(a1_rows + off, 64, 16, 512),
+                              hop::make_desc(sb + toff, 64, 16, 512), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 2) * S::kSlabItem + (kk % 2) * 32;
+        const int toff = (kk / 2) * S::kSlabTile + (kk % 2) * 32;
+        hop::Wgmma<kTile>::ss(y, hop::make_desc(a2_rows + off, 64, 16, 512),
+                              hop::make_desc(sb + S::kTileB + toff, 64, 16,
+                                             512),
+                              kk > 0);
+      }
+      hop::wgmma_commit();
+    };
+    // acc += A B with A from registers (16 tile rows a k16 step) and B a
+    // tile tensor read d-major with the transpose bit: 16 rows are 2 groups
+    // of 8 (SBO 512), d/32 slabs (LBO)
+    auto issue_rs = [&](float(&acc)[D / 2], const uint32_t(&a)[kTile / 16][4],
+                        const uint8_t* sb) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        hop::Wgmma<D>::rs_t(acc, a[kk],
+                            hop::make_desc(sb + kk * 1024, 64, S::kSlabTile,
+                                           512),
+                            1);
+    };
+    auto pack = [&](uint32_t(&a)[kTile / 16][4], const float(&v)[kTile / 2]) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        a[kk][0] = pack_bf16(v[8 * kk], v[8 * kk + 1]);
+        a[kk][1] = pack_bf16(v[8 * kk + 2], v[8 * kk + 3]);
+        a[kk][2] = pack_bf16(v[8 * kk + 4], v[8 * kk + 5]);
+        a[kk][3] = pack_bf16(v[8 * kk + 6], v[8 * kk + 7]);
+      }
+    };
 
-  load_tile(reinterpret_cast<unsigned char*>(sQ), LD * 2,
-            reinterpret_cast<const unsigned char*>(q + b * sq.b + h * sq.h +
-                                                   q0 * sq.n),
-            sq.n * 2, kBQ, D * 2, nq - q0);
-  load_tile(reinterpret_cast<unsigned char*>(sDO), LD * 2,
-            reinterpret_cast<const unsigned char*>(dout + b * sdo.b +
-                                                   h * sdo.h + q0 * sdo.n),
-            sdo.n * 2, kBQ, D * 2, nq - q0);
-  // this thread's two query rows; a row >= nq gets lse = +inf, so P = 0
-  float lse2[2], dl[2];
+    int stage = 0;
+    uint32_t phase = 0, it_phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int bh = item / item_tiles, b = bh / H, h = bh % H;
+      const int r0 = item % item_tiles * kItemRows;
+      const int ra = r0 + wg * 64 + w * 16 + g, rb = ra + 8;  // item rows
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    lse2[r] = row < nq ? lse[(long long)bh * nq + row] * kLog2e
-                       : __int_as_float(0x7f800000);
-    dl[r] = row < nq ? delta[(long long)bh * nq + row] : 0.f;
-  }
-  float dq_acc[D / 8][4];
-  zero(dq_acc);
+      for (int i = 0; i < D / 2; ++i) acc1[i] = 0.f;
+      if constexpr (kDKV) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc2[i] = 0.f;
+      }
+      // dQ: the rows' lse (base 2) and D; a row >= nq gets lse = +inf and
+      // D = 0, so P = dS = 0. dK/dV: whether the rows are real keys.
+      float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+      const bool ok[2] = {ra < n_item_rows, rb < n_item_rows};
+      if constexpr (!kDKV) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r ? rb : ra;
+          lse2[r] = ok[r] ? lse[(long long)bh * nq + row] * kLog2e
+                          : __int_as_float(0x7f800000);
+          dl[r] = ok[r] ? delta[(long long)bh * nq + row] : 0.f;
+        }
+      }
+      hop::mbar_wait(it_full, it_phase);
+      it_phase ^= 1;
 
-  for (int k0 = 0; k0 < nk; k0 += kBK) {
-    __syncthreads();  // previous key tile consumed
-    load_tile(reinterpret_cast<unsigned char*>(sK), LD * 2,
-              reinterpret_cast<const unsigned char*>(kb + k0 * sk.n),
-              sk.n * 2, kBK, D * 2, nk - k0);
-    load_tile(reinterpret_cast<unsigned char*>(sV), LD * 2,
-              reinterpret_cast<const unsigned char*>(vb + k0 * sv.n),
-              sv.n * 2, kBK, D * 2, nk - k0);
-    __syncthreads();
-    float s[kBK / 8][4], dp[kBK / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<D>(s, sQ + warp * 16 * LD, sK, g, t);
-    mma_abt<D>(dp, sDO + warp * 16 * LD, sV, g, t);
-    const int kvalid = nk - k0;
+      for (int t = 0; t < n_tiles; ++t) {
+        hop::mbar_wait(&full[stage], phase);
+        const uint8_t* sb = ring + stage * S::kStage;
+        issue_xy(sb);
+        hop::wgmma_wait<0>();
+        hop::fence_regs(x);
+        hop::fence_regs(y);
+        if (t == n_tiles - 1 && lane == 0) hop::mbar_arrive(it_empty);
+        // columns: tile rows t*64 + 8j + 2 c4 + {0, 1}
+        const int valid = n_tile_rows - t * kTile;
+        const float* st = stats + stage * 2 * kTile;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+        for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const float p =
-            col < kvalid ? exp2f(s[j][e] * scale_log2 - lse2[r]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dl[r]);
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * 8 + 2 * c4 + (e & 1), r = e >> 1;
+            float p, dd;
+            if constexpr (kDKV) {
+              p = col < valid && ok[r]
+                      ? exp2f(x[4 * j + e] * scale_log2 - st[col])
+                      : 0.f;
+              dd = st[kTile + col];
+            } else {
+              p = col < valid ? exp2f(x[4 * j + e] * scale_log2 - lse2[r])
+                              : 0.f;
+              dd = dl[r];
+            }
+            x[4 * j + e] = p;
+            y[4 * j + e] = p * (y[4 * j + e] - dd);
+          }
+        }
+        pack(pd, y);
+        if constexpr (kDKV) pack(pp, x);
+        hop::wgmma_fence();
+        if constexpr (kDKV) issue_rs(acc2, pp, sb + S::kTileB);  // dV += P^T dO
+        issue_rs(acc1, pd, sb);  // dQ += dS K, or dK += dS^T Q
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc1);
+        hop::fence_regs(pd);
+        if constexpr (kDKV) {
+          hop::fence_regs(acc2);
+          hop::fence_regs(pp);
+        }
+        if (lane == 0) hop::mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // ---- store the item rows < n_item_rows ----
+      __nv_bfloat16* o1 = out1 + b * so1.b + h * so1.h;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = j * 8 + 2 * c4;
+        if (ok[0])
+          *reinterpret_cast<uint32_t*>(o1 + ra * so1.n + c) = pack_bf16(
+              acc1[4 * j] * sm_scale, acc1[4 * j + 1] * sm_scale);
+        if (ok[1])
+          *reinterpret_cast<uint32_t*>(o1 + rb * so1.n + c) = pack_bf16(
+              acc1[4 * j + 2] * sm_scale, acc1[4 * j + 3] * sm_scale);
+      }
+      if constexpr (kDKV) {
+        __nv_bfloat16* o2 = out2 + b * so2.b + h * so2.h;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int c = j * 8 + 2 * c4;
+          if (ok[0])
+            *reinterpret_cast<uint32_t*>(o2 + ra * so2.n + c) =
+                pack_bf16(acc2[4 * j], acc2[4 * j + 1]);
+          if (ok[1])
+            *reinterpret_cast<uint32_t*>(o2 + rb * so2.n + c) =
+                pack_bf16(acc2[4 * j + 2], acc2[4 * j + 3]);
+        }
       }
     }
-    uint32_t pa[kBK / 16][4];
-    pack_a(pa, dp);
-    mma_pb<D>(dq_acc, pa, sK, lane);    // dQ += dS K
   }
-  store_acc<D>(dq + b * sdq.b + h * sdq.h, sdq, q0 + warp * 16, nq, g, t,
-               dq_acc, sm_scale);
+}
+
+template <int D, bool kDKV>
+cudaError_t launch_pass(cudaStream_t st, const CUtensorMap& a1,
+                        const CUtensorMap& a2, const CUtensorMap& b1,
+                        const CUtensorMap& b2, const float* lse,
+                        const float* delta, __nv_bfloat16* out1,
+                        __nv_bfloat16* out2, Strides so1, Strides so2, int B,
+                        int H, int nq, int nk, float sm_scale) {
+  using S = BwdSmem<D>;
+  static cudaError_t attr =
+      hop_host::allow_smem(flash_bwd_kernel<D, kDKV>, S::kSmem);
+  if (attr != cudaSuccess) return attr;
+  // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
+  static const int regs = [] {
+    cudaFuncAttributes fa;
+    return cudaFuncGetAttributes(&fa, flash_bwd_kernel<D, kDKV>) ==
+                   cudaSuccess
+               ? fa.numRegs
+               : 0;
+  }();
+  if (regs < kLaunchRegs) return cudaErrorInvalidConfiguration;
+  const int item_tiles = ((kDKV ? nk : nq) + kItemRows - 1) / kItemRows;
+  const long long items = (long long)item_tiles * B * H;
+  if (items >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int n_items = static_cast<int>(items);
+  const int sms = hop_host::sm_count();
+  const int blocks = n_items < sms ? n_items : sms;
+  flash_bwd_kernel<D, kDKV><<<blocks, S::kThreads, S::kSmem, st>>>(
+      a1, a2, b1, b2, lse, delta, out1, out2, so1, so2, H, nq, nk,
+      item_tiles, n_items, sm_scale);
+  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, const __nv_bfloat16* dout,
-                       const float* lse, const float* delta,
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
                        __nv_bfloat16* dq, __nv_bfloat16* dk,
                        __nv_bfloat16* dv, int B, int H, int nq, int nk,
                        Strides sq, Strides sk, Strides sv, Strides sdo,
                        Strides sdq, Strides sdk, Strides sdv, float sm_scale,
                        cudaStream_t st) {
-  constexpr int smem = bwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  // item maps in boxes of 128 rows, streamed ones in boxes of 64
+  CUtensorMap k_item, v_item, q_tile, do_tile, q_item, do_item, k_tile,
+      v_tile;
+  if (!bnhd_map(&k_item, k, B, nk, H, D, sk, kItemRows) ||
+      !bnhd_map(&v_item, v, B, nk, H, D, sv, kItemRows) ||
+      !bnhd_map(&q_tile, q, B, nq, H, D, sq, kTile) ||
+      !bnhd_map(&do_tile, dout, B, nq, H, D, sdo, kTile) ||
+      !bnhd_map(&q_item, q, B, nq, H, D, sq, kItemRows) ||
+      !bnhd_map(&do_item, dout, B, nq, H, D, sdo, kItemRows) ||
+      !bnhd_map(&k_tile, k, B, nk, H, D, sk, kTile) ||
+      !bnhd_map(&v_tile, v, B, nk, H, D, sv, kTile))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_pass<D, true>(st, k_item, v_item, q_tile, do_tile,
+                                         lse, delta, dk, dv, sdk, sdv, B, H,
+                                         nq, nk, sm_scale);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D>
-      <<<dim3((nk + kBK - 1) / kBK, B * H), kThreads, smem, st>>>(
-          q, k, v, dout, lse, delta, dk, dv, H, nq, nk, sq, sk, sv, sdo, sdk,
-          sdv, sm_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D>
-      <<<dim3((nq + kBQ - 1) / kBQ, B * H), kThreads, smem, st>>>(
-          q, k, v, dout, lse, delta, dq, H, nq, nk, sq, sk, sv, sdo, sdq,
-          sm_scale);
-  return cudaGetLastError();
+  return launch_pass<D, false>(st, q_item, do_item, k_tile, v_tile, lse,
+                               delta, dq, nullptr, sdq, sdq, B, H, nq, nk,
+                               sm_scale);
 }
 
 }  // namespace
@@ -367,10 +437,6 @@ int flash_attn_bf16_bwd(const void* q, const void* k, const void* v,
       sv{v_sb, v_sn, v_sh}, sdo{do_sb, do_sn, do_sh}, sdq{dq_sb, dq_sn, dq_sh},
       sdk{dk_sb, dk_sn, dk_sh}, sdv{dv_sb, dv_sn, dv_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const __nv_bfloat16*>(q);
-  auto kp = static_cast<const __nv_bfloat16*>(k);
-  auto vp = static_cast<const __nv_bfloat16*>(v);
-  auto dop = static_cast<const __nv_bfloat16*>(dout);
   auto lp = static_cast<const float*>(lse);
   auto dlp = static_cast<const float*>(delta);
   auto dqp = static_cast<__nv_bfloat16*>(dq);
@@ -378,14 +444,14 @@ int flash_attn_bf16_bwd(const void* q, const void* k, const void* v,
   auto dvp = static_cast<__nv_bfloat16*>(dv);
   cudaError_t err;
   if (d == 128)
-    err = launch_bwd<128>(qp, kp, vp, dop, lp, dlp, dqp, dkp, dvp, B, H, nq,
-                          nk, sq, sk, sv, sdo, sdq, sdk, sdv, sm_scale, st);
+    err = launch_bwd<128>(q, k, v, dout, lp, dlp, dqp, dkp, dvp, B, H, nq, nk,
+                          sq, sk, sv, sdo, sdq, sdk, sdv, sm_scale, st);
   else if (d == 96)
-    err = launch_bwd<96>(qp, kp, vp, dop, lp, dlp, dqp, dkp, dvp, B, H, nq,
-                         nk, sq, sk, sv, sdo, sdq, sdk, sdv, sm_scale, st);
+    err = launch_bwd<96>(q, k, v, dout, lp, dlp, dqp, dkp, dvp, B, H, nq, nk,
+                         sq, sk, sv, sdo, sdq, sdk, sdv, sm_scale, st);
   else if (d == 64)
-    err = launch_bwd<64>(qp, kp, vp, dop, lp, dlp, dqp, dkp, dvp, B, H, nq,
-                         nk, sq, sk, sv, sdo, sdq, sdk, sdv, sm_scale, st);
+    err = launch_bwd<64>(q, k, v, dout, lp, dlp, dqp, dkp, dvp, B, H, nq, nk,
+                         sq, sk, sv, sdo, sdq, sdk, sdv, sm_scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

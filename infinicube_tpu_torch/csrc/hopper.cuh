@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the kernels that run on wgmma and TMA
-// (K2 in flash_attention.cu, K3 in dense_conv.cu): mbarriers, TMA tile loads,
+// (K1 and K2 in flash_attention.cu, K5 in flash_attention_bwd.cu, K3 in
+// dense_conv.cu): mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and the wgmma instructions themselves, and
 // on the host the encoding of TMA tensor maps.
 //
@@ -8,8 +9,9 @@
 // need no -lcuda link, and handed to the kernels by value as
 // `const __grid_constant__ CUtensorMap` parameters.
 //
-// Shared-memory operand layouts follow PTX's canonical wgmma layouts for
-// 16-bit types, in the swizzle modes that TMA writes: a box whose inner
+// Shared-memory operand layouts follow PTX's canonical wgmma layouts (given
+// here for 16-bit types; 8-bit ones are K-major only, with a k32 step of the
+// same 32 bytes), in the swizzle modes that TMA writes: a box whose inner
 // extent is exactly the swizzle span (128, 64 or 32 bytes) lands as rows of
 // that many bytes, 8 rows to a swizzle atom.
 //   K-major (the reduction dim contiguous; rows along M or N): SBO = the
@@ -148,6 +150,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int R, int C>
@@ -349,6 +357,34 @@ struct Wgmma<256> {
   }
 };
 
+// wgmma m64nNk32, s8 operands, s32 accumulators d[N / 2] in the layout of the
+// f32 ones above (the int32 -> f32 conversion is the caller's). Both operands
+// K-major in shared memory: 8-bit wgmma has no transpose bit, and a k32 step
+// advances the descriptors by 32 bytes. Written out at N = 128 (K1's
+// 128-key S tile).
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 }  // namespace hop
 
 // ---- host: tensor maps ------------------------------------------------------
@@ -387,21 +423,36 @@ inline CUtensorMapSwizzle swizzle_of(int span) {
                       : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first), `strides` in bytes of
-// dims 1 .. rank-1, boxes of `box` elements, swizzled with `span`; elements
-// outside the tensor read as zeros. Returns false when the driver refuses it
-// (misaligned base or strides, box too large).
+// A tensor map of `rank` dims (innermost first), `strides` in bytes of dims
+// 1 .. rank-1, boxes of `box` elements, swizzled with `span`; elements
+// outside the tensor read as zeros. bf16 unless `type` says otherwise (int8
+// data is mapped as UINT8: TMA moves bytes). Returns false when
+// cuTensorMapEncodeTiled refuses it (misaligned base or strides, box too
+// large).
 inline bool make_map(CUtensorMap* map, const void* base, int rank,
                      const uint64_t* dims, const uint64_t* strides,
-                     const uint32_t* box, int span) {
+                     const uint32_t* box, int span,
+                     CUtensorMapDataType type =
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
+  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
             strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle_of(span), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The current device's SM count, asked once (persistent kernels launch one
+// block per SM).
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
 }
 
 // Raise a kernel's dynamic shared memory limit once.

@@ -44,6 +44,9 @@ SIGNATURES = {
     "flash_attention_bwd": {
         "flash_attn_bf16_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
+    "flash_attention_f32": {
+        "flash_attn_f32": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    },
     "dense_conv": {"conv3x3x3_bf16": [_P] * 5 + [_I] * 8 + [_P],
                    "conv3x3x3_bf16_splits": [_I] * 7,
                    "conv3x3x3_f32": [_P] * 4 + [_I] * 6 + [_P],
@@ -165,9 +168,11 @@ def _run(stem: str, name: str, device: torch.device, *args,
     launches[count_as or name] += 1
 
 
-def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What K2 and K5 take: bf16 [B, N, h, d] views on one card, d in
-    {64, 96, 128}, 16-byte aligned."""
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               dtype: torch.dtype = torch.bfloat16,
+               name: str = "flash_attn_bf16") -> None:
+    """What K2 and K5 (bf16) and ``flash_attn_f32`` take: [B, N, h, d] views
+    of ``dtype`` on one card, d in {64, 96, 128}, 16-byte aligned."""
     _check_cuda(q, k, v)
     B, nq, h, d = q.shape
     nk = k.shape[1]
@@ -176,12 +181,13 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f" v{tuple(v.shape)}")
     if d not in (64, 96, 128):
         raise ValueError(f"head dim {d} not supported (64, 96 or 128)")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError("flash_attn_bf16 takes bf16 q, k, v")
+    if any(t.dtype != dtype for t in (q, k, v)):
+        raise ValueError(f"{name} takes {dtype} q, k, v, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if nq == 0 or nk == 0:
         raise ValueError("empty sequence")
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
-        _check_bnhd(t, n, 8)
+        _check_bnhd(t, n, 16 // q.element_size())
 
 
 def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,6 +207,22 @@ def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *o.stride()[:3], float(sm_scale))
     return (o, lse) if return_lse else o
+
+
+def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   sm_scale: float) -> torch.Tensor:
+    """softmax(q k^T * sm_scale) v in f32 throughout, non-causal, on the CUDA
+    cores (no TF32): q [B, Nq, h, d], k/v [B, Nk, h, d], f32 views with
+    16-byte aligned strides, d in {64, 96, 128}. Returns f32
+    [B, Nq, h, d]. Forward only: no backward kernel exists for it."""
+    _check_qkv(q, k, v, torch.float32, "flash_attn_f32")
+    B, nq, h, d = q.shape
+    o = torch.empty((B, nq, h, d), dtype=torch.float32, device=q.device)
+    _run("flash_attention_f32", "flash_attn_f32", q.device, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), o.data_ptr(), B, h, nq, k.shape[1], d,
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+         *o.stride()[:3], float(sm_scale))
+    return o
 
 
 def flash_attn_bf16_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -235,9 +257,10 @@ def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
                       kscale: torch.Tensor, v: torch.Tensor, block: int,
                       sm_scale: float) -> torch.Tensor:
     """K1: int8-QK attention. q8/k8 int8 [B*h, Npad, d] with f32 scales
-    [B*h, Npad/block] (one per block of rows, ``block_quantize``); v bf16
-    [B, N, h, d] with N <= Npad real tokens; keys >= N are masked.
-    Returns [B, N, h, d] bf16."""
+    [B*h, Npad/block] (one per block of rows, ``block_quantize``; the block
+    a multiple of 128, as ``quant_blocks`` makes it); v bf16 [B, N, h, d]
+    with N <= Npad real tokens; keys >= N are masked. Returns
+    [B, N, h, d] bf16."""
     _check_cuda(q8, k8, qscale, kscale, v)
     B, n, h, d = v.shape
     BH, npad = q8.shape[:2]
@@ -249,8 +272,8 @@ def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
     if q8.dtype != torch.int8 or k8.dtype != torch.int8 or \
             v.dtype != torch.bfloat16:
         raise ValueError("flash_attn_int8qk takes int8 q8/k8 and bf16 v")
-    if block % 64 or npad % block:
-        raise ValueError(f"block {block} must be a multiple of 64 that "
+    if block % 128 or npad % block:
+        raise ValueError(f"block {block} must be a multiple of 128 that "
                          f"divides Npad={npad}")
     nb = npad // block
     for s, nm in ((qscale, "qscale"), (kscale, "kscale")):

@@ -1,15 +1,20 @@
 """Attention for [B, N, heads, head_dim] tensors, forward and backward:
-kernels K2 and K5 on the card, the plain einsum versions on the CPU.
+kernels K2 and K5 (bf16) and ``flash_attn_f32`` on the card, the plain
+einsum versions on the CPU.
 
 Counterpart of ``infinicube_tpu/ops/attention.py``. There the library Pallas
-flash kernel serves long sequences on the TPU, and its fused backward (a
-dK/dV and a dQ kernel) their gradients; here every CUDA tensor goes to the
+flash kernel serves long sequences on the TPU in the inputs' dtype, and its
+fused backward (a dK/dV and a dQ kernel) their gradients; the einsum path
+serves the rest with an f32 softmax. Here a bf16 CUDA tensor goes to the
 hand-written ``flash_attn_bf16`` (csrc/flash_attention.cu) and, when a
 gradient is asked for, through a ``torch.autograd.Function`` whose forward
 also takes the rows' log-sum-exp from K2 and whose backward launches
-``flash_attn_bf16_bwd`` (csrc/flash_attention_bwd.cu). A CPU tensor goes to
-the plain version and autograd. Nothing falls back: a CUDA call the kernels
-do not take raises."""
+``flash_attn_bf16_bwd`` (csrc/flash_attention_bwd.cu). An f32 CUDA tensor
+goes to ``flash_attn_f32`` (csrc/flash_attention_f32.cu, f32 throughout on
+the CUDA cores), forward only: an f32 call on the card that needs a gradient
+raises, since no f32 backward kernel exists yet. A CPU tensor goes to the
+plain version and autograd. Nothing falls back: a CUDA call the kernels do
+not take raises."""
 
 from __future__ import annotations
 
@@ -100,14 +105,29 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether x goes to the card's kernels (the tests route CPU tensors
+    through this branch with the kernels' plain versions in their place)."""
+    return x.is_cuda
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q [B, Nq, h, d], k/v [B, Nk, h, d] -> [B, Nq, h, d], non-causal,
-    differentiable in q, k and v."""
+    differentiable in q, k and v (on the card in bf16 only)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        if torch.is_grad_enabled() and \
-                (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _on_card(q):
+        grad = torch.is_grad_enabled() and \
+            (q.requires_grad or k.requires_grad or v.requires_grad)
+        if q.dtype == torch.float32:
+            if grad:
+                raise NotImplementedError(
+                    "f32 attention on the card is forward only: there is no "
+                    "f32 flash-attention backward kernel (flash_attn_f32 has "
+                    "no gradient); train in bf16 or call under "
+                    "torch.no_grad()")
+            return kernels.flash_attn_f32(q, k, v, scale)
+        if grad:
             return _FlashAttention.apply(q, k, v, scale)
         return kernels.flash_attn_bf16(q, k, v, scale)
     if q.device.type != "cpu":

@@ -1,18 +1,28 @@
-"""The edges of the wgmma / TMA kernels (K3 with its split K, K2) and of the
-widths and dtypes the card's dense conv serves, against their plain PyTorch
-versions on the card. Needs an NVIDIA GPU and skips without one; imports no
-JAX (the card's machine has none):
+"""The edges of the wgmma / TMA kernels (K3 with its split K, K2, K1, K5),
+of the widths and dtypes the card's dense conv serves and of the f32
+attention, against their plain PyTorch versions on the card. Needs an NVIDIA
+GPU and skips without one; imports no JAX (the card's machine has none):
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_hopper_cuda.py -m cuda -q
 """
 
+import math
+
 import pytest
 import torch
 
 from infinicube_tpu_torch import kernels
-from infinicube_tpu_torch.ops.attention import (attention_plain,
+from infinicube_tpu_torch.models.diffusion.unet3d import UNet3D
+from infinicube_tpu_torch.ops.attention import (attention_bwd_plain,
+                                                attention_delta,
+                                                attention_plain,
                                                 multi_head_attention)
+from infinicube_tpu_torch.ops.flash_attention import (block_quantize,
+                                                      fold_heads,
+                                                      int8qk_attention_plain,
+                                                      mha_quantized,
+                                                      quant_blocks)
 from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3,
                                                  conv3x3x3_bwd_plain,
                                                  conv3x3x3_int8_plain,
@@ -210,3 +220,165 @@ def test_k2_takes_strided_views(gen, d):
     assert torch.equal(multi_head_attention(q, k, v),
                        multi_head_attention(q, k.contiguous(),
                                             v.contiguous()))
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def _scale_blocks(x, block, lo, hi):
+    """Each block of rows (dim 1) times its own factor, lo to hi, so that
+    every quantization block of q and of k gets a different scale."""
+    n = x.shape[1]
+    f = torch.logspace(math.log10(lo), math.log10(hi), -(-n // block),
+                       device=x.device)
+    return x * f.repeat_interleave(block)[:n, None, None].to(x.dtype)
+
+
+@pytest.mark.parametrize("B,n,h,d", [
+    (1, 1000, 3, 128),   # N not a multiple of the 128-row tiles
+    (2, 128, 2, 64),     # one tile, N = 128
+    (1, 77, 2, 128),     # N < 128
+    (1, 1, 1, 64),       # a single token
+    (1, 3000, 2, 64),    # two 1,536-row blocks, distinct scales, d = 64
+    (1, 4700, 2, 128),   # four blocks, the last one ragged
+    (2, 1537, 1, 128)])  # one row past the first block
+def test_k1_at_the_edges(gen, B, n, h, d):
+    """K1 on wgmma against ``int8qk_attention_plain`` on the same int8
+    inputs, every block of q and k at its own scale (0.25 to 4): the int8
+    gate, cosine >= 0.999; one launch; two runs bit-identical."""
+    block, npad = quant_blocks(n)
+    assert block % 128 == 0
+    q = _scale_blocks(_rand((B, n, h, d), gen), block, 0.25, 4.0)
+    k = _scale_blocks(_rand((B, n, h, d), gen), block, 4.0, 0.25)
+    v = _rand((B, n, h, d), gen)
+    before = kernels.launches["flash_attn_int8qk"]
+    out = mha_quantized(q, k, v)
+    assert kernels.launches["flash_attn_int8qk"] == before + 1
+    q8, sq = block_quantize(fold_heads(q, npad), block)
+    k8, sk = block_quantize(fold_heads(k, npad), block)
+    ref = int8qk_attention_plain(q8, k8, sq, sk, v, block, d ** -0.5)
+    assert out.shape == (B, n, h, d) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    assert _cos(out, ref) >= 0.999
+    assert torch.equal(out, mha_quantized(q, k, v))
+
+
+def _k5_case(gen, nq, nk, h, d, fused):
+    """q, k, v, dO; with ``fused`` q, k, v are views of one [B, N, 3, h, d]
+    projection (Nq = Nk), as SelfAttention3D passes them."""
+    if fused:
+        qkv = _rand((2, nq, 3, h, d), gen)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (_rand((2, n, h, d), gen) for n in (nq, nk, nk))
+    return q, k, v, _rand((2, nq, h, d), gen)
+
+
+@pytest.mark.parametrize("nq,nk,h,d,fused", [
+    (1000, 777, 3, 128, False),  # Nq != Nk, neither a multiple of 64
+    (777, 1000, 3, 96, False),
+    (300, 300, 4, 96, True),     # strided views of a fused projection
+    (129, 65, 2, 64, False),     # one row / key past a tile
+    (64, 200, 2, 128, False),
+    (1, 5, 1, 64, False),
+    (4096, 4096, 8, 96, True),   # the UNet's shapes
+    (512, 512, 8, 96, True)])
+def test_k5_at_the_edges(gen, nq, nk, h, d, fused):
+    """K5 on wgmma against ``attention_bwd_plain`` on the plain f32 output
+    and lse (nothing taken from K2): cosine >= 0.9999 and max-abs <= 2e-2 *
+    max|ref| on dq, dk and dv; one launch; two runs bit-identical."""
+    q, k, v, do = _k5_case(gen, nq, nk, h, d, fused)
+    scale = d ** -0.5
+    ref_o, ref_lse = attention_plain(q.float(), k.float(), v.float(), scale,
+                                     return_lse=True)
+    delta = attention_delta(ref_o, do)
+    before = kernels.launches["flash_attn_bf16_bwd"]
+    got = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, delta, scale)
+    assert kernels.launches["flash_attn_bf16_bwd"] == before + 1
+    ref = attention_bwd_plain(q.float(), k.float(), v.float(), ref_o,
+                              do.float(), ref_lse, scale)
+    for a, b, x in zip(got, ref, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all()
+        _gate(a, b)
+    again = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, delta, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _f32_gate(got, ref):
+    """``flash_attn_f32``'s gate, as ``conv3x3x3_f32``'s: max-abs <= 1e-4 *
+    max|ref| against the plain f32 attention."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("nq,nk,h,d", [
+    (4096, 4096, 8, 96), (512, 512, 8, 96),   # the UNet's SelfAttention3D
+    (300, 77, 3, 64), (1, 5, 1, 64), (1000, 512, 2, 128), (65, 129, 2, 96)])
+def test_f32_attention_matches_plain(gen, nq, nk, h, d):
+    """``flash_attn_f32`` against ``attention_plain`` in f32 (TF32 off),
+    Nq != Nk and every head dim, through ``multi_head_attention``."""
+    q, k, v = (_rand((2, n, h, d), gen, torch.float32) for n in (nq, nk, nk))
+    before = dict(kernels.launches)
+    with torch.no_grad():
+        out = multi_head_attention(q, k, v)
+    assert kernels.launches["flash_attn_f32"] == \
+        before["flash_attn_f32"] + 1
+    assert kernels.launches["flash_attn_bf16"] == before["flash_attn_bf16"]
+    _f32_gate(out, attention_plain(q, k, v, d ** -0.5))
+
+
+def test_f32_attention_takes_strided_views(gen):
+    """q, k, v as views of a fused [B, N, 3, h, d] f32 projection: the same
+    output as from contiguous copies."""
+    qkv = _rand((2, 300, 3, 4, 96), gen, torch.float32)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with torch.no_grad():
+        out = multi_head_attention(q, k, v)
+        ref = multi_head_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    assert torch.equal(out, ref)
+    _f32_gate(out, attention_plain(q, k, v, 96 ** -0.5))
+
+
+def test_f32_attention_with_a_gradient_raises(gen):
+    """No f32 backward kernel: an f32 call on the card that needs a gradient
+    raises and launches nothing; other dtypes raise as before."""
+    q = _rand((1, 64, 2, 64), gen, torch.float32).requires_grad_()
+    before = dict(kernels.launches)
+    with pytest.raises(NotImplementedError, match="f32"):
+        multi_head_attention(q, q, q)
+    assert kernels.launches == before
+    x = _rand((1, 64, 2, 64), gen, torch.float16)
+    with pytest.raises(ValueError):
+        multi_head_attention(x, x, x)
+
+
+def test_f32_unet_with_self_attention_matches_the_cpu(gen):
+    """An f32 UNet with SelfAttention3D at ds 4 and 8 (d = 64) on a 16^3
+    cube: the card (``conv3x3x3_f32``, ``flash_attn_f32``) against the CPU
+    (plain versions), same weights: cosine >= 0.99999 and max-abs <= 1e-3 *
+    max|ref|, and every attention block through the f32 kernel."""
+    cfg = dict(in_channels=16, out_channels=8, model_channels=32,
+               channel_mult=(1, 2, 4, 4), num_res_blocks=2,
+               attention_ds=(4, 8), num_heads=2, transformer_depth=1,
+               dtype=torch.float32)
+    cpu = UNet3D(**cfg).eval().requires_grad_(False)
+    cg = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.normal_(0.0, 0.05, generator=cg)
+    card = UNet3D(**cfg, device="cuda").eval().requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((1, 16, 16, 16, 16), generator=cg)
+    t = torch.tensor([500])
+    before = kernels.launches["flash_attn_f32"]
+    with torch.no_grad():
+        ref = cpu(x, t)
+        got = card(x.cuda(), t.cuda()).cpu()
+    assert kernels.launches["flash_attn_f32"] == before + 10
+    assert torch.isfinite(got).all()
+    assert _cos(got, ref) >= 0.99999
+    assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
