@@ -38,9 +38,11 @@ Then stage 1, the voxel-world generator (the Wan towers freed first):
    from the previous chunk); the launch counters show each chunk went
    through K3 48 x 10, K2 10 x 10 and K4 12 times;
 9. where the time goes: one DDIM step of the release UNet and one VAE decode,
-   timed and under ``torch.profiler``; then K4 (sparse conv) against its
-   plain version on the decoded grids at capacities 131,072 and 32,768, with
-   a dense-bounds violation NaN-poisoning exactly its batch row.
+   timed and under ``torch.profiler``; then K4 (sparse conv, 3xTF32 on the
+   tensor cores) against its plain version on the decoded grids at
+   capacities 131,072 and 32,768, timed beside its bounds (3 TF32 products
+   at 495 TFLOP/s, and the f32 CUDA-core bound), with a dense-bounds
+   violation NaN-poisoning exactly its batch row.
 
 Then training the voxel diffusion model (stage 1's models freed first):
 
@@ -71,12 +73,13 @@ Then training the voxel diffusion model (stage 1's models freed first):
 
 Then training the sparse structure VAE (the UNet freed first):
 
-14. kernel checks: K4 as the sparse conv's input gradient (on the output
-    gradient, with the reversed, transposed weights and no poison) and K6
-    (the weight gradient) against ``sparse_conv_bwd_plain`` on real grids:
-    phase 9's decoded grids and the three levels of a 200,000-point training
-    batch, at the VAE's (F, Fo); the plain dW also summed in f64; K6 run
-    twice, bit-identical; each timed beside its plain version and its bound;
+14. kernel checks: K4 forward against ``sparse_conv_plain``, K4 as the
+    sparse conv's input gradient (on the output gradient, with the pack of
+    the reversed, transposed weights and no poison) and K6 (the weight
+    gradient) against ``sparse_conv_bwd_plain`` on real grids: phase 9's
+    decoded grids and the three levels of a 200,000-point training batch,
+    at the VAE's (F, Fo); the plain dW also summed in f64; K6 run twice,
+    bit-identical; each timed beside its plain version and its bound;
 15. model check: the release-width VAE on a small scene, ``vae_loss`` and
     every parameter's gradient on the card (K4, K4-dgrad, K6) against the
     CPU (plain versions), same weights and reparametrize noise;
@@ -92,10 +95,16 @@ Then training the sparse structure VAE (the UNet freed first):
 
 Then int8 serving (the VAE trainer freed first):
 
-18. kernel checks: K7 (the int8 dense conv) against
+18. kernel checks: K7 (the int8 dense conv, on s8 wgmma and TMA) against
     ``conv3x3x3_int8_plain`` at six of the release UNet's 23 int8 shapes at
-    CFG batch 2, each input channel with its own range, timed beside the
-    plain version, its bound, K3 and cuDNN's bf16 conv3d; K8 (int8-PV flash
+    CFG batch 2, each input channel with its own range: every output equal,
+    two runs bit-identical; timed beside the plain version, its bound, K3
+    and cuDNN's bf16 conv3d, and with its quantize prologue; the prologue's
+    three kernels (``int8_conv_amax``, ``int8_conv_quantize_x``,
+    ``int8_conv_quantize_w``) bit-equal to their plain versions and to
+    ``quantize_for_conv`` + ``pad_channels`` + ``pack_int8_weight``, from
+    the f32 weights, the CFG pair's halves at other ranges, each timed
+    beside its plain version and its byte bound; K8 (int8-PV flash
     attention) against ``int8qkv_attention_plain`` at N = 7,800 and 37,440
     (a scale per 1,536-row block of q and k and per channel of v), timed
     beside K1 on the same inputs;
@@ -103,8 +112,9 @@ Then int8 serving (the VAE trainer freed first):
     card against the CPU and against the card's bf16 forward; the 2-layer
     full-width DiT with ``attn_quant="qkv"``, card against the CPU;
 20. serving: ``generate_trajectory`` with ``DiffusionConfig(serve_quant=
-    True)`` and CFG 2.0 (3 chunks of DDIM-10; per chunk exactly K7 23 x 10,
-    K3 25 x 10, K2 10 x 10, K4 12, the 23 derived with the port's rule),
+    True)`` and CFG 2.0 (3 chunks of DDIM-10; per chunk exactly K7 23 x 10
+    and as many of each prologue kernel, K3 25 x 10, K2 10 x 10, K4 12, the
+    23 derived with the port's rule),
     ``generate_blocks`` over a 2 x 2 tiling with one tile skipped, one chunk
     each through DDPM and DPM++, the single-chunk CLI into a temporary
     directory, and one 17-frame, 4-step video request with int8-PV
@@ -154,6 +164,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12               # CUDA cores, no tensor cores
+PEAK_TF32 = 495e12             # tensor cores; K4 runs 3 TF32 products
 HBM_BYTES_S = 3.35e12
 H, D = 12, 128                 # the 1.3B DiT's heads
 N_SERVE = 5 * 30 * 52          # 17 frames @ 480x832: 7,800 tokens
@@ -164,6 +175,9 @@ H96, D96 = 8, 96               # the voxel UNet's SelfAttention3D heads
 K3_SHAPES = ((64, 16, 192), (64, 192, 192), (64, 384, 384),
              (32, 1152, 384), (16, 1536, 768), (8, 1536, 768))
 STAGE1_DDIM = 10               # examples/e2e_pipeline.py E2E_DDIM default
+# K7's quantize prologue: one launch of each per K7 launch
+INT8_PROLOGUE = ("int8_conv_amax", "int8_conv_quantize_x",
+                 "int8_conv_quantize_w")
 
 
 def check(cond, msg):
@@ -604,6 +618,7 @@ def chunk_launches(diffusion, steps, unet_calls=None):
             h.remove()
     n_int8 = sum(seen)
     return n_int8, {"conv3x3x3_int8": n_int8 * steps,
+                    **{k: n_int8 * steps for k in INT8_PROLOGUE},
                     "conv3x3x3_bf16": (len(seen) - n_int8) * steps,
                     "flash_attn_bf16": 10 * steps, "sparse_conv_f32": 12,
                     "flash_attn_int8qk": 0, "flash_attn_int8qkv": 0,
@@ -702,11 +717,22 @@ def stage1_time(profile_fn, diffusion, vae, gen):
     return dec
 
 
+def k4_bounds(pairs, F, Fo, nbytes):
+    """K4's bound: its 3 TF32 products per f32 product on the tensor cores
+    (3 * 2 * pairs * F * Fo at 495 TFLOP/s) against the bytes, the share's
+    yardstick; and beside it the f32 CUDA-core bound (2 * pairs * F * Fo at
+    67 TFLOP/s) of the first, SIMT version."""
+    flops = 2.0 * pairs * F * Fo
+    b_ms, b_by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
+    return flops, b_ms, b_by, bound_ms([(flops, PEAK_F32)], nbytes)[0]
+
+
 def k4_checks(kernels, mods, dec, vcfg):
     """K4 on the decoded grids (capacity 131,072 at 64 -> 64 and 32,768 at
-    256 -> 256) against the plain gather version, timed beside it and its
-    bound (2 * present (row, tap) pairs * F * Fo at the f32 CUDA-core
-    peak); then a dense-bounds violation in one batch row."""
+    256 -> 256) against the plain gather version, max-abs <= 1e-4 *
+    max|ref|, timed beside it, ``window_sparse_conv`` (the pack made per
+    call) and its bounds (``k4_bounds``); then a dense-bounds violation in
+    one batch row."""
     g = torch.Generator(device="cuda").manual_seed(10)
     ws = mods.window_conv
     rows = []
@@ -718,7 +744,8 @@ def k4_checks(kernels, mods, dec, vcfg):
         feats = torch.where(grid.mask[..., None], feats, 0.0)
         w = torch.randn((27, F, Fo), generator=g, device="cuda") / \
             math.sqrt(27 * F)
-        got = kernels.sparse_conv_f32(feats, plan.nbr, w, plan.violations)
+        pack = ws.pack_sparse_weight(w)
+        got = kernels.sparse_conv_f32(feats, plan.nbr, pack, plan.violations)
         ref = ws.sparse_conv_plain(plan, feats, w)
         err = (got - ref).abs().max().item()
         lim = 1e-4 * ref.abs().max().item()
@@ -727,18 +754,23 @@ def k4_checks(kernels, mods, dec, vcfg):
         print(f"[k4] {shape}: {int(grid.mask.sum())} voxels, {pairs} "
               f"neighbour pairs; max_abs_err {err:.3e} (limit {lim:.3e})")
         check(err <= lim, f"K4 at {shape}: err {err}")
-        ms = cuda_ms(lambda: kernels.sparse_conv_f32(feats, plan.nbr, w,
+        ms = cuda_ms(lambda: kernels.sparse_conv_f32(feats, plan.nbr, pack,
                                                      plan.violations), 2, 5)
+        with torch.no_grad():
+            call_ms = cuda_ms(lambda: ws.window_sparse_conv(plan, feats, w),
+                              2, 5)
         plain = cuda_ms(lambda: ws.sparse_conv_plain(plan, feats, w), 1, 2)
-        flops = 2.0 * pairs * F * Fo
-        b_ms, b_by = bound_ms([(flops, PEAK_F32)],
-                              4 * (cap * F + 27 * F * Fo + cap * Fo +
-                                   27 * cap))
+        flops, b_ms, b_by, f32_ms = k4_bounds(
+            pairs, F, Fo, 4 * (cap * F + 2 * 27 * F * Fo + cap * Fo +
+                               27 * cap))
         print(f"[k4] {shape}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
-              f"TFLOP/s), plain {plain:.3f} ms, bound {b_ms:.3f} ms "
-              f"({b_by}, f32 CUDA-core peak)")
+              f"TFLOP/s of f32 work, {100 * b_ms / ms:.1f} % of its bound), "
+              f"with the pack made per call {call_ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}, 3 TF32 products"
+              f" at 495 TFLOP/s; the f32 CUDA-core bound {f32_ms:.3f} ms)")
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         f32_core_bound_ms=f32_ms, per_call_pack_ms=call_ms))
     # batch row 1 is row 0 moved outside the level-2 dense bounds
     grid = dec["grids"][0]
     ijk = torch.stack([grid.ijk[0], grid.ijk[0] + torch.tensor(
@@ -750,7 +782,8 @@ def k4_checks(kernels, mods, dec, vcfg):
     check(viol[0] == 0 and viol[1] > 0, f"violations {viol}")
     feats = torch.randn((2, grid.capacity, 32), generator=g, device="cuda")
     w = torch.randn((27, 32, 32), generator=g, device="cuda") / 30.0
-    out = kernels.sparse_conv_f32(feats, plan.nbr, w, plan.violations)
+    out = kernels.sparse_conv_f32(feats, plan.nbr, ws.pack_sparse_weight(w),
+                                  plan.violations)
     ref = ws.sparse_conv_plain(plan, feats, w)
     err = (out[0] - ref[0]).abs().max().item()
     check(torch.isnan(out[1]).all().item() and
@@ -759,7 +792,7 @@ def k4_checks(kernels, mods, dec, vcfg):
           f"dense-bounds poison: row 1 NaN {torch.isnan(out[1]).all()}, "
           f"row 0 err {err}")
     print(f"[k4] dense-bounds violation ({viol[1]} voxels in row 1): row 1 "
-          f"all NaN, row 0 exact (err {err:.2e})")
+          f"all NaN, row 0 within the gate (err {err:.2e})")
     return rows
 
 
@@ -829,6 +862,7 @@ STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "flash_attn_int8qk": 0, "sparse_conv_f32": 0,
                  "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0,
                  "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
+                 **{k: 0 for k in INT8_PROLOGUE},
                  "conv3x3x3_f32": 0, "flash_attn_f32": 0}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
@@ -1280,7 +1314,8 @@ VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
                      "conv3x3x3_bf16_dgrad": 0, "flash_attn_bf16": 0,
                      "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0,
                      "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
-                     "conv3x3x3_f32": 0, "flash_attn_f32": 0}
+                     "conv3x3x3_f32": 0, "flash_attn_f32": 0,
+                     **{k: 0 for k in INT8_PROLOGUE}}
 VAE_POINTS = 200_000
 
 
@@ -1327,9 +1362,12 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
                                           device="cuda"), 0.0)
         w = torch.randn((27, F, Fo), generator=g, device="cuda") / \
             math.sqrt(27 * F)
-        w_rev = ws.rev_w(w).contiguous()
+        pack = ws.pack_sparse_weight(w)
+        dpack = ws.pack_sparse_weight(w, dgrad=True)
         zero = torch.zeros_like(plan.violations)
-        dx = kernels.sparse_conv_f32(gout, plan.nbr, w_rev, zero, dgrad=True)
+        out = kernels.sparse_conv_f32(feats, plan.nbr, pack, plan.violations)
+        ref_out = ws.sparse_conv_plain(plan, feats, w)
+        dx = kernels.sparse_conv_f32(gout, plan.nbr, dpack, zero, dgrad=True)
         dw = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
         dw2 = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
         ref_dx, ref_dw = ws.sparse_conv_bwd_plain(plan, feats, w, gout)
@@ -1339,11 +1377,16 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
         shape = f"{origin} L{level} {cap} x ({F}->{Fo})"
         dx_err = (dx - ref_dx).abs().max().item()
         dw_err = (dw - ref_dw).abs().max().item()
+        fwd_err = (out - ref_out).abs().max().item()
+        fwd_lim = 1e-4 * ref_out.abs().max().item()
         dx_lim = 1e-4 * ref_dx.abs().max().item()
         dw_lim = 5e-4 * ref_dw.abs().max().item()
         print(f"[k4 dgrad] {shape}: {int(grid.mask.sum())} voxels, {pairs} "
               f"neighbour pairs; dx max_abs_err {dx_err:.3e} (limit "
-              f"{dx_lim:.3e})")
+              f"{dx_lim:.3e}); the forward K4 {fwd_err:.3e} (limit "
+              f"{fwd_lim:.3e})")
+        check(torch.isfinite(out).all().item() and fwd_err <= fwd_lim,
+              f"K4 at {shape}: err {fwd_err}")
         print(f"[k6] {shape}: dW max_abs_err {dw_err:.3e} (limit "
               f"{dw_lim:.3e}); against the plain dW summed in f64: kernel "
               f"{(dw.double() - dw64).abs().max().item():.3e}, plain f32 "
@@ -1355,14 +1398,16 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
               f"K6 at {shape}: err {dw_err}")
         check(torch.equal(dw, dw2), f"K6 at {shape}: two runs differ")
         check(bool((dx[~grid.mask] == 0).all()), f"{shape}: dx padding rows")
-        del dw64, dw2
-        flops = 2.0 * pairs * F * Fo
+        del dw64, dw2, out, ref_out
         nbytes = 4 * (cap * F + cap * Fo + 27 * F * Fo + 27 * cap)
-        b_ms, b_by = bound_ms([(flops, PEAK_F32)], nbytes)
+        flops, b_ms, b_by, f32_ms = k4_bounds(pairs, F, Fo,
+                                              nbytes + 4 * 27 * F * Fo)
+        # K6 is unchanged: still on the CUDA cores, its bound f32's
+        w_ms, w_by = bound_ms([(flops, PEAK_F32)], nbytes)
         fwd_ms = cuda_ms(lambda: kernels.sparse_conv_f32(
-            feats, plan.nbr, w, plan.violations), 2, 5)
+            feats, plan.nbr, pack, plan.violations), 2, 5)
         dx_ms = cuda_ms(lambda: kernels.sparse_conv_f32(
-            gout, plan.nbr, w_rev, zero, dgrad=True), 2, 5)
+            gout, plan.nbr, dpack, zero, dgrad=True), 2, 5)
         dw_ms = cuda_ms(lambda: kernels.sparse_conv_f32_wgrad(
             feats, plan.nbr, gout), 2, 5)
         # the plain version computes both gradients in one pass over the
@@ -1370,16 +1415,23 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
         plain = cuda_ms(lambda: ws.sparse_conv_bwd_plain(plan, feats, w,
                                                          gout), 1, 2)
         print(f"[k4 dgrad] {shape}: kernel {dx_ms:.3f} ms ("
-              f"{flops / dx_ms / 1e9:.2f} TFLOP/s; the forward K4 {fwd_ms:.3f}"
-              f" ms); [k6] kernel {dw_ms:.3f} ms ({flops / dw_ms / 1e9:.2f} "
-              f"TFLOP/s); plain dx + dW {plain:.3f} ms; bound {b_ms:.3f} ms "
-              f"({b_by}, f32 CUDA-core peak); no single library call")
-        common = dict(shape=shape, plain_ms=plain, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=None, pairs=pairs)
-        dx_rows.append(dict(common, max_abs_err=dx_err, ms=dx_ms,
-                            k4_forward_ms=fwd_ms))
-        dw_rows.append(dict(common, max_abs_err=dw_err, ms=dw_ms))
-        del feats, gout, dx, dw, ref_dx, ref_dw, plan
+              f"{flops / dx_ms / 1e9:.2f} TFLOP/s of f32 work, "
+              f"{100 * b_ms / dx_ms:.1f} % of its bound; the forward K4 "
+              f"{fwd_ms:.3f} ms); bound {b_ms:.3f} ms ({b_by}, 3 TF32 "
+              f"products at 495 TFLOP/s; the f32 CUDA-core bound "
+              f"{f32_ms:.3f} ms); [k6] kernel {dw_ms:.3f} ms "
+              f"({flops / dw_ms / 1e9:.2f} TFLOP/s), bound {w_ms:.3f} ms "
+              f"({w_by}, f32 CUDA-core peak); plain dx + dW {plain:.3f} ms; "
+              f"no single library call")
+        common = dict(shape=shape, plain_ms=plain, library_ms=None,
+                      pairs=pairs)
+        dx_rows.append(dict(common, max_abs_err=dx_err,
+                            ms=dx_ms, bound_ms=b_ms, bound_by=b_by,
+                            f32_core_bound_ms=f32_ms, k4_forward_ms=fwd_ms,
+                            k4_forward_err=fwd_err))
+        dw_rows.append(dict(common, max_abs_err=dw_err, ms=dw_ms,
+                            bound_ms=w_ms, bound_by=w_by))
+        del feats, gout, dx, dw, ref_dx, ref_dw, plan, pack, dpack
     torch.cuda.empty_cache()
     # launches made here to compare and time are no main-path launches
     return dx_rows, dw_rows
@@ -1708,33 +1760,71 @@ INT8_CONVS = 23     # int8 convs of one release UNet call (the port's rule)
 def k7_checks(kernels, dc):
     """K7 against ``conv3x3x3_int8_plain`` on the same int8 inputs (one
     prologue, so the integer sums are exact on both sides; each input
-    channel has its own range), gated at max-abs <= 8e-3 * max|ref| and
-    cosine >= 0.99999; timed beside the plain version, its bound (2*V*27*C*O
-    int8 operations at 1,979 TOP/s against the bytes), K3 on the same bf16
-    input and cuDNN's bf16 conv3d."""
+    channel has its own range), gated on bit-equality (every output equal),
+    and the cosine >= 0.99999 and max-abs <= 8e-3 * max|ref| gate besides;
+    timed beside the plain version, its bound (2*V*27*C*O int8 operations
+    at 1,979 TOP/s against the bytes), K3 on the same bf16 input and
+    cuDNN's bf16 conv3d. Then its quantize prologue's three kernels against
+    their plain versions (bit-equal) and against ``quantize_for_conv``
+    followed by ``pad_channels`` and ``pack_int8_weight``, from the f32
+    parameter, with a CFG pair whose halves have other ranges; each timed
+    beside its plain version and its bound (bytes). Returns the rows of K7
+    and of each prologue kernel."""
     g = torch.Generator(device="cuda").manual_seed(12)
     rows = []
+    pro = {"int8_conv_amax": [], "int8_conv_quantize_x": [],
+           "int8_conv_quantize_w": []}
     for n, C, O in K7_SHAPES:
-        x = (torch.randn((2, n, n, n, C), generator=g, device="cuda") *
-             torch.logspace(-1, 1, C, device="cuda")).to(torch.bfloat16)
-        w = (torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") /
-             math.sqrt(27 * C)).to(torch.bfloat16)
+        x = torch.randn((2, n, n, n, C), generator=g, device="cuda") * \
+            torch.logspace(-1, 1, C, device="cuda")
+        x[1] *= 4.0                     # the CFG pair's halves differ
+        x = x.to(torch.bfloat16)
+        wf = torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") / \
+            math.sqrt(27 * C)           # the f32 parameter
+        w = wf.to(torch.bfloat16)
         b = 0.1 * torch.randn(O, generator=g, device="cuda")
         x8, w8, sw = dc.quantize_for_conv(x, w)
         w8p = dc.pack_int8_weight(w8)
         got = kernels.conv3x3x3_int8(x8, w8p, sw, b)
+        again = kernels.conv3x3x3_int8(x8, w8p, sw, b)
         ref = dc.conv3x3x3_int8_plain(x8, w8, sw, b, torch.bfloat16)
         c = cos(got.float(), ref.float())
         err = (got.float() - ref.float()).abs().max().item()
         lim = 8e-3 * ref.abs().max().item()
         same = (got == ref).float().mean().item()
         shape = f"[2,{n},{n},{n},{C}]->{O}"
-        print(f"[k7] {shape}: cosine {c:.8f} max_abs_err {err:.3e} (limit "
-              f"{lim:.3e}), {100 * same:.4f} % of outputs equal")
+        splits = kernels.k7_splits(2, n, n, n, C, O,
+                                   torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+        print(f"[k7] {shape} ({splits} K slices): cosine {c:.8f} "
+              f"max_abs_err {err:.3e} (limit {lim:.3e}), {100 * same:.4f} % "
+              f"of outputs equal, two runs "
+              f"{'bit-identical' if torch.equal(got, again) else 'DIFFER'}")
         check(c >= 0.99999 and err <= lim, f"K7 at {shape}: cos {c} err {err}")
-        del got, ref
+        check(torch.equal(got, ref), f"K7 at {shape}: not bit-equal")
+        check(torch.equal(got, again), f"K7 at {shape}: two runs differ")
+        del got, again, ref
+        # the prologue: the card's kernels against their plain versions
+        amax = kernels.int8_conv_amax(x)
+        x8k = kernels.int8_conv_quantize_x(x, amax)
+        w8k, swk = kernels.int8_conv_quantize_w(wf, amax)
+        ref_amax = dc.int8_conv_amax_plain(x)
+        ok = (torch.equal(amax, ref_amax) and
+              torch.equal(x8k, dc.int8_conv_quantize_x_plain(x, ref_amax))
+              and all(torch.equal(a, b_) for a, b_ in zip(
+                  (w8k, swk), dc.int8_conv_quantize_w_plain(wf, ref_amax)))
+              and torch.equal(x8k, dc.pad_channels(x8, 32, -1))
+              and torch.equal(w8k, dc.pack_int8_weight(
+                  dc.pad_channels(w8, 32, 0, 1)))
+              and torch.equal(swk, dc.pad_channels(sw, 32, 1)))
+        print(f"[k7 prologue] {shape}: amax, x8, the weight pack and sw "
+              f"{'bit-equal' if ok else 'DIFFER'} to the plain prologue")
+        check(ok, f"K7 prologue at {shape} differs from the plain one")
+        del x8k, w8k, swk
         ms = cuda_ms(lambda: kernels.conv3x3x3_int8(x8, w8p, sw, b), 2, 5)
-        full_ms = cuda_ms(lambda: dc.conv3x3x3(x, w, b, quant=True), 2, 5)
+        with torch.no_grad():
+            full_ms = cuda_ms(lambda: dc.conv3x3x3(x, wf, b, quant=True), 2,
+                              5)
         plain = cuda_ms(lambda: dc.conv3x3x3_int8_plain(x8, w8, sw, b,
                                                         torch.bfloat16), 1, 1)
         wp = dc.pack_conv_weight(w)
@@ -1748,16 +1838,46 @@ def k7_checks(kernels, dc):
         ops = 2.0 * V * 27 * C * O
         b_ms, b_by = bound_ms([(ops, PEAK_INT8)],
                               V * C + 27 * C * O + 2 * V * O + 16 * O)
+        # the prologue's passes, each beside its plain version and its bytes
+        pro_ms = {
+            "int8_conv_amax": (
+                cuda_ms(lambda: kernels.int8_conv_amax(x), 2, 5),
+                cuda_ms(lambda: dc.int8_conv_amax_plain(x), 1, 3),
+                2 * V * C + 4 * C,
+                cuda_ms(lambda: torch.linalg.vector_norm(
+                    x, float("inf"), dim=(0, 1, 2, 3)), 1, 5)),
+            "int8_conv_quantize_x": (
+                cuda_ms(lambda: kernels.int8_conv_quantize_x(x, amax), 2, 5),
+                cuda_ms(lambda: dc.int8_conv_quantize_x_plain(x, ref_amax),
+                        1, 3),
+                2 * V * C + 4 * C + V * C, None),
+            "int8_conv_quantize_w": (
+                cuda_ms(lambda: kernels.int8_conv_quantize_w(wf, amax), 2, 5),
+                cuda_ms(lambda: dc.int8_conv_quantize_w_plain(wf, ref_amax),
+                        1, 3),
+                4 * 27 * C * O + 4 * C + 27 * C * O + 12 * O, None)}
+        for name, (k_ms, p_ms, nbytes, lib_ms) in pro_ms.items():
+            pb_ms, pb_by = bound_ms([], nbytes)
+            pro[name].append(dict(
+                shape=shape, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                bound_ms=pb_ms, bound_by=pb_by, library_ms=lib_ms))
         print(f"[k7] {shape}: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} "
-              f"TOP/s), with the quantize prologue {full_ms:.3f} ms, plain "
-              f"{plain:.2f} ms, bound {b_ms:.3f} ms ({b_by}); K3 {k3:.3f} ms,"
-              f" cudnn bf16 {lib:.3f} ms")
+              f"TOP/s, {100 * b_ms / ms:.1f} % of its bound), with the "
+              f"quantize prologue {full_ms:.3f} ms, plain {plain:.2f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}); K3 {k3:.3f} ms, cudnn bf16 "
+              f"{lib:.3f} ms; prologue "
+              + ", ".join(f"{k} {v[0]:.3f} ms (plain {v[1]:.3f}, bytes "
+                          f"bound {bound_ms([], v[2])[0]:.3f})"
+                          for k, v in pro_ms.items())
+              + f"; amax as torch.linalg.vector_norm "
+              f"{pro_ms['int8_conv_amax'][3]:.3f} ms")
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                         k3_ms=k3, with_prologue_ms=full_ms))
-        del x, w, x8, w8, w8p, wp, xl, wl
+                         k3_ms=k3, with_prologue_ms=full_ms, splits=splits,
+                         bit_equal=True))
+        del x, w, wf, x8, w8, w8p, wp, xl, wl, amax
     torch.cuda.empty_cache()
-    return rows
+    return rows, pro
 
 
 def k8_checks(kernels, fa):
@@ -1987,8 +2107,8 @@ def int8_time(diffusion, gen, mods):
 
 
 def int8_serving(kernels, dense_conv, fa):
-    """Phases 18-21. Returns the summary entries of K7 and K8 and the
-    launches of the new paths."""
+    """Phases 18-21. Returns the summary entries of K7, its three prologue
+    kernels and K8 and the launches of the new paths."""
     from infinicube_tpu_torch.inference import \
         voxel_generation_single_chunk as sc
     from infinicube_tpu_torch.inference.voxel_world_generation import (
@@ -2013,7 +2133,7 @@ def int8_serving(kernels, dense_conv, fa):
         print(f"[int8] phase {n} at {time.perf_counter() - t0:.1f} s")
     # ---- 18. kernel checks ------------------------------------------------
     phase(18)
-    k7_rows = k7_checks(kernels, dense_conv)
+    k7_rows, prologue_rows = k7_checks(kernels, dense_conv)
     k8_rows = k8_checks(kernels, fa)
     # ---- 19. model checks -------------------------------------------------
     phase(19)
@@ -2032,9 +2152,13 @@ def int8_serving(kernels, dense_conv, fa):
     phase("20, video")
     paths["wan_qkv"] = wan_qkv(kernels, WanPipelineConfig, WanVideoGenerator)
     phase("end")
+    prologue = {name: entry(name, "infinicube_tpu_torch/csrc/dense_conv.cu",
+                            "infinicube_tpu/ops/dense_conv.py:251", r, 0)
+                for name, r in prologue_rows.items()}
     return {"conv3x3x3_int8": entry(
                 "conv3x3x3_int8", "infinicube_tpu_torch/csrc/dense_conv.cu",
                 "infinicube_tpu/ops/dense_conv.py:136", k7_rows, 0),
+            **prologue,
             "flash_attn_int8qkv": entry(
                 "flash_attn_int8qkv",
                 "infinicube_tpu_torch/csrc/flash_attention.cu",

@@ -54,6 +54,53 @@
 // Blocks run with the N tile fastest, then the M tile, then the slice, so
 // that the blocks in flight share their A boxes and weight boxes in L2.
 //
+// conv3x3x3_int8 (K7) replaces the int8 branch of the same TPU kernel
+//   (`_pallas_conv` with `swx`, dense_conv.py:136-174), which serves the
+//   UNet's convs under `DiffusionConfig.serve_quant` where the reference's
+//   plan fits (23 of the 48 at release). x arrives as int8 with one scale
+//   per input channel folded into the int8 weights, which carry one f32
+//   scale per (dx, output channel), sw [3, O]:
+//   out[v, o] = bf16((((f32(S0) * sw[0,o]) + f32(S1) * sw[1,o])
+//                     + f32(S2) * sw[2,o]) + bias[o])
+//   where S_dx = sum_{dz, dy, c} x8 * w8 is exact in int32, every product
+//   and sum rounded once (no fused multiply-add), which equals the
+//   reference's (t1 + t0) + t2 bit for bit. C and O are multiples of 32
+//   (the caller zero-pads other widths).
+// What bounds it: the same 2 * 27 * C * O operations per voxel as K3 on the
+// int8 tensor cores (1,979 TOP/s on an H100 SXM), against (C + 2 * O) bytes.
+// Design: K7 is the int8 instantiation of K3's kernel (one pipeline): the
+// same 128-voxel patches, 5-D TMA boxes of x8 whose zero fill is the halo,
+// one 2-D box of the packed weights, the producer warp and mbarrier ring,
+// and wgmma m64nNk32 .s32.s8.s8 (8-bit wgmma has no transpose bit, so both
+// operands are K-major: x8's channels and the pack's k are contiguous). The
+// pack orders K dx-major, k = (dx*9 + dz*3 + dy)*C + c, so each dx group is
+// one contiguous third of K: at its end the consumers wait for their
+// products, convert the int32 sums, scale them by sw[dx] and add them into
+// an f32 running sum, and the next group's first products overwrite the
+// int32 sums (wgmma's scale-d 0, no thread writes them). Both sums live in
+// registers, so the N tile stays at 128 or below (BN/2 int32 and BN/2 f32
+// a thread: 128 registers at BN = 128) and no setmaxnreg is needed. ptxas
+// still serializes K7's wgmmas (C7515) while the conversion multiplies by
+// a scale (without that multiply it does not); the cause is not found. A
+// box row of 128 int8 channels is the 128-byte swizzle span, 64 and 32 the
+// 64- and 32-byte spans (the widest that pads C by at most an eighth).
+// Split K keeps the result
+// exact: slices never straddle a dx group, each writes its int32 sums, and
+// the reduce adds the slices of a group as integers (exact in any order),
+// then scales and adds the three groups and the bias as above.
+//
+// The quantize prologue (the reference's `_quantize_for_conv`,
+// dense_conv.py:251, XLA outside its pallas_call) runs in three kernels:
+// int8_conv_amax (one read of x: per-channel max |x| over the whole batch,
+// as an unsigned max on the bits of non-negative floats, exact in any
+// order), int8_conv_quantize_x (a second read of x: x8 = rint(x / sc) at
+// the width padded to 32) and int8_conv_quantize_w (the weights rounded to
+// bf16, folded with sc, their per-(dx, o) scales and the padded dx-major
+// pack). Each divides where the reference divides (IEEE division, never a
+// reciprocal) and rounds half to even, so x8, the pack and sw equal the
+// plain prologue's bit for bit. Bounded by bytes: two reads of x, one int8
+// write, the weights read twice.
+//
 // conv3x3x3_f32 is the same function in f32 (f32 input, weights packed
 // [O, 27*C] in f32, f32 output), for models that compute in f32 (the
 // reference's Conv3x3x3 serves every dtype): a simple implicit GEMM on the
@@ -62,32 +109,6 @@
 // pack and no bias, the input gradient. Bounded by the f32 CUDA-core rate
 // (67 TFLOP/s); built to be right, not fast.
 //
-// conv3x3x3_int8 (K7) replaces the int8 branch of the same TPU kernel
-//   (`_pallas_conv` with `swx`, dense_conv.py:136-174, fed by
-//   `_quantize_for_conv` :251), which serves the UNet's convs under
-//   `DiffusionConfig.serve_quant` where the reference's plan fits (23 of the
-//   48 at release). x arrives as int8 with one scale per input channel
-//   folded into the int8 weights, which carry one f32 scale per (dx, output
-//   channel), sw [3, O]:
-//   out[v, o] = bias[o] + sum_dx sw[dx, o] * f32(sum_{dz, dy, c} x8 * w8)
-//   with each dx group's sum exact in int32 and the three added as the
-//   reference does (t1 + t0, then + t2), then the bias, then bf16. C and O
-//   are multiples of 32 (the caller zero-pads other widths).
-//
-// What bounds it: the same 2 * 27 * C * O operations per voxel as K3 on the
-// int8 tensor cores (1,979 TOP/s on an H100 SXM), against (C + 2 * O) bytes.
-//
-// Design (a first, simple version): an implicit GEMM on int8 mma.sync
-// m16n8k32, 128-voxel x 64-channel tiles, 4 warps, a 3-stage cp.async ring.
-// The weights arrive packed [O, 27*C] int8 with k = (dx*9 + dz*3 + dy)*C + c,
-// so K runs one dx group after the other; a stage holds 64 channels (64
-// bytes a row), ldmatrix reads the byte tiles as b16 tiles (which is the s8
-// fragment layout) and mma.sync m16n8k32 s8 accumulates into int32
-// registers. At the end of each dx group the int32 sums are converted,
-// scaled by sw[dx, o] and added into f32 registers (rounded multiply and
-// add, no fused multiply-add, so the result equals the plain version's),
-// and the int32 registers restart at 0.
-//
 // The entry points return cudaGetLastError() (or cudaErrorInvalidValue for
 // what they do not take).
 
@@ -95,89 +116,61 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
 
-// ---- K7's tiles and helpers ------------------------------------------------
+// ---- K3 and K7 on wgmma and TMA ---------------------------------------------
 
-constexpr int kBM = 128;      // output voxels per block
-constexpr int kBN = 64;       // output channels per block
-constexpr int kStages = 3;
-constexpr int kThreads = 128;
+constexpr int kConvRows = 128;       // output voxels per tile
+constexpr int kConvThreads = 288;    // warpgroups 0, 1 consume, warp 8 produces
+constexpr int kConvRing = 196608;    // bytes of shared memory for the ring
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; copies zeros instead when !pred (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-
-// ---- K3 on wgmma and TMA ---------------------------------------------------
-
-constexpr int kK3Rows = 128;         // output voxels per tile
-constexpr int kK3Threads = 288;      // warpgroups 0, 1 consume, warp 8 produces
-constexpr int kK3Ring = 196608;      // bytes of shared memory for the ring
-
-// BN output channels by BKC input channels (one box row of BKC bf16 is the
-// swizzle span: 128, 64 or 32 bytes)
-template <int BN, int BKC>
-struct K3Tile {
-  static constexpr int kSpan = BKC * 2;
-  static constexpr int kStageA = kK3Rows * kSpan;
-  static constexpr int kStage = kStageA + BN * kSpan;
-  static constexpr int kStages = kK3Ring / kStage > 8 ? 8 : kK3Ring / kStage;
-  // ring, its full and empty barriers, and room to align the ring to 1 KB
-  static constexpr int kSmem = kStages * kStage + 2 * 8 * kStages + 1024;
+// BN output channels by one box row of SPAN bytes (the swizzle span: 128, 64
+// or 32), bf16 (K3) or int8 (K7) elements
+template <bool kInt8, int BN, int SPAN>
+struct ConvTile {
+  static constexpr int kBoxC = kInt8 ? SPAN : SPAN / 2;  // channels a box row
+  static constexpr int kStageA = kConvRows * SPAN;
+  static constexpr int kStage = kStageA + BN * SPAN;
+  static constexpr int kStages =
+      kConvRing / kStage > 8 ? 8 : kConvRing / kStage;
+  // ring, its full and empty barriers, K7's scales sw[3][BN] of the N tile,
+  // and room to align the ring to 1 KB
+  static constexpr int kSmem =
+      kStages * kStage + 2 * 8 * kStages + (kInt8 ? 12 * BN : 0) + 1024;
 };
 
-struct K3Args {
+struct ConvArgs {
   int D, H, W, C, O;
   int tw, th, td;          // the voxel patch of an M tile (tw*th*td = 128)
   int nx, ny, nz;          // patches along x, y, z
   int m_tiles, n_tiles;
   int kc;                  // channel boxes per tap
-  int iters, per_split;    // K iterations in all; per slice
+  int group, sg;           // K iterations of a group of slices; its slices
+  int per_split;           // K iterations per slice
+  int dx_iters;            // K7: K iterations of one dx group
   long long M;             // output voxels
-  const float* bias;       // f32 [O] or null
+  const float* bias;       // f32 [O] or null (K3's dgrad)
+  const float* sw;         // K7: f32 [3, O]
   __nv_bfloat16* out;      // bf16 [M, O] (one slice)
-  float* partial;          // f32 [splits, M, O] (several slices), else null
+  void* partial;           // [splits, M, O] f32 (K3) or int32 (K7), else null
 };
 
-template <int BN, int BKC>
-__global__ void __launch_bounds__(kK3Threads, 1)
+template <bool kInt8, int BN, int SPAN>
+__global__ void __launch_bounds__(kConvThreads, 1)
     conv3x3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                            const __grid_constant__ CUtensorMap tmw,
-                           const K3Args a) {
-  using T = K3Tile<BN, BKC>;
+                           const ConvArgs a) {
+  using T = ConvTile<kInt8, BN, SPAN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
   uint64_t* empty = full + T::kStages;
+  float* s_sw = reinterpret_cast<float*>(empty + T::kStages);  // K7
 
   int bid = blockIdx.x;
   const int nt = bid % a.n_tiles;
@@ -189,8 +182,11 @@ __global__ void __launch_bounds__(kK3Threads, 1)
   const int z0 = (mt / (a.nx * a.ny) % a.nz) * a.td;
   const int b = mt / (a.nx * a.ny * a.nz);
   const int n0 = nt * BN;
-  const int it0 = split * a.per_split;
-  const int it1 = min(a.iters, it0 + a.per_split);
+  // slices come in groups (K7: one per dx group); a slice never leaves its
+  // group
+  const int grp = split / a.sg;
+  const int it0 = grp * a.group + split % a.sg * a.per_split;
+  const int it1 = min(grp * a.group + a.group, it0 + a.per_split);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
@@ -198,6 +194,13 @@ __global__ void __launch_bounds__(kK3Threads, 1)
       hop::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
     hop::fence_barrier_init();
+  }
+  if constexpr (kInt8) {
+    // the tile's dequantization scales, staged once for the three dx groups
+    for (int i = threadIdx.x; i < 3 * BN; i += blockDim.x) {
+      const int n = n0 + i % BN;
+      s_sw[i] = n < a.O ? a.sw[(long long)(i / BN) * a.O + n] : 0.f;
+    }
   }
   __syncthreads();
 
@@ -211,9 +214,12 @@ __global__ void __launch_bounds__(kK3Threads, 1)
       uint32_t phase = 0;
       for (int it = it0; it < it1; ++it) {
         hop::mbar_wait(&empty[stage], phase ^ 1);
+        // the tap in packing order: K3 dz-major, K7 dx-major
         const int tap = it / a.kc;
-        const int c0 = (it % a.kc) * BKC;
-        const int dz = tap / 9, dy = tap / 3 % 3, dx = tap % 3;
+        const int c0 = (it % a.kc) * T::kBoxC;
+        const int dz = kInt8 ? tap / 3 % 3 : tap / 9;
+        const int dy = kInt8 ? tap % 3 : tap / 3 % 3;
+        const int dx = kInt8 ? tap / 9 : tap % 3;
         uint8_t* sa = ring + stage * T::kStage;
         hop::mbar_expect_tx(&full[stage], T::kStage);
         hop::tma_load_5d(sa, &tmx, &full[stage], c0, x0 + dx - 1,
@@ -228,38 +234,78 @@ __global__ void __launch_bounds__(kK3Threads, 1)
     }
   } else {
     // ---- consumers: 64 output voxels each, all BN channels ----
-    float acc[BN / 2];
+    using Acc = typename std::conditional<kInt8, int, float>::type;
+    Acc acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    constexpr int span = T::kSpan, sbo = 8 * T::kSpan;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    // K7: the f32 sum of the dequantized dx groups so far
+    float sum[kInt8 ? BN / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < (kInt8 ? BN / 2 : 1); ++i) sum[i] = 0.f;
+    constexpr int sbo = 8 * SPAN;
     const int lane = threadIdx.x % 32;
+    const int q = lane % 4;
+    // K7 without a split walks its three dx groups one after the other: the
+    // first products of a group overwrite the int32 sums (scale-d 0), and
+    // after its last the sums are converted outside the loop, so no thread
+    // writes an accumulator while wgmmas are in flight
+    const bool by_group = kInt8 && a.partial == nullptr;
     int stage = 0, prev = 0;
     uint32_t phase = 0;
-    for (int it = it0; it < it1; ++it) {
-      hop::mbar_wait(&full[stage], phase);
-      const uint8_t* sa = ring + stage * T::kStage + wg * 64 * span;
-      const uint8_t* sb = ring + stage * T::kStage + T::kStageA;
-      hop::fence_regs(acc);
-      hop::wgmma_fence();
+    for (int g0 = it0; g0 < it1;) {
+      const int g1 =
+          by_group ? min(it1, (g0 / a.dx_iters + 1) * a.dx_iters) : it1;
+      for (int it = g0; it < g1; ++it) {
+        hop::mbar_wait(&full[stage], phase);
+        const uint8_t* sa = ring + stage * T::kStage + wg * 64 * SPAN;
+        const uint8_t* sb = ring + stage * T::kStage + T::kStageA;
+        hop::fence_regs(acc);
+        hop::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BKC / 16; ++kk)  // a k16 step is 32 bytes
-        hop::Wgmma<BN>::ss(acc, hop::make_desc(sa + 32 * kk, span, 16, sbo),
-                           hop::make_desc(sb + 32 * kk, span, 16, sbo), 1);
-      hop::wgmma_commit();
-      hop::wgmma_wait<1>();  // the previous stage's products are done
-      hop::fence_regs(acc);
-      if (it > it0 && lane == 0) hop::mbar_arrive(&empty[prev]);
-      prev = stage;
-      if (++stage == T::kStages) {
-        stage = 0;
-        phase ^= 1;
+        for (int kk = 0; kk < SPAN / 32; ++kk) {  // a k step is 32 bytes
+          const uint64_t da = hop::make_desc(sa + 32 * kk, SPAN, 16, sbo);
+          const uint64_t db = hop::make_desc(sb + 32 * kk, SPAN, 16, sbo);
+          if constexpr (kInt8)
+            hop::WgmmaS8<BN>::ss(acc, da, db,
+                                 by_group && kk == 0 && it == g0 ? 0 : 1);
+          else
+            hop::Wgmma<BN>::ss(acc, da, db, 1);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();  // the previous stage's products are done
+        hop::fence_regs(acc);
+        if (it > it0 && lane == 0) hop::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == T::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
+      if constexpr (kInt8) {
+        if (by_group) {
+          // a dx group is complete: sum += f32(S) * sw[dx]
+          hop::wgmma_wait<0>();
+          hop::fence_regs(acc);
+          const float* s_dx = s_sw + (g0 / a.dx_iters) * BN;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const float s0 = s_dx[8 * j + 2 * q];
+            const float s1 = s_dx[8 * j + 2 * q + 1];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sum[4 * j + e] = __fadd_rn(
+                  sum[4 * j + e],
+                  __fmul_rn(__int2float_rn(acc[4 * j + e]), e % 2 ? s1 : s0));
+          }
+        }
+      }
+      g0 = g1;
     }
     hop::wgmma_wait<0>();
     hop::fence_regs(acc);
 
-    // ---- epilogue: bias and bf16, or the slice's f32 partials ----
-    const int w = threadIdx.x % 128 / 32, g = lane / 4, q = lane % 4;
+    // ---- epilogue: bias and bf16, or the slice's partial sums ----
+    const int w = threadIdx.x % 128 / 32, g = lane / 4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = wg * 64 + w * 16 + g + 8 * h;
@@ -271,11 +317,20 @@ __global__ void __launch_bounds__(kK3Threads, 1)
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 8 * j + 2 * q;
         if (n >= a.O) continue;
-        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        const Acc v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        const long long at = ((long long)split * a.M + m) * a.O + n;
         if (a.partial != nullptr) {
-          *reinterpret_cast<float2*>(
-              a.partial + ((long long)split * a.M + m) * a.O + n) =
-              make_float2(v0, v1);
+          if constexpr (kInt8)
+            *reinterpret_cast<int2*>(static_cast<int*>(a.partial) + at) =
+                make_int2(v0, v1);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(a.partial) + at) =
+                make_float2(v0, v1);
+        } else if constexpr (kInt8) {
+          *reinterpret_cast<__nv_bfloat162*>(a.out + m * a.O + n) =
+              __floats2bfloat162_rn(
+                  __fadd_rn(sum[4 * j + 2 * h], a.bias[n]),
+                  __fadd_rn(sum[4 * j + 2 * h + 1], a.bias[n + 1]));
         } else {
           const float b0 = a.bias ? a.bias[n] : 0.f;
           const float b1 = a.bias ? a.bias[n + 1] : 0.f;
@@ -287,7 +342,7 @@ __global__ void __launch_bounds__(kK3Threads, 1)
   }
 }
 
-// out = bf16(((p[0] + p[1]) + ...) + bias), four outputs a thread.
+// K3: out = bf16(((p[0] + p[1]) + ...) + bias), four outputs a thread.
 __global__ void conv3x3x3_splitk_reduce(const float* __restrict__ partial,
                                         const float* __restrict__ bias,
                                         __nv_bfloat16* __restrict__ out,
@@ -318,28 +373,105 @@ __global__ void conv3x3x3_splitk_reduce(const float* __restrict__ partial,
   *reinterpret_cast<uint2*>(out + i) = v;
 }
 
+// K7: S_dx = the int32 sum of dx group's `sg` slices (exact in any order),
+// then out = bf16((((f32(S0) * sw0) + f32(S1) * sw1) + f32(S2) * sw2) +
+// bias), every operation rounded once; four outputs a thread.
+__global__ void conv3x3x3_int8_splitk_reduce(const int* __restrict__ partial,
+                                             const float* __restrict__ sw,
+                                             const float* __restrict__ bias,
+                                             __nv_bfloat16* __restrict__ out,
+                                             long long MO, int O, int sg) {
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= MO) return;
+  const int n = static_cast<int>(i % O);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int dx = 0; dx < 3; ++dx) {
+    int4 s = *reinterpret_cast<const int4*>(partial + dx * sg * MO + i);
+    for (int k = 1; k < sg; ++k) {
+      const int4 p =
+          *reinterpret_cast<const int4*>(partial + (dx * sg + k) * MO + i);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    const int si[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      t[e] = __fadd_rn(t[e],
+                       __fmul_rn(__int2float_rn(si[e]), sw[dx * O + n + e]));
+  }
+  __nv_bfloat162 lo = __floats2bfloat162_rn(__fadd_rn(t[0], bias[n]),
+                                            __fadd_rn(t[1], bias[n + 1]));
+  __nv_bfloat162 hi = __floats2bfloat162_rn(__fadd_rn(t[2], bias[n + 2]),
+                                            __fadd_rn(t[3], bias[n + 3]));
+  uint2 v;
+  v.x = *reinterpret_cast<uint32_t*>(&lo);
+  v.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out + i) = v;
+}
+
 int pow2_at_least(int v, int cap) {
   int p = 1;
   while (p < v && p < cap) p *= 2;
   return p;
 }
 
-// The tiling of one K3 call: the voxel patch, the N tile, the channel box
-// and the number of K slices (1 unless the tiles fall short of `sms`).
-struct K3Plan {
-  int tw, th, td, nx, ny, nz, m_tiles, bn, n_tiles, bkc, kc, iters, splits,
-      per_split;
+// The tiling of one K3 or K7 call: the voxel patch, the N tile, the box row
+// (span, bytes), the K iterations and how they are split into slices (1
+// unless the tiles fall short of `sms`).
+struct ConvPlan {
+  int tw, th, td, nx, ny, nz, m_tiles, bn, n_tiles, span, kc, iters, group,
+      sg, splits, per_split;
 };
 
-K3Plan k3_plan(int B, int D, int H, int W, int C, int O, int sms) {
-  K3Plan p;
+void plan_patch(ConvPlan& p, int B, int D, int H, int W) {
   p.tw = pow2_at_least(W, 16);
-  p.th = pow2_at_least(H, kK3Rows / p.tw);
-  p.td = kK3Rows / (p.tw * p.th);
+  p.th = pow2_at_least(H, kConvRows / p.tw);
+  p.td = kConvRows / (p.tw * p.th);
   p.nx = (W + p.tw - 1) / p.tw;
   p.ny = (H + p.th - 1) / p.th;
   p.nz = (D + p.td - 1) / p.td;
   p.m_tiles = B * p.nx * p.ny * p.nz;
+}
+
+// The share of the last wave's SMs kept busy by `tiles` x `s` blocks.
+double wave_fill(long long tiles, int s, int sms) {
+  const long long blocks = tiles * s;
+  return static_cast<double>(blocks) /
+         (static_cast<double>((blocks + sms - 1) / sms) * sms);
+}
+
+// The number of slices among `cands` (ascending, cands[0] == 1) for
+// `tiles` output tiles: where they fall short of the SMs, the fewest that
+// fill 90 % of whole waves, else the fullest; where they make a few waves
+// with a ragged last one, the next candidate if it fills them markedly
+// better (up to 3 slices).
+int choose_splits(long long tiles, int sms, const int* cands, int n) {
+  int splits = 1;
+  if (sms > 0 && tiles < sms) {
+    double best = 0.0;
+    for (int i = 0; i < n; ++i) {
+      const double f = wave_fill(tiles, cands[i], sms);
+      if (f > best + 1e-9) {
+        best = f;
+        splits = cands[i];
+      }
+      if (best >= 0.9) break;
+    }
+  } else if (sms > 0 && tiles < 4 * sms) {
+    for (int i = 1; i < n && cands[i] <= 3; ++i)
+      if (wave_fill(tiles, cands[i], sms) >=
+          wave_fill(tiles, splits, sms) + 0.15)
+        splits = cands[i];
+  }
+  return splits;
+}
+
+ConvPlan k3_plan(int B, int D, int H, int W, int C, int O, int sms) {
+  ConvPlan p;
+  plan_patch(p, B, D, H, W);
   if (O <= 256) {
     p.bn = O <= 16 ? 16 : O <= 32 ? 32 : O <= 64 ? 64 : O <= 128 ? 128
            : O <= 192 ? 192 : 256;
@@ -356,62 +488,140 @@ K3Plan k3_plan(int B, int D, int H, int W, int C, int O, int sms) {
     }
   }
   p.n_tiles = (O + p.bn - 1) / p.bn;
-  p.bkc = C <= 16 ? 16 : C <= 32 ? 32 : 64;
-  p.kc = (C + p.bkc - 1) / p.bkc;
+  const int bkc = C <= 16 ? 16 : C <= 32 ? 32 : 64;
+  p.span = 2 * bkc;
+  p.kc = (C + bkc - 1) / bkc;
   p.iters = 27 * p.kc;
-  p.splits = 1;
-  const long long tiles = (long long)p.m_tiles * p.n_tiles;
-  auto fill = [&](int s) {  // the share of the last wave's SMs kept busy
-    const long long blocks = tiles * s;
-    return static_cast<double>(blocks) /
-           (static_cast<double>((blocks + sms - 1) / sms) * sms);
-  };
-  if (sms > 0 && tiles < sms) {
-    // the fewest slices that fill 90 % of whole waves, else the fullest
-    double best = 0.0;
-    for (int s = 1; s <= 16 && s <= p.iters / 8; ++s) {
-      if (fill(s) > best + 1e-9) {
-        best = fill(s);
-        p.splits = s;
-      }
-      if (best >= 0.9) break;
-    }
-  } else if (sms > 0 && tiles < 4 * sms) {
-    // a few waves with a ragged last one: 2 or 3 slices where they fill
-    // the waves markedly better
-    for (int s = 2; s <= 3 && s <= p.iters / 8; ++s)
-      if (fill(s) >= fill(p.splits) + 0.15) p.splits = s;
-  }
-  p.per_split = (p.iters + p.splits - 1) / p.splits;
+  int cands[16];
+  int n = 0;
+  for (int s = 1; s <= 16 && s <= p.iters / 8; ++s) cands[n++] = s;
+  if (n == 0) cands[n++] = 1;
+  const int s = choose_splits((long long)p.m_tiles * p.n_tiles, sms, cands, n);
+  p.per_split = (p.iters + s - 1) / s;
   p.splits = (p.iters + p.per_split - 1) / p.per_split;  // none left empty
+  p.group = p.iters;
+  p.sg = p.splits;
   return p;
 }
 
-template <int BN, int BKC>
-cudaError_t launch_k3(const CUtensorMap& tmx, const CUtensorMap& tmw,
-                      const K3Args& args, unsigned blocks,
-                      cudaStream_t stream) {
-  using T = K3Tile<BN, BKC>;
-  static cudaError_t attr =
-      hop_host::allow_smem(conv3x3x3_wgmma_kernel<BN, BKC>, T::kSmem);
+ConvPlan k7_plan(int B, int D, int H, int W, int C, int O, int sms) {
+  ConvPlan p;
+  plan_patch(p, B, D, H, W);
+  // the N tile (<= 128: the int32 and the f32 sums share the registers)
+  // that costs least, counting an A tile's reload as 32 more channels
+  p.bn = 128;
+  int best = 1 << 30;
+  const int cands_n[4] = {128, 96, 64, 32};
+  for (int bn : cands_n) {
+    const int cost = (O + bn - 1) / bn * (bn + 32);
+    if (cost < best) {
+      best = cost;
+      p.bn = bn;
+    }
+  }
+  p.n_tiles = (O + p.bn - 1) / p.bn;
+  // the widest box row (int8: bytes = channels) that pads C by at most an
+  // eighth: the padded channels read zeros from TMA and cost products
+  p.span = 32;
+  for (int span : {128, 64})
+    if ((C + span - 1) / span * span - C <= C / 8) {
+      p.span = span;
+      break;
+    }
+  p.kc = (C + p.span - 1) / p.span;
+  p.iters = 27 * p.kc;
+  const int dx_iters = 9 * p.kc;
+  // 1 slice, or 3 x sg: sg slices in each dx group
+  int cands[17];
+  int n = 0;
+  cands[n++] = 1;
+  for (int sg = 1; sg <= 16 && sg <= dx_iters / 8; ++sg) cands[n++] = 3 * sg;
+  const int s = choose_splits((long long)p.m_tiles * p.n_tiles, sms, cands, n);
+  if (s == 1) {
+    p.group = p.iters;
+    p.sg = 1;
+    p.per_split = p.iters;
+    p.splits = 1;
+  } else {
+    p.group = dx_iters;
+    p.per_split = (dx_iters + s / 3 - 1) / (s / 3);
+    p.sg = (dx_iters + p.per_split - 1) / p.per_split;  // none left empty
+    p.splits = 3 * p.sg;
+  }
+  return p;
+}
+
+template <bool kInt8, int BN, int SPAN>
+cudaError_t launch_conv(const CUtensorMap& tmx, const CUtensorMap& tmw,
+                        const ConvArgs& args, unsigned blocks,
+                        cudaStream_t stream) {
+  using T = ConvTile<kInt8, BN, SPAN>;
+  static cudaError_t attr = hop_host::allow_smem(
+      conv3x3x3_wgmma_kernel<kInt8, BN, SPAN>, T::kSmem);
   if (attr != cudaSuccess) return attr;
-  conv3x3x3_wgmma_kernel<BN, BKC>
-      <<<blocks, kK3Threads, T::kSmem, stream>>>(tmx, tmw, args);
+  conv3x3x3_wgmma_kernel<kInt8, BN, SPAN>
+      <<<blocks, kConvThreads, T::kSmem, stream>>>(tmx, tmw, args);
   return cudaGetLastError();
 }
 
-template <int BKC>
+template <int SPAN>
 cudaError_t launch_k3_bn(int bn, const CUtensorMap& tmx,
-                         const CUtensorMap& tmw, const K3Args& args,
+                         const CUtensorMap& tmw, const ConvArgs& args,
                          unsigned blocks, cudaStream_t stream) {
   switch (bn) {
-    case 16: return launch_k3<16, BKC>(tmx, tmw, args, blocks, stream);
-    case 32: return launch_k3<32, BKC>(tmx, tmw, args, blocks, stream);
-    case 64: return launch_k3<64, BKC>(tmx, tmw, args, blocks, stream);
-    case 128: return launch_k3<128, BKC>(tmx, tmw, args, blocks, stream);
-    case 192: return launch_k3<192, BKC>(tmx, tmw, args, blocks, stream);
-    default: return launch_k3<256, BKC>(tmx, tmw, args, blocks, stream);
+    case 16: return launch_conv<false, 16, SPAN>(tmx, tmw, args, blocks, stream);
+    case 32: return launch_conv<false, 32, SPAN>(tmx, tmw, args, blocks, stream);
+    case 64: return launch_conv<false, 64, SPAN>(tmx, tmw, args, blocks, stream);
+    case 128: return launch_conv<false, 128, SPAN>(tmx, tmw, args, blocks, stream);
+    case 192: return launch_conv<false, 192, SPAN>(tmx, tmw, args, blocks, stream);
+    default: return launch_conv<false, 256, SPAN>(tmx, tmw, args, blocks, stream);
   }
+}
+
+template <int SPAN>
+cudaError_t launch_k7_bn(int bn, const CUtensorMap& tmx,
+                         const CUtensorMap& tmw, const ConvArgs& args,
+                         unsigned blocks, cudaStream_t stream) {
+  switch (bn) {
+    case 32: return launch_conv<true, 32, SPAN>(tmx, tmw, args, blocks, stream);
+    case 64: return launch_conv<true, 64, SPAN>(tmx, tmw, args, blocks, stream);
+    case 96: return launch_conv<true, 96, SPAN>(tmx, tmw, args, blocks, stream);
+    default: return launch_conv<true, 128, SPAN>(tmx, tmw, args, blocks, stream);
+  }
+}
+
+// The arguments and tensor maps of one K3 (elem 2 bytes, bf16) or K7 (elem
+// 1, int8 mapped as UINT8) call under plan p.
+bool conv_setup(const ConvPlan& p, const void* x, const void* w, int elem,
+                int B, int D, int H, int W, int C, int O, CUtensorMap* tmx,
+                CUtensorMap* tmw, ConvArgs* a) {
+  const CUtensorMapDataType type = elem == 1
+                                       ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t e = elem;
+  const uint64_t xd[5] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)D,
+                          (uint64_t)B};
+  const uint64_t xs[4] = {(uint64_t)C * e, (uint64_t)W * C * e,
+                          (uint64_t)H * W * C * e,
+                          (uint64_t)D * H * W * C * e};
+  const uint32_t boxc = static_cast<uint32_t>(p.span / elem);
+  const uint32_t xb[5] = {boxc, (uint32_t)p.tw, (uint32_t)p.th,
+                          (uint32_t)p.td, 1};
+  const uint64_t wd[2] = {(uint64_t)27 * C, (uint64_t)O};
+  const uint64_t ws[1] = {(uint64_t)27 * C * e};
+  const uint32_t wb[2] = {boxc, (uint32_t)p.bn};
+  if (!hop_host::make_map(tmx, x, 5, xd, xs, xb, p.span, type) ||
+      !hop_host::make_map(tmw, w, 2, wd, ws, wb, p.span, type))
+    return false;
+  a->D = D; a->H = H; a->W = W; a->C = C; a->O = O;
+  a->tw = p.tw; a->th = p.th; a->td = p.td;
+  a->nx = p.nx; a->ny = p.ny; a->nz = p.nz;
+  a->m_tiles = p.m_tiles; a->n_tiles = p.n_tiles;
+  a->kc = p.kc;
+  a->group = p.group; a->sg = p.sg; a->per_split = p.per_split;
+  a->dx_iters = 9 * p.kc;
+  a->M = (long long)B * D * H * W;
+  return true;
 }
 
 // One K3 call: `partial` null and splits 1, or f32 [splits, M, O] scratch.
@@ -423,42 +633,24 @@ int run_k3(const void* x, const void* w, const void* bias, void* out,
       reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 || (splits > 1) != (partial != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  K3Plan p = k3_plan(B, D, H, W, C, O, sms);
+  const ConvPlan p = k3_plan(B, D, H, W, C, O, sms);
   if (p.splits != splits) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (long long)p.m_tiles * p.n_tiles * p.splits;
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-
   CUtensorMap tmx, tmw;
-  const uint64_t xd[5] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)D,
-                          (uint64_t)B};
-  const uint64_t xs[4] = {(uint64_t)C * 2, (uint64_t)W * C * 2,
-                          (uint64_t)H * W * C * 2,
-                          (uint64_t)D * H * W * C * 2};
-  const uint32_t xb[5] = {(uint32_t)p.bkc, (uint32_t)p.tw, (uint32_t)p.th,
-                          (uint32_t)p.td, 1};
-  const uint64_t wd[2] = {(uint64_t)27 * C, (uint64_t)O};
-  const uint64_t ws[1] = {(uint64_t)27 * C * 2};
-  const uint32_t wb[2] = {(uint32_t)p.bkc, (uint32_t)p.bn};
-  if (!hop_host::make_map(&tmx, x, 5, xd, xs, xb, p.bkc * 2) ||
-      !hop_host::make_map(&tmw, w, 2, wd, ws, wb, p.bkc * 2))
+  ConvArgs a;
+  if (!conv_setup(p, x, w, 2, B, D, H, W, C, O, &tmx, &tmw, &a))
     return static_cast<int>(cudaErrorInvalidValue);
-
-  K3Args a;
-  a.D = D; a.H = H; a.W = W; a.C = C; a.O = O;
-  a.tw = p.tw; a.th = p.th; a.td = p.td;
-  a.nx = p.nx; a.ny = p.ny; a.nz = p.nz;
-  a.m_tiles = p.m_tiles; a.n_tiles = p.n_tiles;
-  a.kc = p.kc; a.iters = p.iters; a.per_split = p.per_split;
-  a.M = M;
   a.bias = static_cast<const float*>(bias);
+  a.sw = nullptr;
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.partial = static_cast<float*>(partial);
+  a.partial = partial;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned nb = static_cast<unsigned>(blocks);
   const cudaError_t e =
-      p.bkc == 64   ? launch_k3_bn<64>(p.bn, tmx, tmw, a, nb, st)
-      : p.bkc == 32 ? launch_k3_bn<32>(p.bn, tmx, tmw, a, nb, st)
-                    : launch_k3_bn<16>(p.bn, tmx, tmw, a, nb, st);
+      p.span == 128  ? launch_k3_bn<128>(p.bn, tmx, tmw, a, nb, st)
+      : p.span == 64 ? launch_k3_bn<64>(p.bn, tmx, tmw, a, nb, st)
+                     : launch_k3_bn<32>(p.bn, tmx, tmw, a, nb, st);
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const long long MO = M * O;
   const long long threads = MO / 4;
@@ -467,6 +659,198 @@ int run_k3(const void* x, const void* w, const void* bias, void* out,
       static_cast<const float*>(partial), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), MO, O, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One K7 call: `partial` null and splits 1, or int32 [splits, M, O] scratch.
+int run_k7(const void* x8, const void* w8, const void* sw, const void* bias,
+           void* out, void* partial, int splits, int B, int D, int H, int W,
+           int C, int O, int sms, void* stream) {
+  const long long M = (long long)B * D * H * W;
+  if (M <= 0 || M >= (1LL << 31) || C <= 0 || O <= 0 || C % 32 || O % 32 ||
+      sw == nullptr || bias == nullptr ||
+      reinterpret_cast<uintptr_t>(x8) % 16 ||
+      reinterpret_cast<uintptr_t>(w8) % 16 ||
+      (splits > 1) != (partial != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvPlan p = k7_plan(B, D, H, W, C, O, sms);
+  if (p.splits != splits) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (long long)p.m_tiles * p.n_tiles * p.splits;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmx, tmw;
+  ConvArgs a;
+  if (!conv_setup(p, x8, w8, 1, B, D, H, W, C, O, &tmx, &tmw, &a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.bias = static_cast<const float*>(bias);
+  a.sw = static_cast<const float*>(sw);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.partial = partial;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaError_t e =
+      p.span == 128  ? launch_k7_bn<128>(p.bn, tmx, tmw, a, nb, st)
+      : p.span == 64 ? launch_k7_bn<64>(p.bn, tmx, tmw, a, nb, st)
+                     : launch_k7_bn<32>(p.bn, tmx, tmw, a, nb, st);
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const long long MO = M * O;
+  const long long threads = MO / 4;
+  conv3x3x3_int8_splitk_reduce<<<static_cast<unsigned>((threads + 255) / 256),
+                                 256, 0, st>>>(
+      static_cast<const int*>(partial), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), MO,
+      O, p.sg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K7's quantize prologue -------------------------------------------------
+
+// max(a, 1e-8) / 127 as the reference computes a scale (clamp_min keeps a
+// NaN), from the bits of a non-negative float
+__device__ __forceinline__ float int8_scale(unsigned amax_bits) {
+  const float a = __uint_as_float(amax_bits);
+  return __fdiv_rn(a < 1e-8f ? 1e-8f : a, 127.0f);
+}
+
+__device__ __forceinline__ int8_t quantize(float v, float scale) {
+  return static_cast<int8_t>(static_cast<int>(rintf(__fdiv_rn(v, scale))));
+}
+
+// amax[c] |= max over all rows of |x[:, c]| (as bits: for non-negative
+// floats the unsigned order is the float order, and a NaN wins as in the
+// reference's amax). Blocks of 32 x 8 threads: a thread owns 8 channels
+// (one 16-byte load a row) and every gridDim.y * 8-th row.
+__global__ void __launch_bounds__(256)
+    int8_conv_amax_kernel(const __nv_bfloat16* __restrict__ x,
+                          unsigned* __restrict__ amax, long long M, int C) {
+  __shared__ unsigned red[8][32][9];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int v = blockIdx.x * 32 + tx;
+  unsigned m[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (v * 8 < C) {
+    for (long long r = (long long)blockIdx.y * 8 + ty; r < M;
+         r += (long long)gridDim.y * 8) {
+      const uint4 qv = *reinterpret_cast<const uint4*>(x + r * C + v * 8);
+      const uint32_t q4[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // bf16 -> f32 bits, sign cleared
+        m[2 * i] = max(m[2 * i], (q4[i] << 16) & 0x7fffffffu);
+        m[2 * i + 1] = max(m[2 * i + 1], q4[i] & 0x7fff0000u);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) red[ty][tx][i] = m[i];
+  __syncthreads();
+  if (ty == 0 && v * 8 < C) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      unsigned mm = red[0][tx][i];
+      for (int k = 1; k < 8; ++k) mm = max(mm, red[k][tx][i]);
+      atomicMax(&amax[v * 8 + i], mm);
+    }
+  }
+}
+
+// x8 [M, Cp] = rint(x / sc[c]) for c < C, 0 for the padded channels; eight
+// channels (one 16-byte load, one 8-byte store) a thread.
+__global__ void __launch_bounds__(256)
+    int8_conv_quantize_x_kernel(const __nv_bfloat16* __restrict__ x,
+                                const unsigned* __restrict__ amax,
+                                int8_t* __restrict__ x8, long long M, int C,
+                                int Cp) {
+  extern __shared__ float sc[];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) sc[c] = int8_scale(amax[c]);
+  __syncthreads();
+  const int vpr = Cp / 8;
+  const long long total = M * vpr;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / vpr;
+    const int c = static_cast<int>(i % vpr) * 8;
+    uint32_t lo = 0, hi = 0;
+    if (c < C) {
+      const uint4 qv = *reinterpret_cast<const uint4*>(x + r * C + c);
+      const uint32_t q4[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t bits = k % 2 ? q4[k / 2] & 0xffff0000u : q4[k / 2] << 16;
+        const uint32_t b = static_cast<uint8_t>(
+            quantize(__uint_as_float(bits), sc[c + k]));
+        if (k < 4)
+          lo |= b << (8 * k);
+        else
+          hi |= b << (8 * (k - 4));
+      }
+    }
+    *reinterpret_cast<uint2*>(x8 + r * Cp + c) = make_uint2(lo, hi);
+  }
+}
+
+__device__ __forceinline__ float bf16_value(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float bf16_value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One block a padded output channel o: the weights w[o] (f32 rounded to
+// bf16 here, or bf16) folded with sc, sw[dx, o] = max(amax over (c, dz, dy)
+// of |wf|, 1e-8) / 127, and w8[o] = rint(wf / sw) in the padded dx-major
+// pack, k = (dx*9 + dz*3 + dy)*Cp + c; zeros (and sw 0) past C and O.
+template <typename TW>
+__global__ void __launch_bounds__(256)
+    int8_conv_quantize_w_kernel(const TW* __restrict__ w,
+                                const unsigned* __restrict__ amax,
+                                int8_t* __restrict__ w8,
+                                float* __restrict__ sw, int C, int O, int Cp,
+                                int Op) {
+  extern __shared__ float sc[];
+  __shared__ unsigned red[3][8];
+  __shared__ float s_sw[3];
+  const int o = blockIdx.x, tid = threadIdx.x;
+  const long long K = 27LL * Cp;
+  int8_t* row = w8 + o * K;
+  if (o >= O) {
+    for (long long k = tid; k < K; k += blockDim.x) row[k] = 0;
+    if (tid < 3) sw[tid * Op + o] = 0.f;
+    return;
+  }
+  for (int c = tid; c < C; c += blockDim.x) sc[c] = int8_scale(amax[c]);
+  __syncthreads();
+  const TW* wr = w + (long long)o * 27 * C;  // [C, dz, dy, dx]
+  unsigned m[3] = {0, 0, 0};
+  for (int i = tid; i < 27 * C; i += blockDim.x) {
+    const float f = __fmul_rn(bf16_value(wr[i]), sc[i / 27]);
+    const int dx = i % 3;
+    m[dx] = max(m[dx], __float_as_uint(f) & 0x7fffffffu);
+  }
+  const int lane = tid % 32, warp = tid / 32;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    unsigned v = m[dx];
+    for (int off = 16; off > 0; off /= 2)
+      v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (lane == 0) red[dx][warp] = v;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    unsigned v = red[tid][0];
+    for (int k = 1; k < 8; ++k) v = max(v, red[tid][k]);
+    s_sw[tid] = int8_scale(v);
+    sw[tid * Op + o] = s_sw[tid];
+  }
+  __syncthreads();
+  for (long long k = tid; k < K; k += blockDim.x) {
+    const int tp = static_cast<int>(k / Cp), c = static_cast<int>(k % Cp);
+    int8_t qv = 0;
+    if (c < C) {
+      const int dx = tp / 9, dz = tp / 3 % 3, dy = tp % 3;
+      const float f =
+          __fmul_rn(bf16_value(wr[c * 27 + dz * 9 + dy * 3 + dx]), sc[c]);
+      qv = quantize(f, s_sw[dx]);
+    }
+    row[k] = qv;
+  }
 }
 
 // ---- conv3x3x3_f32: the f32 conv on the CUDA cores --------------------------
@@ -547,173 +931,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kBK8 = 64;        // int8 input channels per pipeline stage
-constexpr int kLd8 = kBK8 + 16;  // byte row pitch in shared memory (80)
-
-__global__ void __launch_bounds__(kThreads)
-    conv3x3x3_int8_kernel(const int8_t* __restrict__ x,
-                          const int8_t* __restrict__ w,
-                          const float* __restrict__ sw,
-                          const float* __restrict__ bias,
-                          __nv_bfloat16* __restrict__ out, int D, int H,
-                          int W, int C, int O, int M) {
-  __shared__ __align__(128) int8_t sA[kStages][kBM * kLd8];
-  __shared__ __align__(128) int8_t sB[kStages][kBN * kLd8];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int n_tiles = (O + kBN - 1) / kBN;
-  const int m0 = (blockIdx.x / n_tiles) * kBM;
-  const int n0 = (blockIdx.x % n_tiles) * kBN;
-  const int cv = (tid % 4) * 16;  // this thread's 16-channel column
-
-  int rb[4], rz[4], ry[4], rx[4];
-  bool rok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int m = m0 + tid / 4 + 32 * j;
-    rok[j] = m < M;
-    const int mm = rok[j] ? m : 0;
-    rx[j] = mm % W;
-    ry[j] = (mm / W) % H;
-    rz[j] = (mm / (W * H)) % D;
-    rb[j] = mm / (W * H * D);
-  }
-
-  const int kc = (C + kBK8 - 1) / kBK8;
-  const int group = 9 * kc;  // iterations of one dx group
-  const int iters = 3 * group;
-  const long long wrow = 27LL * C;
-
-  // tap index in packing order: tp = dx*9 + dz*3 + dy
-  auto load_stage = [&](int stage, int it) {
-    const int tp = it / kc;
-    const int c = (it % kc) * kBK8 + cv;
-    const int dx = tp / 9 - 1, dz = (tp / 3) % 3 - 1, dy = tp % 3 - 1;
-    const bool cok = c < C;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int z = rz[j] + dz, y = ry[j] + dy, xx = rx[j] + dx;
-      const bool ok = cok && rok[j] && z >= 0 && z < D && y >= 0 && y < H &&
-                      xx >= 0 && xx < W;
-      const int8_t* src =
-          ok ? x + ((((long long)rb[j] * D + z) * H + y) * W + xx) * C + c
-             : x;
-      cp_async16(&sA[stage][(tid / 4 + 32 * j) * kLd8 + cv], src, ok);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = tid / 4 + 32 * j;
-      const bool ok = cok && n0 + n < O;
-      const int8_t* src =
-          ok ? w + (long long)(n0 + n) * wrow + (long long)tp * C + c : w;
-      cp_async16(&sB[stage][n * kLd8 + cv], src, ok);
-    }
-  };
-
-  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
-  const int g = lane / 4, t = lane % 4;
-  int acc[4][4][4];
-  float accf[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        accf[i][j][e] = 0.f;
-      }
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < iters) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < iters; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = it + kStages - 1;
-    if (nxt < iters) load_stage(nxt % kStages, nxt);
-    cp_async_commit();
-
-    const int8_t* a_s = sA[it % kStages];
-    const int8_t* b_s = sB[it % kStages];
-#pragma unroll
-    for (int kk = 0; kk < kBK8; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], a_s + (wm + mi * 16 + lane % 16) * kLd8 + kk +
-                                (lane / 16) * 16);
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (wn + nj * 8 + lane % 8 + (lane / 16) * 8) *
-                                 kLd8 +
-                           kk + ((lane / 8) % 2) * 16);
-        bf[nj][0] = r[0];
-        bf[nj][1] = r[1];
-        bf[nj + 1][0] = r[2];
-        bf[nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          mma_s8(acc[mi][nj], af[mi], bf[nj][0], bf[nj][1]);
-    }
-
-    if ((it + 1) % group == 0) {  // a dx group is complete: dequantize it
-      const float* s_dx = sw + (long long)(it / group) * O;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int n = n0 + wn + nj * 8 + 2 * t;
-        const float s0 = n < O ? s_dx[n] : 0.f;
-        const float s1 = n < O ? s_dx[n + 1] : 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            accf[mi][nj][e] = __fadd_rn(
-                accf[mi][nj][e],
-                __fmul_rn(__int2float_rn(acc[mi][nj][e]), e % 2 ? s1 : s0));
-            acc[mi][nj][e] = 0;
-          }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj) {
-    const int n = n0 + wn + nj * 8 + 2 * t;
-    if (n >= O) continue;
-    const float b0 = bias[n], b1 = bias[n + 1];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + mi * 16 + g + 8 * h;
-        if (m >= M) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)m * O + n) =
-            __floats2bfloat162_rn(__fadd_rn(accf[mi][nj][2 * h], b0),
-                                  __fadd_rn(accf[mi][nj][2 * h + 1], b1));
-      }
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -749,20 +966,82 @@ int conv3x3x3_f32(const void* x, const void* w, const void* bias, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The number of K slices K7 takes on a card with `sms` SMs (1, or a
+// multiple of 3: the same number in each dx group).
+int conv3x3x3_int8_splits(int B, int D, int H, int W, int C, int O, int sms) {
+  return k7_plan(B, D, H, W, C, O, sms).splits;
+}
+
+// K7: x8 int8 [B, D, H, W, C], w8 the dx-major int8 pack [O, 27*C], sw f32
+// [3, O], bias f32 [O], out bf16 [B, D, H, W, O]; `partial` null with one
+// slice, else int32 [splits, B*D*H*W, O] scratch and the exact reduce
+// follows.
 int conv3x3x3_int8(const void* x8, const void* w8, const void* sw,
-                   const void* bias, void* out, int B, int D, int H, int W,
-                   int C, int O, void* stream) {
-  const long long M = (long long)B * D * H * W;
-  const long long blocks = (M + kBM - 1) / kBM * ((O + kBN - 1) / kBN);
-  if (M <= 0 || M >= (1LL << 31) || blocks >= (1LL << 31) || C % 32 ||
-      O % 32 || sw == nullptr || bias == nullptr)
+                   const void* bias, void* out, void* partial, int splits,
+                   int B, int D, int H, int W, int C, int O, int sms,
+                   void* stream) {
+  return run_k7(x8, w8, sw, bias, out, partial, splits, B, D, H, W, C, O,
+                sms, stream);
+}
+
+// amax (uint32 [C], the bits of f32) = max |x| per channel of bf16 x
+// [M, C] (zeroed here first). C a multiple of 8.
+int int8_conv_amax(const void* x, void* amax, long long M, int C,
+                   void* stream) {
+  if (M <= 0 || C <= 0 || C % 8 || reinterpret_cast<uintptr_t>(x) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  conv3x3x3_int8_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x8), static_cast<const int8_t*>(w8),
-      static_cast<const float*>(sw), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), D, H, W, C, O, static_cast<int>(M));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(amax, 0, sizeof(unsigned) * C, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int gx = (C / 8 + 31) / 32;
+  long long gy = (M + 7) / 8;
+  const long long want = gx >= 1056 ? 1 : 1056 / gx;  // ~8 blocks an SM
+  if (gy > want) gy = want;
+  int8_conv_amax_kernel<<<dim3(gx, static_cast<unsigned>(gy)), dim3(32, 8),
+                          0, st>>>(static_cast<const __nv_bfloat16*>(x),
+                                   static_cast<unsigned*>(amax), M, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x8 int8 [M, Cp] from bf16 x [M, C] and int8_conv_amax's amax; C a
+// multiple of 8, Cp >= C a multiple of 32.
+int int8_conv_quantize_x(const void* x, const void* amax, void* x8,
+                         long long M, int C, int Cp, void* stream) {
+  if (M <= 0 || C <= 0 || C % 8 || Cp % 32 || Cp < C || C > 12288 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(x8) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = M * (Cp / 8);
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  int8_conv_quantize_x_kernel<<<static_cast<unsigned>(blocks), 256,
+                                sizeof(float) * C,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const unsigned*>(amax), static_cast<int8_t*>(x8), M, C, Cp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w8 int8 [Op, 27*Cp] (dx-major) and sw f32 [3, Op] from the weights w
+// [O, C, 3, 3, 3] (f32, rounded to bf16 first, or bf16 when w_bf16) and
+// int8_conv_amax's amax; Cp >= C and Op >= O multiples of 32.
+int int8_conv_quantize_w(const void* w, int w_bf16, const void* amax,
+                         void* w8, void* sw, int C, int O, int Cp, int Op,
+                         void* stream) {
+  if (C <= 0 || O <= 0 || Cp % 32 || Op % 32 || Cp < C || Op < O ||
+      C > 12288)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * C;
+  if (w_bf16)
+    int8_conv_quantize_w_kernel<__nv_bfloat16><<<Op, 256, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const unsigned*>(amax), static_cast<int8_t*>(w8),
+        static_cast<float*>(sw), C, O, Cp, Op);
+  else
+    int8_conv_quantize_w_kernel<float><<<Op, 256, smem, st>>>(
+        static_cast<const float*>(w), static_cast<const unsigned*>(amax),
+        static_cast<int8_t*>(w8), static_cast<float*>(sw), C, O, Cp, Op);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,142 +1,331 @@
 // Sparse submanifold 3x3x3 convolution on voxel rows for Hopper (sm_90a),
-// f32, behind a plain C interface (loaded with ctypes by
+// f32 in and out, behind a plain C interface (loaded with ctypes by
 // infinicube_tpu_torch/kernels).
 //
 // sparse_conv_f32 (K4) replaces the forward of the TPU kernel
 //   infinicube_tpu/ops/window_conv.py:222 `_conv_core` (reached through
 //   `window_sparse_conv`), which runs every SparseConv3d of the sparse VAE's
 //   structure decoder: 12 per decode at (F, Fo) in {(256, 256), (256, 128),
-//   (128, 128), (128, 64), (64, 64)} on 32,768 .. 131,072 voxel rows.
+//   (128, 128), (128, 64), (64, 64)} on 32,768 .. 131,072 voxel rows, and
+//   24 per step of the VAE trainer.
 //   out[b, m] = sum_t feats[b, nbr[b, m, t]] @ w[t]   (absent taps: -1, zero)
 //   and every row of a batch element with poison[b] != 0 is NaN (the loud
-//   dense-bounds policy of window_conv.py:313).
+//   dense-bounds policy of window_conv.py:313). The same kernel is the
+//   conv's input gradient (window_conv.py:320 `_wc_bwd`): the output
+//   gradient through the reversed, transposed weights, with no poison.
 //
-// What bounds it: the release VAE computes in f32, so this first version
-// does f32 FFMA on the CUDA cores (67 TFLOP/s on an H100 SXM, no tensor
-// cores); 2 * 27 * F * Fo operations per present (row, tap) pair against
-// about (F + Fo) * 4 bytes per row, far above the ridge, so operations bound
-// it.
+// What bounds it: 2 * F * Fo operations per present (row, tap) pair against
+// about (F + Fo) * 4 bytes per row, far above the ridge, so operations. The
+// release VAE computes in f32; on the CUDA cores (67 TFLOP/s on an H100
+// SXM) the first version reached 10-24 % of that bound with Hopper's tensor
+// cores idle.
 //
-// Design: the TPU kernel's window plan (9 directional windows, one-hot
-// selection matmuls, a miss list with an exact fallback) worked around the
-// TPU's slow gathers. Here a block loads its own neighbour indices and
-// gathers rows directly, so nothing is missed and no fallback exists. A block
-// of 256 threads owns a 64-row x 64-feature output tile; it keeps the tile's
-// 27 x 64 neighbour indices in shared memory, skips a tap when none of its
-// rows has that neighbour, and for each 16-feature chunk gathers the 64
-// neighbour rows (zeros for -1) and the weight rows into shared memory; each
-// thread accumulates a 4 x 4 sub-tile in f32 registers. No double buffering
-// yet.
-//
-// The entry point returns cudaGetLastError().
+// Design: f32-accurate products on the tensor cores by the 3xTF32 split.
+// Each operand a becomes hi = tf32(a) (the low 13 mantissa bits cleared)
+// and lo = tf32(a - hi); the kernel accumulates lo_A hi_B + hi_A lo_B +
+// hi_A hi_B in f32 on wgmma m64nNk8 .f32.tf32.tf32 and drops lo_A lo_B
+// (about 2^-22 of the product); one TF32 product alone keeps about three
+// decimal digits. Three products at 495 TFLOP/s bound it at 165 TFLOP/s of
+// f32 work, 2.5x the CUDA cores' peak.
+// - The TPU kernel's window plan (directional windows, one-hot selection
+//   matmuls, a miss list with an exact fallback) worked around the TPU's
+//   slow gathers. Here a tile of 128 voxel rows loads its 27 x 128
+//   neighbour indices into shared memory and skips every tap none of its
+//   rows has; nothing is missed and no fallback exists.
+// - TMA cannot gather rows on Hopper, so a producer warpgroup gathers them:
+//   each of its 128 threads copies its row's 32 features of the stage (128
+//   bytes, eight 16-byte cp.async, src-size 0 for an absent neighbour) into
+//   a ring of stages, straight into the K-major 128-byte-swizzled layout
+//   wgmma reads, and signals the stage's mbarrier when its copies land.
+// - tf32 wgmma takes both operands K-major, so the weights come packed
+//   [2, 27, N, K] (hi and lo of w[t]^T, made once per weight version by the
+//   caller), one 2-D TMA box each per stage on the same mbarrier.
+// - The two consumer warpgroups (64 rows each, the whole N tile of up to
+//   128 features, f32 accumulators in registers) split their own rows of
+//   each arrived stage into hi (in place) and lo in shared memory, then
+//   issue the three products per k8 step.
+// The entry point returns cudaGetLastError() (or cudaErrorInvalidValue for
+// what it does not take).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBM = 64;   // voxel rows per block
-constexpr int kBN = 64;   // output features per block
-constexpr int kBK = 16;   // input features per chunk
-constexpr int kThreads = 256;
+constexpr int kRows = 128;      // voxel rows per tile
 constexpr int kTaps = 27;
+constexpr int kThreads = 384;   // warpgroups 0, 1 consume, 2 gathers
+constexpr int kSpan = 128;      // bytes of a stage's row: 32 f32 features
+constexpr int kChunk = kSpan / 4;
+constexpr int kRing = 196608;   // bytes of shared memory for the ring
 
-__global__ void __launch_bounds__(kThreads)
-    sparse_conv_kernel(const float* __restrict__ feats,
-                       const int* __restrict__ nbr, const float* __restrict__ w,
-                       const int* __restrict__ poison,
-                       float* __restrict__ out, int C, int F, int Fo) {
-  __shared__ int sN[kTaps][kBM];
-  __shared__ __align__(16) float sA[kBK][kBM + 4];  // gathered rows, k-major
-  __shared__ __align__(16) float sB[kBK][kBN];
+template <int BN>
+struct K4Tile {
+  static constexpr int kA = kRows * kSpan;   // gathered rows (then their hi)
+  static constexpr int kB = BN * kSpan;      // one weight box
+  static constexpr int kStage = 2 * kA + 2 * kB;  // A hi, A lo, B hi, B lo
+  static constexpr int kStages = kRing / kStage > 6 ? 6 : kRing / kStage;
+  // ring, barriers, neighbour table, tap list, and room to align to 1 KB
+  static constexpr int kSmem = kStages * kStage + 2 * 8 * kStages +
+                               4 * (kTaps * kRows + kTaps + 2) + 1024;
+};
+
+struct K4Args {
+  const float* feats;  // f32 [B, C, K]
+  const int* nbr;      // int32 [B, C, 27]
+  const int* poison;   // int32 [B]
+  float* out;          // f32 [B, C, N]
+  int C, K, N;         // rows per batch element, input and output features
+  int m_tiles, n_tiles, kc;
+};
+
+__device__ __forceinline__ float tf32_trunc(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
+  hi = tf32_trunc(v);
+  lo = tf32_trunc(v - hi);  // v - hi is exact
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_conv_tf32x3_kernel(const __grid_constant__ CUtensorMap tmw_hi,
+                              const __grid_constant__ CUtensorMap tmw_lo,
+                              const K4Args a) {
+  using T = K4Tile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
+  uint64_t* empty = full + T::kStages;
+  int* sN = reinterpret_cast<int*>(empty + T::kStages);  // [27][128]
+  int* sTaps = sN + kTaps * kRows;   // the taps some row has, in order
+  int* sCount = sTaps + kTaps;
+  unsigned* sMask = reinterpret_cast<unsigned*>(sCount + 1);
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long row0 = (long long)b * C;
+  int bid = blockIdx.x;
+  const int nt = bid % a.n_tiles;
+  bid /= a.n_tiles;
+  const int mt = bid % a.m_tiles;
+  const int b = bid / a.m_tiles;
+  const int m0 = mt * kRows, n0 = nt * BN;
+  const long long row0 = (long long)b * a.C;
 
-  if (poison[b]) {
-    for (int i = tid; i < kBM * kBN; i += kThreads) {
-      const int m = m0 + i / kBN, n = n0 + i % kBN;
-      if (m < C && n < Fo) out[(row0 + m) * Fo + n] = nanf("");
+  if (a.poison[b]) {
+    for (int i = tid; i < kRows * BN; i += kThreads) {
+      const int m = m0 + i / BN, n = n0 + i % BN;
+      if (m < a.C && n < a.N) a.out[(row0 + m) * a.N + n] = nanf("");
     }
     return;
   }
-  for (int i = tid; i < kTaps * kBM; i += kThreads) {
+  if (tid == 0) {
+    *sMask = 0;
+    for (int s = 0; s < T::kStages; ++s) {
+      hop::mbar_init(&full[s], kRows + 1);  // 128 gathers, the weights' tx
+      hop::mbar_init(&empty[s], 8);         // lane 0 of each consumer warp
+    }
+    hop::fence_barrier_init();
+  }
+  for (int i = tid; i < kTaps * kRows; i += kThreads) {
     const int r = i / kTaps, t = i % kTaps;
-    sN[t][r] = m0 + r < C ? nbr[(row0 + m0 + r) * kTaps + t] : -1;
+    sN[t * kRows + r] =
+        m0 + r < a.C ? a.nbr[(row0 + m0 + r) * kTaps + t] : -1;
   }
   __syncthreads();
+  if (tid < kRows) {
+    unsigned bits = 0;
+    for (int t = 0; t < kTaps; ++t)
+      if (sN[t * kRows + tid] >= 0) bits |= 1u << t;
+    if (bits) atomicOr(sMask, bits);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int t = 0; t < kTaps; ++t)
+      if (*sMask >> t & 1u) sTaps[n++] = t;
+    *sCount = n;
+  }
+  __syncthreads();
+  const int iters = *sCount * a.kc;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int ar = tid / 4, ak = (tid % 4) * 4;    // A loader: row, features
-  const int bk = tid / 16, bn = (tid % 16) * 4;  // B loader: k row, columns
-  for (int t = 0; t < kTaps; ++t) {
-    const int present = tid < kBM ? sN[t][tid] >= 0 : 0;
-    if (!__syncthreads_or(present)) continue;
-    const int src = sN[t][ar];
-    for (int k0 = 0; k0 < F; k0 += kBK) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (src >= 0 && k0 + ak < F)
-        a = *reinterpret_cast<const float4*>(feats + (row0 + src) * F + k0 +
-                                             ak);
-      sA[ak + 0][ar] = a.x;
-      sA[ak + 1][ar] = a.y;
-      sA[ak + 2][ar] = a.z;
-      sA[ak + 3][ar] = a.w;
-      float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + bk < F && n0 + bn < Fo)
-        bv = *reinterpret_cast<const float4*>(
-            w + ((long long)t * F + k0 + bk) * Fo + n0 + bn);
-      *reinterpret_cast<float4*>(&sB[bk][bn]) = bv;
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&sA[k][ty * 4]);
-        const float4 wv = *reinterpret_cast<const float4*>(&sB[k][tx * 4]);
-        const float ai[4] = {av.x, av.y, av.z, av.w};
-        const float wj[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], wj[j], acc[i][j]);
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ---- producer: every thread gathers its row, thread 0 the weights ----
+    const int p = tid - 256;
+    if (p == 0) {
+      hop::prefetch_map(&tmw_hi);
+      hop::prefetch_map(&tmw_lo);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < iters; ++it) {
+      hop::mbar_wait(&empty[stage], phase ^ 1);
+      const int t = sTaps[it / a.kc];
+      const int k0 = (it % a.kc) * kChunk;
+      uint8_t* st = ring + stage * T::kStage;
+      if (p == 0) {
+        hop::mbar_expect_tx(&full[stage], 2 * T::kB);
+        hop::tma_load_2d(st + 2 * T::kA, &tmw_hi, &full[stage], k0,
+                         t * a.N + n0);
+        hop::tma_load_2d(st + 2 * T::kA + T::kB, &tmw_lo, &full[stage], k0,
+                         t * a.N + n0);
       }
-      __syncthreads();
+      const int src = sN[t * kRows + p];
+      const float* row =
+          a.feats + (row0 + (src >= 0 ? src : 0)) * a.K + k0;
+      uint8_t* dst = st + p * kSpan;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // 16-byte chunk j at j ^ (row % 8)
+        const bool ok = src >= 0 && k0 + 4 * j < a.K;
+        hop::cp_async16(dst + ((j ^ (p % 8)) * 16), ok ? row + 4 * j : a.feats,
+                        ok);
+      }
+      hop::cp_async_arrive(&full[stage]);
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, all BN output features ----
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int wt = tid % 128, lane = tid % 32;
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < iters; ++it) {
+      hop::mbar_wait(&full[stage], phase);
+      uint8_t* st = ring + stage * T::kStage;
+      uint8_t* sa = st + wg * 64 * kSpan;
+      uint8_t* sl = st + T::kA + wg * 64 * kSpan;
+      // this warpgroup's 64 rows: hi in place, lo beside (the swizzle is
+      // the same in both, so elementwise work ignores it)
+      float4* ahi = reinterpret_cast<float4*>(sa);
+      float4* alo = reinterpret_cast<float4*>(sl);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = wt + 128 * j;
+        const float4 v = ahi[i];
+        float4 h, l;
+        split_tf32(v.x, h.x, l.x);
+        split_tf32(v.y, h.y, l.y);
+        split_tf32(v.z, h.z, l.z);
+        split_tf32(v.w, h.w, l.w);
+        ahi[i] = h;
+        alo[i] = l;
+      }
+      hop::fence_proxy_async();
+      hop::named_barrier(1 + wg, 128);
+      const uint8_t* sbh = st + 2 * T::kA;
+      const uint8_t* sbl = sbh + T::kB;
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSpan / 32; ++kk) {  // a k8 step is 32 bytes
+        const uint64_t dh = hop::make_desc(sa + 32 * kk, kSpan, 16, 8 * kSpan);
+        const uint64_t dl = hop::make_desc(sl + 32 * kk, kSpan, 16, 8 * kSpan);
+        const uint64_t dbh =
+            hop::make_desc(sbh + 32 * kk, kSpan, 16, 8 * kSpan);
+        const uint64_t dbl =
+            hop::make_desc(sbl + 32 * kk, kSpan, 16, 8 * kSpan);
+        hop::WgmmaTf32<BN>::ss(acc, dl, dbh, 1);  // the small terms first
+        hop::WgmmaTf32<BN>::ss(acc, dh, dbl, 1);
+        hop::WgmmaTf32<BN>::ss(acc, dh, dbh, 1);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the previous stage's products are done
+      hop::fence_regs(acc);
+      if (it > 0 && lane == 0) hop::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+
+    const int w = wt / 32, g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wg * 64 + w * 16 + g + 8 * h;
+      if (m >= a.C) continue;
+      float* orow = a.out + (row0 + m) * a.N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        if (n < a.N)
+          *reinterpret_cast<float2*>(orow + n) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
     }
   }
+}
 
-  const int n = n0 + tx * 4;
-  if (n >= Fo) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m < C)
-      *reinterpret_cast<float4*>(out + (row0 + m) * Fo + n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+template <int BN>
+cudaError_t launch_k4(const CUtensorMap& hi, const CUtensorMap& lo,
+                      const K4Args& args, unsigned blocks,
+                      cudaStream_t stream) {
+  using T = K4Tile<BN>;
+  static cudaError_t attr =
+      hop_host::allow_smem(sparse_conv_tf32x3_kernel<BN>, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  sparse_conv_tf32x3_kernel<BN>
+      <<<blocks, kThreads, T::kSmem, stream>>>(hi, lo, args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int sparse_conv_f32(const void* feats, const void* nbr, const void* w,
-                    const void* poison, void* out, int B, int C, int F, int Fo,
+// feats f32 [B, C, K], nbr int32 [B, C, 27], w_pack f32 [2, 27, N, K] (the
+// tf32 hi and lo of each tap's weights, transposed), poison int32 [B], out
+// f32 [B, C, N]; K and N multiples of 4.
+int sparse_conv_f32(const void* feats, const void* nbr, const void* w_pack,
+                    const void* poison, void* out, int B, int C, int K, int N,
                     void* stream) {
-  if (B <= 0 || C <= 0 || F % 4 || Fo % 4 || B > 65535)
+  if (B <= 0 || C <= 0 || K <= 0 || N <= 0 || K % 4 || N % 4 ||
+      reinterpret_cast<uintptr_t>(feats) % 16 ||
+      reinterpret_cast<uintptr_t>(w_pack) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((C + kBM - 1) / kBM, (Fo + kBN - 1) / kBN, B);
-  sparse_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(feats), static_cast<const int*>(nbr),
-      static_cast<const float*>(w), static_cast<const int*>(poison),
-      static_cast<float*>(out), C, F, Fo);
-  return static_cast<int>(cudaGetLastError());
+  const int bn = N <= 32 ? 32 : N <= 64 ? 64 : 128;
+  K4Args a;
+  a.feats = static_cast<const float*>(feats);
+  a.nbr = static_cast<const int*>(nbr);
+  a.poison = static_cast<const int*>(poison);
+  a.out = static_cast<float*>(out);
+  a.C = C;
+  a.K = K;
+  a.N = N;
+  a.m_tiles = (C + kRows - 1) / kRows;
+  a.n_tiles = (N + bn - 1) / bn;
+  a.kc = (K + kChunk - 1) / kChunk;
+  const long long blocks = (long long)B * a.m_tiles * a.n_tiles;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* hi = static_cast<const float*>(w_pack);
+  const float* lo = hi + (long long)kTaps * N * K;
+  const uint64_t dims[2] = {(uint64_t)K, (uint64_t)kTaps * N};
+  const uint64_t strides[1] = {(uint64_t)K * 4};
+  const uint32_t box[2] = {(uint32_t)kChunk, (uint32_t)bn};
+  CUtensorMap thi, tlo;
+  if (!hop_host::make_map(&thi, hi, 2, dims, strides, box, kSpan,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !hop_host::make_map(&tlo, lo, 2, dims, strides, box, kSpan,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaError_t e = bn == 32   ? launch_k4<32>(thi, tlo, a, nb, st)
+                        : bn == 64 ? launch_k4<64>(thi, tlo, a, nb, st)
+                                   : launch_k4<128>(thi, tlo, a, nb, st);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

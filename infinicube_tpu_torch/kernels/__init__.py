@@ -50,7 +50,12 @@ SIGNATURES = {
     "dense_conv": {"conv3x3x3_bf16": [_P] * 5 + [_I] * 8 + [_P],
                    "conv3x3x3_bf16_splits": [_I] * 7,
                    "conv3x3x3_f32": [_P] * 4 + [_I] * 6 + [_P],
-                   "conv3x3x3_int8": [_P] * 5 + [_I] * 6 + [_P]},
+                   "conv3x3x3_int8": [_P] * 6 + [_I] * 8 + [_P],
+                   "conv3x3x3_int8_splits": [_I] * 7,
+                   "int8_conv_amax": [_P, _P, _L, _I, _P],
+                   "int8_conv_quantize_x": [_P] * 3 + [_L] + [_I] * 2 + [_P],
+                   "int8_conv_quantize_w": [_P, _I] + [_P] * 3 + [_I] * 4
+                   + [_P]},
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
     "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 5 + [_I] * 5 + [_P]},
 }
@@ -60,8 +65,8 @@ SIGNATURES = {
 # these
 K3_DGRAD = "conv3x3x3_bf16_dgrad"
 K4_DGRAD = "sparse_conv_f32_dgrad"
-# K3's split-K plan query launches nothing
-_NOT_COUNTED = ("conv3x3x3_bf16_splits",)
+# the split-K plan queries of K3 and K7 launch nothing
+_NOT_COUNTED = ("conv3x3x3_bf16_splits", "conv3x3x3_int8_splits")
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
                             for name in fns if name not in _NOT_COUNTED} | \
     {K3_DGRAD: 0, K4_DGRAD: 0}
@@ -412,17 +417,22 @@ def conv3x3x3_int8(x8: torch.Tensor, w8_packed: torch.Tensor,
     """K7: the int8 3x3x3 stride-1 SAME conv. x8 int8 [B, D, H, W, C]
     contiguous; w8_packed int8 [O, 27*C] (``pack_int8_weight``, dx-major);
     sw f32 [3, O], the per-(dx, output channel) scales; bias f32 [O]. C and
-    O multiples of 32. Returns bf16 [B, D, H, W, O]."""
+    O multiples of 32. Returns bf16 [B, D, H, W, O], equal bit for bit to
+    ``conv3x3x3_int8_plain``. Where the output tiles fall short of the
+    card's SMs the kernel splits each dx group's K range (``k7_splits``):
+    this wrapper then allocates the int32 partials [S, B*D*H*W, O], and the
+    call launches the kernel and the exact sum of the slices (counted
+    once)."""
     _check_cuda(x8, w8_packed, sw, bias)
     if x8.dim() != 5:
         raise ValueError(f"x8 must be [B, D, H, W, C], got {tuple(x8.shape)}")
     B, D, H, W, C = x8.shape
     O = w8_packed.shape[0]
-    if C % 32 or O % 32 or min(B, D, H, W) < 1:
+    if C % 32 or O % 32 or min(B, D, H, W, C, O) < 1:
         raise ValueError(f"conv3x3x3_int8 takes C, O multiples of 32, got "
                          f"x{tuple(x8.shape)} -> {O}")
     M = B * D * H * W
-    if M >= 2 ** 31 or -(-M // 128) * -(-O // 64) >= 2 ** 31:
+    if M >= 2 ** 31 or -(-M // 128) * -(-O // 32) * 48 >= 2 ** 31:
         raise ValueError(f"too many voxels for one launch: {tuple(x8.shape)}"
                          f" -> {O}")
     _check_dense(x8, "x8", (B, D, H, W, C), torch.int8)
@@ -430,38 +440,123 @@ def conv3x3x3_int8(x8: torch.Tensor, w8_packed: torch.Tensor,
     _check_dense(sw, "sw", (3, O), torch.float32)
     _check_dense(bias, "bias", (O,), torch.float32)
     out = torch.empty((B, D, H, W, O), dtype=torch.bfloat16, device=x8.device)
+    sms = _sm_count(x8.device)
+    splits = k7_splits(B, D, H, W, C, O, sms)
+    partial = None if splits == 1 else torch.empty(
+        (splits, M, O), dtype=torch.int32, device=x8.device)
     _run("dense_conv", "conv3x3x3_int8", x8.device, x8.data_ptr(),
          w8_packed.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-         out.data_ptr(), B, D, H, W, C, O)
+         out.data_ptr(), None if partial is None else partial.data_ptr(),
+         splits, B, D, H, W, C, O, sms)
     return out
 
 
-def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-                    poison: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def k7_splits(B: int, D: int, H: int, W: int, C: int, O: int,
+              sms: int) -> int:
+    """The number of K slices K7 takes at this shape on a card with ``sms``
+    SMs (1, or a multiple of 3: as many in each dx group), from the
+    kernel's own plan, asked once a shape."""
+    return _fn("dense_conv", "conv3x3x3_int8_splits")(B, D, H, W, C, O, sms)
+
+
+def int8_conv_amax(x: torch.Tensor) -> torch.Tensor:
+    """K7's prologue, first pass: max |x| per channel over the whole batch
+    (a CFG pair shares it), x bf16 [B, D, H, W, C] contiguous with C a
+    multiple of 8. Returns f32 [C] (``int8_conv_amax_plain``)."""
+    _check_cuda(x)
+    if x.dim() != 5 or x.shape[-1] % 8 or x.numel() == 0:
+        raise ValueError(f"int8_conv_amax takes [B, D, H, W, C] with C a "
+                         f"multiple of 8, got {tuple(x.shape)}")
+    _check_dense(x, "x", tuple(x.shape), torch.bfloat16)
+    C = x.shape[-1]
+    amax = torch.empty(C, dtype=torch.int32, device=x.device)
+    _run("dense_conv", "int8_conv_amax", x.device, x.data_ptr(),
+         amax.data_ptr(), x.numel() // C, C)
+    # the bits of non-negative floats
+    return amax.view(torch.float32)
+
+
+def _padded(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def int8_conv_quantize_x(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """K7's prologue, second pass: x8 = rint(x / sc), sc = max(amax, 1e-8)
+    / 127 per channel, zero-padded to a multiple of 32 channels. x bf16
+    [B, D, H, W, C] contiguous (C a multiple of 8); amax f32 [C] from
+    ``int8_conv_amax``. Returns int8 [B, D, H, W, Cp]
+    (``int8_conv_quantize_x_plain``)."""
+    _check_cuda(x, amax)
+    if x.dim() != 5 or x.shape[-1] % 8 or x.numel() == 0:
+        raise ValueError(f"int8_conv_quantize_x takes [B, D, H, W, C] with C "
+                         f"a multiple of 8, got {tuple(x.shape)}")
+    C = x.shape[-1]
+    if C > 12288:
+        raise ValueError(f"int8_conv_quantize_x takes C <= 12288, got {C}")
+    _check_dense(x, "x", tuple(x.shape), torch.bfloat16)
+    _check_dense(amax, "amax", (C,), torch.float32)
+    x8 = torch.empty(x.shape[:-1] + (_padded(C),), dtype=torch.int8,
+                     device=x.device)
+    _run("dense_conv", "int8_conv_quantize_x", x.device, x.data_ptr(),
+         amax.data_ptr(), x8.data_ptr(), x.numel() // C, C, x8.shape[-1])
+    return x8
+
+
+def int8_conv_quantize_w(w: torch.Tensor, amax: torch.Tensor):
+    """K7's prologue, the weight pass: w [O, C, 3, 3, 3] (f32, rounded to
+    bf16 first, or bf16) folded with the activation scales of ``amax`` (f32
+    [C]), quantized per (dx, output channel) and packed. Returns the
+    dx-major int8 pack [Op, 27*Cp] and sw f32 [3, Op], zero-padded to
+    multiples of 32 (``int8_conv_quantize_w_plain``)."""
+    _check_cuda(w, amax)
+    if w.dim() != 5 or tuple(w.shape[2:]) != (3, 3, 3) or \
+            w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_conv_quantize_w takes f32 or bf16 "
+                         f"[O, C, 3, 3, 3], got {w.dtype} {tuple(w.shape)}")
+    O, C = w.shape[:2]
+    if min(O, C) < 1 or C > 12288:
+        raise ValueError(f"int8_conv_quantize_w cannot take {tuple(w.shape)}")
+    _check_dense(w, "w", tuple(w.shape), w.dtype)
+    _check_dense(amax, "amax", (C,), torch.float32)
+    Cp, Op = _padded(C), _padded(O)
+    w8 = torch.empty((Op, 27 * Cp), dtype=torch.int8, device=w.device)
+    sw = torch.empty((3, Op), dtype=torch.float32, device=w.device)
+    _run("dense_conv", "int8_conv_quantize_w", w.device, w.data_ptr(),
+         int(w.dtype == torch.bfloat16), amax.data_ptr(), w8.data_ptr(),
+         sw.data_ptr(), C, O, Cp, Op)
+    return w8, sw
+
+
+def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor,
+                    w_pack: torch.Tensor, poison: torch.Tensor,
+                    dgrad: bool = False) -> torch.Tensor:
     """K4: out[b, m] = sum_t feats[b, nbr[b, m, t]] @ w[t] over present
-    taps (nbr -1 = absent); every row of batch b is NaN where poison[b] != 0.
-    feats f32 [B, C, F]; nbr int32 [B, C, 27]; w f32 [27, F, Fo]; poison
-    int32 [B]; F and Fo multiples of 4. Returns f32 [B, C, Fo]. With
-    ``dgrad`` the call is the conv's input gradient (feats the output
-    gradient, w the reversed, transposed weights, poison zeros) and is
+    taps (nbr -1 = absent) with f32-accurate products on the tensor cores
+    (3xTF32); every row of batch b is NaN where poison[b] != 0. feats f32
+    [B, C, K]; nbr int32 [B, C, 27]; w_pack f32 [2, 27, N, K], the tf32 hi
+    and lo parts of each w[t]^T (``window_conv.pack_sparse_weight``); poison
+    int32 [B]; K and N multiples of 4. Returns f32 [B, C, N]. With ``dgrad``
+    the call is the conv's input gradient (feats the output gradient, the
+    pack that of the reversed, transposed weights, poison zeros) and is
     counted under ``K4_DGRAD``."""
-    _check_cuda(feats, nbr, w, poison)
-    if feats.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"feats [B, C, F] and w [27, F, Fo], got "
-                         f"{tuple(feats.shape)}, {tuple(w.shape)}")
-    B, C, F = feats.shape
-    Fo = w.shape[2]
-    if F % 4 or Fo % 4 or B > 65535:
-        raise ValueError(f"sparse_conv_f32 takes F, Fo multiples of 4, got "
-                         f"{F} -> {Fo}")
-    _check_dense(feats, "feats", (B, C, F), torch.float32)
+    _check_cuda(feats, nbr, w_pack, poison)
+    if feats.dim() != 3 or w_pack.dim() != 4:
+        raise ValueError(f"feats [B, C, K] and w_pack [2, 27, N, K], got "
+                         f"{tuple(feats.shape)}, {tuple(w_pack.shape)}")
+    B, C, K = feats.shape
+    N = w_pack.shape[2]
+    if K % 4 or N % 4 or min(B, C, K, N) < 1:
+        raise ValueError(f"sparse_conv_f32 takes K, N multiples of 4, got "
+                         f"{K} -> {N}")
+    _check_dense(feats, "feats", (B, C, K), torch.float32)
     _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
-    _check_dense(w, "w", (27, F, Fo), torch.float32)
+    _check_dense(w_pack, "w_pack", (2, 27, N, K), torch.float32)
     _check_dense(poison, "poison", (B,), torch.int32)
-    out = torch.empty((B, C, Fo), dtype=torch.float32, device=feats.device)
+    out = torch.empty((B, C, N), dtype=torch.float32, device=feats.device)
     _run("sparse_conv", "sparse_conv_f32", feats.device, feats.data_ptr(),
-         nbr.data_ptr(), w.data_ptr(), poison.data_ptr(), out.data_ptr(), B,
-         C, F, Fo, count_as=K4_DGRAD if dgrad else None)
+         nbr.data_ptr(), w_pack.data_ptr(), poison.data_ptr(),
+         out.data_ptr(), B, C, K, N, count_as=K4_DGRAD if dgrad else None)
     return out
 
 

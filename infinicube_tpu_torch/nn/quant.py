@@ -16,6 +16,15 @@ import torch
 from infinicube_tpu_torch.nn.layers import Dense
 
 
+def amax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127``, the scale the reference's int8 attention
+    and conv give a block or a channel, as a correctly rounded division. The
+    divisor is a tensor: on the card PyTorch divides by a Python scalar as a
+    product with the scalar's rounded reciprocal, which differs in the last
+    bit for about 4 % of values (the CPU and the reference divide)."""
+    return amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+
+
 def _quantize_rows(x: torch.Tensor):
     """Per-row int8 of a 2-D tensor: (int8 values, f32 scales [rows, 1])."""
     xf = x.float()

@@ -21,7 +21,9 @@ from infinicube_tpu_torch.grid.grid import Grid
 from infinicube_tpu_torch.grid.ops import (dense_bounds_violations,
                                            neighbor_indexes)
 from infinicube_tpu_torch.nn.layers import Dense
-from infinicube_tpu_torch.ops.window_conv import ConvPlan, window_sparse_conv
+from infinicube_tpu_torch.ops.window_conv import (ConvPlan,
+                                                  pack_sparse_weight,
+                                                  window_sparse_conv)
 
 
 class SparseConv3d(nn.Module):
@@ -33,6 +35,7 @@ class SparseConv3d(nn.Module):
         self.kernel = nn.Parameter(torch.empty(
             (kernel_volume, in_features, features), device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self._packed: tuple | None = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """U(-s, s) with s = 1/sqrt(27 * F_in), as the JAX module."""
@@ -42,9 +45,29 @@ class SparseConv3d(nn.Module):
             self.kernel.uniform_(-s, s, generator=generator)
             self.bias.zero_()
 
+    def _packed_weight(self, dgrad: bool = False) -> torch.Tensor:
+        """K4's forward or input-gradient pack of the current kernel
+        (``pack_sparse_weight``), cached against its address and version
+        (an optimizer step or ``load_state_dict`` raises the version)."""
+        w = self.kernel
+        key = (w.data_ptr(), w._version, w.device)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, {})
+        packs = self._packed[1]
+        if dgrad not in packs:
+            packs[dgrad] = pack_sparse_weight(w.detach(), dgrad)
+        return packs[dgrad]
+
     def forward(self, feats: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
         dt = self.dtype
-        out = window_sparse_conv(plan, feats.to(dt), self.kernel.to(dt))
+        feats, w = feats.to(dt), self.kernel.to(dt)
+        if feats.is_cuda and dt == torch.float32:
+            need_dx = torch.is_grad_enabled() and feats.requires_grad
+            out = window_sparse_conv(
+                plan, feats, w, self._packed_weight(),
+                self._packed_weight(dgrad=True) if need_dx else None)
+        else:
+            out = window_sparse_conv(plan, feats, w)
         return out + self.bias.to(dt)
 
 

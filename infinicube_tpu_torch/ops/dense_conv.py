@@ -27,16 +27,24 @@ input gradient alike.
 
 The int8 variant (``quant=True``, the reference's ``quant=True`` path,
 selected by ``DiffusionConfig.serve_quant``) quantizes x per input channel
-over the whole batch and folds those scales into the weights, which are then
-quantized per (dx, output channel) (``quantize_for_conv``, plain PyTorch
-like K1's prologue, so the int8 inputs equal the reference's bit for bit).
-K7 (``conv3x3x3_int8``, csrc/dense_conv.cu) sums the int8 products in int32
-per dx group, dequantizes each group with its scales and adds the three in
-the reference's order. It applies only where ``int8_conv_applies`` holds, as
-the reference quantizes only where its plan fits; elsewhere the conv stays
-bf16 (K3). K7 takes C and O that are multiples of 32, so the int8 operands
-are zero-padded to them on the way in, like K3's. The weights are quantized
-anew on every call: their scales depend on that call's activations."""
+over the whole batch and folds those scales into the weights (rounded to x's
+dtype first, the reference's promote_dtype), which are then quantized per
+(dx, output channel) (``quantize_for_conv``, the reference's
+``_quantize_for_conv``). K7 (``conv3x3x3_int8``, csrc/dense_conv.cu) sums the
+int8 products in int32 per dx group, dequantizes each group with its scales
+and adds the three in the reference's order, bit for bit as
+``conv3x3x3_int8_plain``. It applies only where ``int8_conv_applies`` holds,
+as the reference quantizes only where its plan fits; elsewhere the conv
+stays bf16 (K3). K7 takes C and O that are multiples of 32, so its operands
+are zero-padded to them. On the card the quantization itself runs in three
+kernels of the same source (``int8_conv_operands``): the per-channel max of
+|x|, x8 written at the padded width, and the weights (read from the f32
+parameter) folded, quantized and packed; each equals its plain version here
+(``int8_conv_amax_plain``, ``int8_conv_quantize_x_plain``,
+``int8_conv_quantize_w_plain``), and together they equal
+``quantize_for_conv`` followed by ``pad_channels`` and
+``pack_int8_weight``. The weights are quantized anew on every call: their
+scales depend on that call's activations."""
 
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from infinicube_tpu_torch import kernels
+from infinicube_tpu_torch.nn.quant import amax_scale
 
 
 # the reference kernel's VMEM budget, which decides where it quantizes
@@ -89,6 +98,15 @@ def int8_conv_applies(shape, C: int, O: int) -> bool:
     return False
 
 
+def _quantize_weight(w: torch.Tensor, sc: torch.Tensor):
+    """w [O, C, 3, 3, 3] folded with the per-input-channel scales sc and
+    quantized per (dx, output channel): (w8, sw [3, O])."""
+    wf = w.float() * sc[None, :, None, None, None]
+    sw = amax_scale(wf.abs().amax(dim=(1, 2, 3))).t()           # [3, O]
+    w8 = torch.round(wf / sw.t()[:, None, None, None, :]).to(torch.int8)
+    return w8, sw.contiguous()
+
+
 def quantize_for_conv(x: torch.Tensor, w: torch.Tensor):
     """The reference's ``_quantize_for_conv``: x [B, D, H, W, C] gets one
     scale per input channel over the whole batch (a CFG pair's two halves
@@ -96,12 +114,10 @@ def quantize_for_conv(x: torch.Tensor, w: torch.Tensor):
     per (dx, output channel). Returns x8 int8 like x, w8 int8 like w and
     sw f32 [3, O]."""
     xf = x.float()
-    sc = xf.abs().amax(dim=(0, 1, 2, 3)).clamp_min(1e-8) / 127.0
+    sc = amax_scale(xf.abs().amax(dim=(0, 1, 2, 3)))
     x8 = torch.round(xf / sc).to(torch.int8)
-    wf = w.float() * sc[None, :, None, None, None]
-    sw = wf.abs().amax(dim=(1, 2, 3)).clamp_min(1e-8).t() / 127.0  # [3, O]
-    w8 = torch.round(wf / sw.t()[:, None, None, None, :]).to(torch.int8)
-    return x8, w8, sw.contiguous()
+    w8, sw = _quantize_weight(w, sc)
+    return x8, w8, sw
 
 
 # the channel multiples the card's kernels take: K3 8, K7 32, the f32 conv 1
@@ -128,6 +144,47 @@ def pack_int8_weight(w8: torch.Tensor) -> torch.Tensor:
     and dequantizes it with its own scales."""
     O, C = w8.shape[:2]
     return w8.permute(0, 4, 2, 3, 1).reshape(O, 27 * C).contiguous()
+
+
+def int8_conv_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """What ``kernels.int8_conv_amax`` computes: max |x| per channel over
+    all voxels of the batch, f32 [C]."""
+    return x.float().abs().amax(dim=(0, 1, 2, 3))
+
+
+def int8_conv_quantize_x_plain(x: torch.Tensor,
+                               amax: torch.Tensor) -> torch.Tensor:
+    """What ``kernels.int8_conv_quantize_x`` computes: x8 =
+    round(x / sc) with sc from amax, zero-padded to a multiple of 32
+    channels."""
+    x8 = torch.round(x.float() / amax_scale(amax)).to(torch.int8)
+    return pad_channels(x8, K7_MULTIPLE, -1).contiguous()
+
+
+def int8_conv_quantize_w_plain(w: torch.Tensor, amax: torch.Tensor):
+    """What ``kernels.int8_conv_quantize_w`` computes: w rounded to bf16,
+    folded with the scales of amax and quantized (``quantize_for_conv``'s
+    weight half), then padded and packed for K7: (the dx-major pack
+    [Op, 27*Cp], sw [3, Op])."""
+    w8, sw = _quantize_weight(w.to(torch.bfloat16), amax_scale(amax))
+    return (pack_int8_weight(pad_channels(w8, K7_MULTIPLE, 0, 1)),
+            pad_channels(sw, K7_MULTIPLE, 1).contiguous())
+
+
+def int8_conv_operands(x: torch.Tensor, w: torch.Tensor):
+    """K7's operands for bf16 x [B, D, H, W, C] and w [O, C, 3, 3, 3] (f32
+    or bf16; rounded to bf16): x8 [B, D, H, W, Cp], the dx-major pack
+    [Op, 27*Cp] and sw [3, Op], zero-padded to multiples of 32, as
+    ``quantize_for_conv`` followed by ``pad_channels`` and
+    ``pack_int8_weight`` gives them: the three prologue kernels on the
+    card, their plain versions on the CPU."""
+    if _on_card(x):
+        amax = kernels.int8_conv_amax(x)
+        w8p, sw = kernels.int8_conv_quantize_w(w, amax)
+        return kernels.int8_conv_quantize_x(x, amax), w8p, sw
+    amax = int8_conv_amax_plain(x)
+    return (int8_conv_quantize_x_plain(x, amax),
+            *int8_conv_quantize_w_plain(w, amax))
 
 
 # keeps every f32 partial sum of int8 products below 2^24 (exact)
@@ -288,26 +345,27 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     (``pack_conv_weight(w, x.dtype)``) and, for x's gradient,
     ``w_packed_dgrad`` (``pack_conv_weight(dgrad_weight(w), x.dtype)``),
     both packed once by the caller; on the CPU the plain version runs.
-    ``quant=True`` serves the int8 variant instead (K7 on the card, no
-    gradient, packs made here from this call's quantization)."""
+    ``quant=True`` serves the int8 variant instead (K7 and its prologue
+    kernels on the card, no gradient, packs made here from this call's
+    quantization; w is rounded to x's dtype first, so the f32 parameter may
+    be passed as it is)."""
     if quant:
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             raise ValueError("the int8 conv serves only: no gradient")
-        x8, w8, sw = quantize_for_conv(x, w)
         if _on_card(x):
             if x.dtype != torch.bfloat16:
                 raise ValueError("the card's int8 conv writes bf16; got "
                                  f"{x.dtype} input")
-            O, m = w.shape[0], K7_MULTIPLE
+            x8, w8p, sw = int8_conv_operands(x.contiguous(), w.contiguous())
+            O = w.shape[0]
             out = kernels.conv3x3x3_int8(
-                pad_channels(x8, m, -1).contiguous(),
-                pack_int8_weight(pad_channels(w8, m, 0, 1)),
-                pad_channels(sw, m, 1).contiguous(),
-                pad_channels(bias.float(), m, 0).contiguous())
+                x8, w8p, sw,
+                pad_channels(bias.float(), K7_MULTIPLE, 0).contiguous())
             return out if out.shape[-1] == O else out[..., :O].contiguous()
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
-        return conv3x3x3_int8_plain(x8, w8, sw, bias, x.dtype)
+        return conv3x3x3_int8_plain(*quantize_for_conv(x, w.to(x.dtype)),
+                                    bias, x.dtype)
     if _on_card(x):
         if w_packed is None:
             raise ValueError("the card's conv3x3x3 needs w_packed "
@@ -371,7 +429,9 @@ class Conv3x3x3(nn.Module):
         bias = self.bias.to(dt).float()
         if self.quant and int8_conv_applies(x.shape[:4], x.shape[-1],
                                             self.weight.shape[0]):
-            return conv3x3x3(x.to(dt), self.weight.to(dt), bias, quant=True)
+            # the parameter as it is: the int8 path rounds it to dt itself
+            # (on the card inside the weight pass, with no copy made here)
+            return conv3x3x3(x.to(dt), self.weight, bias, quant=True)
         if _on_card(x):
             if dt not in _MULTIPLE:
                 raise ValueError("the card's conv3x3x3 kernels take bf16 or "

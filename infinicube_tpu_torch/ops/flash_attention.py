@@ -29,6 +29,7 @@ import math
 import torch
 
 from infinicube_tpu_torch import kernels
+from infinicube_tpu_torch.nn.quant import amax_scale
 from infinicube_tpu_torch.ops.attention import _row_chunk, \
     multi_head_attention
 
@@ -38,8 +39,7 @@ def block_quantize(x: torch.Tensor, block: int):
     [BH, N // block] (the reference's ``_block_quantize``)."""
     BH, N, d = x.shape
     xb = x.float().reshape(BH, N // block, block * d)
-    amax = xb.abs().amax(dim=-1)
-    scale = amax.clamp_min(1e-8) / 127.0
+    scale = amax_scale(xb.abs().amax(dim=-1))
     q = torch.round(xb / scale[..., None]).to(torch.int8)
     return q.reshape(BH, N, d), scale
 
@@ -89,7 +89,7 @@ def channel_quantize(x: torch.Tensor):
     """x [BH, N, d] -> int8 values and f32 per-(BH, channel) scales [BH, d]
     (the reference's ``_channel_quantize``)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    scale = amax_scale(xf.abs().amax(dim=1))
     return torch.round(xf / scale[:, None, :]).to(torch.int8), scale
 
 

@@ -9,7 +9,10 @@ the TPU's slow gathers. Here the plan is the neighbour table itself:
 ``grid.ops.neighbor_indexes`` (built on the card over the declared dense
 bounds) and the per-batch count of active voxels outside those bounds. K4
 (``sparse_conv_f32``, csrc/sparse_conv.cu) gathers the neighbour rows itself,
-so nothing is missed and there is no fallback.
+so nothing is missed and there is no fallback. It computes its f32 products
+on the tensor cores by the 3xTF32 split: the weights go to it as
+``pack_sparse_weight``'s tf32 hi and lo parts, made once per weight version
+by the caller (``SparseConv3d``) or here per call.
 
 When a gradient is asked for, a ``torch.autograd.Function`` runs the forward
 and, as the JAX ``_wc_bwd`` does, the input gradient as the same stencil on
@@ -75,6 +78,23 @@ def rev_w(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).transpose(1, 2)
 
 
+def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
+    """f32 t with the low 13 mantissa bits cleared: the tf32 value the
+    tensor cores read."""
+    return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def pack_sparse_weight(w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
+    """K4's weight operand for w [27, F, Fo]: f32 [2, 27, N, K], the tf32
+    hi = tf32(w') and lo = tf32(w' - hi) of each tap's matrix w' laid out
+    [N, K] (the reduction dim contiguous). The forward's w' is w[t]^T
+    (N = Fo, K = F); the input gradient's (``dgrad``) is ``rev_w(w)[t]^T =
+    w[26 - t]`` (N = F, K = Fo)."""
+    wt = (w.flip(0) if dgrad else w.transpose(1, 2)).float().contiguous()
+    hi = tf32_truncate(wt)
+    return torch.stack([hi, tf32_truncate(wt - hi)])
+
+
 def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,
                           w: torch.Tensor, g: torch.Tensor):
     """(dx, dw) of the conv for the output gradient g [B, C, Fo], written as
@@ -92,11 +112,12 @@ def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,
     return dx, torch.stack(dw)
 
 
-def _forward(plan: ConvPlan, feats: torch.Tensor,
-             w: torch.Tensor) -> torch.Tensor:
+def _forward(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
+             w_pack: torch.Tensor | None = None) -> torch.Tensor:
     if feats.is_cuda:
         return kernels.sparse_conv_f32(
-            feats.contiguous(), plan.nbr.contiguous(), w.contiguous(),
+            feats.contiguous(), plan.nbr.contiguous(),
+            pack_sparse_weight(w) if w_pack is None else w_pack,
             plan.violations.to(torch.int32).contiguous())
     if feats.device.type != "cpu":
         raise ValueError(f"unsupported device {feats.device}")
@@ -104,15 +125,16 @@ def _forward(plan: ConvPlan, feats: torch.Tensor,
 
 
 class _WindowSparseConv(torch.autograd.Function):
-    """K4 forward; backward K4 on the output gradient with ``rev_w(w)`` and
-    no poison for dx, K6 for dw (the plain versions on the CPU), each only
-    when asked for."""
+    """K4 forward; backward K4 on the output gradient with ``rev_w(w)``'s
+    pack and no poison for dx, K6 for dw (the plain versions on the CPU),
+    each only when asked for."""
 
     @staticmethod
-    def forward(ctx, feats, w, plan):
+    def forward(ctx, feats, w, plan, w_pack, w_pack_dgrad):
         ctx.plan, ctx.on_card = plan, feats.is_cuda
+        ctx.w_pack_dgrad = w_pack_dgrad
         ctx.save_for_backward(feats, w)
-        return _forward(plan, feats, w)
+        return _forward(plan, feats, w, w_pack)
 
     @staticmethod
     def backward(ctx, g):
@@ -122,27 +144,35 @@ class _WindowSparseConv(torch.autograd.Function):
         g = g.to(feats.dtype).contiguous()
         if not ctx.on_card:
             dx, dw = sparse_conv_bwd_plain(plan, feats, w, g)
-            return (dx if need_dx else None, dw if need_dw else None, None)
+            return (dx if need_dx else None, dw if need_dw else None, None,
+                    None, None)
         dx = dw = None
         nbr = plan.nbr.contiguous()
         if need_dx:
-            # rebuilt per call (27 * F * Fo values), so it follows every
-            # in-place update of the weight
+            # the caller's pack, else made here from the weight as it is now
+            pack = ctx.w_pack_dgrad
+            if pack is None:
+                pack = pack_sparse_weight(w, dgrad=True)
             dx = kernels.sparse_conv_f32(
-                g, nbr, rev_w(w).contiguous(),
+                g, nbr, pack,
                 torch.zeros_like(plan.violations, dtype=torch.int32),
                 dgrad=True)
         if need_dw:
             dw = kernels.sparse_conv_f32_wgrad(feats.contiguous(), nbr, g)
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
-def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor,
-                       w: torch.Tensor) -> torch.Tensor:
+def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
+                       w_pack: torch.Tensor | None = None,
+                       w_pack_dgrad: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Sparse submanifold 3^3 conv: feats [B, C, F], w [27, F, Fo]
     (``neighbor_offsets`` tap order, SparseConv3d's kernel layout) ->
     [B, C, Fo], differentiable in feats and w. Rows of a batch element with
-    dense-bounds violations are NaN. On the card feats and w must be f32."""
+    dense-bounds violations are NaN. On the card feats and w must be f32;
+    ``w_pack`` and ``w_pack_dgrad`` are ``pack_sparse_weight(w)`` and
+    ``pack_sparse_weight(w, dgrad=True)`` where the caller keeps them per
+    weight version (made here when not given)."""
     if torch.is_grad_enabled() and (feats.requires_grad or w.requires_grad):
-        return _WindowSparseConv.apply(feats, w, plan)
-    return _forward(plan, feats, w)
+        return _WindowSparseConv.apply(feats, w, plan, w_pack, w_pack_dgrad)
+    return _forward(plan, feats, w, w_pack)

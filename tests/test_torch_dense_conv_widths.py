@@ -62,6 +62,10 @@ def card(monkeypatch):
     monkeypatch.setattr(kernels, "conv3x3x3_bf16", _fake_k3(calls))
     monkeypatch.setattr(kernels, "conv3x3x3_f32", _fake_k3(calls))
     monkeypatch.setattr(kernels, "conv3x3x3_int8", _fake_k7(calls))
+    # K7's quantize prologue: its kernels' plain versions
+    for name in ("int8_conv_amax", "int8_conv_quantize_x",
+                 "int8_conv_quantize_w"):
+        monkeypatch.setattr(kernels, name, getattr(dc, f"{name}_plain"))
     return calls
 
 

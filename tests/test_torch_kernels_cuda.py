@@ -36,7 +36,7 @@ from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3,
                                                  pack_conv_weight,
                                                  pack_int8_weight,
                                                  quantize_for_conv)
-from infinicube_tpu_torch.ops.window_conv import (rev_w,
+from infinicube_tpu_torch.ops.window_conv import (pack_sparse_weight,
                                                   sparse_conv_bwd_plain,
                                                   sparse_conv_plain,
                                                   window_sparse_conv)
@@ -135,7 +135,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         kernels.sparse_conv_f32(
             f, torch.zeros((1, 64, 27), dtype=torch.int32, device="cuda"),
-            torch.zeros((27, 6, 8), device="cuda"),
+            torch.zeros((2, 27, 8, 6), device="cuda"),
             torch.zeros(1, dtype=torch.int32, device="cuda"))
 
 
@@ -418,7 +418,8 @@ def test_k4_dgrad_and_k6_match_plain(gen, B, cap, F, Fo):
     g, plan, feats, w, gout = _sparse_bwd_case(gen, B, min(cap, 6000) - 50,
                                                cap, F, Fo)
     before = dict(kernels.launches)
-    dx = kernels.sparse_conv_f32(gout, plan.nbr, rev_w(w).contiguous(),
+    dx = kernels.sparse_conv_f32(gout, plan.nbr,
+                                 pack_sparse_weight(w, dgrad=True),
                                  torch.zeros_like(plan.violations),
                                  dgrad=True)
     dw = kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout)
@@ -584,8 +585,8 @@ def test_k7_wrapper_refuses_what_the_kernel_does_not_take(gen):
 
 
 def test_int8_conv_module_routes_on_the_card(gen):
-    """Conv3x3x3(quant=True): K7 where int8_conv_applies holds, K3 at
-    in_conv's width and on an 8^3 cube."""
+    """Conv3x3x3(quant=True): K7 after its three prologue kernels where
+    int8_conv_applies holds, K3 at in_conv's width and on an 8^3 cube."""
     for (B, n, C, O), want in (((2, 16, 64, 128), "conv3x3x3_int8"),
                                ((2, 16, 16, 64), "conv3x3x3_bf16"),
                                ((2, 8, 128, 128), "conv3x3x3_bf16")):
@@ -599,7 +600,10 @@ def test_int8_conv_module_routes_on_the_card(gen):
             out = m(x)
         delta = {k: v - before[k] for k, v in kernels.launches.items() if
                  v != before[k]}
-        assert delta == {want: 1}
+        prologue = {"int8_conv_amax": 1, "int8_conv_quantize_x": 1,
+                    "int8_conv_quantize_w": 1}
+        assert delta == ({want: 1} | prologue if want == "conv3x3x3_int8"
+                         else {want: 1})
         xb, wb = x.to(torch.bfloat16), m.weight.to(torch.bfloat16)
         ref = conv3x3x3_plain(xb, wb, m.bias)
         assert _cos(out.float(), ref.float()) >= 0.999

@@ -1,6 +1,7 @@
-"""The edges of the wgmma / TMA kernels (K3 with its split K, K2, K1, K5),
-of the widths and dtypes the card's dense conv serves and of the f32
-attention, against their plain PyTorch versions on the card. Needs an NVIDIA
+"""The edges of the wgmma / TMA kernels (K3 with its split K, K2, K1, K5,
+K7 with its split K and its quantize prologue, K4 on 3xTF32), of the widths
+and dtypes the card's dense conv serves and of the f32 attention, against
+their plain PyTorch versions on the card. Needs an NVIDIA
 GPU and skips without one; imports no JAX (the card's machine has none):
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -19,17 +20,30 @@ from infinicube_tpu_torch.ops.attention import (attention_bwd_plain,
                                                 attention_plain,
                                                 multi_head_attention)
 from infinicube_tpu_torch.ops.flash_attention import (block_quantize,
+                                                      channel_quantize,
                                                       fold_heads,
                                                       int8qk_attention_plain,
                                                       mha_quantized,
                                                       quant_blocks)
-from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3,
+from infinicube_tpu_torch.grid.build import grid_from_ijk
+from infinicube_tpu_torch.nn.sparse import conv_plan
+from infinicube_tpu_torch.ops.dense_conv import (K7_MULTIPLE, Conv3x3x3,
+                                                 conv3x3x3,
                                                  conv3x3x3_bwd_plain,
                                                  conv3x3x3_int8_plain,
                                                  conv3x3x3_plain,
                                                  dgrad_weight,
+                                                 int8_conv_amax_plain,
+                                                 int8_conv_quantize_w_plain,
+                                                 int8_conv_quantize_x_plain,
                                                  pack_conv_weight,
+                                                 pack_int8_weight,
+                                                 pad_channels,
                                                  quantize_for_conv)
+from infinicube_tpu_torch.ops.window_conv import (ConvPlan,
+                                                  pack_sparse_weight,
+                                                  rev_w,
+                                                  sparse_conv_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -382,3 +396,213 @@ def test_f32_unet_with_self_attention_matches_the_cpu(gen):
     assert torch.isfinite(got).all()
     assert _cos(got, ref) >= 0.99999
     assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+# K7 at the release UNet's int8 shapes at CFG batch 2 (cube edge, C, O), and
+# at two widths the rule admits that K7 takes padded to 32
+K7_SHAPES = ((64, 192, 192), (64, 576, 192), (32, 384, 384),
+             (32, 1152, 384), (32, 768, 768), (16, 384, 768))
+K7_PADDED = ((16, 64, 72), (16, 72, 104))
+
+
+def _int8_case(g, B, n, C, O, cfg_ratio=1.0):
+    """bf16 x with its own range in every channel (and, for a CFG pair, the
+    second half scaled), the f32 weight parameter and a bias."""
+    x = torch.randn((B, n, n, n, C), generator=g, device="cuda") * \
+        torch.logspace(-1, 1, C, device="cuda")
+    x[B // 2:] *= cfg_ratio
+    w = _rand((O, C, 3, 3, 3), g, torch.float32) / (27 * C) ** 0.5
+    b = 0.1 * torch.randn(O, generator=g, device="cuda")
+    return x.to(torch.bfloat16), w, b
+
+
+def _k7_splits(x8, O):
+    B, D, H, W, C = x8.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kernels.k7_splits(B, D, H, W, C, O, sms)
+
+
+@pytest.mark.parametrize("n,C,O", K7_SHAPES + K7_PADDED)
+def test_k7_is_bit_equal_to_plain(gen, n, C, O):
+    """K7 (on the padded operands where C or O is not a multiple of 32)
+    against conv3x3x3_int8_plain on the same int8 inputs: every output
+    equal."""
+    x, w, b = _int8_case(gen, 2, n, C, O)
+    x8, w8, sw = quantize_for_conv(x, w.to(torch.bfloat16))
+    m = K7_MULTIPLE
+    got = kernels.conv3x3x3_int8(
+        pad_channels(x8, m, -1).contiguous(),
+        pack_int8_weight(pad_channels(w8, m, 0, 1)),
+        pad_channels(sw, m, 1).contiguous(), pad_channels(b, m, 0))
+    ref = conv3x3x3_int8_plain(x8, w8, sw, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., :O], ref)
+
+
+@pytest.mark.parametrize("B,n,C,O", [(2, 16, 64, 96), (1, 8, 384, 768),
+                                     (2, 16, 96, 128)])
+def test_k7_split_k_is_exact_and_reproducible(gen, B, n, C, O):
+    """Where the tiles fall short of the SMs K7 splits each dx group's K
+    range; its int32 partials are summed exactly: equal to the plain
+    version, and two runs bit-identical."""
+    x, w, b = _int8_case(gen, B, n, C, O)
+    x8, w8, sw = quantize_for_conv(x, w.to(torch.bfloat16))
+    assert _k7_splits(x8, O) > 1 and _k7_splits(x8, O) % 3 == 0
+    w8p = pack_int8_weight(w8)
+    one = kernels.conv3x3x3_int8(x8, w8p, sw, b)
+    two = kernels.conv3x3x3_int8(x8, w8p, sw, b)
+    ref = conv3x3x3_int8_plain(x8, w8, sw, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two) and torch.equal(one, ref)
+
+
+@pytest.mark.parametrize("B,n,C,O,ratio", [
+    (2, 16, 192, 192, 1.0), (2, 16, 384, 768, 8.0), (2, 8, 72, 104, 0.1),
+    (1, 8, 1152, 384, 1.0)])
+def test_int8_prologue_is_bit_equal_to_plain(gen, B, n, C, O, ratio):
+    """The three prologue kernels against their plain versions and against
+    quantize_for_conv + pad_channels + pack_int8_weight, from the f32
+    parameter and from its bf16 cast; a CFG pair whose halves have other
+    ranges shares one scale per channel; one all-zero channel takes the
+    1e-8 floor."""
+    x, w, _ = _int8_case(gen, B, n, C, O, ratio)
+    x[..., 1] = 0
+    before = dict(kernels.launches)
+    amax = kernels.int8_conv_amax(x)
+    x8 = kernels.int8_conv_quantize_x(x, amax)
+    w8p, sw = kernels.int8_conv_quantize_w(w, amax)
+    w8p_b, sw_b = kernels.int8_conv_quantize_w(w.to(torch.bfloat16), amax)
+    for name, n_calls in (("int8_conv_amax", 1), ("int8_conv_quantize_x", 1),
+                          ("int8_conv_quantize_w", 2)):
+        assert kernels.launches[name] == before[name] + n_calls
+    ref_amax = int8_conv_amax_plain(x)
+    assert torch.equal(amax, ref_amax)
+    assert torch.equal(x8, int8_conv_quantize_x_plain(x, ref_amax))
+    ref_w8p, ref_sw = int8_conv_quantize_w_plain(w, ref_amax)
+    assert torch.equal(w8p, ref_w8p) and torch.equal(sw, ref_sw)
+    assert torch.equal(w8p_b, ref_w8p) and torch.equal(sw_b, ref_sw)
+    rx8, rw8, rsw = quantize_for_conv(x, w.to(torch.bfloat16))
+    m = K7_MULTIPLE
+    assert torch.equal(x8, pad_channels(rx8, m, -1))
+    assert torch.equal(w8p, pack_int8_weight(pad_channels(rw8, m, 0, 1)))
+    assert torch.equal(sw, pad_channels(rsw, m, 1))
+
+
+def test_int8_prologue_wrappers_refuse_what_they_do_not_take(gen):
+    x = torch.zeros((1, 4, 4, 4, 12), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):                  # C not a multiple of 8
+        kernels.int8_conv_amax(x)
+    x = torch.zeros((1, 4, 4, 4, 16), device="cuda")
+    with pytest.raises(ValueError):                  # f32 activations
+        kernels.int8_conv_amax(x)
+    x = x.to(torch.bfloat16)
+    amax = kernels.int8_conv_amax(x)
+    with pytest.raises(ValueError):                  # amax of another width
+        kernels.int8_conv_quantize_x(x, amax[:8].contiguous())
+    with pytest.raises(ValueError):                  # a 1x1x1 kernel
+        kernels.int8_conv_quantize_w(
+            torch.zeros((32, 16, 1, 1, 1), device="cuda"), amax)
+    with pytest.raises(ValueError):                  # int8 weights
+        kernels.int8_conv_quantize_w(
+            torch.zeros((32, 16, 3, 3, 3), dtype=torch.int8,
+                        device="cuda"), amax)
+
+
+def _sparse_table(g, rows, cap):
+    """An int32 [1, rows, 27] neighbour table with tiles of every kind:
+    rows 0-127 with every tap absent, 128-255 with only the centre tap
+    (each row itself), the rest with neighbours drawn among `cap` rows
+    and a third of them absent; rows is not a multiple of 128."""
+    nbr = torch.randint(0, cap, (1, rows, 27), generator=g, device="cuda",
+                        dtype=torch.int32)
+    absent = torch.rand((1, rows, 27), generator=g, device="cuda") < 0.33
+    nbr = torch.where(absent, -1, nbr)
+    nbr[:, :128] = -1
+    nbr[:, 128:256] = -1
+    nbr[:, 128:256, 13] = torch.arange(128, 256, device="cuda",
+                                       dtype=torch.int32)
+    return nbr
+
+
+@pytest.mark.parametrize("F,Fo", [(256, 256), (256, 128), (128, 128),
+                                  (128, 64), (64, 64), (32, 64), (8, 12)])
+def test_k4_holds_its_gate_on_every_kind_of_tile(gen, F, Fo):
+    """K4 forward and as the input gradient (the dgrad pack) at the
+    decoder's and trainer's widths against sparse_conv_plain: max-abs <=
+    1e-4 * max|ref|; a tile with every tap absent gives exact zeros, and
+    batch element 1, poisoned, is all NaN while element 0 holds."""
+    rows = 1000
+    nbr = torch.cat([_sparse_table(gen, rows, rows)] * 2)
+    plan = ConvPlan(nbr, torch.tensor([0, 3], dtype=torch.int32,
+                                      device="cuda"))
+    feats = torch.randn((2, rows, F), generator=gen, device="cuda")
+    w = torch.randn((27, F, Fo), generator=gen, device="cuda") / \
+        (27 * F) ** 0.5
+    before = dict(kernels.launches)
+    out = kernels.sparse_conv_f32(feats, nbr, pack_sparse_weight(w),
+                                  plan.violations)
+    ref = sparse_conv_plain(plan, feats, w)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[0]).all()
+    assert (out[0, :128] == 0).all()
+    assert (out[0] - ref[0]).abs().max().item() <= \
+        1e-4 * ref[0].abs().max().item()
+    gout = torch.randn((2, rows, Fo), generator=gen, device="cuda")
+    zero = torch.zeros(2, dtype=torch.int32, device="cuda")
+    dx = kernels.sparse_conv_f32(gout, nbr, pack_sparse_weight(w, True),
+                                 zero, dgrad=True)
+    ref_dx = sparse_conv_plain(ConvPlan(nbr, zero), gout, rev_w(w))
+    torch.cuda.synchronize()
+    assert kernels.launches["sparse_conv_f32"] == \
+        before["sparse_conv_f32"] + 1
+    assert kernels.launches["sparse_conv_f32_dgrad"] == \
+        before["sparse_conv_f32_dgrad"] + 1
+    assert (dx - ref_dx).abs().max().item() <= \
+        1e-4 * ref_dx.abs().max().item()
+
+
+@pytest.mark.parametrize("n_pts,cap,F,Fo", [(60000, 65536, 64, 64),
+                                            (20000, 32768, 256, 256),
+                                            (40000, 65536, 32, 64)])
+def test_k4_on_real_grids(gen, n_pts, cap, F, Fo):
+    """K4 and K4-dgrad on a voxel grid at the decode's and the trainer's
+    row counts, within the gate."""
+    pts = torch.randint(-40, 40, (1, n_pts, 3), generator=gen, device="cuda")
+    grid = grid_from_ijk(pts, torch.ones((1, n_pts), dtype=torch.bool,
+                                        device="cuda"), 0.2, 0.1, cap)
+    plan = conv_plan(grid, dense_bounds=((-64, -64, -64), (128, 128, 128)))
+    assert plan.violations.sum().item() == 0
+    feats = torch.where(grid.mask[..., None], torch.randn(
+        (1, cap, F), generator=gen, device="cuda"), 0.0)
+    w = torch.randn((27, F, Fo), generator=gen, device="cuda") / \
+        (27 * F) ** 0.5
+    out = kernels.sparse_conv_f32(feats, plan.nbr, pack_sparse_weight(w),
+                                  plan.violations)
+    ref = sparse_conv_plain(plan, feats, w)
+    gout = torch.where(grid.mask[..., None], torch.randn(
+        (1, cap, Fo), generator=gen, device="cuda"), 0.0)
+    dx = kernels.sparse_conv_f32(gout, plan.nbr,
+                                 pack_sparse_weight(w, dgrad=True),
+                                 plan.violations, dgrad=True)
+    ref_dx = sparse_conv_plain(plan, gout, rev_w(w))
+    torch.cuda.synchronize()
+    for got, want in ((out, ref), (dx, ref_dx)):
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item()
+
+
+def test_int8_quantizers_on_the_card_equal_the_cpu(gen):
+    """The plain int8 quantizers on CUDA tensors give the CPU's (and the
+    reference's) int8 values and scales bit for bit: their scales divide by
+    127 (a Python-scalar divisor would be a product with its rounded
+    reciprocal on the card, off in the last bit for some values)."""
+    x, w, _ = _int8_case(gen, 2, 16, 192, 192)
+    for got, ref in zip(quantize_for_conv(x, w.to(torch.bfloat16)),
+                        quantize_for_conv(x.cpu(), w.cpu().to(
+                            torch.bfloat16))):
+        assert torch.equal(got.cpu(), ref)
+    q = _rand((24, 3072, 128), gen) * torch.logspace(
+        -2, 2, 3072, device="cuda")[None, :, None].to(torch.bfloat16)
+    for fn in (lambda t: block_quantize(t, 1536), channel_quantize):
+        for got, ref in zip(fn(q), fn(q.cpu())):
+            assert torch.equal(got.cpu(), ref)

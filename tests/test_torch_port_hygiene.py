@@ -333,10 +333,14 @@ def test_sparse_conv_gradient_on_the_card_goes_through_the_kernels(
     conv_plain, bwd_plain = (window_conv.sparse_conv_plain,
                              window_conv.sparse_conv_bwd_plain)
 
-    def fake_k4(feats, nbr, w, poison, dgrad=False):
-        calls.append(("dgrad" if dgrad else "fwd", tuple(w.shape),
+    def fake_k4(feats, nbr, w_pack, poison, dgrad=False):
+        calls.append(("dgrad" if dgrad else "fwd", tuple(w_pack.shape),
                       poison.tolist()))
-        return conv_plain(plan, plain(feats), plain(w))
+        w = conv.kernel.detach()
+        assert torch.equal(plain(w_pack),
+                           window_conv.pack_sparse_weight(w, dgrad))
+        return conv_plain(plan, plain(feats),
+                          window_conv.rev_w(w) if dgrad else w)
 
     def fake_k6(feats, nbr, gout):
         calls.append(("wgrad", tuple(gout.shape), None))
@@ -355,7 +359,7 @@ def test_sparse_conv_gradient_on_the_card_goes_through_the_kernels(
     cot = torch.randn((1, 64, 8), generator=g)
     conv(feats, plan).backward(cot)
     assert [c[0] for c in calls] == ["fwd", "dgrad", "wgrad"]
-    assert calls[0][1] == (27, 4, 8) and calls[1][1] == (27, 8, 4)
+    assert calls[0][1] == (2, 27, 8, 4) and calls[1][1] == (2, 27, 4, 8)
     assert calls[1][2] == [0] and calls[2][1] == (1, 64, 8)
     monkeypatch.undo()
     ref_dx, ref_dw = bwd_plain(plan, x, conv.kernel.detach(), cot)
@@ -370,14 +374,18 @@ def test_sparse_conv_gradient_on_the_card_goes_through_the_kernels(
 
 
 def test_int8_conv_on_the_card_takes_k7_where_the_rule_holds(monkeypatch):
-    """``Conv3x3x3(quant=True)`` on a CUDA-claiming input: K7's wrapper
-    exactly where ``int8_conv_applies`` holds for the input (the reference's
-    rule), K3's wrapper elsewhere, and never a plain version. Checked
-    without a card: stand-ins that record their calls take the wrappers'
-    place and compute the plain results on the CPU."""
+    """``Conv3x3x3(quant=True)`` on a CUDA-claiming input: K7's wrapper,
+    after the wrappers of its three quantize-prologue kernels, exactly where
+    ``int8_conv_applies`` holds for the input (the reference's rule), K3's
+    wrapper elsewhere, and never a plain version. Checked without a card:
+    stand-ins that record their calls take the wrappers' place and compute
+    the plain results on the CPU."""
     from infinicube_tpu_torch.ops import dense_conv
     int8_plain, bf16_plain = (dense_conv.conv3x3x3_int8_plain,
                               dense_conv.conv3x3x3_plain)
+    quantize = dense_conv.quantize_for_conv
+    prologue = ["int8_conv_amax", "int8_conv_quantize_w",
+                "int8_conv_quantize_x"]
     calls = []
 
     def plain(t):
@@ -399,10 +407,21 @@ def test_int8_conv_on_the_card_takes_k7_where_the_rule_holds(monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("a plain version ran on a CUDA tensor")
 
+    def fake_prologue(name):
+        def run(*args):
+            calls.append(name)
+            return getattr(dense_conv, f"{name}_plain")(
+                *(plain(a) for a in args))
+        return run
+
     monkeypatch.setattr(dense_conv.kernels, "conv3x3x3_int8", fake_k7)
     monkeypatch.setattr(dense_conv.kernels, "conv3x3x3_bf16", fake_k3)
+    for name in ("int8_conv_amax", "int8_conv_quantize_x",
+                 "int8_conv_quantize_w"):
+        monkeypatch.setattr(dense_conv.kernels, name, fake_prologue(name))
     monkeypatch.setattr(dense_conv, "conv3x3x3_int8_plain", refuse)
     monkeypatch.setattr(dense_conv, "conv3x3x3_plain", refuse)
+    monkeypatch.setattr(dense_conv, "quantize_for_conv", refuse)
     g = torch.Generator().manual_seed(0)
     # (B, D, H, W, C, O): int8 at 4 x 8 x 16 and 64 channels; not at C = 16,
     # not on a 4^3 cube, not with W = 12
@@ -418,10 +437,11 @@ def test_int8_conv_on_the_card_takes_k7_where_the_rule_holds(monkeypatch):
             out = conv(x.as_subclass(_OnCard))
         want = "k7" if dense_conv.int8_conv_applies((B, D, H, W), C, O) \
             else "k3"
-        assert calls == [want], (shape, calls)
+        assert calls == ([*prologue, "k7"] if want == "k7" else ["k3"]), \
+            (shape, calls)
         wq = conv.weight.to(torch.bfloat16)
         bias = conv.bias.to(torch.bfloat16).float()
-        ref = int8_plain(*dense_conv.quantize_for_conv(x, wq), bias,
+        ref = int8_plain(*quantize(x, wq), bias,
                          torch.bfloat16) if want == "k7" else \
             bf16_plain(x, wq, bias)
         assert torch.equal(plain(out), ref)
