@@ -127,12 +127,16 @@ Then every width and f32 (the int8 models freed first):
 
 22. kernel checks: the int8 conv at 16^3, 64 -> 72 and 72 -> 104 (K7 on
     operands zero-padded to multiples of 32) equal to the unpadded
-    ``conv3x3x3_int8_plain``; ``conv3x3x3_f32`` against the plain f32 conv
-    at the six release shapes (and as dgrad at 16^3), timed beside it, its
-    bound and cuDNN's f32 conv3d; ``flash_attn_f32`` against the plain f32
-    attention at the UNet's two SelfAttention3D shapes and at Nq != Nk,
-    d = 64, timed beside it, its bound and ``scaled_dot_product_attention``
-    in f32;
+    ``conv3x3x3_int8_plain``; ``conv3x3x3_f32`` (3xTF32 on ``wgmma``)
+    against the plain f32 conv (cuDNN, TF32 off) at the six release shapes,
+    forward and as dgrad, the split-K shapes twice bit-identical, timed
+    beside the plain version, cuDNN's f32 conv3d forward and backward-data,
+    its 3xTF32 bound and the f32 CUDA-core bound; ``flash_attn_f32``
+    (3xTF32) against the plain f32 attention at the UNet's two
+    SelfAttention3D shapes, at Nq != Nk with d = 64 and at the GSM pixel
+    branch's SelfAttn2D shape (N = 5,280, 4 heads of 64), the split-keys
+    path at N = 512 twice bit-identical, timed beside the plain version,
+    its bounds and ``scaled_dot_product_attention`` in f32;
 23. model check: the f32 release-width UNet, SelfAttention3D included, on a
     16^3 cube, card against the CPU;
 24. the f32 stage-1 path: one chunk of ``evaluation_api`` with the release
@@ -717,14 +721,20 @@ def stage1_time(profile_fn, diffusion, vae, gen):
     return dec
 
 
-def k4_bounds(pairs, F, Fo, nbytes):
-    """K4's bound: its 3 TF32 products per f32 product on the tensor cores
-    (3 * 2 * pairs * F * Fo at 495 TFLOP/s) against the bytes, the share's
-    yardstick; and beside it the f32 CUDA-core bound (2 * pairs * F * Fo at
-    67 TFLOP/s) of the first, SIMT version."""
-    flops = 2.0 * pairs * F * Fo
+def tf32x3_bounds(flops, nbytes):
+    """The bound of a 3xTF32 kernel: its 3 TF32 products per f32 product on
+    the tensor cores (3 * flops at 495 TFLOP/s) against the bytes, the
+    share's yardstick; and beside it the f32 CUDA-core bound (flops at 67
+    TFLOP/s). Returns (bound ms, what sets it, CUDA-core bound ms)."""
     b_ms, b_by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
-    return flops, b_ms, b_by, bound_ms([(flops, PEAK_F32)], nbytes)[0]
+    return b_ms, b_by, bound_ms([(flops, PEAK_F32)], nbytes)[0]
+
+
+def k4_bounds(pairs, F, Fo, nbytes):
+    """K4's bounds (``tf32x3_bounds``) for 2 * pairs * F * Fo f32
+    operations."""
+    flops = 2.0 * pairs * F * Fo
+    return (flops, *tf32x3_bounds(flops, nbytes))
 
 
 def k4_checks(kernels, mods, dec, vcfg):
@@ -2202,71 +2212,99 @@ def k7_padded_checks(dc):
 
 
 def f32_conv_checks(kernels, dc):
-    """``conv3x3x3_f32`` at the release UNet's conv shapes against the plain
-    f32 conv (cuDNN, TF32 off) on the same inputs, max-abs <= 1e-4 *
-    max|ref|, forward and, at one shape, as dgrad; timed beside the plain
-    version, its bound (2*V*27*C*O f32 operations at the CUDA-core peak)
-    and cuDNN's f32 conv3d (channels_last_3d)."""
+    """``conv3x3x3_f32`` (3xTF32) at the release UNet's conv shapes against
+    the plain f32 conv (cuDNN, TF32 off) on the same inputs, max-abs <=
+    1e-4 * max|ref|, forward and as dgrad (the flipped, swapped pack, no
+    bias), each run twice bit-identical where it splits K; timed beside the
+    plain version, cuDNN's f32 conv3d forward and backward-data
+    (channels_last_3d), its 3xTF32 bound (3 * 2*V*27*C*O at 495 TFLOP/s)
+    and the f32 CUDA-core bound (2*V*27*C*O at 67 TFLOP/s)."""
     g = torch.Generator(device="cuda").manual_seed(17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for n, C, O in K3_SHAPES:
         x = torch.randn((1, n, n, n, C), generator=g, device="cuda")
         w = torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") / \
             math.sqrt(27 * C)
         b = 0.1 * torch.randn(O, generator=g, device="cuda")
+        go = torch.randn((1, n, n, n, O), generator=g, device="cuda")
         wp = dc.pack_conv_weight(w, torch.float32)
-        got = kernels.conv3x3x3_f32(x, wp, b)
-        ref = dc.conv3x3x3_plain(x, w, b)
-        err = (got - ref).abs().max().item()
-        lim = 1e-4 * ref.abs().max().item()
+        wd = dc.pack_conv_weight(dc.dgrad_weight(w), torch.float32)
         shape = f"[1,{n},{n},{n},{C}]->{O}"
-        print(f"[f32 conv] {shape}: cosine {cos(got, ref):.8f} max_abs_err "
-              f"{err:.3e} (limit {lim:.3e})")
-        check(err <= lim, f"conv3x3x3_f32 at {shape}: err {err}")
-        if n == 16:
-            go = torch.randn((1, n, n, n, O), generator=g, device="cuda")
-            dx = kernels.conv3x3x3_f32(
-                go, dc.pack_conv_weight(dc.dgrad_weight(w), torch.float32),
-                None)
-            ref_dx = dc.conv3x3x3_bwd_plain(x, w, go)[0]
-            d_err = (dx - ref_dx).abs().max().item()
-            print(f"[f32 conv] dgrad [1,{n},{n},{n},{O}]->{C}: max_abs_err "
-                  f"{d_err:.3e} (limit {1e-4 * ref_dx.abs().max().item():.3e})")
-            check(d_err <= 1e-4 * ref_dx.abs().max().item(),
-                  f"conv3x3x3_f32 dgrad: err {d_err}")
-            del go, dx, ref_dx
-        del got, ref
-        ms = cuda_ms(lambda: kernels.conv3x3x3_f32(x, wp, b), 1, 3)
+        errs = []
+        for label, run, ref_fn, out_ch in (
+                ("forward", lambda: kernels.conv3x3x3_f32(x, wp, b),
+                 lambda: dc.conv3x3x3_plain(x, w, b), O),
+                ("dgrad", lambda: kernels.conv3x3x3_f32(go, wd, None),
+                 lambda: dc.conv3x3x3_plain(go, dc.dgrad_weight(w),
+                                            torch.zeros(C, device="cuda")),
+                 C)):
+            got, ref = run(), ref_fn()
+            err = (got - ref).abs().max().item()
+            lim = 1e-4 * ref.abs().max().item()
+            src = (go if label == "dgrad" else x).shape
+            splits = kernels.f32_conv_splits(*src, out_ch, sms)
+            same = torch.equal(got, run()) if splits > 1 else None
+            print(f"[f32 conv] {label} {shape}: cosine {cos(got, ref):.8f} "
+                  f"max_abs_err {err:.3e} (limit {lim:.3e}), {splits} K "
+                  f"slice(s)" + ("" if same is None else
+                                 f", two runs bit-identical {same}"))
+            check(torch.isfinite(got).all().item() and err <= lim,
+                  f"conv3x3x3_f32 {label} at {shape}: err {err}")
+            check(same is not False, f"conv3x3x3_f32 {label} at {shape}: "
+                  "split runs differ")
+            errs.append(err)
+            del got, ref
+        iters = 3 if n == 64 else 10
+        ms = cuda_ms(lambda: kernels.conv3x3x3_f32(x, wp, b), 1, iters)
+        dg_ms = cuda_ms(lambda: kernels.conv3x3x3_f32(go, wd, None), 1,
+                        iters)
         plain = cuda_ms(lambda: dc.conv3x3x3_plain(x, w, b), 1, 3)
-        xl = x.permute(0, 4, 1, 2, 3)
+        xl, gl = x.permute(0, 4, 1, 2, 3), go.permute(0, 4, 1, 2, 3)
         wl = w.contiguous(memory_format=torch.channels_last_3d)
         lib = cuda_ms(lambda: torch.nn.functional.conv3d(xl, wl, b,
-                                                         padding=1), 1, 3)
+                                                         padding=1), 1, iters)
+        lib_dg = cuda_ms(lambda: torch.nn.grad.conv3d_input(
+            xl.shape, wl, gl, padding=1), 1, iters)
         V = n ** 3
         flops = 2.0 * V * 27 * C * O
-        b_ms, b_by = bound_ms([(flops, PEAK_F32)],
-                              4 * (V * C + 27 * C * O + V * O + O))
+        b_ms, b_by, core_ms = tf32x3_bounds(
+            flops, 4 * (V * C + 27 * C * O + V * O + O))
         print(f"[f32 conv] {shape}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f}"
-              f" TFLOP/s), plain {plain:.3f} ms, cudnn f32 {lib:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({b_by}, f32 CUDA-core peak)")
-        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-        del x, w, wp, xl, wl
-    torch.cuda.empty_cache()
+              f" TFLOP/s of f32 work, {100 * b_ms / ms:.1f} % of its bound), "
+              f"dgrad {dg_ms:.3f} ms; plain {plain:.3f} ms; cudnn f32 "
+              f"{lib:.3f} ms, backward-data {lib_dg:.3f} ms; bound "
+              f"{b_ms:.3f} ms ({b_by}, 3 TF32 products at 495 TFLOP/s; the "
+              f"f32 CUDA-core bound {core_ms:.3f} ms)")
+        rows.append(dict(shape=shape, max_abs_err=max(errs), ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, dgrad_ms=dg_ms,
+                         library_dgrad_ms=lib_dg, f32_core_bound_ms=core_ms))
+        del x, w, go, wp, wd, xl, gl, wl
+        torch.cuda.empty_cache()
     return rows
 
 
+# flash_attn_f32's shapes: the UNet's two SelfAttention3D ones, Nq != Nk at
+# d = 64, and the GSM pixel branch's SelfAttn2D at inference (N = 5,280, 4
+# heads of 64): (Nq, Nk, heads, head dim)
+F32_ATTN_SHAPES = ((4096, 4096, H96, D96), (512, 512, H96, D96),
+                   (1000, 777, 4, 64), (5280, 5280, 4, 64))
+
+
 def f32_attn_checks(kernels, att):
-    """``flash_attn_f32`` (through ``multi_head_attention``, no gradient)
-    against ``attention_plain`` in f32 on the same inputs, max-abs <= 1e-4 *
-    max|ref| (as ``conv3x3x3_f32``), at the UNet's two SelfAttention3D
-    shapes and at Nq != Nk with d = 64; timed beside the plain version, its
-    bound (4*Nq*Nk*d*B*h f32 operations at the CUDA-core peak) and
-    ``scaled_dot_product_attention`` on f32 inputs (TF32 off)."""
+    """``flash_attn_f32`` (3xTF32, through ``multi_head_attention``, no
+    gradient) against ``attention_plain`` in f32 on the same inputs, max-abs
+    <= 1e-4 * max|ref| (as ``conv3x3x3_f32``); where the keys are split
+    into ranges (N = 512), two runs bit-identical; timed with CUDA events
+    beside the plain version, its 3xTF32 bound, the f32 CUDA-core bound and
+    ``scaled_dot_product_attention`` on f32 inputs (TF32 off); at N = 512
+    the host's time to issue a call bounds both (``chip_time_kernels.py``
+    times their device time alone)."""
     g = torch.Generator(device="cuda").manual_seed(20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for nq, nk, h, d in ((4096, 4096, H96, D96), (512, 512, H96, D96),
-                         (1000, 777, 4, 64)):
+    for nq, nk, h, d in F32_ATTN_SHAPES:
         q, k, v = (rand((1, n, h, d), g, torch.float32) for n in (nq, nk, nk))
         scale = d ** -0.5
         shape = f"Nq={nq} Nk={nk} h={h} d={d}"
@@ -2278,24 +2316,33 @@ def f32_attn_checks(kernels, att):
         ref = att.attention_plain(q, k, v, scale)
         err = (got - ref).abs().max().item()
         lim = 1e-4 * ref.abs().max().item()
+        splits = kernels.f32_attn_splits(1, h, nq, nk, d, sms)
+        same = torch.equal(got, kernels.flash_attn_f32(q, k, v, scale)) \
+            if splits > 1 else None
         print(f"[f32 attn] {shape}: cosine {cos(got, ref):.8f} max_abs_err "
-              f"{err:.3e} (limit {lim:.3e})")
+              f"{err:.3e} (limit {lim:.3e}), {splits} key range(s)" +
+              ("" if same is None else f", two runs bit-identical {same}"))
         check(torch.isfinite(got).all().item() and err <= lim,
               f"flash_attn_f32 at {shape}: err {err}")
-        ms = cuda_ms(lambda: kernels.flash_attn_f32(q, k, v, scale), 1, 5)
+        check(same is not False, f"flash_attn_f32 at {shape}: split runs "
+              "differ")
+        ms = cuda_ms(lambda: kernels.flash_attn_f32(q, k, v, scale), 2, 10)
         plain = cuda_ms(lambda: att.attention_plain(q, k, v, scale), 1, 3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = cuda_ms(lambda: torch.nn.functional
-                      .scaled_dot_product_attention(qt, kt, vt), 1, 5)
+                      .scaled_dot_product_attention(qt, kt, vt), 2, 10)
         flops = 4.0 * nq * nk * d * h
-        b_ms, b_by = bound_ms([(flops, PEAK_F32)], 4 * 2 * (nq + nk) * d * h)
+        b_ms, b_by, core_ms = tf32x3_bounds(flops, 4 * 2 * (nq + nk) * d * h)
         print(f"[f32 attn] {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
-              f" TFLOP/s, {100 * b_ms / ms:.1f} % of its bound), plain "
-              f"{plain:.3f} ms, sdpa f32 {lib:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}, f32 CUDA-core peak)")
+              f" TFLOP/s of f32 work, {100 * b_ms / ms:.1f} % of its bound), "
+              f"plain {plain:.3f} ms, sdpa f32 {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, 3 TF32 products at 495 TFLOP/s; the "
+              f"f32 CUDA-core bound {core_ms:.4f} ms)")
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         f32_core_bound_ms=core_ms, key_ranges=splits))
         del q, k, v, qt, kt, vt, got, ref
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -7,29 +7,30 @@ clock around work that ends in a synchronize).
 
 - guards, timed first: K2 at d = 96 (N = 4,096 and 512, 8 heads) and
   d = 128 (37,440 x 512, 12 heads), K3 forward at [1,64^3,192]->192, K8
-  (N = 37,440 and 7,800), ``flash_attn_f32`` at the UNet's two
-  SelfAttention3D shapes, K1 (N = 37,440 and 7,800), K5 (d = 96 at 4,096
-  and 512, also plus ``attention_delta``) and K6 (the sparse conv's weight
-  gradient) at the three levels of a 200,000-point training batch;
+  and K1 (N = 37,440 and 7,800), K5 (d = 96 at 4,096 and 512), K6 (the
+  sparse conv's weight gradient) at the three levels of a 200,000-point
+  training batch, K7 at its six shapes (CFG batch 2) and K4 forward
+  through ``window_conv.window_sparse_conv`` on a decode's two grids;
 - K2 and K5 also as device time alone (``torch.profiler``), which the
   small calls need: at N = 512 launching from Python takes about as long
   as the kernel; and the host's time to issue one K2 call at N = 512 (the
   row ending in "issue"), queued behind a kernel that keeps the card busy,
   so that no launch waits for the card;
-- the redesigned kernels through the calls both sides of a comparison
-  have: K7 alone (``kernels.conv3x3x3_int8`` on one quantization) and with
-  its quantize prologue (``dense_conv.Conv3x3x3(quant=True)``, which calls
-  ``conv3x3x3(..., quant=True)``) at its six shapes, CFG batch 2; K4 through
-  ``window_conv.window_sparse_conv`` on the grids of a decode (capacity
-  131,072 at 64 -> 64 and 32,768 at 256 -> 256) and of the training batch
-  at the VAE's widths, forward, and forward plus its input gradient
-  (autograd, weights held fixed);
-- steps: one CFG DDIM step (batch 2, 64^3) of the release UNet in its int8
-  serving configuration and in bf16, one VAE decode of a random latent
-  cube, and one VAE train step on a 200,000-point sample (forward,
-  backward, clip, AdamW, EMA). Random weights, null conditions (the dense
-  work does not depend on them).
+- the f32 kernels: ``conv3x3x3_f32`` at the release UNet's six conv shapes,
+  forward and as the input gradient (the flipped, swapped pack, no bias),
+  each beside cuDNN's f32 conv3d forward and backward-data on the same
+  inputs; ``flash_attn_f32`` at the UNet's two SelfAttention3D shapes
+  (N = 4,096 and 512, h = 8, d = 96), at 1,000 x 777 keys (d = 64) and at
+  the GSM pixel branch's SelfAttn2D shape (N = 5,280, h = 4, d = 64), each
+  host-timed and as device time alone beside ``scaled_dot_product_attention``
+  on f32 inputs, and at N = 512 the host's time to issue one call of each;
+- steps: one DDIM step (batch 1, 64^3) of the release UNet computing in
+  f32 (``DiffusionConfig(dtype=torch.float32)``, its SelfAttention3D blocks
+  included), and the share of one such UNet call's device time (profiler)
+  in the f32 conv kernels and in the f32 attention kernels. Random weights,
+  null conditions (the dense work does not depend on them).
 
+TF32 is off for PyTorch's own calls, so cuDNN and SDPA compute in f32.
 Prints one line of milliseconds and, with ``--json``, writes them there. To
 compare two checkouts, run it on each in turns inside one job on one card
 (a, b, b, a): each run builds the kernels of the checkout it is given and
@@ -45,9 +46,9 @@ import time
 
 import torch
 
-from chip_smoke import (D, D96, H, H96, K7_SHAPES, N_RELEASE, N_SERVE,
-                        TEXT_LEN, VAE_POINTS, cuda_ms, rand,
-                        sdpa_backward_ms, vae_points)
+from chip_smoke import (D, D96, F32_ATTN_SHAPES, H, H96, K3_SHAPES,
+                        K7_SHAPES, N_RELEASE, N_SERVE, TEXT_LEN, VAE_POINTS,
+                        cuda_ms, rand, vae_points)
 
 # the VAE's conv widths at the training batch's levels: (level, F, Fo)
 TRAIN_CONVS = ((0, 32, 64), (0, 64, 64), (1, 128, 128), (1, 256, 128),
@@ -56,7 +57,7 @@ TRAIN_CONVS = ((0, 32, 64), (0, 64, 64), (1, 128, 128), (1, 256, 128),
 
 def device_ms(fn, iters=20):
     """The device time of ``fn``'s kernels alone per call (the profiler's
-    CUDA events), for kernels short enough that launching them from Python
+    CUDA events), for calls short enough that launching them from Python
     takes about as long as running them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -102,10 +103,13 @@ def training_grids():
         (1, VAE_POINTS), dtype=torch.bool, device="cuda"))
 
 
-def guard_rows(kernels, att, dc, fa, g):
+def guard_rows(kernels, dc, fa, wc, g):
     """The kernels this redesign leaves as they are, timed first, so that
     none is timed right after a run of the redesigned kernels at full
     power."""
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig)
+    from infinicube_tpu_torch.nn.sparse import conv_plan
     out = {}
     for nq, nk, h, d in ((N_RELEASE, TEXT_LEN, H, D), (4096, 4096, H96, D96),
                          (512, 512, H96, D96)):
@@ -141,30 +145,17 @@ def guard_rows(kernels, att, dc, fa, g):
             q8, k8, sq, sk, v, block, D ** -0.5), 2, 5)
         del q8, k8, v, v8, v8t
     for n in (4096, 512):
-        q, k, v = (rand((1, n, H96, D96), g, torch.float32)
-                   for _ in range(3))
-        out[f"f32 attn {n}x{n} h{H96} d{D96}"] = cuda_ms(
-            lambda: kernels.flash_attn_f32(q, k, v, D96 ** -0.5), 1, 5)
-    for n in (4096, 512):
         q, k, v, do = (rand((1, n, H96, D96), g) for _ in range(4))
         o, lse = kernels.flash_attn_bf16(q, k, v, D96 ** -0.5,
                                          return_lse=True)
-        delta = att.attention_delta(o, do)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
         def k5():
             return kernels.flash_attn_bf16_bwd(q, k, v, do, lse, delta,
                                                D96 ** -0.5)
-
-        def k5_delta():
-            return kernels.flash_attn_bf16_bwd(
-                q, k, v, do, lse, att.attention_delta(o, do), D96 ** -0.5)
         shape = f"{n}x{n} h{H96} d{D96}"
         out[f"k5 {shape}"] = cuda_ms(k5, 3, 20)
         out[f"k5 {shape} device"] = device_ms(k5)
-        out[f"k5+delta {shape}"] = cuda_ms(k5_delta, 3, 20)
-        lib, backend = sdpa_backward_ms(q, k, v, do)
-        out[f"sdpa bwd ({backend}) {shape}"] = lib
-    from infinicube_tpu_torch.nn.sparse import conv_plan
     vcfg, tree = training_grids()
     for level, F, Fo in TRAIN_CONVS:
         grid = tree[level]
@@ -177,17 +168,7 @@ def guard_rows(kernels, att, dc, fa, g):
         out[f"k6 train L{level} {F}->{Fo}"] = cuda_ms(
             lambda: kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout),
             2, 5)
-    torch.cuda.empty_cache()
-    return out
-
-
-def redesign_rows(kernels, dc, wc, g):
-    """K7 alone and with its quantize prologue; K4 forward and forward +
-    input gradient on decode and training grids."""
-    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
-                                                       SparseVAEConfig)
-    from infinicube_tpu_torch.nn.sparse import conv_plan
-    out = {}
+    del tree
     for n, C, O in K7_SHAPES:
         x = (torch.randn((2, n, n, n, C), generator=g, device="cuda") *
              torch.logspace(-1, 1, C, device="cuda")).to(torch.bfloat16)
@@ -196,56 +177,79 @@ def redesign_rows(kernels, dc, wc, g):
         b = torch.zeros(O, device="cuda")
         x8, w8, sw = dc.quantize_for_conv(x, w.to(torch.bfloat16))
         w8p = dc.pack_int8_weight(w8)
-        key = f"[2,{n}^3] {C}->{O}"
-        out[f"k7 {key}"] = cuda_ms(
+        out[f"k7 [2,{n}^3] {C}->{O}"] = cuda_ms(
             lambda: kernels.conv3x3x3_int8(x8, w8p, sw, b), 2, 10)
-        # the main path's call: the module (f32 parameters, bf16 compute)
-        conv = dc.Conv3x3x3(C, O, dtype=torch.bfloat16, device="cuda",
-                            quant=True)
-        conv.reset_parameters(g)
-        with torch.no_grad():
-            out[f"k7+prologue {key}"] = cuda_ms(lambda: conv(x), 2, 10)
-        del x, w, x8, w8, w8p, conv
+        del x, w, x8, w8, w8p
     torch.cuda.empty_cache()
-
-    def k4_rows(tag, grid, level, F, Fo, vcfg):
-        plan = conv_plan(grid, dense_bounds=vcfg.level_dense_bounds(level))
-        m = grid.mask[..., None]
-        feats = torch.where(m, torch.randn((1, grid.capacity, F),
-                                           generator=g, device="cuda"), 0.0)
-        w = torch.randn((27, F, Fo), generator=g, device="cuda") / \
-            math.sqrt(27 * F)
-        gout = torch.where(m, torch.randn((1, grid.capacity, Fo),
-                                          generator=g, device="cuda"), 0.0)
-        with torch.no_grad():
-            out[f"k4 {tag}"] = cuda_ms(
-                lambda: wc.window_sparse_conv(plan, feats, w), 2, 10)
-        fg = feats.clone().requires_grad_()
-
-        def fwd_dgrad():
-            wc.window_sparse_conv(plan, fg, w).backward(gout)
-            fg.grad = None
-        out[f"k4+dgrad {tag}"] = cuda_ms(fwd_dgrad, 2, 10)
-
-    vcfg = SparseVAEConfig()
     vae = SparseStructureVAE(vcfg, device="cuda")
     vae.init_params(g)
     latents = torch.randn((1, 64, 64, 64, vcfg.latent_channels),
                           generator=g, device="cuda")
-    dec = vae.decode(latents)
-    out["vae decode"] = _host_ms(lambda: vae.decode(latents))
-    grids = dec["grids"]
-    print(f"decode voxels per level "
-          f"{[int(gr.mask.sum()) for gr in grids]}", flush=True)
-    k4_rows(f"decode {grids[-1].capacity} 64->64", grids[-1], 0, 64, 64,
-            vcfg)
-    k4_rows(f"decode {grids[0].capacity} 256->256", grids[0], 2, 256, 256,
-            vcfg)
-    del vae, dec, grids, latents
-    vcfg, tree = training_grids()
-    for level, F, Fo in TRAIN_CONVS:
-        k4_rows(f"train L{level} {F}->{Fo}", tree[level], level, F, Fo, vcfg)
+    grids = vae.decode(latents)["grids"]
+    for grid, level, F in ((grids[-1], 0, 64), (grids[0], 2, 256)):
+        plan = conv_plan(grid, dense_bounds=vcfg.level_dense_bounds(level))
+        feats = torch.where(grid.mask[..., None], torch.randn(
+            (1, grid.capacity, F), generator=g, device="cuda"), 0.0)
+        w = torch.randn((27, F, F), generator=g, device="cuda") / \
+            math.sqrt(27 * F)
+        with torch.no_grad():
+            out[f"k4 decode {grid.capacity} {F}->{F}"] = cuda_ms(
+                lambda: wc.window_sparse_conv(plan, feats, w), 2, 10)
+    del vae, grids, latents
     torch.cuda.empty_cache()
+    return out
+
+
+def f32_rows(kernels, dc, g):
+    """``conv3x3x3_f32`` forward and dgrad beside cuDNN's f32 conv3d
+    forward and backward-data; ``flash_attn_f32`` beside f32 SDPA."""
+    out = {}
+    for n, C, O in K3_SHAPES:
+        x = torch.randn((1, n, n, n, C), generator=g, device="cuda")
+        w = torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") / \
+            math.sqrt(27 * C)
+        b = torch.zeros(O, device="cuda")
+        go = torch.randn((1, n, n, n, O), generator=g, device="cuda")
+        wp = dc.pack_conv_weight(w, torch.float32)
+        wd = dc.pack_conv_weight(dc.dgrad_weight(w), torch.float32)
+        key = f"[1,{n}^3] {C}->{O}"
+        iters = 3 if n == 64 else 10
+        out[f"f32 conv {key}"] = cuda_ms(
+            lambda: kernels.conv3x3x3_f32(x, wp, b), 1, iters)
+        out[f"f32 conv dgrad {key}"] = cuda_ms(
+            lambda: kernels.conv3x3x3_f32(go, wd, None), 1, iters)
+        xl, gl = x.permute(0, 4, 1, 2, 3), go.permute(0, 4, 1, 2, 3)
+        wl = w.contiguous(memory_format=torch.channels_last_3d)
+        out[f"cudnn f32 conv {key}"] = cuda_ms(
+            lambda: torch.nn.functional.conv3d(xl, wl, b, padding=1), 1,
+            iters)
+        out[f"cudnn f32 dgrad {key}"] = cuda_ms(
+            lambda: torch.nn.grad.conv3d_input(xl.shape, wl, gl, padding=1),
+            1, iters)
+        del x, w, go, wp, wd, xl, gl, wl
+        torch.cuda.empty_cache()
+    for nq, nk, h, d in F32_ATTN_SHAPES:
+        q, k, v = (rand((1, n, h, d), g, torch.float32) for n in (nq, nk, nk))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def ours():
+            return kernels.flash_attn_f32(q, k, v, d ** -0.5)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt)
+        key = f"{nq}x{nk} h{h} d{d}"
+        calls = 500 if nq == 512 else 10
+        out[f"f32 attn {key}"] = cuda_ms(ours, 2, calls)
+        out[f"f32 attn {key} device"] = device_ms(ours)
+        out[f"sdpa f32 {key}"] = cuda_ms(sdpa, 2, calls)
+        out[f"sdpa f32 {key} device"] = device_ms(sdpa)
+        if nq == 512:
+            # 200 calls: a call may launch three kernels, and the queue of
+            # launches the host may run ahead of the card is about 1,000
+            out[f"f32 attn {key} issue"] = issue_ms(ours, 200)
+            out[f"sdpa f32 {key} issue"] = issue_ms(sdpa, 200)
+        del q, k, v, qt, kt, vt
     return out
 
 
@@ -263,51 +267,39 @@ def _host_ms(fn, runs=3):
 
 
 def step_rows(g):
-    from torch.func import functional_call
+    """One f32 DDIM step of the release UNet and its device-time split."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from infinicube_tpu_torch.grid.ops import majority_label
     from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
                                                              DiffusionConfig,
                                                              VoxelDiffusion)
-    from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
-    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
-                                                       SparseVAEConfig,
-                                                       build_hash_tree)
-    from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
-                                                     make_train_step)
     out = {}
-    diffusion = VoxelDiffusion(DiffusionConfig(serve_quant=True),
+    diffusion = VoxelDiffusion(DiffusionConfig(dtype=torch.float32),
                                device="cuda")
     diffusion.init_params(g, zero_init_layers=False)
-    x = torch.randn((2, 64, 64, 64, 8), generator=g, device="cuda")
-    cond = CondCubes.null(2, diffusion.cfg, "cuda")
-    t = torch.tensor([500, 500], device="cuda")
-    for label, serve in (("int8", True), ("bf16", False)):
-        with torch.no_grad():
-            out[f"cfg ddim step {label}"] = _host_ms(
-                lambda: diffusion.denoise(x, t, cond, serve=serve))
+    x = torch.randn((1, 64, 64, 64, 8), generator=g, device="cuda")
+    cond = CondCubes.null(1, diffusion.cfg, "cuda")
+    t = torch.tensor([500], device="cuda")
+    with torch.no_grad():
+        out["f32 ddim step"] = _host_ms(lambda: diffusion.denoise(x, t, cond))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            diffusion.denoise(x, t, cond)
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.end - e.time_range.start
+    total = sum(by_name.values())
+    conv = sum(v for k, v in by_name.items() if "conv3x3x3" in k)
+    attn = sum(v for k, v in by_name.items() if "flash" in k)
+    out["f32 unet call device"] = total / 1e3
+    out["f32 unet call conv3x3x3_f32"] = conv / 1e3
+    out["f32 unet call flash_attn_f32"] = attn / 1e3
+    print("f32 UNet call, device time by kernel (ms): " + "; ".join(
+        f"{k[:60]} {v / 1e3:.3f}" for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]), flush=True)
     del diffusion, x, cond
-    torch.cuda.empty_cache()
-
-    cfg, vcfg = TrainConfig(), SparseVAEConfig()
-    model = SparseStructureVAE(vcfg, device="cuda")
-    model.init_params(g)
-    state = TrainState.create(cfg, dict(model.named_parameters()))
-    pts, labels = (a.cuda() for a in vae_points(18))
-    mask = torch.ones((1, VAE_POINTS), dtype=torch.bool, device="cuda")
-
-    def make_batch():
-        grids = build_hash_tree(vcfg, pts, mask)
-        return grids, majority_label(grids[0], pts, labels, mask,
-                                     vcfg.num_semantic)
-
-    def loss_fn(p, gen, b):
-        res = functional_call(model, p, b, {"generator": gen})
-        return vae_loss(VAELossConfig(), res, b[0][0], b[1])
-
-    step = make_train_step(cfg, loss_fn)
-    out["vae train step"] = _host_ms(lambda: step(state, g, make_batch()))
-    del model, state
     torch.cuda.empty_cache()
     return out
 
@@ -319,7 +311,6 @@ def main() -> None:
     args = ap.parse_args()
     sys.path.insert(0, args.checkout)
     from infinicube_tpu_torch import kernels
-    from infinicube_tpu_torch.ops import attention as att
     from infinicube_tpu_torch.ops import dense_conv
     from infinicube_tpu_torch.ops import flash_attention as fa
     from infinicube_tpu_torch.ops import window_conv
@@ -329,8 +320,8 @@ def main() -> None:
     kernels.build()
     built = time.perf_counter() - t0
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = guard_rows(kernels, att, dense_conv, fa, g)
-    rows.update(redesign_rows(kernels, dense_conv, window_conv, g))
+    rows = guard_rows(kernels, dense_conv, fa, window_conv, g)
+    rows.update(f32_rows(kernels, dense_conv, g))
     rows.update(step_rows(g))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

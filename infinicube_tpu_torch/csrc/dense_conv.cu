@@ -101,13 +101,36 @@
 // plain prologue's bit for bit. Bounded by bytes: two reads of x, one int8
 // write, the weights read twice.
 //
-// conv3x3x3_f32 is the same function in f32 (f32 input, weights packed
-// [O, 27*C] in f32, f32 output), for models that compute in f32 (the
-// reference's Conv3x3x3 serves every dtype): a simple implicit GEMM on the
-// CUDA cores with f32 FMA and f32 accumulation, 64 x 64 output tiles, 4 x 4
-// per thread. Any C and O. It serves the forward pass and, with the flipped
-// pack and no bias, the input gradient. Bounded by the f32 CUDA-core rate
-// (67 TFLOP/s); built to be right, not fast.
+// conv3x3x3_f32 is the same function in f32 (f32 input and output), for
+// models that compute in f32 (the reference's Conv3x3x3 serves every
+// dtype): an f32 release UNet runs 48 of them a call. It serves the forward
+// pass and, with the flipped, swapped pack and no bias, the input gradient.
+// C and O are multiples of 8 (the caller zero-pads other widths).
+// What bounds it: 2 * V * 27 * C * O f32 operations. On the CUDA cores (67
+// TFLOP/s) the first version, a 64 x 64 FFMA tile a block with the halo
+// staged element by element, reached 27-31 % of that and lost to cuDNN's f32
+// conv. Design: the f32 instantiation of K3's kernel on the tensor cores by
+// the 3xTF32 split, as K4 (sparse_conv.cu) does: a = hi + lo with hi =
+// tf32(a) (the low 13 mantissa bits cleared) and lo = tf32(a - hi), and
+// each product taken as lo_A hi_B + hi_A lo_B + hi_A hi_B on wgmma m64nNk8
+// .f32.tf32.tf32 with f32 accumulators (lo_A lo_B, about 2^-22 of it, is
+// dropped); three products at 495 TFLOP/s bound it at 165 TFLOP/s of f32
+// work. The weights come packed [2, O, 27*C], their hi and lo made once per
+// weight version by the caller, two 2-D TMA boxes a stage; x comes as one
+// 5-D TMA box a tap as for K3 (32 channels, 128 bytes: the 128-byte
+// swizzle; 16 or 8 channels under the 64- or 32-byte one where C is 16 or
+// 8). The consumers split their own 64 rows of each arrived A tile, hi in
+// place and lo into one of two buffers of their own (the previous stage's
+// products may still read the other), fence the writes to the async proxy
+// and issue the three products per k8 step. The tensor cores truncate every
+// sum they accumulate (round toward zero), which drifts over a long K (2.5e-4
+// of max|out| at K = 27 * 1,152 in one accumulator), so every 32 k8 steps
+// the consumers wait for their products, add the wgmma sums into f32 sums
+// with a rounded add and restart them (scale-d 0), as K7 does for its dx
+// groups. Both sums live in registers: the producer is a warpgroup whose
+// registers go to the consumers (setmaxnreg, 240 each), which holds an N
+// tile of 192 (192 registers of sums). The small-M shapes split K with f32
+// partials summed in slice order, as K3.
 //
 // The entry points return cudaGetLastError() (or cudaErrorInvalidValue for
 // what they do not take).
@@ -122,25 +145,40 @@
 
 namespace {
 
-// ---- K3 and K7 on wgmma and TMA ---------------------------------------------
+// ---- K3, K7 and the f32 conv on wgmma and TMA -------------------------------
 
 constexpr int kConvRows = 128;       // output voxels per tile
 constexpr int kConvThreads = 288;    // warpgroups 0, 1 consume, warp 8 produces
+// the f32 conv: a producer warpgroup instead of a warp, so that setmaxnreg
+// can hand its registers to the consumers (as K2): 24 left to it, 240 to
+// each consumer thread, from the pool of a 168-register launch
+constexpr int kF32Threads = 384;
+constexpr int kF32ProducerRegs = 24, kF32ConsumerRegs = 240,
+              kF32LaunchRegs = 168;
 constexpr int kConvRing = 196608;    // bytes of shared memory for the ring
 
+// the element type of one instantiation: bf16 (K3), int8 (K7), or f32 run
+// as 3xTF32 (the f32 conv)
+enum ConvElem { kBf16, kS8, kF32 };
+
 // BN output channels by one box row of SPAN bytes (the swizzle span: 128, 64
-// or 32), bf16 (K3) or int8 (K7) elements
-template <bool kInt8, int BN, int SPAN>
+// or 32) of E elements
+template <int E, int BN, int SPAN>
 struct ConvTile {
-  static constexpr int kBoxC = kInt8 ? SPAN : SPAN / 2;  // channels a box row
+  static constexpr bool kInt8 = E == kS8, kTf32 = E == kF32;
+  static constexpr int kThreads = kTf32 ? kF32Threads : kConvThreads;
+  static constexpr int kBoxC = SPAN / (kInt8 ? 1 : kTf32 ? 4 : 2);
   static constexpr int kStageA = kConvRows * SPAN;
-  static constexpr int kStage = kStageA + BN * SPAN;
+  static constexpr int kStageB = BN * SPAN;  // one weight box (f32: hi, lo)
+  static constexpr int kStage = kStageA + (kTf32 ? 2 : 1) * kStageB;
   static constexpr int kStages =
       kConvRing / kStage > 8 ? 8 : kConvRing / kStage;
-  // ring, its full and empty barriers, K7's scales sw[3][BN] of the N tile,
-  // and room to align the ring to 1 KB
-  static constexpr int kSmem =
-      kStages * kStage + 2 * 8 * kStages + (kInt8 ? 12 * BN : 0) + 1024;
+  // f32: the lo parts of A, two buffers of 64 rows per consumer warpgroup
+  static constexpr int kLo = kTf32 ? 4 * 64 * SPAN : 0;
+  // ring, lo buffers, the ring's full and empty barriers, K7's scales
+  // sw[3][BN] of the N tile, and room to align the ring to 1 KB
+  static constexpr int kSmem = kStages * kStage + kLo + 2 * 8 * kStages +
+                               (kInt8 ? 12 * BN : 0) + 1024;
 };
 
 struct ConvArgs {
@@ -152,23 +190,41 @@ struct ConvArgs {
   int group, sg;           // K iterations of a group of slices; its slices
   int per_split;           // K iterations per slice
   int dx_iters;            // K7: K iterations of one dx group
+  int flush;               // f32: K iterations between flushes of the sums
   long long M;             // output voxels
   const float* bias;       // f32 [O] or null (K3's dgrad)
   const float* sw;         // K7: f32 [3, O]
-  __nv_bfloat16* out;      // bf16 [M, O] (one slice)
-  void* partial;           // [splits, M, O] f32 (K3) or int32 (K7), else null
+  void* out;               // [M, O], bf16 (K3, K7) or f32 (one slice)
+  void* partial;           // [splits, M, O] f32 (K3, f32) or int32 (K7), or
+                           // null
 };
 
-template <bool kInt8, int BN, int SPAN>
-__global__ void __launch_bounds__(kConvThreads, 1)
+__device__ __forceinline__ float tf32_trunc(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+}
+
+// v = hi + lo up to lo's own truncation: hi = tf32(v), lo = tf32(v - hi)
+// (v - hi is exact)
+__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
+  hi = tf32_trunc(v);
+  lo = tf32_trunc(v - hi);
+}
+
+// tmw_lo: the f32 pack's lo half (K3 and K7 are handed tmw again and read
+// nothing from it)
+template <int E, int BN, int SPAN>
+__global__ void __launch_bounds__(ConvTile<E, BN, SPAN>::kThreads, 1)
     conv3x3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                            const __grid_constant__ CUtensorMap tmw,
+                           const __grid_constant__ CUtensorMap tmw_lo,
                            const ConvArgs a) {
-  using T = ConvTile<kInt8, BN, SPAN>;
+  using T = ConvTile<E, BN, SPAN>;
+  constexpr bool kInt8 = T::kInt8;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
+  uint8_t* lo_bufs = ring + T::kStages * T::kStage;  // f32: [wg][2][64 rows]
+  uint64_t* full = reinterpret_cast<uint64_t*>(lo_bufs + T::kLo);
   uint64_t* empty = full + T::kStages;
   float* s_sw = reinterpret_cast<float*>(empty + T::kStages);  // K7
 
@@ -207,9 +263,11 @@ __global__ void __launch_bounds__(kConvThreads, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     // ---- producer: one thread keeps the ring full ----
+    if constexpr (T::kTf32) hop::setmaxnreg_dec<kF32ProducerRegs>();
     if (threadIdx.x == 256) {
       hop::prefetch_map(&tmx);
       hop::prefetch_map(&tmw);
+      if constexpr (T::kTf32) hop::prefetch_map(&tmw_lo);
       int stage = 0;
       uint32_t phase = 0;
       for (int it = it0; it < it1; ++it) {
@@ -226,6 +284,9 @@ __global__ void __launch_bounds__(kConvThreads, 1)
                          y0 + dy - 1, z0 + dz - 1, b);
         hop::tma_load_2d(sa + T::kStageA, &tmw, &full[stage],
                          tap * a.C + c0, n0);
+        if constexpr (T::kTf32)
+          hop::tma_load_2d(sa + T::kStageA + T::kStageB, &tmw_lo,
+                           &full[stage], tap * a.C + c0, n0);
         if (++stage == T::kStages) {
           stage = 0;
           phase ^= 1;
@@ -234,42 +295,81 @@ __global__ void __launch_bounds__(kConvThreads, 1)
     }
   } else {
     // ---- consumers: 64 output voxels each, all BN channels ----
+    if constexpr (T::kTf32) hop::setmaxnreg_inc<kF32ConsumerRegs>();
     using Acc = typename std::conditional<kInt8, int, float>::type;
     Acc acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-    // K7: the f32 sum of the dequantized dx groups so far
-    float sum[kInt8 ? BN / 2 : 1];
+    // K7: the f32 sum of the dequantized dx groups so far; f32: of the
+    // flushed groups
+    constexpr bool kSum = kInt8 || T::kTf32;
+    float sum[kSum ? BN / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < (kInt8 ? BN / 2 : 1); ++i) sum[i] = 0.f;
+    for (int i = 0; i < (kSum ? BN / 2 : 1); ++i) sum[i] = 0.f;
     constexpr int sbo = 8 * SPAN;
     const int lane = threadIdx.x % 32;
     const int q = lane % 4;
     // K7 without a split walks its three dx groups one after the other: the
     // first products of a group overwrite the int32 sums (scale-d 0), and
     // after its last the sums are converted outside the loop, so no thread
-    // writes an accumulator while wgmmas are in flight
-    const bool by_group = kInt8 && a.partial == nullptr;
-    int stage = 0, prev = 0;
+    // writes an accumulator while wgmmas are in flight. The f32 conv walks
+    // groups of `flush` iterations alike and adds each group's sums into
+    // `sum` with a rounded f32 add: the tensor cores truncate (round toward
+    // zero) every sum they accumulate, and over K = 27 * 1,152 that drift
+    // reached 2.5e-4 of max|out| in one accumulator.
+    const bool by_group = (kInt8 && a.partial == nullptr) || T::kTf32;
+    const int group_len = T::kTf32 ? a.flush : a.dx_iters;
+    int stage = 0, prev = 0, lo_sel = 0;
     uint32_t phase = 0;
     for (int g0 = it0; g0 < it1;) {
       const int g1 =
-          by_group ? min(it1, (g0 / a.dx_iters + 1) * a.dx_iters) : it1;
+          by_group ? min(it1, (g0 / group_len + 1) * group_len) : it1;
       for (int it = g0; it < g1; ++it) {
         hop::mbar_wait(&full[stage], phase);
-        const uint8_t* sa = ring + stage * T::kStage + wg * 64 * SPAN;
+        uint8_t* sa = ring + stage * T::kStage + wg * 64 * SPAN;
         const uint8_t* sb = ring + stage * T::kStage + T::kStageA;
+        uint8_t* sl = lo_bufs + (wg * 2 + lo_sel) * 64 * SPAN;
+        if constexpr (T::kTf32) {
+          // this warpgroup's 64 rows: hi in place, lo into its buffer (the
+          // swizzle is the same in both, so elementwise work ignores it)
+          float4* ahi = reinterpret_cast<float4*>(sa);
+          float4* alo = reinterpret_cast<float4*>(sl);
+#pragma unroll
+          for (int j = 0; j < SPAN / 32; ++j) {
+            const int i = threadIdx.x % 128 + 128 * j;
+            const float4 v = ahi[i];
+            float4 h, l;
+            split_tf32(v.x, h.x, l.x);
+            split_tf32(v.y, h.y, l.y);
+            split_tf32(v.z, h.z, l.z);
+            split_tf32(v.w, h.w, l.w);
+            ahi[i] = h;
+            alo[i] = l;
+          }
+          hop::fence_proxy_async();
+          hop::named_barrier(1 + wg, 128);
+          lo_sel ^= 1;
+        }
         hop::fence_regs(acc);
         hop::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < SPAN / 32; ++kk) {  // a k step is 32 bytes
           const uint64_t da = hop::make_desc(sa + 32 * kk, SPAN, 16, sbo);
           const uint64_t db = hop::make_desc(sb + 32 * kk, SPAN, 16, sbo);
-          if constexpr (kInt8)
+          if constexpr (kInt8) {
             hop::WgmmaS8<BN>::ss(acc, da, db,
                                  by_group && kk == 0 && it == g0 ? 0 : 1);
-          else
+          } else if constexpr (T::kTf32) {
+            const uint64_t dl = hop::make_desc(sl + 32 * kk, SPAN, 16, sbo);
+            const uint64_t dbl =
+                hop::make_desc(sb + T::kStageB + 32 * kk, SPAN, 16, sbo);
+            // the small terms first
+            hop::WgmmaTf32<BN>::ss(acc, dl, db, kk == 0 && it == g0 ? 0 : 1);
+            hop::WgmmaTf32<BN>::ss(acc, da, dbl, 1);
+            hop::WgmmaTf32<BN>::ss(acc, da, db, 1);
+          } else {
             hop::Wgmma<BN>::ss(acc, da, db, 1);
+          }
         }
         hop::wgmma_commit();
         hop::wgmma_wait<1>();  // the previous stage's products are done
@@ -298,6 +398,11 @@ __global__ void __launch_bounds__(kConvThreads, 1)
                   __fmul_rn(__int2float_rn(acc[4 * j + e]), e % 2 ? s1 : s0));
           }
         }
+      } else if constexpr (T::kTf32) {
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
       }
       g0 = g1;
     }
@@ -317,7 +422,11 @@ __global__ void __launch_bounds__(kConvThreads, 1)
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 8 * j + 2 * q;
         if (n >= a.O) continue;
-        const Acc v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        Acc v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if constexpr (T::kTf32) {
+          v0 = sum[4 * j + 2 * h];
+          v1 = sum[4 * j + 2 * h + 1];
+        }
         const long long at = ((long long)split * a.M + m) * a.O + n;
         if (a.partial != nullptr) {
           if constexpr (kInt8)
@@ -327,25 +436,34 @@ __global__ void __launch_bounds__(kConvThreads, 1)
             *reinterpret_cast<float2*>(static_cast<float*>(a.partial) + at) =
                 make_float2(v0, v1);
         } else if constexpr (kInt8) {
-          *reinterpret_cast<__nv_bfloat162*>(a.out + m * a.O + n) =
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.out) + m * a.O + n) =
               __floats2bfloat162_rn(
                   __fadd_rn(sum[4 * j + 2 * h], a.bias[n]),
                   __fadd_rn(sum[4 * j + 2 * h + 1], a.bias[n + 1]));
         } else {
           const float b0 = a.bias ? a.bias[n] : 0.f;
           const float b1 = a.bias ? a.bias[n + 1] : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(a.out + m * a.O + n) =
-              __floats2bfloat162_rn(v0 + b0, v1 + b1);
+          if constexpr (T::kTf32)
+            *reinterpret_cast<float2*>(static_cast<float*>(a.out) +
+                                       m * a.O + n) =
+                make_float2(v0 + b0, v1 + b1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(
+                static_cast<__nv_bfloat16*>(a.out) + m * a.O + n) =
+                __floats2bfloat162_rn(v0 + b0, v1 + b1);
         }
       }
     }
   }
 }
 
-// K3: out = bf16(((p[0] + p[1]) + ...) + bias), four outputs a thread.
+// K3 and the f32 conv: out = ((p[0] + p[1]) + ...) + bias, as bf16 or f32,
+// four outputs a thread.
+template <typename TO>
 __global__ void conv3x3x3_splitk_reduce(const float* __restrict__ partial,
                                         const float* __restrict__ bias,
-                                        __nv_bfloat16* __restrict__ out,
+                                        TO* __restrict__ out,
                                         long long MO, int O, int splits) {
   const long long i =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
@@ -365,12 +483,16 @@ __global__ void conv3x3x3_splitk_reduce(const float* __restrict__ partial,
     s.z += bias[n + 2];
     s.w += bias[n + 3];
   }
-  __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
-  uint2 v;
-  v.x = *reinterpret_cast<uint32_t*>(&lo);
-  v.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(out + i) = v;
+  if constexpr (std::is_same<TO, float>::value) {
+    *reinterpret_cast<float4*>(out + i) = s;
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+    uint2 v;
+    v.x = *reinterpret_cast<uint32_t*>(&lo);
+    v.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + i) = v;
+  }
 }
 
 // K7: S_dx = the int32 sum of dx group's `sg` slices (exact in any order),
@@ -504,6 +626,40 @@ ConvPlan k3_plan(int B, int D, int H, int W, int C, int O, int sms) {
   return p;
 }
 
+// The f32 conv: the N tile (<= 192: the wgmma sums and the flushed f32
+// sums share the consumers' 240 registers) that costs least, counting an A
+// tile's reload as 32 more channels, as K7's; box rows of 32 channels (8 or
+// 16 where C is that narrow); K split as K3's.
+ConvPlan kf_plan(int B, int D, int H, int W, int C, int O, int sms) {
+  ConvPlan p;
+  plan_patch(p, B, D, H, W);
+  p.bn = 128;
+  int best = 1 << 30;
+  const int cands_n[6] = {192, 128, 96, 64, 32, 16};
+  for (int bn : cands_n) {
+    const int cost = (O + bn - 1) / bn * (bn + 32);
+    if (cost < best) {
+      best = cost;
+      p.bn = bn;
+    }
+  }
+  p.n_tiles = (O + p.bn - 1) / p.bn;
+  const int bkc = C <= 8 ? 8 : C <= 16 ? 16 : 32;
+  p.span = 4 * bkc;
+  p.kc = (C + bkc - 1) / bkc;
+  p.iters = 27 * p.kc;
+  int cands[16];
+  int n = 0;
+  for (int s = 1; s <= 16 && s <= p.iters / 8; ++s) cands[n++] = s;
+  if (n == 0) cands[n++] = 1;
+  const int s = choose_splits((long long)p.m_tiles * p.n_tiles, sms, cands, n);
+  p.per_split = (p.iters + s - 1) / s;
+  p.splits = (p.iters + p.per_split - 1) / p.per_split;  // none left empty
+  p.group = p.iters;
+  p.sg = p.splits;
+  return p;
+}
+
 ConvPlan k7_plan(int B, int D, int H, int W, int C, int O, int sms) {
   ConvPlan p;
   plan_patch(p, B, D, H, W);
@@ -551,16 +707,27 @@ ConvPlan k7_plan(int B, int D, int H, int W, int C, int O, int sms) {
   return p;
 }
 
-template <bool kInt8, int BN, int SPAN>
+template <int E, int BN, int SPAN>
 cudaError_t launch_conv(const CUtensorMap& tmx, const CUtensorMap& tmw,
-                        const ConvArgs& args, unsigned blocks,
-                        cudaStream_t stream) {
-  using T = ConvTile<kInt8, BN, SPAN>;
+                        const CUtensorMap& tmw_lo, const ConvArgs& args,
+                        unsigned blocks, cudaStream_t stream) {
+  using T = ConvTile<E, BN, SPAN>;
   static cudaError_t attr = hop_host::allow_smem(
-      conv3x3x3_wgmma_kernel<kInt8, BN, SPAN>, T::kSmem);
+      conv3x3x3_wgmma_kernel<E, BN, SPAN>, T::kSmem);
   if (attr != cudaSuccess) return attr;
-  conv3x3x3_wgmma_kernel<kInt8, BN, SPAN>
-      <<<blocks, kConvThreads, T::kSmem, stream>>>(tmx, tmw, args);
+  if constexpr (T::kTf32) {
+    // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
+    static const int regs = [] {
+      cudaFuncAttributes fa;
+      return cudaFuncGetAttributes(&fa, conv3x3x3_wgmma_kernel<E, BN, SPAN>) ==
+                     cudaSuccess
+                 ? fa.numRegs
+                 : 0;
+    }();
+    if (regs < kF32LaunchRegs) return cudaErrorInvalidConfiguration;
+  }
+  conv3x3x3_wgmma_kernel<E, BN, SPAN>
+      <<<blocks, T::kThreads, T::kSmem, stream>>>(tmx, tmw, tmw_lo, args);
   return cudaGetLastError();
 }
 
@@ -569,12 +736,12 @@ cudaError_t launch_k3_bn(int bn, const CUtensorMap& tmx,
                          const CUtensorMap& tmw, const ConvArgs& args,
                          unsigned blocks, cudaStream_t stream) {
   switch (bn) {
-    case 16: return launch_conv<false, 16, SPAN>(tmx, tmw, args, blocks, stream);
-    case 32: return launch_conv<false, 32, SPAN>(tmx, tmw, args, blocks, stream);
-    case 64: return launch_conv<false, 64, SPAN>(tmx, tmw, args, blocks, stream);
-    case 128: return launch_conv<false, 128, SPAN>(tmx, tmw, args, blocks, stream);
-    case 192: return launch_conv<false, 192, SPAN>(tmx, tmw, args, blocks, stream);
-    default: return launch_conv<false, 256, SPAN>(tmx, tmw, args, blocks, stream);
+    case 16: return launch_conv<kBf16, 16, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    case 32: return launch_conv<kBf16, 32, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    case 64: return launch_conv<kBf16, 64, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    case 128: return launch_conv<kBf16, 128, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    case 192: return launch_conv<kBf16, 192, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    default: return launch_conv<kBf16, 256, SPAN>(tmx, tmw, tmw, args, blocks, stream);
   }
 }
 
@@ -583,21 +750,37 @@ cudaError_t launch_k7_bn(int bn, const CUtensorMap& tmx,
                          const CUtensorMap& tmw, const ConvArgs& args,
                          unsigned blocks, cudaStream_t stream) {
   switch (bn) {
-    case 32: return launch_conv<true, 32, SPAN>(tmx, tmw, args, blocks, stream);
-    case 64: return launch_conv<true, 64, SPAN>(tmx, tmw, args, blocks, stream);
-    case 96: return launch_conv<true, 96, SPAN>(tmx, tmw, args, blocks, stream);
-    default: return launch_conv<true, 128, SPAN>(tmx, tmw, args, blocks, stream);
+    case 32: return launch_conv<kS8, 32, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    case 64: return launch_conv<kS8, 64, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    case 96: return launch_conv<kS8, 96, SPAN>(tmx, tmw, tmw, args, blocks, stream);
+    default: return launch_conv<kS8, 128, SPAN>(tmx, tmw, tmw, args, blocks, stream);
   }
 }
 
-// The arguments and tensor maps of one K3 (elem 2 bytes, bf16) or K7 (elem
-// 1, int8 mapped as UINT8) call under plan p.
+template <int SPAN>
+cudaError_t launch_f32_bn(int bn, const CUtensorMap& tmx,
+                          const CUtensorMap& tmw, const CUtensorMap& tmw_lo,
+                          const ConvArgs& args, unsigned blocks,
+                          cudaStream_t stream) {
+  switch (bn) {
+    case 16: return launch_conv<kF32, 16, SPAN>(tmx, tmw, tmw_lo, args, blocks, stream);
+    case 32: return launch_conv<kF32, 32, SPAN>(tmx, tmw, tmw_lo, args, blocks, stream);
+    case 64: return launch_conv<kF32, 64, SPAN>(tmx, tmw, tmw_lo, args, blocks, stream);
+    case 96: return launch_conv<kF32, 96, SPAN>(tmx, tmw, tmw_lo, args, blocks, stream);
+    case 128: return launch_conv<kF32, 128, SPAN>(tmx, tmw, tmw_lo, args, blocks, stream);
+    default: return launch_conv<kF32, 192, SPAN>(tmx, tmw, tmw_lo, args, blocks, stream);
+  }
+}
+
+// The arguments and tensor maps of one K3 (elem 2 bytes, bf16), K7 (elem
+// 1, int8 mapped as UINT8) or f32 (elem 4) call under plan p.
 bool conv_setup(const ConvPlan& p, const void* x, const void* w, int elem,
                 int B, int D, int H, int W, int C, int O, CUtensorMap* tmx,
                 CUtensorMap* tmw, ConvArgs* a) {
-  const CUtensorMapDataType type = elem == 1
-                                       ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType type =
+      elem == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+      : elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uint64_t e = elem;
   const uint64_t xd[5] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)D,
                           (uint64_t)B};
@@ -643,7 +826,7 @@ int run_k3(const void* x, const void* w, const void* bias, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   a.bias = static_cast<const float*>(bias);
   a.sw = nullptr;
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.out = out;
   a.partial = partial;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned nb = static_cast<unsigned>(blocks);
@@ -654,8 +837,8 @@ int run_k3(const void* x, const void* w, const void* bias, void* out,
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const long long MO = M * O;
   const long long threads = MO / 4;
-  conv3x3x3_splitk_reduce<<<static_cast<unsigned>((threads + 255) / 256),
-                            256, 0, st>>>(
+  conv3x3x3_splitk_reduce<__nv_bfloat16>
+      <<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(partial), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), MO, O, splits);
   return static_cast<int>(cudaGetLastError());
@@ -682,7 +865,7 @@ int run_k7(const void* x8, const void* w8, const void* sw, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   a.bias = static_cast<const float*>(bias);
   a.sw = static_cast<const float*>(sw);
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.out = out;
   a.partial = partial;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned nb = static_cast<unsigned>(blocks);
@@ -698,6 +881,49 @@ int run_k7(const void* x8, const void* w8, const void* sw, const void* bias,
       static_cast<const int*>(partial), static_cast<const float*>(sw),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), MO,
       O, p.sg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One f32 conv call: w_pack f32 [2, O, 27*C] (hi, lo); `partial` null and
+// splits 1, or f32 [splits, M, O] scratch.
+int run_f32(const void* x, const void* w_pack, const void* bias, void* out,
+            void* partial, int splits, int B, int D, int H, int W, int C,
+            int O, int sms, void* stream) {
+  const long long M = (long long)B * D * H * W;
+  if (M <= 0 || M >= (1LL << 31) || C <= 0 || O <= 0 || C % 8 || O % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w_pack) % 16 ||
+      (splits > 1) != (partial != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvPlan p = kf_plan(B, D, H, W, C, O, sms);
+  if (p.splits != splits) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (long long)p.m_tiles * p.n_tiles * p.splits;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmx, tmw, tmw_lo;
+  ConvArgs a;
+  const float* lo = static_cast<const float*>(w_pack) + (long long)O * 27 * C;
+  if (!conv_setup(p, x, w_pack, 4, B, D, H, W, C, O, &tmx, &tmw, &a) ||
+      !conv_setup(p, x, lo, 4, B, D, H, W, C, O, &tmx, &tmw_lo, &a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.bias = static_cast<const float*>(bias);
+  a.sw = nullptr;
+  a.out = out;
+  a.partial = partial;
+  a.flush = 32 / (p.span / 32);  // iterations of 32 k8 steps
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaError_t e =
+      p.span == 128  ? launch_f32_bn<128>(p.bn, tmx, tmw, tmw_lo, a, nb, st)
+      : p.span == 64 ? launch_f32_bn<64>(p.bn, tmx, tmw, tmw_lo, a, nb, st)
+                     : launch_f32_bn<32>(p.bn, tmx, tmw, tmw_lo, a, nb, st);
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const long long MO = M * O;
+  const long long threads = MO / 4;
+  conv3x3x3_splitk_reduce<float>
+      <<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
+          static_cast<const float*>(partial),
+          static_cast<const float*>(bias), static_cast<float*>(out), MO, O,
+          splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -853,84 +1079,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---- conv3x3x3_f32: the f32 conv on the CUDA cores --------------------------
-
-constexpr int kF32Tile = 64;   // output voxels and channels per block
-constexpr int kF32K = 16;      // input channels per step
-
-__global__ void __launch_bounds__(256)
-    conv3x3x3_f32_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w,
-                         const float* __restrict__ bias,
-                         float* __restrict__ out, int D, int H, int W, int C,
-                         int O, long long M, int n_tiles) {
-  __shared__ float sA[kF32K][kF32Tile + 4];  // [k][voxel]
-  __shared__ float sB[kF32K][kF32Tile + 4];  // [k][output channel]
-  const int tid = threadIdx.x;
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * kF32Tile;
-  const int n0 = (blockIdx.x % n_tiles) * kF32Tile;
-  const int ty = tid / 16, tx = tid % 16;
-  const long long wrow = 27LL * C;
-  float acc[4][4] = {};
-
-  // the voxels this thread stages: rows tid / 16 + 16 j, channel tid % 16
-  int vb[4], vz[4], vy[4], vx[4];
-  bool vok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const long long m = m0 + tid / 16 + 16 * j;
-    vok[j] = m < M;
-    const long long mm = vok[j] ? m : 0;
-    vx[j] = static_cast<int>(mm % W);
-    vy[j] = static_cast<int>(mm / W % H);
-    vz[j] = static_cast<int>(mm / ((long long)W * H) % D);
-    vb[j] = static_cast<int>(mm / ((long long)W * H * D));
-  }
-  const int kc = (C + kF32K - 1) / kF32K;
-  for (int it = 0; it < 27 * kc; ++it) {
-    const int tap = it / kc;
-    const int c = (it % kc) * kF32K + tid % 16;
-    const int dz = tap / 9 - 1, dy = tap / 3 % 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int z = vz[j] + dz, y = vy[j] + dy, xx = vx[j] + dx;
-      const bool ok = vok[j] && c < C && z >= 0 && z < D && y >= 0 &&
-                      y < H && xx >= 0 && xx < W;
-      sA[tid % 16][tid / 16 + 16 * j] =
-          ok ? x[((((long long)vb[j] * D + z) * H + y) * W + xx) * C + c]
-             : 0.f;
-      const int n = n0 + tid / 16 + 16 * j;
-      sB[tid % 16][tid / 16 + 16 * j] =
-          (n < O && c < C) ? w[n * wrow + (long long)tap * C + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kF32K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = sA[k][ty * 4 + i];
-        bv[i] = sB[k][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < O) out[m * O + n] = acc[i][j] + (bias ? bias[n] : 0.f);
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -951,19 +1099,20 @@ int conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* out,
                 stream);
 }
 
-int conv3x3x3_f32(const void* x, const void* w, const void* bias, void* out,
-                  int B, int D, int H, int W, int C, int O, void* stream) {
-  const long long M = (long long)B * D * H * W;
-  const int n_tiles = (O + kF32Tile - 1) / kF32Tile;
-  const long long blocks = (M + kF32Tile - 1) / kF32Tile * n_tiles;
-  if (M <= 0 || C <= 0 || O <= 0 || blocks >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  conv3x3x3_f32_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), D, H, W, C,
-      O, M, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+// The number of K slices the f32 conv takes on a card with `sms` SMs.
+int conv3x3x3_f32_splits(int B, int D, int H, int W, int C, int O, int sms) {
+  return kf_plan(B, D, H, W, C, O, sms).splits;
+}
+
+// The f32 conv (3xTF32 on the tensor cores): x f32 [B, D, H, W, C], w_pack
+// f32 [2, O, 27*C] (the tf32 hi and lo of the packed weights), bias f32 [O]
+// or null (the input gradient), out f32 [B, D, H, W, O]; C and O multiples
+// of 8; `partial` and `splits` as conv3x3x3_bf16 takes them.
+int conv3x3x3_f32(const void* x, const void* w_pack, const void* bias,
+                  void* out, void* partial, int splits, int B, int D, int H,
+                  int W, int C, int O, int sms, void* stream) {
+  return run_f32(x, w_pack, bias, out, partial, splits, B, D, H, W, C, O,
+                 sms, stream);
 }
 
 // The number of K slices K7 takes on a card with `sms` SMs (1, or a

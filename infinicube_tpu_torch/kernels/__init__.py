@@ -45,11 +45,13 @@ SIGNATURES = {
         "flash_attn_bf16_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
     "flash_attention_f32": {
-        "flash_attn_f32": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
+        "flash_attn_f32": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_F, _P],
+        "flash_attn_f32_splits": [_I] * 6,
     },
     "dense_conv": {"conv3x3x3_bf16": [_P] * 5 + [_I] * 8 + [_P],
                    "conv3x3x3_bf16_splits": [_I] * 7,
-                   "conv3x3x3_f32": [_P] * 4 + [_I] * 6 + [_P],
+                   "conv3x3x3_f32": [_P] * 5 + [_I] * 8 + [_P],
+                   "conv3x3x3_f32_splits": [_I] * 7,
                    "conv3x3x3_int8": [_P] * 6 + [_I] * 8 + [_P],
                    "conv3x3x3_int8_splits": [_I] * 7,
                    "int8_conv_amax": [_P, _P, _L, _I, _P],
@@ -65,8 +67,9 @@ SIGNATURES = {
 # these
 K3_DGRAD = "conv3x3x3_bf16_dgrad"
 K4_DGRAD = "sparse_conv_f32_dgrad"
-# the split-K plan queries of K3 and K7 launch nothing
-_NOT_COUNTED = ("conv3x3x3_bf16_splits", "conv3x3x3_int8_splits")
+# the split plan queries launch nothing
+_NOT_COUNTED = ("conv3x3x3_bf16_splits", "conv3x3x3_f32_splits",
+                "conv3x3x3_int8_splits", "flash_attn_f32_splits")
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
                             for name in fns if name not in _NOT_COUNTED} | \
     {K3_DGRAD: 0, K4_DGRAD: 0}
@@ -216,18 +219,49 @@ def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: float) -> torch.Tensor:
-    """softmax(q k^T * sm_scale) v in f32 throughout, non-causal, on the CUDA
-    cores (no TF32): q [B, Nq, h, d], k/v [B, Nk, h, d], f32 views with
-    16-byte aligned strides, d in {64, 96, 128}. Returns f32
-    [B, Nq, h, d]. Forward only: no backward kernel exists for it."""
+    """softmax(q k^T * sm_scale) v to f32 accuracy, non-causal, on the
+    tensor cores by the 3xTF32 split: q [B, Nq, h, d], k/v [B, Nk, h, d],
+    f32 views with 16-byte aligned strides, d in {64, 96, 128}. Returns f32
+    [B, Nq, h, d]. One call launches the kernel's prologue (K's tf32 parts
+    and V's transposed ones, into scratch this wrapper allocates), the
+    kernel and, where the keys are split into ranges
+    (``f32_attn_splits``), the pass that combines them; it counts once.
+    Forward only: no backward kernel exists for it."""
     _check_qkv(q, k, v, torch.float32, "flash_attn_f32")
     B, nq, h, d = q.shape
-    o = torch.empty((B, nq, h, d), dtype=torch.float32, device=q.device)
-    _run("flash_attention_f32", "flash_attn_f32", q.device, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), o.data_ptr(), B, h, nq, k.shape[1], d,
-         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+    nk = k.shape[1]
+    dev = q.device
+    sms = _sm_count(dev)
+    splits = f32_attn_splits(B, h, nq, nk, d, sms)
+    o = torch.empty((B, nq, h, d), dtype=torch.float32, device=dev)
+    # one scratch buffer (each allocation costs the host time): K's parts
+    # [2, B*h, nk, d], V's transposed [2, B*h, d, nk rounded up to 8] and,
+    # with key ranges, their outputs [S, B*h, nq, d] and row statistics
+    # [S, B*h, nq, 2] (every part a multiple of 8 floats: 16-byte aligned)
+    sizes = (2 * B * h * nk * d, 2 * B * h * d * (-(-nk // 8) * 8),
+             splits * B * h * nq * d, splits * B * h * nq * 2)
+    if splits == 1:
+        sizes = sizes[:2]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    ptrs, at = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(at)
+        at += 4 * n
+    ptrs += [None] * (4 - len(ptrs))
+    _run("flash_attention_f32", "flash_attn_f32", dev, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), o.data_ptr(), *ptrs, B, h, nq, nk, d,
+         splits, sms, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *o.stride()[:3], float(sm_scale))
     return o
+
+
+@functools.lru_cache(maxsize=None)
+def f32_attn_splits(B: int, h: int, nq: int, nk: int, d: int,
+                    sms: int) -> int:
+    """The number of key ranges ``flash_attn_f32`` takes at this shape on a
+    card with ``sms`` SMs (1: none), from the kernel's own plan."""
+    return _fn("flash_attention_f32", "flash_attn_f32_splits")(
+        B, h, nq, nk, d, sms)
 
 
 def flash_attn_bf16_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -346,15 +380,22 @@ def _sm_count(device: torch.device) -> int:
 
 def _check_conv(x: torch.Tensor, w_packed: torch.Tensor,
                 bias: torch.Tensor | None, dtype: torch.dtype, name: str):
+    """What K3 and the f32 conv take: x [B, D, H, W, C] of ``dtype``, the
+    pack [O, 27*C] (K3, bf16) or [2, O, 27*C] (f32: its tf32 hi and lo),
+    bias f32 [O] or None; C and O multiples of 8."""
     _check_cuda(x, w_packed, *(() if bias is None else (bias,)))
-    if x.dim() != 5:
-        raise ValueError(f"x must be [B, D, H, W, C], got {tuple(x.shape)}")
+    if x.dim() != 5 or w_packed.dim() < 2:
+        raise ValueError(f"{name}: x must be [B, D, H, W, C], got "
+                         f"{tuple(x.shape)}")
     B, D, H, W, C = x.shape
-    O = w_packed.shape[0]
-    if min(B, D, H, W, C, O) < 1 or B * D * H * W >= 2 ** 31:
-        raise ValueError(f"{name}: cannot take x{tuple(x.shape)} -> {O}")
+    O = w_packed.shape[-2]
+    if min(B, D, H, W, C, O) < 1 or B * D * H * W >= 2 ** 31 or \
+            C % 8 or O % 8:
+        raise ValueError(f"{name} takes C, O multiples of 8, got "
+                         f"x{tuple(x.shape)} -> {O}")
+    parts = (2,) if dtype == torch.float32 else ()
     _check_dense(x, "x", (B, D, H, W, C), dtype)
-    _check_dense(w_packed, "w_packed", (O, 27 * C), dtype)
+    _check_dense(w_packed, "w_packed", parts + (O, 27 * C), dtype)
     if bias is not None:
         _check_dense(bias, "bias", (O,), torch.float32)
     return B, D, H, W, C, O
@@ -372,9 +413,6 @@ def conv3x3x3_bf16(x: torch.Tensor, w_packed: torch.Tensor,
     sum of the slices (counted once)."""
     B, D, H, W, C, O = _check_conv(x, w_packed, bias, torch.bfloat16,
                                    "conv3x3x3_bf16")
-    if C % 8 or O % 8:
-        raise ValueError(f"conv3x3x3_bf16 takes C, O multiples of 8, got "
-                         f"x{tuple(x.shape)} -> {O}")
     out = torch.empty((B, D, H, W, O), dtype=torch.bfloat16, device=x.device)
     sms = _sm_count(x.device)
     splits = k3_splits(B, D, H, W, C, O, sms)
@@ -398,18 +436,35 @@ def k3_splits(B: int, D: int, H: int, W: int, C: int, O: int,
 
 def conv3x3x3_f32(x: torch.Tensor, w_packed: torch.Tensor,
                   bias: torch.Tensor | None) -> torch.Tensor:
-    """The f32 3x3x3 stride-1 SAME conv (CUDA cores, f32 FMA). x f32
-    [B, D, H, W, C] contiguous; w_packed f32 [O, 27*C]
-    (``pack_conv_weight(w, torch.float32)``); bias f32 [O] or None (the
-    input-gradient call). Any C and O. Returns f32 [B, D, H, W, O]; every
-    call counts under ``conv3x3x3_f32``."""
+    """The f32 3x3x3 stride-1 SAME conv, f32-accurate on the tensor cores
+    by the 3xTF32 split (K3's kernel in f32). x f32 [B, D, H, W, C]
+    contiguous; w_packed f32 [2, O, 27*C], the tf32 hi and lo of the packed
+    weights (``pack_conv_weight(w, torch.float32)``); bias f32 [O] or None
+    (the input-gradient call). C and O multiples of 8. Returns f32
+    [B, D, H, W, O]; every call counts under ``conv3x3x3_f32``. Where the
+    output tiles fall short of the card's SMs the kernel splits its K range
+    (``f32_conv_splits``) into f32 partials this wrapper allocates, summed
+    in slice order by a second kernel of the same call."""
     B, D, H, W, C, O = _check_conv(x, w_packed, bias, torch.float32,
                                    "conv3x3x3_f32")
     out = torch.empty((B, D, H, W, O), dtype=torch.float32, device=x.device)
+    sms = _sm_count(x.device)
+    splits = f32_conv_splits(B, D, H, W, C, O, sms)
+    partial = None if splits == 1 else torch.empty(
+        (splits, B * D * H * W, O), dtype=torch.float32, device=x.device)
     _run("dense_conv", "conv3x3x3_f32", x.device, x.data_ptr(),
          w_packed.data_ptr(), None if bias is None else bias.data_ptr(),
-         out.data_ptr(), B, D, H, W, C, O)
+         out.data_ptr(), None if partial is None else partial.data_ptr(),
+         splits, B, D, H, W, C, O, sms)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def f32_conv_splits(B: int, D: int, H: int, W: int, C: int, O: int,
+                    sms: int) -> int:
+    """The number of K slices the f32 conv takes at this shape on a card
+    with ``sms`` SMs (1: no split), from the kernel's own plan."""
+    return _fn("dense_conv", "conv3x3x3_f32_splits")(B, D, H, W, C, O, sms)
 
 
 def conv3x3x3_int8(x8: torch.Tensor, w8_packed: torch.Tensor,

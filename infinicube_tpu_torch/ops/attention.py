@@ -10,11 +10,13 @@ hand-written ``flash_attn_bf16`` (csrc/flash_attention.cu) and, when a
 gradient is asked for, through a ``torch.autograd.Function`` whose forward
 also takes the rows' log-sum-exp from K2 and whose backward launches
 ``flash_attn_bf16_bwd`` (csrc/flash_attention_bwd.cu). An f32 CUDA tensor
-goes to ``flash_attn_f32`` (csrc/flash_attention_f32.cu, f32 throughout on
-the CUDA cores), forward only: an f32 call on the card that needs a gradient
-raises, since no f32 backward kernel exists yet. A CPU tensor goes to the
-plain version and autograd. Nothing falls back: a CUDA call the kernels do
-not take raises."""
+goes to ``flash_attn_f32`` (csrc/flash_attention_f32.cu: f32 logits, softmax
+and output, its products f32-accurate on the tensor cores by the 3xTF32
+split, its own arithmetic while PyTorch's library calls keep TF32 off),
+forward only: an f32 call on the card that needs a gradient raises, since
+no f32 backward kernel exists yet. A CPU tensor goes to the plain version
+and autograd. Nothing falls back: a CUDA call the kernels do not take
+raises."""
 
 from __future__ import annotations
 

@@ -22,8 +22,10 @@ forward and as [C, 27*O] bf16 (flipped, swapped) for the input gradient;
 and O that are multiples of 8: other widths are zero-padded on the way in
 (``pad_channels``; the packs are padded when they are made) and the
 output sliced back, which leaves the result exact. An f32 model's convs run
-on ``conv3x3x3_f32`` (f32 FMA on the CUDA cores, any width), forward and
-input gradient alike.
+on ``conv3x3x3_f32``, forward and input gradient alike: K3's kernel in f32,
+f32-accurate on the tensor cores by the 3xTF32 split (its own arithmetic:
+PyTorch's library calls keep TF32 off), with the same channel multiple of 8
+and an f32 pack of the weights' tf32 hi and lo parts.
 
 The int8 variant (``quant=True``, the reference's ``quant=True`` path,
 selected by ``DiffusionConfig.serve_quant``) quantizes x per input channel
@@ -56,6 +58,7 @@ from torch import nn
 
 from infinicube_tpu_torch import kernels
 from infinicube_tpu_torch.nn.quant import amax_scale
+from infinicube_tpu_torch.ops.window_conv import tf32_split
 
 
 # the reference kernel's VMEM budget, which decides where it quantizes
@@ -120,9 +123,10 @@ def quantize_for_conv(x: torch.Tensor, w: torch.Tensor):
     return x8, w8, sw
 
 
-# the channel multiples the card's kernels take: K3 8, K7 32, the f32 conv 1
+# the channel multiples the card's kernels take: K3 8, K7 32, the f32 conv 8
+# (its k8 step; TMA wants 16-byte strides)
 K3_MULTIPLE, K7_MULTIPLE = 8, 32
-_MULTIPLE = {torch.bfloat16: K3_MULTIPLE, torch.float32: 1}
+_MULTIPLE = {torch.bfloat16: K3_MULTIPLE, torch.float32: K3_MULTIPLE}
 
 
 def pad_channels(t: torch.Tensor, multiple: int, *dims: int) -> torch.Tensor:
@@ -221,12 +225,16 @@ def conv3x3x3_int8_plain(x8: torch.Tensor, w8: torch.Tensor,
 
 def pack_conv_weight(w: torch.Tensor,
                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """[O, C, 3, 3, 3] -> [O, 27*C] in ``dtype`` with k = (dz*9 + dy*3 +
-    dx)*C + c, the layout the card's kernels read: bf16 for K3, with O and C
-    zero-padded to multiples of 8; f32 for ``conv3x3x3_f32``, as it is."""
+    """[O, C, 3, 3, 3] -> [O, 27*C] with k = (dz*9 + dy*3 + dx)*C + c, O
+    and C zero-padded to multiples of 8, the layout the card's kernels
+    read: bf16 for K3; for ``conv3x3x3_f32`` f32 [2, O, 27*C], its tf32 hi
+    and lo parts (``window_conv.tf32_split``)."""
     w = pad_channels(w, _MULTIPLE[dtype], 0, 1)
     O, C = w.shape[:2]
-    return w.permute(0, 2, 3, 4, 1).reshape(O, 27 * C).to(dtype).contiguous()
+    wp = w.permute(0, 2, 3, 4, 1).reshape(O, 27 * C)
+    if dtype == torch.float32:
+        return tf32_split(wp.float())
+    return wp.to(dtype).contiguous()
 
 
 def dgrad_weight(w: torch.Tensor) -> torch.Tensor:
@@ -341,8 +349,8 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               quant: bool = False) -> torch.Tensor:
     """x [B, D, H, W, C] @ w [O, C, 3, 3, 3] + bias [O], SAME padding,
     differentiable in x, w and bias. On the card x is bf16 (K3) or f32
-    (``conv3x3x3_f32``), of any width, and the kernel reads ``w_packed``
-    (``pack_conv_weight(w, x.dtype)``) and, for x's gradient,
+    (``conv3x3x3_f32``, 3xTF32), of any width, and the kernel reads
+    ``w_packed`` (``pack_conv_weight(w, x.dtype)``) and, for x's gradient,
     ``w_packed_dgrad`` (``pack_conv_weight(dgrad_weight(w), x.dtype)``),
     both packed once by the caller; on the CPU the plain version runs.
     ``quant=True`` serves the int8 variant instead (K7 and its prologue

@@ -84,15 +84,21 @@ def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
     return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
 
 
+def tf32_split(t: torch.Tensor) -> torch.Tensor:
+    """f32 t as its two tf32 parts, f32 [2, *t.shape]: hi = tf32(t) and
+    lo = tf32(t - hi) (t - hi is exact), the operand packs of the 3xTF32
+    kernels."""
+    hi = tf32_truncate(t)
+    return torch.stack([hi, tf32_truncate(t - hi)])
+
+
 def pack_sparse_weight(w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
     """K4's weight operand for w [27, F, Fo]: f32 [2, 27, N, K], the tf32
     hi = tf32(w') and lo = tf32(w' - hi) of each tap's matrix w' laid out
     [N, K] (the reduction dim contiguous). The forward's w' is w[t]^T
     (N = Fo, K = F); the input gradient's (``dgrad``) is ``rev_w(w)[t]^T =
     w[26 - t]`` (N = F, K = Fo)."""
-    wt = (w.flip(0) if dgrad else w.transpose(1, 2)).float().contiguous()
-    hi = tf32_truncate(wt)
-    return torch.stack([hi, tf32_truncate(wt - hi)])
+    return tf32_split((w.flip(0) if dgrad else w.transpose(1, 2)).float())
 
 
 def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,

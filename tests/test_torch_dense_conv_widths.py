@@ -1,8 +1,9 @@
 """The card's dense conv at every width and in f32, checked on the CPU.
 
-K3 takes channel counts that are multiples of 8 and K7 multiples of 32, so
-``ops/dense_conv.py`` zero-pads other widths on the way in and slices the
-output back; f32 models go to ``conv3x3x3_f32``. The kernels run only on
+K3 and the f32 conv take channel counts that are multiples of 8 and K7
+multiples of 32, so ``ops/dense_conv.py`` zero-pads other widths on the way
+in and slices the output back; f32 models go to ``conv3x3x3_f32``, whose
+pack holds the weights' tf32 hi and lo parts. The kernels run only on
 the card, so here the card's branch is taken with CPU tensors and each
 kernel replaced by a plain emulation that reads the same packed operands:
 what is checked is the padding, the packs, the slicing and the dispatch.
@@ -19,6 +20,7 @@ from infinicube_tpu_torch.inference import voxel_generation_single_chunk
 from infinicube_tpu_torch.inference import voxel_vae
 from infinicube_tpu_torch.models.diffusion.unet3d import UNet3D
 from infinicube_tpu_torch.ops import dense_conv as dc
+from infinicube_tpu_torch.ops.window_conv import tf32_truncate
 from infinicube_tpu_torch.utils import precision
 from infinicube_tpu_torch import train
 from infinicube_tpu_torch.weights.from_jax import unet_from_jax
@@ -32,12 +34,15 @@ def _unpack(wp, C):
 
 def _fake_k3(calls):
     """Plain stand-ins for K3 and the f32 conv with their wrappers' checks
-    on widths and packs."""
+    on widths and packs (the f32 conv reads its pack's hi + lo)."""
     def run(x, wp, bias):
-        C, O = x.shape[-1], wp.shape[0]
+        C = x.shape[-1]
+        if x.dtype == torch.float32:
+            assert wp.dim() == 3 and wp.shape[0] == 2
+            wp = wp[0] + wp[1]
+        O = wp.shape[0]
         assert wp.shape == (O, 27 * C) and wp.dtype == x.dtype
-        if x.dtype == torch.bfloat16:
-            assert C % 8 == 0 and O % 8 == 0
+        assert C % 8 == 0 and O % 8 == 0
         calls.append((x.dtype, C, O, bias is None))
         b = torch.zeros(O) if bias is None else bias
         return dc.conv3x3x3_plain(x, _unpack(wp, C), b)
@@ -120,40 +125,46 @@ def test_pack_pads_bf16_to_eight():
     full = _unpack(wp, 16)
     assert torch.equal(full[:20, :12], w.to(torch.bfloat16))
     assert (full[20:] == 0).all() and (full[:, 12:] == 0).all()
+    # the f32 pack: padded alike, as tf32 hi and lo with hi + lo = w to
+    # within 2^-21 of |w|
     wf = dc.pack_conv_weight(w, torch.float32)
-    assert wf.shape == (20, 27 * 12) and torch.equal(_unpack(wf, 12), w)
+    assert wf.shape == (2, 24, 27 * 16) and wf.dtype == torch.float32
+    hi, lo = (_unpack(part, 16) for part in wf)
+    assert torch.equal(hi[:20, :12], tf32_truncate(w))
+    assert ((hi + lo)[:20, :12] - w).abs().le(2 ** -21 * w.abs()).all()
+    assert (hi[20:] == 0).all() and (hi[:, 12:] == 0).all()
+    assert (lo[20:] == 0).all() and (lo[:, 12:] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_card_route_serves_any_width(card, dtype):
     """12 -> 20 channels through the module on the card's branch, forward
-    and backward: K3 (bf16) sees 16 -> 24 and 24 -> 16, the f32 conv the
-    widths as they are; outputs and gradients as the plain conv's. (The
-    bf16 weight gradient is a bf16 product with an f32 result, which only
-    the card computes: in bf16 only x takes a gradient here.)"""
-    pad = dtype == torch.bfloat16
+    and backward: K3 (bf16) and the f32 conv see 16 -> 24 and 24 -> 16;
+    outputs and gradients as the plain conv's. (The bf16 weight gradient is
+    a bf16 product with an f32 result, which only the card computes: in
+    bf16 only x takes a gradient here.)"""
+    bf16 = dtype == torch.bfloat16
     m = dc.Conv3x3x3(12, 20, dtype=dtype)
     m.reset_parameters(torch.Generator().manual_seed(2))
     with torch.no_grad():
         m.bias.normal_(generator=torch.Generator().manual_seed(3))
-    m.requires_grad_(not pad)
+    m.requires_grad_(not bf16)
     x = torch.randn((2, 5, 6, 7, 12), generator=torch.Generator()
                     .manual_seed(4)).to(dtype).requires_grad_()
     out = m(x)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(5))
     out.backward(g.to(dtype))
-    assert card == [(dtype, 16 if pad else 12, 24 if pad else 20, False),
-                    (dtype, 24 if pad else 20, 16 if pad else 12, True)]
+    assert card == [(dtype, 16, 24, False), (dtype, 24, 16, True)]
     assert out.shape == (2, 5, 6, 7, 20) and out.dtype == dtype
     xr = x.detach().float().requires_grad_()
     wr = m.weight.detach().to(dtype).float().requires_grad_()
     br = m.bias.detach().to(dtype).float().requires_grad_()
     ref = dc.conv3x3x3_plain(xr, wr, br)
     ref.backward(g.to(dtype).float())
-    tol = dict(atol=2e-2, rtol=2e-2) if pad else dict(atol=1e-5, rtol=1e-5)
+    tol = dict(atol=2e-2, rtol=2e-2) if bf16 else dict(atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out.float(), ref, **tol)
     torch.testing.assert_close(x.grad.float(), xr.grad, **tol)
-    if not pad:
+    if not bf16:
         torch.testing.assert_close(m.weight.grad, wr.grad, **tol)
         torch.testing.assert_close(m.bias.grad, br.grad, **tol)
 

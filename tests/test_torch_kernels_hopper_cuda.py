@@ -1,6 +1,7 @@
 """The edges of the wgmma / TMA kernels (K3 with its split K, K2, K1, K5,
-K7 with its split K and its quantize prologue, K4 on 3xTF32), of the widths
-and dtypes the card's dense conv serves and of the f32 attention, against
+K7 with its split K and its quantize prologue, K4, the f32 conv and the f32
+attention on 3xTF32), of the widths and dtypes the card's dense conv serves,
+against
 their plain PyTorch versions on the card. Needs an NVIDIA
 GPU and skips without one; imports no JAX (the card's machine has none):
 
@@ -139,19 +140,23 @@ def test_card_conv_pads_widths_that_are_not_multiples_of_8(gen, C, O):
                                    (1, 8, 8, 8, 192, 16)])
 def test_f32_conv_matches_plain(gen, shape):
     """conv3x3x3_f32 forward and dgrad against the plain f32 conv (TF32
-    off): max-abs <= 1e-4 * max|ref|; and the f32 module on the card, with
+    off): max-abs <= 1e-4 * max|ref|, the operands zero-padded to multiples
+    of 8 as the card's route pads them; and the f32 module on the card, with
     its gradients, counted under conv3x3x3_f32."""
     B, D, H, W, C, O = shape
     x = _rand((B, D, H, W, C), gen, torch.float32)
     w = _rand((O, C, 3, 3, 3), gen, torch.float32) / (27 * C) ** 0.5
     b = _rand((O,), gen, torch.float32)
     before = kernels.launches["conv3x3x3_f32"]
-    got = kernels.conv3x3x3_f32(x, pack_conv_weight(w, torch.float32), b)
+    got = kernels.conv3x3x3_f32(pad_channels(x, 8, -1).contiguous(),
+                                pack_conv_weight(w, torch.float32),
+                                pad_channels(b, 8, 0))[..., :O]
     ref = conv3x3x3_plain(x, w, b)
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     go = _rand((B, D, H, W, O), gen, torch.float32)
     dx = kernels.conv3x3x3_f32(
-        go, pack_conv_weight(dgrad_weight(w), torch.float32), None)
+        pad_channels(go, 8, -1).contiguous(),
+        pack_conv_weight(dgrad_weight(w), torch.float32), None)[..., :C]
     ref_dx = conv3x3x3_bwd_plain(x, w, go)[0]
     assert (dx - ref_dx).abs().max().item() <= \
         1e-4 * ref_dx.abs().max().item()
@@ -168,6 +173,91 @@ def test_f32_conv_matches_plain(gen, shape):
                                atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(xg.grad, ref_dx, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(m.weight.grad, ref_dw, atol=1e-3, rtol=1e-4)
+
+
+def _f32_conv_gate(got, ref):
+    """The f32 conv's gate: max-abs <= 1e-4 * max|ref|."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _f32_splits(shape, O):
+    B, D, H, W, C = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kernels.f32_conv_splits(B, D, H, W, C, O, sms)
+
+
+# the release UNet's six conv shapes with their cubes scaled down 4x (64^3
+# -> 16^3, 32^3 -> 8^3, 16^3 and 8^3 -> 4^3), at their widths
+F32_SCALED = ((16, 16, 192), (16, 192, 192), (16, 384, 384), (8, 1152, 384),
+              (4, 1536, 768), (4, 1536, 768))
+
+
+@pytest.mark.parametrize("n,C,O", sorted(set(F32_SCALED)))
+def test_f32_conv_at_the_unet_shapes(gen, n, C, O):
+    """The 3xTF32 conv forward and dgrad at the UNet's widths against the
+    plain f32 conv (TF32 off); where K is split, two runs bit-identical."""
+    x = _rand((1, n, n, n, C), gen, torch.float32)
+    w = _rand((O, C, 3, 3, 3), gen, torch.float32) / (27 * C) ** 0.5
+    b = _rand((O,), gen, torch.float32)
+    wp = pack_conv_weight(w, torch.float32)
+    got = kernels.conv3x3x3_f32(x, wp, b)
+    _f32_conv_gate(got, conv3x3x3_plain(x, w, b))
+    go = _rand((1, n, n, n, O), gen, torch.float32)
+    wd = pack_conv_weight(dgrad_weight(w), torch.float32)
+    dx = kernels.conv3x3x3_f32(go, wd, None)
+    _f32_conv_gate(dx, conv3x3x3_bwd_plain(x, w, go)[0])
+    if _f32_splits(x.shape, O) > 1:
+        assert torch.equal(got, kernels.conv3x3x3_f32(x, wp, b))
+    if _f32_splits(go.shape, C) > 1:
+        assert torch.equal(dx, kernels.conv3x3x3_f32(go, wd, None))
+
+
+def test_f32_conv_splits_where_the_tiles_are_few(gen):
+    """The small-M shapes split K (so the bit-identity above is tested);
+    64^3 does not."""
+    assert _f32_splits((1, 4, 4, 4, 1536), 768) > 1
+    assert _f32_splits((1, 8, 8, 8, 1536), 768) > 1
+    assert _f32_splits((1, 64, 64, 64, 192), 192) == 1
+
+
+def test_f32_kernels_refuse_what_they_do_not_take(gen):
+    """The f32 conv takes C, O multiples of 8 and the [2, O, 27*C] pack of
+    tf32 parts; the f32 attention f32 q, k, v with d in {64, 96, 128}."""
+    x = _rand((1, 4, 4, 4, 12), gen, torch.float32)
+    with pytest.raises(ValueError):            # C not a multiple of 8
+        kernels.conv3x3x3_f32(x, _rand((2, 16, 27 * 12), gen, torch.float32),
+                              None)
+    x = _rand((1, 4, 4, 4, 16), gen, torch.float32)
+    with pytest.raises(ValueError):            # K3's pack, not hi and lo
+        kernels.conv3x3x3_f32(x, _rand((16, 27 * 16), gen, torch.float32),
+                              None)
+    q = _rand((1, 64, 2, 64), gen)
+    with pytest.raises(ValueError):            # bf16, not f32
+        kernels.flash_attn_f32(q, q, q, 0.1)
+    q = _rand((1, 64, 2, 80), gen, torch.float32)
+    with pytest.raises(ValueError):            # head dim 80
+        kernels.flash_attn_f32(q, q, q, 0.1)
+
+
+@pytest.mark.parametrize("C,O", [(20, 36), (16, 1), (3, 8)])
+def test_f32_conv_pads_widths_that_are_not_multiples_of_8(gen, C, O):
+    """Through ``Conv3x3x3`` in f32 on a 16^3 cube: forward and the input
+    gradient, through the padding to multiples of 8."""
+    m = Conv3x3x3(C, O, dtype=torch.float32, device="cuda")
+    m.reset_parameters(gen)
+    with torch.no_grad():
+        m.bias.normal_(generator=gen)
+    m.requires_grad_(False)
+    x = _rand((1, 16, 16, 16, C), gen, torch.float32).requires_grad_()
+    before = kernels.launches["conv3x3x3_f32"]
+    out = m(x)
+    g = _rand(out.shape, gen, torch.float32)
+    out.backward(g)
+    assert kernels.launches["conv3x3x3_f32"] == before + 2
+    assert out.shape == (1, 16, 16, 16, O)
+    _f32_conv_gate(out, conv3x3x3_plain(x.detach(), m.weight, m.bias))
+    _f32_conv_gate(x.grad, conv3x3x3_bwd_plain(x.detach(), m.weight, g)[0])
 
 
 @pytest.mark.parametrize("C,O", [(64, 72), (72, 104)])
@@ -330,7 +420,9 @@ def _f32_gate(got, ref):
 
 @pytest.mark.parametrize("nq,nk,h,d", [
     (4096, 4096, 8, 96), (512, 512, 8, 96),   # the UNet's SelfAttention3D
-    (300, 77, 3, 64), (1, 5, 1, 64), (1000, 512, 2, 128), (65, 129, 2, 96)])
+    (5280, 5280, 4, 64),                      # the GSM pixel branch's
+    (300, 77, 3, 64), (1, 5, 1, 64), (1000, 512, 2, 128), (65, 129, 2, 96),
+    (200, 1003, 2, 128), (129, 37, 1, 96)])
 def test_f32_attention_matches_plain(gen, nq, nk, h, d):
     """``flash_attn_f32`` against ``attention_plain`` in f32 (TF32 off),
     Nq != Nk and every head dim, through ``multi_head_attention``."""
@@ -342,6 +434,18 @@ def test_f32_attention_matches_plain(gen, nq, nk, h, d):
         before["flash_attn_f32"] + 1
     assert kernels.launches["flash_attn_bf16"] == before["flash_attn_bf16"]
     _f32_gate(out, attention_plain(q, k, v, d ** -0.5))
+
+
+def test_f32_attention_split_keys_is_reproducible(gen):
+    """At the UNet's N = 512 with 8 heads the keys are split into ranges
+    (32 query tiles for 132 SMs) and merged in a fixed order: within the
+    gate, and two runs bit-identical."""
+    q, k, v = (_rand((1, 512, 8, 96), gen, torch.float32) for _ in range(3))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernels.f32_attn_splits(1, 8, 512, 512, 96, sms) > 1
+    out = kernels.flash_attn_f32(q, k, v, 96 ** -0.5)
+    _f32_gate(out, attention_plain(q, k, v, 96 ** -0.5))
+    assert torch.equal(out, kernels.flash_attn_f32(q, k, v, 96 ** -0.5))
 
 
 def test_f32_attention_takes_strided_views(gen):
