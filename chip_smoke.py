@@ -79,7 +79,9 @@ Then training the sparse structure VAE (the UNet freed first):
     gradient) against ``sparse_conv_bwd_plain`` on real grids: phase 9's
     decoded grids and the three levels of a 200,000-point training batch,
     at the VAE's (F, Fo); the plain dW also summed in f64; K6 run twice,
-    bit-identical; each timed beside its plain version and its bound;
+    bit-identical; each timed beside its plain version and its bound (K6's
+    3xTF32 bound beside its f32 CUDA-core one, and the rows of the 32-row
+    chunks it walks against the present pairs);
 15. model check: the release-width VAE on a small scene, ``vae_loss`` and
     every parameter's gradient on the card (K4, K4-dgrad, K6) against the
     CPU (plain versions), same weights and reparametrize noise;
@@ -107,7 +109,7 @@ Then int8 serving (the VAE trainer freed first):
     beside its plain version and its byte bound; K8 (int8-PV flash
     attention) against ``int8qkv_attention_plain`` at N = 7,800 and 37,440
     (a scale per 1,536-row block of q and k and per channel of v), timed
-    beside K1 on the same inputs;
+    beside K1 on the same inputs, each with its share of its bound;
 19. model checks: the release-width UNet's int8 serving twin on a 16^3 cube,
     card against the CPU and against the card's bf16 forward; the 2-layer
     full-width DiT with ``attn_quant="qkv"``, card against the CPU;
@@ -807,14 +809,16 @@ def k4_checks(kernels, mods, dec, vcfg):
 
 
 def entry(name, source, replaces, rows, headline):
-    """One kernel of the summary line: the headline shape's numbers, the
-    largest error over all shapes, and every shape's numbers."""
+    """One kernel of the summary line: the headline shape's numbers (and
+    a 3xTF32 kernel's f32 CUDA-core bound beside its bound), the largest
+    error over all shapes, and every shape's numbers."""
     e = dict(rows[headline])
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + \
+        (("f32_core_bound_ms",) if "f32_core_bound_ms" in e else ())
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
-                **{k: e[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
-                headline_shape=e["shape"], shapes=rows)
+                **{k: e[k] for k in keys}, headline_shape=e["shape"],
+                shapes=rows)
 
 
 def stage1(kernels, att, dense_conv):
@@ -1347,8 +1351,11 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
     max-abs <= 5e-4 * max|ref| (a dW element sums up to 10^5 products in f32,
     in another order than the plain version's matmul; its distance from the
     plain version summed in f64 is printed beside); K6 twice, bit-identical.
-    Timed beside the plain versions and the bound (2 * present (row, tap)
-    pairs * F * Fo at the f32 CUDA-core peak against the bytes)."""
+    Timed beside the plain versions and the bounds (``k4_bounds``: 2 *
+    present (row, tap) pairs * F * Fo as 3 TF32 products at 495 TFLOP/s
+    against the bytes, the f32 CUDA-core bound beside), with the rows of the
+    32-row chunks K6 walks (those where some row has the tap) against the
+    pairs."""
     g = torch.Generator(device="cuda").manual_seed(15)
     ws = mods.window_conv
     pts, _ = vae_points(15)
@@ -1412,8 +1419,14 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
         nbytes = 4 * (cap * F + cap * Fo + 27 * F * Fo + 27 * cap)
         flops, b_ms, b_by, f32_ms = k4_bounds(pairs, F, Fo,
                                               nbytes + 4 * 27 * F * Fo)
-        # K6 is unchanged: still on the CUDA cores, its bound f32's
-        w_ms, w_by = bound_ms([(flops, PEAK_F32)], nbytes)
+        # K6 reads feats, nbr and g and writes dw: the same bytes as K4
+        _, w_ms, w_by, w_f32_ms = k4_bounds(pairs, F, Fo, nbytes)
+        # the rows of the 32-row chunks K6 walks: per tap, those with a
+        # present neighbour in some row (the chunks restart with each range
+        # of rows, and the ranges are multiples of 32)
+        has = (plan.nbr >= 0).reshape(-1, 27)
+        has = torch.nn.functional.pad(has, (0, 0, 0, (-has.shape[0]) % 32))
+        walked = 32 * int(has.reshape(-1, 32, 27).any(dim=1).sum())
         fwd_ms = cuda_ms(lambda: kernels.sparse_conv_f32(
             feats, plan.nbr, pack, plan.violations), 2, 5)
         dx_ms = cuda_ms(lambda: kernels.sparse_conv_f32(
@@ -1430,9 +1443,12 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
               f"{fwd_ms:.3f} ms); bound {b_ms:.3f} ms ({b_by}, 3 TF32 "
               f"products at 495 TFLOP/s; the f32 CUDA-core bound "
               f"{f32_ms:.3f} ms); [k6] kernel {dw_ms:.3f} ms "
-              f"({flops / dw_ms / 1e9:.2f} TFLOP/s), bound {w_ms:.3f} ms "
-              f"({w_by}, f32 CUDA-core peak); plain dx + dW {plain:.3f} ms; "
-              f"no single library call")
+              f"({flops / dw_ms / 1e9:.2f} TFLOP/s of f32 work, "
+              f"{100 * w_ms / dw_ms:.1f} % of its bound), bound {w_ms:.3f} "
+              f"ms ({w_by}, 3 TF32 products at 495 TFLOP/s; the f32 "
+              f"CUDA-core bound {w_f32_ms:.3f} ms), walking {walked} chunk "
+              f"rows for the {pairs} pairs ({walked / max(pairs, 1):.2f}x); "
+              f"plain dx + dW {plain:.3f} ms; no single library call")
         common = dict(shape=shape, plain_ms=plain, library_ms=None,
                       pairs=pairs)
         dx_rows.append(dict(common, max_abs_err=dx_err,
@@ -1440,7 +1456,8 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
                             f32_core_bound_ms=f32_ms, k4_forward_ms=fwd_ms,
                             k4_forward_err=fwd_err))
         dw_rows.append(dict(common, max_abs_err=dw_err, ms=dw_ms,
-                            bound_ms=w_ms, bound_by=w_by))
+                            bound_ms=w_ms, bound_by=w_by,
+                            f32_core_bound_ms=w_f32_ms, chunk_rows=walked))
         del feats, gout, dx, dw, ref_dx, ref_dw, plan, pack, dpack
     torch.cuda.empty_cache()
     # launches made here to compare and time are no main-path launches
@@ -1906,7 +1923,7 @@ def k8_checks(kernels, fa):
         q8, sq = fa.block_quantize(fa.fold_heads(q, npad), block)
         k8, sk = fa.block_quantize(fa.fold_heads(k, npad), block)
         v8, sv = fa.channel_quantize(fa.fold_heads(v, npad))
-        v8t = v8.transpose(1, 2).contiguous()
+        v8t = fa.pack_v8(v8)
         args = (q8, k8, sq, sk, v8t, sv, 1, n, block, D ** -0.5)
         got = kernels.flash_attn_int8qkv(*args)
         ref = fa.int8qkv_attention_plain(q8, k8, sq, sk, v8, sv, n, block,
@@ -1926,13 +1943,17 @@ def k8_checks(kernels, fa):
         ops = 4.0 * n * n * D * H        # QK^T and PV, both int8
         b_ms, b_by = bound_ms([(ops, PEAK_INT8)], 3 * n * D * H +
                               2 * n * D * H + 4 * H * (D + 2 * npad // block))
-        print(f"[k8] N={n}: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), "
-              f"with the quantize prologue {e2e:.3f} ms, K1 {k1:.3f} ms, "
-              f"plain {plain:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+        k1_e2e = cuda_ms(lambda: fa.mha_quantized(q, k, v), 1, 5)
+        print(f"[k8] N={n}: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s, "
+              f"{100 * b_ms / ms:.1f} % of its bound), with the quantize "
+              f"prologue {e2e:.3f} ms; K1 {k1:.3f} ms (with its prologue "
+              f"{k1_e2e:.3f} ms), K8 / K1 {ms / k1:.2f}; plain {plain:.1f} "
+              f"ms, bound {b_ms:.3f} ms ({b_by})")
         rows.append(dict(shape=f"N={n} h={H} d={D}", max_abs_err=err, ms=ms,
                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None, k1_ms=k1, with_prologue_ms=e2e,
-                         cosine=c))
+                         k1_with_prologue_ms=k1_e2e, k8_over_k1=ms / k1,
+                         share_of_bound=b_ms / ms, cosine=c))
         del q, k, v, q8, k8, v8, v8t, args
     torch.cuda.empty_cache()
     return rows

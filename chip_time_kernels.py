@@ -9,8 +9,12 @@ clock around work that ends in a synchronize).
   d = 128 (37,440 x 512, 12 heads), K3 forward at [1,64^3,192]->192, K8
   and K1 (N = 37,440 and 7,800), K5 (d = 96 at 4,096 and 512), K6 (the
   sparse conv's weight gradient) at the three levels of a 200,000-point
-  training batch, K7 at its six shapes (CFG batch 2) and K4 forward
-  through ``window_conv.window_sparse_conv`` on a decode's two grids;
+  training batch and on a decode's two grids, K7 at its six shapes (CFG
+  batch 2) and K4 forward through ``window_conv.window_sparse_conv`` on
+  the decode's grids; K8 and K1 also with their quantize prologues
+  (``mha_quantized``);
+- one train step of the release sparse VAE on a 200,000-point sample, and
+  the part of its device time in K6;
 - K2 and K5 also as device time alone (``torch.profiler``), which the
   small calls need: at N = 512 launching from Python takes about as long
   as the kernel; and the host's time to issue one K2 call at N = 512 (the
@@ -138,12 +142,22 @@ def guard_rows(kernels, dc, fa, wc, g):
                                                  npad), block)
         v = rand((1, n, H, D), g)
         v8, sv = fa.channel_quantize(fa.fold_heads(v, npad))
-        v8t = v8.transpose(1, 2).contiguous()
+        # K8's V operand: keys permuted within each 16 where the checkout
+        # has ``pack_v8``, else plainly transposed (the kernel of PR 5)
+        pack_v8 = getattr(fa, "pack_v8", None)
+        v8t = pack_v8(v8) if pack_v8 else v8.transpose(1, 2).contiguous()
         out[f"k8 N={n}"] = cuda_ms(lambda: kernels.flash_attn_int8qkv(
             q8, k8, sq, sk, v8t, sv, 1, n, block, D ** -0.5), 2, 5)
         out[f"k1 N={n}"] = cuda_ms(lambda: kernels.flash_attn_int8qk(
             q8, k8, sq, sk, v, block, D ** -0.5), 2, 5)
-        del q8, k8, v, v8, v8t
+        del q8, k8, v8, v8t
+        # with their quantize prologues, as the DiT calls them
+        q, k = (rand((1, n, H, D), g) for _ in range(2))
+        out[f"k8 N={n} with prologue"] = cuda_ms(
+            lambda: fa.mha_quantized(q, k, v, quant="qkv"), 1, 5)
+        out[f"k1 N={n} with prologue"] = cuda_ms(
+            lambda: fa.mha_quantized(q, k, v), 1, 5)
+        del q, k, v
     for n in (4096, 512):
         q, k, v, do = (rand((1, n, H96, D96), g) for _ in range(4))
         o, lse = kernels.flash_attn_bf16(q, k, v, D96 ** -0.5,
@@ -192,9 +206,14 @@ def guard_rows(kernels, dc, fa, wc, g):
             (1, grid.capacity, F), generator=g, device="cuda"), 0.0)
         w = torch.randn((27, F, F), generator=g, device="cuda") / \
             math.sqrt(27 * F)
+        gout = torch.where(grid.mask[..., None], torch.randn(
+            (1, grid.capacity, F), generator=g, device="cuda"), 0.0)
         with torch.no_grad():
             out[f"k4 decode {grid.capacity} {F}->{F}"] = cuda_ms(
                 lambda: wc.window_sparse_conv(plan, feats, w), 2, 10)
+        out[f"k6 decode {grid.capacity} {F}->{F}"] = cuda_ms(
+            lambda: kernels.sparse_conv_f32_wgrad(feats, plan.nbr, gout),
+            2, 5)
     del vae, grids, latents
     torch.cuda.empty_cache()
     return out
@@ -266,10 +285,65 @@ def _host_ms(fn, runs=3):
     return sum(times) / runs
 
 
+def _device_by_name(fn):
+    """``fn()`` under the profiler: device time by kernel name (us)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.end - e.time_range.start
+    return by_name
+
+
+def vae_step_rows(g):
+    """One train step of the release sparse VAE on a 200,000-point sample,
+    as ``chip_smoke.py``'s phase 16 takes it (batch making, forward,
+    backward, clip + AdamW + EMA), host-timed, and one step's device time
+    with the part of it in K6's kernels (names holding "sparse_wgrad")."""
+    from torch.func import functional_call
+
+    from infinicube_tpu_torch.grid.ops import majority_label
+    from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig,
+                                                       build_hash_tree)
+    from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
+                                                     make_train_step)
+    cfg, vcfg = TrainConfig(), SparseVAEConfig()
+    model = SparseStructureVAE(vcfg, device="cuda")
+    model.init_params(g)
+    state = TrainState.create(cfg, dict(model.named_parameters()))
+    pts, labels = (a.cuda() for a in vae_points(18))
+    mask = torch.ones((1, VAE_POINTS), dtype=torch.bool, device="cuda")
+
+    def make_batch():
+        grids = build_hash_tree(vcfg, pts, mask)
+        return grids, majority_label(grids[0], pts, labels, mask,
+                                     vcfg.num_semantic)
+
+    def loss_fn(p, gen, b):
+        out = functional_call(model, p, b, {"generator": gen})
+        return vae_loss(VAELossConfig(), out, b[0][0], b[1])
+
+    step_fn = make_train_step(cfg, loss_fn)
+    out = {"vae train step": _host_ms(
+        lambda: step_fn(state, g, make_batch()))}
+    by_name = _device_by_name(lambda: step_fn(state, g, make_batch()))
+    out["vae train step device"] = sum(by_name.values()) / 1e3
+    out["vae train step k6"] = sum(
+        v for k, v in by_name.items() if "sparse_wgrad" in k) / 1e3
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def step_rows(g):
     """One f32 DDIM step of the release UNet and its device-time split."""
-    from torch.profiler import ProfilerActivity, profile
-
     from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
                                                              DiffusionConfig,
                                                              VoxelDiffusion)
@@ -282,14 +356,7 @@ def step_rows(g):
     t = torch.tensor([500], device="cuda")
     with torch.no_grad():
         out["f32 ddim step"] = _host_ms(lambda: diffusion.denoise(x, t, cond))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            diffusion.denoise(x, t, cond)
-            torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.end - e.time_range.start
+        by_name = _device_by_name(lambda: diffusion.denoise(x, t, cond))
     total = sum(by_name.values())
     conv = sum(v for k, v in by_name.items() if "conv3x3x3" in k)
     attn = sum(v for k, v in by_name.items() if "flash" in k)
@@ -321,6 +388,7 @@ def main() -> None:
     built = time.perf_counter() - t0
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = guard_rows(kernels, dense_conv, fa, window_conv, g)
+    rows.update(vae_step_rows(g))
     rows.update(f32_rows(kernels, dense_conv, g))
     rows.update(step_rows(g))
     smi = subprocess.run(

@@ -1,7 +1,8 @@
-// Non-causal flash attention for Hopper (sm_90a), forward: two kernels behind
-// a plain C interface (loaded with ctypes by infinicube_tpu_torch/kernels).
-// The backward of flash_attn_bf16 is flash_attn_bf16_bwd (K5) in
-// flash_attention_bwd.cu; flash_common.cuh holds what the two files share.
+// Non-causal flash attention for Hopper (sm_90a), forward: one kernel
+// template behind three entry points with a plain C interface (loaded with
+// ctypes by infinicube_tpu_torch/kernels). The backward of flash_attn_bf16
+// is flash_attn_bf16_bwd (K5) in flash_attention_bwd.cu; flash_common.cuh
+// holds what the two files share.
 //
 // flash_attn_int8qk (K1) replaces the int8-QK branch of the TPU kernel
 //   infinicube_tpu/ops/flash_attention.py:263 `flash_attention`
@@ -15,11 +16,14 @@
 //   (quant="qkv", `_kernel_body` :159-164 with `_channel_quantize` :239),
 //   which the DiT's self-attention runs under WanDiTConfig(attn_quant="qkv").
 //   Q and K as for K1; V arrives as int8 with one f32 scale per (batch*head,
-//   channel), transposed to [batch*head, d, Npad] by the wrapper so that the
-//   keys of one channel are contiguous. P is rounded to int8 at the fixed
-//   scale 127 against the running max, int8(p * 127 + 0.5), and PV runs on
-//   the int8 tensor cores with int32 accumulation, dequantized by sv / 127
-//   per channel; the denominator sums the f32 P, as in the reference.
+//   channel), transposed to [batch*head, d, Npad] so that the keys of one
+//   channel are contiguous, with the keys of each 16 permuted (below). P is
+//   rounded to int8 at the fixed
+//   scale 127 against the running max (the reference's int8(p * 127 +
+//   0.5); here 127 p rounded to nearest, which differs at exact halves
+//   only), and PV runs on the int8 tensor cores with int32 accumulation,
+//   dequantized by sv / 127 per channel; the denominator sums the f32 P, as
+//   in the reference.
 // flash_attn_bf16 (K2) replaces the forward of the library Pallas TPU flash
 //   attention (jax.experimental.pallas.ops.tpu.flash_attention) that
 //   infinicube_tpu/ops/attention.py:25 `multi_head_attention` reaches on the
@@ -40,8 +44,9 @@
 // (exp2, log2(e) folded into the logit scale; the stored lse is converted to
 // base e at the store), and keys >= n_real are masked.
 //
-// K2's and K1's design (on wgmma and TMA; one kernel template, K1 its int8
-// instantiation): persistent blocks, one per SM, each walking work items of
+// The design (on wgmma and TMA; one kernel template, K1 its int8
+// instantiation, K8 the int8 one with an int8 V): persistent blocks, one
+// per SM, each walking work items of
 // (batch*head, 128 query rows): two consumer warpgroups of 64 rows and a
 // producer warpgroup whose registers go to the consumers (setmaxnreg: 240
 // each, 24 left). The first versions (4 warps of mma.sync per 64 rows, K and
@@ -72,183 +77,53 @@
 //   (the S accumulator layout, f32 or s32, is the A fragment layout, packed
 //   to bf16) and V as the B operand in shared memory, read d-major through
 //   wgmma's transpose bit: nothing transposes V, and no scalar loads remain.
+// - K8: PV is wgmma m64n{d}k32 .s32.s8.s8 too. V8 arrives K-major (keys
+//   contiguous per channel) and loads by TMA as d rows of the tile's 128
+//   key bytes under the 128-byte swizzle. P is rounded to int8 against the
+//   running max (its softmax, k8_softmax, computes 127 P with the logit
+//   scale in the exponent's FFMA and keeps its conversions off the
+//   quarter-rate pipes: the int8 rounding is then one add) and packed from
+//   the S accumulators straight into the s8 A fragment: a thread holds keys
+//   2q, 2q + 1 of each 8 where the fragment wants keys 4q .. 4q + 3 of each
+//   16, so V's keys are stored permuted within each 16 (0, 1, 8, 9, 2, 3,
+//   10, 11, 4, 5, 12, 13, 6, 7, 14, 15: position 4q + i holds key 2q + i % 2
+//   + 8 (i / 2)) by the copy that transposes V (``pack_v8``), and the
+//   contraction, which does not care about key order, pairs them up. Each
+//   tile's int32 sums start fresh (128 keys x 127^2 < 2^22: exact in f32)
+//   and are added to the f32 output before its alpha rescale; the output is
+//   scaled by sv per channel once, at the store (the denominator sums 127
+//   P). Its running max is over 128-key tiles where the reference's is over
+//   1,536-key blocks, so P rounds at other maxima: the two agree to the
+//   int8 gate, not bit for bit.
 // - Each warpgroup issues tile t's QK^T and then tile t-1's PV, waits for
 //   the QK^T only, and runs tile t's softmax while that PV is on the tensor
 //   cores; the output is rescaled and the new P packed once the PV is done.
 //
-// K8 (a first, simple version): one block of 4 warps per
-// (batch*head, tile of 64 query rows); each warp owns 16 rows and keeps its
-// Q fragments, its running max/denominator and its 16 x d f32 output in
-// registers. The
-// block loops over tiles of 64 keys staged in shared memory, with
-// mma.sync m16n8k32 (s8) for QK^T and PV; P goes from the QK^T accumulator
-// layout straight into the A operand of PV without touching shared memory.
-// A thread's accumulators hold keys {2t, 2t+1, 2t+8, 2t+9} of each 16 where
-// the s8 A operand wants {4t .. 4t+3}: the contraction does not care about
-// the order of its keys, so the packed P keeps the accumulator order and the
-// B operand reads V's keys in the same order (two 16-bit loads a register
-// from the transposed tile). K8's running max is over 64-key tiles where the
-// reference's is over 1,536-key blocks, so P rounds to int8 at other maxima
-// and the two agree to the int8 gate, not bit for bit. It uses no TMA,
-// wgmma or load pipelining yet.
-//
 // Tensors are addressed by element strides (batch, token, head), so the
 // wrappers pass [B, N, h, d] views and folded [B*h, N, d] buffers alike
 // without copies. Each entry point returns cudaGetLastError().
+
+#include <climits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// K8: an int32 below 2^22 in magnitude as an exact f32 on the full-rate
+// pipes (its bits added to those of 1.5 * 2^23, which is then subtracted),
+// in place of the quarter-rate I2F.
+__device__ __forceinline__ float i22_to_f32(int v) {
+  return __int_as_float(v + 0x4B400000) - 12582912.f;
 }
 
-// Online-softmax update of one 16 x 64 logit tile held as mma accumulators
-// (s[j] covers keys 8j..8j+7; elements 0,1 belong to row g, 2,3 to row g+8),
-// already scaled to base 2. Masks keys >= kvalid, updates m/l, rescales o,
-// and leaves P (f32) in s.
-template <int D>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 8][4],
-                                             int kvalid, int t, float (&m)[2],
-                                             float (&l)[2],
-                                             float (&o)[D / 8][4]) {
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = j * 8 + 2 * t + (e & 1);
-      if (col >= kvalid) s[j][e] = neg_inf();
-    }
-    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-  // every tile holds at least one real key, so mx is finite here
-  const float alpha0 = exp2f(m[0] - mx[0]);
-  const float alpha1 = exp2f(m[1] - mx[1]);
-  m[0] = mx[0];
-  m[1] = mx[1];
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-    s[j][0] = exp2f(s[j][0] - mx[0]);
-    s[j][1] = exp2f(s[j][1] - mx[0]);
-    s[j][2] = exp2f(s[j][2] - mx[1]);
-    s[j][3] = exp2f(s[j][3] - mx[1]);
-    sum0 += s[j][0] + s[j][1];
-    sum1 += s[j][2] + s[j][3];
-  }
-  l[0] = l[0] * alpha0 + sum0;
-  l[1] = l[1] * alpha1 + sum1;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    o[j][0] *= alpha0;
-    o[j][1] *= alpha0;
-    o[j][2] *= alpha1;
-    o[j][3] *= alpha1;
-  }
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// p in [0, 1] -> int8(p * 127 + 0.5), the reference's rounding.
-__device__ __forceinline__ uint32_t p8(float p) {
-  return static_cast<uint32_t>(
-      __float2int_rz(__fadd_rn(__fmul_rn(p, 127.f), 0.5f)));
-}
-
-// P (left in s by softmax_tile) as int8 A operands of m16n8k32, 32 keys per
-// operand in accumulator order: register 0 of chunk kk holds keys 2t, 2t+1,
-// 2t+8, 2t+9 of its first 16 (row g), register 1 the same keys of row g+8,
-// registers 2 and 3 those of the second 16. pv_tile_s8 reads V alike.
-__device__ __forceinline__ void pack_p_s8(const float (&s)[kBK / 8][4],
-                                          uint32_t (&pa)[kBK / 32][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 32; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float* a = s[4 * kk + 2 * (r / 2)];
-      const float* b = s[4 * kk + 2 * (r / 2) + 1];
-      const int e = 2 * (r % 2);  // row g: elements 0, 1; row g+8: 2, 3
-      pa[kk][r] = p8(a[e]) | (p8(a[e + 1]) << 8) | (p8(b[e]) << 16) |
-                  (p8(b[e + 1]) << 24);
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t ld16(const int8_t* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
-// o += dequant(P8 @ V8) for one tile; V8 staged transposed in shared memory
-// as [D][ldv] int8 (channel rows, keys along the row), svs = sv / 127.
-template <int D>
-__device__ __forceinline__ void pv_tile_s8(const int8_t* sVt, int ldv,
-                                           const uint32_t (&pa)[kBK / 32][4],
-                                           const float* svs, int g, int t,
-                                           float (&o)[D / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    int acc[4] = {0, 0, 0, 0};
-    const int8_t* row = sVt + (j * 8 + g) * ldv + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk) {
-      const int8_t* r = row + kk * 32;
-      mma_s8(acc, pa[kk], ld16(r) | (ld16(r + 8) << 16),
-             ld16(r + 16) | (ld16(r + 24) << 16));
-    }
-    const float s0 = svs[j * 8 + 2 * t], s1 = svs[j * 8 + 2 * t + 1];
-    o[j][0] += static_cast<float>(acc[0]) * s0;
-    o[j][1] += static_cast<float>(acc[1]) * s1;
-    o[j][2] += static_cast<float>(acc[2]) * s0;
-    o[j][3] += static_cast<float>(acc[3]) * s1;
-  }
-}
-
-// Normalise and store the warp's 16 rows (bf16), rows >= nq skipped. With
-// `lse` (this batch*head's f32 [nq] row, or null) also store each row's
-// natural log-sum-exp, (m + log2 l) * ln 2 from the base-2 running max m.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* ob, Strides so,
-                                           int row0, int nq, int g, int t,
-                                           const float (&m)[2], float (&l)[2],
-                                           const float (&o)[D / 8][4],
-                                           float* lse) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv0 = 1.f / fmaxf(l[0], 1e-37f);
-  const float inv1 = 1.f / fmaxf(l[1], 1e-37f);
-  const int ra = row0 + g, rb = row0 + g + 8;
-  if (lse != nullptr && t == 0) {
-    if (ra < nq) lse[ra] = (m[0] + log2f(fmaxf(l[0], 1e-37f))) * kLn2;
-    if (rb < nq) lse[rb] = (m[1] + log2f(fmaxf(l[1], 1e-37f))) * kLn2;
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (ra < nq)
-      *reinterpret_cast<uint32_t*>(ob + ra * so.n + c) =
-          pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-    if (rb < nq)
-      *reinterpret_cast<uint32_t*>(ob + rb * so.n + c) =
-          pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
-  }
-}
-
-// ---- K2 and K1 on wgmma and TMA ---------------------------------------------
+// ---- K2, K1 and K8 on wgmma and TMA ----------------------------------------
 
 constexpr int kK2K = 128;        // keys per tile
 constexpr int kK2Stages = 3;
@@ -259,9 +134,10 @@ constexpr int kK2Slab = 32;      // columns of a slab: 64 bytes, 64-byte swizzle
 constexpr int kK2ProducerRegs = 24, kK2ConsumerRegs = 240, kK2LaunchRegs = 168;
 
 // two consumer warpgroups of 64 query rows each, and a producer warpgroup.
-// kI8 (K1): Q and K tiles are int8 rows of D bytes; otherwise (K2) bf16
-// slabs. V is a bf16 slab tile in both.
-template <int D, bool kI8>
+// kI8 (K1, K8): Q and K tiles are int8 rows of D bytes; otherwise (K2) bf16
+// slabs. V is a bf16 slab tile, or with kV8 (K8) D int8 channel rows of the
+// tile's 128 keys under the 128-byte swizzle.
+template <int D, bool kI8, bool kV8 = false>
 struct K2Smem {
   static constexpr int kRows = 128;                   // query rows a block
   static constexpr int kThreads = 384;
@@ -269,7 +145,7 @@ struct K2Smem {
   static constexpr int kSlabKV = kK2K * kK2Slab * 2;
   static constexpr int kQ = kI8 ? kRows * D : (D / kK2Slab) * kSlabQ;
   static constexpr int kK = kI8 ? kK2K * D : (D / kK2Slab) * kSlabKV;
-  static constexpr int kV = (D / kK2Slab) * kSlabKV;
+  static constexpr int kV = kV8 ? D * kK2K : (D / kK2Slab) * kSlabKV;
   static constexpr int kStage = kK + kV;
   static constexpr int kSmem = kQ + kK2Stages * kStage + 1024 + 64;
 };
@@ -317,15 +193,69 @@ __device__ __forceinline__ void k2_softmax(float (&s)[kK2K / 2], int kvalid,
   l[1] = l[1] * alpha[1] + sum1;
 }
 
+// K8's online softmax over one 64 x 128 tile of int32 logits si (rows g:
+// si[4j], si[4j+1]; rows g+8: si[4j+2], si[4j+3]), exact as f32 and scaled
+// to base 2 by sc > 0: the running max m (scaled) and, into s, e = 127 *
+// 2^(s sc - m), the reference's p times the int8 scale 127, so that P8 is
+// e rounded to an integer (adding 2^23 leaves it in the low byte); the
+// scale goes into the exponent's FFMA (log2 127 - m), keys >= kvalid are
+// masked on a ragged tile only, l sums the e (127 times the reference's
+// denominator, which the output's dequantization by sv, not sv / 127,
+// absorbs), and alpha[r] is the output rows' rescale.
+__device__ __forceinline__ void k8_softmax(const int (&si)[kK2K / 2],
+                                           float (&s)[kK2K / 2], int kvalid,
+                                           int q, float sc, float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2]) {
+  constexpr float kLog2_127 = 6.988684686772166f;
+  const bool ragged = kvalid < kK2K;
+  int mx[2] = {INT_MIN, INT_MIN};
+#pragma unroll
+  for (int j = 0; j < kK2K / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!ragged || j * 8 + 2 * q + (e & 1) < kvalid)
+        mx[e / 2] = max(mx[e / 2], si[4 * j + e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = max(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = max(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  // every tile holds at least one real key, so mx is an int32 logit here
+  float c[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], i22_to_f32(mx[r]) * sc);
+    alpha[r] = ex2_approx(m[r] - m_new);
+    m[r] = m_new;
+    c[r] = kLog2_127 - m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kK2K / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = ex2_approx(fmaf(i22_to_f32(si[4 * j + e]), sc, c[e / 2]));
+      if (ragged && j * 8 + 2 * q + (e & 1) >= kvalid) v = 0.f;
+      s[4 * j + e] = v;
+      sum[e / 2] += v;
+    }
+  }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
 // kLse: store the rows' log-sum-exp too. kI8: K1 (int8 Q and K with per-block
-// scales qscale, kscale [B*H, nb]; `block` rows a scale). Compile-time
-// switches, so that each instantiation carries nothing of the others.
+// scales qscale, kscale [B*H, nb]; `block` rows a scale). kV8 (with kI8):
+// K8, V int8 with per-channel scales vscale [B*H, D] and PV on s8 wgmma.
+// Compile-time switches, so that each instantiation carries nothing of the
+// others.
 // Persistent: each block walks the work items (batch*head, query tile)
 // blockIdx.x, + gridDim.x, ...; the ring runs on across items, and the next
 // item's Q is loaded as soon as the last QK^T of the current one is done,
 // beside its last PV and its stores.
-template <int D, bool kLse, bool kI8>
-__global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
+template <int D, bool kLse, bool kI8, bool kV8>
+__global__ void __launch_bounds__(K2Smem<D, kI8, kV8>::kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap tmq,
                  const __grid_constant__ CUtensorMap tmk,
                  const __grid_constant__ CUtensorMap tmv,
@@ -333,8 +263,9 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
                  const float* __restrict__ qscale,
                  const float* __restrict__ kscale, int H, int nq, int nk,
                  int q_tiles, int n_items, int block, int nb, Strides so,
-                 float scale_log2) {
-  using S = K2Smem<D, kI8>;
+                 float scale_log2, const float* __restrict__ vscale) {
+  static_assert(kI8 || !kV8, "K8 is K1's kernel with an int8 V");
+  using S = K2Smem<D, kI8, kV8>;
   constexpr int kSlabs = D / kK2Slab;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
@@ -387,13 +318,17 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
           hop::mbar_expect_tx(&full[stage], S::kStage);
           if constexpr (kI8)
             hop::tma_load_4d(sk, &tmk, &full[stage], 0, h, t * kK2K, b);
+          if constexpr (kV8)  // D channel rows of the tile's 128 keys
+            hop::tma_load_4d(sk + S::kK, &tmv, &full[stage], t * kK2K, 0, h,
+                             b);
 #pragma unroll
           for (int j = 0; j < kSlabs; ++j) {
             if constexpr (!kI8)
               hop::tma_load_4d(sk + j * S::kSlabKV, &tmk, &full[stage],
                                j * kK2Slab, h, t * kK2K, b);
-            hop::tma_load_4d(sk + S::kK + j * S::kSlabKV, &tmv,
-                             &full[stage], j * kK2Slab, h, t * kK2K, b);
+            if constexpr (!kV8)
+              hop::tma_load_4d(sk + S::kK + j * S::kSlabKV, &tmv,
+                               &full[stage], j * kK2Slab, h, t * kK2K, b);
           }
           if (++stage == kK2Stages) {
             stage = 0;
@@ -411,8 +346,10 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
     float o_acc[D / 2];
     float m[2], l[2], alpha[2];
     float s[kK2K / 2];
-    int si[kI8 ? kK2K / 2 : 1];  // K1's int32 logits
-    uint32_t pa[kK2K / 16][4];
+    int si[kI8 ? kK2K / 2 : 1];  // K1's and K8's int32 logits
+    int pv[kV8 ? D / 2 : 1];     // K8: one tile's int32 P8 V8 sums
+    // P as PV's A fragments: bf16 per k16 step, or (K8) int8 per k32 step
+    uint32_t pa[kV8 ? kK2K / 32 : kK2K / 16][4];
 
     // S = Q K^T into s (K2: both K-major under the 64-byte swizzle, one slab
     // per two k16 steps) or into si (K1: int8 rows of D bytes under the
@@ -439,9 +376,12 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
       }
       hop::wgmma_commit();
     };
-    // the logits of a finished QK^T as f32 in s (K1: converted, exactly)
+    // the logits of a finished QK^T as f32 in s (K1: converted, exactly;
+    // K8 converts them in its softmax)
     auto take_s = [&]() {
-      if constexpr (kI8) {
+      if constexpr (kV8) {
+        hop::fence_regs(si);
+      } else if constexpr (kI8) {
         hop::fence_regs(si);
 #pragma unroll
         for (int i = 0; i < kK2K / 2; ++i) s[i] = static_cast<float>(si[i]);
@@ -449,26 +389,62 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
         hop::fence_regs(s);
       }
     };
+
     // O += P V: P from registers (the S accumulator layout is the A
     // fragment layout), V d-major in shared memory read with the transpose
     // bit; 16 keys are 2 groups of 8 rows (SBO 512), d/32 slabs (LBO)
+    // K8: fresh int32 sums each tile, P8 as the s8 A operand from registers
+    // and V8 K-major (keys contiguous per channel) as the B operand; a k32
+    // step is 32 bytes into the 128-byte rows
     auto issue_pv = [&](const uint8_t* sv) {
       hop::wgmma_fence();
+      if constexpr (kV8) {
 #pragma unroll
-      for (int kk = 0; kk < kK2K / 16; ++kk)
-        hop::Wgmma<D>::rs_t(o_acc, pa[kk],
-                            hop::make_desc(sv + kk * 1024, 64, S::kSlabKV,
-                                           512),
-                            1);
+        for (int kk = 0; kk < kK2K / 32; ++kk)
+          hop::WgmmaS8<D>::rs(pv, pa[kk],
+                              hop::make_desc(sv + kk * 32, 128, 16, 1024),
+                              kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kK2K / 16; ++kk)
+          hop::Wgmma<D>::rs_t(o_acc, pa[kk],
+                              hop::make_desc(sv + kk * 1024, 64, S::kSlabKV,
+                                             512),
+                              1);
+      }
       hop::wgmma_commit();
     };
     auto pack_p = [&]() {
+      if constexpr (kV8) {
+        // P rounded to int8 against the running max. The s8 A fragment of
+        // a k32 step wants keys 4q..4q+3 (registers 0, 1: rows g, g + 8)
+        // and 16 + 4q.. (2, 3) where the accumulators hold keys 2q, 2q + 1
+        // of each 8: V's keys are stored permuted within each 16 (position
+        // 4q + i holds key 2q + i % 2 + 8 (i / 2), ``pack_v8``), so byte i
+        // of a register takes accumulator column block 2 (r / 2) + i / 2,
+        // element i % 2 of its row.
+        auto byte = [](float e) {  // round(e) in the low byte
+          return __float_as_uint(__fadd_rn(e, 8388608.f));
+        };
 #pragma unroll
-      for (int kk = 0; kk < kK2K / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        for (int kk = 0; kk < kK2K / 32; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float* a = s + 4 * (4 * kk + 2 * (r / 2));
+            const int e = 2 * (r % 2);
+            pa[kk][r] = __byte_perm(
+                __byte_perm(byte(a[e]), byte(a[e + 1]), 0x0040),
+                __byte_perm(byte(a[4 + e]), byte(a[5 + e]), 0x0040), 0x5410);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kK2K / 16; ++kk) {
+          pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
       }
     };
     auto next_stage = [&](int& stage, uint32_t& phase) {
@@ -502,7 +478,10 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
       hop::wgmma_wait<0>();
       take_s();
       if (n_tiles == 1 && lane == 0) hop::mbar_arrive(q_empty);
-      k2_softmax(s, nk, q, tile_scale(0), m, l, alpha);
+      if constexpr (kV8)
+        k8_softmax(si, s, nk, q, tile_scale(0), m, l, alpha);
+      else
+        k2_softmax(s, nk, q, tile_scale(0), m, l, alpha);
       pack_p();
       int prev = stage;
       next_stage(stage, phase);
@@ -515,17 +494,28 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
         hop::wgmma_wait<1>();  // S of tile t is done, t-1's PV may run on
         take_s();
         if (t == n_tiles - 1 && lane == 0) hop::mbar_arrive(q_empty);
-        k2_softmax(s, nk - t * kK2K, q, tile_scale(t), m, l, alpha);
+        if constexpr (kV8)
+          k8_softmax(si, s, nk - t * kK2K, q, tile_scale(t), m, l, alpha);
+        else
+          k2_softmax(s, nk - t * kK2K, q, tile_scale(t), m, l, alpha);
         hop::wgmma_wait<0>();
         hop::fence_regs(o_acc);
         hop::fence_regs(pa);
         if (lane == 0) hop::mbar_arrive(&empty[prev]);
+        if constexpr (kV8) {
+          // o = (o + the finished tile's P8 V8) * alpha
+          hop::fence_regs(pv);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          o_acc[4 * j] *= alpha[0];
-          o_acc[4 * j + 1] *= alpha[0];
-          o_acc[4 * j + 2] *= alpha[1];
-          o_acc[4 * j + 3] *= alpha[1];
+          for (int j = 0; j < D / 2; ++j)
+            o_acc[j] = (o_acc[j] + i22_to_f32(pv[j])) * alpha[j % 4 / 2];
+        } else {
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            o_acc[4 * j] *= alpha[0];
+            o_acc[4 * j + 1] *= alpha[0];
+            o_acc[4 * j + 2] *= alpha[1];
+            o_acc[4 * j + 3] *= alpha[1];
+          }
         }
         pack_p();
         prev = stage;
@@ -535,6 +525,11 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
       hop::wgmma_wait<0>();
       hop::fence_regs(o_acc);
       if (lane == 0) hop::mbar_arrive(&empty[prev]);
+      if constexpr (kV8) {
+        hop::fence_regs(pv);
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) o_acc[j] += i22_to_f32(pv[j]);
+      }
 
       // ---- normalise and store rows < nq (and their log-sum-exp) ----
 #pragma unroll
@@ -555,6 +550,13 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
         }
       }
       __nv_bfloat16* ob = o + b * so.b + h * so.h;
+      if constexpr (kV8) {
+        // the int32 sums dequantized by sv per channel (the 1 / 127 of P8
+        // is in l)
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j)
+          o_acc[j] *= vscale[bh * D + j / 4 * 8 + 2 * q + j % 2];
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int c = j * 8 + 2 * q;
@@ -569,29 +571,29 @@ __global__ void __launch_bounds__(K2Smem<D, kI8>::kThreads, 1)
   }
 }
 
-template <int D, bool kLse, bool kI8>
+template <int D, bool kLse, bool kI8, bool kV8 = false>
 cudaError_t launch_k(int blocks, cudaStream_t st, const CUtensorMap& tq,
                      const CUtensorMap& tk, const CUtensorMap& tv,
                      __nv_bfloat16* o, float* lse, const float* qscale,
                      const float* kscale, int H, int nq, int nk, int q_tiles,
                      int n_items, int block, int nb, Strides so,
-                     float scale_log2) {
-  using S = K2Smem<D, kI8>;
+                     float scale_log2, const float* vscale = nullptr) {
+  using S = K2Smem<D, kI8, kV8>;
   static cudaError_t attr =
-      hop_host::allow_smem(flash_kernel<D, kLse, kI8>, S::kSmem);
+      hop_host::allow_smem(flash_kernel<D, kLse, kI8, kV8>, S::kSmem);
   if (attr != cudaSuccess) return attr;
   // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
   static const int regs = [] {
     cudaFuncAttributes fa;
-    return cudaFuncGetAttributes(&fa, flash_kernel<D, kLse, kI8>) ==
+    return cudaFuncGetAttributes(&fa, flash_kernel<D, kLse, kI8, kV8>) ==
                    cudaSuccess
                ? fa.numRegs
                : 0;
   }();
   if (regs < kK2LaunchRegs) return cudaErrorInvalidConfiguration;
-  flash_kernel<D, kLse, kI8><<<blocks, S::kThreads, S::kSmem, st>>>(
+  flash_kernel<D, kLse, kI8, kV8><<<blocks, S::kThreads, S::kSmem, st>>>(
       tq, tk, tv, o, lse, qscale, kscale, H, nq, nk, q_tiles, n_items, block,
-      nb, so, scale_log2);
+      nb, so, scale_log2, vscale);
   return cudaGetLastError();
 }
 
@@ -654,87 +656,39 @@ cudaError_t launch_int8qk(cudaStream_t st, const void* q8, const void* k8,
                                   nb, so, scale_log2);
 }
 
-// K8: q8, k8 int8 rows as K1 takes them; V int8 and transposed, vt
-// [B*H, D, npad] addressed by sv (batch and head strides, and the byte pitch
-// of a channel row in sv.n), and the f32 per-(batch*head, channel) scales
-// vscale [B*H, D].
+// K8: q8, k8 int8 rows as K1 takes them; V int8, transposed with its keys
+// permuted within each 16 (``pack_v8``), vt [B*H, D, npad] addressed by sv
+// (batch and head strides, and the byte pitch of a channel row, npad, in
+// sv.n), mapped as D channel rows of 128 keys (128 bytes) under the
+// 128-byte swizzle; the f32 per-(batch*head, channel) scales vscale
+// [B*H, D].
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_int8qkv_kernel(const int8_t* __restrict__ q8,
-                         const int8_t* __restrict__ k8,
-                         const int8_t* __restrict__ vt,
-                         __nv_bfloat16* __restrict__ o,
-                         const float* __restrict__ qscale,
-                         const float* __restrict__ kscale,
-                         const float* __restrict__ vscale, int H, int n,
-                         int block, int nb, Strides sq, Strides sk,
-                         Strides sv, Strides so, float sm_log2) {
-  constexpr int LDI = D + 16;    // int8 row pitch in shared memory
-  constexpr int LDT = kBK + 16;  // int8 pitch of the transposed V tile
-  __shared__ __align__(16) int8_t sK[kBK * LDI];  // Q staged here first
-  __shared__ __align__(16) int8_t sVt[D * LDT];
-  __shared__ float svs[D];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int8_t* qb = q8 + b * sq.b + h * sq.h;
-  const int8_t* kb = k8 + b * sk.b + h * sk.h;
-  const int8_t* vb = vt + b * sv.b + h * sv.h;
-  const float q_scale = qscale[bh * nb + q0 / block] * sm_log2;
-  for (int i = threadIdx.x; i < D; i += kThreads)
-    svs[i] = __fmul_rn(vscale[bh * D + i], 1.f / 127.f);
-
-  load_tile(reinterpret_cast<unsigned char*>(sK), LDI,
-            reinterpret_cast<const unsigned char*>(qb + q0 * sq.n), sq.n,
-            kBQ, D, n - q0);
-  __syncthreads();
-  uint32_t qf[D / 32][4];
-  {
-    const int8_t* r0 = sK + (warp * 16 + g) * LDI + 4 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-      qf[kk][0] = ld32(r0 + kk * 32);
-      qf[kk][1] = ld32(r0 + 8 * LDI + kk * 32);
-      qf[kk][2] = ld32(r0 + kk * 32 + 16);
-      qf[kk][3] = ld32(r0 + 8 * LDI + kk * 32 + 16);
-    }
-  }
-  float o_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    __syncthreads();
-    load_tile(reinterpret_cast<unsigned char*>(sK), LDI,
-              reinterpret_cast<const unsigned char*>(kb + k0 * sk.n), sk.n,
-              kBK, D, n - k0);
-    // D channel rows of kBK keys; npad (a multiple of the block) covers them
-    load_tile(reinterpret_cast<unsigned char*>(sVt), LDT,
-              reinterpret_cast<const unsigned char*>(vb + k0), sv.n, D, kBK,
-              D);
-    __syncthreads();
-    const float scale = q_scale * kscale[bh * nb + k0 / block];
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      int acc[4] = {0, 0, 0, 0};
-      const int8_t* r0 = sK + (j * 8 + g) * LDI + 4 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
-        mma_s8(acc, qf[kk], ld32(r0 + kk * 32), ld32(r0 + kk * 32 + 16));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = static_cast<float>(acc[e]) * scale;
-    }
-    softmax_tile<D>(s, n - k0, t, m, l, o_acc);
-    uint32_t pa[kBK / 32][4];
-    pack_p_s8(s, pa);
-    pv_tile_s8<D>(sVt, LDT, pa, svs, g, t, o_acc);
-  }
-  store_rows<D>(o + b * so.b + h * so.h, so, q0 + warp * 16, n, g, t, m, l,
-                o_acc, nullptr);
+cudaError_t launch_int8qkv(cudaStream_t st, const void* q8, const void* k8,
+                           const void* vt, __nv_bfloat16* o,
+                           const float* qscale, const float* kscale,
+                           const float* vscale, int B, int H, int n,
+                           int block, int nb, Strides sq, Strides sk,
+                           Strides sv, Strides so, float scale_log2) {
+  constexpr int rows = K2Smem<D, true, true>::kRows;
+  const uint64_t dims[4] = {(uint64_t)sv.n, (uint64_t)D, (uint64_t)H,
+                            (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sv.n, (uint64_t)sv.h,
+                               (uint64_t)sv.b};
+  const uint32_t box[4] = {(uint32_t)kK2K, (uint32_t)D, 1, 1};
+  CUtensorMap tq, tk, tv;
+  int q_tiles, n_items, blocks;
+  if (!bnhd_map(&tq, q8, B, n, H, D, sq, rows, D, 1, D,
+                CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !bnhd_map(&tk, k8, B, n, H, D, sk, kK2K, D, 1, D,
+                CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !hop_host::make_map(&tv, vt, 4, dims, strides, box, 128,
+                          CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !plan_items(B, H, n, &q_tiles, &n_items, &blocks))
+    return cudaErrorInvalidValue;
+  return launch_k<D, false, true, true>(blocks, st, tq, tk, tv, o, nullptr,
+                                        qscale, kscale, H, n, n, q_tiles,
+                                        n_items, block, nb, so, scale_log2,
+                                        vscale);
 }
 
 }  // namespace
@@ -801,8 +755,9 @@ int flash_attn_int8qk(const void* q8, const void* k8, const void* v, void* o,
   return static_cast<int>(e);
 }
 
-// vt: int8 [B*H, d, Npad] (V transposed), vscale: f32 [B*H, d]; v_sb, v_sh
-// and v_sn are its element strides between batches, heads and channel rows.
+// vt: int8 [B*H, d, Npad], V transposed with its keys permuted within each
+// 16 (``pack_v8``); vscale: f32 [B*H, d]; v_sb, v_sh and v_sn are its
+// element strides between batches, heads and channel rows (v_sn = Npad).
 int flash_attn_int8qkv(const void* q8, const void* k8, const void* vt,
                        void* o, const void* qscale, const void* kscale,
                        const void* vscale, int B, int H, int n, int d,
@@ -811,27 +766,26 @@ int flash_attn_int8qkv(const void* q8, const void* k8, const void* vt,
                        long long k_sh, long long v_sb, long long v_sn,
                        long long v_sh, long long o_sb, long long o_sn,
                        long long o_sh, float sm_scale, void* stream) {
-  const dim3 grid((n + kBQ - 1) / kBQ, B * H);
   const Strides sq{q_sb, q_sn, q_sh}, sk{k_sb, k_sn, k_sh},
       sv{v_sb, v_sn, v_sh}, so{o_sb, o_sn, o_sh};
-  const float sm_log2 = sm_scale * kLog2e;
+  const float scale_log2 = sm_scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const int8_t*>(q8);
-  auto kp = static_cast<const int8_t*>(k8);
-  auto vp = static_cast<const int8_t*>(vt);
   auto op = static_cast<__nv_bfloat16*>(o);
   auto qs = static_cast<const float*>(qscale);
   auto ks = static_cast<const float*>(kscale);
   auto vs = static_cast<const float*>(vscale);
-  if (d == 128)
-    flash_int8qkv_kernel<128><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, qs, ks, vs, H, n, block, nb, sq, sk, sv, so, sm_log2);
-  else if (d == 64)
-    flash_int8qkv_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, qs, ks, vs, H, n, block, nb, sq, sk, sv, so, sm_log2);
-  else
+  if (block % 128 != 0 || v_sn % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (d == 128)
+    e = launch_int8qkv<128>(st, q8, k8, vt, op, qs, ks, vs, B, H, n, block,
+                            nb, sq, sk, sv, so, scale_log2);
+  else if (d == 64)
+    e = launch_int8qkv<64>(st, q8, k8, vt, op, qs, ks, vs, B, H, n, block,
+                           nb, sq, sk, sv, so, scale_log2);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks for the kernels that run on wgmma and TMA
-// (K1 and K2 in flash_attention.cu, K5 in flash_attention_bwd.cu, K3, K7
-// and the f32 conv in dense_conv.cu, K4 in sparse_conv.cu, the f32
-// attention in flash_attention_f32.cu): mbarriers, TMA tile loads,
-// cp.async row gathers, wgmma shared-memory descriptors and the wgmma
-// instructions themselves (bf16, s8, tf32), and on the host the encoding of
-// TMA tensor maps.
+// (K1, K2 and K8 in flash_attention.cu, K5 in flash_attention_bwd.cu, K3, K7
+// and the f32 conv in dense_conv.cu, K4 in sparse_conv.cu, K6 in
+// sparse_conv_bwd.cu, the f32 attention in flash_attention_f32.cu):
+// mbarriers, TMA tile loads, cp.async row gathers, wgmma shared-memory
+// descriptors and the wgmma instructions themselves (bf16, s8, tf32), and on
+// the host the encoding of TMA tensor maps.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint so that the libraries loaded with ctypes
@@ -402,10 +402,17 @@ struct Wgmma<256> {
 };
 
 // wgmma m64nNk32, s8 operands, s32 accumulators d[N / 2] in the layout of the
-// f32 ones above (the int32 -> f32 conversion is the caller's). Both operands
-// K-major in shared memory: 8-bit wgmma has no transpose bit, and a k32 step
-// advances the descriptors by 32 bytes. Written out at N = 32, 64, 96 (K7's
-// N tiles) and 128 (K1's 128-key S tile, K7's widest N tile).
+// f32 ones above (the int32 -> f32 conversion is the caller's). 8-bit wgmma
+// has no transpose bit: B is K-major in shared memory, and a k32 step
+// advances the descriptors by 32 bytes.
+//   ss: A K-major in shared memory too (descriptor da). Written out at N =
+//       32, 64, 96 (K7's N tiles) and 128 (K1's 128-key S tile, K7's widest
+//       N tile).
+//   rs: A from registers, the m16n8k32 s8 fragment of each warp's 16 rows:
+//       a[0] (row lane/4, columns 4 (lane%4) .. + 3, byte i column + i),
+//       a[1] (row lane/4 + 8, same columns), a[2] and a[3] the same rows at
+//       columns 16 + 4 (lane%4) .. + 3. Written out at N = 64 and 128 (K8's
+//       head dims).
 template <int N>
 struct WgmmaS8;
 
@@ -436,6 +443,19 @@ struct WgmmaS8<64> {
           "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
           "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
         : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(int (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
@@ -474,6 +494,23 @@ struct WgmmaS8<128> {
           "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
           "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(int (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 

@@ -1,6 +1,6 @@
 // Weight gradient of the sparse submanifold 3x3x3 convolution on voxel rows
-// for Hopper (sm_90a), f32, behind a plain C interface (loaded with ctypes by
-// infinicube_tpu_torch/kernels).
+// for Hopper (sm_90a), f32 in and out, behind a plain C interface (loaded
+// with ctypes by infinicube_tpu_torch/kernels).
 //
 // sparse_conv_f32_wgrad (K6) replaces the TPU kernel
 //   infinicube_tpu/ops/window_conv.py:252 `_dw_core` (reached from `_wc_bwd`,
@@ -13,120 +13,314 @@
 // (The input gradient of the same conv is sparse_conv_f32 of sparse_conv.cu on
 // the output gradient with the reversed, transposed weights.)
 //
-// What bounds it: f32 FFMA on the CUDA cores (67 TFLOP/s on an H100 SXM), as
-// the forward: 2 * F * Fo operations per present (row, tap) pair against
-// (F + Fo) * 4 bytes per row, far above the ridge, so operations bound it.
+// What bounds it: 2 * F * Fo operations per present (row, tap) pair against
+// (F + Fo) * 4 bytes per row, far above the ridge, so operations. The first
+// version ran them as f32 FFMA on the CUDA cores (67 TFLOP/s on an H100 SXM)
+// at 15-27 % of that bound. This one takes them to the tensor cores by the
+// 3xTF32 split, as K4 does: each operand a becomes hi = tf32(a) and lo =
+// tf32(a - hi), and a product is lo_A hi_B + hi_A lo_B + hi_A hi_B on wgmma
+// m64nNk8 .f32.tf32.tf32 (495 TFLOP/s: 165 TFLOP/s of f32 work).
 //
-// Design: per tap the product is [F x rows] . [rows x Fo], long in the rows
-// and with only 27 * ceil(F/64) * ceil(Fo/64) output tiles (27 at 64 -> 64),
-// too few for 132 SMs. So the B * C rows are cut into S ranges and a block
-// owns (range, tap, 64 x 64 output tile): it walks its range in chunks of 16
-// rows, skips a chunk none of whose rows has the tap's neighbour, gathers the
-// 16 neighbour rows of feats (zeros for -1) and the 16 rows of g into shared
-// memory, and each of its 256 threads accumulates a 4 x 4 sub-tile in f32
-// registers. It writes its tile of partial[s]; a second kernel sums the S
-// partials in the order s = 0 .. S-1. No atomics: the TPU kernel accumulates
-// over its sequential grid in a fixed order, and so does this pair, so the
-// result is bit-identical from run to run. The next chunk's neighbour index
-// is fetched before the current chunk's products; no double buffering of the
-// tiles yet.
-//
-// The entry point returns cudaGetLastError().
+// Design. Per tap the product is [F x rows] . [rows x Fo]: M = F, N = Fo and
+// the reduction runs over the B * C voxel rows. tf32 wgmma has no transpose
+// bit, so an operand in shared memory must be K-major (voxel rows
+// contiguous), and neither operand arrives that way:
+// - A = the gathered feats rows, from registers. A producer warpgroup
+//   gathers each stage's 32 neighbour rows (the F tile's features) with
+//   cp.async, src-size 0 for an absent tap, into a row-major staging buffer
+//   whose pitch is F tile + 8 floats, so that the 32 lanes of a warp reading
+//   one A fragment (8 features x 4 rows) hit 32 banks. The consumers load
+//   their m64k8 A fragments from it and split them into hi and lo in
+//   registers.
+// - B = g^T, written once a call by a prologue kernel (sparse_wgrad_pack)
+//   as its tf32 hi and lo parts, f32 [2, Fo, rows]; g does not depend on the
+//   tap, so one pack serves all 27. Two 2-D TMA boxes a stage (32 rows: the
+//   128-byte swizzle span, by the N tile) feed the B operand.
+// - The tensor cores truncate every sum they accumulate, and a dw element
+//   sums up to 10^5 rows: the wgmma sums are added into f32 sums with a
+//   rounded add every 32 k8 steps and restarted (scale-d 0), as the f32
+//   conv does. Both sums live in registers; the producer hands its
+//   registers to the consumers (setmaxnreg).
+// - A block owns (tap, F tile, N tile, row range). The ranges are a function
+//   of the shape only (rows_per_split from the wrapper); the block first
+//   lists the 32-row chunks of its range in which some row has the tap's
+//   neighbour and walks only those, in order. An F tile of 128 gives each
+//   consumer warpgroup 64 features of every stage; an F tile of 64 (F <= 64)
+//   gives both the same features and half of each stage's rows, and the
+//   second adds its sums into the first's through shared memory at the end.
+//   Each block writes its tile of partial[s] (or of dw, where one range
+//   covers the rows); a second kernel sums the partials in the order
+//   s = 0 .. S-1. No atomics: the result is bit-identical from run to run.
+// The entry point returns cudaGetLastError() (or cudaErrorInvalidValue for
+// what it does not take).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBF = 64;   // input features (rows of dw[t]) per block
-constexpr int kBN = 64;   // output features per block
-constexpr int kBK = 16;   // voxel rows per chunk
-constexpr int kThreads = 256;
 constexpr int kTaps = 27;
+constexpr int kThreads = 384;   // warpgroups 0, 1 consume, 2 gathers
+constexpr int kChunk = 32;      // voxel rows a stage: one 128-byte span
+constexpr int kMaxChunks = 512;  // chunks a row range may hold
+constexpr int kRing = 204800;   // bytes of shared memory for the ring
+constexpr int kFlushSteps = 32;  // k8 steps between flushes of the sums
+// registers a thread after the hand-over: the producer keeps 40, each
+// consumer takes 232 (2 x 128 x 232 + 128 x 40 = 384 x 168, the pool of a
+// block launched with 168 a thread)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232, kLaunchRegs = 168;
 
-__global__ void __launch_bounds__(kThreads)
-    sparse_wgrad_kernel(const float* __restrict__ feats,
-                        const int* __restrict__ nbr,
-                        const float* __restrict__ g,
-                        float* __restrict__ partial, long long rows, int C,
-                        int F, int Fo, int rows_per_split, int tiles_f,
-                        int tiles_o) {
-  __shared__ __align__(16) float sA[kBK][kBF];  // gathered feats rows
-  __shared__ __align__(16) float sB[kBK][kBN];  // rows of g
+// FT features (A rows) and BN output features (B rows) a block
+template <int FT, int BN>
+struct K6Tile {
+  static constexpr int kPitch = FT + 8;           // floats a staged row
+  static constexpr int kB = BN * 128;             // one B box: BN x 32 rows
+  static constexpr int kA = kChunk * kPitch * 4;  // the gathered rows
+  static constexpr int kStage = 2 * kB + kA;      // B hi, B lo, A
+  static constexpr int kStages = kRing / kStage > 8 ? 8 : kRing / kStage;
+  // k8 steps of a stage each consumer warpgroup takes
+  static constexpr int kSteps = FT == 128 ? 4 : 2;
+  // ring, barriers, chunk list and its count, room to align to 1 KB
+  static constexpr int kSmem =
+      kStages * kStage + 2 * 8 * kStages + 4 * (kMaxChunks + 1) + 1024;
+  static_assert(kStage % 1024 == 0, "B boxes need 1 KB alignment");
+};
 
-  const int tid = threadIdx.x;
-  int tile = blockIdx.x;
-  const int to = tile % tiles_o;
-  tile /= tiles_o;
-  const int tf = tile % tiles_f;
-  const int t = tile / tiles_f;
-  const int s = blockIdx.y;
-  const int f0 = tf * kBF, n0 = to * kBN;
-  const int tx = tid % 16, ty = tid / 16;
+struct K6Args {
+  const float* feats;  // f32 [B, C, F]
+  const int* nbr;      // int32 [B, C, 27]
+  float* out;          // f32 [S, 27, F, Fo] partials, or dw where S == 1
+  long long rows;      // B * C
+  int C, F, Fo;
+  int rows_per_split;  // a multiple of 32, at most 32 * kMaxChunks
+  int f_tiles, n_tiles;
+};
 
-  const long long r_begin = (long long)s * rows_per_split;
-  long long r_end = r_begin + rows_per_split;
-  if (r_end > rows) r_end = rows;
+__device__ __forceinline__ float tf32_trunc(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+template <int FT, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_wgrad_tf32x3_kernel(const __grid_constant__ CUtensorMap tmg,
+                               const K6Args a) {
+  using T = K6Tile<FT, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
+  uint64_t* empty = full + T::kStages;
+  int* sList = reinterpret_cast<int*>(empty + T::kStages);
+  int* sCount = sList + kMaxChunks;
 
-  // loader: thread -> (row of the chunk, 4 features of the tile)
-  const int lk = tid / 16, lc = (tid % 16) * 4;
-  long long row = r_begin + lk;
-  int src = row < r_end ? nbr[row * kTaps + t] : -1;
-  for (long long r0 = r_begin; r0 < r_end; r0 += kBK) {
-    const int cur = src;
-    const long long cur_row = row;
-    row += kBK;
-    src = row < r_end ? nbr[row * kTaps + t] : -1;
-    // also the barrier between the previous chunk's reads and these writes
-    if (!__syncthreads_or(cur >= 0)) continue;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (cur >= 0) {
-      const long long batch_row0 = (cur_row / C) * C;
-      if (f0 + lc < F)
-        a = *reinterpret_cast<const float4*>(feats + (batch_row0 + cur) * F +
-                                             f0 + lc);
-      if (n0 + lc < Fo)
-        b = *reinterpret_cast<const float4*>(g + cur_row * Fo + n0 + lc);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int bid = blockIdx.x;
+  const int t = bid % kTaps;
+  bid /= kTaps;
+  const int ft = bid % a.f_tiles;
+  bid /= a.f_tiles;
+  const int nt = bid % a.n_tiles;
+  const int s = bid / a.n_tiles;
+  const int f0 = ft * FT, n0 = nt * BN;
+  const long long r_begin = (long long)s * a.rows_per_split;
+  const long long r_end = min(a.rows, r_begin + a.rows_per_split);
+  const int n_chunks =
+      static_cast<int>((r_end - r_begin + kChunk - 1) / kChunk);
+
+  if (tid == 0) {
+    for (int i = 0; i < T::kStages; ++i) {
+      hop::mbar_init(&full[i], 128 + 1);  // 128 gathers, the B boxes' tx
+      hop::mbar_init(&empty[i], 8);       // lane 0 of each consumer warp
     }
-    *reinterpret_cast<float4*>(&sA[lk][lc]) = a;
-    *reinterpret_cast<float4*>(&sB[lk][lc]) = b;
-    __syncthreads();
+    hop::fence_barrier_init();
+  }
+  // the chunks of the range in which some row has the tap's neighbour: a
+  // flag each, then compacted in order by warp 0 (in place: a group's flags
+  // are read before any index of it is written, and indices never pass
+  // their flag)
+  for (int c = warp; c < n_chunks; c += kThreads / 32) {
+    const long long row = r_begin + (long long)c * kChunk + lane;
+    const int src = row < r_end ? a.nbr[row * kTaps + t] : -1;
+    const unsigned any = __ballot_sync(0xffffffffu, src >= 0);
+    if (lane == 0) sList[c] = any != 0u;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int c0 = 0; c0 < n_chunks; c0 += 32) {
+      const int c = c0 + lane;
+      const bool f = c < n_chunks && sList[c] != 0;
+      const unsigned bits = __ballot_sync(0xffffffffu, f);
+      if (f) sList[n + __popc(bits & ((1u << lane) - 1u))] = c;
+      n += __popc(bits);
+    }
+    if (lane == 0) *sCount = n;
+  }
+  __syncthreads();
+  const int count = *sCount;
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ---- producer: each thread a quarter of one row's features, thread 0
+    // the B boxes ----
+    hop::setmaxnreg_dec<kProducerRegs>();
+    const int p = tid - 256, prow = p / 4, part = p % 4;
+    if (p == 0) hop::prefetch_map(&tmg);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < count; ++it) {
+      hop::mbar_wait(&empty[stage], phase ^ 1);
+      const long long r0 = r_begin + (long long)sList[it] * kChunk;
+      uint8_t* st = ring + stage * T::kStage;
+      if (p == 0) {
+        hop::mbar_expect_tx(&full[stage], 2 * T::kB);
+        hop::tma_load_3d(st, &tmg, &full[stage], static_cast<int>(r0), n0, 0);
+        hop::tma_load_3d(st + T::kB, &tmg, &full[stage],
+                         static_cast<int>(r0), n0, 1);
+      }
+      const long long row = r0 + prow;
+      const int src = row < r_end ? a.nbr[row * kTaps + t] : -1;
+      const float* frow =
+          a.feats + ((row / a.C) * a.C + (src >= 0 ? src : 0)) * a.F + f0;
+      float* dst = reinterpret_cast<float*>(st + 2 * T::kB) + prow * T::kPitch;
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&sA[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sB[k][tx * 4]);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
+      for (int j = 0; j < FT / 16; ++j) {  // 16-byte chunks, 4 threads a row
+        const int c = (4 * j + part) * 4;
+        const bool ok = src >= 0 && f0 + c < a.F;
+        hop::cp_async16(dst + c, ok ? frow + c : a.feats, ok);
+      }
+      hop::cp_async_arrive(&full[stage]);
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // ---- consumers: 64 features each, all BN output features ----
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    constexpr int kS = T::kSteps;
+    constexpr int kFlush = kFlushSteps / kS;  // stages between flushes
+    const int wt = tid % 128, w = wt / 32, g = lane / 4, q = lane % 4;
+    // this thread's A rows (features) and its warpgroup's first k8 step
+    const int fa = (FT == 128 ? 64 * wg : 0) + 16 * w + g;
+    const int k0 = FT == 128 ? 0 : kS * wg;
+    float acc[BN / 2], sum[BN / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
+    int stage = 0, since = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < count; ++it) {
+      hop::mbar_wait(&full[stage], phase);
+      const uint8_t* st = ring + stage * T::kStage;
+      const float* sa = reinterpret_cast<const float*>(st + 2 * T::kB);
+      // the m64k8 A fragments of this warpgroup's k8 steps, split into tf32
+      // hi and lo: a[0] (feature fa, row k), a[1] (fa + 8, k), a[2] and a[3]
+      // the same features at row k + 4, k = 8 * step + q
+      uint32_t ah[kS][4], al[kS][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+      for (int kk = 0; kk < kS; ++kk) {
+        const float* r = sa + (8 * (k0 + kk) + q) * T::kPitch + fa;
+        const float v[4] = {r[0], r[8], r[4 * T::kPitch],
+                            r[4 * T::kPitch + 8]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float hi = tf32_trunc(v[i]);
+          ah[kk][i] = __float_as_uint(hi);
+          al[kk][i] = __float_as_uint(tf32_trunc(v[i] - hi));
+        }
+      }
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kS; ++kk) {  // a k8 step is 32 bytes of B rows
+        const uint64_t dh =
+            hop::make_desc(st + 32 * (k0 + kk), 128, 16, 1024);
+        const uint64_t dl =
+            hop::make_desc(st + T::kB + 32 * (k0 + kk), 128, 16, 1024);
+        // the small terms first; the first product after a flush restarts
+        hop::WgmmaTf32<BN>::rs(acc, al[kk], dh, since == 0 && kk == 0 ? 0 : 1);
+        hop::WgmmaTf32<BN>::rs(acc, ah[kk], dl, 1);
+        hop::WgmmaTf32<BN>::rs(acc, ah[kk], dh, 1);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      if (lane == 0) hop::mbar_arrive(&empty[stage]);
+      if (++since == kFlush || it == count - 1) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+        since = 0;
+      }
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if constexpr (FT == 64) {
+      // both warpgroups hold the same features: the second's sums go to the
+      // first through the (now idle) ring and are added in that order
+      float* xfer = reinterpret_cast<float*>(ring);
+      hop::named_barrier(1, 256);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) xfer[i * 128 + wt] = sum[i];
+      }
+      hop::named_barrier(1, 256);
+      if (wg == 1) return;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        sum[i] = __fadd_rn(sum[i], xfer[i * 128 + wt]);
+    }
+    float* out = a.out + ((long long)s * kTaps + t) * a.F * a.Fo;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = f0 + fa + 8 * h;
+      if (f >= a.F) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        if (n < a.Fo)
+          *reinterpret_cast<float2*>(out + (long long)f * a.Fo + n) =
+              make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+      }
     }
   }
+}
 
-  const int n = n0 + tx * 4;
-  if (n >= Fo) return;
-  float* out = partial + ((long long)s * kTaps + t) * F * Fo;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + ty * 4 + i;
-    if (f < F)
-      *reinterpret_cast<float4*>(out + (long long)f * Fo + n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+// g [rows, Fo] -> pack [2, Fo, ld]: the tf32 hi and lo of g^T (columns
+// rows .. ld-1 zero), through a 32 x 32 tile in shared memory.
+__global__ void __launch_bounds__(256)
+    sparse_wgrad_pack_kernel(const float* __restrict__ g,
+                             float* __restrict__ pack, long long rows, int Fo,
+                             long long ld) {
+  __shared__ float tile[32][33];
+  const long long r0 = (long long)blockIdx.x * 32;
+  const int c0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const long long r = r0 + i;
+    const int c = c0 + threadIdx.x;
+    tile[i][threadIdx.x] = r < rows && c < Fo ? g[r * Fo + c] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i;
+    const long long r = r0 + threadIdx.x;
+    if (c < Fo && r < ld) {
+      const float v = tile[threadIdx.x][i];
+      const float hi = tf32_trunc(v);
+      pack[(long long)c * ld + r] = hi;
+      pack[((long long)Fo + c) * ld + r] = tf32_trunc(v - hi);  // exact
+    }
   }
 }
 
 // dw[i] = partial[0][i] + partial[1][i] + ... in that order, 4 values a thread
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
     sparse_wgrad_reduce_kernel(const float* __restrict__ partial,
                                float* __restrict__ dw, long long n4, int S) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n4) return;
   const float4* p = reinterpret_cast<const float4*>(partial);
   float4 sum = p[i];
@@ -140,37 +334,91 @@ __global__ void __launch_bounds__(kThreads)
   reinterpret_cast<float4*>(dw)[i] = sum;
 }
 
+template <int FT, int BN>
+cudaError_t launch_k6(const CUtensorMap& tmg, const K6Args& args,
+                      unsigned blocks, cudaStream_t stream) {
+  using T = K6Tile<FT, BN>;
+  static cudaError_t attr =
+      hop_host::allow_smem(sparse_wgrad_tf32x3_kernel<FT, BN>, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
+  static const int regs = [] {
+    cudaFuncAttributes fa;
+    return cudaFuncGetAttributes(&fa, sparse_wgrad_tf32x3_kernel<FT, BN>) ==
+                   cudaSuccess
+               ? fa.numRegs
+               : 0;
+  }();
+  if (regs < kLaunchRegs) return cudaErrorInvalidConfiguration;
+  sparse_wgrad_tf32x3_kernel<FT, BN>
+      <<<blocks, kThreads, T::kSmem, stream>>>(tmg, args);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // feats [B, C, F], nbr int32 [B, C, 27], g [B, C, Fo] -> dw [27, F, Fo];
-// partial is scratch of [S, 27, F, Fo] floats with S = ceil(B * C /
-// rows_per_split); rows_per_split is a multiple of 16.
+// pack is scratch of 2 * Fo * ld floats (ld = B * C rounded up to 4),
+// partial of [S, 27, F, Fo] floats with S = ceil(B * C / rows_per_split)
+// (unused, and may be null, where S == 1); rows_per_split is a multiple of
+// 32 and at most 16,384.
 int sparse_conv_f32_wgrad(const void* feats, const void* nbr, const void* g,
-                          void* partial, void* dw, int B, int C, int F, int Fo,
-                          int rows_per_split, void* stream) {
+                          void* pack, void* partial, void* dw, int B, int C,
+                          int F, int Fo, int rows_per_split, void* stream) {
   if (B <= 0 || C <= 0 || F <= 0 || Fo <= 0 || F % 4 || Fo % 4 ||
-      rows_per_split <= 0 || rows_per_split % kBK)
+      rows_per_split <= 0 || rows_per_split % kChunk ||
+      rows_per_split > kChunk * kMaxChunks ||
+      reinterpret_cast<uintptr_t>(feats) % 16 ||
+      reinterpret_cast<uintptr_t>(pack) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = (long long)B * C;
+  const long long ld = (rows + 3) / 4 * 4;
   const long long S = (rows + rows_per_split - 1) / rows_per_split;
-  const int tiles_f = (F + kBF - 1) / kBF, tiles_o = (Fo + kBN - 1) / kBN;
-  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(kTaps * tiles_f * tiles_o, static_cast<unsigned>(S));
+  if (rows >= (1LL << 31) || (S > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ft = F <= 64 ? 64 : 128, bn = Fo <= 64 ? 64 : 128;
+  K6Args a;
+  a.feats = static_cast<const float*>(feats);
+  a.nbr = static_cast<const int*>(nbr);
+  a.out = static_cast<float*>(S == 1 ? dw : partial);
+  a.rows = rows;
+  a.C = C;
+  a.F = F;
+  a.Fo = Fo;
+  a.rows_per_split = rows_per_split;
+  a.f_tiles = (F + ft - 1) / ft;
+  a.n_tiles = (Fo + bn - 1) / bn;
+  const long long blocks = S * kTaps * a.f_tiles * a.n_tiles;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sparse_wgrad_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(feats), static_cast<const int*>(nbr),
-      static_cast<const float*>(g), static_cast<float*>(partial), rows, C, F,
-      Fo, rows_per_split, tiles_f, tiles_o);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+
+  sparse_wgrad_pack_kernel<<<dim3(static_cast<unsigned>((ld + 31) / 32),
+                                  static_cast<unsigned>((Fo + 31) / 32)),
+                             dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(g), static_cast<float*>(pack), rows, Fo, ld);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)Fo, 2};
+  const uint64_t strides[2] = {(uint64_t)ld * 4, (uint64_t)ld * Fo * 4};
+  const uint32_t box[3] = {(uint32_t)kChunk, (uint32_t)bn, 1};
+  CUtensorMap tmg;
+  if (!hop_host::make_map(&tmg, pack, 3, dims, strides, box, 128,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  e = ft == 64 ? (bn == 64 ? launch_k6<64, 64>(tmg, a, nb, st)
+                           : launch_k6<64, 128>(tmg, a, nb, st))
+               : (bn == 64 ? launch_k6<128, 64>(tmg, a, nb, st)
+                           : launch_k6<128, 128>(tmg, a, nb, st));
+  if (e != cudaSuccess || S == 1) return static_cast<int>(e);
   const long long n4 = (long long)kTaps * F * Fo / 4;
-  sparse_wgrad_reduce_kernel<<<static_cast<unsigned>((n4 + kThreads - 1) /
-                                                     kThreads),
-                               kThreads, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), n4,
-      static_cast<int>(S));
+  sparse_wgrad_reduce_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256,
+                               0, st>>>(static_cast<const float*>(partial),
+                                        static_cast<float*>(dw), n4,
+                                        static_cast<int>(S));
   return static_cast<int>(cudaGetLastError());
 }
 

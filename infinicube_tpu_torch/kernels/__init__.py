@@ -59,7 +59,7 @@ SIGNATURES = {
                    "int8_conv_quantize_w": [_P, _I] + [_P] * 3 + [_I] * 4
                    + [_P]},
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
-    "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 5 + [_I] * 5 + [_P]},
+    "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 6 + [_I] * 5 + [_P]},
 }
 
 # K3 and K4 each serve two rows of the kernel table, so their launches are
@@ -336,10 +336,12 @@ def flash_attn_int8qkv(q8: torch.Tensor, k8: torch.Tensor,
                        v8t: torch.Tensor, vscale: torch.Tensor, B: int,
                        n: int, block: int, sm_scale: float) -> torch.Tensor:
     """K8: attention with int8 QK^T and int8 PV. q8/k8 int8 [B*h, Npad, d]
-    with f32 scales [B*h, Npad/block] as for K1; v8t int8 [B*h, d, Npad], V
-    quantized per channel (``channel_quantize``) and transposed, with f32
-    scales vscale [B*h, d]; the first n of Npad tokens are real, keys >= n
-    are masked. Returns [B, n, h, d] bf16."""
+    with f32 scales [B*h, Npad/block] as for K1 (the block a multiple of
+    128); v8t int8 [B*h, d, Npad], V quantized per channel
+    (``channel_quantize``), transposed and its keys permuted within each 16
+    (``flash_attention.pack_v8``), with f32 scales vscale [B*h, d]; the
+    first n of Npad tokens are real, keys >= n are masked. Returns
+    [B, n, h, d] bf16."""
     _check_cuda(q8, k8, qscale, kscale, v8t, vscale)
     BH, npad, d = q8.shape
     h = BH // B
@@ -350,8 +352,8 @@ def flash_attn_int8qkv(q8: torch.Tensor, k8: torch.Tensor,
                          f"n={n}")
     if d not in (64, 128):
         raise ValueError(f"head dim {d} not supported (64 or 128)")
-    if block % 64 or npad % block:
-        raise ValueError(f"block {block} must be a multiple of 64 that "
+    if block % 128 or npad % block:
+        raise ValueError(f"block {block} must be a multiple of 128 that "
                          f"divides Npad={npad}")
     nb = npad // block
     for t, nm in ((q8, "q8"), (k8, "k8")):
@@ -615,21 +617,39 @@ def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor,
     return out
 
 
-def wgrad_rows_per_split(rows: int) -> int:
-    """Voxel rows per partial sum of K6: 2,048, or more (a multiple of 16)
-    so that at most 64 partials exist. A function of the shape only, so the
-    summation order is fixed."""
-    return max(2048, -(-rows // (64 * 16)) * 16)
+# K6's voxel rows a stage and at most a range (csrc/sparse_conv_bwd.cu)
+_K6_CHUNK, _K6_MAX_ROWS = 32, 32 * 512
+
+
+def _k6_tiles(F: int, Fo: int) -> int:
+    """K6's (F tile, N tile) blocks a tap, as the kernel picks its tiles:
+    64 features where F (Fo) <= 64, else 128."""
+    return -(-F // (64 if F <= 64 else 128)) * -(-Fo // (64 if Fo <= 64 else
+                                                         128))
+
+
+def wgrad_rows_per_split(rows: int, F: int, Fo: int) -> int:
+    """Voxel rows per range of K6 (a multiple of 32, at most 16,384): as
+    many ranges as take about 512 blocks of (tap, F tile, N tile, range)
+    over the card, none under 1,024 rows. A function of the shape only, so
+    the summation order is fixed."""
+    splits = max(-(-rows // _K6_MAX_ROWS),
+                 min(-(-512 // (27 * _k6_tiles(F, Fo))), -(-rows // 1024)))
+    per = -(-rows // splits)
+    return -(-per // _K6_CHUNK) * _K6_CHUNK
 
 
 def sparse_conv_f32_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
                           g: torch.Tensor) -> torch.Tensor:
     """K6: dw[t] = sum_{b, m} feats[b, nbr[b, m, t]]^T g[b, m] over present
-    taps, the weight gradient of K4. feats f32 [B, C, F]; nbr int32
-    [B, C, 27]; g f32 [B, C, Fo]; F and Fo multiples of 4. Returns f32
-    [27, F, Fo], bit-identical from run to run (partial sums over fixed row
-    ranges, reduced in a fixed order by a second kernel; one call launches
-    both and counts once)."""
+    taps, the weight gradient of K4, with f32-accurate products on the
+    tensor cores (3xTF32). feats f32 [B, C, F]; nbr int32 [B, C, 27]; g f32
+    [B, C, Fo]; F and Fo multiples of 4. Returns f32 [27, F, Fo],
+    bit-identical from run to run. One call launches the prologue that
+    writes g^T's tf32 parts, the kernel (partial sums over the fixed row
+    ranges of ``wgrad_rows_per_split``) and, where there is more than one
+    range, the sum of the partials in range order; it counts once. The
+    scratch for the pack and the partials is allocated here."""
     _check_cuda(feats, nbr, g)
     if feats.dim() != 3 or g.dim() != 3:
         raise ValueError(f"feats [B, C, F] and g [B, C, Fo], got "
@@ -639,15 +659,23 @@ def sparse_conv_f32_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     if F % 4 or Fo % 4 or min(B, C, F, Fo) < 1:
         raise ValueError(f"sparse_conv_f32_wgrad takes F, Fo multiples of 4, "
                          f"got {F} -> {Fo}")
+    if B * C >= 2 ** 31:
+        raise ValueError(f"too many voxel rows for one launch: {B * C}")
     _check_dense(feats, "feats", (B, C, F), torch.float32)
     _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
     _check_dense(g, "g", (B, C, Fo), torch.float32)
-    per = wgrad_rows_per_split(B * C)
-    splits = -(-B * C // per)
-    partial = torch.empty((splits, 27, F, Fo), dtype=torch.float32,
+    rows = B * C
+    per = wgrad_rows_per_split(rows, F, Fo)
+    splits = -(-rows // per)
+    # one scratch buffer: the pack [2, Fo, rows rounded up to 4] and, with
+    # more than one range, the partials [S, 27, F, Fo]
+    n_pack = 2 * Fo * (-(-rows // 4) * 4)
+    n_part = splits * 27 * F * Fo if splits > 1 else 0
+    scratch = torch.empty(n_pack + n_part, dtype=torch.float32,
                           device=feats.device)
     dw = torch.empty((27, F, Fo), dtype=torch.float32, device=feats.device)
     _run("sparse_conv_bwd", "sparse_conv_f32_wgrad", feats.device,
-         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(),
-         dw.data_ptr(), B, C, F, Fo, per)
+         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+         scratch.data_ptr() + 4 * n_pack if n_part else None, dw.data_ptr(),
+         B, C, F, Fo, per)
     return dw

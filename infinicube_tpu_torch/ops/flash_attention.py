@@ -17,9 +17,12 @@ channel) (``channel_quantize``), and runs PV in int8: the softmax keeps a
 running base-2 max, P is rounded to int8 at the fixed scale 127 against that
 max (``int8(p * 127 + 0.5)``), the denominator sums the f32 P, and the int32
 P8 V8 sums are dequantized by ``sv / 127``. K8 (``flash_attn_int8qkv``,
-csrc/flash_attention.cu) keeps its running max over 64-key tiles where the
+csrc/flash_attention.cu) keeps its running max over 128-key tiles where the
 reference keeps it over 1,536-key blocks, so P rounds at other maxima: the
-two agree to the repo's int8 gate (cosine >= 0.999), not bit for bit.
+two agree to the repo's int8 gate (cosine >= 0.999), not bit for bit. K8
+takes V8 transposed with its keys permuted within each 16 (``pack_v8``,
+the one copy that transposes V), so that P goes from its QK^T sums
+straight into the int8 operand of PV.
 """
 
 from __future__ import annotations
@@ -91,6 +94,17 @@ def channel_quantize(x: torch.Tensor):
     xf = x.float()
     scale = amax_scale(xf.abs().amax(dim=1))
     return torch.round(xf / scale[:, None, :]).to(torch.int8), scale
+
+
+def pack_v8(v8: torch.Tensor) -> torch.Tensor:
+    """K8's V operand: v8 int8 [BH, Npad, d] (Npad a multiple of 16) ->
+    [BH, d, Npad], transposed so that each channel's keys are contiguous and
+    permuted within each 16 (position 4q + i holds key 2q + i % 2 +
+    8 (i // 2): 0, 1, 8, 9, 2, 3, 10, 11, ...), in one copy."""
+    BH, npad, d = v8.shape
+    # key 16 c + 8 a + 2 q + b goes to position 16 c + 4 q + 2 a + b
+    return v8.reshape(BH, npad // 16, 2, 4, 2, d).permute(
+        0, 5, 1, 3, 2, 4).reshape(BH, d, npad)
 
 
 # f32 sums of int8 products stay exact below 2^24: 1,024 keys of 127^2
@@ -167,8 +181,7 @@ def mha_quantized(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v8, sv = channel_quantize(fold_heads(v, n_pad))
         if q.is_cuda:
             return kernels.flash_attn_int8qkv(
-                q8, k8, sq, sk, v8.transpose(1, 2).contiguous(), sv, B, N,
-                block, sm_scale)
+                q8, k8, sq, sk, pack_v8(v8), sv, B, N, block, sm_scale)
         out = int8qkv_attention_plain(q8, k8, sq, sk, v8, sv, N, block,
                                       sm_scale, q.dtype)
         return out.reshape(B, h, N, d).permute(0, 2, 1, 3)

@@ -19,9 +19,10 @@ and, as the JAX ``_wc_bwd`` does, the input gradient as the same stencil on
 the output gradient with the reversed, transposed weights (the neighbour
 relation is symmetric: ``nbr(m, t) = n`` iff ``nbr(n, 26 - t) = m``), K4 again
 on the card, and the weight gradient ``dw[t] = sum feats[nbr(., t)]^T g``,
-K6 (``sparse_conv_f32_wgrad``, csrc/sparse_conv_bwd.cu) on the card. On the
-CPU both come from ``sparse_conv_bwd_plain``. A CUDA tensor never takes a
-plain version.
+K6 (``sparse_conv_f32_wgrad``, csrc/sparse_conv_bwd.cu) on the card, 3xTF32
+too, its B operand the tf32 parts of g^T (``pack_wgrad_grad``, written by
+its prologue once a call). On the CPU both come from
+``sparse_conv_bwd_plain``. A CUDA tensor never takes a plain version.
 
 The loud policy stays: a batch element whose active voxels fall outside the
 declared dense bounds (its lookup would be wrong) gets NaN in every row of
@@ -99,6 +100,16 @@ def pack_sparse_weight(w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
     (N = Fo, K = F); the input gradient's (``dgrad``) is ``rev_w(w)[t]^T =
     w[26 - t]`` (N = F, K = Fo)."""
     return tf32_split((w.flip(0) if dgrad else w.transpose(1, 2)).float())
+
+
+def pack_wgrad_grad(g: torch.Tensor) -> torch.Tensor:
+    """K6's B operand for the output gradient g [B, C, Fo]: f32 [2, Fo, ld],
+    the tf32 hi and lo parts of g^T with the rows of every batch element
+    along the reduction dim, zero-padded to ld = B * C rounded up to 4. It
+    serves all 27 taps; the kernel's prologue writes it once a call."""
+    gt = g.reshape(-1, g.shape[-1]).t()
+    return tf32_split(torch.nn.functional.pad(gt.float(),
+                                              (0, (-gt.shape[1]) % 4)))
 
 
 def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,

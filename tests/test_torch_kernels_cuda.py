@@ -614,7 +614,7 @@ def test_int8_conv_module_routes_on_the_card(gen):
 def test_k8_matches_plain(gen, n, h, d):
     """Same int8 inputs on both sides, a different scale in every 1536-row
     block of q and k and in every channel of v. K8 rounds P to int8 against
-    its running max over 64-key tiles, the plain version over 1,536-key
+    its running max over 128-key tiles, the plain version over 1,536-key
     blocks: gated at the repo's int8 cosine >= 0.999."""
     block, npad = quant_blocks(n)
     q = _scale_blocks(_rand((1, n, h, d), gen), block, 0.25, 4.0)

@@ -1,8 +1,7 @@
 """The edges of the wgmma / TMA kernels (K3 with its split K, K2, K1, K5,
-K7 with its split K and its quantize prologue, K4, the f32 conv and the f32
-attention on 3xTF32), of the widths and dtypes the card's dense conv serves,
-against
-their plain PyTorch versions on the card. Needs an NVIDIA
+K7 with its split K and its quantize prologue, K4 and K6, the f32 conv and
+the f32 attention on 3xTF32, K8), of the widths and dtypes the card's dense
+conv serves, against their plain PyTorch versions on the card. Needs an NVIDIA
 GPU and skips without one; imports no JAX (the card's machine has none):
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -24,8 +23,9 @@ from infinicube_tpu_torch.ops.flash_attention import (block_quantize,
                                                       channel_quantize,
                                                       fold_heads,
                                                       int8qk_attention_plain,
+                                                      int8qkv_attention_plain,
                                                       mha_quantized,
-                                                      quant_blocks)
+                                                      pack_v8, quant_blocks)
 from infinicube_tpu_torch.grid.build import grid_from_ijk
 from infinicube_tpu_torch.nn.sparse import conv_plan
 from infinicube_tpu_torch.ops.dense_conv import (K7_MULTIPLE, Conv3x3x3,
@@ -44,6 +44,7 @@ from infinicube_tpu_torch.ops.dense_conv import (K7_MULTIPLE, Conv3x3x3,
 from infinicube_tpu_torch.ops.window_conv import (ConvPlan,
                                                   pack_sparse_weight,
                                                   rev_w,
+                                                  sparse_conv_bwd_plain,
                                                   sparse_conv_plain)
 
 pytestmark = pytest.mark.cuda
@@ -710,3 +711,146 @@ def test_int8_quantizers_on_the_card_equal_the_cpu(gen):
     for fn in (lambda t: block_quantize(t, 1536), channel_quantize):
         for got, ref in zip(fn(q), fn(q.cpu())):
             assert torch.equal(got.cpu(), ref)
+
+
+def _sheet_grid(gen, B, n_pts, cap):
+    """B voxel sheets (a ground plane with bumps, as a driving scene's
+    surfaces), the second half the size of the first."""
+    ij = torch.randint(-60, 60, (B, n_pts, 2), generator=gen, device="cuda")
+    k = (torch.sin(ij[..., :1] * 0.3) * 3).round().int() + torch.randint(
+        -1, 2, (B, n_pts, 1), generator=gen, device="cuda")
+    mask = torch.ones((B, n_pts), dtype=torch.bool, device="cuda")
+    if B > 1:
+        mask[-1, n_pts // 2:] = False
+    grid = grid_from_ijk(torch.cat([ij, k], -1).int(), mask, 0.2, 0.1, cap)
+    plan = conv_plan(grid, dense_bounds=((-64, -64, -64), (128, 128, 128)))
+    assert plan.violations.sum().item() == 0
+    return grid, plan
+
+
+# the VAE trainer's (F, Fo) and two widths that are 4 mod 8 (a ragged F
+# tile and a narrow N tile)
+@pytest.mark.parametrize("B,F,Fo", [(1, 32, 64), (2, 64, 64), (1, 128, 128),
+                                    (2, 256, 128), (1, 256, 256),
+                                    (2, 36, 68), (1, 260, 12)])
+def test_k6_on_real_grids(gen, B, F, Fo):
+    """K6 on tf32 wgmma against ``sparse_conv_bwd_plain``'s dW on voxel
+    sheets of up to 30,000 rows (several row ranges), with one tap's
+    neighbours removed from the table: max-abs <= 5e-4 * max|ref|, that
+    tap's dW exactly zero, one launch a call, two runs bit-identical."""
+    grid, plan = _sheet_grid(gen, B, 24000, 30000)
+    nbr = plan.nbr.clone()
+    nbr[..., 5] = -1
+    plan = ConvPlan(nbr, plan.violations)
+    m = grid.mask[..., None]
+    feats = torch.where(m, torch.randn((B, 30000, F), generator=gen,
+                                       device="cuda"), 0.0)
+    gout = torch.where(m, torch.randn((B, 30000, Fo), generator=gen,
+                                      device="cuda"), 0.0)
+    rows = B * 30000
+    assert -(-rows // kernels.wgrad_rows_per_split(rows, F, Fo)) > 1
+    before = kernels.launches["sparse_conv_f32_wgrad"]
+    dw = kernels.sparse_conv_f32_wgrad(feats, nbr, gout)
+    again = kernels.sparse_conv_f32_wgrad(feats, nbr, gout)
+    assert kernels.launches["sparse_conv_f32_wgrad"] == before + 2
+    ref = sparse_conv_bwd_plain(plan, feats, torch.zeros(
+        (27, F, Fo), device="cuda"), gout)[1]
+    torch.cuda.synchronize()
+    assert dw.shape == (27, F, Fo) and torch.isfinite(dw).all()
+    assert (dw - ref).abs().max().item() <= 5e-4 * ref.abs().max().item()
+    assert (dw[5] == 0).all() and (dw[13] != 0).any()
+    assert torch.equal(dw, again)
+
+
+def test_k6_with_one_row_range(gen):
+    """Few rows: one range, so the kernel writes dW itself (no partials,
+    no reduce pass); a tap of the centre row only."""
+    F, Fo = 64, 128
+    assert kernels.wgrad_rows_per_split(700, F, Fo) >= 700
+    nbr = torch.full((1, 700, 27), -1, dtype=torch.int32, device="cuda")
+    nbr[0, :, 13] = torch.arange(700, dtype=torch.int32, device="cuda")
+    nbr[0, 3, 0] = 9
+    feats = torch.randn((1, 700, F), generator=gen, device="cuda")
+    gout = torch.randn((1, 700, Fo), generator=gen, device="cuda")
+    dw = kernels.sparse_conv_f32_wgrad(feats, nbr, gout)
+    ref = sparse_conv_bwd_plain(ConvPlan(nbr, torch.zeros(
+        1, dtype=torch.int32, device="cuda")), feats, torch.zeros(
+            (27, F, Fo), device="cuda"), gout)[1]
+    torch.cuda.synchronize()
+    assert (dw - ref).abs().max().item() <= 5e-4 * ref.abs().max().item()
+    assert (dw[0] != 0).any()
+    assert (dw[1:13] == 0).all() and (dw[14:] == 0).all()
+
+
+def test_k6_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    nbr = torch.full((1, 64, 27), -1, dtype=torch.int32, device="cuda")
+    feats = torch.zeros((1, 64, 8), device="cuda")
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):                  # Fo not a multiple of 4
+        kernels.sparse_conv_f32_wgrad(feats, nbr, torch.zeros(
+            (1, 64, 6), device="cuda"))
+    with pytest.raises(ValueError):                  # rows differ
+        kernels.sparse_conv_f32_wgrad(feats, nbr, torch.zeros(
+            (1, 32, 8), device="cuda"))
+    with pytest.raises(ValueError):                  # bf16 features
+        kernels.sparse_conv_f32_wgrad(feats.to(torch.bfloat16), nbr, feats)
+    with pytest.raises(ValueError):                  # a CPU table
+        kernels.sparse_conv_f32_wgrad(feats, nbr.cpu(), feats)
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("B,n,h,d", [
+    (2, 1000, 3, 128),   # N not a multiple of the 128-key tiles
+    (2, 3001, 2, 64),    # two 1,536-row blocks, the second ragged
+    (2, 77, 1, 64),      # N < 128: one tile, mostly masked
+    (1, 4700, 2, 128)])  # four blocks
+def test_k8_at_the_edges(gen, B, n, h, d):
+    """K8 on s8 wgmma against ``int8qkv_attention_plain`` on the same int8
+    inputs (every block of q and k and every channel of v at its own
+    scale): cosine >= 0.999; one launch; two runs bit-identical."""
+    block, npad = quant_blocks(n)
+    q = _scale_blocks(_rand((B, n, h, d), gen), block, 0.25, 4.0)
+    k = _scale_blocks(_rand((B, n, h, d), gen), block, 4.0, 0.25)
+    v = _rand((B, n, h, d), gen) * torch.logspace(
+        -1, 1, d, device="cuda").to(torch.bfloat16)
+    before = dict(kernels.launches)
+    out = mha_quantized(q, k, v, quant="qkv")
+    assert kernels.launches["flash_attn_int8qkv"] == \
+        before["flash_attn_int8qkv"] + 1
+    assert kernels.launches["flash_attn_int8qk"] == \
+        before["flash_attn_int8qk"]
+    q8, sq = block_quantize(fold_heads(q, npad), block)
+    k8, sk = block_quantize(fold_heads(k, npad), block)
+    v8, sv = channel_quantize(fold_heads(v, npad))
+    ref = int8qkv_attention_plain(q8, k8, sq, sk, v8, sv, n, block,
+                                  d ** -0.5, torch.float32)
+    ref = ref.reshape(B, h, n, d).permute(0, 2, 1, 3)
+    assert out.shape == (B, n, h, d) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    assert _cos(out, ref) >= 0.999
+    again = kernels.flash_attn_int8qkv(q8, k8, sq, sk, pack_v8(v8), sv, B,
+                                       n, block, d ** -0.5)
+    assert torch.equal(out, again)
+
+
+def test_k8_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    q8 = torch.zeros((2, 256, 128), dtype=torch.int8, device="cuda")
+    s = torch.ones((2, 2), device="cuda")
+    v8t = torch.zeros((2, 128, 256), dtype=torch.int8, device="cuda")
+    sv = torch.ones((2, 128), device="cuda")
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):                  # a 64-row block
+        kernels.flash_attn_int8qkv(q8, q8, torch.ones((2, 4), device="cuda"),
+                                   torch.ones((2, 4), device="cuda"), v8t,
+                                   sv, 1, 200, 64, 0.1)
+    with pytest.raises(ValueError):                  # V not transposed
+        kernels.flash_attn_int8qkv(q8, q8, s, s, v8t.transpose(1, 2), sv, 1,
+                                   200, 128, 0.1)
+    with pytest.raises(ValueError):                  # head dim 96
+        kernels.flash_attn_int8qkv(q8[..., :96].contiguous(),
+                                   q8[..., :96].contiguous(), s, s,
+                                   v8t[:, :96].contiguous(), sv[:, :96], 1,
+                                   200, 128, 0.1)
+    with pytest.raises(ValueError):                  # n past Npad
+        kernels.flash_attn_int8qkv(q8, q8, s, s, v8t, sv, 1, 300, 128, 0.1)
+    assert kernels.launches == before
