@@ -127,7 +127,14 @@ Then int8 serving (the VAE trainer freed first):
 
 Then every width and f32 (the int8 models freed first):
 
-22. kernel checks: the int8 conv at 16^3, 64 -> 72 and 72 -> 104 (K7 on
+22. kernel checks: the head dims and widths the kernels take only padded,
+    through the entry points a model calls, each against its plain version
+    at the true width: ``multi_head_attention`` at d = 16, 32 and 48 (bf16
+    forward and gradients through K2 and K5, f32 forward through
+    ``flash_attn_f32``), ``mha_quantized`` at d = 16 and 96 (K1, K8), and
+    ``window_sparse_conv`` at 30 -> 30 and 30 -> 62 (K4, K4-dgrad, K6), their
+    launches listed under each kernel's ``padded_widths`` (no path counts
+    them); the int8 conv at 16^3, 64 -> 72 and 72 -> 104 (K7 on
     operands zero-padded to multiples of 32) equal to the unpadded
     ``conv3x3x3_int8_plain``; ``conv3x3x3_f32`` (3xTF32 on ``wgmma``)
     against the plain f32 conv (cuDNN, TF32 off) at the six release shapes,
@@ -145,6 +152,26 @@ Then every width and f32 (the int8 models freed first):
     ``DiffusionConfig(dtype=torch.float32)`` UNet on the 64^3 cube (DDIM-2)
     and the release VAE's decode, exactly 96 f32 conv launches, 20 of
     ``flash_attn_f32`` (10 a UNet call) and 12 of K4.
+
+Then stage 2, the guidance buffers, on phase 8's world (saved there with
+``save_voxel_world``):
+
+25. checks: ``splat_frame`` for 2 frames at 480x832 and its z-buffer's
+    winner slots, card against CPU; the DDA route for 1 frame at 240x416,
+    card against CPU (semantic and instance equal on >= 99.9 % of pixels,
+    depth within 1e-3 m where the winners agree); splat against DDA
+    (depth within 1 m and hit masks, tests/test_buffers.py:110's gates,
+    where the splat footprint closes the voxel lattice, and the class
+    where both routes see the same voxel);
+26. the main path: the CLI (``guidance_buffer_generation.main``) for 93
+    frames at 480x832 along the ego path, its six tars of 93 members read
+    back through the port's own reader and png decoder equal to the
+    buffers; ``generate_buffers_for_world`` with the scene's 4 boxes as
+    cars driving; no kernel launched (the stage is plain PyTorch, as the
+    reference is XLA);
+27. where the time goes: 93 splat frames, one DDA chunk of 8 frames, the
+    coordinate buffer, writing the tars and the previews, peak memory, and
+    8 splat frames and the DDA chunk under ``torch.profiler``.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
@@ -673,8 +700,12 @@ def run_chunks(kernels, gen, label, run, want, n_chunks):
     return world, launches
 
 
-def serve_stage1(kernels, mods):
-    """The main path: 3 chunks of release stage 1, per-chunk launch counts."""
+def serve_stage1(kernels, mods, world_path):
+    """The main path: 3 chunks of release stage 1, per-chunk launch counts;
+    the world is saved to ``world_path`` with the port's
+    ``save_voxel_world`` (stage 2's input, phases 25-27)."""
+    from infinicube_tpu_torch.inference.guidance_buffer_generation import \
+        save_voxel_world
     diffusion, vae = build_stage1(mods, "stage1")
     gen = mods.VoxelWorldGenerator(
         diffusion, mods.vae_decode_fn(vae),
@@ -683,10 +714,12 @@ def serve_stage1(kernels, mods):
     check(n_int8 == 0 and want["conv3x3x3_bf16"] == 48 * STAGE1_DDIM,
           f"bf16 serving: {want}")
     ego, maps, boxes = stage1_scene()
-    _, launches = run_chunks(
+    world, launches = run_chunks(
         kernels, gen, "stage1",
         lambda: gen.generate_trajectory(ego, map_points=maps, boxes=boxes,
                                         seed=0), want, 3)
+    save_voxel_world(world_path, world)
+    print(f"[stage1] world saved: {world.num_voxels} voxels -> {world_path}")
     return diffusion, vae, gen, launches
 
 
@@ -821,10 +854,10 @@ def entry(name, source, replaces, rows, headline):
                 shapes=rows)
 
 
-def stage1(kernels, att, dense_conv):
+def stage1(kernels, att, dense_conv, world_path):
     """Phases 6-9. Returns the summary entries of K3 and K4 (and K2's d=96
     rows), the launch counts of the stage-1 main path and the decoded grids
-    of phase 9 (coarsest first)."""
+    of phase 9 (coarsest first); phase 8's world goes to ``world_path``."""
     from infinicube_tpu_torch.grid.build import grid_from_ijk
     from infinicube_tpu_torch.inference.voxel_world_generation import (
         VoxelWorldGenerator, WorldGenConfig, vae_decode_fn)
@@ -849,7 +882,8 @@ def stage1(kernels, att, dense_conv):
     unet_check(VoxelDiffusion, DiffusionConfig)
     vae_check(SparseStructureVAE, SparseVAEConfig)
     # ---- 8. serving stage 1: the main path --------------------------------
-    diffusion, vae, sgen, stage1_launches = serve_stage1(kernels, mods)
+    diffusion, vae, sgen, stage1_launches = serve_stage1(kernels, mods,
+                                                         world_path)
     # ---- 9. where the time goes; K4 on the decoded grids ------------------
     dec = stage1_time(profile, diffusion, vae, sgen)
     k4_rows = k4_checks(kernels, mods, dec, vae.cfg)
@@ -2442,7 +2476,8 @@ def serve_f32(kernels, mods):
 
 def widths_and_f32(kernels, att, dense_conv):
     """Phases 22-24. Returns the summary entries of ``conv3x3x3_f32`` and
-    ``flash_attn_f32`` and the launches of the f32 path."""
+    ``flash_attn_f32``, the launches of the f32 path and the padded-width
+    checks of phase 22 (kernel -> rows and launches)."""
     from infinicube_tpu_torch.inference.voxel_world_generation import (
         VoxelWorldGenerator, WorldGenConfig, vae_decode_fn)
     from infinicube_tpu_torch.models.diffusion.model import (DiffusionConfig,
@@ -2456,6 +2491,7 @@ def widths_and_f32(kernels, att, dense_conv):
         VoxelWorldGenerator=VoxelWorldGenerator,
         WorldGenConfig=WorldGenConfig, vae_decode_fn=vae_decode_fn)
     # ---- 22. kernel checks --------------------------------------------------
+    padding = padding_checks(kernels)
     k7_padded_checks(dense_conv)
     rows = f32_conv_checks(kernels, dense_conv)
     attn_rows = f32_attn_checks(kernels, att)
@@ -2471,7 +2507,459 @@ def widths_and_f32(kernels, att, dense_conv):
                 "flash_attn_f32",
                 "infinicube_tpu_torch/csrc/flash_attention_f32.cu",
                 "infinicube_tpu/ops/attention.py:72", attn_rows, 0)}, \
-        launches
+        launches, padding
+
+
+# ---------------------------------------------------------------------------
+# head dims and widths the kernels take only padded (phase 22)
+# ---------------------------------------------------------------------------
+
+# attention at head dims below 64 (the e2e demo's GSM attends at d = 16):
+# (batch, N, heads, head dim); K1 and K8 at d = 16 and 96
+PAD_ATTN = ((1, 5280, 4, 16), (1, 5280, 4, 32), (2, 1000, 3, 48))
+PAD_INT8 = ((1, 7800, 4, 16), (1, 7800, 4, 96))
+# sparse-conv widths 2 mod 4: (F, Fo)
+PAD_SPARSE = ((30, 30), (30, 62))
+
+
+def padding_checks(kernels):
+    """Phase 22's checks of the two closed faults, each through the entry
+    point a model calls and against the plain version at the true width:
+    ``multi_head_attention`` at d = 16, 32 and 48 (bf16 forward and dq, dk,
+    dv through K2 and K5 at K2's / K5's gates; f32 forward through
+    ``flash_attn_f32``, max-abs <= 1e-4 * max|ref|), ``mha_quantized`` at
+    d = 16 and 96 (K1 and K8, cosine >= 0.999 against the plain int8
+    attention on the unpadded int8 inputs), and ``window_sparse_conv`` at
+    30 -> 30 and 30 -> 62 on a voxel sheet (K4 forward and dx <= 1e-4, K6
+    dW <= 5e-4 * max|ref|). Returns {kernel: {"rows": [...], "launches":
+    n}}: these launches compare, so no path counts them."""
+    from infinicube_tpu_torch.grid.build import grid_from_ijk
+    from infinicube_tpu_torch.nn.sparse import conv_plan
+    from infinicube_tpu_torch.ops import attention as att
+    from infinicube_tpu_torch.ops import flash_attention as fa
+    from infinicube_tpu_torch.ops import window_conv as wc
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+    before = dict(kernels.launches)
+
+    def note(name, shape, err):
+        rows.setdefault(name, []).append({"shape": shape, "max_abs_err": err})
+
+    for B, n, h, d in PAD_ATTN:
+        q, k, v, do = (rand((B, n, h, d), g, torch.float32)
+                       for _ in range(4))
+        leaves = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+        out = att.multi_head_attention(*leaves)
+        out.backward(do.to(torch.bfloat16))
+        ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+        ref = att.attention_plain(*ref_leaves, d ** -0.5)
+        ref.backward(do.to(torch.bfloat16).float())
+        shape = f"{B}x{n}x{h}x{d}"
+        check(out.shape == (B, n, h, d), f"padded K2 output {out.shape}")
+        note("flash_attn_bf16", shape,
+             k2_gate(out, ref, f"[pad] K2 {shape}"))
+        note("flash_attn_bf16_bwd", shape, max(
+            gate(a.grad, b.grad, f"[pad] K5 d{nm} {shape}")
+            for nm, a, b in zip("qkv", leaves, ref_leaves)))
+        with torch.no_grad():
+            o32 = att.multi_head_attention(q, k, v)
+            r32 = att.attention_plain(q, k, v, d ** -0.5)
+        err = (o32 - r32).abs().max().item()
+        lim = 1e-4 * r32.abs().max().item()
+        print(f"[pad] flash_attn_f32 {shape}: max_abs_err {err:.3e} (limit "
+              f"{lim:.3e})")
+        check(o32.shape == (B, n, h, d) and err <= lim,
+              f"padded flash_attn_f32 {shape}: err {err}")
+        note("flash_attn_f32", shape, err)
+    for B, n, h, d in PAD_INT8:
+        q = scale_blocks(rand((B, n, h, d), g), 1536, 0.25, 4.0)
+        k = scale_blocks(rand((B, n, h, d), g), 1536, 4.0, 0.25)
+        v = rand((B, n, h, d), g)
+        block, npad = fa.quant_blocks(n)
+        q8, sq = fa.block_quantize(fa.fold_heads(q, npad), block)
+        k8, sk = fa.block_quantize(fa.fold_heads(k, npad), block)
+        v8, sv = fa.channel_quantize(fa.fold_heads(v, npad))
+        shape = f"{B}x{n}x{h}x{d}"
+        for quant, name in (("qk", "flash_attn_int8qk"),
+                            ("qkv", "flash_attn_int8qkv")):
+            out = fa.mha_quantized(q, k, v, quant=quant)
+            if quant == "qk":
+                ref = fa.int8qk_attention_plain(q8, k8, sq, sk, v, block,
+                                                d ** -0.5)
+            else:
+                ref = fa.int8qkv_attention_plain(
+                    q8, k8, sq, sk, v8, sv, n, block, d ** -0.5,
+                    torch.float32).reshape(B, h, n, d).permute(0, 2, 1, 3)
+            c = cos(out, ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"[pad] {name} {shape}: cosine {c:.6f} max_abs_err "
+                  f"{err:.3e}")
+            check(out.shape == (B, n, h, d) and c >= 0.999,
+                  f"padded {name} {shape}: cos {c}")
+            note(name, shape, err)
+    n_pts, cap = 60000, 65536
+    ij = torch.randint(-60, 60, (1, n_pts, 2), generator=g, device="cuda")
+    kk = (torch.sin(ij[..., :1] * 0.3) * 3).round().int()
+    grid = grid_from_ijk(torch.cat([ij, kk], -1).int(), torch.ones(
+        (1, n_pts), dtype=torch.bool, device="cuda"), 0.2, 0.1, cap)
+    plan = conv_plan(grid, dense_bounds=((-64, -64, -64), (128, 128, 128)))
+    m = grid.mask[..., None]
+    for F, Fo in PAD_SPARSE:
+        x = torch.where(m, rand((1, cap, F), g, torch.float32), 0.0)
+        w = rand((27, F, Fo), g, torch.float32) / (27 * F) ** 0.5
+        gout = torch.where(m, rand((1, cap, Fo), g, torch.float32), 0.0)
+        feats, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = wc.window_sparse_conv(plan, feats, wl)
+        out.backward(gout)
+        ref = wc.sparse_conv_plain(plan, x, w)
+        ref_dx, ref_dw = wc.sparse_conv_bwd_plain(plan, x, w, gout)
+        shape = f"{F}->{Fo}"
+        for name, got, want, rel in (
+                ("sparse_conv_f32", out, ref, 1e-4),
+                ("sparse_conv_f32_dgrad", feats.grad, ref_dx, 1e-4),
+                ("sparse_conv_f32_wgrad", wl.grad, ref_dw, 5e-4)):
+            err = (got - want).abs().max().item()
+            lim = rel * want.abs().max().item()
+            print(f"[pad] {name} {shape}: max_abs_err {err:.3e} (limit "
+                  f"{lim:.3e})")
+            check(got.shape == want.shape and err <= lim,
+                  f"padded {name} {shape}: err {err}")
+            note(name, shape, err)
+    after = dict(kernels.launches)
+    out = {name: {"rows": r, "launches": after[name] - before[name]}
+           for name, r in rows.items()}
+    for name, e in out.items():
+        check(e["launches"] > 0, f"{name} not launched in phase 22's checks")
+    print(f"[pad] launches {({k: v['launches'] for k, v in out.items()})}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stage 2: the guidance buffers
+# ---------------------------------------------------------------------------
+
+STAGE2_FRAMES = 93
+STAGE2_DDA_CHUNK = 8
+CAMERA_HEIGHT = 1.8
+
+
+def stage2_poses(gb, n=STAGE2_FRAMES):
+    """The camera along phase 8's ego path, 1.8 m up, resampled to ``n``
+    FLU poses as the CLI does."""
+    ego, _, _ = stage1_scene()
+    cam = ego.copy()
+    cam[:, 2, 3] = CAMERA_HEIGHT
+    return cam, gb.resample_trajectory(cam, n)
+
+
+def stage2_objects(bf, n=STAGE2_FRAMES):
+    """The stage-1 scene's 4 boxes as cars driving 0.25 m a frame along x,
+    ids 10000-10003."""
+    _, _, boxes = stage1_scene()
+    M = len(boxes["poses"])
+    poses = np.repeat(boxes["poses"][None], n, 0).astype(np.float32)
+    poses[:, :, 0, 3] += 0.25 * np.arange(n)[:, None]
+    return bf.DynamicObjects(
+        poses=torch.from_numpy(poses),
+        lwh=torch.tensor(boxes["lwhs"], dtype=torch.float32),
+        ids=torch.arange(10000, 10000 + M, dtype=torch.int32),
+        sem=torch.ones(M, dtype=torch.int32),
+        valid=torch.ones((n, M), dtype=torch.bool))
+
+
+def hold_buffers(got, ref, label, atol):
+    """Card against CPU: semantic and instance equal on >= 99.9 % of pixels,
+    depth within ``atol`` where the winners agree (a pixel whose class,
+    instance or depth differs has another winner: at most 0.1 %)."""
+    same = (got.semantic.cpu() == ref.semantic) & \
+        (got.instance.cpu() == ref.instance)
+    close = (got.depth.cpu() - ref.depth).abs() <= atol
+    s_sem = (got.semantic.cpu() == ref.semantic).float().mean().item()
+    s_ins = (got.instance.cpu() == ref.instance).float().mean().item()
+    s_all = (same & close).float().mean().item()
+    d_err = (got.depth.cpu() - ref.depth)[same].abs().max().item()
+    print(f"[stage2] {label}: semantic equal {100 * s_sem:.4f} %, instance "
+          f"{100 * s_ins:.4f} %, class, instance and depth (<= {atol}) "
+          f"{100 * s_all:.4f} %; depth max err where the class agrees "
+          f"{d_err:.3e}; hit share {(ref.depth > 0).float().mean():.3f}")
+    check(s_sem >= 0.999 and s_ins >= 0.999 and s_all >= 0.999,
+          f"{label}: card against CPU")
+
+
+def stage2_checks(gb, bf, world):
+    """Phase 25: ``splat_frame`` for 2 frames at 480x832 on phase 8's world,
+    card against CPU (and the z-buffer's winner slots, depth within 1e-3 m
+    where they agree); the DDA route for 1 frame at 240x416 card against
+    CPU; splat against DDA at tests/test_buffers.py:110's depth and hit
+    gates, held where the splat footprint closes the voxel lattice
+    (whole-frame numbers printed beside: nearer, the splat route leaves
+    holes by design, the reference's as much as the port's), and the class
+    where both routes see the same voxel."""
+    from infinicube_tpu_torch.camera.conventions import flu_to_opencv
+    cam = gb.DEFAULT_CAMERA
+    _, poses = stage2_poses(gb)
+    objs = stage2_objects(bf)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        grid, sem, inst = gb.world_to_grid(world, device=dev)
+        pcv = torch.as_tensor(np.stack([flu_to_opencv(p) for p in poses]),
+                              dtype=torch.float32, device=dev)
+        sides[dev] = (grid, sem, inst, pcv, objs.to(dev),
+                      cam.intrinsics_matrix(dev))
+    frames = (0, STAGE2_FRAMES // 2)
+    out = {}
+    for dev, (grid, sem, inst, pcv, ob, K) in sides.items():
+        pts_of = bf.splat_points(grid, sem, inst, ob)
+        fbs, wins = [], []
+        for t in frames:
+            pts, att, val, rad = pts_of(t)
+            fbs.append(bf.splat_frame(pts, att, val, rad, K, pcv[t],
+                                      (cam.h, cam.w)))
+            wins.append(bf.splat_winner_slots(pts, val, rad, K, pcv[t],
+                                              (cam.h, cam.w)))
+        out[dev] = fbs, wins
+    for i, t in enumerate(frames):
+        hold_buffers(out["cuda"][0][i], out["cpu"][0][i],
+                     f"splat frame {t}, card vs CPU", 1e-3)
+        (wc, zc), (wh, zh) = out["cuda"][1][i], out["cpu"][1][i]
+        agree = (wc.cpu() == wh) & (wh >= 0)
+        share = (wc.cpu() == wh).float().mean().item()
+        zerr = (zc.cpu() - zh)[agree].abs().max().item()
+        print(f"[stage2] splat frame {t}: winner slots equal on "
+              f"{100 * share:.4f} % of pixels, z max err there {zerr:.3e}")
+        check(share >= 0.999 and zerr <= 1e-3, f"splat frame {t} winners")
+    half = cam.rescale(0.5)
+    dda = {}
+    for dev, (grid, sem, inst, pcv, ob, K) in sides.items():
+        mn, mx = (b[0].cpu().numpy() for b in grid.bbox_ijk())
+        t0 = time.perf_counter()
+        blocks = bf.build_static_blocks(grid, sem, inst, tuple(mn),
+                                        tuple(mx - mn + 1))
+        fb = bf.render_sequence(blocks, ob, half.intrinsics_matrix(dev),
+                                pcv[:1], (half.h, half.w))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        print(f"[stage2] DDA frame 0 at {half.h}x{half.w} on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s (blocks "
+              f"{tuple(int(v) for v in mx - mn + 1)}"
+              f")")
+        dda[dev] = fb, blocks
+    one = lambda fb: bf.FrameBuffers(fb.depth[0], fb.semantic[0],  # noqa
+                                     fb.instance[0])
+    hold_buffers(one(dda["cuda"][0]), one(dda["cpu"][0]),
+                 "DDA frame 0 (240x416), card vs CPU", 1e-3)
+    fb_dda, blocks = dda["cuda"]
+    del dda
+    grid, sem, inst, pcv, ob, K = sides["cuda"]
+    Kh = half.intrinsics_matrix("cuda")
+    spl = bf.render_sequence_splat(grid, sem, inst, ob, Kh, pcv[:1],
+                                   (half.h, half.w))
+    d1, d2 = fb_dda.depth[0], spl.depth[0]
+    s1, s2 = fb_dda.semantic[0], spl.semantic[0]
+    # the splat route's footprint (at most 5 x 5 px) closes the voxel
+    # lattice only where a voxel spans at most 5 px: beyond fx * vs / 5 m;
+    # nearer, the reference's splat route leaves holes the DDA fills. The
+    # gates (tests/test_buffers.py:110's) hold on the whole frame; the
+    # share beyond that distance is printed beside it
+    z_closed = half.fx * float(world.voxel_size.max()) / \
+        (2 * bf._STENCIL + 1)
+    agree = {}
+    for label, region in (("whole frame", torch.ones_like(d1, dtype=bool)),
+                          (f"beyond {z_closed:.1f} m", d1 >= z_closed)):
+        both = (d1 > 0) & (d2 > 0) & region
+        close = ((d1 - d2).abs()[both] < 1.0).float().mean().item()
+        sem_eq = (s1[both] == s2[both]).float().mean().item()
+        hits = ((d1 > 0) == (d2 > 0))[region].float().mean().item()
+        agree[label] = close, hits
+        print(f"[stage2] splat vs DDA, frame 0 at 240x416, {label} "
+              f"({100 * region.float().mean().item():.1f} % of pixels): "
+              f"depth within 1 m on {100 * close:.2f} % of the pixels both "
+              f"hit, semantic equal {100 * sem_eq:.2f} %, hit masks equal "
+              f"{100 * hits:.2f} %")
+    close, hits = agree["whole frame"]
+    check(close > 0.85 and hits > 0.9, "splat against DDA, whole frame")
+    # the classes: the splat's winner is a voxel center, the DDA's the
+    # first cell a ray enters, often the neighbour, and a random-weight
+    # world's voxels each carry their own class, so the class agrees by
+    # pixel far less than on coherent surfaces, the reference's routes
+    # alike (tests/test_torch_stage2_routes.py); where both routes see the
+    # same static voxel (no car in front), the class must agree
+    from infinicube_tpu_torch.camera.projection import \
+        posed_rays_from_intrinsics
+    from infinicube_tpu_torch.ops.raycast import dda_first_hit
+    ro, rd = posed_rays_from_intrinsics(Kh, pcv[0], (half.h, half.w))
+    hit = dda_first_hit(blocks.occ, ro.reshape(-1, 3), rd.reshape(-1, 3),
+                        blocks.voxel_size, blocks.origin, blocks.ijk_min,
+                        max_steps=768, skip_dist=blocks.skip)
+    pts, _, val, rad = bf.splat_points(grid, sem, inst, ob)(0)
+    win, _ = bf.splat_winner_slots(pts, val, rad, Kh, pcv[0],
+                                   (half.h, half.w))
+    C = grid.capacity
+    win = win.reshape(-1)
+    no_car = (fb_dda.instance[0] < 10000) & (spl.instance[0] < 10000)
+    same = hit.hit & (win >= 0) & (win < C) & no_car.reshape(-1) & (
+        grid.ijk[0][win.clamp(0, C - 1)] == hit.ijk).all(-1)
+    both = (d1 > 0) & (d2 > 0)
+    share = same.float().sum().item() / max(1, both.sum().item())
+    sem_same = (s1.reshape(-1)[same] == s2.reshape(-1)[same]).float().mean()
+    print(f"[stage2] splat vs DDA, frame 0: the same static voxel on "
+          f"{100 * share:.2f} % of the pixels both hit, the class equal "
+          f"there on {100 * sem_same.item():.4f} %")
+    check(same.any().item() and sem_same.item() >= 0.999,
+          "splat and DDA classes on the same voxel")
+
+
+def stage2_main_path(kernels, gb, bf, world_path, tmp):
+    """Phase 26: the CLI in-process on phase 8's world (93 frames, the
+    default camera, the trajectory along the ego path), its six tars of 93
+    members read back through the port's own reader and decoder, equal to
+    the buffers; then ``generate_buffers_for_world`` with 4 cars driving.
+    Returns the launches of the path (the stage has no kernel) and the
+    cars' buffers."""
+    from infinicube_tpu_torch.data.codec import decode_member
+    from infinicube_tpu_torch.data.tario import TarReader
+    cam_path, _ = stage2_poses(gb)
+    pose_file = os.path.join(tmp, "ego_poses.npy")
+    np.save(pose_file, cam_path)
+    out = os.path.join(tmp, "buffers")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bufs = gb.main(["--voxel_world", world_path, "--output", out,
+                    "--poses", pose_file, "--num_frames",
+                    str(STAGE2_FRAMES)])
+    torch.cuda.synchronize()
+    print(f"[stage2] CLI: {STAGE2_FRAMES} frames at 480x832, buffers, tars "
+          f"and previews in {time.perf_counter() - t0:.2f} s")
+    T, H, W = STAGE2_FRAMES, 480, 832
+    check(bufs["depth"].shape == (T, H, W) and bufs["semantic"].shape ==
+          (T, H, W) and bufs["instance"].shape == (T, H, W) and
+          bufs["coordinate"].shape == (T, H, W, 3), "stage-2 buffer shapes")
+    check(bufs["depth"].is_cuda, "stage-2 buffers not made on the card")
+    hit = (bufs["depth"] > 0).float().mean().item()
+    check(hit > 0 and torch.isfinite(bufs["coordinate"]).all().item(),
+          f"stage-2 hit share {hit}")
+    want = {"depth": np.clip(bufs["depth"].cpu().numpy() * 100.0, 0,
+                             65535).astype(np.uint16),
+            "semantic": bufs["semantic"].cpu().numpy().astype(np.uint8),
+            "instance": bufs["instance"].cpu().numpy().astype(np.uint16)}
+    for name in ("depth", "instance", "semantic", "pose", "intrinsic",
+                 "dynamic_object_info"):
+        with TarReader(os.path.join(out, f"{name}.tar")) as r:
+            names = r.names()
+            check(len(names) == T, f"{name}.tar holds {len(names)} members")
+            if name in want:
+                got = np.stack([decode_member("png", r.read(n))
+                                for n in names])
+                check(np.array_equal(got, want[name]),
+                      f"{name}.tar's pngs differ from the buffers")
+    print(f"[stage2] six tars of {T} members, the pngs read back equal to "
+          f"the buffers; hit share {hit:.3f}; previews "
+          f"{sorted(os.listdir(out))}")
+    world = gb.load_voxel_world(world_path)
+    _, poses = stage2_poses(gb)
+    objs = stage2_objects(bf)
+    cars = gb.generate_buffers_for_world(world, poses, objects=objs)
+    torch.cuda.synchronize()
+    ids = set(cars["instance"].unique().tolist())
+    print(f"[stage2] with 4 cars driving: instance ids {sorted(ids)}, car "
+          f"pixels {(cars['instance'] >= 10000).float().mean():.4f}")
+    check(ids & set(range(10000, 10004)), "no car in the instance buffer")
+    check((cars["semantic"][cars["instance"] >= 10000] == 1).all().item(),
+          "car ids without the car class")
+    launches = dict(kernels.launches)
+    check(not any(launches.values()),
+          f"stage 2 launched kernels: {launches}")
+    return launches, cars
+
+
+def stage2_time(gb, bf, world, tmp):
+    """Phase 27, where the time goes: 93 frames of the splat route (and ms
+    a frame), one DDA chunk of 8 frames at 480x832 (with its static blocks),
+    the coordinate buffer, writing the tars and the previews, the peak
+    memory, and 8 splat frames and the DDA chunk under
+    ``torch.profiler``."""
+    from infinicube_tpu_torch.camera.conventions import flu_to_opencv
+    cam = gb.DEFAULT_CAMERA
+    _, poses = stage2_poses(gb)
+    objs = stage2_objects(bf).to("cuda")
+    K = cam.intrinsics_matrix("cuda")
+    pcv = torch.as_tensor(np.stack([flu_to_opencv(p) for p in poses]),
+                          dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grid, sem, inst = gb.world_to_grid(world, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fb = bf.render_sequence_splat(grid, sem, inst, objs, K, pcv,
+                                  (cam.h, cam.w))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    coord = bf.generate_coordinate_buffer(fb.depth, K, pcv)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bufs = {"depth": fb.depth, "semantic": fb.semantic,
+            "instance": fb.instance, "coordinate": coord}
+    gb.write_buffer_tars(os.path.join(tmp, "timed"), bufs, poses, cam)
+    t4 = time.perf_counter()
+    gb.write_preview_videos(os.path.join(tmp, "timed"), bufs)
+    t5 = time.perf_counter()
+    print(f"[stage2-time] grid {1e3 * (t1 - t0):.1f} ms; splat "
+          f"{STAGE2_FRAMES} frames {t2 - t1:.3f} s "
+          f"({1e3 * (t2 - t1) / STAGE2_FRAMES:.2f} ms a frame); coordinate "
+          f"buffer {1e3 * (t3 - t2):.1f} ms; tars {t4 - t3:.2f} s; previews "
+          f"{t5 - t4:.2f} s; peak {peak:.2f} GiB ({resident:.2f} GiB "
+          f"resident before)")
+    mn, mx = (b[0].cpu().numpy() for b in grid.bbox_ijk())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = bf.build_static_blocks(grid, sem, inst, tuple(mn),
+                                    tuple(mx - mn + 1))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chunk = pcv[:STAGE2_DDA_CHUNK]
+    bf.render_sequence(blocks, objs, K, chunk, (cam.h, cam.w),
+                       frame_chunk=STAGE2_DDA_CHUNK)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[stage2-time] DDA: static blocks "
+          f"{tuple(int(v) for v in mx - mn + 1)} in "
+          f"{1e3 * (t1 - t0):.1f} ms; one chunk of {STAGE2_DDA_CHUNK} frames "
+          f"at 480x832 {t2 - t1:.3f} s "
+          f"({1e3 * (t2 - t1) / STAGE2_DDA_CHUNK:.1f} ms a frame); peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    profile(lambda: bf.render_sequence_splat(grid, sem, inst, objs, K,
+                                             pcv[:8], (cam.h, cam.w)),
+            "8 splat frames at 480x832")
+    profile(lambda: bf.render_sequence(blocks, objs, K, chunk,
+                                       (cam.h, cam.w),
+                                       frame_chunk=STAGE2_DDA_CHUNK),
+            f"one DDA chunk of {STAGE2_DDA_CHUNK} frames at 480x832")
+
+
+def stage2(kernels, world_path):
+    """Phases 25-27 on phase 8's world. Returns the stage-2 path's
+    launches."""
+    from infinicube_tpu_torch.inference import guidance_buffer_generation as gb
+    from infinicube_tpu_torch.utils import buffers as bf
+    world = gb.load_voxel_world(world_path)
+    print(f"[stage2] world {world_path}: {world.num_voxels} voxels")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stage2_")
+    try:
+        # ---- 25. card against CPU, splat against DDA ----------------------
+        stage2_checks(gb, bf, world)
+        torch.cuda.empty_cache()
+        # ---- 26. the stage-2 main path ------------------------------------
+        launches, _ = stage2_main_path(kernels, gb, bf, world_path, tmp)
+        torch.cuda.empty_cache()
+        # ---- 27. where the time goes --------------------------------------
+        stage2_time(gb, bf, world, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def wan_serve(kernels, att, fa):
@@ -2582,11 +3070,14 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {nvcc_s:.1f} s)")
 
-    # each part frees its models when it returns
+    # each part frees its models when it returns; phase 8's world is
+    # stage 2's input
+    world_dir = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    world_path = os.path.join(world_dir, "world.npz")
     report, serve_launches = wan_serve(kernels, att, fa)
     torch.cuda.empty_cache()
     stage1_report, stage1_launches, dec_grids = stage1(kernels, att,
-                                                       dense_conv)
+                                                       dense_conv, world_path)
     torch.cuda.empty_cache()
     train_report, train_launches = diffusion_train(kernels, att, dense_conv)
     torch.cuda.empty_cache()
@@ -2595,7 +3086,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8_report, int8_paths = int8_serving(kernels, dense_conv, fa)
     torch.cuda.empty_cache()
-    f32_report, f32_launches = widths_and_f32(kernels, att, dense_conv)
+    f32_report, f32_launches, padding = widths_and_f32(kernels, att,
+                                                       dense_conv)
+    torch.cuda.empty_cache()
+    try:
+        stage2_launches = stage2(kernels, world_path)
+    finally:
+        shutil.rmtree(world_dir, ignore_errors=True)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -2606,11 +3103,14 @@ def main() -> int:
     report.update(f32_report)
     paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
              "diffusion_train": train_launches, "vae_train": vae_launches,
-             **int8_paths, "stage1_f32": f32_launches}
+             **int8_paths, "stage1_f32": f32_launches,
+             "stage2": stage2_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())
         check(e["launches"] > 0, f"{name} never launched on a main path")
+        if name in padding:
+            e["padded_widths"] = padding[name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

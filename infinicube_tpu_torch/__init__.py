@@ -7,5 +7,7 @@ use into ``_build/`` (see ``kernels``). Entry points run on the card unless
 the caller passes ``device="cpu"``; on CPU tensors every kernel is replaced
 by its plain PyTorch version.
 
-Ported so far: the Wan video stage (``models/wan``).
+Ported so far: the Wan video stage (``models/wan``), stage 1 and its
+trainers (``models/diffusion``, ``models/vae``, ``train.py``), and stage 2,
+the guidance buffers (``inference/guidance_buffer_generation.py``).
 """

@@ -67,6 +67,14 @@ class Grid:
         return torch.where(hit, pos_c, torch.full_like(pos_c, -1)).to(
             torch.int32)
 
+    def bbox_ijk(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(min_ijk, max_ijk) int32 [B, 3] over active voxels (inclusive)."""
+        big = 1 << 20
+        m = self.mask[..., None]
+        mn = torch.where(m, self.ijk, big).amin(dim=1)
+        mx = torch.where(m, self.ijk, -big).amax(dim=1)
+        return mn.to(torch.int32), mx.to(torch.int32)
+
 
 def as_vec3(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device).expand(

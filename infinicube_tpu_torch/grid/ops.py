@@ -92,6 +92,13 @@ def to_dense(grid: Grid, data: torch.Tensor, ijk_min,
     return out[:, :-1].reshape(B, D, H, W, F)
 
 
+def occupancy_dense(grid: Grid, ijk_min, dense_dims) -> torch.Tensor:
+    """bool [B, D, H, W] occupancy block."""
+    occ = to_dense(grid, grid.mask[..., None].to(torch.int32), ijk_min,
+                   dense_dims)
+    return occ[..., 0] > 0
+
+
 def read_from_dense(grid: Grid, dense: torch.Tensor,
                     ijk_min) -> torch.Tensor:
     """Gather dense [B, D, H, W, F] at the grid's voxels -> [B, C, F]

@@ -14,17 +14,26 @@ goes to ``flash_attn_f32`` (csrc/flash_attention_f32.cu: f32 logits, softmax
 and output, its products f32-accurate on the tensor cores by the 3xTF32
 split, its own arithmetic while PyTorch's library calls keep TF32 off),
 forward only: an f32 call on the card that needs a gradient raises, since
-no f32 backward kernel exists yet. A CPU tensor goes to the plain version
-and autograd. Nothing falls back: a CUDA call the kernels do not take
-raises."""
+no f32 backward kernel exists yet. The kernels take head dims 64, 96 and
+128; on the card a smaller head dim is zero-padded to the next of these
+(``pad_head_dim``) and the output sliced back, with the scale of the true
+head dim: the zero columns add nothing to QK^T and give zero output
+columns, and their gradients are zero and dropped, so this is exact forward
+and backward. A head dim above 128 raises. A CPU tensor goes to the plain
+version and autograd, at any head dim. Nothing falls back: a CUDA call the
+kernels do not take raises."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from infinicube_tpu_torch import kernels
+
+# The head dims of K2, K5 and ``flash_attn_f32``.
+CARD_HEAD_DIMS = (64, 96, 128)
 
 # Logit elements per query chunk of the plain versions: keeps the
 # materialized [B, h, rows, Nk] f32 logits near 1 GB at release sizes.
@@ -107,6 +116,18 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def pad_head_dim(x: torch.Tensor, dims=CARD_HEAD_DIMS) -> torch.Tensor:
+    """x [..., d] zero-padded on its last axis to the smallest of ``dims``
+    that holds d (x itself where d is one of them); raises above the
+    largest."""
+    d = x.shape[-1]
+    dp = next((c for c in dims if c >= d), None)
+    if dp is None:
+        raise ValueError(f"head dim {d} above {dims[-1]}, the largest the "
+                         "card's attention kernels take")
+    return x if dp == d else F.pad(x, (0, dp - d))
+
+
 def _on_card(x: torch.Tensor) -> bool:
     """Whether x goes to the card's kernels (the tests route CPU tensors
     through this branch with the kernels' plain versions in their place)."""
@@ -116,22 +137,29 @@ def _on_card(x: torch.Tensor) -> bool:
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q [B, Nq, h, d], k/v [B, Nk, h, d] -> [B, Nq, h, d], non-causal,
-    differentiable in q, k and v (on the card in bf16 only)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    differentiable in q, k and v (on the card in bf16 only, d <= 128)."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
     if _on_card(q):
         grad = torch.is_grad_enabled() and \
             (q.requires_grad or k.requires_grad or v.requires_grad)
+        if q.dtype == torch.float32 and grad:
+            raise NotImplementedError(
+                "f32 attention on the card is forward only: there is no "
+                "f32 flash-attention backward kernel (flash_attn_f32 has "
+                "no gradient); train in bf16 or call under "
+                "torch.no_grad()")
+        # the padding is differentiable: its backward drops the zero
+        # columns' gradients, and the output's gradient reaches K5 with
+        # zero columns
+        qp, kp, vp = (pad_head_dim(t) for t in (q, k, v))
         if q.dtype == torch.float32:
-            if grad:
-                raise NotImplementedError(
-                    "f32 attention on the card is forward only: there is no "
-                    "f32 flash-attention backward kernel (flash_attn_f32 has "
-                    "no gradient); train in bf16 or call under "
-                    "torch.no_grad()")
-            return kernels.flash_attn_f32(q, k, v, scale)
-        if grad:
-            return _FlashAttention.apply(q, k, v, scale)
-        return kernels.flash_attn_bf16(q, k, v, scale)
+            out = kernels.flash_attn_f32(qp, kp, vp, scale)
+        elif grad:
+            out = _FlashAttention.apply(qp, kp, vp, scale)
+        else:
+            out = kernels.flash_attn_bf16(qp, kp, vp, scale)
+        return out if qp is q else out[..., :d]
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     return attention_plain(q, k, v, scale)

@@ -23,6 +23,13 @@ two agree to the repo's int8 gate (cosine >= 0.999), not bit for bit. K8
 takes V8 transposed with its keys permuted within each 16 (``pack_v8``,
 the one copy that transposes V), so that P goes from its QK^T sums
 straight into the int8 operand of PV.
+
+K1 and K8 take head dims 64 and 128; the reference's kernel takes any. On
+the card a head dim below 128 that is not one of them is zero-padded to the
+next (``pad_head_dim``) before the quantization and the output sliced back,
+with the scale of the true head dim. This is exact: the zero columns leave
+every amax, and so every scale, as it was, quantize to zero and add nothing
+to QK^T or to the output's real columns. A head dim above 128 raises.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ import torch
 from infinicube_tpu_torch import kernels
 from infinicube_tpu_torch.nn.quant import amax_scale
 from infinicube_tpu_torch.ops.attention import _row_chunk, \
-    multi_head_attention
+    multi_head_attention, pad_head_dim
+
+# The head dims of K1 and K8.
+INT8_HEAD_DIMS = (64, 128)
 
 
 def block_quantize(x: torch.Tensor, block: int):
@@ -174,6 +184,15 @@ def mha_quantized(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     B, N, h, d = q.shape
     sm_scale = 1.0 / math.sqrt(d)
+    if q.is_cuda:
+        qp, kp, vp = (pad_head_dim(t, INT8_HEAD_DIMS) for t in (q, k, v))
+        out = _int8_attention(qp, kp, vp, quant, sm_scale)
+        return out if qp is q else out[..., :d]
+    return _int8_attention(q, k, v, quant, sm_scale)
+
+
+def _int8_attention(q, k, v, quant: str, sm_scale: float) -> torch.Tensor:
+    B, N, h, d = q.shape
     block, n_pad = quant_blocks(N)
     q8, sq = block_quantize(fold_heads(q, n_pad), block)
     k8, sk = block_quantize(fold_heads(k, n_pad), block)
@@ -187,6 +206,4 @@ def mha_quantized(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.reshape(B, h, N, d).permute(0, 2, 1, 3)
     if q.is_cuda:
         return kernels.flash_attn_int8qk(q8, k8, sq, sk, v, block, sm_scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"unsupported device {q.device}")
     return int8qk_attention_plain(q8, k8, sq, sk, v, block, sm_scale)

@@ -24,6 +24,11 @@ too, its B operand the tf32 parts of g^T (``pack_wgrad_grad``, written by
 its prologue once a call). On the CPU both come from
 ``sparse_conv_bwd_plain``. A CUDA tensor never takes a plain version.
 
+K4 and K6 take widths that are multiples of 4. On the card other widths
+are zero-padded on the way in (feats, the output gradient and the weight
+packs, ``pad_width``) and the output, dx and dW sliced back: the zero
+columns and rows add nothing to any product, so this is exact.
+
 The loud policy stays: a batch element whose active voxels fall outside the
 declared dense bounds (its lookup would be wrong) gets NaN in every row of
 the forward output, as an overflowed window plan does in JAX; as there, the
@@ -93,12 +98,28 @@ def tf32_split(t: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_truncate(t - hi)])
 
 
+# K4's and K6's widths are multiples of this.
+WIDTH_MULTIPLE = 4
+
+
+def pad_width(t: torch.Tensor, *dims: int) -> torch.Tensor:
+    """t zero-padded at the end of each of ``dims`` to a multiple of
+    ``WIDTH_MULTIPLE`` (t itself where nothing is padded)."""
+    pad = [0] * (2 * t.dim())
+    for dim in dims:
+        pad[2 * (t.dim() - 1 - dim % t.dim()) + 1] = \
+            (-t.shape[dim]) % WIDTH_MULTIPLE
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
+
+
 def pack_sparse_weight(w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
     """K4's weight operand for w [27, F, Fo]: f32 [2, 27, N, K], the tf32
     hi = tf32(w') and lo = tf32(w' - hi) of each tap's matrix w' laid out
-    [N, K] (the reduction dim contiguous). The forward's w' is w[t]^T
-    (N = Fo, K = F); the input gradient's (``dgrad``) is ``rev_w(w)[t]^T =
-    w[26 - t]`` (N = F, K = Fo)."""
+    [N, K] (the reduction dim contiguous), F and Fo zero-padded to multiples
+    of 4 first. The forward's w' is w[t]^T (N = Fo, K = F); the input
+    gradient's (``dgrad``) is ``rev_w(w)[t]^T = w[26 - t]`` (N = F,
+    K = Fo)."""
+    w = pad_width(w, 1, 2)
     return tf32_split((w.flip(0) if dgrad else w.transpose(1, 2)).float())
 
 
@@ -132,10 +153,11 @@ def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,
 def _forward(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
              w_pack: torch.Tensor | None = None) -> torch.Tensor:
     if feats.is_cuda:
-        return kernels.sparse_conv_f32(
-            feats.contiguous(), plan.nbr.contiguous(),
+        out = kernels.sparse_conv_f32(
+            pad_width(feats, -1).contiguous(), plan.nbr.contiguous(),
             pack_sparse_weight(w) if w_pack is None else w_pack,
             plan.violations.to(torch.int32).contiguous())
+        return out[..., :w.shape[-1]]
     if feats.device.type != "cpu":
         raise ValueError(f"unsupported device {feats.device}")
     return sparse_conv_plain(plan, feats, w)
@@ -165,6 +187,8 @@ class _WindowSparseConv(torch.autograd.Function):
                     None, None)
         dx = dw = None
         nbr = plan.nbr.contiguous()
+        F, Fo = w.shape[1:]
+        g = pad_width(g, -1)
         if need_dx:
             # the caller's pack, else made here from the weight as it is now
             pack = ctx.w_pack_dgrad
@@ -173,9 +197,10 @@ class _WindowSparseConv(torch.autograd.Function):
             dx = kernels.sparse_conv_f32(
                 g, nbr, pack,
                 torch.zeros_like(plan.violations, dtype=torch.int32),
-                dgrad=True)
+                dgrad=True)[..., :F]
         if need_dw:
-            dw = kernels.sparse_conv_f32_wgrad(feats.contiguous(), nbr, g)
+            dw = kernels.sparse_conv_f32_wgrad(
+                pad_width(feats, -1).contiguous(), nbr, g)[:, :F, :Fo]
         return dx, dw, None, None, None
 
 
@@ -186,7 +211,8 @@ def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
     """Sparse submanifold 3^3 conv: feats [B, C, F], w [27, F, Fo]
     (``neighbor_offsets`` tap order, SparseConv3d's kernel layout) ->
     [B, C, Fo], differentiable in feats and w. Rows of a batch element with
-    dense-bounds violations are NaN. On the card feats and w must be f32;
+    dense-bounds violations are NaN. On the card feats and w must be f32
+    (any widths: they are padded to multiples of 4 and the results sliced);
     ``w_pack`` and ``w_pack_dgrad`` are ``pack_sparse_weight(w)`` and
     ``pack_sparse_weight(w, dgrad=True)`` where the caller keeps them per
     weight version (made here when not given)."""

@@ -1,7 +1,8 @@
 """Host-side unbounded world voxel grid (int64 keys, NumPy); the port's own
-copy of what it needs from ``infinicube_tpu/utils/world_grid.py``: packing,
-``WorldGrid`` with merge semantics where existing voxels win, the rigid
-voxel warp and the connected-component filter (scipy)."""
+copy of ``infinicube_tpu/utils/world_grid.py``: packing, ``WorldGrid`` with
+merge semantics where existing voxels win, point merging, the AABB crop and
+its occupancy test, the rigid voxel warp and the connected-component filter
+(scipy)."""
 
 from __future__ import annotations
 
@@ -71,6 +72,24 @@ class WorldGrid:
             sems = np.concatenate([self.semantics[stale], new_sem])
         order = np.argsort(keys)
         self.keys, self.semantics = keys[order], sems[order]
+
+    def merge_points(self, points: np.ndarray, semantics: np.ndarray,
+                     keep_existing: bool = True):
+        self.merge_ijk(self.world_to_ijk(points), semantics, keep_existing)
+
+    def crop(self, bbox_min, bbox_max):
+        """(ijk, semantics) of the voxels whose centers lie in the world
+        AABB."""
+        pts = self.points()
+        m = np.all((pts >= np.asarray(bbox_min)) &
+                   (pts <= np.asarray(bbox_max)), axis=-1)
+        return unpack64(self.keys[m]), self.semantics[m]
+
+    def occupancy_in(self, bbox_min, bbox_max) -> bool:
+        """Whether the AABB holds any voxel (the blocks mode's skip-empty
+        test)."""
+        ijk, _ = self.crop(bbox_min, bbox_max)
+        return len(ijk) > 0
 
 
 def transform_ijk(ijk: np.ndarray, transform: np.ndarray, voxel_size,

@@ -71,7 +71,7 @@ def test_f32_goes_to_the_f32_kernel(card, nq, nk):
     q, k, v = _qkv(0, nq=nq, nk=nk)
     with torch.no_grad():
         out = att.multi_head_attention(*map(torch.from_numpy, (q, k, v)))
-    assert card == [("flash_attn_f32", nq, nk, 16)]
+    assert card == [("flash_attn_f32", nq, nk, 64)]
     assert out.dtype == torch.float32
     ref = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-3, rtol=2e-3)
@@ -86,7 +86,7 @@ def test_f32_with_a_gradient_raises_on_the_card(card):
     assert card == []
     with torch.no_grad():
         att.multi_head_attention(q, k, v)
-    assert card == [("flash_attn_f32", 37, 21, 16)]
+    assert card == [("flash_attn_f32", 37, 21, 64)]
 
 
 def test_bf16_keeps_k2_and_k5(card):
@@ -94,7 +94,7 @@ def test_bf16_keeps_k2_and_k5(card):
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(2))
     with torch.no_grad():
         att.multi_head_attention(q, k, v)
-    assert card == [("flash_attn_bf16", 37, 21, 16)]
+    assert card == [("flash_attn_bf16", 37, 21, 64)]
     q.requires_grad_()
     att.multi_head_attention(q, k, v).float().sum().backward()
     assert [c[0] for c in card] == ["flash_attn_bf16", "flash_attn_bf16",
@@ -123,7 +123,7 @@ def test_f32_unet_with_attention_through_the_card_route_matches_jax(card):
     n_attn = sum(isinstance(m, SelfAttention3D) for m in net.modules())
     assert n_attn == 3
     # 4^3 tokens at ds 2, 32 channels in 2 heads
-    assert card == [("flash_attn_f32", 64, 64, 16)] * n_attn
+    assert card == [("flash_attn_f32", 64, 64, 64)] * n_attn
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(out, ref, atol=2e-3, rtol=2e-3)
 
