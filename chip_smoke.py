@@ -173,10 +173,47 @@ Then stage 2, the guidance buffers, on phase 8's world (saved there with
     coordinate buffer, writing the tars and the previews, peak memory, and
     8 splat frames and the DDA chunk under ``torch.profiler``.
 
+Then stage 3, the feed-forward Gaussian scene, on phase 26's world with
+its 4 cars driving (ids 10000-10003), written as a stage-2 buffer folder
+(six tars, ``world.npz``, the colored semantic buffer as the video):
+
+28. checks, card against CPU: ``render_gaussians`` at 480x832 on 200,000
+    gaussians with 3,000 in one tile (over its capacity of 256), color and
+    alpha within 1e-3 and depth within 1e-3 relative where alpha > 1e-6,
+    on every pixel; ``lift_features``, ``visible_voxel_mask`` and
+    ``sample_image_features`` on the world's scene grid (capacity 2^18,
+    the reference's cap) from 2 views at 240x416; ``flash_attn_f32`` at
+    the pixel branch's bottleneck (B = 4, N = 6,240, 4 heads of 64) and K4
+    on the voxel branch's three levels of that grid at their widths, each
+    against its plain version at its gate, timed beside it, its bounds
+    and (for the attention) ``scaled_dot_product_attention``;
+29. model check: the release-width GSM with weights from a random numpy
+    parameter tree through ``gsm_from_jax``, 2 views at 240x416 and the
+    world's 20,000 voxels nearest the first camera, every pixel decoding,
+    card against CPU: every gaussian within 1e-3 of its field's scale
+    (beside the same card run with the plain sparse conv in K4's place);
+    the CPU's and the card's gaussians each rendered on both devices,
+    every pixel within 1e-3; each device's own renders within 1e-3 on
+    >= 99.9 % of pixels, or on the share the card's gaussians reach
+    against the CPU's when both are rendered on the CPU, less 0.1 %;
+30. the main path: ``scene_gaussian_generation.main`` on the folder with
+    its defaults (8 views), ``reconstruct_scene`` at the e2e release
+    settings (16 frames at stride 6, 16 views, the release crop) with the
+    scene grid's dropped voxels, the static and object gaussians written
+    and read back (the 4 cars present), and
+    ``feedforward_reconstruction.reconstruct`` in dual mode with psnr and
+    ssim; exact K4 and ``flash_attn_f32`` launches for each, no other
+    kernel;
+31. where the time goes: the load, the masks, the static pass split into
+    encoder, voxel branch, pixel branch, sky and render, the dynamic pass,
+    peak memory, one GSM forward under ``torch.profiler``, and one XUnet
+    view chunk with and without cuDNN.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2962,6 +2999,625 @@ def stage2(kernels, world_path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# stage 3: the feed-forward Gaussian scene
+# ---------------------------------------------------------------------------
+
+# examples/e2e_pipeline.py's release profile: every 6th of 93 frames -> 16
+# views, the release GSMConfig with the demo world's raycast crop
+STAGE3_FRAMES, STAGE3_STRIDE, STAGE3_VIEWS = 16, 6, 16
+STAGE3_CROP = dict(dense_dims=(512, 256, 64), dense_ijk_min=(-32, -128, -16))
+GSM_ATTN = (4, 60 * 104, 4, 64)   # one view chunk at the XUnet's bottleneck
+RASTER_GAUSSIANS = 200_000
+RASTER_CROWD = 3_000              # gaussians in one tile, over its capacity
+
+
+def gsm_launches(cfg, views, forwards=1):
+    """Exact K4 and ``flash_attn_f32`` launches of ``forwards`` GSM forwards
+    at ``views`` views: two sparse convs per SparseResBlock (an encoder
+    block per level, a decoder block per level but the coarsest), and per
+    UNet view chunk the bottleneck attention plus the per-stage ones."""
+    levels = min(cfg.voxel.levels, cfg.grid_levels)
+    k4 = 2 * (2 * levels - 1) if cfg.use_voxel_branch else 0
+    p = cfg.pixel
+    chunks = -(-views // (p.view_chunk or views))
+    attn = chunks * (1 + 2 * sum(p.self_attn_per_stage)) \
+        if cfg.use_pixel_branch else 0
+    return {"sparse_conv_f32": forwards * k4,
+            "flash_attn_f32": forwards * attn}
+
+
+def stage3_folder(gb, bf, world_path, tmp):
+    """Phase 26's world with the 4 cars driving as a stage-2 buffer folder,
+    as examples/e2e_pipeline.py leaves it: the six tars of 93 frames,
+    ``world.npz`` and the video (here the colored semantic buffer, the
+    video model's conditioning, through ``write_video``: png frames where
+    no video writer is installed)."""
+    from infinicube_tpu_torch.utils.fileio import write_video
+    from infinicube_tpu_torch.utils.semantic import \
+        generate_rgb_semantic_buffer
+    folder = os.path.join(tmp, "buffers")
+    t0 = time.perf_counter()
+    world = gb.load_voxel_world(world_path)
+    _, poses = stage2_poses(gb)
+    cars = gb.generate_buffers_for_world(world, poses,
+                                         objects=stage2_objects(bf))
+    gb.write_buffer_tars(folder, cars, poses, gb.DEFAULT_CAMERA)
+    shutil.copy(world_path, os.path.join(folder, "world.npz"))
+    sem = generate_rgb_semantic_buffer(cars["semantic"].cpu().numpy(),
+                                       cars["instance"].cpu().numpy())
+    write_video(os.path.join(folder, "video.mp4"),
+                (sem * 255).astype(np.uint8))
+    print(f"[stage3] buffer folder (93 frames with 4 cars, world, video) "
+          f"written in {time.perf_counter() - t0:.2f} s: "
+          f"{sorted(os.listdir(folder))}")
+    return folder
+
+
+def hold_share(got, ref, atol, label, rel=None, where=None, share=0.999,
+               rows=False):
+    """Card against CPU: the elements within ``atol`` (or ``rel`` of |ref|)
+    on >= ``share`` of them (with ``rows``, of the rows along the last
+    axis: a pixel's color, a voxel's features), ``where`` selecting, and
+    the worst error printed; a share below 1 where a last-bit difference
+    can move a threshold (a pixel's winner). Returns the max-abs error."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    lim = atol if rel is None else rel * ref.abs()
+    ok = (got - ref).abs() <= lim
+    if rows:
+        ok = ok.all(-1)
+    if where is not None:
+        ok = ok[where]
+    frac = ok.float().mean().item()
+    err = (got - ref).abs().max().item()
+    print(f"[stage3] {label}: within {atol if rel is None else f'{rel} rel'}"
+          f" on {100 * frac:.4f} % (gate {100 * share:.1f} %), max-abs "
+          f"{err:.3e}")
+    check(frac >= share, f"{label}: {frac}")
+    return err
+
+
+def raster_scene(gsm_ops, dev, seed=30):
+    """``RASTER_GAUSSIANS`` gaussians before an identity camera at 480x832,
+    ``RASTER_CROWD`` of them in one tile; every depth at the center of its
+    log-depth quantum (so the packed keys cannot differ between devices),
+    a tenth of them sharing a depth (ties)."""
+    rng = np.random.default_rng(seed)
+    n, h, w = RASTER_GAUSSIANS, 480, 832
+    fx, cx, cy = 480.0, 416.0, 240.0
+    u = rng.uniform(-20, w + 20, n)
+    v = rng.uniform(-20, h + 20, n)
+    u[:RASTER_CROWD] = rng.uniform(100, 116, RASTER_CROWD)
+    v[:RASTER_CROWD] = rng.uniform(200, 216, RASTER_CROWD)
+    top = (1 << gsm_ops.depth_bits_for(30 * 52)) - 1
+    span = math.log(gsm_ops._ZFAR / gsm_ops._ZNEAR)
+    k = rng.integers(int(top * math.log(3.0 / gsm_ops._ZNEAR) / span),
+                     int(top * math.log(60.0 / gsm_ops._ZNEAR) / span), n)
+    k[:n // 10] = k[0]
+    z = gsm_ops._ZNEAR * np.exp((k + 0.5) / top * span)
+    means = np.stack([(u - cx) / fx * z, (v - cy) / fx * z, z], -1)
+    r_px = rng.uniform(0.5, 12.0, n)
+    scales = (z * r_px / fx / 3.0)[:, None] * rng.uniform(0.3, 1.0, (n, 3))
+    arrs = [means, rng.normal(size=(n, 4)), scales,
+            rng.uniform(0.1, 0.9, n), rng.uniform(size=(n, 3)),
+            np.eye(4), [[fx, 0, cx], [0, fx, cy], [0, 0, 1]]]
+    return [torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+            for a in arrs]
+
+
+def stage3_kernel_rows(kernels, att, wc, grid):
+    """Phase 28's kernel checks: ``flash_attn_f32`` at the GSM's shape and
+    K4 on the voxel branch's three levels of this grid, each against its
+    plain version and timed beside it and its bounds. Returns the rows of
+    each."""
+    from infinicube_tpu_torch.models.gsm.model import GSM, GSMConfig
+    from infinicube_tpu_torch.nn.sparse import conv_plan
+    g = torch.Generator(device="cuda").manual_seed(31)
+    B, N, h, d = GSM_ATTN
+    q, k, v = (rand((B, N, h, d), g, torch.float32) for _ in range(3))
+    scale = d ** -0.5
+    with torch.no_grad():
+        got = att.multi_head_attention(q, k, v)
+    ref = att.attention_plain(q, k, v, scale)
+    err = (got - ref).abs().max().item()
+    lim = 1e-4 * ref.abs().max().item()
+    shape = f"GSM B={B} N={N} h={h} d={d}"
+    print(f"[stage3] flash_attn_f32 {shape}: max_abs_err {err:.3e} (limit "
+          f"{lim:.3e})")
+    check(torch.isfinite(got).all().item() and err <= lim,
+          f"flash_attn_f32 at {shape}: err {err}")
+    ms = cuda_ms(lambda: kernels.flash_attn_f32(q, k, v, scale), 2, 10)
+    plain = cuda_ms(lambda: att.attention_plain(q, k, v, scale), 1, 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt), 2, 10)
+    flops = 4.0 * N * N * d * h * B
+    b_ms, b_by, core_ms = tf32x3_bounds(flops, 4 * 4 * N * d * h * B)
+    print(f"[stage3] flash_attn_f32 {shape}: kernel {ms:.4f} ms "
+          f"({100 * b_ms / ms:.1f} % of its bound), plain {plain:.3f} ms, "
+          f"sdpa f32 {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; f32 "
+          f"CUDA-core {core_ms:.4f} ms)")
+    attn_rows = [dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                      f32_core_bound_ms=core_ms)]
+    del q, k, v, qt, kt, vt, got, ref
+
+    cfg = GSMConfig(**STAGE3_CROP)
+    grids = GSM(cfg, device="cuda").grid_pyramid(grid)
+    fm = cfg.voxel.f_maps
+    # (F, Fo) of each level's first conv of its encoder and decoder blocks
+    # (the coarsest level has no decoder block: its second encoder conv)
+    widths = [(fm, fm, 3 * fm)] + [(fm * 2 ** (l - 1), fm * 2 ** l,
+                                    3 * fm * 2 ** l)
+                                   for l in range(1, len(grids))]
+    widths[-1] = widths[-1][:2] + (widths[-1][1],)
+    k4_rows = []
+    for level, (gl, (f_enc, fo, f_dec)) in enumerate(zip(grids, widths)):
+        plan = conv_plan(gl)
+        pairs = int((plan.nbr >= 0).sum())
+        for i, F in enumerate((f_enc, f_dec)):
+            x = torch.where(gl.mask[..., None],
+                            rand((1, gl.capacity, F), g, torch.float32), 0.0)
+            w = rand((27, F, fo), g, torch.float32) / math.sqrt(27 * F)
+            pack = wc.pack_sparse_weight(w)
+            out = kernels.sparse_conv_f32(x, plan.nbr, pack, plan.violations)
+            ref = wc.sparse_conv_plain(plan, x, w)
+            err = (out - ref).abs().max().item()
+            lim = 1e-4 * ref.abs().max().item()
+            shape = f"GSM level {level}: {gl.capacity} x ({F}->{fo})"
+            print(f"[stage3] K4 {shape}, {int(gl.mask.sum())} voxels, "
+                  f"{pairs} pairs: max_abs_err {err:.3e} (limit {lim:.3e})")
+            check(err <= lim, f"K4 at {shape}: err {err}")
+            if i:
+                continue
+            ms = cuda_ms(lambda: kernels.sparse_conv_f32(
+                x, plan.nbr, pack, plan.violations), 2, 5)
+            plain = cuda_ms(lambda: wc.sparse_conv_plain(plan, x, w), 1, 2)
+            flops, b_ms, b_by, f32_ms = k4_bounds(
+                pairs, F, fo, 4 * (gl.capacity * (F + fo + 27) +
+                                   2 * 27 * F * fo))
+            print(f"[stage3] K4 {shape}: kernel {ms:.3f} ms "
+                  f"({100 * b_ms / ms:.1f} % of its bound), plain "
+                  f"{plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}; f32 "
+                  f"CUDA-core {f32_ms:.3f} ms)")
+            k4_rows.append(dict(shape=shape, max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None, f32_core_bound_ms=f32_ms))
+    return attn_rows, k4_rows
+
+
+def stage3_checks(kernels, att, wc, sg, folder):
+    """Phase 28: the rasterizer at 480x832 on 200,000 gaussians with a tile
+    over capacity, card against CPU (color and alpha within 1e-3, depth
+    within 1e-3 relative where alpha > 1e-6, every pixel); the lifter
+    (``lift_features``, ``visible_voxel_mask``, ``sample_image_features``)
+    on the world's scene grid, 2 views at 240x416, card against CPU;
+    ``flash_attn_f32`` and K4 at the GSM's shapes (``stage3_kernel_rows``).
+    Returns those rows."""
+    from infinicube_tpu_torch.models.gsm import lifter
+    from infinicube_tpu_torch.ops import gsplat
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = raster_scene(gsplat, dev)
+        t0 = time.perf_counter()
+        out[dev] = gsplat.render_gaussians(*args, (480, 832))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            proj = gsplat.project_gaussians(*args[:3], *args[5:], (480, 832))
+            gid, ok = gsplat.tile_instances(proj, (480, 832))
+            print(f"[stage3] render_gaussians {RASTER_GAUSSIANS} gaussians at"
+                  f" 480x832 on the card: {1e3 * (time.perf_counter() - t0):.1f}"
+                  f" ms; {int(ok.all(1).sum())} tiles at capacity 256, "
+                  f"{int(ok.sum())} instances kept")
+            check(ok.all(1).any().item(), "no tile over capacity")
+    (c1, a1, d1), (c0, a0, d0) = out["cuda"], out["cpu"]
+    hold_share(c1, c0, 1e-3, "render color, card vs CPU", share=1.0,
+               rows=True)
+    hold_share(a1, a0, 1e-3, "render alpha, card vs CPU", share=1.0)
+    hold_share(d1, d0, None, "render depth, card vs CPU", rel=1e-3,
+               where=a0 > 1e-6, share=1.0)
+    check(a0.mean().item() > 0.3, f"render alpha mean {a0.mean()}")
+    del out
+
+    data = sg.load_buffer_folder(folder, num_frames=2, stride=40)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        grid, _ = sg.scene_grid(data["world"], dev)
+        Ks = torch.as_tensor(data["Ks"], device=dev).clone()
+        Ks[:, :2] *= 0.5
+        poses = torch.as_tensor(data["poses_cv"], device=dev)
+        g = torch.Generator().manual_seed(32)
+        feats = torch.randn((2, 240, 416, 64), generator=g).to(dev)
+        lifted = lifter.lift_features(grid, feats, Ks, poses,
+                                      STAGE3_CROP["dense_ijk_min"],
+                                      STAGE3_CROP["dense_dims"])
+        vis = lifter.visible_voxel_mask(grid, Ks, poses,
+                                        STAGE3_CROP["dense_ijk_min"],
+                                        STAGE3_CROP["dense_dims"],
+                                        ray_hw=(120, 208))
+        pts = grid.voxel_centers()[0][grid.mask[0]]
+        sampled = lifter.sample_image_features(pts, feats, Ks, poses)
+        sides[dev] = lifted[0], vis[0], sampled, grid
+    (l1, v1, s1, grid), (l0, v0, s0, _) = sides["cuda"], sides["cpu"]
+    print(f"[stage3] scene grid: capacity {grid.capacity}, "
+          f"{int(grid.mask.sum())} voxels, {int(grid.num_dropped[0])} "
+          f"dropped; {int(v0.sum())} visible from 2 views")
+    hold_share(l1, l0, 1e-3, "lift_features, card vs CPU", rows=True)
+    hold_share(v1.float(), v0.float(), 0.5, "visible_voxel_mask, card vs CPU")
+    hold_share(s1, s0, 1e-3 * s0.abs().max().item(),
+               "sample_image_features, card vs CPU", rows=True)
+    del sides, l1, l0, s1, s0
+    attn_rows, k4_rows = stage3_kernel_rows(kernels, att, wc, grid)
+    torch.cuda.empty_cache()
+    return attn_rows, k4_rows
+
+
+def random_gsm_tree(model, seed=33):
+    """A random numpy parameter tree in the flax layout of ``model``:
+    kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), the rest
+    N(0, 0.1^2)."""
+    from infinicube_tpu_torch.weights.from_jax import gsm_to_jax
+    rng = np.random.default_rng(seed)
+
+    def draw(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = draw(val)
+            elif key == "kernel":
+                fan_in = int(np.prod(val.shape[:-1]))
+                out[key] = (rng.normal(size=val.shape) /
+                            math.sqrt(fan_in)).astype(np.float32)
+            else:
+                out[key] = ((key == "scale") + 0.1 * rng.normal(
+                    size=val.shape)).astype(np.float32)
+        return out
+
+    return draw(gsm_to_jax(model))
+
+
+def stage3_batch(sg, data, dev, views, scale=1.0, nearest=None):
+    """``scene_gaussian_generation.scene_batch`` at ``views`` views, the
+    images, buffers and intrinsics subsampled by ``scale``, the world cut
+    to its ``nearest`` voxels to the first camera."""
+    step = int(round(1 / scale))
+    data = dict(data)
+    for k in ("depth", "instance", "video"):
+        data[k] = data[k][:, ::step, ::step]
+    data["Ks"] = data["Ks"].copy()
+    data["Ks"][:, :2] *= scale
+    if nearest is not None:
+        world = dict(data["world"])
+        centers = world["ijk"] * world["voxel_size"] + world["origin"]
+        dist = np.linalg.norm(centers - data["poses_cv"][0][:3, 3], axis=-1)
+        keep = np.sort(np.argsort(dist, kind="stable")[:nearest])
+        world["ijk"] = world["ijk"][keep]
+        data["world"] = world
+        print(f"[stage3] the world cut to its {len(keep)} voxels within "
+              f"{dist[keep].max():.1f} m of the first camera (of "
+              f"{len(dist)})")
+    return sg.scene_batch(data, views, dev)[0]
+
+
+@contextlib.contextmanager
+def plain_sparse_conv(wc):
+    """The sparse convs through ``sparse_conv_plain`` on the card in K4's
+    place (the witness of K4's share in phase 29's differences)."""
+    kernel_route = wc._forward
+    wc._forward = lambda plan, feats, w, w_pack=None: \
+        wc.sparse_conv_plain(plan, feats, w)
+    try:
+        yield
+    finally:
+        wc._forward = kernel_route
+
+
+def hold_gaussians(got, ref, n_pix, hw, poses, voxel_size, label,
+                   gate=True):
+    """Every gaussian of ``got`` against ``ref``: scales, quats, opacities
+    and colors within 1e-3 * max|ref| of the field; the means of the voxel
+    branch's gaussians within 1e-3 of the voxel size, those of the pixel
+    branch within 1e-3 of their distance from their view's camera (the
+    depth along the ray is the field that branch decodes)."""
+    g = {k: v.float().cpu() for k, v in got.items()}
+    n_vox = ref["means"].shape[0] - n_pix
+    view = torch.arange(n_pix) // (n_pix // len(poses))
+    dist = (ref["means"][n_vox:] - poses[view, :3, 3].cpu()).norm(dim=-1)
+    lims = {"means": torch.cat([torch.full((n_vox,), 1e-3 * voxel_size),
+                                1e-3 * dist])}
+    for k in ("scales", "quats", "opacities", "colors"):
+        lims[k] = torch.full((ref[k].shape[0],),
+                             1e-3 * ref[k].abs().max().item())
+    for k, lim in lims.items():
+        diff = (g[k] - ref[k]).abs().reshape(ref[k].shape[0], -1).amax(-1)
+        ratio = diff / lim
+        i = int(ratio.argmax())
+        where = "pixel" if i >= n_vox else "voxel"
+        print(f"[stage3] {label}, gaussians {k}: within their limit on "
+              f"{100 * (ratio <= 1).float().mean().item():.4f} %, worst "
+              f"{ratio[i].item():.3f} of it at a {where} gaussian "
+              f"(|difference| {diff[i].item():.3e}, limit "
+              f"{lim[i].item():.3e}); max-abs {diff.max().item():.3e}")
+        if gate:
+            check(bool((ratio <= 1).all()), f"{label} gaussians {k}: worst "
+                  f"{ratio[i].item()} of the limit")
+
+
+def render_shares(a, b, label):
+    """Pixel shares where two renders agree: rgb (all three channels) and
+    alpha within 1e-3, depth within 1e-3 relative where b's alpha > 1e-6.
+    Returns them by key."""
+    out = {}
+    for k in ("rgb", "alpha", "depth"):
+        x, y = a[k].float().cpu(), b[k].float().cpu()
+        if k == "depth":
+            ok = ((x - y).abs() <= 1e-3 * y.abs())[b["alpha"].cpu() > 1e-6]
+        else:
+            ok = (x - y).abs() <= 1e-3
+            ok = ok.all(-1) if k == "rgb" else ok
+        out[k] = ok.float().mean().item()
+    print(f"[stage3] {label}: " + ", ".join(
+        f"{k} within 1e-3 on {100 * v:.4f} %" for k, v in out.items()))
+    return out
+
+
+def stage3_model_check(sg, gsm, wc, folder):
+    """Phase 29: the release-width GSM, its weights by ``gsm_from_jax`` from
+    a random numpy parameter tree, on 2 views at 240x416 (frames 0 and 12)
+    and the world's 20,000 voxels nearest the first camera, every pixel
+    decoding (so the pixel branch's gaussians render too), card against
+    CPU: valid masks equal; every gaussian within 1e-3 of its field's scale
+    (``hold_gaussians``); the card run again with the plain sparse conv in
+    K4's place, printed beside it. Renders: the CPU's gaussians and the
+    card's, each rendered on the card and on the CPU, agree within 1e-3 on
+    every pixel (depth within 1e-3 relative where alpha > 1e-6), so the
+    renderer adds no difference of its own. The card's gaussians rendered
+    on the CPU against the CPU's (the CPU's gaussians moved by the measured
+    card-CPU difference) give the pixel share that difference alone
+    reaches: a gaussian that moves across a log-depth quantum swaps places
+    with its neighbours in the sort, and a tile over its capacity keeps
+    another set. Each device's own renders then agree within 1e-3 on
+    >= 99.9 % of pixels, or on no less than that share less 0.1 %."""
+    from infinicube_tpu_torch.models.gsm.renderer import render_views
+    from infinicube_tpu_torch.weights.from_jax import gsm_from_jax
+    cfg = gsm.GSMConfig(**STAGE3_CROP)
+    data = sg.load_buffer_folder(folder, num_frames=2, stride=12)
+    sd = gsm_from_jax(random_gsm_tree(gsm.GSM(cfg)))
+    outs, batches = {}, {}
+    for name, dev in (("card", "cuda"), ("card, plain sparse conv", "cuda"),
+                      ("cpu", "cpu")):
+        if dev not in batches:
+            model = gsm.GSM(cfg, device=dev)
+            model.load_state_dict(sd)
+            batches[dev] = stage3_batch(sg, data, dev, 2, scale=0.5,
+                                        nearest=20_000)
+        route = plain_sparse_conv(wc) if "plain" in name else \
+            contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), route:
+            outs[name] = model(batches[dev], decode_all_pixels=True)
+        print(f"[stage3] release-width GSM, 2 views at 240x416, "
+              f"{int(batches[dev]['grid'].mask.sum())} voxels, {name}: "
+              f"{time.perf_counter() - t0:.2f} s (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in model.last_phase_seconds.items())
+              + ")")
+    got, ref = outs["card"], outs["cpu"]
+    b_gpu, b_cpu = batches["cuda"], batches["cpu"]
+    n_vox = int(b_cpu["grid"].mask.sum())
+    check(n_vox == 20_000, f"the cut world holds {n_vox} voxels")
+    gv, rv = got["gaussians"]["valid"].cpu(), ref["gaussians"]["valid"]
+    check(torch.equal(gv, rv), f"valid masks differ ({int((gv != rv).sum())})")
+    hw = (240, 416)
+    n_pix = 2 * hw[0] * hw[1] * cfg.pixel.gs_per_pixel
+    vs = float(b_cpu["grid"].voxel_size.max())
+    for name in ("card, plain sparse conv", "card"):
+        hold_gaussians(outs[name]["gaussians"], ref["gaussians"], n_pix, hw,
+                       b_cpu["cam_to_worlds"], vs, name, gate=name == "card")
+    print(f"[stage3] {int(rv.sum())} valid gaussians of {rv.numel()} "
+          f"({int(rv[:-n_pix].sum())} of the voxel branch), the masks "
+          f"equal")
+    card_gs = {k: v.cpu() for k, v in got["gaussians"].items()}
+    with torch.inference_mode():
+        renders = {}
+        for gs_name, gs in (("CPU's", ref["gaussians"]), ("card's", card_gs)):
+            for dev, b in (("cuda", b_gpu), ("cpu", b_cpu)):
+                renders[gs_name, dev] = render_views(
+                    {k: v.to(dev) for k, v in gs.items()}, b["Ks"],
+                    b["cam_to_worlds"], hw)
+    for gs_name in ("CPU's", "card's"):
+        shares = render_shares(renders[gs_name, "cuda"],
+                               renders[gs_name, "cpu"],
+                               f"the {gs_name} gaussians rendered, card vs "
+                               f"CPU")
+        check(min(shares.values()) == 1.0, f"the {gs_name} gaussians "
+              f"rendered: {shares}")
+    witness = render_shares(renders["card's", "cpu"], renders["CPU's", "cpu"],
+                            "the card's gaussians against the CPU's, both "
+                            "rendered on the CPU")
+    own = render_shares(got["render"], ref["render"],
+                        "each device's own render")
+    for k, share in own.items():
+        gate = min(0.999, witness[k] - 1e-3)
+        check(share >= gate, f"own renders {k}: {share} (gate {gate})")
+    del outs, got, ref, renders, card_gs, batches
+    torch.cuda.empty_cache()
+
+
+def stage3_main_path(kernels, sg, ff, gsm, folder, tmp):
+    """Phase 30: ``scene_gaussian_generation.main`` on the buffer folder
+    with its defaults (16 frames, 8 views), then ``reconstruct_scene`` at
+    the e2e release settings (16 frames at stride 6, 16 views, the release
+    crop) with its outputs written and read back, then
+    ``feedforward_reconstruction.reconstruct`` in dual mode; exact K4 and
+    ``flash_attn_f32`` launches for each. Returns the path's launches."""
+    from infinicube_tpu_torch.utils import gaussian_io as gio
+    cfg = gsm.GSMConfig(**STAGE3_CROP)
+    total = {}
+    out = os.path.join(tmp, "scene")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sg.main(["--buffer_folder", folder, "--output", out])
+    torch.cuda.synchronize()
+    data8 = sg.load_buffer_folder(folder, 16)
+    sel = np.linspace(0, 15, 8).astype(int)
+    dyn = bool((data8["instance"][sel] >= sg.DYNAMIC_ID_BASE).any())
+    want = gsm_launches(cfg, 8, 1 + dyn)
+    got = {k: kernels.launches[k] for k in want}
+    objs = gio.load_pkl(os.path.join(out, "decoded_gs_object.pkl"))
+    static = gio.load_pkl(os.path.join(out, "decoded_gs_static.pkl"))
+    print(f"[stage3] CLI (8 views of 16 frames): {time.perf_counter() - t0:.2f}"
+          f" s, {len(static['means'])} static gaussians, objects "
+          f"{sorted(objs)}, launches {got} (want {want})")
+    check(got == want, f"CLI launches {got}, want {want}")
+    check(sorted(os.listdir(out)) == ["composite_frame0.png",
+                                      "decoded_gs_object.pkl",
+                                      "decoded_gs_static.pkl",
+                                      "decoded_gs_static.splat"],
+          f"CLI outputs {os.listdir(out)}")
+    for k, v in dict(kernels.launches).items():
+        total[k] = total.get(k, 0) + v
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    data = sg.load_buffer_folder(folder, STAGE3_FRAMES, STAGE3_STRIDE)
+    static, objs, res, model, _ = sg.reconstruct_scene(
+        data, cfg=cfg, max_views=STAGE3_VIEWS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = gsm_launches(cfg, STAGE3_VIEWS, 2)
+    got = {k: kernels.launches[k] for k in want}
+    grid, _ = sg.scene_grid(data["world"], "cuda")
+    rel = os.path.join(tmp, "release")
+    gio.save_pkl(os.path.join(rel, "decoded_gs_static.pkl"), static)
+    gio.save_pkl(os.path.join(rel, "decoded_gs_object.pkl"), objs)
+    gio.save_splat(os.path.join(rel, "decoded_gs_static.splat"), static)
+    back = gio.load_pkl(os.path.join(rel, "decoded_gs_static.pkl"))
+    back_obj = gio.load_pkl(os.path.join(rel, "decoded_gs_object.pkl"))
+    splat = gio.load_splat(os.path.join(rel, "decoded_gs_static.splat"))
+    rgb = res["render"]["rgb"]
+    print(f"[stage3] release reconstruct_scene ({STAGE3_VIEWS} views of "
+          f"480x832, frames 0-{STAGE3_STRIDE * (STAGE3_FRAMES - 1)} at "
+          f"stride {STAGE3_STRIDE}): {wall:.2f} s with the load; scene grid "
+          f"capacity {grid.capacity}, {int(grid.mask.sum())} voxels, "
+          f"num_dropped {int(grid.num_dropped[0])}; {len(static['means'])} "
+          f"static gaussians, objects {sorted(objs)} "
+          f"({[len(o['means']) for o in objs.values()]} gaussians); "
+          f"launches {got} (want {want})")
+    check(got == want, f"release launches {got}, want {want}")
+    check(sorted(back_obj) == list(range(10000, 10004)),
+          f"car ids {sorted(back_obj)}")
+    check(all(np.isfinite(v).all() for v in back.values()) and
+          len(splat["means"]) == len(back["means"]) > 0, "static gaussians")
+    check(tuple(rgb.shape) == (STAGE3_VIEWS, 480, 832, 3) and
+          torch.isfinite(rgb).all().item(), f"renders {tuple(rgb.shape)}")
+    for k, v in dict(kernels.launches).items():
+        total[k] = total.get(k, 0) + v
+
+    kernels.reset_launches()
+    batch = stage3_batch(sg, data, "cuda", STAGE3_VIEWS)
+    t0 = time.perf_counter()
+    _, metrics, _, _ = ff.reconstruct(batch, "dual", cfg=cfg)
+    torch.cuda.synchronize()
+    want = gsm_launches(cfg, STAGE3_VIEWS, 1)
+    got = {k: kernels.launches[k] for k in want}
+    print(f"[stage3] feedforward reconstruct (dual, {STAGE3_VIEWS} views): "
+          f"{time.perf_counter() - t0:.2f} s, psnr {metrics['psnr']:.3f} "
+          f"ssim {metrics['ssim']:.4f} (random weights), launches {got}")
+    check(got == want and all(math.isfinite(v) for v in metrics.values()),
+          f"feedforward launches {got}, metrics {metrics}")
+    for k, v in dict(kernels.launches).items():
+        total[k] = total.get(k, 0) + v
+    others = {k: v for k, v in total.items()
+              if v and k not in ("sparse_conv_f32", "flash_attn_f32")}
+    check(not others, f"stage 3 launched other kernels: {others}")
+    del res, model, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def stage3_time(sg, gsm, folder):
+    """Phase 31, where the time goes at the release settings: the load,
+    the masks and the batch, the static pass split into encoder, voxel
+    branch, pixel branch, sky and render, the dynamic pass, peak memory,
+    and one static GSM forward under ``torch.profiler``."""
+    from infinicube_tpu_torch.models.gsm.pixel_branch import without_cudnn
+    cfg = gsm.GSMConfig(**STAGE3_CROP)
+    model = gsm.GSM(cfg, device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = sg.load_buffer_folder(folder, STAGE3_FRAMES, STAGE3_STRIDE)
+    t1 = time.perf_counter()
+    batch = stage3_batch(sg, data, "cuda", STAGE3_VIEWS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.inference_mode():
+        model(batch)
+        split = dict(model.last_phase_seconds)
+        t3 = time.perf_counter()
+        model(batch, decode_all_pixels=True)
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[stage3-time] load {t1 - t0:.2f} s, masks and batch "
+          f"{t2 - t1:.3f} s, static pass {t3 - t2:.3f} s (" +
+          ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
+          f"), dynamic pass {t4 - t3:.3f} s; stage 3 in all {t4 - t0:.2f} s;"
+          f" peak {peak:.2f} GiB ({resident:.2f} GiB resident before)")
+    with torch.inference_mode():
+        profile(lambda: model(batch), f"one static GSM forward, "
+                f"{STAGE3_VIEWS} views at 480x832")
+        # one XUnet view chunk without cuDNN (the port's choice) and with
+        unet = model.pixel_branch.unet
+        x = torch.rand((4, 480, 832, 5), device="cuda")
+        with without_cudnn():
+            off = cuda_ms(lambda: unet(x), 1, 3)
+        on = cuda_ms(lambda: unet(x), 1, 3)
+    print(f"[stage3-time] one XUnet view chunk (4 x 480x832): {off:.1f} ms "
+          f"without cuDNN, {on:.1f} ms with cuDNN's own choice of f32 "
+          f"algorithms (TF32 off)")
+    del model, batch
+    torch.cuda.empty_cache()
+
+
+def stage3(kernels, att, world_path):
+    """Phases 28-31 on phase 26's world with its 4 cars. Returns the rows
+    of ``flash_attn_f32`` and K4 at the GSM's shapes and the stage-3 path's
+    launches."""
+    from infinicube_tpu_torch.inference import feedforward_reconstruction as ff
+    from infinicube_tpu_torch.inference import guidance_buffer_generation as gb
+    from infinicube_tpu_torch.inference import scene_gaussian_generation as sg
+    from infinicube_tpu_torch.models.gsm import model as gsm
+    from infinicube_tpu_torch.ops import window_conv as wc
+    from infinicube_tpu_torch.utils import buffers as bf
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stage3_")
+    t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"[stage3] {phase} done at {time.perf_counter() - t0:.1f} s")
+
+    try:
+        folder = stage3_folder(gb, bf, world_path, tmp)
+        # ---- 28. card against CPU, the kernels at the GSM's shapes -------
+        attn_rows, k4_rows = stage3_checks(kernels, att, wc, sg, folder)
+        done("phase 28")
+        # ---- 29. the release-width GSM, card against CPU -----------------
+        stage3_model_check(sg, gsm, wc, folder)
+        done("phase 29")
+        # ---- 30. the stage-3 main path -----------------------------------
+        launches = stage3_main_path(kernels, sg, ff, gsm, folder, tmp)
+        done("phase 30")
+        # ---- 31. where the time goes -------------------------------------
+        stage3_time(sg, gsm, folder)
+        done("phase 31")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return attn_rows, k4_rows, launches
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -3091,6 +3747,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         stage2_launches = stage2(kernels, world_path)
+        gsm_attn, gsm_k4, stage3_launches = stage3(kernels, att, world_path)
     finally:
         shutil.rmtree(world_dir, ignore_errors=True)
 
@@ -3101,10 +3758,16 @@ def main() -> int:
     report.update(vae_report)
     report.update(int8_report)
     report.update(f32_report)
+    # the GSM's shapes beside each kernel's own (phase 28)
+    for name, rows in (("flash_attn_f32", gsm_attn),
+                       ("sparse_conv_f32", gsm_k4)):
+        report[name]["gsm_shapes"] = rows
+        report[name]["max_abs_err"] = max(
+            [report[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows])
     paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
              "diffusion_train": train_launches, "vae_train": vae_launches,
              **int8_paths, "stage1_f32": f32_launches,
-             "stage2": stage2_launches}
+             "stage2": stage2_launches, "stage3": stage3_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

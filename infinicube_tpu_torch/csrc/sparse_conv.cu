@@ -44,6 +44,11 @@
 //   128 features, f32 accumulators in registers) split their own rows of
 //   each arrived stage into hi (in place) and lo in shared memory, then
 //   issue the three products per k8 step.
+// - The tensor cores truncate (round toward zero) every sum they
+//   accumulate, and a row sums up to 27 x F/8 k8 steps: the wgmma sums are
+//   added into f32 sums with a rounded add every 32 k8 steps and restarted
+//   (scale-d 0), as the f32 conv and K6 do. Both sums live in registers;
+//   the producer hands its registers to the consumers (setmaxnreg).
 // The entry point returns cudaGetLastError() (or cudaErrorInvalidValue for
 // what it does not take).
 
@@ -61,6 +66,12 @@ constexpr int kThreads = 384;   // warpgroups 0, 1 consume, 2 gathers
 constexpr int kSpan = 128;      // bytes of a stage's row: 32 f32 features
 constexpr int kChunk = kSpan / 4;
 constexpr int kRing = 196608;   // bytes of shared memory for the ring
+constexpr int kFlushSteps = 32;  // k8 steps between flushes of the sums
+constexpr int kFlush = kFlushSteps / (kSpan / 32);  // stages between them
+// registers a thread after the hand-over: the producer keeps 40, each
+// consumer takes 232 (2 x 128 x 232 + 128 x 40 = 384 x 168, the pool of a
+// block launched with 168 a thread)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232, kLaunchRegs = 168;
 
 template <int BN>
 struct K4Tile {
@@ -156,6 +167,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = tid / 128;
   if (wg == 2) {
     // ---- producer: every thread gathers its row, thread 0 the weights ----
+    hop::setmaxnreg_dec<kProducerRegs>();
     const int p = tid - 256;
     if (p == 0) {
       hop::prefetch_map(&tmw_hi);
@@ -193,13 +205,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: 64 rows each, all BN output features ----
-    float acc[BN / 2];
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    float acc[BN / 2], sum[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
     const int wt = tid % 128, lane = tid % 32;
     int stage = 0, prev = 0;
     uint32_t phase = 0;
     for (int it = 0; it < iters; ++it) {
+      const bool first = it % kFlush == 0;  // the products restart the sums
       hop::mbar_wait(&full[stage], phase);
       uint8_t* st = ring + stage * T::kStage;
       uint8_t* sa = st + wg * 64 * kSpan;
@@ -234,7 +248,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             hop::make_desc(sbh + 32 * kk, kSpan, 16, 8 * kSpan);
         const uint64_t dbl =
             hop::make_desc(sbl + 32 * kk, kSpan, 16, 8 * kSpan);
-        hop::WgmmaTf32<BN>::ss(acc, dl, dbh, 1);  // the small terms first
+        // the small terms first
+        hop::WgmmaTf32<BN>::ss(acc, dl, dbh, first && kk == 0 ? 0 : 1);
         hop::WgmmaTf32<BN>::ss(acc, dh, dbl, 1);
         hop::WgmmaTf32<BN>::ss(acc, dh, dbh, 1);
       }
@@ -247,9 +262,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         stage = 0;
         phase ^= 1;
       }
+      if ((it + 1) % kFlush == 0 || it == iters - 1) {
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+      }
     }
-    hop::wgmma_wait<0>();
-    hop::fence_regs(acc);
 
     const int w = wt / 32, g = lane / 4, q = lane % 4;
 #pragma unroll
@@ -262,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int n = n0 + 8 * j + 2 * q;
         if (n < a.N)
           *reinterpret_cast<float2*>(orow + n) =
-              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+              make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
       }
     }
   }
@@ -276,6 +295,15 @@ cudaError_t launch_k4(const CUtensorMap& hi, const CUtensorMap& lo,
   static cudaError_t attr =
       hop_host::allow_smem(sparse_conv_tf32x3_kernel<BN>, T::kSmem);
   if (attr != cudaSuccess) return attr;
+  // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
+  static const int regs = [] {
+    cudaFuncAttributes fa;
+    return cudaFuncGetAttributes(&fa, sparse_conv_tf32x3_kernel<BN>) ==
+                   cudaSuccess
+               ? fa.numRegs
+               : 0;
+  }();
+  if (regs < kLaunchRegs) return cudaErrorInvalidConfiguration;
   sparse_conv_tf32x3_kernel<BN>
       <<<blocks, kThreads, T::kSmem, stream>>>(hi, lo, args);
   return cudaGetLastError();

@@ -66,3 +66,66 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     """Fill with N(0, 1/fan_in), the scale of flax's ``lecun_normal``."""
     with torch.no_grad():
         w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """flax ``padding="SAME"`` on one axis: (low, high) so that the output
+    has ceil(size / stride) positions; the odd pixel goes high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` in 2-D (SAME padding, ``feature_group_count``) on
+    NCHW tensors, weight [O, I / groups, kh, kw] (``weights/from_jax.py``
+    re-lays out flax's HWIO kernels)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int,
+                 stride: int = 1, groups: int = 1, device=None):
+        super().__init__()
+        self.stride, self.groups = stride, groups
+        self.weight = nn.Parameter(torch.empty(
+            (features, in_features // groups, kernel, kernel), device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.weight.shape[-1], self.stride
+        (hl, hh), (wl, wh) = (same_padding(n, k, s) for n in x.shape[-2:])
+        if hl != hh or wl != wh:
+            x = F.pad(x, (wl, wh, hl, hh))
+            hl = hh = wl = wh = 0
+        return F.conv2d(x, self.weight, self.bias, stride=s,
+                        padding=(hl, wl), groups=self.groups)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` (``nn.SelfAttention``) over
+    x [B, L, E]: q, k, v and out projections (flax's [E, heads, d] kernels
+    flattened to [E, E]), q scaled by 1/sqrt(d), masked logits at the f32
+    minimum, an f32 softmax. ``mask`` bool [B, L] marks the keys to attend
+    to."""
+
+    def __init__(self, dim: int, heads: int, device=None):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(dim, dim, device=device)
+        self.key = nn.Linear(dim, dim, device=device)
+        self.value = nn.Linear(dim, dim, device=device)
+        self.out = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        B, L, E = x.shape
+        h = self.heads
+        d = E // h
+        q = self.query(x).reshape(B, L, h, d) / math.sqrt(d)
+        k = self.key(x).reshape(B, L, h, d)
+        v = self.value(x).reshape(B, L, h, d)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        if mask is not None:
+            logits = torch.where(mask[:, None, None, :], logits,
+                                 torch.finfo(torch.float32).min)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, E)
+        return self.out(o)

@@ -39,12 +39,28 @@ def write_video(path, frames: np.ndarray, fps: int = 10):
 
 
 def read_video(path) -> np.ndarray:
-    """-> uint8 [T, H, W, 3] (needs imageio)."""
+    """-> uint8 [T, H, W, 3]. Through imageio where it is installed and the
+    file exists; otherwise from the directory of png frames that
+    ``write_video`` falls back to (``<stem>/000000.png``...), decoded by
+    ``data.codec.decode_png``."""
+    path = Path(path)
+    frames = path.with_suffix("")
+    try:
+        import imageio
+    except ImportError:
+        imageio = None
+    if (imageio is None or not path.exists()) and frames.is_dir():
+        from infinicube_tpu_torch.data.codec import decode_png
+        return np.stack([decode_png(p.read_bytes())
+                         for p in sorted(frames.glob("*.png"))])
+    if imageio is None:
+        raise ModuleNotFoundError(
+            f"reading {path} needs imageio, and no frame directory "
+            f"{frames} exists")
     try:
         import imageio.v3 as iio
         return np.asarray(iio.imread(path, plugin="pyav"))
     except Exception:
-        import imageio
         r = imageio.get_reader(path)
         return np.stack([np.asarray(f) for f in r])
 

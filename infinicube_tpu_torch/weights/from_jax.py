@@ -6,7 +6,7 @@ a ``state_dict`` for the port's module of the same name. The mapping is a
 plain re-layout:
 
 - flax Dense ``kernel`` [in, out] -> ``weight`` [out, in];
-- flax Conv ``kernel`` DHWIO -> ``weight`` OIDHW;
+- flax Conv ``kernel`` DHWIO -> ``weight`` OIDHW, and HWIO -> OIHW;
 - a rank-3 ``kernel`` (SparseConv3d, [27, F_in, F_out]) keeps its name and
   layout;
 - RMSNorm / LayerNorm / GroupNorm ``scale`` and Embed ``embedding`` ->
@@ -48,6 +48,8 @@ def _leaf(name: str, a: np.ndarray) -> tuple[str, np.ndarray]:
             return "weight", a.T
         if a.ndim == 5:
             return "weight", a.transpose(4, 3, 0, 1, 2)
+        if a.ndim == 4:
+            return "weight", a.transpose(3, 2, 0, 1)
         if a.ndim == 3:
             return "kernel", a
         raise ValueError(f"kernel of rank {a.ndim}")
@@ -161,3 +163,73 @@ def pipeline_from_jax(params: dict) -> dict[str, dict[str, torch.Tensor]]:
     return {"dit": dit_from_jax(params["dit"]),
             "vae": vae_from_jax(params["vae"]),
             "t5": t5_from_jax(params["t5"])}
+
+
+_ATTN = ("query", "key", "value", "out")
+
+
+def _flatten_attention(tree: dict) -> dict:
+    """flax ``MultiHeadDotProductAttention`` subtrees (query / key / value
+    kernels [E, heads, d] with biases [heads, d], out kernel [heads, d, E])
+    as plain Dense kernels [E, heads * d] and [heads * d, E]; every other
+    entry passes through."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            val = _flatten_attention(val)
+            if set(_ATTN) <= set(val) and \
+                    np.ndim(val["query"]["kernel"]) == 3:
+                val = dict(val)
+                for name in _ATTN[:3]:
+                    k = np.asarray(val[name]["kernel"])
+                    val[name] = {"kernel": k.reshape(k.shape[0], -1),
+                                 "bias": np.asarray(
+                                     val[name]["bias"]).reshape(-1)}
+                k = np.asarray(val["out"]["kernel"])
+                val["out"] = {"kernel": k.reshape(-1, k.shape[-1]),
+                              "bias": np.asarray(val["out"]["bias"])}
+        out[key] = val
+    return out
+
+
+def gsm_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """GSM params (or any of its submodules', such as the sky model's): 2-D
+    convs HWIO -> OIHW, Dense kernels transposed, the attention modules'
+    per-head kernels flattened, the sparse convs' [27, F_in, F_out] kept,
+    norms' ``scale`` -> ``weight``."""
+    return _convert(_flatten_attention(_params(tree)))
+
+
+def gsm_to_jax(model: torch.nn.Module) -> dict:
+    """The inverse of ``gsm_from_jax``: the flax parameter tree
+    ({"params": ...}, numpy) of a port GSM or of one of its submodules.
+    With it a random port init drives the JAX model, and a random numpy
+    tree can be made in the JAX layout without JAX."""
+    from infinicube_tpu_torch.nn.layers import MultiHeadDotProductAttention
+    heads = {name: m.heads for name, m in model.named_modules()
+             if isinstance(m, MultiHeadDotProductAttention)}
+    tree: dict = {}
+    for key, p in model.state_dict().items():
+        *path, leaf = key.split(".")
+        a = p.detach().cpu().numpy()
+        if leaf == "weight":
+            if a.ndim == 1:
+                leaf = "scale"
+            elif a.ndim in (2, 4):
+                leaf = "kernel"
+                a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)
+            else:
+                raise ValueError(f"{key}: weight of rank {a.ndim}")
+        parent = ".".join(path[:-1])
+        if parent in heads:
+            h = heads[parent]
+            if path[-1] == "out":
+                a = a.reshape(h, -1, a.shape[-1]) if leaf == "kernel" else a
+            else:
+                a = a.reshape(a.shape[0], h, -1) if leaf == "kernel" else \
+                    a.reshape(h, -1)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(a)
+    return {"params": tree}
