@@ -209,6 +209,31 @@ its 4 cars driving (ids 10000-10003), written as a stage-2 buffer folder
     peak memory, one GSM forward under ``torch.profiler``, and one XUnet
     view chunk with and without cuDNN.
 
+Then training the GSM (stage 3's models freed first):
+
+32. kernel checks: ``flash_attn_f32`` with its log-sum-exp store against
+    ``attention_plain``'s output and lse (within 1e-5), then
+    ``flash_attn_f32_bwd`` (the f32 flash-attention backward, 3xTF32 on
+    ``mma.sync``) against ``attention_bwd_plain`` at the GSM's train shape
+    (3 views, N = 5,280, 4 heads of 64), at d = 96 and 128 with Nq != Nk and
+    at 37 x 21: dq, dk and dv each within 1e-4 * max|ref|, two runs
+    bit-identical; timed beside the plain version, its bounds and the f32
+    backward of ``scaled_dot_product_attention``; then d = 40 through
+    ``multi_head_attention``'s padding with a gradient;
+33. the GSM trainer: ``train.main`` on ``configs/train_gsm.yaml`` (the
+    release ``GSMConfig``, f32, LPIPS random), 3 steps with exact launches a
+    step (K4, K4-dgrad and K6 10 each, ``flash_attn_f32`` 2 with the remat
+    recompute, ``flash_attn_f32_bwd`` 1), no plain version called, the
+    checkpoint read back; the release-scale step of
+    ``benchmarks/bench_gsm_train.py``'s scene built with the port (200,000
+    points, a 65,536-slot grid at 0.4 m, 3 views of 480x704) in f32 with
+    LPIPS at the 224 crop, 3 steps after a warm-up split into batch,
+    forward, backward and optimizer + EMA, peak memory, one step under
+    ``torch.profiler``, and one XUnet view chunk forward and backward with
+    PyTorch's own convolutions, with cuDNN's and with cuDNN in the backward
+    only; the tiny GSM's loss and every gradient, card against CPU, with
+    both branches and with the voxel branch off.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -693,7 +718,7 @@ def chunk_launches(diffusion, steps, unet_calls=None):
                     "flash_attn_bf16": 10 * steps, "sparse_conv_f32": 12,
                     "flash_attn_int8qk": 0, "flash_attn_int8qkv": 0,
                     "conv3x3x3_bf16_dgrad": 0, "conv3x3x3_f32": 0,
-                    "flash_attn_f32": 0}
+                    "flash_attn_f32": 0, "flash_attn_f32_bwd": 0}
 
 
 def run_chunks(kernels, gen, label, run, want, n_chunks):
@@ -948,7 +973,8 @@ STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "sparse_conv_f32_dgrad": 0, "sparse_conv_f32_wgrad": 0,
                  "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
                  **{k: 0 for k in INT8_PROLOGUE},
-                 "conv3x3x3_f32": 0, "flash_attn_f32": 0}
+                 "conv3x3x3_f32": 0, "flash_attn_f32": 0,
+                 "flash_attn_f32_bwd": 0}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
 
@@ -1400,6 +1426,7 @@ VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
                      "flash_attn_bf16_bwd": 0, "flash_attn_int8qk": 0,
                      "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
                      "conv3x3x3_f32": 0, "flash_attn_f32": 0,
+                     "flash_attn_f32_bwd": 0,
                      **{k: 0 for k in INT8_PROLOGUE}}
 VAE_POINTS = 200_000
 
@@ -3540,7 +3567,7 @@ def stage3_time(sg, gsm, folder):
     the masks and the batch, the static pass split into encoder, voxel
     branch, pixel branch, sky and render, the dynamic pass, peak memory,
     and one static GSM forward under ``torch.profiler``."""
-    from infinicube_tpu_torch.models.gsm.pixel_branch import without_cudnn
+    from infinicube_tpu_torch.models.gsm.pixel_branch import xunet_cudnn
     cfg = gsm.GSMConfig(**STAGE3_CROP)
     model = gsm.GSM(cfg, device="cuda")
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -3572,9 +3599,9 @@ def stage3_time(sg, gsm, folder):
         # one XUnet view chunk without cuDNN (the port's choice) and with
         unet = model.pixel_branch.unet
         x = torch.rand((4, 480, 832, 5), device="cuda")
-        with without_cudnn():
-            off = cuda_ms(lambda: unet(x), 1, 3)
-        on = cuda_ms(lambda: unet(x), 1, 3)
+        off = cuda_ms(lambda: unet(x), 1, 3)
+        with xunet_cudnn():
+            on = cuda_ms(lambda: unet(x), 1, 3)
     print(f"[stage3-time] one XUnet view chunk (4 x 480x832): {off:.1f} ms "
           f"without cuDNN, {on:.1f} ms with cuDNN's own choice of f32 "
           f"algorithms (TF32 off)")
@@ -3616,6 +3643,499 @@ def stage3(kernels, att, world_path):
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return attn_rows, k4_rows, launches
+
+
+# ---------------------------------------------------------------------------
+# training the GSM
+# ---------------------------------------------------------------------------
+
+# the f32 attention backward at the GSM's train shape (3 views at 480x704:
+# 60 x 88 tokens at the XUnet's bottleneck, 4 heads of 64), at d = 96 and
+# 128 with Nq != Nk, and off the tile (37 x 21); d = 40 through the padding
+F32_BWD_SHAPES = ((3, 5280, 5280, 4, 64), (1, 4096, 4096, 8, 96),
+                  (1, 1000, 777, 4, 128), (2, 37, 21, 2, 64))
+F32_BWD_PADDED = (1, 1000, 1000, 4, 40)
+GSM_TRAIN_STEPS = 3
+GSM_TRAIN_VIEWS, GSM_TRAIN_HW = 3, (480, 704)
+# benchmarks/bench_gsm_train.py's conv-plan cube for its scene at 0.4 m
+GSM_TRAIN_BOUNDS = ((-8, -64, -8), (224, 128, 48))
+
+
+def gsm_step_launches(kernels, cfg, views):
+    """Exact launches of one GSM train step: the forward's (K4 and the
+    bottleneck attention, ``gsm_launches``), every sparse conv's input and
+    weight gradient (K4-dgrad, K6), the attention once more where its remat
+    block is recomputed in the backward, and its backward; nothing else."""
+    fwd = gsm_launches(cfg, views)
+    k4, attn = fwd["sparse_conv_f32"], fwd["flash_attn_f32"]
+    return {k: 0 for k in kernels.launches} | {
+        "sparse_conv_f32": k4, "sparse_conv_f32_dgrad": k4,
+        "sparse_conv_f32_wgrad": k4,
+        "flash_attn_f32": attn * (2 if cfg.pixel.unet_remat else 1),
+        "flash_attn_f32_bwd": attn}
+
+
+def f32_bwd_checks(kernels, att):
+    """Phase 32. ``flash_attn_f32`` with its lse store against
+    ``attention_plain``'s output (1e-4 * max|ref|) and lse (1e-5), then
+    ``flash_attn_f32_bwd`` against ``attention_bwd_plain`` on the plain
+    output and lse: dq, dk and dv each within 1e-4 * max|ref|, two runs
+    bit-identical; timed beside the plain version, its bound (10 * Nq * Nk
+    * d * B * h as 3 TF32 products, the f32 CUDA-core bound beside it) and
+    the backward of ``scaled_dot_product_attention`` in f32 (TF32 off, its
+    backend pinned), which computes D itself (so beside the kernel plus
+    ``attention_delta``). Then d = 40 through ``multi_head_attention``'s
+    padding with a gradient: one launch of each kernel, the gradients
+    against the plain attention's under autograd. Returns the rows and the
+    padded call's entry (as phase 22's ``padded_widths``)."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    rows = []
+    for B, nq, nk, h, d in F32_BWD_SHAPES:
+        q, k, v, do = (rand((B, n, h, d), g, torch.float32)
+                       for n in (nq, nk, nk, nq))
+        scale = d ** -0.5
+        shape = f"B={B} Nq={nq} Nk={nk} h={h} d={d}"
+        o, lse = kernels.flash_attn_f32(q, k, v, scale, return_lse=True)
+        ref_o, ref_lse = att.attention_plain(q, k, v, scale, return_lse=True)
+        o_err = (o - ref_o).abs().max().item()
+        o_lim = 1e-4 * ref_o.abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        print(f"[f32 bwd] {shape} forward with the lse store: o max_abs_err "
+              f"{o_err:.3e} (limit {o_lim:.3e}), lse max_abs_err "
+              f"{lse_err:.3e} (limit 1.000e-05)")
+        check(o_err <= o_lim and lse.shape == (B, h, nq) and lse_err <= 1e-5,
+              f"[f32 bwd] {shape}: o err {o_err}, lse err {lse_err}")
+        ref_delta = att.attention_delta(ref_o, do)
+        got = kernels.flash_attn_f32_bwd(q, k, v, do, ref_lse, ref_delta,
+                                         scale)
+        ref = att.attention_bwd_plain(q, k, v, ref_o, do, ref_lse, scale)
+        errs = []
+        for a, b, name in zip(got, ref, "qkv"):
+            err = (a - b).abs().max().item()
+            lim = 1e-4 * b.abs().max().item()
+            print(f"[f32 bwd] {shape} d{name}: cosine {cos(a, b):.8f} "
+                  f"max_abs_err {err:.3e} (limit {lim:.3e})")
+            check(torch.isfinite(a).all().item() and err <= lim,
+                  f"[f32 bwd] {shape} d{name}: err {err}")
+            errs.append(err)
+        again = kernels.flash_attn_f32_bwd(q, k, v, do, ref_lse, ref_delta,
+                                           scale)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"[f32 bwd] {shape}: two runs differ")
+        del ref_o, ref_lse, ref_delta, ref, again, got
+        delta = att.attention_delta(o, do)
+        ms = cuda_ms(lambda: kernels.flash_attn_f32_bwd(q, k, v, do, lse,
+                                                        delta, scale))
+        with_delta = cuda_ms(lambda: kernels.flash_attn_f32_bwd(
+            q, k, v, do, lse, att.attention_delta(o, do), scale))
+        fwd_ms = cuda_ms(lambda: kernels.flash_attn_f32(q, k, v, scale))
+        fwd_lse_ms = cuda_ms(lambda: kernels.flash_attn_f32(
+            q, k, v, scale, return_lse=True))
+        plain = cuda_ms(lambda: att.attention_bwd_plain(q, k, v, o, do, lse,
+                                                        scale), 1, 3)
+        lib, backend = sdpa_backward_ms(q, k, v, do)
+        flops = 10.0 * nq * nk * d * h * B
+        nbytes = 4 * B * h * (d * (3 * nq + 4 * nk) + 2 * nq)
+        b_ms, b_by, core_ms = tf32x3_bounds(flops, nbytes)
+        print(f"[f32 bwd] {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
+              f" TFLOP/s of the 5 products counted, {100 * b_ms / ms:.1f} % "
+              f"of its bound), kernel + delta {with_delta:.4f} ms, plain "
+              f"{plain:.3f} ms, sdpa f32 backward ({backend}, pinned) "
+              f"{lib:.4f} ms: kernel + delta / sdpa {with_delta / lib:.2f}x; "
+              f"bound {b_ms:.4f} ms ({b_by}, 3 TF32 products at 495 "
+              f"TFLOP/s; the f32 CUDA-core bound {core_ms:.4f} ms); forward "
+              f"{fwd_ms:.4f} ms, with the lse store {fwd_lse_ms:.4f} ms")
+        rows.append(dict(shape=shape, max_abs_err=max(errs), ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, library_backend=backend,
+                         f32_core_bound_ms=core_ms, with_delta_ms=with_delta,
+                         forward_ms=fwd_ms, forward_with_lse_ms=fwd_lse_ms,
+                         forward_o_max_abs_err=o_err,
+                         forward_lse_max_abs_err=lse_err))
+        del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    # d = 40: padded to 64 for both kernels, the zero columns' gradients
+    # dropped
+    B, nq, nk, h, d = F32_BWD_PADDED
+    leaves = [rand((B, n, h, d), g, torch.float32).requires_grad_()
+              for n in (nq, nk, nk)]
+    do = rand((B, nq, h, d), g, torch.float32)
+    kernels.reset_launches()
+    att.multi_head_attention(*leaves).backward(do)
+    padded = {k: v for k, v in kernels.launches.items() if v}
+    plain = [x.detach().clone().requires_grad_() for x in leaves]
+    att.attention_plain(*plain, d ** -0.5).backward(do)
+    errs = []
+    for a, b, name in zip(leaves, plain, "qkv"):
+        err = (a.grad - b.grad).abs().max().item()
+        lim = 1e-4 * b.grad.abs().max().item()
+        print(f"[f32 bwd] d = 40 through the padding, d{name}: max_abs_err "
+              f"{err:.3e} (limit {lim:.3e})")
+        check(a.grad.shape == b.grad.shape and err <= lim,
+              f"[f32 bwd] padded d{name}: err {err}")
+        errs.append(err)
+    check(padded == {"flash_attn_f32": 1, "flash_attn_f32_bwd": 1},
+          f"[f32 bwd] padded call launches {padded}")
+    return rows, {"rows": [dict(shape=f"{B}x{nq}x{h}x{d}",
+                                max_abs_err=max(errs))], "launches": 1}
+
+
+def gsm_tiny_scene(dev, seed=0):
+    """A small scene for card-against-CPU checks: ground, a wall and 1,200
+    points in a 0.5 m grid, two cameras at 32x48 looking +x, the top rows
+    sky, a depth prior on part of the frame."""
+    from infinicube_tpu_torch.grid.build import grid_from_points
+    rng = np.random.default_rng(seed)
+    h, w = 32, 48
+    ground = np.stack([rng.uniform(1, 15, 800), rng.uniform(-6, 6, 800),
+                       rng.uniform(0, 0.3, 800)], -1)
+    wall = np.stack([np.full(400, 12.0), rng.uniform(-6, 6, 400),
+                     rng.uniform(0, 4, 400)], -1)
+    pts = torch.tensor(np.concatenate([ground, wall])[None],
+                       dtype=torch.float32, device=dev)
+    grid = grid_from_points(pts, torch.ones((1, 1200), dtype=torch.bool,
+                                            device=dev), 0.5, 0.25,
+                            capacity=2048)
+    T = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    T[:, :3, 0], T[:, :3, 1], T[:, :3, 2] = [0, -1, 0], [0, 0, -1], [1, 0, 0]
+    T[0, :3, 3], T[1, :3, 3] = [0, 0, 1.5], [1.0, 0.5, 1.5]
+    K = np.array([[40.0, 0, w / 2], [0, 40.0, h / 2], [0, 0, 1]], np.float32)
+    masks = np.ones((2, h, w, 4), np.float32)
+    masks[:, :8, :, 0] = 0.0
+    depth = np.zeros((2, h, w, 1), np.float32)
+    depth[:, 16:, 10:30] = rng.uniform(2, 12, (2, 16, 20, 1))
+    masks[..., 3] = depth[..., 0] > 0
+    arrays = dict(images=rng.uniform(size=(2, h, w, 3)), masks=masks,
+                  Ks=np.stack([K, K]), cam_to_worlds=T, depth_prior=depth)
+    return {"grid": grid, **{k: torch.tensor(np.asarray(a),
+                                             dtype=torch.float32, device=dev)
+                             for k, a in arrays.items()}}
+
+
+def gsm_grad_check(kernels, gsm):
+    """Phase 33 (c): the tiny GSM's ``gsm_loss`` and every parameter's
+    gradient, card (K4, K4-dgrad, K6, ``flash_attn_f32`` and its backward)
+    against the CPU (plain versions), one random init: both branches on
+    the depth-prior scene, and the voxel branch off (there the pixel branch
+    and its attention carry the gradient). Each gradient within 2e-3 of its
+    largest CPU value, with a floor of 1e-3 of the largest gradient for the
+    tensors whose gradient is zero or rounding noise."""
+    from infinicube_tpu_torch.models.gsm.encoders import UnifiedEncoderConfig
+    from infinicube_tpu_torch.models.gsm.loss import GSMLossConfig, gsm_loss
+    from infinicube_tpu_torch.models.gsm.pixel_branch import \
+        PixelBranchConfig
+    from infinicube_tpu_torch.models.gsm.sky import SkyConfig
+    from infinicube_tpu_torch.models.gsm.voxel_branch import \
+        VoxelBranchConfig
+    from infinicube_tpu_torch.weights.from_jax import gsm_from_jax
+    base = dict(
+        encoder=UnifiedEncoderConfig(conv_width=16),
+        voxel=VoxelBranchConfig(f_maps=16, levels=2, gaussians_per_voxel=2),
+        pixel=PixelBranchConfig(width=8, dims=(1, 2), gs_per_pixel=1),
+        sky=SkyConfig(embed_dim=32, num_layers=1, num_heads=2, patch=8),
+        dense_dims=(40, 32, 16), dense_ijk_min=(0, -16, -2),
+        render_tile_capacity=64)
+    for kind, kw in (("joint", {}), ("pixel", dict(use_voxel_branch=False))):
+        cfg = gsm.GSMConfig(**base, **kw)
+        grads, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = gsm.GSM(cfg, device=dev)
+            model.load_state_dict(gsm_from_jax(random_gsm_tree(model, 41)))
+            batch = gsm_tiny_scene(dev)
+            kernels.reset_launches()
+            out = model(batch)
+            valid = batch["masks"][..., 0] * batch["masks"][..., 2] > 0
+            loss, _ = gsm_loss(GSMLossConfig(), out["render"],
+                               batch["images"], valid, out["sky_mask"],
+                               gaussians=out["gaussians"])
+            loss.backward()
+            losses[dev] = loss.item()
+            grads[dev] = {k: torch.zeros_like(p) if p.grad is None
+                          else p.grad for k, p in model.named_parameters()}
+            launches = {k: v for k, v in kernels.launches.items() if v}
+        floor = 1e-3 * max(g.abs().max().item() for g in grads["cpu"].values())
+        worst, carried = 0.0, 0
+        for name, ref in grads["cpu"].items():
+            got = grads["cuda"][name].cpu()
+            scale = max(ref.abs().max().item(), floor)
+            carried += ref.abs().max().item() > floor
+            worst = max(worst, (got - ref).abs().max().item() / scale)
+        print(f"[gsm grad] {kind}: loss card {losses['cuda']:.6f} cpu "
+              f"{losses['cpu']:.6f}; {len(grads['cpu'])} gradients, "
+              f"{carried} above the floor, worst max-abs "
+              f"{worst:.3e} of its scale (limit 2e-3); card launches "
+              f"{launches}")
+        check(abs(losses["cuda"] - losses["cpu"]) <=
+              2e-3 * abs(losses["cpu"]), f"[gsm grad] {kind}: losses")
+        check(worst <= 2e-3, f"[gsm grad] {kind}: worst {worst}")
+        want = ({"sparse_conv_f32", "sparse_conv_f32_dgrad",
+                 "sparse_conv_f32_wgrad"} if kind == "joint" else set()) | \
+            {"flash_attn_f32", "flash_attn_f32_bwd"}
+        check(set(launches) == want, f"[gsm grad] {kind}: launches "
+              f"{launches}")
+
+
+def gsm_train_main_path(kernels):
+    """Phase 33 (a): ``train.main`` on ``configs/train_gsm.yaml`` with the
+    random LPIPS, 3 steps: finite losses, no skipped step, exact launches
+    per step, no plain version called, the JSONL log, the final checkpoint
+    read back. Returns the path's launches."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.models.gsm.model import GSMConfig
+    from infinicube_tpu_torch.ops import attention as att
+    from infinicube_tpu_torch.ops import window_conv as ws
+    from infinicube_tpu_torch.training import loop
+    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gsm_")
+    per_step, undo = counting_steps(kernels, loop)
+    plain_calls = []
+    plains = (ws.sparse_conv_plain, ws.sparse_conv_bwd_plain,
+              att.attention_plain, att.attention_bwd_plain)
+
+    def no_plain(*a, **kw):
+        plain_calls.append(1)
+        raise RuntimeError("a plain version was called on the card")
+
+    ws.sparse_conv_plain = ws.sparse_conv_bwd_plain = no_plain
+    att.attention_plain = att.attention_bwd_plain = no_plain
+    want = gsm_step_launches(kernels, GSMConfig(), 2)
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_cli.main(
+            [os.path.join(ROOT, "configs", "train_gsm.yaml"), "--name",
+             "smoke", "--logdir", tmp, "--exec",
+             f"max_steps={GSM_TRAIN_STEPS}", "log_every=1",
+             f"ckpt_dir={tmp}/ck", "lpips_checkpoint=random"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in state.params.values())
+        logs = [json.loads(line) for line in
+                open(os.path.join(tmp, "smoke.jsonl"))]
+        print(f"[gsm train] {n_params:,} parameters (the release GSMConfig, "
+              f"f32), {GSM_TRAIN_STEPS} steps on the CLI's synthetic scene "
+              f"(2 views of 64x96, LPIPS random) through train.main in "
+              f"{wall:.1f} s (model build, batches, steps and the final "
+              f"checkpoint), peak {peak:.2f} GiB")
+        check(n_params == 18_880_213, f"{n_params} parameters")
+        check([r["step"] for r in logs] == list(range(1, GSM_TRAIN_STEPS + 1)),
+              f"JSONL log {logs}")
+        for r, delta in zip(logs, per_step):
+            print(f"[gsm train] step {r['step']}: loss {r['loss']:.4f} "
+                  f"(rgb l1 {r['rgb_l1']:.4f}, ssim {r['ssim']:.4f}, alpha l1 "
+                  f"{r['alpha_l1']:.4f}, lpips {r['perceptual']:.4f}), psnr "
+                  f"{r['psnr']:.3f}, grad_finite {r['grad_finite']:.0f}, "
+                  f"{r['steps_per_sec']:.3f} steps/s; launches "
+                  f"{ {k: v for k, v in delta.items() if v} }")
+            check(math.isfinite(r["loss"]) and r["grad_finite"] == 1.0,
+                  f"step {r['step']}: {r}")
+            check(delta == want, f"step {r['step']} launches {delta}, want "
+                  f"{want}")
+        check(len(per_step) == GSM_TRAIN_STEPS, f"{len(per_step)} steps")
+        check(not plain_calls, "a plain version ran on the card")
+        check(state.step == GSM_TRAIN_STEPS and state.num_nan_skips == 0,
+              f"step {state.step}, {state.num_nan_skips} skipped")
+        moved = [k for k, p in state.params.items()
+                 if not torch.equal(p.detach(), state.ema.params[k])]
+        print(f"[gsm train] {len(moved)} of {len(state.params)} parameter "
+              f"tensors moved in {GSM_TRAIN_STEPS} steps (the pixel "
+              f"branch's and the sky's gradients are zero on this scene: "
+              f"its masks make no pixel midground and none sky)")
+        check(any(k.startswith("voxel_branch.") for k in moved) and
+              any(k.startswith("encoder.") for k in moved),
+              f"moved {sorted(moved)[:5]}")
+        mgr = CheckpointManager(os.path.join(tmp, "ck"))
+        sd = mgr.restore()
+        same = all(torch.equal(sd["params"][k], p.detach())
+                   for k, p in state.params.items())
+        print(f"[gsm train] final checkpoint: "
+              f"{os.path.getsize(mgr._path(GSM_TRAIN_STEPS)) / 1e6:.1f} MB, "
+              f"parameters read back {'identical' if same else 'DIFFER'}")
+        check(same and sd["step"] == GSM_TRAIN_STEPS, "checkpoint differs")
+    finally:
+        undo()
+        ws.sparse_conv_plain, ws.sparse_conv_bwd_plain, \
+            att.attention_plain, att.attention_bwd_plain = plains
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[gsm train] main path launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def gsm_train_scene(dev):
+    """benchmarks/bench_gsm_train.py's scene, built with the port: 200,000
+    points (road, two walls, objects) in a 65,536-slot grid at 0.4 m, 3
+    views of 480x704 looking +x from 1.8 m up, 2 m apart."""
+    from infinicube_tpu_torch.grid.build import grid_from_points
+    rng = np.random.default_rng(0)
+    n = 200_000
+    road = np.stack([rng.uniform(0, 80, n // 2), rng.uniform(-20, 20, n // 2),
+                     rng.normal(0, 0.1, n // 2)], -1)
+    walls = np.stack([rng.uniform(0, 80, n // 4),
+                      np.sign(rng.normal(size=n // 4)) *
+                      rng.normal(16, 0.3, n // 4),
+                      rng.uniform(0, 10, n // 4)], -1)
+    objs = rng.normal(0, 1.0, (n // 4, 3)) + \
+        np.stack([rng.uniform(5, 70, n // 4), rng.uniform(-12, 12, n // 4),
+                  np.full(n // 4, 1.0)], -1)
+    pts = np.concatenate([road, walls, objs]).astype(np.float32)
+    V, (h, w) = GSM_TRAIN_VIEWS, GSM_TRAIN_HW
+    K = np.array([[420.0, 0, w / 2], [0, 420, h / 2], [0, 0, 1]], np.float32)
+    T = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    T[:, :3, 0], T[:, :3, 1], T[:, :3, 2] = [0, -1, 0], [0, 0, -1], [1, 0, 0]
+    for i in range(V):
+        T[i, :3, 3] = [2.0 * i, 0, 1.8]
+    grid = grid_from_points(torch.from_numpy(pts)[None].to(dev),
+                            torch.ones((1, n), dtype=torch.bool, device=dev),
+                            0.4, 0.2, capacity=1 << 16)
+    images = rng.uniform(size=(V, h, w, 3)).astype(np.float32)
+    return {"grid": grid, "images": torch.from_numpy(images).to(dev),
+            "masks": torch.ones((V, h, w, 4), device=dev),
+            "Ks": torch.from_numpy(np.stack([K] * V)).to(dev),
+            "cam_to_worlds": torch.from_numpy(T).to(dev),
+            "depth_prior": torch.zeros((V, h, w, 1), device=dev)}
+
+
+def gsm_train_time(kernels):
+    """Phase 33 (b): the release-scale step of bench_gsm_train.py's scene
+    in f32 (its dense-lookup bounds, LPIPS random at the 224 crop, EMA on):
+    one warm-up, then 3 steps each split into batch (the scene's grid and
+    tensors), forward (model and loss), backward and optimizer + EMA, with
+    exact launches; steps/s, peak memory; one step under the profiler; one
+    XUnet view chunk (the 3 views) forward and backward with PyTorch's own
+    convolutions (the port's), with cuDNN's own choice throughout, and
+    with cuDNN in the backward only (a context around the forward alone)."""
+    from torch.func import functional_call
+
+    from infinicube_tpu_torch.models.gsm import pixel_branch as pb
+    from infinicube_tpu_torch.models.gsm.loss import GSMLossConfig, gsm_loss
+    from infinicube_tpu_torch.models.gsm.lpips import load_lpips
+    from infinicube_tpu_torch.models.gsm.model import GSM, GSMConfig
+    from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
+                                                     grads_finite)
+    cfg = GSMConfig()
+    cfg = dataclasses.replace(cfg, voxel=dataclasses.replace(
+        cfg.voxel, dense_lookup_bounds=GSM_TRAIN_BOUNDS))
+    model = GSM(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.init_params(gen)
+    lpips = load_lpips("random", "cuda")
+    tcfg = TrainConfig()
+    state = TrainState.create(tcfg, dict(model.named_parameters()))
+    params = state.params
+    lcfg = GSMLossConfig()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def forward(b):
+        out = functional_call(model, params, (b,))
+        valid = b["masks"][..., 0] * b["masks"][..., 2] > 0
+        return out, gsm_loss(lcfg, out["render"], b["images"], valid,
+                             out["sky_mask"], gaussians=out["gaussians"],
+                             lpips=lpips, generator=gen)
+
+    def optimize():
+        finite = grads_finite([p.grad for p in params.values()
+                               if p.grad is not None])
+        torch.nn.utils.clip_grad_value_(list(params.values()),
+                                        tcfg.grad_clip_value)
+        state.opt.step()
+        state.ema.update(params, tcfg.ema_decay, apply=finite)
+        return finite
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        b, t_batch = timed(lambda: gsm_train_scene("cuda"))
+        (out, (loss, m)), t_fwd = timed(lambda: forward(b))
+        _, t_bwd = timed(loss.backward)
+        finite, t_opt = timed(optimize)
+        return dict(batch=t_batch, forward=t_fwd, backward=t_bwd,
+                    optimizer=t_opt), loss.item(), finite, out, m
+
+    want = gsm_step_launches(kernels, cfg, GSM_TRAIN_VIEWS)
+    split, loss, finite, out, _ = step()               # warm-up
+    g = out["gaussians"]
+    print(f"[gsm train time] release scene: {int(out['render']['rgb'].shape[0])}"
+          f" views of {GSM_TRAIN_HW[0]}x{GSM_TRAIN_HW[1]}, "
+          f"{int(g['valid'].sum()):,} valid gaussians of {len(g['valid']):,};"
+          f" warm-up step {sum(split.values()):.1f} ms, loss {loss:.4f}")
+    del out, g
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(GSM_TRAIN_STEPS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        split, loss, finite, out, m = step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(kernels.launches)
+        del out
+        print(f"[gsm train time] step {i}: {walls[-1]:.1f} ms (" +
+              ", ".join(f"{k} {v:.1f}" for k, v in split.items()) +
+              f"), loss {loss:.4f} (lpips {float(m['perceptual']):.4f}), "
+              f"finite {finite}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        check(math.isfinite(loss) and finite, f"step {i}: loss {loss}")
+        check(counts == want, f"step {i} launches {counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mean = sum(walls) / len(walls)
+    print(f"[gsm train time] {mean:.1f} ms a step ({1e3 / mean:.3f} "
+          f"steps/s), peak {peak:.2f} GiB")
+    profile(step, "GSM train step (release scene)")
+    # one XUnet view chunk (the 3 views), forward and backward
+    unet = model.pixel_branch.unet
+    x = torch.rand((GSM_TRAIN_VIEWS, *GSM_TRAIN_HW, 5), device="cuda")
+
+    def fwd_bwd(backward_only_cudnn=False):
+        ctx = pb.without_cudnn() if backward_only_cudnn else \
+            contextlib.nullcontext()
+        with ctx:
+            y = unet(x)
+        y.square().mean().backward()
+
+    for p in unet.parameters():
+        p.grad = None
+    own = cuda_ms(fwd_bwd, 1, 3)
+    with pb.xunet_cudnn():
+        lib = cuda_ms(fwd_bwd, 1, 3)
+        mixed = cuda_ms(lambda: fwd_bwd(True), 1, 3)
+    print(f"[gsm train time] one XUnet view chunk ({GSM_TRAIN_VIEWS} x "
+          f"{GSM_TRAIN_HW[0]}x{GSM_TRAIN_HW[1]}) forward + backward: "
+          f"{own:.1f} ms with PyTorch's own convolutions throughout (the "
+          f"port), {lib:.1f} ms with cuDNN's own choice throughout, "
+          f"{mixed:.1f} ms with cuDNN in the backward only (TF32 off)")
+    del model, state, params, lpips, unet, x
+    torch.cuda.empty_cache()
+    return dict(step_ms=mean, peak_gib=peak, xunet_own_ms=own,
+                xunet_cudnn_ms=lib, xunet_cudnn_backward_ms=mixed)
+
+
+def gsm_train(kernels, att):
+    """Phases 32-33. Returns the summary entry of ``flash_attn_f32_bwd``,
+    its padded call's launches and the GSM trainer path's launches."""
+    from infinicube_tpu_torch.models.gsm import model as gsm
+    t0 = time.perf_counter()
+    # ---- 32. the f32 attention backward against its plain version ------
+    rows, padded = f32_bwd_checks(kernels, att)
+    print(f"[gsm train] phase 32 done at {time.perf_counter() - t0:.1f} s")
+    # ---- 33. the GSM trainer ------------------------------------------
+    launches = gsm_train_main_path(kernels)
+    gsm_train_time(kernels)
+    gsm_grad_check(kernels, gsm)
+    print(f"[gsm train] phase 33 done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return entry("flash_attn_f32_bwd",
+                 "infinicube_tpu_torch/csrc/flash_attention_f32_bwd.cu",
+                 "infinicube_tpu/ops/attention.py:72", rows, 0), padded, \
+        launches
 
 
 def wan_serve(kernels, att, fa):
@@ -3750,6 +4270,7 @@ def main() -> int:
         gsm_attn, gsm_k4, stage3_launches = stage3(kernels, att, world_path)
     finally:
         shutil.rmtree(world_dir, ignore_errors=True)
+    f32_bwd, f32_bwd_padded, gsm_train_launches = gsm_train(kernels, att)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -3758,6 +4279,8 @@ def main() -> int:
     report.update(vae_report)
     report.update(int8_report)
     report.update(f32_report)
+    report["flash_attn_f32_bwd"] = f32_bwd
+    padding["flash_attn_f32_bwd"] = f32_bwd_padded
     # the GSM's shapes beside each kernel's own (phase 28)
     for name, rows in (("flash_attn_f32", gsm_attn),
                        ("sparse_conv_f32", gsm_k4)):
@@ -3767,7 +4290,8 @@ def main() -> int:
     paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
              "diffusion_train": train_launches, "vae_train": vae_launches,
              **int8_paths, "stage1_f32": f32_launches,
-             "stage2": stage2_launches, "stage3": stage3_launches}
+             "stage2": stage2_launches, "stage3": stage3_launches,
+             "gsm_train": gsm_train_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

@@ -10,7 +10,9 @@
 //   heads of 64). It computes softmax(q k^T * sm_scale) v to f32 accuracy:
 //   f32 logits, an online softmax with an f32 running max and sum, f32 PV.
 //   [B, N, h, d] strided views, Nq != Nk allowed, keys >= Nk masked, d = 64,
-//   96 or 128.
+//   96 or 128. On request it also stores each row's natural log-sum-exp
+//   (f32 [B, h, Nq], one store a row), which its backward,
+//   flash_attn_f32_bwd (flash_attention_f32_bwd.cu), takes.
 //
 // What bounds it: 4*Nq*Nk*d f32 operations a (batch, head) against
 // (2 Nq + 2 Nk)*d*4 bytes: operations. On the CUDA cores (67 TFLOP/s) the
@@ -71,6 +73,7 @@ constexpr int kRows = 128;       // query rows of a work item
 constexpr int kThreads = 384;    // warpgroups 0, 1 consume, 2 produces
 constexpr int kRing = 196608;    // bytes of shared memory for the ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // registers a thread after the hand-over (as K2): the producer warpgroup
 // keeps 24, each consumer takes 240, from the pool of a 168-register launch
 constexpr int kProducerRegs = 24, kConsumerRegs = 240, kLaunchRegs = 168;
@@ -205,6 +208,7 @@ struct F32Args {
   float* o;             // [B, nq, H, D] by element strides so (one range)
   float* part_o;        // [S, BH, nq, D] unnormalized, or null
   float* part_ml;       // [S, BH, nq, 2] (base-2 row max, row sum), or null
+  float* lse;           // [BH, nq] natural log-sum-exp, or null
   int H, BH, nq, nk, q_tiles, splits, per_split, n_items;
   Strides sq, so;
   float scale_log2;
@@ -415,6 +419,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         float* ob = a.o + b * a.so.b + h * a.so.h;
         base[0] = ob + ra * a.so.n;
         base[1] = ob + rb * a.so.n;
+        if (a.lse != nullptr && q == 0) {
+          if (ra < a.nq)
+            a.lse[(long long)bh * a.nq + ra] = (m[0] + log2f(l[0])) * kLn2;
+          if (rb < a.nq)
+            a.lse[(long long)bh * a.nq + rb] = (m[1] + log2f(l[1])) * kLn2;
+        }
       } else {
         float* po = a.part_o + ((long long)sp * a.BH + bh) * a.nq * D;
         base[0] = po + (long long)ra * D;
@@ -442,13 +452,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // o = (sum_s 2^(m_s - M) O_s) / (sum_s 2^(m_s - M) l_s), M = max_s m_s,
-// summed in order s = 0 .. S-1; four columns a thread.
+// summed in order s = 0 .. S-1; four columns a thread. With lse, the row's
+// natural log-sum-exp (M + log2 of the sum of l) ln 2 too.
 template <int D>
 __global__ void __launch_bounds__(256)
     f32_attn_combine_kernel(const float* __restrict__ part_o,
                             const float* __restrict__ part_ml,
-                            float* __restrict__ o, int H, int nq, int splits,
-                            long long rows, Strides so) {
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int H, int nq, int splits, long long rows,
+                            Strides so) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * (D / 4)) return;
   const long long row = i / (D / 4);  // bh * nq + r
@@ -471,6 +483,7 @@ __global__ void __launch_bounds__(256)
     acc.w += p.w * f;
   }
   const float inv = 1.f / den;
+  if (lse != nullptr && c == 0) lse[row] = (mx + log2f(den)) * kLn2;
   const int bh = static_cast<int>(row / nq), r = static_cast<int>(row % nq);
   *reinterpret_cast<float4*>(o + bh / H * so.b + r * so.n + bh % H * so.h +
                              c) =
@@ -512,8 +525,9 @@ int key_tile(int d) { return d == 64 ? 64 : d == 96 ? 32 : 16; }
 template <int D>
 cudaError_t launch_f32(cudaStream_t st, const float* q, const float* k,
                        const float* v, float* o, float* ks, float* vt,
-                       float* part_o, float* part_ml, int B, int H, int nq,
-                       int nk, int splits, int per_split, int sms,
+                       float* part_o, float* part_ml, float* lse, int B,
+                       int H, int nq, int nk, int splits, int per_split,
+                       int sms,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        float scale_log2) {
   using T = F32Tile<D>;
@@ -554,6 +568,7 @@ cudaError_t launch_f32(cudaStream_t st, const float* q, const float* k,
   a.o = o;
   a.part_o = part_o;
   a.part_ml = part_ml;
+  a.lse = lse;
   a.H = H;
   a.BH = BH;
   a.nq = nq;
@@ -575,7 +590,7 @@ cudaError_t launch_f32(cudaStream_t st, const float* q, const float* k,
   const long long threads = rows * (D / 4);
   f32_attn_combine_kernel<D>
       <<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
-          part_o, part_ml, o, H, nq, splits, rows, so);
+          part_o, part_ml, o, lse, H, nq, splits, rows, so);
   return cudaGetLastError();
 }
 
@@ -594,9 +609,11 @@ int flash_attn_f32_splits(int B, int H, int nq, int nk, int d, int sms) {
 // (batch, token, head), 16-byte aligned. Scratch from the caller: ks f32
 // [2, B*H, nk, d], vt f32 [2, B*H, d, nk rounded up to 8] and, with more
 // than one key range (flash_attn_f32_splits), part_o f32 [splits, B*H, nq,
-// d] and part_ml f32 [splits, B*H, nq, 2], else null.
+// d] and part_ml f32 [splits, B*H, nq, 2], else null. lse: f32 [B, H, nq]
+// contiguous for each row's natural log-sum-exp, or null.
 int flash_attn_f32(const void* q, const void* k, const void* v, void* o,
-                   void* ks, void* vt, void* part_o, void* part_ml, int B,
+                   void* ks, void* vt, void* part_o, void* part_ml, void* lse,
+                   int B,
                    int H, int nq, int nk, int d, int splits, int sms,
                    long long q_sb, long long q_sn, long long q_sh,
                    long long k_sb, long long k_sn, long long k_sh,
@@ -623,16 +640,20 @@ int flash_attn_f32(const void* q, const void* k, const void* v, void* o,
   auto vtp = static_cast<float*>(vt);
   auto po = static_cast<float*>(part_o);
   auto pml = static_cast<float*>(part_ml);
+  auto lp = static_cast<float*>(lse);
   cudaError_t e;
   if (d == 128)
-    e = launch_f32<128>(st, qp, kp, vp, op, ksp, vtp, po, pml, B, H, nq, nk,
-                        splits, per_split, sms, sq, sk, sv, so, scale_log2);
+    e = launch_f32<128>(st, qp, kp, vp, op, ksp, vtp, po, pml, lp, B, H, nq,
+                        nk, splits, per_split, sms, sq, sk, sv, so,
+                        scale_log2);
   else if (d == 96)
-    e = launch_f32<96>(st, qp, kp, vp, op, ksp, vtp, po, pml, B, H, nq, nk,
-                       splits, per_split, sms, sq, sk, sv, so, scale_log2);
+    e = launch_f32<96>(st, qp, kp, vp, op, ksp, vtp, po, pml, lp, B, H, nq,
+                       nk, splits, per_split, sms, sq, sk, sv, so,
+                       scale_log2);
   else
-    e = launch_f32<64>(st, qp, kp, vp, op, ksp, vtp, po, pml, B, H, nq, nk,
-                       splits, per_split, sms, sq, sk, sv, so, scale_log2);
+    e = launch_f32<64>(st, qp, kp, vp, op, ksp, vtp, po, pml, lp, B, H, nq,
+                       nk, splits, per_split, sms, sq, sk, sv, so,
+                       scale_log2);
   return static_cast<int>(e);
 }
 

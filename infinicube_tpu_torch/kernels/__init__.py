@@ -45,8 +45,11 @@ SIGNATURES = {
         "flash_attn_bf16_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
     "flash_attention_f32": {
-        "flash_attn_f32": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_F, _P],
+        "flash_attn_f32": [_P] * 9 + [_I] * 7 + [_L] * 12 + [_F, _P],
         "flash_attn_f32_splits": [_I] * 6,
+    },
+    "flash_attention_f32_bwd": {
+        "flash_attn_f32_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
     },
     "dense_conv": {"conv3x3x3_bf16": [_P] * 5 + [_I] * 8 + [_P],
                    "conv3x3x3_bf16_splits": [_I] * 7,
@@ -218,15 +221,17 @@ def flash_attn_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   sm_scale: float) -> torch.Tensor:
+                   sm_scale: float, return_lse: bool = False):
     """softmax(q k^T * sm_scale) v to f32 accuracy, non-causal, on the
     tensor cores by the 3xTF32 split: q [B, Nq, h, d], k/v [B, Nk, h, d],
     f32 views with 16-byte aligned strides, d in {64, 96, 128}. Returns f32
-    [B, Nq, h, d]. One call launches the kernel's prologue (K's tf32 parts
-    and V's transposed ones, into scratch this wrapper allocates), the
-    kernel and, where the keys are split into ranges
-    (``f32_attn_splits``), the pass that combines them; it counts once.
-    Forward only: no backward kernel exists for it."""
+    [B, Nq, h, d] and, with ``return_lse``, also the natural log-sum-exp of
+    each row's scaled logits, f32 [B, h, Nq] (what ``flash_attn_f32_bwd``
+    needs; the kernel stores it only then). One call launches the kernel's
+    prologue (K's tf32 parts and V's transposed ones, into scratch this
+    wrapper allocates), the kernel and, where the keys are split into
+    ranges (``f32_attn_splits``), the pass that combines them; it counts
+    once."""
     _check_qkv(q, k, v, torch.float32, "flash_attn_f32")
     B, nq, h, d = q.shape
     nk = k.shape[1]
@@ -234,6 +239,8 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sms = _sm_count(dev)
     splits = f32_attn_splits(B, h, nq, nk, d, sms)
     o = torch.empty((B, nq, h, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, h, nq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     # one scratch buffer (each allocation costs the host time): K's parts
     # [2, B*h, nk, d], V's transposed [2, B*h, d, nk rounded up to 8] and,
     # with key ranges, their outputs [S, B*h, nq, d] and row statistics
@@ -249,10 +256,11 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         at += 4 * n
     ptrs += [None] * (4 - len(ptrs))
     _run("flash_attention_f32", "flash_attn_f32", dev, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), o.data_ptr(), *ptrs, B, h, nq, nk, d,
-         splits, sms, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+         k.data_ptr(), v.data_ptr(), o.data_ptr(), *ptrs,
+         lse.data_ptr() if return_lse else None, B, h, nq, nk, d, splits,
+         sms, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *o.stride()[:3], float(sm_scale))
-    return o
+    return (o, lse) if return_lse else o
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,6 +297,40 @@ def flash_attn_bf16_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          nq, k.shape[1], d, *q.stride()[:3], *k.stride()[:3],
          *v.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
          *dk.stride()[:3], *dv.stride()[:3], float(sm_scale))
+    return dq, dk, dv
+
+
+def flash_attn_f32_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, sm_scale: float):
+    """The gradients of ``flash_attn_f32``'s function to f32 accuracy (3xTF32
+    on the tensor cores). q, k, v as the forward took them; dout f32
+    [B, Nq, h, d] (the output's gradient), 16-byte aligned strides; lse f32
+    [B, h, Nq] as the forward stored it; delta f32 [B, h, Nq] = sum_d o *
+    dout. Returns (dq, dk, dv), f32, shaped like q, k, v, bit-identical
+    from run to run. One call launches the dK/dV kernel and the dQ kernel
+    and counts once."""
+    _check_qkv(q, k, v, torch.float32, "flash_attn_f32_bwd")
+    _check_cuda(q, dout, lse, delta)
+    B, nq, h, d = q.shape
+    if dout.shape != q.shape or dout.dtype != torch.float32:
+        raise ValueError(f"dout must be f32 {tuple(q.shape)}, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
+    _check_bnhd(dout, "dout", 4)
+    _check_dense(lse, "lse", (B, h, nq), torch.float32)
+    _check_dense(delta, "delta", (B, h, nq), torch.float32)
+    if B * h > 65535:
+        raise ValueError(f"too many (batch, head) pairs for one launch: "
+                         f"{B * h}")
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=q.device)
+                  for t in (q, k, v))
+    _run("flash_attention_f32_bwd", "flash_attn_f32_bwd", q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+         dv.data_ptr(), B, h, nq, k.shape[1], d, *q.stride()[:3],
+         *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+         float(sm_scale))
     return dq, dk, dv
 
 

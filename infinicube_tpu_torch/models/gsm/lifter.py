@@ -17,6 +17,7 @@ agrees with the CPU to rounding, not bit for bit."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from infinicube_tpu_torch.camera import projection as proj
 from infinicube_tpu_torch.grid.grid import Grid
@@ -147,8 +148,8 @@ def sample_image_features(points: torch.Tensor, feats: torch.Tensor,
     view sees a point). Views run one after another with a running max, so
     the peak is one view's [P, F]."""
     V, H, W, F = feats.shape
-    best = feats.new_full((points.shape[0], F), _NEG)
-    for K, pose, f in zip(Ks, cam_to_worlds, feats):
+
+    def per_view(best, K, pose, f):
         uv, _, valid = proj.project_points(points, pose, K, (H, W))
         # sanitize before any arithmetic: behind-camera points project to
         # inf / NaN uv, and their NaN bilinear weights would reach the
@@ -161,5 +162,15 @@ def sample_image_features(points: torch.Tensor, feats: torch.Tensor,
         g = (f[v0, u0] * (1 - du) * (1 - dv) + f[v0, u0 + 1] * du * (1 - dv)
              + f[v0 + 1, u0] * (1 - du) * dv + f[v0 + 1, u0 + 1] * du * dv)
         g = torch.where(valid[:, None], g, torch.full_like(g, _NEG))
-        best = torch.maximum(best, g)
+        return torch.maximum(best, g)
+
+    best = feats.new_full((points.shape[0], F), _NEG)
+    # with a gradient to record, each view is recomputed in the backward
+    # (the reference's jax.checkpoint of its per-view step), so one view's
+    # bilinear temporaries are live at a time there too
+    recompute = torch.is_grad_enabled() and \
+        (feats.requires_grad or points.requires_grad)
+    for K, pose, f in zip(Ks, cam_to_worlds, feats):
+        best = checkpoint(per_view, best, K, pose, f, use_reentrant=False) \
+            if recompute else per_view(best, K, pose, f)
     return torch.where(best > _NEG / 2, best, torch.zeros_like(best))

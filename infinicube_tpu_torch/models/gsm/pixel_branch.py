@@ -8,7 +8,9 @@ where there is one. ``decode_all`` makes every pixel emit gaussians (the
 dynamic-object pass). The UNet's bottleneck attention goes through
 ``ops.attention.multi_head_attention``: ``flash_attn_f32`` on the card in
 f32. The UNet runs ``view_chunk`` views at a time, every chunk with the
-same parameters, which bounds its full-resolution temporaries."""
+same parameters, which bounds its full-resolution temporaries. Its
+convolutions take PyTorch's own algorithms instead of cuDNN's, in the
+forward, the backward and the recompute alike (``XConv2d``)."""
 
 from __future__ import annotations
 
@@ -44,6 +46,77 @@ class PixelBranchConfig:
     depth_dropout: float = 0.5          # masked-depth patch dropout (train)
 
 
+@contextlib.contextmanager
+def without_cudnn():
+    """PyTorch's own convolutions (im2col and a cuBLAS product, in full f32
+    with TF32 off) in place of cuDNN's within the context: for f32 with
+    TF32 off cuDNN's heuristics pick FFT convolutions for some of the
+    XUnet's shapes, many times slower (``chip_smoke.py`` phase 31 times a
+    view chunk both ways, phase 33 a chunk's forward and backward)."""
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = prev
+
+
+# whether the XUnet's convolutions take cuDNN (``xunet_cudnn``)
+_XUNET_CUDNN = [False]
+
+
+@contextlib.contextmanager
+def xunet_cudnn(enabled: bool = True):
+    """Within the context the XUnet's convolutions (``XConv2d``) take
+    whatever ``torch.backends.cudnn`` allows, forward and backward, as any
+    ``Conv2d`` does; outside it they take PyTorch's own. For timing the two
+    on the card."""
+    prev = _XUNET_CUDNN[0]
+    _XUNET_CUDNN[0] = enabled
+    try:
+        yield
+    finally:
+        _XUNET_CUDNN[0] = prev
+
+
+class _Conv2dWithoutCudnn(torch.autograd.Function):
+    """``F.conv2d`` (groups 1) whose forward and backward both run without
+    cuDNN: the backward of a convolution chooses its algorithms when it
+    runs, after a context around the forward has closed."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        with without_cudnn():
+            y = F.conv2d(x, weight, bias, stride=stride, padding=padding)
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        stride, padding = ctx.conf
+        need = ctx.needs_input_grad
+        with without_cudnn():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, weight, [weight.shape[0]], [stride, stride],
+                list(padding), [1, 1], False, [0, 0], 1,
+                [need[0], need[1], need[2]])
+        return gx, gw, gb, None, None
+
+
+class XConv2d(Conv2d):
+    """``Conv2d`` for the XUnet: PyTorch's own convolutions in its forward
+    and its backward, unless within ``xunet_cudnn()``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _XUNET_CUDNN[0]:
+            return super().forward(x)
+        x, padding = self.same_pad(x)
+        return _Conv2dWithoutCudnn.apply(x, self.weight, self.bias,
+                                         self.stride, padding)
+
+
 class ResBlock2D(nn.Module):
     """XUnet ResnetBlock: GN -> silu -> 3x3 conv, twice, + skip (a 1x1
     conv when the widths differ); NCHW."""
@@ -51,10 +124,10 @@ class ResBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, device=None):
         super().__init__()
         self.GroupNorm_0 = nn.GroupNorm(8, in_ch, eps=EPS, device=device)
-        self.conv1 = Conv2d(in_ch, out_ch, 3, device=device)
+        self.conv1 = XConv2d(in_ch, out_ch, 3, device=device)
         self.GroupNorm_1 = nn.GroupNorm(8, out_ch, eps=EPS, device=device)
-        self.conv2 = Conv2d(out_ch, out_ch, 3, device=device)
-        self.skip = Conv2d(in_ch, out_ch, 1, device=device) \
+        self.conv2 = XConv2d(out_ch, out_ch, 3, device=device)
+        self.skip = XConv2d(in_ch, out_ch, 1, device=device) \
             if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,21 +155,6 @@ class SelfAttn2D(nn.Module):
         return x + nchw(self.out(o).reshape(B, H, W, C))
 
 
-@contextlib.contextmanager
-def without_cudnn():
-    """PyTorch's own convolutions (im2col and a cuBLAS product, in full f32
-    with TF32 off) in place of cuDNN's, around ``PixelBranch``'s UNet: for
-    f32 with TF32 off cuDNN's heuristics pick FFT convolutions for some of
-    the UNet's shapes, many times slower (``chip_smoke.py`` phase 31 times
-    a view chunk both ways)."""
-    prev = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.enabled = prev
-
-
 class UNet2D(nn.Module):
     """XUnet-structured 2D UNet: 7x7 stem, per-stage ResBlock stacks, a
     ResBlock -> attention -> ResBlock bottleneck, and an FPN-style
@@ -109,7 +167,7 @@ class UNet2D(nn.Module):
         w, dims = cfg.width, cfg.dims
         n = len(dims)
         kw = dict(device=device)
-        self.stem = Conv2d(in_ch, w, 7, **kw)
+        self.stem = XConv2d(in_ch, w, 7, **kw)
         ch = w
         skip_ch = []
         for i, m in enumerate(dims):
@@ -121,8 +179,8 @@ class UNet2D(nn.Module):
                                                       **kw))
             skip_ch.append(ch)
             if i < n - 1:
-                setattr(self, f"down{i}", Conv2d(ch, w * dims[i + 1], 3,
-                                                 stride=2, **kw))
+                setattr(self, f"down{i}", XConv2d(ch, w * dims[i + 1], 3,
+                                                  stride=2, **kw))
                 ch = w * dims[i + 1]
         self.mid1 = ResBlock2D(ch, ch, **kw)
         self.mid_attn = SelfAttn2D(ch, cfg.attn_heads, **kw)
@@ -130,7 +188,7 @@ class UNet2D(nn.Module):
         stage_ch = []
         for i in range(n - 1, -1, -1):
             if i < n - 1:
-                setattr(self, f"up{i}", Conv2d(ch, w * dims[i], 3, **kw))
+                setattr(self, f"up{i}", XConv2d(ch, w * dims[i], 3, **kw))
                 ch = w * dims[i]
             ch += skip_ch[i]
             for b in range(cfg.blocks_per_stage[i]):
@@ -142,10 +200,10 @@ class UNet2D(nn.Module):
             stage_ch.append(ch)
         if cfg.consolidate_upsample_fmaps:
             for j, c in enumerate(stage_ch):
-                setattr(self, f"cons{j}", Conv2d(c, w, 3, **kw))
+                setattr(self, f"cons{j}", XConv2d(c, w, 3, **kw))
             ch = w * len(stage_ch)
         self.GroupNorm_0 = nn.GroupNorm(8, ch, eps=EPS, **kw)
-        self.final = Conv2d(ch, cfg.out_dim, 3, **kw)
+        self.final = XConv2d(ch, cfg.out_dim, 3, **kw)
 
     def _block(self, name: str, h: torch.Tensor) -> torch.Tensor:
         mod = getattr(self, name)
@@ -210,9 +268,7 @@ class PixelBranch(nn.Module):
         V, H, W, _ = rgb.shape
         x = torch.cat([rgb, depth_prior, (depth_prior > 0).float()], -1)
         vc = cfg.view_chunk or V
-        with without_cudnn():
-            feats = torch.cat([self.unet(x[i:i + vc])
-                               for i in range(0, V, vc)])
+        feats = torch.cat([self.unet(x[i:i + vc]) for i in range(0, V, vc)])
         K = cfg.gs_per_pixel
         out = self.head(feats).reshape(V, H, W, K, 13)
         del feats

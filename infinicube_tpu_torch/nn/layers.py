@@ -89,14 +89,19 @@ class Conv2d(nn.Module):
             (features, in_features // groups, kernel, kernel), device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def same_pad(self, x: torch.Tensor):
+        """(x, padding): SAME padding as the conv's symmetric ``padding``
+        argument, or applied to x where it is uneven (padding 0 then)."""
         k, s = self.weight.shape[-1], self.stride
         (hl, hh), (wl, wh) = (same_padding(n, k, s) for n in x.shape[-2:])
         if hl != hh or wl != wh:
-            x = F.pad(x, (wl, wh, hl, hh))
-            hl = hh = wl = wh = 0
-        return F.conv2d(x, self.weight, self.bias, stride=s,
-                        padding=(hl, wl), groups=self.groups)
+            return F.pad(x, (wl, wh, hl, hh)), (0, 0)
+        return x, (hl, wl)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, padding = self.same_pad(x)
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=padding, groups=self.groups)
 
 
 class MultiHeadDotProductAttention(nn.Module):

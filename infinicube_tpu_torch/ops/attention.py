@@ -1,6 +1,6 @@
 """Attention for [B, N, heads, head_dim] tensors, forward and backward:
-kernels K2 and K5 (bf16) and ``flash_attn_f32`` on the card, the plain
-einsum versions on the CPU.
+kernels K2 and K5 (bf16) and ``flash_attn_f32`` and ``flash_attn_f32_bwd``
+(f32) on the card, the plain einsum versions on the CPU.
 
 Counterpart of ``infinicube_tpu/ops/attention.py``. There the library Pallas
 flash kernel serves long sequences on the TPU in the inputs' dtype, and its
@@ -12,9 +12,11 @@ also takes the rows' log-sum-exp from K2 and whose backward launches
 ``flash_attn_bf16_bwd`` (csrc/flash_attention_bwd.cu). An f32 CUDA tensor
 goes to ``flash_attn_f32`` (csrc/flash_attention_f32.cu: f32 logits, softmax
 and output, its products f32-accurate on the tensor cores by the 3xTF32
-split, its own arithmetic while PyTorch's library calls keep TF32 off),
-forward only: an f32 call on the card that needs a gradient raises, since
-no f32 backward kernel exists yet. The kernels take head dims 64, 96 and
+split, its own arithmetic while PyTorch's library calls keep TF32 off) and,
+when a gradient is asked for, through ``_FlashAttentionF32``, whose forward
+also takes the rows' log-sum-exp from that kernel and whose backward
+launches ``flash_attn_f32_bwd`` (csrc/flash_attention_f32_bwd.cu, 3xTF32
+too, a dK/dV and a dQ pass). The kernels take head dims 64, 96 and
 128; on the card a smaller head dim is zero-padded to the next of these
 (``pad_head_dim``) and the output sliced back, with the scale of the true
 head dim: the zero columns add nothing to QK^T and give zero output
@@ -116,6 +118,26 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class _FlashAttentionF32(torch.autograd.Function):
+    """``flash_attn_f32`` forward (keeping q, k, v, o and the log-sum-exp),
+    ``flash_attn_f32_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = kernels.flash_attn_f32(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = kernels.flash_attn_f32_bwd(
+            q, k, v, do, lse, attention_delta(o, do), ctx.scale)
+        return dq, dk, dv, None
+
+
 def pad_head_dim(x: torch.Tensor, dims=CARD_HEAD_DIMS) -> torch.Tensor:
     """x [..., d] zero-padded on its last axis to the smallest of ``dims``
     that holds d (x itself where d is one of them); raises above the
@@ -137,26 +159,22 @@ def _on_card(x: torch.Tensor) -> bool:
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q [B, Nq, h, d], k/v [B, Nk, h, d] -> [B, Nq, h, d], non-causal,
-    differentiable in q, k and v (on the card in bf16 only, d <= 128)."""
+    differentiable in q, k and v (on the card in bf16 and f32, d <= 128)."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     if _on_card(q):
         grad = torch.is_grad_enabled() and \
             (q.requires_grad or k.requires_grad or v.requires_grad)
-        if q.dtype == torch.float32 and grad:
-            raise NotImplementedError(
-                "f32 attention on the card is forward only: there is no "
-                "f32 flash-attention backward kernel (flash_attn_f32 has "
-                "no gradient); train in bf16 or call under "
-                "torch.no_grad()")
         # the padding is differentiable: its backward drops the zero
-        # columns' gradients, and the output's gradient reaches K5 with
-        # zero columns
+        # columns' gradients, and the output's gradient reaches the
+        # backward kernel with zero columns
         qp, kp, vp = (pad_head_dim(t) for t in (q, k, v))
-        if q.dtype == torch.float32:
+        f32 = q.dtype == torch.float32
+        if grad:
+            fn = _FlashAttentionF32 if f32 else _FlashAttention
+            out = fn.apply(qp, kp, vp, scale)
+        elif f32:
             out = kernels.flash_attn_f32(qp, kp, vp, scale)
-        elif grad:
-            out = _FlashAttention.apply(qp, kp, vp, scale)
         else:
             out = kernels.flash_attn_bf16(qp, kp, vp, scale)
         return out if qp is q else out[..., :d]

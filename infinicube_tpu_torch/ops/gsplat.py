@@ -26,6 +26,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from infinicube_tpu_torch.utils.casts import saturating_int32
 
@@ -253,8 +254,14 @@ def rasterize(proj: Projected, opacities: torch.Tensor, colors: torch.Tensor,
     local = torch.stack([lx.reshape(-1), ly.reshape(-1)], -1)  # [P, (x, y)]
     pix = (origin[:, None, :] + local[None]).float() + 0.5    # [T, P, 2]
 
-    outs = [_composite(tile_params[i:i + chunk], k_ok[i:i + chunk],
-                       pix[i:i + chunk]) for i in range(0, T, chunk)]
+    # with a gradient to record, each chunk is recomputed in the backward
+    # (the reference's jax.checkpoint of its tile block): the chunks'
+    # [c, K, P] intermediates are what would fill the memory
+    recompute = torch.is_grad_enabled() and tile_params.requires_grad
+    outs = [checkpoint(_composite, *a, use_reentrant=False) if recompute
+            else _composite(*a)
+            for a in ((tile_params[i:i + chunk], k_ok[i:i + chunk],
+                       pix[i:i + chunk]) for i in range(0, T, chunk))]
     out_c, out_a, out_d = (torch.cat(o) for o in zip(*outs))
 
     def untile(x):

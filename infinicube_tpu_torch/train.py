@@ -5,17 +5,20 @@ overrides (``ConfigArgumentParser``), model selection by the ``model:`` key,
 logger selection, checkpoint auto-resume. Runs on the card unless
 ``main(argv, device="cpu")``, with TF32 off (``utils/precision.py``).
 
-Ported so far: the voxel-diffusion trainer on the synthetic latent stream
-and the sparse-VAE trainer on the synthetic point stream (what the JAX CLI
-trains on when no ``data.root`` is configured). Real data (``data.root``: the
-Waymo clips, ``vae_batches``, ``diffusion_batches``, ``scale_by_std``) and
-the GSM trainer raise ``NotImplementedError``.
+Ported: the voxel-diffusion trainer on the synthetic latent stream, the
+sparse-VAE trainer on the synthetic point stream and the GSM trainer on its
+synthetic scene (what the JAX CLI trains on when no ``data.root`` is
+configured). Real data (``data.root``: the Waymo clips, ``vae_batches``,
+``diffusion_batches``, ``gsm_batches``, ``scale_by_std``) raises
+``NotImplementedError``.
 
 Usage:
   python -m infinicube_tpu_torch.train configs/train_diffusion.yaml \\
       --name myrun --exec batch_size=1 max_steps=3
   python -m infinicube_tpu_torch.train configs/train_vae.yaml \\
       --name myvae --exec max_steps=3 points_per_sample=200000
+  python -m infinicube_tpu_torch.train configs/train_gsm.yaml \\
+      --name mygsm --exec max_steps=3 lpips_checkpoint=random
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ from infinicube_tpu_torch.training.loop import LoopConfig, train
 from infinicube_tpu_torch.training.state import TrainConfig
 from infinicube_tpu_torch.utils.precision import set_float32_precision
 
-_WAITS = ("not ported yet: {what} (ROADMAP section 1, items 17 and 18: the "
-          "training data glue and the Waymo data path)")
+_WAITS = ("not ported yet: {what} (ROADMAP section 1, items 9 and 10: the "
+          "Waymo data path and the training data glue)")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -137,7 +140,78 @@ def build_vae(cfg: Config, device: torch.device):
 
 
 def build_gsm(cfg: Config, device: torch.device):
-    raise NotImplementedError(_WAITS.format(what="the GSM trainer"))
+    """(params, loss_fn, batches) of the GSM trainer: the release
+    ``GSMConfig()`` (f32) with the dense slot-volume lookup bounds of the
+    training crops, and the JAX CLI's synthetic scene (2,000 uniform points
+    in a 20 m cube as a 0.5 m grid of capacity 4,096, 2 views of 64x96 of
+    uniform colors), drawn from ``numpy.random.default_rng(0)`` in its
+    order (its first draw shapes the parameters and is not trained on, so
+    it is drawn and dropped here too). ``lpips_checkpoint``: None (the
+    gradient proxy), "random" (checkpoint-shaped random LPIPS weights) or
+    an ``.npz`` of the lpips library's state dict; the LPIPS weights are
+    frozen and stay out of the trained parameters."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from infinicube_tpu_torch.grid.build import grid_from_points
+    from infinicube_tpu_torch.models.gsm.loss import GSMLossConfig, gsm_loss
+    from infinicube_tpu_torch.models.gsm.lpips import load_lpips
+    from infinicube_tpu_torch.models.gsm.model import GSM, GSMConfig
+    if cfg.get_path("data.root"):
+        raise NotImplementedError(_WAITS.format(
+            what="GSM training on real data (data.root)"))
+    # training runs on per-sample crops (the same recentered +-(25.6, 25.6,
+    # 12.8) m cube as the VAE at 0.2 m voxels), so the conv plans can use
+    # the dense slot-volume lookup
+    gc = GSMConfig()
+    gc = dataclasses.replace(gc, voxel=dataclasses.replace(
+        gc.voxel, dense_lookup_bounds=((-132, -132, -68), (264, 264, 136))))
+    model = GSM(gc, device=device)
+    model.init_params(torch.Generator(device=device).manual_seed(
+        cfg.get_path("seed", 0)))
+    lcfg = GSMLossConfig(**cfg.get_path("gsm_loss", {}))
+    rng0 = np.random.default_rng(0)
+    V, h, w = 2, 64, 96
+    T = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    T[:, :3, 0] = [0, -1, 0]
+    T[:, :3, 1] = [0, 0, -1]
+    T[:, :3, 2] = [1, 0, 0]
+    T[:, :3, 3] = [0, 0, 2]
+    K = np.array([[80.0, 0, w / 2], [0, 80, h / 2], [0, 0, 1]], np.float32)
+
+    def make_batch():
+        pts = torch.from_numpy(rng0.uniform(0, 20, (1, 2000, 3)).astype(
+            np.float32)).to(device)
+        images = rng0.uniform(size=(V, h, w, 3)).astype(np.float32)
+        grid = grid_from_points(pts, torch.ones((1, 2000), dtype=torch.bool,
+                                                device=device), 0.5, 0.25,
+                                capacity=4096)
+        return {
+            "grid": grid,
+            "images": torch.from_numpy(images).to(device),
+            "masks": torch.ones((V, h, w, 4), device=device),
+            "Ks": torch.from_numpy(np.stack([K, K])).to(device),
+            "cam_to_worlds": torch.from_numpy(T).to(device),
+            "depth_prior": torch.zeros((V, h, w, 1), device=device),
+        }
+
+    make_batch()
+    lp_ckpt = cfg.get_path("lpips_checkpoint", None)
+    lpips = load_lpips(lp_ckpt, device) if lp_ckpt else None
+
+    def loss_fn(params, generator, batch):
+        out = functional_call(model, params, (batch,))
+        valid = batch["masks"][..., 0] * batch["masks"][..., 2] > 0
+        return gsm_loss(lcfg, out["render"], batch["images"], valid,
+                        out["sky_mask"], gaussians=out["gaussians"],
+                        lpips=lpips, generator=generator)
+
+    def batches():
+        while True:
+            yield make_batch()
+
+    return dict(model.named_parameters()), loss_fn, batches()
 
 
 BUILDERS = {"diffusion": build_diffusion, "vae": build_vae, "gsm": build_gsm}

@@ -200,6 +200,23 @@ def gsm_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return _convert(_flatten_attention(_params(tree)))
 
 
+def gsm_train_state_from_jax(params: dict, mu: dict, nu: dict, count: int,
+                             step: int, num_nan_skips: int,
+                             ema_params: dict | None = None,
+                             ema_step: int = 0) -> dict:
+    """``diffusion_train_state_from_jax`` for the GSM trainer: every tree is
+    re-laid out by ``gsm_from_jax``, so gradients and Adam moments given in
+    the flax layout compare name by name with the port's."""
+    return _train_state_from_jax(gsm_from_jax, params, mu, nu, count, step,
+                                 num_nan_skips, ema_params, ema_step)
+
+
+def lpips_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """LPIPS params (``models/gsm/lpips.py``): the VGG's HWIO kernels ->
+    ``net.conv{idx}.weight`` OIHW, the heads ``lin{k}`` as they are."""
+    return _convert(_params(tree))
+
+
 def gsm_to_jax(model: torch.nn.Module) -> dict:
     """The inverse of ``gsm_from_jax``: the flax parameter tree
     ({"params": ...}, numpy) of a port GSM or of one of its submodules.

@@ -2,12 +2,13 @@
 
 The reference serves attention in the inputs' dtype (an f32 einsum with an
 f32 softmax, or the library Pallas kernel in f32 on the TPU). On the card
-``multi_head_attention`` sends f32 tensors to ``flash_attn_f32``, forward
-only, and bf16 ones to K2 / K5. The kernels run only on the card, so here
-the card's branch is taken with CPU tensors and each kernel replaced by its
-plain version: what is checked is the dispatch by dtype and gradient, the
-refusal of an f32 gradient, and an f32 UNet whose SelfAttention3D blocks
-and convs all take the card's branch, against the JAX UNet."""
+``multi_head_attention`` sends f32 tensors to ``flash_attn_f32`` (and, with
+a gradient, its backward to ``flash_attn_f32_bwd``), and bf16 ones to K2 /
+K5. The kernels run only on the card, so here the card's branch is taken
+with CPU tensors and each kernel replaced by its plain version: what is
+checked is the dispatch by dtype and gradient, and an f32 UNet whose
+SelfAttention3D blocks and convs all take the card's branch, against the
+JAX UNet."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,10 +33,16 @@ def card(monkeypatch):
     conv), with plain kernels that record what reached them."""
     calls = []
 
-    def f32(q, k, v, sm_scale):
+    def f32(q, k, v, sm_scale, return_lse=False):
         assert q.dtype == k.dtype == v.dtype == torch.float32
         calls.append(("flash_attn_f32", q.shape[1], k.shape[1], q.shape[-1]))
-        return att.attention_plain(q, k, v, sm_scale)
+        return att.attention_plain(q, k, v, sm_scale, return_lse)
+
+    def f32_bwd(q, k, v, do, lse, delta, sm_scale):
+        calls.append(("flash_attn_f32_bwd", q.shape[1], k.shape[1],
+                      q.shape[-1]))
+        o = att.attention_plain(q, k, v, sm_scale)
+        return att.attention_bwd_plain(q, k, v, o, do, lse, sm_scale)
 
     def bf16(q, k, v, sm_scale, return_lse=False):
         assert q.dtype == torch.bfloat16
@@ -50,6 +57,7 @@ def card(monkeypatch):
 
     monkeypatch.setattr(att, "_on_card", lambda x: True)
     monkeypatch.setattr(kernels, "flash_attn_f32", f32)
+    monkeypatch.setattr(kernels, "flash_attn_f32_bwd", f32_bwd)
     monkeypatch.setattr(kernels, "flash_attn_bf16", bf16)
     monkeypatch.setattr(kernels, "flash_attn_bf16_bwd", bf16_bwd)
     monkeypatch.setattr(dc, "_on_card", lambda x: True)
@@ -78,15 +86,22 @@ def test_f32_goes_to_the_f32_kernel(card, nq, nk):
 
 
 def test_f32_with_a_gradient_raises_on_the_card(card):
-    """No f32 backward kernel exists: the call says so instead of falling
-    back, and nothing is launched."""
-    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(1))
-    with pytest.raises(NotImplementedError, match="f32"):
-        att.multi_head_attention(q, k, v)
-    assert card == []
-    with torch.no_grad():
-        att.multi_head_attention(q, k, v)
-    assert card == [("flash_attn_f32", 37, 21, 64)]
+    """An f32 call on the card that needs a gradient launches
+    ``flash_attn_f32`` once (with the lse) and, in the backward,
+    ``flash_attn_f32_bwd`` once, and its gradients are those of the plain
+    attention under autograd; nothing reaches K2 or K5."""
+    arrays = _qkv(1)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays)
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 37, 2, 16)).astype(np.float32))
+    att.multi_head_attention(q, k, v).backward(do)
+    assert card == [("flash_attn_f32", 37, 21, 64),
+                    ("flash_attn_f32_bwd", 37, 21, 64)]
+    pq, pk, pv = (torch.from_numpy(a).requires_grad_() for a in arrays)
+    att.attention_plain(pq, pk, pv, 0.25).backward(do)
+    for got, ref in ((q.grad, pq.grad), (k.grad, pk.grad),
+                     (v.grad, pv.grad)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
 
 
 def test_bf16_keeps_k2_and_k5(card):

@@ -19,6 +19,7 @@ from infinicube_tpu_torch.grid.grid import make_grid
 from infinicube_tpu_torch.utils import buffers as tb
 from tests.test_buffers import (BUILDING, CAR, ROAD, camera_looking_forward,
                                 make_scene)
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 T = 4
 

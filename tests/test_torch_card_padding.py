@@ -1,7 +1,8 @@
 """Head dims and widths that the card's kernels do not take, checked on the
 CPU.
 
-K2, K5 and ``flash_attn_f32`` take head dims 64, 96 and 128, K1 and K8 64
+K2, K5, ``flash_attn_f32`` and ``flash_attn_f32_bwd`` take head dims 64,
+96 and 128, K1 and K8 64
 and 128, K4 and K6 widths that are multiples of 4; the reference serves any.
 So ``multi_head_attention`` and ``mha_quantized`` zero-pad the head dim on
 the card and slice the output, and ``window_sparse_conv`` zero-pads the
@@ -37,7 +38,8 @@ def _plain(t):
 @pytest.fixture
 def card(monkeypatch):
     """The attention's card branch for CPU tensors, with plain stand-ins
-    for K2, K5 and ``flash_attn_f32`` that record the head dim they get."""
+    for K2, K5, ``flash_attn_f32`` and ``flash_attn_f32_bwd`` that record
+    the head dim they get."""
     calls = []
 
     def check(name, q, k, v):
@@ -45,9 +47,14 @@ def card(monkeypatch):
         assert k.shape[-1] == v.shape[-1] == q.shape[-1]
         calls.append((name, q.shape[-1]))
 
-    def f32(q, k, v, sm_scale):
+    def f32(q, k, v, sm_scale, return_lse=False):
         check("flash_attn_f32", q, k, v)
-        return att.attention_plain(q, k, v, sm_scale)
+        return att.attention_plain(q, k, v, sm_scale, return_lse)
+
+    def f32_bwd(q, k, v, do, lse, delta, sm_scale):
+        check("flash_attn_f32_bwd", q, k, v)
+        o = att.attention_plain(q, k, v, sm_scale)
+        return att.attention_bwd_plain(q, k, v, o, do, lse, sm_scale)
 
     def bf16(q, k, v, sm_scale, return_lse=False):
         check("flash_attn_bf16", q, k, v)
@@ -62,6 +69,7 @@ def card(monkeypatch):
 
     monkeypatch.setattr(att, "_on_card", lambda x: True)
     monkeypatch.setattr(kernels, "flash_attn_f32", f32)
+    monkeypatch.setattr(kernels, "flash_attn_f32_bwd", f32_bwd)
     monkeypatch.setattr(kernels, "flash_attn_bf16", bf16)
     monkeypatch.setattr(kernels, "flash_attn_bf16_bwd", bf16_bwd)
     return calls
@@ -116,11 +124,12 @@ def test_card_attention_refuses_head_dims_above_128(card):
     with torch.no_grad(), pytest.raises(ValueError, match="128"):
         att.multi_head_attention(q, q, q)
     assert card == []
-    # f32 with a gradient still raises, whatever the head dim
-    with pytest.raises(NotImplementedError, match="f32"):
-        att.multi_head_attention(*(torch.zeros((1, 8, 1, 16),
+    # f32 with a gradient too, before anything is launched
+    with pytest.raises(ValueError, match="128"):
+        att.multi_head_attention(*(torch.zeros((1, 8, 1, 160),
                                                requires_grad=True)
                                    for _ in range(3)))
+    assert card == []
     # the CPU's plain version serves any head dim
     card_free = att.attention_plain(q, q, q, 160 ** -0.5)
     assert card_free.shape == q.shape

@@ -22,6 +22,7 @@ from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
 from infinicube_tpu_torch.ops import dense_conv
 from infinicube_tpu_torch.weights.from_jax import unet_from_jax
 from tests.test_torch_sparse_vae import random_params
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 # two levels, 64 channels: the level-0 convs (4 x 8 x 32 cube) are int8,
 # in_conv (C = 16) and the level-1 convs (2 x 4 x 16) stay full precision

@@ -23,6 +23,7 @@ from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
 from infinicube_tpu_torch.weights.from_jax import unet_from_jax
 from tests.test_torch_sparse_vae import random_params
 from tests.test_torch_voxel_diffusion import SMALL, conditions
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 PROB = 0.5      # so that a batch of 2 mixes dropped and kept conditions
 

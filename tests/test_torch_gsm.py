@@ -89,18 +89,24 @@ def port_batch(b):
     return out
 
 
-@pytest.fixture(scope="module")
-def run():
+def prior_batch():
+    """tests/test_gsm.py's batch with a nonzero depth prior on part of the
+    frame (the buffer depth) and the foreground from the grid where there
+    is depth: the rest of the non-sky frame is midground, the pixel
+    branch's."""
     b = make_batch()
-    # a nonzero depth prior on part of the frame (the buffer depth)
     depth = np.zeros(b["images"].shape[:3] + (1,), np.float32)
     depth[:, 16:, 10:30] = np.random.default_rng(1).uniform(
         2, 12, (2, 16, 20, 1))
     b["depth_prior"] = jnp.asarray(depth)
-    # foreground from the grid where there is depth: the rest of the
-    # non-sky frame is midground, the pixel branch's
     b["masks"] = b["masks"].at[..., 3].set(jnp.asarray(depth[..., 0] > 0,
                                                        jnp.float32))
+    return b
+
+
+@pytest.fixture(scope="module")
+def run():
+    b = prior_batch()
     jm = JGSM(tiny_cfg())
     params = random_params(jm, b)
     want = gsm_apply_jit(jm, params, b)

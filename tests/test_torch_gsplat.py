@@ -168,3 +168,62 @@ def test_empty_scene_renders_background():
         background=torch.tensor([0.2, 0.4, 0.6]))
     torch.testing.assert_close(color[10, 10], torch.tensor([0.2, 0.4, 0.6]))
     assert alpha.abs().max() == 0 and depth.abs().max() == 0
+
+
+@pytest.mark.parametrize("remat_views", [False, True])
+def test_recomputed_chunks_and_views_are_bit_identical(monkeypatch,
+                                                        remat_views):
+    """With a gradient to record, ``rasterize`` recomputes each tile chunk
+    in the backward (and ``render_views(remat=True)`` each view): the
+    renders and every gradient are bit for bit those of a pass that keeps
+    everything (the recompute replaced by a plain call). Chunks of 5 tiles,
+    so the 12 tiles of a 48 x 64 view make 3 of them, one ragged."""
+    from infinicube_tpu_torch.models.gsm import renderer
+    means, quats, scales, op, col, view, K = map(torch.from_numpy,
+                                                 _scene(300, 11))
+    c2w = torch.linalg.inv(view)
+    gauss = dict(means=means, quats=quats, scales=scales, opacities=op,
+                 colors=col, valid=torch.ones(300, dtype=torch.bool))
+    real, real_checkpoint = tg.rasterize, tg.checkpoint
+    recomputed = []
+
+    def counted(fn, *a, **kw):
+        recomputed.append(fn.__name__)
+        return real_checkpoint(fn, *a, **kw)
+
+    def run(recompute: bool):
+        monkeypatch.setattr(tg, "rasterize", lambda *a, **kw: real(
+            *a, **{**kw, "chunk": 5}))
+        monkeypatch.setattr(renderer, "rasterize", tg.rasterize)
+        if recompute:
+            monkeypatch.setattr(tg, "checkpoint", counted)
+            monkeypatch.setattr(renderer, "checkpoint", counted)
+        else:
+            monkeypatch.setattr(tg, "checkpoint",
+                                lambda fn, *a, **kw: fn(*a))
+            monkeypatch.setattr(renderer, "checkpoint",
+                                lambda fn, *a, **kw: fn(*a))
+        leaves = {k: v.clone().requires_grad_() for k, v in gauss.items()
+                  if k != "valid"}
+        out = renderer.render_views({**leaves, "valid": gauss["valid"]},
+                                    torch.stack([K, K]),
+                                    torch.stack([c2w, c2w]), (48, 64),
+                                    tile_capacity=32,
+                                    remat=remat_views and recompute)
+        loss = (out["rgb"] * torch.linspace(0, 1, 3)).sum() + \
+            out["alpha"].sum() + 0.1 * out["depth"].sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        monkeypatch.undo()
+        return out, grads
+
+    out_a, grads_a = run(True)
+    # 3 chunks a view, twice where the view's recompute runs them again
+    assert recomputed.count("one_view") == (2 if remat_views else 0)
+    assert recomputed.count("_composite") == (12 if remat_views else 6)
+    out_b, grads_b = run(False)
+    for k in ("rgb", "alpha", "depth"):
+        assert torch.equal(out_a[k], out_b[k]), k
+    assert float(out_a["alpha"].mean()) > 0.1
+    for ga, gb in zip(grads_a, grads_b):
+        assert torch.equal(ga, gb)
+        assert float(ga.abs().sum()) > 0

@@ -23,6 +23,7 @@ from infinicube_tpu_torch.inference import guidance_buffer_generation as tgb
 from infinicube_tpu_torch.utils.buffers import DynamicObjects
 from infinicube_tpu_torch.utils.world_grid import WorldGrid
 from tests.test_torch_buffers import _hold_buffers
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 ROAD, BUILDING, CAR = 18, 14, 1
 TARS = ("depth", "instance", "semantic", "pose", "intrinsic",

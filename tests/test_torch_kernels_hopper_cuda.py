@@ -463,13 +463,23 @@ def test_f32_attention_takes_strided_views(gen):
 
 
 def test_f32_attention_with_a_gradient_raises(gen):
-    """No f32 backward kernel: an f32 call on the card that needs a gradient
-    raises and launches nothing; other dtypes raise as before."""
-    q = _rand((1, 64, 2, 64), gen, torch.float32).requires_grad_()
+    """An f32 call on the card that needs a gradient launches
+    ``flash_attn_f32`` and, in the backward, ``flash_attn_f32_bwd`` once
+    each, and its gradients are the plain attention's within the f32 gate;
+    other dtypes raise as before."""
+    leaves = [_rand((1, 64, 2, 64), gen, torch.float32).requires_grad_()
+              for _ in range(3)]
+    do = _rand((1, 64, 2, 64), gen, torch.float32)
     before = dict(kernels.launches)
-    with pytest.raises(NotImplementedError, match="f32"):
-        multi_head_attention(q, q, q)
-    assert kernels.launches == before
+    multi_head_attention(*leaves).backward(do)
+    assert kernels.launches["flash_attn_f32"] == \
+        before["flash_attn_f32"] + 1
+    assert kernels.launches["flash_attn_f32_bwd"] == \
+        before["flash_attn_f32_bwd"] + 1
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    attention_plain(*plain, 64 ** -0.5).backward(do)
+    for got, want in zip(leaves, plain):
+        _f32_gate(got.grad, want.grad)
     x = _rand((1, 64, 2, 64), gen, torch.float16)
     with pytest.raises(ValueError):
         multi_head_attention(x, x, x)

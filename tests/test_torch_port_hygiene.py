@@ -19,6 +19,17 @@ PORT = ROOT / "infinicube_tpu_torch"
 FORBIDDEN = ("jax", "flax", "infinicube_tpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch thread for the module: the suite runs files in parallel
+    workers, and a thread per core in each of them oversubscribes the
+    machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _OnCard(torch.Tensor):
     """A CPU tensor that claims to lie on the card (so are its results)."""
     is_cuda = True

@@ -16,6 +16,7 @@ from infinicube_tpu.ops import raycast as jr
 from infinicube_tpu_torch.grid.build import grid_from_ijk
 from infinicube_tpu_torch.grid.ops import occupancy_dense
 from infinicube_tpu_torch.ops import raycast as tr
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 
 def _t(x):

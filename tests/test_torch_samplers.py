@@ -15,6 +15,7 @@ from infinicube_tpu_torch.models.diffusion.schedulers import (
     NoiseSchedule, ddpm_sample, dpmpp_sample, karras_timesteps,
     sampling_timesteps)
 from tests.test_torch_voxel_diffusion import encode_both, models
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-3, rtol=2e-3)
 SHAPE = (2, 3, 4, 5, 4)

@@ -18,6 +18,7 @@ from infinicube_tpu_torch.grid.build import grid_from_ijk
 from infinicube_tpu_torch.nn.sparse import SparseConv3d, conv_plan
 from infinicube_tpu_torch.ops.window_conv import (rev_w, sparse_conv_bwd_plain,
                                                   window_sparse_conv)
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 CAP = 1024
 BOUNDS = ((-16, -16, -16), (32, 32, 32))

@@ -19,6 +19,18 @@ from infinicube_tpu_torch.ops.window_conv import (gather_neighbor_features,
                                                   sparse_conv_plain,
                                                   tf32_truncate)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch thread for the module: the suite runs files in parallel
+    workers, and a thread per core in each of them oversubscribes the
+    machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BOUNDS = ((-16, -16, -16), (32, 32, 32))
 GATE = 1e-4
 

@@ -15,6 +15,7 @@ from infinicube_tpu.models.vae import sunet as jsunet
 from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
                                                    SparseVAEConfig)
 from infinicube_tpu_torch.weights.from_jax import sparse_vae_from_jax
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 SMALL = dict(f_maps=8, c_dim=8, sem_embed_dim=4, neck_dims=(8, 8, 8),
              neck_ijk_min=(-4, -4, -4), dense_lookup_ijk_min=(-18, -18, -10),

@@ -33,6 +33,17 @@ from infinicube_tpu_torch.ops.window_conv import tf32_split
 GATE = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch thread for the module: the suite runs files in parallel
+    workers, and a thread per core in each of them oversubscribes the
+    machine many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _err(got, ref):
     return ((got.double() - ref).abs().max() / ref.abs().max()).item()
 

@@ -316,8 +316,8 @@ def test_train_cli_reads_the_release_yaml(tmp_path):
 
 
 @pytest.mark.parametrize("overrides", [
-    ["model=vae", "data.root=/data/waymo"], ["model=gsm"],
-    ["data.root=/data/waymo"]])
+    ["model=vae", "data.root=/data/waymo"],
+    ["model=gsm", "data.root=/data/waymo"], ["data.root=/data/waymo"]])
 def test_train_cli_names_what_is_not_ported(tmp_path, overrides):
     from infinicube_tpu_torch.train import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -26,6 +26,7 @@ from infinicube_tpu_torch.weights.from_jax import (sparse_vae_from_jax,
 from tests.test_torch_vae_train import (LATENT, SMALL, ZERO_GRAD, _jax_batch,
                                         _jax_forward, _models, _noise,
                                         _port_batch, _scene)
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 
 def _port_grads(port, batch, noise):

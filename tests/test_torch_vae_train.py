@@ -32,6 +32,7 @@ from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
 from infinicube_tpu_torch.training.state import TrainConfig, TrainState
 from infinicube_tpu_torch.weights.from_jax import sparse_vae_from_jax
 from tests.test_torch_sparse_vae import random_params
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 SMALL = dict(f_maps=8, c_dim=8, sem_embed_dim=4, neck_dims=(8, 8, 16),
              neck_ijk_min=(-4, -4, -8), capacities=(1024, 512, 256),

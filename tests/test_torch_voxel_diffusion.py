@@ -18,6 +18,7 @@ from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
 from infinicube_tpu_torch.models.diffusion.sdedit import warp_prev_latents
 from infinicube_tpu_torch.weights.from_jax import unet_from_jax
 from tests.test_torch_sparse_vae import random_params
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 SMALL = dict(cube_dims=(8, 8, 8), cube_ijk_min=(-4, -4, -4),
              model_channels=32, channel_mult=(1, 2), attention_ds=(2,),

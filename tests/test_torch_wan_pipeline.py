@@ -25,6 +25,7 @@ from infinicube_tpu_torch.models.wan.pipeline import (WanPipelineConfig,
 from infinicube_tpu_torch.models.wan.t5 import T5Config
 from infinicube_tpu_torch.models.wan.vae3d import VideoVAEConfig
 from infinicube_tpu_torch.weights.from_jax import pipeline_from_jax
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 # the tiny towers of tests/test_wan.py, f32
 DIT = dict(dim=64, ffn_dim=128, num_layers=2, num_heads=4, in_channels=4,

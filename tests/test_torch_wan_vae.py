@@ -17,6 +17,7 @@ from infinicube_tpu_torch.models.wan.vae3d import (VideoVAE, VideoVAEConfig,
                                                    decode_tiled_host,
                                                    encode_tiled_host)
 from infinicube_tpu_torch.weights.from_jax import vae_from_jax
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 TINY = dict(latent_channels=4, base_channels=8, channel_mult=(1, 2),
             num_res_blocks=1)

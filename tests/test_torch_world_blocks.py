@@ -24,6 +24,7 @@ from infinicube_tpu_torch.utils.world_grid import (WorldGrid,
                                                    connected_component_filter)
 from tests.test_torch_voxel_diffusion import SMALL, jax_noise, models
 from tests.test_torch_world_generation import scene
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 STEPS = 2
 CFG = dict(ddim_steps=STEPS, max_map_points=256, max_boxes=4,

@@ -20,6 +20,7 @@ from infinicube_tpu_torch.weights.from_jax import sparse_vae_from_jax
 from tests.test_torch_sparse_vae import SMALL as VAE_SMALL
 from tests.test_torch_sparse_vae import jax_params as vae_jax_params
 from tests.test_torch_voxel_diffusion import jax_noise, models
+from tests.test_torch_gsm import one_torch_thread  # noqa: F401
 
 STEPS = 2
 
