@@ -234,6 +234,31 @@ Then training the GSM (stage 3's models freed first):
     only; the tiny GSM's loss and every gradient, card against CPU, with
     both branches and with the voxel branch off.
 
+Then training the GSM in ``gsm_bf16_config`` (the voxel, pixel and sky
+branches in bf16, as ``benchmarks/bench_gsm_train.py`` runs it):
+
+34. kernel checks: ``sparse_conv_bf16`` (forward and, counted as dgrad,
+    the input gradient) and ``sparse_conv_bf16_wgrad`` against
+    ``sparse_conv_plain`` and ``sparse_conv_bwd_plain`` at the voxel
+    branch's seven shapes on the three levels of the bench's 65,536-slot
+    grid (64->64, 64->128, 128->128, 128->256, 256->256, 384->128,
+    192->64): every element within one bf16 ulp (floor 2^-16 of
+    max|ref|), the bit-equal share printed, two runs bit-identical, timed
+    beside the plain versions and their bounds (bf16 operations at 989
+    TFLOP/s against the bytes); 30->62 through the padding with a
+    gradient; a poisoned batch element; then K2 with its lse store and K5
+    in bf16 at the pixel branch's training bottleneck [3, 5,280, 4, 64]
+    at their gates, twice bit-identical, beside
+    ``scaled_dot_product_attention``;
+35. the release-scale step of the bench's scene in ``gsm_bf16_config``:
+    3 steps after a warm-up split as phase 33's, exact launches a step
+    (the bf16 sparse-conv kernels 10 each, K2 2 with the remat recompute,
+    K5 1, no f32 sparse conv or attention), finite losses and gradients,
+    f32 gaussians, steps/s, peak memory, one step under
+    ``torch.profiler``; then a tiny bf16 GSM's loss and every gradient,
+    card against CPU from one init, both branches and the voxel branch
+    off: each parameter group's gradient at cosine >= 0.999.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -827,6 +852,19 @@ def tf32x3_bounds(flops, nbytes):
     return b_ms, b_by, bound_ms([(flops, PEAK_F32)], nbytes)[0]
 
 
+def sparse_conv_bytes(kind, active, cap, F, Fo, elt, pack):
+    """The bytes a sparse conv of ``cap`` slots, ``active`` of them voxels,
+    must move with ``elt``-byte features: the gathered operand over the
+    active rows only (a padding slot is never a neighbour), the dense
+    output over every slot, the nbr table, and ``pack`` bytes of weights
+    read (forward, dx) or of dW written. ``kind``: "fwd" reads feats [., F]
+    and writes [cap, Fo]; "dx" reads g [., Fo] and writes [cap, F]; "dw"
+    reads feats and g over the active rows."""
+    rows = {"fwd": active * F + cap * Fo, "dx": active * Fo + cap * F,
+            "dw": active * (F + Fo)}[kind]
+    return elt * rows + 4 * 27 * cap + pack
+
+
 def k4_bounds(pairs, F, Fo, nbytes):
     """K4's bounds (``tf32x3_bounds``) for 2 * pairs * F * Fo f32
     operations."""
@@ -868,8 +906,8 @@ def k4_checks(kernels, mods, dec, vcfg):
                               2, 5)
         plain = cuda_ms(lambda: ws.sparse_conv_plain(plan, feats, w), 1, 2)
         flops, b_ms, b_by, f32_ms = k4_bounds(
-            pairs, F, Fo, 4 * (cap * F + 2 * 27 * F * Fo + cap * Fo +
-                               27 * cap))
+            pairs, F, Fo, sparse_conv_bytes(
+                "fwd", int(grid.mask.sum()), cap, F, Fo, 4, 8 * 27 * F * Fo))
         print(f"[k4] {shape}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
               f"TFLOP/s of f32 work, {100 * b_ms / ms:.1f} % of its bound), "
               f"with the pack made per call {call_ms:.3f} ms, plain "
@@ -964,6 +1002,9 @@ def stage1(kernels, att, dense_conv, world_path):
 # training the voxel diffusion model
 # ---------------------------------------------------------------------------
 
+# the sparse conv's bf16 kernels, which only the GSM in gsm_bf16_config runs
+BF16_SPARSE = {"sparse_conv_bf16": 0, "sparse_conv_bf16_dgrad": 0,
+               "sparse_conv_bf16_wgrad": 0}
 # per train step at batch 1 without remat: every 3x3x3 conv forward (48), its
 # input gradient except in_conv's (47), every SelfAttention3D forward and
 # backward (10 each); remat runs the 22 ResBlocks' two convs once more
@@ -974,7 +1015,7 @@ STEP_LAUNCHES = {"conv3x3x3_bf16": 48, "conv3x3x3_bf16_dgrad": 47,
                  "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
                  **{k: 0 for k in INT8_PROLOGUE},
                  "conv3x3x3_f32": 0, "flash_attn_f32": 0,
-                 "flash_attn_f32_bwd": 0}
+                 "flash_attn_f32_bwd": 0, **BF16_SPARSE}
 REMAT_EXTRA_K3 = 44
 TRAIN_STEPS = 3
 
@@ -1427,7 +1468,7 @@ VAE_STEP_LAUNCHES = {"sparse_conv_f32": 24, "sparse_conv_f32_dgrad": 24,
                      "conv3x3x3_int8": 0, "flash_attn_int8qkv": 0,
                      "conv3x3x3_f32": 0, "flash_attn_f32": 0,
                      "flash_attn_f32_bwd": 0,
-                     **{k: 0 for k in INT8_PROLOGUE}}
+                     **{k: 0 for k in INT8_PROLOGUE}, **BF16_SPARSE}
 VAE_POINTS = 200_000
 
 
@@ -1514,11 +1555,11 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
         check(torch.equal(dw, dw2), f"K6 at {shape}: two runs differ")
         check(bool((dx[~grid.mask] == 0).all()), f"{shape}: dx padding rows")
         del dw64, dw2, out, ref_out
-        nbytes = 4 * (cap * F + cap * Fo + 27 * F * Fo + 27 * cap)
-        flops, b_ms, b_by, f32_ms = k4_bounds(pairs, F, Fo,
-                                              nbytes + 4 * 27 * F * Fo)
-        # K6 reads feats, nbr and g and writes dw: the same bytes as K4
-        _, w_ms, w_by, w_f32_ms = k4_bounds(pairs, F, Fo, nbytes)
+        active = int(grid.mask.sum())
+        flops, b_ms, b_by, f32_ms = k4_bounds(pairs, F, Fo, sparse_conv_bytes(
+            "dx", active, cap, F, Fo, 4, 8 * 27 * F * Fo))
+        _, w_ms, w_by, w_f32_ms = k4_bounds(pairs, F, Fo, sparse_conv_bytes(
+            "dw", active, cap, F, Fo, 4, 4 * 27 * F * Fo))
         # the rows of the 32-row chunks K6 walks: per tap, those with a
         # present neighbour in some row (the chunks restart with each range
         # of rows, and the ranges are multiples of 32)
@@ -3039,19 +3080,31 @@ RASTER_GAUSSIANS = 200_000
 RASTER_CROWD = 3_000              # gaussians in one tile, over its capacity
 
 
+def gsm_kernels(cfg):
+    """The GSM's sparse-conv and attention kernels for its dtypes: K4 or its
+    bf16 twin (the voxel branch's dtype), ``flash_attn_f32`` or K2 (the
+    pixel branch's)."""
+    bf16 = torch.bfloat16
+    return ("sparse_conv_bf16" if cfg.voxel.dtype == bf16 else
+            "sparse_conv_f32",
+            "flash_attn_bf16" if cfg.pixel.dtype == bf16 else
+            "flash_attn_f32")
+
+
 def gsm_launches(cfg, views, forwards=1):
-    """Exact K4 and ``flash_attn_f32`` launches of ``forwards`` GSM forwards
-    at ``views`` views: two sparse convs per SparseResBlock (an encoder
-    block per level, a decoder block per level but the coarsest), and per
-    UNet view chunk the bottleneck attention plus the per-stage ones."""
+    """Exact sparse-conv and attention launches (``gsm_kernels``) of
+    ``forwards`` GSM forwards at ``views`` views: two sparse convs per
+    SparseResBlock (an encoder block per level, a decoder block per level
+    but the coarsest), and per UNet view chunk the bottleneck attention
+    plus the per-stage ones."""
     levels = min(cfg.voxel.levels, cfg.grid_levels)
     k4 = 2 * (2 * levels - 1) if cfg.use_voxel_branch else 0
     p = cfg.pixel
     chunks = -(-views // (p.view_chunk or views))
     attn = chunks * (1 + 2 * sum(p.self_attn_per_stage)) \
         if cfg.use_pixel_branch else 0
-    return {"sparse_conv_f32": forwards * k4,
-            "flash_attn_f32": forwards * attn}
+    conv, att = gsm_kernels(cfg)
+    return {conv: forwards * k4, att: forwards * attn}
 
 
 def stage3_folder(gb, bf, world_path, tmp):
@@ -3201,8 +3254,9 @@ def stage3_kernel_rows(kernels, att, wc, grid):
                 x, plan.nbr, pack, plan.violations), 2, 5)
             plain = cuda_ms(lambda: wc.sparse_conv_plain(plan, x, w), 1, 2)
             flops, b_ms, b_by, f32_ms = k4_bounds(
-                pairs, F, fo, 4 * (gl.capacity * (F + fo + 27) +
-                                   2 * 27 * F * fo))
+                pairs, F, fo, sparse_conv_bytes(
+                    "fwd", int(gl.mask.sum()), gl.capacity, F, fo, 4,
+                    8 * 27 * F * fo))
             print(f"[stage3] K4 {shape}: kernel {ms:.3f} ms "
                   f"({100 * b_ms / ms:.1f} % of its bound), plain "
                   f"{plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}; f32 "
@@ -3663,16 +3717,16 @@ GSM_TRAIN_BOUNDS = ((-8, -64, -8), (224, 128, 48))
 
 def gsm_step_launches(kernels, cfg, views):
     """Exact launches of one GSM train step: the forward's (K4 and the
-    bottleneck attention, ``gsm_launches``), every sparse conv's input and
-    weight gradient (K4-dgrad, K6), the attention once more where its remat
-    block is recomputed in the backward, and its backward; nothing else."""
+    bottleneck attention, ``gsm_launches``, or their bf16 twins), every
+    sparse conv's input and weight gradient (K4-dgrad, K6), the attention
+    once more where its remat block is recomputed in the backward, and its
+    backward; nothing else."""
+    conv, att = gsm_kernels(cfg)
     fwd = gsm_launches(cfg, views)
-    k4, attn = fwd["sparse_conv_f32"], fwd["flash_attn_f32"]
+    k4, attn = fwd[conv], fwd[att]
     return {k: 0 for k in kernels.launches} | {
-        "sparse_conv_f32": k4, "sparse_conv_f32_dgrad": k4,
-        "sparse_conv_f32_wgrad": k4,
-        "flash_attn_f32": attn * (2 if cfg.pixel.unet_remat else 1),
-        "flash_attn_f32_bwd": attn}
+        conv: k4, conv + "_dgrad": k4, conv + "_wgrad": k4,
+        att: attn * (2 if cfg.pixel.unet_remat else 1), att + "_bwd": attn}
 
 
 def f32_bwd_checks(kernels, att):
@@ -3999,26 +4053,31 @@ def gsm_train_scene(dev):
             "depth_prior": torch.zeros((V, h, w, 1), device=dev)}
 
 
-def gsm_train_time(kernels):
-    """Phase 33 (b): the release-scale step of bench_gsm_train.py's scene
-    in f32 (its dense-lookup bounds, LPIPS random at the 224 crop, EMA on):
-    one warm-up, then 3 steps each split into batch (the scene's grid and
-    tensors), forward (model and loss), backward and optimizer + EMA, with
-    exact launches; steps/s, peak memory; one step under the profiler; one
-    XUnet view chunk (the 3 views) forward and backward with PyTorch's own
-    convolutions (the port's), with cuDNN's own choice throughout, and
-    with cuDNN in the backward only (a context around the forward alone)."""
+def gsm_train_time(kernels, bf16=False):
+    """Phase 33 (b), and with ``bf16`` phase 35: the release-scale step of
+    bench_gsm_train.py's scene in f32, or in ``gsm_bf16_config`` as the
+    bench runs it (its dense-lookup bounds, LPIPS random at the 224 crop,
+    EMA on): one warm-up, then 3 steps each split into batch (the scene's
+    grid and tensors), forward (model and loss), backward and optimizer +
+    EMA, with exact launches; steps/s, peak memory; one step under the
+    profiler. In f32 then one XUnet view chunk (the 3 views) forward and
+    backward with PyTorch's own convolutions (the port's), with cuDNN's own
+    choice throughout, and with cuDNN in the backward only (a context
+    around the forward alone). Returns the times and the 3 steps'
+    launches."""
     from torch.func import functional_call
 
     from infinicube_tpu_torch.models.gsm import pixel_branch as pb
     from infinicube_tpu_torch.models.gsm.loss import GSMLossConfig, gsm_loss
     from infinicube_tpu_torch.models.gsm.lpips import load_lpips
-    from infinicube_tpu_torch.models.gsm.model import GSM, GSMConfig
+    from infinicube_tpu_torch.models.gsm.model import (GSM, GSMConfig,
+                                                       gsm_bf16_config)
     from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
                                                      grads_finite)
-    cfg = GSMConfig()
+    cfg = gsm_bf16_config() if bf16 else GSMConfig()
     cfg = dataclasses.replace(cfg, voxel=dataclasses.replace(
         cfg.voxel, dense_lookup_bounds=GSM_TRAIN_BOUNDS))
+    tag = "[gsm bf16 train time]" if bf16 else "[gsm train time]"
     model = GSM(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model.init_params(gen)
@@ -4064,13 +4123,16 @@ def gsm_train_time(kernels):
     want = gsm_step_launches(kernels, cfg, GSM_TRAIN_VIEWS)
     split, loss, finite, out, _ = step()               # warm-up
     g = out["gaussians"]
-    print(f"[gsm train time] release scene: {int(out['render']['rgb'].shape[0])}"
+    print(f"{tag} release scene: {int(out['render']['rgb'].shape[0])}"
           f" views of {GSM_TRAIN_HW[0]}x{GSM_TRAIN_HW[1]}, "
           f"{int(g['valid'].sum()):,} valid gaussians of {len(g['valid']):,};"
           f" warm-up step {sum(split.values()):.1f} ms, loss {loss:.4f}")
+    check(all(g[k].dtype == torch.float32 for k in
+              ("means", "scales", "quats", "opacities", "colors")),
+          f"gaussians' dtypes {[(k, v.dtype) for k, v in g.items()]}")
     del out, g
     torch.cuda.reset_peak_memory_stats()
-    walls = []
+    walls, path = [], {k: 0 for k in kernels.launches}
     for i in range(GSM_TRAIN_STEPS):
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -4078,18 +4140,24 @@ def gsm_train_time(kernels):
         walls.append((time.perf_counter() - t0) * 1e3)
         counts = dict(kernels.launches)
         del out
-        print(f"[gsm train time] step {i}: {walls[-1]:.1f} ms (" +
+        print(f"{tag} step {i}: {walls[-1]:.1f} ms (" +
               ", ".join(f"{k} {v:.1f}" for k, v in split.items()) +
               f"), loss {loss:.4f} (lpips {float(m['perceptual']):.4f}), "
               f"finite {finite}; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
         check(math.isfinite(loss) and finite, f"step {i}: loss {loss}")
         check(counts == want, f"step {i} launches {counts}, want {want}")
+        path = {k: path[k] + v for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     mean = sum(walls) / len(walls)
-    print(f"[gsm train time] {mean:.1f} ms a step ({1e3 / mean:.3f} "
+    print(f"{tag} {mean:.1f} ms a step ({1e3 / mean:.3f} "
           f"steps/s), peak {peak:.2f} GiB")
-    profile(step, "GSM train step (release scene)")
+    profile(step, "GSM train step (release scene"
+            f"{', gsm_bf16_config' if bf16 else ''})")
+    if bf16:
+        del model, state, params, lpips
+        torch.cuda.empty_cache()
+        return dict(step_ms=mean, peak_gib=peak), path
     # one XUnet view chunk (the 3 views), forward and backward
     unet = model.pixel_branch.unet
     x = torch.rand((GSM_TRAIN_VIEWS, *GSM_TRAIN_HW, 5), device="cuda")
@@ -4115,7 +4183,7 @@ def gsm_train_time(kernels):
     del model, state, params, lpips, unet, x
     torch.cuda.empty_cache()
     return dict(step_ms=mean, peak_gib=peak, xunet_own_ms=own,
-                xunet_cudnn_ms=lib, xunet_cudnn_backward_ms=mixed)
+                xunet_cudnn_ms=lib, xunet_cudnn_backward_ms=mixed), path
 
 
 def gsm_train(kernels, att):
@@ -4136,6 +4204,350 @@ def gsm_train(kernels, att):
                  "infinicube_tpu_torch/csrc/flash_attention_f32_bwd.cu",
                  "infinicube_tpu/ops/attention.py:72", rows, 0), padded, \
         launches
+
+
+# ---------------------------------------------------------------------------
+# training the GSM in gsm_bf16_config
+# ---------------------------------------------------------------------------
+
+# the voxel branch's sparse convs in gsm_bf16_config on bench_gsm_train.py's
+# grid, (F, Fo, level): its ten convs at seven shapes (the decoder's
+# concatenations 384 -> 128 and 192 -> 64 among them); 30 -> 62 through the
+# padding
+BF16_CONV_SHAPES = ((64, 64, 0), (64, 128, 1), (128, 128, 1), (128, 256, 2),
+                    (256, 256, 2), (384, 128, 1), (192, 64, 0))
+BF16_CONV_PADDED = (30, 62, 0)
+# the pixel branch's bottleneck in training: 3 views of 480x704 at 60 x 88
+# tokens, 4 heads of 64
+GSM_BF16_ATTN = (3, 60 * 88, 4, 64)
+
+
+def bf16_ulp_gate(got, ref, label):
+    """``got`` within one bf16 ulp of ``ref`` element by element (the ulp of
+    the larger of the two), with a floor of 2^-16 of max|ref|: both sum in
+    f32 in their own orders, and where an element's terms cancel the order
+    alone moves it by more than its own ulp. NaN where ``ref`` is NaN.
+    Returns (max-abs error, the share of elements bit-equal)."""
+    got, ref = got.float(), ref.float()
+    nan = torch.isnan(ref)
+    check(torch.equal(torch.isnan(got), nan), f"{label}: NaN where not")
+    got, ref = got[~nan], ref[~nan]
+    d = (got - ref).abs()
+    a = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+    tol = torch.exp2(torch.floor(torch.log2(a)) - 7) + \
+        2.0 ** -16 * ref.abs().max()
+    over = int((d > tol).sum())
+    equal = (got == ref).float().mean().item()
+    err = d.max().item()
+    print(f"{label}: bit-equal {100 * equal:.3f} %, max_abs_err {err:.3e} "
+          f"(max|ref| {ref.abs().max().item():.3e}), beyond one ulp {over}")
+    check(over == 0 and torch.isfinite(got).all().item(),
+          f"{label}: {over} elements beyond one bf16 ulp")
+    return err, equal
+
+
+def gsm_bf16_levels():
+    """bench_gsm_train.py's scene grid and its two coarser levels (the
+    GSM's pyramid) with their conv plans over the bench's dense-lookup
+    bounds."""
+    from infinicube_tpu_torch.grid.build import coarsened_grid
+    from infinicube_tpu_torch.models.gsm.voxel_branch import \
+        VoxelBranchConfig
+    from infinicube_tpu_torch.nn.sparse import conv_plan
+    vcfg = VoxelBranchConfig(dense_lookup_bounds=GSM_TRAIN_BOUNDS)
+    grids = [gsm_train_scene("cuda")["grid"]]
+    for _ in range(2):
+        grids.append(coarsened_grid(grids[-1], vcfg.pooling_factor,
+                                    capacity=grids[-1].capacity))
+    return [(g, conv_plan(g, dense_bounds=vcfg.level_dense_bounds(level)))
+            for level, g in enumerate(grids)]
+
+
+def bf16_sparse_checks(kernels, ws, levels):
+    """Phase 34 (a): ``sparse_conv_bf16`` (forward; as the input gradient
+    with the reversed pack, counted as dgrad) and
+    ``sparse_conv_bf16_wgrad`` (dW rounded to bf16, as the backward hands
+    it on) against ``sparse_conv_plain`` and ``sparse_conv_bwd_plain`` at
+    the voxel branch's seven shapes (``bf16_ulp_gate``), each twice,
+    bit-identical; timed beside the plain versions and their bounds (2 *
+    present (row, tap) pairs * F * Fo bf16 operations at 989 TFLOP/s
+    against ``sparse_conv_bytes``); then 30 -> 62 through ``window_sparse_conv``'s
+    padding with a gradient, and a poisoned batch element. Returns the
+    forward, dx and dW rows and the padded call's rows."""
+    g = torch.Generator(device="cuda").manual_seed(34)
+    bf = torch.bfloat16
+    rows = {"fwd": [], "dx": [], "dw": []}
+
+    def data(grid, F, Fo):
+        C, m = grid.capacity, grid.mask[..., None]
+        x = torch.where(m, torch.randn((1, C, F), generator=g,
+                                       device="cuda"), 0.0).to(bf)
+        w = (torch.randn((27, F, Fo), generator=g, device="cuda") /
+             math.sqrt(27 * F)).to(bf)
+        cot = torch.where(m, torch.randn((1, C, Fo), generator=g,
+                                         device="cuda"), 0.0).to(bf)
+        return x, w, cot
+
+    for F, Fo, level in BF16_CONV_SHAPES:
+        grid, plan = levels[level]
+        check(int(plan.violations.sum()) == 0, f"level {level} violations")
+        x, w, cot = data(grid, F, Fo)
+        pack, dpack = ws.pack_sparse_weight(w), ws.pack_sparse_weight(w, True)
+        zero = torch.zeros_like(plan.violations)
+        shape = f"L{level} {grid.capacity} x ({F}->{Fo})"
+
+        def fwd():
+            return kernels.sparse_conv_bf16(x, plan.nbr, pack,
+                                            plan.violations)
+
+        def dgrad():
+            return kernels.sparse_conv_bf16(cot, plan.nbr, dpack, zero,
+                                            dgrad=True)
+
+        def wgrad():
+            return kernels.sparse_conv_bf16_wgrad(x, plan.nbr, cot)
+
+        got = [(fwd(), dgrad(), wgrad().to(bf)) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*got)),
+              f"[bf16 conv] {shape}: two runs differ")
+        ref = (ws.sparse_conv_plain(plan, x, w),
+               *ws.sparse_conv_bwd_plain(plan, x, w, cot))
+        pairs = int((plan.nbr >= 0).sum())
+        flops = 2.0 * pairs * F * Fo
+        bounds = [bound_ms([(flops, PEAK_BF16)], sparse_conv_bytes(
+            kind, int(grid.mask.sum()), grid.capacity, F, Fo, 2, pack))
+            for kind, pack in (("fwd", 2 * 27 * F * Fo),
+                               ("dx", 2 * 27 * F * Fo),
+                               ("dw", 4 * 27 * F * Fo))]
+        plain_fwd = cuda_ms(lambda: ws.sparse_conv_plain(plan, x, w), 1, 2)
+        # the plain version computes both gradients in one pass over the
+        # taps: its time stands beside each kernel
+        plain_bwd = cuda_ms(lambda: ws.sparse_conv_bwd_plain(plan, x, w,
+                                                             cot), 1, 2)
+        for key, fn, out, want, (b_ms, b_by), plain in zip(
+                ("fwd", "dx", "dw"), (fwd, dgrad, wgrad), got[0], ref,
+                bounds, (plain_fwd, plain_bwd, plain_bwd)):
+            err, equal = bf16_ulp_gate(out, want, f"[bf16 conv] {shape} "
+                                       f"{key}")
+            ms = cuda_ms(fn, 2, 5)
+            print(f"[bf16 conv] {shape} {key}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % "
+                  f"of its bound {b_ms:.4f} ms, {b_by}), plain {plain:.3f} "
+                  f"ms; {pairs} pairs; no single library call")
+            rows[key].append(dict(shape=shape, max_abs_err=err,
+                                  bit_equal=equal, ms=ms, plain_ms=plain,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=None, pairs=pairs))
+        del x, w, cot, pack, dpack, got, ref
+    # 30 -> 62 through the padding, with a gradient
+    F, Fo, level = BF16_CONV_PADDED
+    grid, plan = levels[level]
+    x, w, cot = data(grid, F, Fo)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    kernels.reset_launches()
+    out = ws.window_sparse_conv(plan, xr, wr)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    padded_launches = {k: v for k, v in kernels.launches.items() if v}
+    check(padded_launches == {"sparse_conv_bf16": 1,
+                              "sparse_conv_bf16_dgrad": 1,
+                              "sparse_conv_bf16_wgrad": 1},
+          f"padded launches {padded_launches}")
+    ref_dx, ref_dw = ws.sparse_conv_bwd_plain(plan, x, w, cot)
+    shape = f"L{level} {grid.capacity} x ({F}->{Fo}), padded to (32->64)"
+    padded = [dict(shape=shape, max_abs_err=bf16_ulp_gate(
+        got, want, f"[bf16 conv] {shape} {key}")[0], output=key)
+        for key, got, want in (("fwd", out, ws.sparse_conv_plain(plan, x, w)),
+                               ("dx", xr.grad, ref_dx),
+                               ("dw", wr.grad, ref_dw))]
+    # a poisoned batch element: level 0 twice, the second flagged
+    nbr = plan.nbr.expand(2, -1, -1).contiguous()
+    poison = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    x2 = torch.cat([x, x.flip(1)]).to(bf)
+    x2 = ws.pad_width(x2, -1)
+    w2 = ws.pad_width(w, 1, 2)
+    got = kernels.sparse_conv_bf16(x2, nbr, ws.pack_sparse_weight(w2), poison)
+    ref = ws.sparse_conv_plain(ws.ConvPlan(nbr, poison), x2, w2)
+    bf16_ulp_gate(got, ref, "[bf16 conv] poisoned batch element 1")
+    check(torch.isnan(got[1]).all().item() and
+          torch.isfinite(got[0]).all().item(), "poisoned element")
+    print("[bf16 conv] poisoned batch element: row 1 all NaN, row 0 within "
+          "the gate")
+    torch.cuda.empty_cache()
+    return rows, padded
+
+
+def bf16_attn_checks(kernels, att):
+    """Phase 34 (b): K2 with its lse store and K5 in bf16 at the pixel
+    branch's training bottleneck [3, 5,280, 4, 64], against
+    ``attention_plain`` and ``attention_bwd_plain`` in f32 on the same
+    inputs (K2's gate ``k2_gate`` and the lse within 1e-3, K5's ``gate``,
+    two runs bit-identical), timed beside the plain versions, their bounds
+    and ``scaled_dot_product_attention``'s forward and pinned backward.
+    Returns K2's and K5's rows."""
+    g = torch.Generator(device="cuda").manual_seed(35)
+    B, n, h, d = GSM_BF16_ATTN
+    q, k, v, do = (rand((B, n, h, d), g) for _ in range(4))
+    scale = d ** -0.5
+    shape = f"B={B} N={n} h={h} d={d}"
+    o, lse = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
+    again = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
+    check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+          f"[gsm bf16 attn] {shape}: K2 two runs differ")
+    ref_o, ref_lse = att.attention_plain(q.float(), k.float(), v.float(),
+                                         scale, return_lse=True)
+    o_err = k2_gate(o, ref_o, f"[gsm bf16 attn] {shape} K2 o")
+    lse_err = (lse - ref_lse).abs().max().item()
+    print(f"[gsm bf16 attn] {shape} K2 lse: max_abs_err {lse_err:.3e} "
+          f"(limit 1.000e-03)")
+    check(lse_err <= 1e-3, f"K2 lse err {lse_err}")
+    delta = att.attention_delta(ref_o, do)
+    got = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, delta, scale)
+    again = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, delta, scale)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"[gsm bf16 attn] {shape}: K5 two runs differ")
+    ref = att.attention_bwd_plain(q.float(), k.float(), v.float(), ref_o,
+                                  do.float(), ref_lse, scale)
+    err = max(gate(a, b, f"[gsm bf16 attn] {shape} K5 d{name}")
+              for a, b, name in zip(got, ref, "qkv"))
+    del ref_o, ref_lse, ref, got, again
+    fwd_ms = cuda_ms(lambda: kernels.flash_attn_bf16(q, k, v, scale,
+                                                     return_lse=True))
+    delta = att.attention_delta(o, do)
+    bwd_ms = cuda_ms(lambda: kernels.flash_attn_bf16_bwd(q, k, v, do, lse,
+                                                         delta, scale))
+    plain_fwd = cuda_ms(lambda: att.attention_plain(q, k, v, scale), 1, 3)
+    plain_bwd = cuda_ms(lambda: att.attention_bwd_plain(q, k, v, o, do, lse,
+                                                        scale), 1, 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt))
+    lib_bwd, backend = sdpa_backward_ms(q, k, v, do)
+    flops = 4.0 * n * n * d * h * B
+    f_ms, f_by = bound_ms([(flops, PEAK_BF16)], 2 * 4 * B * n * h * d +
+                          4 * B * h * n)
+    b_ms, b_by = bound_ms([(2.5 * flops, PEAK_BF16)],
+                          2 * B * d * h * 7 * n + 2 * 4 * B * h * n)
+    print(f"[gsm bf16 attn] {shape}: K2 with the lse store {fwd_ms:.4f} ms "
+          f"({100 * f_ms / fwd_ms:.1f} % of its bound {f_ms:.4f} ms, {f_by}),"
+          f" plain {plain_fwd:.3f} ms, sdpa {lib_fwd:.4f} ms; K5 "
+          f"{bwd_ms:.4f} ms ({100 * b_ms / bwd_ms:.1f} % of its bound "
+          f"{b_ms:.4f} ms, {b_by}), plain {plain_bwd:.3f} ms, sdpa backward "
+          f"({backend}, pinned) {lib_bwd:.4f} ms")
+    return (dict(shape=shape, max_abs_err=o_err, lse_max_abs_err=lse_err,
+                 ms=fwd_ms, plain_ms=plain_fwd, bound_ms=f_ms, bound_by=f_by,
+                 library_ms=lib_fwd),
+            dict(shape=shape, max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd,
+                 library_backend=backend))
+
+
+def gsm_bf16_grad_check(kernels, gsm):
+    """Phase 35 (b): a tiny GSM in ``gsm_bf16_config``, one random init,
+    ``gsm_loss`` and every gradient of one train step, card (the bf16
+    sparse-conv kernels, K2 and K5) against the CPU (plain versions): both
+    branches on the depth-prior scene, and the voxel branch off (there the
+    pixel branch and its attention carry the gradient). Gate: each
+    parameter group's (encoder, voxel branch, pixel branch, sky) gradient
+    at cosine >= 0.999 card against CPU, over the groups whose CPU gradient
+    is above 1e-3 of the largest; the worst tensor's cosine printed
+    beside."""
+    from infinicube_tpu_torch.models.gsm.encoders import UnifiedEncoderConfig
+    from infinicube_tpu_torch.models.gsm.loss import GSMLossConfig, gsm_loss
+    from infinicube_tpu_torch.models.gsm.pixel_branch import \
+        PixelBranchConfig
+    from infinicube_tpu_torch.models.gsm.sky import SkyConfig
+    from infinicube_tpu_torch.models.gsm.voxel_branch import \
+        VoxelBranchConfig
+    from infinicube_tpu_torch.weights.from_jax import gsm_from_jax
+    base = dict(
+        encoder=UnifiedEncoderConfig(conv_width=16),
+        voxel=VoxelBranchConfig(f_maps=16, levels=2, gaussians_per_voxel=2),
+        pixel=PixelBranchConfig(width=8, dims=(1, 2), gs_per_pixel=1),
+        sky=SkyConfig(embed_dim=32, num_layers=1, num_heads=2, patch=8),
+        dense_dims=(40, 32, 16), dense_ijk_min=(0, -16, -2),
+        render_tile_capacity=64)
+    conv, attn = "sparse_conv_bf16", "flash_attn_bf16"
+    for kind, kw in (("joint", {}), ("pixel", dict(use_voxel_branch=False))):
+        cfg = gsm.gsm_bf16_config(gsm.GSMConfig(**base, **kw))
+        grads, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = gsm.GSM(cfg, device=dev)
+            model.load_state_dict(gsm_from_jax(random_gsm_tree(model, 41)))
+            batch = gsm_tiny_scene(dev)
+            kernels.reset_launches()
+            out = model(batch)
+            valid = batch["masks"][..., 0] * batch["masks"][..., 2] > 0
+            loss, _ = gsm_loss(GSMLossConfig(), out["render"],
+                               batch["images"], valid, out["sky_mask"],
+                               gaussians=out["gaussians"])
+            loss.backward()
+            losses[dev] = loss.item()
+            grads[dev] = {k: (torch.zeros_like(p) if p.grad is None
+                              else p.grad).cpu() for k, p in
+                          model.named_parameters()}
+            launches = {k: v for k, v in kernels.launches.items() if v}
+        top = max(g.abs().max().item() for g in grads["cpu"].values())
+        groups, worst_tensor = {}, (1.0, "")
+        for name, ref in grads["cpu"].items():
+            got = grads["cuda"][name]
+            groups.setdefault(name.split(".")[0], []).append((got, ref))
+            if ref.abs().max().item() > 1e-3 * top:
+                worst_tensor = min(worst_tensor, (cos(got, ref), name))
+        coss = {}
+        for group, pairs in groups.items():
+            got = torch.cat([a.reshape(-1) for a, _ in pairs])
+            ref = torch.cat([b.reshape(-1) for _, b in pairs])
+            if ref.abs().max().item() > 1e-3 * top:
+                coss[group] = cos(got, ref)
+        print(f"[gsm bf16 grad] {kind}: loss card {losses['cuda']:.6f} cpu "
+              f"{losses['cpu']:.6f}; cosine card against CPU by group "
+              f"{ {k: round(v, 6) for k, v in coss.items()} } (limit "
+              f"0.999), worst tensor {worst_tensor[1]} at "
+              f"{worst_tensor[0]:.6f}; card launches {launches}")
+        check(coss and min(coss.values()) >= 0.999,
+              f"[gsm bf16 grad] {kind}: cosines {coss}")
+        check(abs(losses["cuda"] - losses["cpu"]) <=
+              1e-3 * abs(losses["cpu"]), f"[gsm bf16 grad] {kind}: losses")
+        want = ({conv, conv + "_dgrad", conv + "_wgrad"}
+                if kind == "joint" else set()) | {attn, attn + "_bwd"}
+        check(set(launches) == want, f"[gsm bf16 grad] {kind}: launches "
+              f"{launches}")
+    return coss
+
+
+def gsm_bf16_train(kernels, att):
+    """Phases 34-35. Returns the summary entries of the bf16 sparse-conv
+    kernels, their padded call's rows, K2's and K5's rows at the GSM's
+    bf16 training shape, and the bf16 trainer path's launches."""
+    from infinicube_tpu_torch.models.gsm import model as gsm
+    from infinicube_tpu_torch.ops import window_conv as ws
+    t0 = time.perf_counter()
+    # ---- 34. the bf16 kernels against their plain versions ------------
+    levels = gsm_bf16_levels()
+    rows, padded = bf16_sparse_checks(kernels, ws, levels)
+    del levels
+    k2_row, k5_row = bf16_attn_checks(kernels, att)
+    print(f"[gsm bf16] phase 34 done at {time.perf_counter() - t0:.1f} s")
+    # ---- 35. the GSM trainer in gsm_bf16_config --------------------------
+    _, launches = gsm_train_time(kernels, bf16=True)
+    gsm_bf16_grad_check(kernels, gsm)
+    print(f"[gsm bf16] phase 35 done at {time.perf_counter() - t0:.1f} s")
+    print(f"[gsm bf16] main path launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    torch.cuda.empty_cache()
+    src = "infinicube_tpu_torch/csrc/"
+    entries = {
+        "sparse_conv_bf16": entry(
+            "sparse_conv_bf16", src + "sparse_conv.cu",
+            "infinicube_tpu/ops/window_conv.py:222", rows["fwd"], 0),
+        "sparse_conv_bf16_dgrad": entry(
+            "sparse_conv_bf16_dgrad", src + "sparse_conv.cu",
+            "infinicube_tpu/ops/window_conv.py:320", rows["dx"], 0),
+        "sparse_conv_bf16_wgrad": entry(
+            "sparse_conv_bf16_wgrad", src + "sparse_conv_bwd.cu",
+            "infinicube_tpu/ops/window_conv.py:252", rows["dw"], 0)}
+    return entries, padded, k2_row, k5_row, launches
 
 
 def wan_serve(kernels, att, fa):
@@ -4271,6 +4683,8 @@ def main() -> int:
     finally:
         shutil.rmtree(world_dir, ignore_errors=True)
     f32_bwd, f32_bwd_padded, gsm_train_launches = gsm_train(kernels, att)
+    bf16_entries, bf16_padded, k2_gsm, k5_gsm, bf16_launches = \
+        gsm_bf16_train(kernels, att)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -4281,6 +4695,18 @@ def main() -> int:
     report.update(f32_report)
     report["flash_attn_f32_bwd"] = f32_bwd
     padding["flash_attn_f32_bwd"] = f32_bwd_padded
+    report.update(bf16_entries)
+    for name, key in (("sparse_conv_bf16", "fwd"),
+                      ("sparse_conv_bf16_dgrad", "dx"),
+                      ("sparse_conv_bf16_wgrad", "dw")):
+        padding[name] = {"rows": [r for r in bf16_padded
+                                  if r["output"] == key], "launches": 1}
+    # K2's and K5's numbers at the pixel branch's bf16 training shape
+    for name, row in (("flash_attn_bf16", k2_gsm),
+                      ("flash_attn_bf16_bwd", k5_gsm)):
+        report[name]["gsm_bf16_shape"] = row
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          row["max_abs_err"])
     # the GSM's shapes beside each kernel's own (phase 28)
     for name, rows in (("flash_attn_f32", gsm_attn),
                        ("sparse_conv_f32", gsm_k4)):
@@ -4291,7 +4717,8 @@ def main() -> int:
              "diffusion_train": train_launches, "vae_train": vae_launches,
              **int8_paths, "stage1_f32": f32_launches,
              "stage2": stage2_launches, "stage3": stage3_launches,
-             "gsm_train": gsm_train_launches}
+             "gsm_train": gsm_train_launches,
+             "gsm_train_bf16": bf16_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

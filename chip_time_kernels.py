@@ -3,7 +3,7 @@ redesign changes and their guards, at the shapes of ``chip_smoke.py``'s
 paths (CUDA events after warm-up), and the steps those kernels carry (host
 clock around work that ends in a synchronize).
 
-    python3 chip_time_kernels.py <checkout> [--json FILE]
+    python3 chip_time_kernels.py <checkout> [--json FILE] [--sparse]
 
 - guards, timed first: K2 at d = 96 (N = 4,096 and 512, 8 heads) and
   d = 128 (37,440 x 512, 12 heads), K3 forward at [1,64^3,192]->192, K8
@@ -219,6 +219,37 @@ def guard_rows(kernels, dc, fa, wc, g):
     return out
 
 
+def sparse_rows(kernels, wc, g):
+    """K4 (forward and input gradient) and K6 in f32 and in bf16 at the
+    GSM voxel branch's seven conv shapes on ``bench_gsm_train.py``'s scene
+    grid and its two coarser levels (``chip_smoke.BF16_CONV_SHAPES``): the
+    two instantiations of each kernel template."""
+    from chip_smoke import BF16_CONV_SHAPES, gsm_bf16_levels
+    levels = gsm_bf16_levels()
+    out = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        conv = getattr(kernels, f"sparse_conv_{name}")
+        wgrad = getattr(kernels, f"sparse_conv_{name}_wgrad")
+        for F, Fo, level in BF16_CONV_SHAPES:
+            grid, plan = levels[level]
+            m = grid.mask[..., None]
+            x, cot = (torch.where(m, torch.randn(
+                (1, grid.capacity, n), generator=g, device="cuda"),
+                0.0).to(dtype) for n in (F, Fo))
+            w = (torch.randn((27, F, Fo), generator=g, device="cuda") /
+                 math.sqrt(27 * F)).to(dtype)
+            pack, dpack = (wc.pack_sparse_weight(w, d) for d in (False, True))
+            zero = torch.zeros_like(plan.violations)
+            shape = f"{name} L{level} {F}->{Fo}"
+            out[f"k4 {shape}"] = cuda_ms(
+                lambda: conv(x, plan.nbr, pack, plan.violations), 3, 20)
+            out[f"k4 dgrad {shape}"] = cuda_ms(
+                lambda: conv(cot, plan.nbr, dpack, zero, dgrad=True), 3, 20)
+            out[f"k6 {shape}"] = cuda_ms(
+                lambda: wgrad(x, plan.nbr, cot), 3, 20)
+    return out
+
+
 def f32_rows(kernels, dc, g):
     """``conv3x3x3_f32`` forward and dgrad beside cuDNN's f32 conv3d
     forward and backward-data; ``flash_attn_f32`` beside f32 SDPA."""
@@ -375,6 +406,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("checkout")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--sparse", action="store_true",
+                    help="time only the sparse conv's kernels, f32 and "
+                    "bf16, at the GSM's shapes (``sparse_rows``)")
     args = ap.parse_args()
     sys.path.insert(0, args.checkout)
     from infinicube_tpu_torch import kernels
@@ -387,10 +421,13 @@ def main() -> None:
     kernels.build()
     built = time.perf_counter() - t0
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = guard_rows(kernels, dense_conv, fa, window_conv, g)
-    rows.update(vae_step_rows(g))
-    rows.update(f32_rows(kernels, dense_conv, g))
-    rows.update(step_rows(g))
+    if args.sparse:
+        rows = sparse_rows(kernels, window_conv, g)
+    else:
+        rows = guard_rows(kernels, dense_conv, fa, window_conv, g)
+        rows.update(vae_step_rows(g))
+        rows.update(f32_rows(kernels, dense_conv, g))
+        rows.update(step_rows(g))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

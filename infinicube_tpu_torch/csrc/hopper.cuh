@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the kernels that run on wgmma and TMA
 // (K1, K2 and K8 in flash_attention.cu, K5 in flash_attention_bwd.cu, K3, K7
-// and the f32 conv in dense_conv.cu, K4 in sparse_conv.cu, K6 in
-// sparse_conv_bwd.cu, the f32 attention in flash_attention_f32.cu):
+// and the f32 conv in dense_conv.cu, K4 and its bf16 twin in
+// sparse_conv.cu, K6 and its bf16 twin in sparse_conv_bwd.cu, the f32
+// attention in flash_attention_f32.cu):
 // mbarriers, TMA tile loads, cp.async row gathers, wgmma shared-memory
 // descriptors and the wgmma instructions themselves (bf16, s8, tf32), and on
 // the host the encoding of TMA tensor maps.
@@ -150,6 +151,18 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// Closes the group of cp.async this thread issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Makes this thread's ordinary shared-memory writes visible to the async
@@ -397,6 +410,49 @@ struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// wgmma m64nNk16, bf16 operands, both MN-major in shared memory (read with
+// the transpose bits): A's M and B's N contiguous, the reduction dim along
+// the rows. Accumulators as Wgmma's. Written out at N = 64 and 128 (the
+// bf16 sparse weight gradient's output tiles).
+template <int N>
+struct WgmmaT;
+
+template <>
+struct WgmmaT<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaT<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
@@ -775,6 +831,26 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+// Launch a warp-specialized kernel whose consumers take registers with
+// setmaxnreg.inc: its shared memory limit raised and its register count
+// checked once (the pool it launches with must cover `min_regs` a thread),
+// cudaErrorInvalidConfiguration where it does not.
+template <auto kernel, typename... Args>
+inline cudaError_t launch_handover(int smem, unsigned blocks, int threads,
+                                   int min_regs, cudaStream_t stream,
+                                   const Args&... args) {
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  static const int regs = [] {
+    cudaFuncAttributes fa;
+    return cudaFuncGetAttributes(&fa, kernel) == cudaSuccess ? fa.numRegs
+                                                             : 0;
+  }();
+  if (regs < min_regs) return cudaErrorInvalidConfiguration;
+  kernel<<<blocks, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace hop_host

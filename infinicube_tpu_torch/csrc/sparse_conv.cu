@@ -49,9 +49,31 @@
 //   added into f32 sums with a rounded add every 32 k8 steps and restarted
 //   (scale-d 0), as the f32 conv and K6 do. Both sums live in registers;
 //   the producer hands its registers to the consumers (setmaxnreg).
-// The entry point returns cudaGetLastError() (or cudaErrorInvalidValue for
-// what it does not take).
+//
+// sparse_conv_bf16 replaces the same `_conv_core` on bf16 features (the
+// GSM's voxel branch in gsm_bf16_config: ten convs a forward at (F, Fo) in
+// {64, 128, 256} and the decoder's 384 -> 128 and 192 -> 64), and as the
+// input gradient `_wc_bwd`'s dx on a bf16 output gradient. It computes what
+// `_conv_kernel` computes: every tap's bf16 product added into f32 sums,
+// rounded to bf16 once (window_conv.py:173). Bound by operations (2 * F *
+// Fo per present pair at 989 TFLOP/s against (F + Fo) * 2 bytes a row).
+// Design: one kernel template over the element type (Tf32x3, Bf16 below):
+// K4's gather, tile, tap list, ring, flushes and store, without the split:
+// - each producer thread gathers its row's 64 features of a stage (128
+//   bytes) with cp.async into the same swizzled K-major layout; wgmma
+//   reads shared memory through the async proxy, so a thread signals a
+//   stage only after its copies have landed (cp.async groups, two stages
+//   in flight) and a proxy fence (in f32 the consumers' split writes the
+//   operands wgmma reads, and fence them themselves);
+// - the weights come packed [27, N, K] bf16 (w[t]^T per tap, made once
+//   per weight version by the caller), one 2-D TMA box per stage;
+// - one wgmma m64nNk16 .f32.bf16.bf16 per k16 step, four a stage; the
+//   wgmma sums are added into f32 sums with a rounded add every 32 k16
+//   steps, as K4 does, and rounded to bf16 once at the store.
+// The entry points return cudaGetLastError() (or cudaErrorInvalidValue for
+// what they do not take).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -63,33 +85,59 @@ namespace {
 constexpr int kRows = 128;      // voxel rows per tile
 constexpr int kTaps = 27;
 constexpr int kThreads = 384;   // warpgroups 0, 1 consume, 2 gathers
-constexpr int kSpan = 128;      // bytes of a stage's row: 32 f32 features
-constexpr int kChunk = kSpan / 4;
+constexpr int kSpan = 128;      // bytes of a stage's row
 constexpr int kRing = 196608;   // bytes of shared memory for the ring
-constexpr int kFlushSteps = 32;  // k8 steps between flushes of the sums
+constexpr int kFlushSteps = 32;  // k steps between flushes of the sums
 constexpr int kFlush = kFlushSteps / (kSpan / 32);  // stages between them
 // registers a thread after the hand-over: the producer keeps 40, each
 // consumer takes 232 (2 x 128 x 232 + 128 x 40 = 384 x 168, the pool of a
 // block launched with 168 a thread)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232, kLaunchRegs = 168;
 
-template <int BN>
+// The element types. A k step reads 32 bytes of a row: k8 in f32, k16 in
+// bf16, four a stage either way.
+struct Tf32x3 {  // f32 features: each operand as tf32 hi and lo
+  using E = float;
+  static constexpr int kParts = 2;  // weight packs and A copies (hi, lo)
+  static constexpr int kMaxStages = 6;
+  static constexpr int kLag = 0;    // stages signalled by cp.async itself
+  static constexpr CUtensorMapDataType kMap =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+struct Bf16 {  // bf16 features, one product a k step
+  using E = __nv_bfloat16;
+  static constexpr int kParts = 1;
+  static constexpr int kMaxStages = 8;
+  static constexpr int kLag = 2;    // stages a producer thread keeps in flight
+  static constexpr CUtensorMapDataType kMap =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <class Op>
+constexpr int kChunk = kSpan / sizeof(typename Op::E);  // features a stage
+
+template <class Op, int BN>
 struct K4Tile {
-  static constexpr int kA = kRows * kSpan;   // gathered rows (then their hi)
+  static constexpr int kA = kRows * kSpan;   // gathered rows (f32: their hi)
   static constexpr int kB = BN * kSpan;      // one weight box
-  static constexpr int kStage = 2 * kA + 2 * kB;  // A hi, A lo, B hi, B lo
-  static constexpr int kStages = kRing / kStage > 6 ? 6 : kRing / kStage;
+  static constexpr int kStage = Op::kParts * (kA + kB);  // A parts, B parts
+  static constexpr int kStages = kRing / kStage > Op::kMaxStages
+                                     ? Op::kMaxStages
+                                     : kRing / kStage;
   // ring, barriers, neighbour table, tap list, and room to align to 1 KB
   static constexpr int kSmem = kStages * kStage + 2 * 8 * kStages +
                                4 * (kTaps * kRows + kTaps + 2) + 1024;
+  static_assert(kStages >= Op::kLag + 2, "the producer's lag needs the ring");
 };
 
+template <typename E>
 struct K4Args {
-  const float* feats;  // f32 [B, C, K]
-  const int* nbr;      // int32 [B, C, 27]
-  const int* poison;   // int32 [B]
-  float* out;          // f32 [B, C, N]
-  int C, K, N;         // rows per batch element, input and output features
+  const E* feats;   // [B, C, K]
+  const int* nbr;   // int32 [B, C, 27]
+  const int* poison;  // int32 [B]
+  E* out;           // [B, C, N]
+  int C, K, N;      // rows per batch element, input and output features
   int m_tiles, n_tiles, kc;
 };
 
@@ -102,12 +150,28 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
   lo = tf32_trunc(v - hi);  // v - hi is exact
 }
 
-template <int BN>
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store_nan(float* p) { *p = nanf(""); }
+
+__device__ __forceinline__ void store_nan(__nv_bfloat16* p) {
+  *p = __float2bfloat16(nanf(""));
+}
+
+template <class Op, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
-    sparse_conv_tf32x3_kernel(const __grid_constant__ CUtensorMap tmw_hi,
-                              const __grid_constant__ CUtensorMap tmw_lo,
-                              const K4Args a) {
-  using T = K4Tile<BN>;
+    sparse_conv_kernel(const __grid_constant__ CUtensorMap tmw_hi,
+                       const __grid_constant__ CUtensorMap tmw_lo,
+                       const K4Args<typename Op::E> a) {
+  using T = K4Tile<Op, BN>;
+  using E = typename Op::E;
+  constexpr int kP = Op::kParts;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -130,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (a.poison[b]) {
     for (int i = tid; i < kRows * BN; i += kThreads) {
       const int m = m0 + i / BN, n = n0 + i % BN;
-      if (m < a.C && n < a.N) a.out[(row0 + m) * a.N + n] = nanf("");
+      if (m < a.C && n < a.N) store_nan(a.out + (row0 + m) * a.N + n);
     }
     return;
   }
@@ -171,36 +235,56 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int p = tid - 256;
     if (p == 0) {
       hop::prefetch_map(&tmw_hi);
-      hop::prefetch_map(&tmw_lo);
+      if constexpr (kP == 2) hop::prefetch_map(&tmw_lo);
     }
-    int stage = 0;
+    constexpr int kPiece = 16 / sizeof(E);  // features a 16-byte cp.async
+    int stage = 0, signal = 0;
     uint32_t phase = 0;
     for (int it = 0; it < iters; ++it) {
       hop::mbar_wait(&empty[stage], phase ^ 1);
       const int t = sTaps[it / a.kc];
-      const int k0 = (it % a.kc) * kChunk;
+      const int k0 = (it % a.kc) * kChunk<Op>;
       uint8_t* st = ring + stage * T::kStage;
       if (p == 0) {
-        hop::mbar_expect_tx(&full[stage], 2 * T::kB);
-        hop::tma_load_2d(st + 2 * T::kA, &tmw_hi, &full[stage], k0,
-                         t * a.N + n0);
-        hop::tma_load_2d(st + 2 * T::kA + T::kB, &tmw_lo, &full[stage], k0,
-                         t * a.N + n0);
+        uint8_t* sb = st + kP * T::kA;
+        hop::mbar_expect_tx(&full[stage], kP * T::kB);
+        hop::tma_load_2d(sb, &tmw_hi, &full[stage], k0, t * a.N + n0);
+        if constexpr (kP == 2)
+          hop::tma_load_2d(sb + T::kB, &tmw_lo, &full[stage], k0,
+                           t * a.N + n0);
       }
       const int src = sN[t * kRows + p];
-      const float* row =
-          a.feats + (row0 + (src >= 0 ? src : 0)) * a.K + k0;
+      const E* row = a.feats + (row0 + (src >= 0 ? src : 0)) * a.K + k0;
       uint8_t* dst = st + p * kSpan;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {  // 16-byte chunk j at j ^ (row % 8)
-        const bool ok = src >= 0 && k0 + 4 * j < a.K;
-        hop::cp_async16(dst + ((j ^ (p % 8)) * 16), ok ? row + 4 * j : a.feats,
-                        ok);
+        const bool ok = src >= 0 && k0 + kPiece * j < a.K;
+        hop::cp_async16(dst + ((j ^ (p % 8)) * 16),
+                        ok ? row + kPiece * j : a.feats, ok);
       }
-      hop::cp_async_arrive(&full[stage]);
+      if constexpr (Op::kLag == 0) {
+        hop::cp_async_arrive(&full[stage]);
+      } else {
+        hop::cp_async_commit();
+        if (it >= Op::kLag) {  // stage it - kLag has landed: hand it over
+          hop::cp_async_wait<Op::kLag>();
+          hop::fence_proxy_async();
+          hop::mbar_arrive(&full[signal]);
+          if (++signal == T::kStages) signal = 0;
+        }
+      }
       if (++stage == T::kStages) {
         stage = 0;
         phase ^= 1;
+      }
+    }
+    if constexpr (Op::kLag > 0) {
+      hop::cp_async_wait<0>();
+      hop::fence_proxy_async();
+      for (int it = iters > Op::kLag ? iters - Op::kLag : 0; it < iters;
+           ++it) {
+        hop::mbar_arrive(&full[signal]);
+        if (++signal == T::kStages) signal = 0;
       }
     }
   } else {
@@ -217,41 +301,47 @@ __global__ void __launch_bounds__(kThreads, 1)
       hop::mbar_wait(&full[stage], phase);
       uint8_t* st = ring + stage * T::kStage;
       uint8_t* sa = st + wg * 64 * kSpan;
-      uint8_t* sl = st + T::kA + wg * 64 * kSpan;
-      // this warpgroup's 64 rows: hi in place, lo beside (the swizzle is
-      // the same in both, so elementwise work ignores it)
-      float4* ahi = reinterpret_cast<float4*>(sa);
-      float4* alo = reinterpret_cast<float4*>(sl);
+      const uint8_t* sb = st + kP * T::kA;
+      if constexpr (kP == 2) {
+        // this warpgroup's 64 rows: hi in place, lo beside (the swizzle is
+        // the same in both, so elementwise work ignores it)
+        float4* ahi = reinterpret_cast<float4*>(sa);
+        float4* alo = reinterpret_cast<float4*>(sa + T::kA);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = wt + 128 * j;
-        const float4 v = ahi[i];
-        float4 h, l;
-        split_tf32(v.x, h.x, l.x);
-        split_tf32(v.y, h.y, l.y);
-        split_tf32(v.z, h.z, l.z);
-        split_tf32(v.w, h.w, l.w);
-        ahi[i] = h;
-        alo[i] = l;
+        for (int j = 0; j < 4; ++j) {
+          const int i = wt + 128 * j;
+          const float4 v = ahi[i];
+          float4 h, l;
+          split_tf32(v.x, h.x, l.x);
+          split_tf32(v.y, h.y, l.y);
+          split_tf32(v.z, h.z, l.z);
+          split_tf32(v.w, h.w, l.w);
+          ahi[i] = h;
+          alo[i] = l;
+        }
+        hop::fence_proxy_async();
+        hop::named_barrier(1 + wg, 128);
       }
-      hop::fence_proxy_async();
-      hop::named_barrier(1 + wg, 128);
-      const uint8_t* sbh = st + 2 * T::kA;
-      const uint8_t* sbl = sbh + T::kB;
       hop::fence_regs(acc);
       hop::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kSpan / 32; ++kk) {  // a k8 step is 32 bytes
+      for (int kk = 0; kk < kSpan / 32; ++kk) {  // a k step is 32 bytes
+        const int restart = first && kk == 0 ? 0 : 1;
         const uint64_t dh = hop::make_desc(sa + 32 * kk, kSpan, 16, 8 * kSpan);
-        const uint64_t dl = hop::make_desc(sl + 32 * kk, kSpan, 16, 8 * kSpan);
         const uint64_t dbh =
-            hop::make_desc(sbh + 32 * kk, kSpan, 16, 8 * kSpan);
-        const uint64_t dbl =
-            hop::make_desc(sbl + 32 * kk, kSpan, 16, 8 * kSpan);
-        // the small terms first
-        hop::WgmmaTf32<BN>::ss(acc, dl, dbh, first && kk == 0 ? 0 : 1);
-        hop::WgmmaTf32<BN>::ss(acc, dh, dbl, 1);
-        hop::WgmmaTf32<BN>::ss(acc, dh, dbh, 1);
+            hop::make_desc(sb + 32 * kk, kSpan, 16, 8 * kSpan);
+        if constexpr (kP == 2) {
+          const uint64_t dl =
+              hop::make_desc(sa + T::kA + 32 * kk, kSpan, 16, 8 * kSpan);
+          const uint64_t dbl =
+              hop::make_desc(sb + T::kB + 32 * kk, kSpan, 16, 8 * kSpan);
+          // the small terms first
+          hop::WgmmaTf32<BN>::ss(acc, dl, dbh, restart);
+          hop::WgmmaTf32<BN>::ss(acc, dh, dbl, 1);
+          hop::WgmmaTf32<BN>::ss(acc, dh, dbh, 1);
+        } else {
+          hop::Wgmma<BN>::ss(acc, dh, dbh, restart);
+        }
       }
       hop::wgmma_commit();
       hop::wgmma_wait<1>();  // the previous stage's products are done
@@ -275,38 +365,68 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + wg * 64 + w * 16 + g + 8 * h;
       if (m >= a.C) continue;
-      float* orow = a.out + (row0 + m) * a.N;
+      E* orow = a.out + (row0 + m) * a.N;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 8 * j + 2 * q;
         if (n < a.N)
-          *reinterpret_cast<float2*>(orow + n) =
-              make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+          store2(orow + n, sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
-template <int BN>
-cudaError_t launch_k4(const CUtensorMap& hi, const CUtensorMap& lo,
-                      const K4Args& args, unsigned blocks,
-                      cudaStream_t stream) {
-  using T = K4Tile<BN>;
-  static cudaError_t attr =
-      hop_host::allow_smem(sparse_conv_tf32x3_kernel<BN>, T::kSmem);
-  if (attr != cudaSuccess) return attr;
-  // the consumers' setmaxnreg.inc needs the pool of a 168-register launch
-  static const int regs = [] {
-    cudaFuncAttributes fa;
-    return cudaFuncGetAttributes(&fa, sparse_conv_tf32x3_kernel<BN>) ==
-                   cudaSuccess
-               ? fa.numRegs
-               : 0;
-  }();
-  if (regs < kLaunchRegs) return cudaErrorInvalidConfiguration;
-  sparse_conv_tf32x3_kernel<BN>
-      <<<blocks, kThreads, T::kSmem, stream>>>(hi, lo, args);
-  return cudaGetLastError();
+template <class Op, int BN>
+cudaError_t launch_tile(unsigned blocks, cudaStream_t stream,
+                        const CUtensorMap& hi, const CUtensorMap& lo,
+                        const K4Args<typename Op::E>& a) {
+  return hop_host::launch_handover<&sparse_conv_kernel<Op, BN>>(
+      K4Tile<Op, BN>::kSmem, blocks, kThreads, kLaunchRegs, stream, hi, lo,
+      a);
+}
+
+// The entry points' common body: the checks, the tiles, the weight maps
+// (the hi and lo of f32's [2, 27, N, K] pack; bf16's [27, N, K] pack, its
+// one map passed twice) and the launch at N's tile.
+template <class Op>
+int launch_k4(const void* feats, const void* nbr, const void* w_pack,
+              const void* poison, void* out, int B, int C, int K, int N,
+              void* stream) {
+  using E = typename Op::E;
+  constexpr int kPiece = 16 / sizeof(E);
+  if (B <= 0 || C <= 0 || K <= 0 || N <= 0 || K % kPiece || N % kPiece ||
+      reinterpret_cast<uintptr_t>(feats) % 16 ||
+      reinterpret_cast<uintptr_t>(w_pack) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bn = N <= 32 ? 32 : N <= 64 ? 64 : 128;
+  K4Args<E> a;
+  a.feats = static_cast<const E*>(feats);
+  a.nbr = static_cast<const int*>(nbr);
+  a.poison = static_cast<const int*>(poison);
+  a.out = static_cast<E*>(out);
+  a.C = C;
+  a.K = K;
+  a.N = N;
+  a.m_tiles = (C + kRows - 1) / kRows;
+  a.n_tiles = (N + bn - 1) / bn;
+  a.kc = (K + kChunk<Op> - 1) / kChunk<Op>;
+  const long long blocks = (long long)B * a.m_tiles * a.n_tiles;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const E* hi = static_cast<const E*>(w_pack);
+  const E* lo = hi + (Op::kParts - 1) * (long long)kTaps * N * K;
+  const uint64_t dims[2] = {(uint64_t)K, (uint64_t)kTaps * N};
+  const uint64_t strides[1] = {(uint64_t)K * sizeof(E)};
+  const uint32_t box[2] = {(uint32_t)kChunk<Op>, (uint32_t)bn};
+  CUtensorMap thi, tlo;
+  if (!hop_host::make_map(&thi, hi, 2, dims, strides, box, kSpan, Op::kMap) ||
+      !hop_host::make_map(&tlo, lo, 2, dims, strides, box, kSpan, Op::kMap))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const cudaError_t e = bn == 32   ? launch_tile<Op, 32>(nb, st, thi, tlo, a)
+                        : bn == 64 ? launch_tile<Op, 64>(nb, st, thi, tlo, a)
+                                   : launch_tile<Op, 128>(nb, st, thi, tlo, a);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -319,41 +439,18 @@ extern "C" {
 int sparse_conv_f32(const void* feats, const void* nbr, const void* w_pack,
                     const void* poison, void* out, int B, int C, int K, int N,
                     void* stream) {
-  if (B <= 0 || C <= 0 || K <= 0 || N <= 0 || K % 4 || N % 4 ||
-      reinterpret_cast<uintptr_t>(feats) % 16 ||
-      reinterpret_cast<uintptr_t>(w_pack) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int bn = N <= 32 ? 32 : N <= 64 ? 64 : 128;
-  K4Args a;
-  a.feats = static_cast<const float*>(feats);
-  a.nbr = static_cast<const int*>(nbr);
-  a.poison = static_cast<const int*>(poison);
-  a.out = static_cast<float*>(out);
-  a.C = C;
-  a.K = K;
-  a.N = N;
-  a.m_tiles = (C + kRows - 1) / kRows;
-  a.n_tiles = (N + bn - 1) / bn;
-  a.kc = (K + kChunk - 1) / kChunk;
-  const long long blocks = (long long)B * a.m_tiles * a.n_tiles;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const float* hi = static_cast<const float*>(w_pack);
-  const float* lo = hi + (long long)kTaps * N * K;
-  const uint64_t dims[2] = {(uint64_t)K, (uint64_t)kTaps * N};
-  const uint64_t strides[1] = {(uint64_t)K * 4};
-  const uint32_t box[2] = {(uint32_t)kChunk, (uint32_t)bn};
-  CUtensorMap thi, tlo;
-  if (!hop_host::make_map(&thi, hi, 2, dims, strides, box, kSpan,
-                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
-      !hop_host::make_map(&tlo, lo, 2, dims, strides, box, kSpan,
-                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = static_cast<unsigned>(blocks);
-  const cudaError_t e = bn == 32   ? launch_k4<32>(thi, tlo, a, nb, st)
-                        : bn == 64 ? launch_k4<64>(thi, tlo, a, nb, st)
-                                   : launch_k4<128>(thi, tlo, a, nb, st);
-  return static_cast<int>(e);
+  return launch_k4<Tf32x3>(feats, nbr, w_pack, poison, out, B, C, K, N,
+                           stream);
+}
+
+// feats bf16 [B, C, K], nbr int32 [B, C, 27], w_pack bf16 [27, N, K] (each
+// tap's weights, transposed), poison int32 [B], out bf16 [B, C, N]; K and N
+// multiples of 8.
+int sparse_conv_bf16(const void* feats, const void* nbr, const void* w_pack,
+                     const void* poison, void* out, int B, int C, int K, int N,
+                     void* stream) {
+  return launch_k4<Bf16>(feats, nbr, w_pack, poison, out, B, C, K, N,
+                         stream);
 }
 
 }  // extern "C"

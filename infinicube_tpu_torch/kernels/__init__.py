@@ -61,8 +61,11 @@ SIGNATURES = {
                    "int8_conv_quantize_x": [_P] * 3 + [_L] + [_I] * 2 + [_P],
                    "int8_conv_quantize_w": [_P, _I] + [_P] * 3 + [_I] * 4
                    + [_P]},
-    "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P]},
-    "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 6 + [_I] * 5 + [_P]},
+    "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P],
+                    "sparse_conv_bf16": [_P] * 5 + [_I] * 4 + [_P]},
+    "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 6 + [_I] * 5 + [_P],
+                        "sparse_conv_bf16_wgrad": [_P] * 5 + [_I] * 5
+                        + [_P]},
 }
 
 # K3 and K4 each serve two rows of the kernel table, so their launches are
@@ -70,12 +73,13 @@ SIGNATURES = {
 # these
 K3_DGRAD = "conv3x3x3_bf16_dgrad"
 K4_DGRAD = "sparse_conv_f32_dgrad"
+K4_BF16_DGRAD = "sparse_conv_bf16_dgrad"
 # the split plan queries launch nothing
 _NOT_COUNTED = ("conv3x3x3_bf16_splits", "conv3x3x3_f32_splits",
                 "conv3x3x3_int8_splits", "flash_attn_f32_splits")
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
                             for name in fns if name not in _NOT_COUNTED} | \
-    {K3_DGRAD: 0, K4_DGRAD: 0}
+    {K3_DGRAD: 0, K4_DGRAD: 0, K4_BF16_DGRAD: 0}
 _sms: dict[int, int] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -627,6 +631,43 @@ def int8_conv_quantize_w(w: torch.Tensor, amax: torch.Tensor):
     return w8, sw
 
 
+def _sparse_widths(name: str, dtype: torch.dtype, *widths: int) -> None:
+    """The sparse-conv kernels gather a row in 16-byte pieces: widths of
+    ``dtype`` elements in multiples of 16 bytes, none empty."""
+    mult = 16 // torch.empty((), dtype=dtype).element_size()
+    if any(w % mult for w in widths) or min(widths) < 1:
+        raise ValueError(f"{name} takes widths that are multiples of {mult}, "
+                         f"got {widths}")
+
+
+def _sparse_conv(name: str, dtype: torch.dtype, feats: torch.Tensor,
+                 nbr: torch.Tensor, w_pack: torch.Tensor,
+                 poison: torch.Tensor, count_as: str | None) -> torch.Tensor:
+    """K4 in ``dtype``: the checks, the output and the launch shared by
+    ``sparse_conv_f32`` (w_pack [2, 27, N, K]) and ``sparse_conv_bf16``
+    (w_pack [27, N, K])."""
+    _check_cuda(feats, nbr, w_pack, poison)
+    lead = (2,) if dtype == torch.float32 else ()
+    if feats.dim() != 3 or w_pack.dim() != 3 + len(lead):
+        raise ValueError(f"feats [B, C, K] and w_pack [{'2, ' * len(lead)}"
+                         f"27, N, K], got {tuple(feats.shape)}, "
+                         f"{tuple(w_pack.shape)}")
+    B, C, K = feats.shape
+    N = w_pack.shape[-2]
+    _sparse_widths(name, dtype, K, N)
+    if min(B, C) < 1:
+        raise ValueError(f"{name} takes B, C >= 1, got {B}, {C}")
+    _check_dense(feats, "feats", (B, C, K), dtype)
+    _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
+    _check_dense(w_pack, "w_pack", (*lead, 27, N, K), dtype)
+    _check_dense(poison, "poison", (B,), torch.int32)
+    out = torch.empty((B, C, N), dtype=dtype, device=feats.device)
+    _run("sparse_conv", name, feats.device, feats.data_ptr(), nbr.data_ptr(),
+         w_pack.data_ptr(), poison.data_ptr(), out.data_ptr(), B, C, K, N,
+         count_as=count_as)
+    return out
+
+
 def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor,
                     w_pack: torch.Tensor, poison: torch.Tensor,
                     dgrad: bool = False) -> torch.Tensor:
@@ -639,28 +680,28 @@ def sparse_conv_f32(feats: torch.Tensor, nbr: torch.Tensor,
     the call is the conv's input gradient (feats the output gradient, the
     pack that of the reversed, transposed weights, poison zeros) and is
     counted under ``K4_DGRAD``."""
-    _check_cuda(feats, nbr, w_pack, poison)
-    if feats.dim() != 3 or w_pack.dim() != 4:
-        raise ValueError(f"feats [B, C, K] and w_pack [2, 27, N, K], got "
-                         f"{tuple(feats.shape)}, {tuple(w_pack.shape)}")
-    B, C, K = feats.shape
-    N = w_pack.shape[2]
-    if K % 4 or N % 4 or min(B, C, K, N) < 1:
-        raise ValueError(f"sparse_conv_f32 takes K, N multiples of 4, got "
-                         f"{K} -> {N}")
-    _check_dense(feats, "feats", (B, C, K), torch.float32)
-    _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
-    _check_dense(w_pack, "w_pack", (2, 27, N, K), torch.float32)
-    _check_dense(poison, "poison", (B,), torch.int32)
-    out = torch.empty((B, C, N), dtype=torch.float32, device=feats.device)
-    _run("sparse_conv", "sparse_conv_f32", feats.device, feats.data_ptr(),
-         nbr.data_ptr(), w_pack.data_ptr(), poison.data_ptr(),
-         out.data_ptr(), B, C, K, N, count_as=K4_DGRAD if dgrad else None)
-    return out
+    return _sparse_conv("sparse_conv_f32", torch.float32, feats, nbr, w_pack,
+                        poison, K4_DGRAD if dgrad else None)
 
 
-# K6's voxel rows a stage and at most a range (csrc/sparse_conv_bwd.cu)
+def sparse_conv_bf16(feats: torch.Tensor, nbr: torch.Tensor,
+                     w_pack: torch.Tensor, poison: torch.Tensor,
+                     dgrad: bool = False) -> torch.Tensor:
+    """K4 on bf16 features: out[b, m] = sum_t feats[b, nbr[b, m, t]] @ w[t]
+    over present taps, every bf16 product added into f32 sums rounded to
+    bf16 once; every row of batch b is NaN where poison[b] != 0. feats bf16
+    [B, C, K]; nbr int32 [B, C, 27]; w_pack bf16 [27, N, K], each w[t]^T
+    (``window_conv.pack_sparse_weight``); poison int32 [B]; K and N
+    multiples of 8. Returns bf16 [B, C, N]. With ``dgrad`` the call is the
+    conv's input gradient and is counted under ``K4_BF16_DGRAD``."""
+    return _sparse_conv("sparse_conv_bf16", torch.bfloat16, feats, nbr,
+                        w_pack, poison, K4_BF16_DGRAD if dgrad else None)
+
+
+# K6's voxel rows a stage and at most a range (csrc/sparse_conv_bwd.cu);
+# the bf16 kernel's stages hold 64 rows
 _K6_CHUNK, _K6_MAX_ROWS = 32, 32 * 512
+_K6_BF16_CHUNK = 64
 
 
 def _k6_tiles(F: int, Fo: int) -> int:
@@ -670,15 +711,37 @@ def _k6_tiles(F: int, Fo: int) -> int:
                                                          128))
 
 
-def wgrad_rows_per_split(rows: int, F: int, Fo: int) -> int:
-    """Voxel rows per range of K6 (a multiple of 32, at most 16,384): as
-    many ranges as take about 512 blocks of (tap, F tile, N tile, range)
-    over the card, none under 1,024 rows. A function of the shape only, so
-    the summation order is fixed."""
+def wgrad_rows_per_split(rows: int, F: int, Fo: int,
+                         chunk: int = _K6_CHUNK) -> int:
+    """Voxel rows per range of K6 (a multiple of ``chunk``, its rows a
+    stage, and at most 16,384): as many ranges as take about 512 blocks of
+    (tap, F tile, N tile, range) over the card, none under 1,024 rows. A
+    function of the shape only, so the summation order is fixed."""
     splits = max(-(-rows // _K6_MAX_ROWS),
                  min(-(-512 // (27 * _k6_tiles(F, Fo))), -(-rows // 1024)))
     per = -(-rows // splits)
-    return -(-per // _K6_CHUNK) * _K6_CHUNK
+    return -(-per // chunk) * chunk
+
+
+def _wgrad_shapes(name: str, dtype: torch.dtype, feats: torch.Tensor,
+                  nbr: torch.Tensor, g: torch.Tensor) -> tuple[int, ...]:
+    """K6's checks in ``dtype``, shared by ``sparse_conv_f32_wgrad`` and
+    ``sparse_conv_bf16_wgrad``. Returns (B, C, F, Fo)."""
+    _check_cuda(feats, nbr, g)
+    if feats.dim() != 3 or g.dim() != 3:
+        raise ValueError(f"feats [B, C, F] and g [B, C, Fo], got "
+                         f"{tuple(feats.shape)}, {tuple(g.shape)}")
+    B, C, F = feats.shape
+    Fo = g.shape[2]
+    _sparse_widths(name, dtype, F, Fo)
+    if min(B, C) < 1:
+        raise ValueError(f"{name} takes B, C >= 1, got {B}, {C}")
+    if B * C >= 2 ** 31:
+        raise ValueError(f"too many voxel rows for one launch: {B * C}")
+    _check_dense(feats, "feats", (B, C, F), dtype)
+    _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
+    _check_dense(g, "g", (B, C, Fo), dtype)
+    return B, C, F, Fo
 
 
 def sparse_conv_f32_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
@@ -692,20 +755,8 @@ def sparse_conv_f32_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     ranges of ``wgrad_rows_per_split``) and, where there is more than one
     range, the sum of the partials in range order; it counts once. The
     scratch for the pack and the partials is allocated here."""
-    _check_cuda(feats, nbr, g)
-    if feats.dim() != 3 or g.dim() != 3:
-        raise ValueError(f"feats [B, C, F] and g [B, C, Fo], got "
-                         f"{tuple(feats.shape)}, {tuple(g.shape)}")
-    B, C, F = feats.shape
-    Fo = g.shape[2]
-    if F % 4 or Fo % 4 or min(B, C, F, Fo) < 1:
-        raise ValueError(f"sparse_conv_f32_wgrad takes F, Fo multiples of 4, "
-                         f"got {F} -> {Fo}")
-    if B * C >= 2 ** 31:
-        raise ValueError(f"too many voxel rows for one launch: {B * C}")
-    _check_dense(feats, "feats", (B, C, F), torch.float32)
-    _check_dense(nbr, "nbr", (B, C, 27), torch.int32)
-    _check_dense(g, "g", (B, C, Fo), torch.float32)
+    B, C, F, Fo = _wgrad_shapes("sparse_conv_f32_wgrad", torch.float32,
+                                feats, nbr, g)
     rows = B * C
     per = wgrad_rows_per_split(rows, F, Fo)
     splits = -(-rows // per)
@@ -719,5 +770,30 @@ def sparse_conv_f32_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     _run("sparse_conv_bwd", "sparse_conv_f32_wgrad", feats.device,
          feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), scratch.data_ptr(),
          scratch.data_ptr() + 4 * n_pack if n_part else None, dw.data_ptr(),
+         B, C, F, Fo, per)
+    return dw
+
+
+def sparse_conv_bf16_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
+                           g: torch.Tensor) -> torch.Tensor:
+    """K6 on bf16 operands: dw[t] = sum_{b, m} feats[b, nbr[b, m, t]]^T
+    g[b, m] over present taps, every bf16 product added into f32 sums.
+    feats bf16 [B, C, F]; nbr int32 [B, C, 27]; g bf16 [B, C, Fo]; F and Fo
+    multiples of 8. Returns f32 [27, F, Fo] (the caller rounds it to the
+    weight's dtype), bit-identical from run to run: partial sums over the
+    fixed row ranges of ``wgrad_rows_per_split`` (64-row chunks), then,
+    where there is more than one range, their sum in range order. One call
+    counts once; the scratch for the partials is allocated here."""
+    B, C, F, Fo = _wgrad_shapes("sparse_conv_bf16_wgrad", torch.bfloat16,
+                                feats, nbr, g)
+    rows = B * C
+    per = wgrad_rows_per_split(rows, F, Fo, _K6_BF16_CHUNK)
+    splits = -(-rows // per)
+    partial = torch.empty((splits, 27, F, Fo) if splits > 1 else (0,),
+                          dtype=torch.float32, device=feats.device)
+    dw = torch.empty((27, F, Fo), dtype=torch.float32, device=feats.device)
+    _run("sparse_conv_bwd", "sparse_conv_bf16_wgrad", feats.device,
+         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(),
+         partial.data_ptr() if splits > 1 else None, dw.data_ptr(),
          B, C, F, Fo, per)
     return dw

@@ -9,7 +9,11 @@ the target views. ``decode_all_pixels`` makes every pixel emit gaussians
 
 Serving runs under ``torch.inference_mode()`` (the JAX package's jitted
 apply); the release configuration is f32 throughout, its voxel branch on
-K4 and its pixel-branch attention on ``flash_attn_f32`` on the card."""
+K4 and its pixel-branch attention on ``flash_attn_f32`` on the card.
+``gsm_bf16_config`` is the reference's training configuration: the voxel,
+pixel and sky branches compute in bf16 (the sparse convs on the bf16
+twins of K4 and K6, the attention on K2 and K5), the parameters, norms
+and the branches' outputs stay f32."""
 
 from __future__ import annotations
 
@@ -57,6 +61,17 @@ class GSMConfig:
     render_tile: int = 16
     render_span: int = 4
     render_remat: bool = False            # recompute view renders (train)
+
+
+def gsm_bf16_config(cfg: GSMConfig | None = None) -> GSMConfig:
+    """bf16 compute in the voxel, pixel and sky branches, the parameters
+    and the norms in f32: the reference's training configuration."""
+    cfg = cfg or GSMConfig()
+    return dataclasses.replace(
+        cfg,
+        voxel=dataclasses.replace(cfg.voxel, dtype=torch.bfloat16),
+        pixel=dataclasses.replace(cfg.pixel, dtype=torch.bfloat16),
+        sky=dataclasses.replace(cfg.sky, dtype=torch.bfloat16))
 
 
 def feature_width(cfg: UnifiedEncoderConfig) -> int:

@@ -5,12 +5,17 @@ An XUnet-style 2D UNet consumes RGB concatenated with the depth prior and
 its presence mask; each pixel decodes K gaussians placed along its ray at
 depth znear + sigmoid(d) (zfar - znear), blended toward the provided depth
 where there is one. ``decode_all`` makes every pixel emit gaussians (the
-dynamic-object pass). The UNet's bottleneck attention goes through
+dynamic-object pass). The UNet computes in ``PixelBranchConfig.dtype``
+(its convolutions and attention projections; GroupNorm in f32), as the
+reference's. Its bottleneck attention goes through
 ``ops.attention.multi_head_attention``: ``flash_attn_f32`` on the card in
-f32. The UNet runs ``view_chunk`` views at a time, every chunk with the
-same parameters, which bounds its full-resolution temporaries. Its
-convolutions take PyTorch's own algorithms instead of cuDNN's, in the
-forward, the backward and the recompute alike (``XConv2d``)."""
+f32, K2 and K5 in bf16. The UNet runs ``view_chunk`` views at a time,
+every chunk with the same parameters, which bounds its full-resolution
+temporaries. Its convolutions take PyTorch's own algorithms instead of
+cuDNN's, in the forward, the backward and the recompute alike
+(``XConv2d``), in bf16 too. The head computes in the result type of the
+UNet's features and its f32 parameters (flax's ``Dense(dtype=None)``):
+f32."""
 
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from infinicube_tpu_torch.camera import projection as proj
 from infinicube_tpu_torch.models.gsm.encoders import nchw, nhwc, resize
-from infinicube_tpu_torch.nn.layers import EPS, Conv2d
+from infinicube_tpu_torch.nn.layers import EPS, Conv2d, Dense
 from infinicube_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -44,6 +49,7 @@ class PixelBranchConfig:
     zfar: float = 200.0
     max_scale: float = 0.4              # world units
     depth_dropout: float = 0.5          # masked-depth patch dropout (train)
+    dtype: torch.dtype = torch.float32  # the UNet's compute dtype
 
 
 @contextlib.contextmanager
@@ -112,43 +118,48 @@ class XConv2d(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _XUNET_CUDNN[0]:
             return super().forward(x)
+        x, weight, bias = self.operands(x)
         x, padding = self.same_pad(x)
-        return _Conv2dWithoutCudnn.apply(x, self.weight, self.bias,
-                                         self.stride, padding)
+        return _Conv2dWithoutCudnn.apply(x, weight, bias, self.stride,
+                                         padding)
 
 
 class ResBlock2D(nn.Module):
-    """XUnet ResnetBlock: GN -> silu -> 3x3 conv, twice, + skip (a 1x1
-    conv when the widths differ); NCHW."""
+    """XUnet ResnetBlock: GN (f32) -> silu -> 3x3 conv, twice, + skip (a
+    1x1 conv when the widths differ), the convs in ``dtype``; NCHW."""
 
-    def __init__(self, in_ch: int, out_ch: int, device=None):
+    def __init__(self, in_ch: int, out_ch: int, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        kw = dict(device=device, dtype=dtype)
         self.GroupNorm_0 = nn.GroupNorm(8, in_ch, eps=EPS, device=device)
-        self.conv1 = XConv2d(in_ch, out_ch, 3, device=device)
+        self.conv1 = XConv2d(in_ch, out_ch, 3, **kw)
         self.GroupNorm_1 = nn.GroupNorm(8, out_ch, eps=EPS, device=device)
-        self.conv2 = XConv2d(out_ch, out_ch, 3, device=device)
-        self.skip = XConv2d(in_ch, out_ch, 1, device=device) \
+        self.conv2 = XConv2d(out_ch, out_ch, 3, **kw)
+        self.skip = XConv2d(in_ch, out_ch, 1, **kw) \
             if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.GroupNorm_0(x)))
-        h = self.conv2(F.silu(self.GroupNorm_1(h)))
+        h = self.conv1(F.silu(self.GroupNorm_0(x.float())))
+        h = self.conv2(F.silu(self.GroupNorm_1(h.float())))
         return (x if self.skip is None else self.skip(x)) + h
 
 
 class SelfAttn2D(nn.Module):
-    """Spatial self-attention over the H*W tokens; NCHW."""
+    """Spatial self-attention over the H*W tokens (GN in f32, the
+    projections and the attention in ``dtype``); NCHW."""
 
-    def __init__(self, ch: int, heads: int, device=None):
+    def __init__(self, ch: int, heads: int, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
         self.GroupNorm_0 = nn.GroupNorm(8, ch, eps=EPS, device=device)
-        self.qkv = nn.Linear(ch, 3 * ch, device=device)
-        self.out = nn.Linear(ch, ch, device=device)
+        self.qkv = Dense(ch, 3 * ch, compute_dtype=dtype, device=device)
+        self.out = Dense(ch, ch, compute_dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
-        t = nhwc(self.GroupNorm_0(x)).reshape(B, H * W, C)
+        t = nhwc(self.GroupNorm_0(x.float())).reshape(B, H * W, C)
         q, k, v = (a.reshape(B, H * W, self.heads, C // self.heads)
                    for a in self.qkv(t).chunk(3, -1))
         o = multi_head_attention(q, k, v).reshape(B, H * W, C)
@@ -166,7 +177,7 @@ class UNet2D(nn.Module):
         self.cfg = cfg
         w, dims = cfg.width, cfg.dims
         n = len(dims)
-        kw = dict(device=device)
+        kw = dict(device=device, dtype=cfg.dtype)
         self.stem = XConv2d(in_ch, w, 7, **kw)
         ch = w
         skip_ch = []
@@ -202,7 +213,7 @@ class UNet2D(nn.Module):
             for j, c in enumerate(stage_ch):
                 setattr(self, f"cons{j}", XConv2d(c, w, 3, **kw))
             ch = w * len(stage_ch)
-        self.GroupNorm_0 = nn.GroupNorm(8, ch, eps=EPS, **kw)
+        self.GroupNorm_0 = nn.GroupNorm(8, ch, eps=EPS, device=device)
         self.final = XConv2d(ch, cfg.out_dim, 3, **kw)
 
     def _block(self, name: str, h: torch.Tensor) -> torch.Tensor:
@@ -243,7 +254,7 @@ class UNet2D(nn.Module):
             hw = stage_outs[-1].shape[-2:]
             h = torch.cat([getattr(self, f"cons{j}")(resize(s, hw, "nearest"))
                            for j, s in enumerate(stage_outs)], 1)
-        h = F.silu(self.GroupNorm_0(h))
+        h = F.silu(self.GroupNorm_0(h.float()))
         return nhwc(self.final(h))
 
 
@@ -253,8 +264,8 @@ class PixelBranch(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.unet = UNet2D(cfg, device=device)
-        self.head = nn.Linear(cfg.out_dim, cfg.gs_per_pixel * 13,
-                              device=device)
+        self.head = Dense(cfg.out_dim, cfg.gs_per_pixel * 13,
+                          compute_dtype=None, device=device)
 
     def forward(self, rgb: torch.Tensor, depth_prior: torch.Tensor,
                 Ks: torch.Tensor, cam_to_worlds: torch.Tensor,

@@ -10,7 +10,11 @@
   lat-long lookup.
 - **SkyboxNull**: constant background.
 
-The attention is plain PyTorch (XLA einsums in the reference)."""
+The attention is plain PyTorch (XLA einsums in the reference). The
+modulator computes in ``SkyConfig.dtype`` as the reference does: its convs,
+Denses and attention in that dtype (flax's attention semantics there: the
+logits, mask and softmax too), its LayerNorms in f32, and the sampled sky
+back in f32."""
 
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from infinicube_tpu_torch.models.gsm.encoders import nchw, nhwc
-from infinicube_tpu_torch.nn.layers import (EPS, Conv2d,
+from infinicube_tpu_torch.nn.layers import (EPS, Conv2d, Dense,
                                             MultiHeadDotProductAttention)
 from infinicube_tpu_torch.utils.sky_math import direction_to_latlong_uv
 
@@ -43,6 +47,7 @@ class SkyConfig:
     sky_ratio_threshold: float = 0.75
     max_sky_tokens: int = 1024         # top-K sky patches kept
     pano_hw: tuple = (128, 256)
+    dtype: torch.dtype = torch.float32  # the modulator's compute dtype
 
 
 def top_k_stable(x: torch.Tensor, k: int):
@@ -61,27 +66,29 @@ class SkyboxMlpModulator(nn.Module):
     def __init__(self, cfg: SkyConfig = SkyConfig(), device=None):
         super().__init__()
         self.cfg = cfg
-        E = cfg.embed_dim
+        E, dt = cfg.embed_dim, cfg.dtype
         pe = 3 + 3 * 2 * 4                       # posenc_dir of a direction
+
+        def dense(i, o):
+            return Dense(i, o, compute_dtype=dt, device=device)
+
         self.patch_embed = Conv2d(3 + pe, E, cfg.patch, stride=cfg.patch,
-                                  device=device)
+                                  device=device, dtype=dt)
         self.sky_query = nn.Parameter(torch.zeros((1, 1, E), device=device))
         for i in range(cfg.num_layers):
             setattr(self, f"attn{i}", MultiHeadDotProductAttention(
-                E, cfg.num_heads, device=device))
+                E, cfg.num_heads, device=device, dtype=dt))
             for j in (2 * i, 2 * i + 1):
                 setattr(self, f"LayerNorm_{j}",
                         nn.LayerNorm(E, eps=EPS, device=device))
-            setattr(self, f"Dense_{2 * i}", nn.Linear(E, 4 * E,
-                                                      device=device))
-            setattr(self, f"Dense_{2 * i + 1}", nn.Linear(4 * E, E,
-                                                          device=device))
-        self.add_module("in", nn.Linear(pe, E, device=device))
+            setattr(self, f"Dense_{2 * i}", dense(E, 4 * E))
+            setattr(self, f"Dense_{2 * i + 1}", dense(4 * E, E))
+        self.add_module("in", dense(pe, E))
         for i in range(3):
-            setattr(self, f"mod{i}", nn.Linear(E, 2 * E, device=device))
+            setattr(self, f"mod{i}", dense(E, 2 * E))
             setattr(self, f"ln{i}", nn.LayerNorm(E, eps=EPS, device=device))
-            setattr(self, f"fc{i}", nn.Linear(E, E, device=device))
-        self.out = nn.Linear(E, 3, device=device)
+            setattr(self, f"fc{i}", dense(E, E))
+        self.out = dense(E, 3)
 
     def encode(self, images: torch.Tensor, sky_mask: torch.Tensor,
                ray_dirs: torch.Tensor) -> torch.Tensor:
@@ -95,6 +102,7 @@ class SkyboxMlpModulator(nn.Module):
         tokens = x.reshape(-1, E)
         K = min(cfg.max_sky_tokens, tokens.shape[0])
         top_ratio, top_idx = top_k_stable(ratio.reshape(-1), K)
+        # the f32 query promotes the sequence to f32, as in the reference
         seq = torch.cat([self.sky_query, tokens[top_idx][None]], 1)
         mask = torch.cat([torch.ones((1, 1), dtype=torch.bool,
                                      device=x.device),
@@ -114,9 +122,10 @@ class SkyboxMlpModulator(nn.Module):
         h = getattr(self, "in")(posenc_dir(ray_dirs))
         for i in range(3):
             scale, shift = getattr(self, f"mod{i}")(token).chunk(2, -1)
-            h = F.silu(getattr(self, f"ln{i}")(h) * (1 + scale) + shift)
+            h = F.silu(getattr(self, f"ln{i}")(h.float()) * (1 + scale) +
+                       shift).to(self.cfg.dtype)
             h = getattr(self, f"fc{i}")(h)
-        return torch.sigmoid(self.out(h))
+        return torch.sigmoid(self.out(h).float())
 
     def forward(self, images, sky_mask, ray_dirs, sample_dirs):
         token = self.encode(images, sky_mask, ray_dirs)

@@ -2,10 +2,14 @@
 per voxel; counterpart of ``infinicube_tpu/models/gsm/voxel_branch.py``.
 
 Lifted image features run through a sparse UNet whose structure is given
-(the grid pyramid is known); its ``SparseResBlock``s run K4
-(``sparse_conv_f32``) on the card. Camera-visible voxels are subdivided x2
-and their children also max-pool the projected multi-view image features;
-occluded voxels keep their base resolution and 3D features. Every voxel
+(the grid pyramid is known); its ``SparseResBlock``s compute in
+``VoxelBranchConfig.dtype`` and run K4 (``sparse_conv_f32``) on the card,
+or its bf16 twins in bf16. The input projection and the heads compute in
+the result type of their input and their f32 parameters (flax's
+``Dense(dtype=None)``), as in the reference. Camera-visible voxels are
+subdivided x2 and their children also max-pool the projected multi-view
+image features; occluded voxels keep their base resolution and 3D
+features. Every voxel
 decodes K gaussians: an offset bounded by ``gs_free_space`` voxels, an exp
 scale clamped to ``max_scaling`` voxels, a normalized quaternion, sigmoid
 opacity and color."""
@@ -22,6 +26,7 @@ from infinicube_tpu_torch.grid.build import subdivided_grid
 from infinicube_tpu_torch.grid.grid import Grid
 from infinicube_tpu_torch.grid.ops import max_pool, upsample_nearest
 from infinicube_tpu_torch.models.gsm.lifter import sample_image_features
+from infinicube_tpu_torch.nn.layers import Dense
 from infinicube_tpu_torch.nn.sparse import SparseResBlock, conv_plan
 
 
@@ -40,6 +45,7 @@ class VoxelBranchConfig:
     # binary search per tap (``nn.sparse.conv_plan``); voxels outside it
     # NaN-poison the convs.
     dense_lookup_bounds: tuple | None = None
+    dtype: torch.dtype = torch.float32  # the SparseResBlocks' compute dtype
 
     def level_dense_bounds(self, level: int):
         """Level-``level`` cube: level-0 bounds through the floor-div
@@ -66,8 +72,9 @@ class GaussianHead(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.name_prefix = name_prefix
-        self.add_module(f"{name_prefix}_out", nn.Linear(
-            in_features, cfg.gaussians_per_voxel * 14, device=device))
+        self.add_module(f"{name_prefix}_out", Dense(
+            in_features, cfg.gaussians_per_voxel * 14, compute_dtype=None,
+            device=device))
 
     def forward(self, feats: torch.Tensor, grid: Grid,
                 mask: torch.Tensor) -> dict:
@@ -103,14 +110,16 @@ class VoxelBranch(nn.Module):
         super().__init__()
         self.cfg = cfg
         fm, L = cfg.f_maps, cfg.levels
-        self.in_proj = nn.Linear(in_features, fm, device=device)
+        self.in_proj = Dense(in_features, fm, compute_dtype=None,
+                             device=device)
         widths = [fm * 2 ** l for l in range(L)]
+        kw = dict(dtype=cfg.dtype, device=device)
         for l in range(L):
             setattr(self, f"enc{l}", SparseResBlock(
-                widths[l - 1] if l else fm, widths[l], device=device))
+                widths[l - 1] if l else fm, widths[l], **kw))
         for l in range(L - 2, -1, -1):
             setattr(self, f"dec{l}", SparseResBlock(
-                widths[l + 1] + widths[l], widths[l], device=device))
+                widths[l + 1] + widths[l], widths[l], **kw))
         fi = in_features if image_features is None else image_features
         self.head_vis = GaussianHead(cfg, fi + fm, "vis", device=device)
         self.head_occ = GaussianHead(cfg, fm, "occ", device=device)

@@ -1,9 +1,12 @@
 """Layers with flax's dtype semantics, shared by the port's models.
 
 flax ``nn.Dense(dtype=...)`` casts input, kernel and bias to ``dtype`` and
-returns ``dtype``; ``nn.RMSNorm``/``nn.LayerNorm(dtype=float32)`` compute in
-f32 with eps 1e-6. These layers do the same, with torch's [out, in] weight
-layout (``weights/from_jax.py`` transposes flax kernels)."""
+returns ``dtype``; with ``dtype=None`` it computes in the result type of
+the input and the parameters (``promote_dtype``: bf16 features into an
+f32 layer compute in f32). ``nn.RMSNorm``/``nn.LayerNorm(dtype=float32)``
+compute in f32 with eps 1e-6. These layers do the same, with torch's
+[out, in] weight layout (``weights/from_jax.py`` transposes flax
+kernels)."""
 
 from __future__ import annotations
 
@@ -16,16 +19,25 @@ from torch import nn
 EPS = 1e-6  # flax RMSNorm / LayerNorm default
 
 
+def compute_dtype(x: torch.Tensor, param: torch.Tensor,
+                  dtype: torch.dtype | None) -> torch.dtype:
+    """flax's ``promote_dtype``: ``dtype`` where given, else the result
+    type of the input and the parameter."""
+    return dtype or torch.promote_types(x.dtype, param.dtype)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype)``)."""
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype)``;
+    ``None`` promotes as flax does)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype | None = torch.float32,
+                 device=None):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
+        dt = compute_dtype(x, self.weight, self.compute_dtype)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
@@ -77,14 +89,16 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` in 2-D (SAME padding, ``feature_group_count``) on
-    NCHW tensors, weight [O, I / groups, kh, kw] (``weights/from_jax.py``
-    re-lays out flax's HWIO kernels)."""
+    """flax ``nn.Conv(dtype)`` in 2-D (SAME padding, ``feature_group_count``)
+    on NCHW tensors, weight [O, I / groups, kh, kw] (``weights/from_jax.py``
+    re-lays out flax's HWIO kernels), computing in ``dtype`` (``None``
+    promotes as flax does)."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
-                 stride: int = 1, groups: int = 1, device=None):
+                 stride: int = 1, groups: int = 1, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.stride, self.groups = stride, groups
+        self.stride, self.groups, self.dtype = stride, groups, dtype
         self.weight = nn.Parameter(torch.empty(
             (features, in_features // groups, kernel, kernel), device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -98,39 +112,49 @@ class Conv2d(nn.Module):
             return F.pad(x, (wl, wh, hl, hh)), (0, 0)
         return x, (hl, wl)
 
+    def operands(self, x: torch.Tensor):
+        """x, weight and bias in the compute dtype."""
+        dt = compute_dtype(x, self.weight, self.dtype)
+        return x.to(dt), self.weight.to(dt), self.bias.to(dt)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = self.operands(x)
         x, padding = self.same_pad(x)
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+        return F.conv2d(x, weight, bias, stride=self.stride,
                         padding=padding, groups=self.groups)
 
 
 class MultiHeadDotProductAttention(nn.Module):
     """flax ``nn.MultiHeadDotProductAttention`` (``nn.SelfAttention``) over
-    x [B, L, E]: q, k, v and out projections (flax's [E, heads, d] kernels
-    flattened to [E, E]), q scaled by 1/sqrt(d), masked logits at the f32
-    minimum, an f32 softmax. ``mask`` bool [B, L] marks the keys to attend
+    x [B, L, E] computing in ``dtype`` (flax 0.12's
+    ``force_fp32_for_softmax=False``): q, k, v and out projections (flax's
+    [E, heads, d] kernels flattened to [E, E]), q scaled by 1/sqrt(d),
+    the logits, their mask at the dtype's minimum and the softmax all in
+    ``dtype`` (f32 or bf16). ``mask`` bool [B, L] marks the keys to attend
     to."""
 
-    def __init__(self, dim: int, heads: int, device=None):
+    def __init__(self, dim: int, heads: int, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
-        self.query = nn.Linear(dim, dim, device=device)
-        self.key = nn.Linear(dim, dim, device=device)
-        self.value = nn.Linear(dim, dim, device=device)
-        self.out = nn.Linear(dim, dim, device=device)
+        for name in ("query", "key", "value", "out"):
+            setattr(self, name, Dense(dim, dim, compute_dtype=dtype,
+                                      device=device))
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         B, L, E = x.shape
         h = self.heads
         d = E // h
-        q = self.query(x).reshape(B, L, h, d) / math.sqrt(d)
+        # flax scales q in its dtype: sqrt(d) rounded to it first
+        q = self.query(x).reshape(B, L, h, d)
+        q = q / torch.tensor(math.sqrt(d), dtype=q.dtype)
         k = self.key(x).reshape(B, L, h, d)
         v = self.value(x).reshape(B, L, h, d)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             logits = torch.where(mask[:, None, None, :], logits,
-                                 torch.finfo(torch.float32).min)
+                                 torch.finfo(logits.dtype).min)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, E)
         return self.out(o)

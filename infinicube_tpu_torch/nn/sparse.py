@@ -3,10 +3,13 @@ the window/gather contract (the brick backend is not ported).
 
 - ``SparseConv3d``: 3x3x3 submanifold conv with kernel [27, F_in, F_out] in
   ``neighbor_offsets`` tap order, the JAX parameter layout, on a
-  ``ConvPlan``; K4 (and K4 again and K6 for its gradients) on the card, the
-  gather versions on the CPU.
-- ``GroupNormSparse``: masked per-sample statistics over active voxels.
-- ``SparseResBlock``: GroupNorm -> SiLU -> conv, twice, with a skip.
+  ``ConvPlan``, computing in its ``dtype`` (the parameters stay f32); K4
+  (and K4 again and K6 for its gradients) on the card, or their bf16 twins
+  in bf16, the gather versions on the CPU.
+- ``GroupNormSparse``: masked per-sample statistics over active voxels, in
+  f32, out in the input's dtype.
+- ``SparseResBlock``: GroupNorm -> SiLU -> conv, twice, with a skip (a
+  ``Dense`` in the block's dtype where the widths differ).
 Padding rows stay exactly zero through every layer."""
 
 from __future__ import annotations
@@ -46,22 +49,24 @@ class SparseConv3d(nn.Module):
             self.bias.zero_()
 
     def _packed_weight(self, dgrad: bool = False) -> torch.Tensor:
-        """K4's forward or input-gradient pack of the current kernel
-        (``pack_sparse_weight``), cached against its address and version
-        (an optimizer step or ``load_state_dict`` raises the version)."""
+        """The card kernel's forward or input-gradient pack of the current
+        kernel in the layer's dtype (``pack_sparse_weight``), cached against
+        the kernel's address and version (an optimizer step or
+        ``load_state_dict`` raises the version)."""
         w = self.kernel
-        key = (w.data_ptr(), w._version, w.device)
+        key = (w.data_ptr(), w._version, w.device, self.dtype)
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, {})
         packs = self._packed[1]
         if dgrad not in packs:
-            packs[dgrad] = pack_sparse_weight(w.detach(), dgrad)
+            packs[dgrad] = pack_sparse_weight(w.detach().to(self.dtype),
+                                              dgrad)
         return packs[dgrad]
 
     def forward(self, feats: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
         dt = self.dtype
         feats, w = feats.to(dt), self.kernel.to(dt)
-        if feats.is_cuda and dt == torch.float32:
+        if feats.is_cuda:
             need_dx = torch.is_grad_enabled() and feats.requires_grad
             out = window_sparse_conv(
                 plan, feats, w, self._packed_weight(),

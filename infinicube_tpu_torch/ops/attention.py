@@ -48,17 +48,20 @@ def _row_chunk(n_q: int, per_row: int) -> int:
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, return_lse: bool = False):
-    """The einsum attention of the reference (f32 softmax), computed in
-    chunks of query rows so the logits stay bounded. With ``return_lse``
-    also the natural log-sum-exp of each row's scaled logits, f32
-    [B, h, Nq]."""
+    """The einsum attention of the reference with the logits of its flash
+    kernel: the logits of bf16 (or f32) inputs taken in f32, as K2 and the
+    TPU library's kernel take them (the reference's einsum route rounds
+    bf16 logits to bf16 first), an f32 softmax and the probabilities in
+    v's dtype; computed in chunks of query rows so the logits stay bounded.
+    With ``return_lse`` also the natural log-sum-exp of each row's scaled
+    logits, f32 [B, h, Nq]."""
     B, nq, h, _ = q.shape
     nk = k.shape[1]
     step = _row_chunk(nq, B * h * nk)
     outs, lses = [], []
     for i in range(0, nq, step):
-        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, i:i + step], k)
-        logits = logits.float() * scale
+        logits = torch.einsum("bqhd,bkhd->bhqk", q[:, i:i + step].float(),
+                              k.float()) * scale
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", attn, v))
         if return_lse:

@@ -24,10 +24,21 @@ too, its B operand the tf32 parts of g^T (``pack_wgrad_grad``, written by
 its prologue once a call). On the CPU both come from
 ``sparse_conv_bwd_plain``. A CUDA tensor never takes a plain version.
 
-K4 and K6 take widths that are multiples of 4. On the card other widths
-are zero-padded on the way in (feats, the output gradient and the weight
-packs, ``pad_width``) and the output, dx and dW sliced back: the zero
-columns and rows add nothing to any product, so this is exact.
+On bf16 features the same three products go to their bf16 twins,
+``sparse_conv_bf16`` (the forward, and as ``sparse_conv_bf16_dgrad`` the
+input gradient; csrc/sparse_conv.cu) and ``sparse_conv_bf16_wgrad``
+(csrc/sparse_conv_bwd.cu), one bf16 product per tensor-core step. In every
+dtype the conv computes what the TPU kernels compute (``_conv_kernel``,
+``_dw_kernel`` and ``_wc_bwd``): each tap's product is added into f32
+sums, the forward and dx are rounded to the features' dtype once, and dW
+is an f32 sum rounded to the weight's dtype once. The plain versions do
+the same, so they are the kernels' oracle in bf16 too.
+
+The f32 kernels take widths that are multiples of 4, the bf16 ones of 8
+(``width_multiple``). On the card other widths are zero-padded on the way
+in (feats, the output gradient and the weight packs, ``pad_width``) and
+the output, dx and dW sliced back: the zero columns and rows add nothing
+to any product, so this is exact.
 
 The loud policy stays: a batch element whose active voxels fall outside the
 declared dense bounds (its lookup would be wrong) gets NaN in every row of
@@ -66,13 +77,23 @@ def gather_neighbor_features(feats: torch.Tensor, nbr: torch.Tensor,
     return torch.where((idx >= 0)[..., None], got, torch.zeros_like(got))
 
 
-def sparse_conv_plain(plan: ConvPlan, feats: torch.Tensor,
-                      w: torch.Tensor) -> torch.Tensor:
-    """The reference's gather-GEMM: 27 row gathers and matmuls."""
-    out = torch.zeros(feats.shape[:2] + (w.shape[-1],), dtype=feats.dtype,
+def _stencil(feats: torch.Tensor, nbr: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """sum_t feats[nbr(., t)] @ w[t], every tap's product added into an
+    f32 sum and rounded to feats' dtype once (the TPU kernel's ``acc``)."""
+    acc = torch.zeros(feats.shape[:2] + (w.shape[-1],), dtype=torch.float32,
                       device=feats.device)
     for t in range(w.shape[0]):
-        out = out + gather_neighbor_features(feats, plan.nbr, t) @ w[t]
+        acc = acc + gather_neighbor_features(feats, nbr, t).float() @ \
+            w[t].float()
+    return acc.to(feats.dtype)
+
+
+def sparse_conv_plain(plan: ConvPlan, feats: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """The reference's gather-GEMM: 27 row gathers and matmuls, summed in
+    f32 and rounded to feats' dtype once."""
+    out = _stencil(feats, plan.nbr, w)
     return torch.where(plan.overflowed[:, None, None],
                        torch.full_like(out, float("nan")), out)
 
@@ -98,29 +119,35 @@ def tf32_split(t: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_truncate(t - hi)])
 
 
-# K4's and K6's widths are multiples of this.
-WIDTH_MULTIPLE = 4
+def width_multiple(dtype: torch.dtype) -> int:
+    """The widths the sparse-conv kernels of ``dtype`` take are multiples
+    of this: a row is gathered in 16-byte pieces."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
 
 
 def pad_width(t: torch.Tensor, *dims: int) -> torch.Tensor:
     """t zero-padded at the end of each of ``dims`` to a multiple of
-    ``WIDTH_MULTIPLE`` (t itself where nothing is padded)."""
+    ``width_multiple(t.dtype)`` (t itself where nothing is padded)."""
+    mult = width_multiple(t.dtype)
     pad = [0] * (2 * t.dim())
     for dim in dims:
-        pad[2 * (t.dim() - 1 - dim % t.dim()) + 1] = \
-            (-t.shape[dim]) % WIDTH_MULTIPLE
+        pad[2 * (t.dim() - 1 - dim % t.dim()) + 1] = (-t.shape[dim]) % mult
     return torch.nn.functional.pad(t, pad) if any(pad) else t
 
 
 def pack_sparse_weight(w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
-    """K4's weight operand for w [27, F, Fo]: f32 [2, 27, N, K], the tf32
-    hi = tf32(w') and lo = tf32(w' - hi) of each tap's matrix w' laid out
-    [N, K] (the reduction dim contiguous), F and Fo zero-padded to multiples
-    of 4 first. The forward's w' is w[t]^T (N = Fo, K = F); the input
+    """K4's weight operand for w [27, F, Fo], each tap's matrix w' laid out
+    [N, K] (the reduction dim contiguous), F and Fo zero-padded first
+    (``pad_width``). The forward's w' is w[t]^T (N = Fo, K = F); the input
     gradient's (``dgrad``) is ``rev_w(w)[t]^T = w[26 - t]`` (N = F,
-    K = Fo)."""
+    K = Fo). f32 w: f32 [2, 27, N, K], the tf32 hi = tf32(w') and lo =
+    tf32(w' - hi) (the 3xTF32 operands); bf16 w: bf16 [27, N, K], w' as it
+    is."""
     w = pad_width(w, 1, 2)
-    return tf32_split((w.flip(0) if dgrad else w.transpose(1, 2)).float())
+    w = w.flip(0) if dgrad else w.transpose(1, 2)
+    if w.dtype == torch.bfloat16:
+        return w.contiguous()
+    return tf32_split(w.float())
 
 
 def pack_wgrad_grad(g: torch.Tensor) -> torch.Tensor:
@@ -137,26 +164,38 @@ def sparse_conv_bwd_plain(plan: ConvPlan, feats: torch.Tensor,
                           w: torch.Tensor, g: torch.Tensor):
     """(dx, dw) of the conv for the output gradient g [B, C, Fo], written as
     the reference's ``_wc_bwd``: dx[m] = sum_t g[nbr(m, t)] @ w_rev[t]
-    (nothing poisoned), dw[t] = sum over batch and rows of
-    feats[nbr(., t)]^T g."""
-    w_rev = rev_w(w)
-    dx = torch.zeros_like(feats)
+    (nothing poisoned) summed in f32 and rounded to feats' dtype once,
+    dw[t] = sum over batch and rows of feats[nbr(., t)]^T g in f32, rounded
+    to w's dtype once."""
+    dx = _stencil(g, plan.nbr, rev_w(w)).to(feats.dtype)
+    gf = g.reshape(-1, g.shape[-1]).float()
     dw = []
     for t in range(w.shape[0]):
-        dx = dx + gather_neighbor_features(g, plan.nbr, t) @ w_rev[t]
         tap = gather_neighbor_features(feats, plan.nbr, t)
-        dw.append(tap.reshape(-1, tap.shape[-1]).t() @
-                  g.reshape(-1, g.shape[-1]))
-    return dx, torch.stack(dw)
+        dw.append(tap.reshape(-1, tap.shape[-1]).float().t() @ gf)
+    return dx, torch.stack(dw).to(w.dtype)
+
+
+# the card's forward / input-gradient and weight-gradient kernels by dtype
+_CARD_CONV = {torch.float32: ("sparse_conv_f32", "sparse_conv_f32_wgrad"),
+              torch.bfloat16: ("sparse_conv_bf16", "sparse_conv_bf16_wgrad")}
+
+
+def _card_kernels(dtype: torch.dtype):
+    if dtype not in _CARD_CONV:
+        raise ValueError(f"the card's sparse conv takes f32 or bf16, got "
+                         f"{dtype}")
+    return tuple(getattr(kernels, name) for name in _CARD_CONV[dtype])
 
 
 def _forward(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
              w_pack: torch.Tensor | None = None) -> torch.Tensor:
     if feats.is_cuda:
-        out = kernels.sparse_conv_f32(
-            pad_width(feats, -1).contiguous(), plan.nbr.contiguous(),
-            pack_sparse_weight(w) if w_pack is None else w_pack,
-            plan.violations.to(torch.int32).contiguous())
+        conv, _ = _card_kernels(feats.dtype)
+        out = conv(pad_width(feats, -1).contiguous(), plan.nbr.contiguous(),
+                   pack_sparse_weight(w.to(feats.dtype)) if w_pack is None
+                   else w_pack,
+                   plan.violations.to(torch.int32).contiguous())
         return out[..., :w.shape[-1]]
     if feats.device.type != "cpu":
         raise ValueError(f"unsupported device {feats.device}")
@@ -165,8 +204,9 @@ def _forward(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
 
 class _WindowSparseConv(torch.autograd.Function):
     """K4 forward; backward K4 on the output gradient with ``rev_w(w)``'s
-    pack and no poison for dx, K6 for dw (the plain versions on the CPU),
-    each only when asked for."""
+    pack and no poison for dx, K6 for dw rounded to w's dtype (the bf16
+    twins on bf16 features; the plain versions on the CPU), each only when
+    asked for."""
 
     @staticmethod
     def forward(ctx, feats, w, plan, w_pack, w_pack_dgrad):
@@ -188,19 +228,19 @@ class _WindowSparseConv(torch.autograd.Function):
         dx = dw = None
         nbr = plan.nbr.contiguous()
         F, Fo = w.shape[1:]
+        conv, wgrad = _card_kernels(feats.dtype)
         g = pad_width(g, -1)
         if need_dx:
             # the caller's pack, else made here from the weight as it is now
             pack = ctx.w_pack_dgrad
             if pack is None:
-                pack = pack_sparse_weight(w, dgrad=True)
-            dx = kernels.sparse_conv_f32(
-                g, nbr, pack,
-                torch.zeros_like(plan.violations, dtype=torch.int32),
-                dgrad=True)[..., :F]
+                pack = pack_sparse_weight(w.to(feats.dtype), dgrad=True)
+            dx = conv(g, nbr, pack,
+                      torch.zeros_like(plan.violations, dtype=torch.int32),
+                      dgrad=True)[..., :F]
         if need_dw:
-            dw = kernels.sparse_conv_f32_wgrad(
-                pad_width(feats, -1).contiguous(), nbr, g)[:, :F, :Fo]
+            dw = wgrad(pad_width(feats, -1).contiguous(), nbr,
+                       g)[:, :F, :Fo].to(w.dtype)
         return dx, dw, None, None, None
 
 
@@ -210,10 +250,11 @@ def window_sparse_conv(plan: ConvPlan, feats: torch.Tensor, w: torch.Tensor,
                        ) -> torch.Tensor:
     """Sparse submanifold 3^3 conv: feats [B, C, F], w [27, F, Fo]
     (``neighbor_offsets`` tap order, SparseConv3d's kernel layout) ->
-    [B, C, Fo], differentiable in feats and w. Rows of a batch element with
-    dense-bounds violations are NaN. On the card feats and w must be f32
-    (any widths: they are padded to multiples of 4 and the results sliced);
-    ``w_pack`` and ``w_pack_dgrad`` are ``pack_sparse_weight(w)`` and
+    [B, C, Fo] in feats' dtype, differentiable in feats and w. Rows of a
+    batch element with dense-bounds violations are NaN. On the card feats
+    must be f32 or bf16, w of the same dtype (any widths: they are padded to
+    ``width_multiple`` and the results sliced); ``w_pack`` and
+    ``w_pack_dgrad`` are ``pack_sparse_weight(w)`` and
     ``pack_sparse_weight(w, dgrad=True)`` where the caller keeps them per
     weight version (made here when not given)."""
     if torch.is_grad_enabled() and (feats.requires_grad or w.requires_grad):

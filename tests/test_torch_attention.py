@@ -48,3 +48,28 @@ def test_plain_attention_chunks_rows(monkeypatch):
     chunked = attention_plain(q, k, v, 0.25)
     np.testing.assert_allclose(chunked.numpy(), full.numpy(), atol=1e-6)
 
+
+
+def test_plain_attention_takes_bf16_logits_in_f32():
+    """On bf16 q, k, v the plain version takes the logits in f32, as K2
+    and the TPU library's flash kernel do (f32 products of the bf16
+    operands; the reference's einsum route rounds them to bf16 first), and
+    the softmax in f32. Logits of some tens, where a bf16 ulp is 0.125:
+    the lse within 1e-4 of an f64 oracle on the same bf16 values, and the
+    output within one bf16 ulp of its largest value. Logits rounded to
+    bf16 move the lse by up to 0.06 and the output by two of those ulps."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(2.5 * a).to(torch.bfloat16)
+               for a in _qkv(rng, 1, 64, 64, 2, 16))
+    scale = 16 ** -0.5
+    out, lse = attention_plain(q, k, v, scale, return_lse=True)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    assert logits.abs().max() > 16
+    want_lse = torch.logsumexp(logits, dim=-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
+                        v.double())
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert (lse.double() - want_lse).abs().max() <= 1e-4
+    top = want.abs().max()
+    ulp = 2.0 ** (torch.floor(torch.log2(top)) - 7)
+    assert (out.double() - want).abs().max() <= ulp

@@ -257,3 +257,58 @@ def test_pad_width_and_the_padded_pack():
     assert pack.shape == (2, 27, 8, 8)
     assert (pack[:, :, 5:] == 0).all() and (pack[:, :, :, 6:] == 0).all()
     assert wc.pack_sparse_weight(w, dgrad=True).shape == (2, 27, 8, 8)
+
+
+@pytest.mark.parametrize("F,Fo", [(30, 30), (30, 62), (6, 4), (12, 13)])
+def test_bf16_sparse_conv_pads_widths(monkeypatch, F, Fo):
+    """``window_sparse_conv`` on bf16 features at widths that are not
+    multiples of 8, its feats on a CUDA-claiming tensor: the bf16 K4 and K6
+    stand-ins get widths padded to multiples of 8 (bf16 packs [27, N, K])
+    and never an f32 kernel; the output, dx and dW have the true widths
+    and dtypes and equal the unpadded plain versions (the zero columns add
+    exact zeros to the f32 sums)."""
+    grid, plan, g = _sparse_scene(F * 100 + Fo + 1)
+    calls = []
+
+    def k4(feats, nbr, w_pack, poison, dgrad=False):
+        K, N = feats.shape[-1], w_pack.shape[1]
+        assert K % 8 == 0 and N % 8 == 0 and w_pack.shape == (27, N, K)
+        assert feats.dtype == w_pack.dtype == torch.bfloat16
+        calls.append(("dgrad" if dgrad else "fwd", K, N))
+        return wc.sparse_conv_plain(wc.ConvPlan(plan.nbr, _plain(poison)),
+                                    _plain(feats),
+                                    _plain(w_pack).transpose(1, 2))
+
+    def k6(feats, nbr, gout):
+        F8, Fo8 = feats.shape[-1], gout.shape[-1]
+        assert F8 % 8 == 0 and Fo8 % 8 == 0
+        calls.append(("wgrad", F8, Fo8))
+        return wc.sparse_conv_bwd_plain(plan, _plain(feats), torch.zeros(
+            (27, F8, Fo8)), _plain(gout))[1]
+
+    def refuse(*a, **kw):
+        raise AssertionError("an f32 kernel for bf16 features")
+
+    monkeypatch.setattr(kernels, "sparse_conv_bf16", k4)
+    monkeypatch.setattr(kernels, "sparse_conv_bf16_wgrad", k6)
+    monkeypatch.setattr(kernels, "sparse_conv_f32", refuse)
+    monkeypatch.setattr(kernels, "sparse_conv_f32_wgrad", refuse)
+    m = grid.mask[..., None]
+    bf = torch.bfloat16
+    x = torch.where(m, torch.randn((1, 1024, F), generator=g), 0.0).to(bf)
+    w = (torch.randn((27, F, Fo), generator=g) / (27 * F) ** 0.5).to(bf)
+    cot = torch.where(m, torch.randn((1, 1024, Fo), generator=g),
+                      0.0).to(bf)
+    feats = x.clone().as_subclass(_OnCard).requires_grad_()
+    wl = w.clone().requires_grad_()
+    out = wc.window_sparse_conv(plan, feats, wl)
+    out.backward(cot)
+    F8, Fo8 = -(-F // 8) * 8, -(-Fo // 8) * 8
+    assert calls == [("fwd", F8, Fo8), ("dgrad", Fo8, F8),
+                     ("wgrad", F8, Fo8)]
+    ref = wc.sparse_conv_plain(plan, x, w)
+    ref_dx, ref_dw = wc.sparse_conv_bwd_plain(plan, x, w, cot)
+    for got, want in ((_plain(out), ref), (_plain(feats.grad), ref_dx),
+                      (wl.grad, ref_dw)):
+        assert got.dtype == bf and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -214,6 +214,7 @@ def test_voxel_branch_dense_bounds_and_config_fields():
     from infinicube_tpu.models.gsm.model import GSMConfig as JC
     jc, tc = dataclasses.asdict(JC()), dataclasses.asdict(tm.GSMConfig())
     for part in ("voxel", "pixel", "sky"):
-        jc[part].pop("dtype")
+        jc[part]["dtype"] = np.dtype(jc[part]["dtype"]).name
+        tc[part]["dtype"] = str(tc[part]["dtype"]).removeprefix("torch.")
     jc["voxel"].pop("conv_backend")
     assert jc == tc

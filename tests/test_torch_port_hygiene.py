@@ -458,3 +458,105 @@ def test_int8_conv_on_the_card_takes_k7_where_the_rule_holds(monkeypatch):
         assert torch.equal(plain(out), ref)
     assert dense_conv.int8_conv_applies((2, 4, 8, 16), 64, 64)
     assert dense_conv.int8_conv_applies((1, 3, 4, 32), 128, 64)
+
+
+def test_bf16_sparse_conv_on_cpu_tensors_launches_nothing(monkeypatch):
+    """A bf16 sparse ResBlock (its convs, their gradients) and the bf16
+    attention with a gradient on CPU tensors take the plain versions: no
+    bf16 kernel wrapper is called and nothing is counted."""
+    from infinicube_tpu_torch.grid.build import grid_from_ijk
+    from infinicube_tpu_torch.nn.sparse import SparseResBlock, conv_plan
+    from infinicube_tpu_torch.ops.attention import multi_head_attention
+
+    def refuse(*a, **kw):
+        raise AssertionError("a kernel ran on a CPU tensor")
+
+    for name in ("sparse_conv_bf16", "sparse_conv_bf16_wgrad",
+                 "flash_attn_bf16", "flash_attn_bf16_bwd"):
+        monkeypatch.setattr(kernels, name, refuse)
+    kernels.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    grid = grid_from_ijk(torch.randint(-3, 3, (1, 40, 3), generator=g),
+                         torch.ones((1, 40), dtype=torch.bool), 0.2, 0.1, 64)
+    block = SparseResBlock(12, 16, dtype=torch.bfloat16)
+    for conv in (block.conv1, block.conv2):
+        conv.reset_parameters(g)
+    x = torch.randn((1, 64, 12), generator=g, requires_grad=True)
+    out = block(x, conv_plan(grid, ((-8, -8, -8), (16, 16, 16))), grid.mask)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert x.grad is not None and block.conv1.kernel.grad.dtype == \
+        torch.float32
+    q = torch.randn((1, 9, 2, 64), generator=g).bfloat16().requires_grad_()
+    multi_head_attention(q, q, q).float().sum().backward()
+    assert all(v == 0 for v in kernels.launches.values())
+
+
+def test_bf16_sparse_conv_on_the_card_goes_through_the_bf16_kernels(
+        monkeypatch):
+    """A bf16 ``SparseConv3d`` whose feats claim to be on the card: the
+    forward, dx and dW go to ``sparse_conv_bf16`` (counted as dgrad for
+    dx, with the reversed pack and no poison) and
+    ``sparse_conv_bf16_wgrad``, the packs bf16 [27, N, K] cached per
+    weight version and dtype, dW rounded to bf16 and handed back as f32;
+    never a plain version and never an f32 kernel."""
+    from infinicube_tpu_torch.grid.build import grid_from_ijk
+    from infinicube_tpu_torch.nn import sparse
+    from infinicube_tpu_torch.ops import window_conv
+
+    def plain(t):
+        return t.as_subclass(torch.Tensor)
+
+    g = torch.Generator().manual_seed(1)
+    grid = grid_from_ijk(torch.randint(-3, 3, (1, 40, 3), generator=g),
+                         torch.ones((1, 40), dtype=torch.bool), 0.2, 0.1, 64)
+    plan = sparse.conv_plan(grid, ((-8, -8, -8), (16, 16, 16)))
+    conv = sparse.SparseConv3d(8, 16, dtype=torch.bfloat16)
+    conv.reset_parameters(g)
+    calls = []
+    conv_plain, bwd_plain = (window_conv.sparse_conv_plain,
+                             window_conv.sparse_conv_bwd_plain)
+    w16 = conv.kernel.detach().bfloat16()
+
+    def fake_k4(feats, nbr, w_pack, poison, dgrad=False):
+        calls.append(("dgrad" if dgrad else "fwd", tuple(w_pack.shape),
+                      w_pack.dtype, poison.tolist()))
+        assert torch.equal(plain(w_pack),
+                           window_conv.pack_sparse_weight(w16, dgrad))
+        return conv_plain(plan, plain(feats),
+                          window_conv.rev_w(w16) if dgrad else w16)
+
+    def fake_k6(feats, nbr, gout):
+        calls.append(("wgrad", tuple(gout.shape), gout.dtype, None))
+        zero_w = torch.zeros((27, feats.shape[-1], gout.shape[-1]))
+        return bwd_plain(plan, plain(feats), zero_w, plain(gout))[1]
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version or an f32 kernel ran")
+
+    monkeypatch.setattr(window_conv.kernels, "sparse_conv_bf16", fake_k4)
+    monkeypatch.setattr(window_conv.kernels, "sparse_conv_bf16_wgrad",
+                        fake_k6)
+    for name in ("sparse_conv_f32", "sparse_conv_f32_wgrad"):
+        monkeypatch.setattr(window_conv.kernels, name, refuse)
+    monkeypatch.setattr(window_conv, "sparse_conv_plain", refuse)
+    monkeypatch.setattr(window_conv, "sparse_conv_bwd_plain", refuse)
+    x = torch.randn((1, 64, 8), generator=g).bfloat16()
+    feats = x.clone().as_subclass(_OnCard).requires_grad_()
+    cot = torch.randn((1, 64, 16), generator=g).bfloat16()
+    out = conv(feats, plan)
+    assert out.dtype == torch.bfloat16
+    out.backward(cot)
+    bf = torch.bfloat16
+    assert calls == [("fwd", (27, 16, 8), bf, [0]),
+                     ("dgrad", (27, 8, 16), bf, [0]),
+                     ("wgrad", (1, 64, 16), bf, None)]
+    # the packs are cached per weight version and dtype
+    packs = conv._packed[1]
+    assert set(packs) == {False, True} and conv._packed[0][3] == bf
+    monkeypatch.undo()
+    ref_dx, ref_dw = bwd_plain(plan, x, w16, cot)
+    torch.testing.assert_close(plain(feats.grad), ref_dx, rtol=0, atol=0)
+    assert conv.kernel.grad.dtype == torch.float32
+    torch.testing.assert_close(conv.kernel.grad, ref_dw.float(), rtol=0,
+                               atol=0)

@@ -1,0 +1,134 @@
+"""The sparse conv on bf16 features on the card: ``sparse_conv_bf16``
+(forward, and as the input gradient) and ``sparse_conv_bf16_wgrad``
+against their plain versions at the GSM voxel branch's widths on the three
+levels of a 65,536-slot scene grid (0.4 m, bench_gsm_train.py's kind of
+scene), through a padded width (30 -> 62) and a poisoned batch element,
+two runs bit-identical. Gate: one bf16 ulp per element of the larger of
+the two values, with a floor of 2^-16 of the largest reference value (the
+two sum in f32 in different orders; where an element's terms cancel the
+order alone moves it by more than its own ulp). Needs an NVIDIA GPU and
+skips without one; imports no JAX:
+
+    python -m pytest --noconftest -p no:cacheprovider \\
+        tests/test_torch_sparse_conv_bf16_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from infinicube_tpu_torch import kernels
+from infinicube_tpu_torch.grid.build import coarsened_grid, grid_from_points
+from infinicube_tpu_torch.nn.sparse import conv_plan
+from infinicube_tpu_torch.ops import window_conv as wc
+
+pytestmark = pytest.mark.cuda
+
+# the voxel branch's convs in gsm_bf16_config: (F, Fo, level)
+SHAPES = [(64, 64, 0), (64, 128, 1), (128, 128, 1), (128, 256, 2),
+          (256, 256, 2), (384, 128, 1), (192, 64, 0), (30, 62, 0)]
+BOUNDS = ((-8, -64, -8), (224, 128, 48))
+
+
+@pytest.fixture(scope="module")
+def plans():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    n = 200_000
+    road = np.stack([rng.uniform(0, 80, n // 2), rng.uniform(-20, 20, n // 2),
+                     rng.normal(0, 0.1, n // 2)], -1)
+    walls = np.stack([rng.uniform(0, 80, n // 2),
+                      np.sign(rng.normal(size=n // 2)) *
+                      rng.normal(16, 0.3, n // 2),
+                      rng.uniform(0, 10, n // 2)], -1)
+    pts = torch.tensor(np.concatenate([road, walls])[None],
+                       dtype=torch.float32, device="cuda")
+    grids = [grid_from_points(pts, torch.ones((1, n), dtype=torch.bool,
+                                              device="cuda"),
+                              0.4, 0.2, capacity=1 << 16)]
+    for _ in range(2):
+        grids.append(coarsened_grid(grids[-1], (2, 2, 2),
+                                    capacity=grids[-1].capacity))
+    out = []
+    for level, g in enumerate(grids):
+        mn, dm = np.asarray(BOUNDS[0]), np.asarray(BOUNDS[1])
+        mx = mn + dm - 1
+        for _ in range(level):
+            mn, mx = mn // 2, mx // 2
+        bounds = (tuple(int(v) for v in mn), tuple(int(v) for v in mx - mn + 1))
+        out.append((g, conv_plan(g, dense_bounds=bounds)))
+    return out
+
+
+def hold_ulp(got, ref):
+    """got within one bf16 ulp of ref element by element; returns the
+    bit-equal share."""
+    got, ref = got.float(), ref.float()
+    a = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    tol = ulp + 2.0 ** -16 * ref.abs().max()
+    assert ((got - ref).abs() <= tol).all()
+    return (got == ref).float().mean().item()
+
+
+@pytest.mark.parametrize("F,Fo,level", SHAPES)
+def test_bf16_kernels_match_plain(plans, F, Fo, level):
+    grid, plan = plans[level]
+    assert not plan.overflowed.any()
+    g = torch.Generator(device="cuda").manual_seed(F * 1000 + Fo)
+    m = grid.mask[..., None]
+    C = grid.mask.shape[1]
+    x = torch.where(m, torch.randn((1, C, F), generator=g, device="cuda"),
+                    0.0).bfloat16()
+    w = (torch.randn((27, F, Fo), generator=g, device="cuda") /
+         (27 * F) ** 0.5).bfloat16()
+    cot = torch.where(m, torch.randn((1, C, Fo), generator=g,
+                                     device="cuda"), 0.0).bfloat16()
+    runs = []
+    for _ in range(2):
+        kernels.reset_launches()
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = wc.window_sparse_conv(plan, xr, wr)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        assert {k for k, v in kernels.launches.items() if v} == {
+            "sparse_conv_bf16", "sparse_conv_bf16_dgrad",
+            "sparse_conv_bf16_wgrad"}
+        runs.append((out, xr.grad, wr.grad))
+    ref = wc.sparse_conv_plain(plan, x, w)
+    ref_dx, ref_dw = wc.sparse_conv_bwd_plain(plan, x, w, cot)
+    for got, want in zip(runs[0], (ref, ref_dx, ref_dw)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert hold_ulp(got, want) >= 0.99
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_bf16_poisoned_batch_element_is_nan(plans):
+    grid, plan = plans[0]
+    C = grid.mask.shape[1]
+    x = torch.randn((2, C, 64), device="cuda").bfloat16()
+    nbr = plan.nbr.expand(2, -1, -1).contiguous()
+    w = (torch.randn((27, 64, 64), device="cuda") / 40).bfloat16()
+    poison = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    out = kernels.sparse_conv_bf16(x, nbr, wc.pack_sparse_weight(w), poison)
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[0]).all()
+    ref = wc.sparse_conv_plain(wc.ConvPlan(nbr, poison), x, w)
+    assert torch.isnan(ref[1]).all()
+    hold_ulp(out[0], ref[0])
+
+
+def test_bf16_kernels_refuse_what_they_do_not_take(plans):
+    _, plan = plans[0]
+    C = plan.nbr.shape[1]
+    x = torch.zeros((1, C, 12), dtype=torch.bfloat16, device="cuda")
+    pack = torch.zeros((27, 16, 12), dtype=torch.bfloat16, device="cuda")
+    poison = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        kernels.sparse_conv_bf16(x, plan.nbr, pack, poison)
+    with pytest.raises(ValueError):
+        kernels.sparse_conv_bf16_wgrad(x, plan.nbr, x)
+    with pytest.raises(ValueError):
+        kernels.sparse_conv_bf16(x.float(), plan.nbr, pack, poison)
