@@ -259,6 +259,37 @@ branches in bf16, as ``benchmarks/bench_gsm_train.py`` runs it):
     card against CPU from one init, both branches and the voxel branch
     off: each parameter group's gradient at cosine >= 0.999.
 
+Then the video stage's last three paths (the bf16 GSM freed first):
+
+36. K3 at the Wan VAE's routed conv shapes, each with its 2 history frames,
+    against ``conv3x3x3_plain`` at its gate: the five of a release decode
+    tile (24 latent frames of 32 x 32), the whole frame's latent level
+    [1, 26, 60, 104] 384->384 and one of each level of a 93-frame encode
+    tile of 480 x 256; the f32 conv at the decode tile's latent shape;
+    each timed beside the plain version, its bound and its share of it,
+    and cuDNN's conv3d on the same padded input;
+37. the release VAE (``VideoVAEConfig.wan21``, random weights) with
+    ``conv_impl="auto"`` and its ``"xla"`` twin on the same weights: a
+    decode tile and an encode tile card against card, the routed card
+    decode against the CPU's plain routed f32 decode on a cut clip, exact
+    K3 launches (28 a decode and 20 an encode call, derived from the
+    schedules with the port's rule and printed term by term), a decode
+    tile profiled on each route; then the video stage's VAE work on each
+    route, the tiled decode of 24 latent frames at 60 x 104 (8 tiles) and
+    the two tiled buffer encodes of 93 frames at 480 x 832 (4 tiles each),
+    timed with peak memory, the routed one the main path (K3 384);
+38. ``decode_streaming_host`` at chunks of 1, 2 and 3 against the
+    whole-clip decode at 480 x 832 with 9 latent frames on both routes,
+    then the routed streaming decode of 24 latent frames at chunk 2 (the
+    main path, K3 28 a chunk), timed with peak memory beside the tiled
+    decode;
+39. ``WanVideoGenerator.train_loss``: a 2-layer full-width DiT's loss and
+    every gradient card (bf16, K2 / K5) against the CPU (f32) with the
+    worst cosine gated, then the 30-layer 1.3B DiT at 17 frames @ 480x832
+    with AdamW (EMA off): a warm-up step, then 3 steps (the main path, K2
+    60 and K5 60 a step exactly) split into forward, backward and
+    optimizer, peak memory, one step under ``torch.profiler``.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -4377,38 +4408,37 @@ def bf16_sparse_checks(kernels, ws, levels):
     return rows, padded
 
 
-def bf16_attn_checks(kernels, att):
-    """Phase 34 (b): K2 with its lse store and K5 in bf16 at the pixel
-    branch's training bottleneck [3, 5,280, 4, 64], against
-    ``attention_plain`` and ``attention_bwd_plain`` in f32 on the same
-    inputs (K2's gate ``k2_gate`` and the lse within 1e-3, K5's ``gate``,
-    two runs bit-identical), timed beside the plain versions, their bounds
-    and ``scaled_dot_product_attention``'s forward and pinned backward.
+def attn_train_rows(kernels, att, g, B, nq, nk, h, d, tag):
+    """K2 with its lse store and K5 in bf16 at a training shape (B batches,
+    Nq queries, Nk keys, h heads of d), against ``attention_plain`` and
+    ``attention_bwd_plain`` in f32 on the same inputs (K2's gate
+    ``k2_gate`` and the lse within 1e-3, K5's ``gate``, each kernel's two
+    runs bit-identical), timed beside the plain versions, their bounds and
+    ``scaled_dot_product_attention``'s forward and pinned backward.
     Returns K2's and K5's rows."""
-    g = torch.Generator(device="cuda").manual_seed(35)
-    B, n, h, d = GSM_BF16_ATTN
-    q, k, v, do = (rand((B, n, h, d), g) for _ in range(4))
+    q, k, v, do = (rand((B, n, h, d), g) for n in (nq, nk, nk, nq))
     scale = d ** -0.5
-    shape = f"B={B} N={n} h={h} d={d}"
+    shape = f"B={B} Nq={nq} Nk={nk} h={h} d={d}"
     o, lse = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
     again = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
     check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
-          f"[gsm bf16 attn] {shape}: K2 two runs differ")
+          f"{tag} {shape}: K2 two runs differ")
     ref_o, ref_lse = att.attention_plain(q.float(), k.float(), v.float(),
                                          scale, return_lse=True)
-    o_err = k2_gate(o, ref_o, f"[gsm bf16 attn] {shape} K2 o")
+    o_err = k2_gate(o, ref_o, f"{tag} {shape} K2 o")
     lse_err = (lse - ref_lse).abs().max().item()
-    print(f"[gsm bf16 attn] {shape} K2 lse: max_abs_err {lse_err:.3e} "
+    print(f"{tag} {shape} K2 lse: max_abs_err {lse_err:.3e} "
           f"(limit 1.000e-03)")
-    check(lse_err <= 1e-3, f"K2 lse err {lse_err}")
+    check(lse.shape == (B, h, nq) and lse_err <= 1e-3,
+          f"{tag} K2 lse {tuple(lse.shape)} err {lse_err}")
     delta = att.attention_delta(ref_o, do)
     got = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, delta, scale)
     again = kernels.flash_attn_bf16_bwd(q, k, v, do, ref_lse, delta, scale)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"[gsm bf16 attn] {shape}: K5 two runs differ")
+          f"{tag} {shape}: K5 two runs differ")
     ref = att.attention_bwd_plain(q.float(), k.float(), v.float(), ref_o,
                                   do.float(), ref_lse, scale)
-    err = max(gate(a, b, f"[gsm bf16 attn] {shape} K5 d{name}")
+    err = max(gate(a, b, f"{tag} {shape} K5 d{name}")
               for a, b, name in zip(got, ref, "qkv"))
     del ref_o, ref_lse, ref, got, again
     fwd_ms = cuda_ms(lambda: kernels.flash_attn_bf16(q, k, v, scale,
@@ -4423,12 +4453,13 @@ def bf16_attn_checks(kernels, att):
     lib_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt))
     lib_bwd, backend = sdpa_backward_ms(q, k, v, do)
-    flops = 4.0 * n * n * d * h * B
-    f_ms, f_by = bound_ms([(flops, PEAK_BF16)], 2 * 4 * B * n * h * d +
-                          4 * B * h * n)
+    flops = 4.0 * nq * nk * d * h * B
+    f_ms, f_by = bound_ms([(flops, PEAK_BF16)], 2 * 2 * B * h * d *
+                          (nq + nk) + 4 * B * h * nq)
     b_ms, b_by = bound_ms([(2.5 * flops, PEAK_BF16)],
-                          2 * B * d * h * 7 * n + 2 * 4 * B * h * n)
-    print(f"[gsm bf16 attn] {shape}: K2 with the lse store {fwd_ms:.4f} ms "
+                          2 * B * d * h * (3 * nq + 4 * nk) +
+                          2 * 4 * B * h * nq)
+    print(f"{tag} {shape}: K2 with the lse store {fwd_ms:.4f} ms "
           f"({100 * f_ms / fwd_ms:.1f} % of its bound {f_ms:.4f} ms, {f_by}),"
           f" plain {plain_fwd:.3f} ms, sdpa {lib_fwd:.4f} ms; K5 "
           f"{bwd_ms:.4f} ms ({100 * b_ms / bwd_ms:.1f} % of its bound "
@@ -4440,6 +4471,15 @@ def bf16_attn_checks(kernels, att):
             dict(shape=shape, max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd,
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd,
                  library_backend=backend))
+
+
+def bf16_attn_checks(kernels, att):
+    """Phase 34 (b): K2 and K5 in bf16 at the pixel branch's training
+    bottleneck [3, 5,280, 4, 64] (``attn_train_rows``). Returns K2's and
+    K5's rows."""
+    g = torch.Generator(device="cuda").manual_seed(35)
+    B, n, h, d = GSM_BF16_ATTN
+    return attn_train_rows(kernels, att, g, B, n, n, h, d, "[gsm bf16 attn]")
 
 
 def gsm_bf16_grad_check(kernels, gsm):
@@ -4548,6 +4588,517 @@ def gsm_bf16_train(kernels, att):
             "sparse_conv_bf16_wgrad", src + "sparse_conv_bwd.cu",
             "infinicube_tpu/ops/window_conv.py:252", rows["dw"], 0)}
     return entries, padded, k2_row, k5_row, launches
+
+
+# ---------------------------------------------------------------------------
+# the video stage's leftovers: the Wan VAE's routed convs on K3, its streaming
+# decode, and the DiT's flow-matching train step
+# ---------------------------------------------------------------------------
+
+# the routed convs of one release decode tile (24 latent frames of 32 x 32,
+# pipeline.generate's tile), frames counted with the 2 history frames:
+# (D, H, W, C, O)
+VAE_DECODE_SHAPES = ((26, 32, 32, 384, 384), (49, 64, 64, 192, 384),
+                     (49, 64, 64, 384, 384), (95, 128, 128, 192, 192),
+                     (95, 256, 256, 96, 96))
+# the whole-frame latent level of a 93-frame decode, and one routed conv of
+# each level of a 93-frame encode tile of 480 x 256 pixels
+VAE_FRAME_SHAPE = (26, 60, 104, 384, 384)
+VAE_ENCODE_SHAPES = ((95, 480, 256, 96, 96), (95, 240, 128, 192, 192),
+                     (49, 120, 64, 384, 384), (26, 60, 32, 384, 384))
+
+
+def vae_conv_row(kernels, dc, g, shape, dtype=torch.bfloat16):
+    """One conv of the VAE's routed set through the card's kernel for
+    ``dtype`` (K3 for bf16, ``conv3x3x3_f32`` for f32) against
+    ``conv3x3x3_plain`` on the same inputs, at its gate (bf16: cosine >=
+    0.9999 and max-abs <= 2e-2 * max|ref|; f32: max-abs <= 1e-4 *
+    max|ref|); timed beside the plain version, its bound (2*V*27*C*O at the
+    dtype's peak, 3 TF32 products for f32) and cuDNN's conv3d on the same
+    padded input (channels_last_3d, so that it reads the layout K3 reads).
+    The shape's D counts the 2 history frames, whose 2 outputs the route
+    drops; the causal bound counts only the D - 2 frames the VAE keeps
+    (2*(D-2)*H*W*27*C*O, the same input read, D - 2 frames written)."""
+    D_, H_, W_, C, O = shape
+    x = torch.randn((1, D_, H_, W_, C), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") /
+         math.sqrt(27 * C)).to(dtype)
+    b = 0.1 * torch.randn(O, generator=g, device="cuda")
+    wp = dc.pack_conv_weight(w, dtype)
+    run = kernels.conv3x3x3_bf16 if dtype == torch.bfloat16 else \
+        kernels.conv3x3x3_f32
+    got = run(x, wp, b).float()
+    ref = dc.conv3x3x3_plain(x, w, b).float()
+    c, err = cos(got, ref), (got - ref).abs().max().item()
+    f32 = dtype == torch.float32
+    lim = (1e-4 if f32 else 2e-2) * ref.abs().max().item()
+    label = f"[vae k3{' f32' if f32 else ''}] [1,{D_},{H_},{W_},{C}]->{O}"
+    print(f"{label}: cosine {c:.7f} max_abs_err {err:.3e} (limit {lim:.3e})")
+    check(err <= lim and (f32 or c >= 0.9999),
+          f"{label}: cos {c} err {err}")
+    del got, ref
+    ms = cuda_ms(lambda: run(x, wp, b), 2, 5)
+    plain = cuda_ms(lambda: dc.conv3x3x3_plain(x, w, b), 1, 2)
+    xl = x.permute(0, 4, 1, 2, 3)
+    wl = w.contiguous(memory_format=torch.channels_last_3d)
+    bb = b.to(dtype)
+    lib = cuda_ms(lambda: torch.nn.functional.conv3d(xl, wl, bb, padding=1),
+                  2, 5)
+    elt = 4 if f32 else 2
+
+    def bound(d_out):
+        V, Vo = D_ * H_ * W_, d_out * H_ * W_
+        flops = 2.0 * Vo * 27 * C * O
+        return bound_ms([(3 * flops, PEAK_TF32)] if f32 else
+                        [(flops, PEAK_BF16)],
+                        elt * (V * C + 27 * C * O + Vo * O) + 4 * O)
+
+    (b_ms, b_by), (c_ms, c_by) = bound(D_), bound(D_ - 2)
+    flops = 2.0 * D_ * H_ * W_ * 27 * C * O
+    print(f"{label}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * b_ms / ms:.1f} % of its bound, {100 * c_ms / ms:.1f} % of "
+          f"the causal bound), plain {plain:.3f} ms, cudnn {lib:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}), causal bound {c_ms:.3f} ms "
+          f"({c_by})")
+    del x, w, wp, xl, wl
+    return dict(shape=f"[1,{D_},{H_},{W_},{C}]->{O}", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                causal_bound_ms=c_ms, causal_bound_by=c_by)
+
+
+def vae_k3_checks(kernels, dc):
+    """Phase 36: K3 at the VAE's routed shapes (decode tile, whole-frame
+    latent, one per encode level), and the f32 conv at the decode tile's
+    latent shape. Returns (bf16 rows, f32 rows)."""
+    g = torch.Generator(device="cuda").manual_seed(36)
+    rows = [vae_conv_row(kernels, dc, g, s) for s in
+            VAE_DECODE_SHAPES + (VAE_FRAME_SHAPE,) + VAE_ENCODE_SHAPES]
+    f32_rows = [vae_conv_row(kernels, dc, g, VAE_DECODE_SHAPES[0],
+                             torch.float32)]
+    torch.cuda.empty_cache()
+    return rows, f32_rows
+
+
+def timed_ms(fn):
+    """fn() between two synchronizes: (its result, host ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def vae_routed_counts(vae3d, cfg):
+    """The routed convs of one decode and one encode call, derived from
+    ``decoder_schedule`` / ``encoder_schedule`` with the port's rule
+    (``vae3d.routes``: a ResidualBlock conv whose widths are both >= 64),
+    printed term by term. Returns (decode, encode)."""
+    impl = cfg.conv_impl
+
+    def block(cin, feat):
+        return int(vae3d.routes(impl, (3, 3, 3), cin, feat)) + \
+            int(vae3d.routes(impl, (3, 3, 3), feat, feat))
+
+    def walk(schedule, cin, label):
+        terms = []
+        for idx, kind, feat in schedule:
+            if kind == "res":
+                terms.append((f"{label}_{idx}", block(cin, feat)))
+                cin = feat
+            elif kind.startswith("up"):
+                cin //= 2
+        return terms, cin
+
+    top = cfg.base_channels * cfg.channel_mult[-1]
+    dec, _ = walk(vae3d.decoder_schedule(cfg), top, "upsamples")
+    dec = [("middle_0", block(top, top)), ("middle_2", block(top, top))] + dec
+    enc, c = walk(vae3d.encoder_schedule(cfg), cfg.base_channels,
+                  "downsamples")
+    enc += [("middle_0", block(c, c)), ("middle_2", block(c, c))]
+    for name, terms in (("decode", dec), ("encode", enc)):
+        print(f"[vae] routed convs per {name} call: " +
+              " + ".join(f"{k} {n}" for k, n in terms) +
+              f" = {sum(n for _, n in terms)}")
+    return sum(n for _, n in dec), sum(n for _, n in enc)
+
+
+def frames_gate(got, ref, label, min_cos, max_err=None, frames=True):
+    """Frames (or latents) of two runs: cosine, max-abs and, for frames, the
+    share of the reference's values strictly inside (-1, 1) (the decoder
+    clips there)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    c, err = cos(got, ref), (got - ref).abs().max().item()
+    inside = (ref.abs() < 1).float().mean().item()
+    print(f"{label}: cosine {c:.7f} max_abs_err {err:.3e} (gates: cosine >= "
+          f"{min_cos}" + ("" if max_err is None else
+                          f", max-abs <= {max_err}") + ")" +
+          (f"; {100 * inside:.1f} % of the reference inside (-1, 1)"
+           if frames else ""))
+    check(c >= min_cos and (max_err is None or err <= max_err),
+          f"{label}: cos {c} err {err}")
+    return c, err
+
+
+def vae_routes(kernels, vae3d):
+    """Phase 37: the release VAE (``VideoVAEConfig.wan21``, full width,
+    random weights) with ``conv_impl="auto"`` and its ``"xla"`` twin on the
+    same weights: one decode tile and one encode tile card against card
+    with exact K3 launches, the routed card decode against the CPU's plain
+    routed decode (f32) on a cut clip; then the video stage's VAE work on
+    each route (the tiled decode of 24 latent frames at 60 x 104, the two
+    tiled buffer encodes of 93 frames at 480 x 832), timed, with peak
+    memory; the routed run is the main path. Returns (the routed VAE, its
+    path's launches, the times by route, the K3 launches a decode call)."""
+    cfg = vae3d.VideoVAEConfig.wan21(conv_impl="auto")
+    n_dec, n_enc = vae_routed_counts(vae3d, cfg)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    routed = vae3d.VideoVAE(cfg, device="cuda").eval().requires_grad_(False)
+    routed.init_params(g)
+    xla = vae3d.VideoVAE(dataclasses.replace(cfg, conv_impl="xla"),
+                         device="cuda").eval().requires_grad_(False)
+    xla.load_state_dict(routed.state_dict())
+    vaes = {"auto": routed, "xla": xla}
+    z = torch.randn((1, 24, 32, 32, 16), generator=g, device="cuda")
+    video = torch.rand((1, 93, 480, 256, 3), generator=g,
+                       device="cuda") * 2 - 1
+    out = {}
+    with torch.no_grad():
+        for impl, vae in vaes.items():
+            kernels.reset_launches()
+            dec = vae.decode(z)
+            n_d = kernels.launches["conv3x3x3_bf16"]
+            lat = vae.encode(video)
+            n_e = kernels.launches["conv3x3x3_bf16"] - n_d
+            want = (n_dec, n_enc) if impl == "auto" else (0, 0)
+            print(f"[vae] {impl}: decode tile {tuple(z.shape)} -> "
+                  f"{tuple(dec.shape)}, encode tile {tuple(video.shape)} -> "
+                  f"{tuple(lat.shape)}; K3 launches {n_d} + {n_e} (want "
+                  f"{want[0]} + {want[1]})")
+            check((n_d, n_e) == want, f"{impl} K3 launches {n_d}, {n_e}")
+            out[impl] = (dec, lat)
+        frames_gate(out["auto"][0], out["xla"][0],
+                    "[vae] decode tile, routed vs xla (card)", 0.999)
+        frames_gate(out["auto"][1], out["xla"][1],
+                    "[vae] encode tile latents, routed vs xla (card)", 0.999,
+                    frames=False)
+        del out, dec, lat, video
+        # the routed card decode against the CPU's plain routed decode (f32)
+        cpu = vae3d.VideoVAE(dataclasses.replace(cfg, dtype=torch.float32),
+                             device="cpu").eval().requires_grad_(False)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             routed.state_dict().items()})
+        zc = z[:, :2, :8, :8]
+        t0 = time.perf_counter()
+        ref = cpu.decode(zc.cpu())
+        cpu_s = time.perf_counter() - t0
+        frames_gate(routed.decode(zc), ref,
+                    f"[vae] cut decode {tuple(zc.shape)} -> "
+                    f"{tuple(ref.shape)}, routed card (bf16) vs cpu (f32, "
+                    f"plain, {cpu_s:.1f} s)", 0.999)
+        del cpu, ref
+        # where a decode tile's time goes on each route
+        for impl, vae in vaes.items():
+            profile(lambda: vae.decode(z), f"decode tile {tuple(z.shape)}, "
+                    f"{impl}")
+    torch.cuda.empty_cache()
+
+    # the video stage's VAE work on each route
+    T, Hl, Wl = 24, 60, 104
+    zf = torch.randn((1, T, Hl, Wl, 16), generator=g, device="cuda")
+    sem, coo = (torch.rand((1, 93, 480, 832, 3), generator=g,
+                           device="cuda") * 2 - 1 for _ in range(2))
+    times, path = {}, None
+    for impl in ("auto", "xla"):
+        vae = vaes[impl]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        frames, dec_ms = timed_ms(lambda: vae3d.decode_tiled_host(
+            vae, zf, tile=(32, 32), to_uint8=True))
+        (zs, zo), enc_ms = timed_ms(lambda: (
+            vae3d.encode_tiled_host(vae, sem),
+            vae3d.encode_tiled_host(vae, coo)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(kernels.launches)
+        want = 8 * n_dec + 2 * 4 * n_enc if impl == "auto" else 0
+        print(f"[vae] {impl}: tiled decode of {T} latent frames at "
+              f"{Hl}x{Wl} (8 tiles) {dec_ms:.1f} ms -> {frames.shape}; two "
+              f"tiled encodes of 93 frames at 480x832 (4 tiles each) "
+              f"{enc_ms:.1f} ms -> {tuple(zs.shape)}; peak {peak:.2f} GiB; "
+              f"K3 {launches['conv3x3x3_bf16']} launches (want {want})")
+        check(launches["conv3x3x3_bf16"] == want and
+              sum(launches.values()) == want, f"{impl} launches {launches}")
+        check(frames.shape == (1, 93, 480, 832, 3) and
+              frames.min() != frames.max() and
+              bool(torch.isfinite(zs).all() and torch.isfinite(zo).all()),
+              f"{impl} outputs")
+        times[impl] = dict(decode_ms=dec_ms, encode_ms=enc_ms,
+                           peak_gib=peak)
+        if impl == "auto":
+            path = launches
+        del frames, zs, zo
+    print(f"[vae] video-stage VAE work, routed / xla: decode "
+          f"{times['auto']['decode_ms']:.1f} / {times['xla']['decode_ms']:.1f}"
+          f" ms, encodes {times['auto']['encode_ms']:.1f} / "
+          f"{times['xla']['encode_ms']:.1f} ms, peak "
+          f"{times['auto']['peak_gib']:.2f} / {times['xla']['peak_gib']:.2f} "
+          f"GiB")
+    del xla, vaes, zf, sem, coo
+    torch.cuda.empty_cache()
+    return routed, path, times, n_dec
+
+
+def vae_streaming(kernels, vae3d, routed, n_dec, tiled):
+    """Phase 38: ``decode_streaming_host`` at chunks of 1, 2 and 3 latent
+    frames against the whole-clip decode at 480 x 832 with 9 latent frames,
+    on both routes (bf16 runs the same convs in another chunking: gates
+    cosine >= 0.9999 and max-abs <= 0.05, about 6 bf16 ulps at 1); then the
+    routed streaming decode of 24 latent frames at chunk 2, whole frame,
+    timed with peak memory beside the tiled decode, exactly ``n_dec`` K3
+    launches a chunk (the main path). Returns its launches."""
+    xla = vae3d.VideoVAE(dataclasses.replace(routed.cfg, conv_impl="xla"),
+                         device="cuda").eval().requires_grad_(False)
+    xla.load_state_dict(routed.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(38)
+    z = torch.randn((1, 9, 60, 104, 16), generator=g, device="cuda")
+    for impl, vae in (("auto", routed), ("xla", xla)):
+        with torch.no_grad():
+            whole = vae.decode(z).cpu()
+        for chunk in (1, 2, 3):
+            kernels.reset_launches()
+            got = torch.from_numpy(vae3d.decode_streaming_host(vae, z, chunk))
+            n_chunks = -(-9 // chunk)
+            want = n_chunks * n_dec if impl == "auto" else 0
+            check(kernels.launches["conv3x3x3_bf16"] == want,
+                  f"streaming {impl} chunk {chunk}: "
+                  f"{kernels.launches['conv3x3x3_bf16']} K3 launches, want "
+                  f"{want}")
+            frames_gate(got, whole, f"[stream] {impl} chunk {chunk} "
+                        f"({n_chunks} chunks, K3 {want}) vs whole clip "
+                        f"{tuple(whole.shape)}", 0.9999, 0.05)
+        del whole, got
+    del xla
+    torch.cuda.empty_cache()
+    zf = torch.randn((1, 24, 60, 104, 16), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    frames, ms = timed_ms(lambda: vae3d.decode_streaming_host(routed, zf, 2))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    path = dict(kernels.launches)
+    print(f"[stream] routed streaming decode of 24 latent frames at 60x104, "
+          f"chunk 2: {ms:.1f} ms, peak {peak:.2f} GiB -> {frames.shape}; "
+          f"the tiled decode {tiled['decode_ms']:.1f} ms, peak "
+          f"{tiled['peak_gib']:.2f} GiB (with the encodes); K3 "
+          f"{path['conv3x3x3_bf16']} launches (want {12 * n_dec})")
+    check(path["conv3x3x3_bf16"] == 12 * n_dec and
+          sum(path.values()) == 12 * n_dec, f"streaming launches {path}")
+    check(frames.shape == (1, 93, 480, 832, 3) and
+          bool(np.isfinite(frames).all()), "streaming frames")
+    del frames, zf
+    torch.cuda.empty_cache()
+    return path
+
+
+def dit_train_grad_check(WanVideoGenerator, WanPipelineConfig, T5Config):
+    """Phase 39, first: a 2-layer full-width DiT (dim 1536, 12 heads of
+    128), ``train_loss`` and every parameter's gradient on the card (bf16
+    compute over f32 parameters, K2 / K5) against the CPU (f32, plain
+    versions), same weights (zero-init layers filled) and injected draws;
+    the worst per-tensor cosine gated at 0.99 as phase 11 gates the UNet's.
+    The frozen towers are cut to tiny: ``train_loss`` takes the text
+    embedding and the buffer latents as inputs."""
+    base = WanPipelineConfig()
+    small = dict(t5=T5Config.tiny(), vae=dataclasses.replace(
+        base.vae, base_channels=8, channel_mult=(1, 2), num_res_blocks=1))
+    dit = dataclasses.replace(base.dit, num_layers=2)
+    gens = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        gens[dev] = WanVideoGenerator(WanPipelineConfig(
+            dit=dataclasses.replace(dit, dtype=dtype), **small), device=dev)
+    g = torch.Generator().manual_seed(39)
+    gens["cpu"].init_params(g)
+    fill_zero_init(gens["cpu"].dit, g)
+    gens["cuda"].dit.load_state_dict(gens["cpu"].dit.state_dict())
+    rng = np.random.default_rng(39)
+    lat, buf, txt, noise = (torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)) for s in ((1, 3, 16, 32, 16),
+                                        (1, 3, 16, 32, 32),
+                                        (1, TEXT_LEN, 4096),
+                                        (1, 3, 16, 32, 16)))
+    draws = dict(u=torch.tensor([0.3]), noise=noise,
+                 drop=torch.tensor([False]))
+    losses, grads = {}, {}
+    for dev, gen in gens.items():
+        gen.dit.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss, _ = gen.train_loss(*(x.to(dev) for x in (lat, txt, buf)),
+                                 **{k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        losses[dev] = (loss.item(), time.perf_counter() - t0)
+        grads[dev] = {k: p.grad for k, p in gen.dit.named_parameters()}
+    g_max = max(gr.abs().max().item() for gr in grads["cpu"].values())
+    cosines, zero, bad = {}, {}, []
+    for k, gr in grads["cuda"].items():
+        ref = grads["cpu"][k]
+        if gr is None or not torch.isfinite(gr).all():
+            bad.append(k)
+        elif ref.abs().max().item() < 1e-6 * g_max:
+            zero[k] = gr.abs().max().item()
+        elif not gr.any():
+            bad.append(k)
+        else:
+            cosines[k] = cos(gr.cpu(), ref)
+    check(not bad, f"DiT parameters without a finite, non-zero gradient: "
+          f"{bad}")
+    order = sorted(cosines, key=cosines.get)
+    vals = np.array([cosines[k] for k in order])
+    print(f"[dit train] 2-layer dim-1536 DiT, N = {3 * 8 * 16}, text "
+          f"{TEXT_LEN}: loss card {losses['cuda'][0]:.6f} vs cpu "
+          f"{losses['cpu'][0]:.6f} (cpu {losses['cpu'][1]:.1f} s); "
+          f"{len(cosines)} gradient tensors, {len(zero)} zero by construction"
+          f" {sorted(zero)}; cosine card vs cpu: median "
+          f"{np.median(vals):.6f}, worst {vals[0]:.6f}")
+    for k in order[:4]:
+        print(f"[dit train]   cosine {cosines[k]:.6f}  {k}")
+    check(abs(losses["cuda"][0] - losses["cpu"][0]) <=
+          2e-2 * abs(losses["cpu"][0]), f"loss {losses}")
+    check(vals[0] >= 0.99, f"worst gradient cosine {vals[0]} ({order[0]})")
+
+
+def dit_train(kernels, att, T5Config):
+    """Phase 39: ``WanVideoGenerator.train_loss`` on the 30-layer 1.3B DiT
+    (``WanPipelineConfig().dit``: bf16 compute, f32 residual stream and
+    parameters) at 17 frames @ 480x832 (latents [1, 5, 60, 104, 16],
+    buffer latents [1, 5, 60, 104, 32], text [1, 512, 4096], seeded), the
+    draws from a generator on the card; AdamW from ``training/state.py``
+    (EMA off), a warm-up step, then 3 steps split into forward, backward and
+    optimizer with exactly K2 60 and K5 60 launches a step (the main path),
+    finite losses, parameters that moved; peak memory; one step under the
+    profiler. Before the model is built, K2 with its lse store and K5 are
+    held to their plain versions at the step's two attention shapes
+    (``attn_train_rows``: self-attention N = 7,800 and cross-attention
+    7,800 x 512, 12 heads of 128). Returns the path's launches and K2's and
+    K5's rows at those shapes."""
+    from infinicube_tpu_torch.models.wan.pipeline import (WanPipelineConfig,
+                                                          WanVideoGenerator)
+    from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
+                                                     grads_finite,
+                                                     learning_rate_at)
+    base = WanPipelineConfig()
+    T, Hl, Wl = dataclasses.replace(base, num_frames=17).latent_thw
+    n = T * Hl * Wl // 4
+    g = torch.Generator(device="cuda").manual_seed(39)
+    rows = [attn_train_rows(kernels, att, g, 1, n, nk, H, D, "[dit attn]")
+            for nk in (n, TEXT_LEN)]
+    torch.cuda.empty_cache()
+    dit_train_grad_check(WanVideoGenerator, WanPipelineConfig, T5Config)
+    gen = WanVideoGenerator(WanPipelineConfig(t5=T5Config.tiny(),
+                                              vae=dataclasses.replace(
+                                                  base.vae, base_channels=8,
+                                                  channel_mult=(1, 2),
+                                                  num_res_blocks=1)),
+                            device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(40)
+    gen.init_params(g)
+    fill_zero_init(gen.dit, g)
+    gen.dit.requires_grad_(True)
+    params = dict(gen.dit.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    tcfg = TrainConfig(use_ema=False)
+    state = TrainState.create(tcfg, params)
+    lat = torch.randn((1, T, Hl, Wl, 16), generator=g, device="cuda")
+    buf = torch.randn((1, T, Hl, Wl, 32), generator=g, device="cuda")
+    txt = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+
+    def optimize():
+        finite = grads_finite([p.grad for p in params.values()
+                               if p.grad is not None])
+        if finite:
+            torch.nn.utils.clip_grad_value_(list(params.values()),
+                                            tcfg.grad_clip_value)
+            for group in state.opt.param_groups:
+                group["lr"] = learning_rate_at(tcfg, state.opt_count)
+            state.opt.step()
+        else:
+            state.num_nan_skips += 1
+        state.step += 1
+        return finite
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        (loss, _), t_fwd = timed_ms(lambda: gen.train_loss(lat, txt, buf,
+                                                           generator=g))
+        _, t_bwd = timed_ms(loss.backward)
+        finite, t_opt = timed_ms(optimize)
+        return dict(forward=t_fwd, backward=t_bwd, optimizer=t_opt), \
+            loss.item(), finite
+
+    split, loss, finite = step()                       # warm-up
+    print(f"[dit train] 1.3B DiT ({n_params:,} parameters, f32) at 17 "
+          f"frames @ 480x832 (N = {T * Hl * Wl // 4:,}): warm-up step "
+          f"{sum(split.values()):.1f} ms, loss {loss:.5f}")
+    watch = {k: params[k].detach().clone() for k in
+             ("blocks.0.self_attn.qkv.weight", "blocks.29.ffn_out.weight",
+              "head.weight")}
+    torch.cuda.reset_peak_memory_stats()
+    path = {k: 0 for k in kernels.launches}
+    splits, losses = [], []
+    for i in range(3):
+        kernels.reset_launches()
+        split, loss, finite = step()
+        delta = dict(kernels.launches)
+        for k, v in delta.items():
+            path[k] += v
+        splits.append(split)
+        losses.append(loss)
+        print(f"[dit train] step {i}: loss {loss:.5f}, finite {finite}, "
+              + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + f" ms; launches { {k: v for k, v in delta.items() if v} }")
+        check(finite and math.isfinite(loss), f"step {i} loss {loss}")
+        check(delta["flash_attn_bf16"] == 60 and
+              delta["flash_attn_bf16_bwd"] == 60 and
+              sum(delta.values()) == 120, f"step {i} launches {delta}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {k: (params[k] - v).abs().max().item() for k, v in watch.items()}
+    check(all(m > 0 for m in moved.values()), f"parameters moved {moved}")
+    mean = {k: float(np.mean([s[k] for s in splits])) for k in splits[0]}
+    total = sum(mean.values())
+    print(f"[dit train] 3 steps: {total:.1f} ms a step (" +
+          ", ".join(f"{k} {v:.1f}" for k, v in mean.items()) +
+          f"), {1e3 / total:.3f} steps/s, peak {peak:.2f} GiB; parameters "
+          f"moved (max |change|) {moved}")
+    profile(lambda: step(), "DiT train step (1.3B, 17f@480p)")
+    del gen, params, state, watch
+    torch.cuda.empty_cache()
+    return path, [r[0] for r in rows], [r[1] for r in rows]
+
+
+def video_leftovers(kernels, att, dense_conv):
+    """Phases 36-39. Returns K3's and the f32 conv's rows at the VAE's
+    shapes, K2's and K5's at the DiT train step's attention shapes, and the
+    launches of the three main paths (the video stage's VAE work on the
+    routed convs, the streaming decode, the DiT's train steps)."""
+    from infinicube_tpu_torch.models.wan import vae3d
+    from infinicube_tpu_torch.models.wan.t5 import T5Config
+    t0 = time.perf_counter()
+    # ---- 36. K3 at the VAE's shapes ----------------------------------------
+    k3_rows, f32_rows = vae_k3_checks(kernels, dense_conv)
+    print(f"[video] phase 36 done at {time.perf_counter() - t0:.1f} s")
+    # ---- 37. the release VAE on both routes ---------------------------------
+    routed, vae_path, times, n_dec = vae_routes(kernels, vae3d)
+    print(f"[video] phase 37 done at {time.perf_counter() - t0:.1f} s")
+    # ---- 38. the streaming decode -------------------------------------------
+    stream_path = vae_streaming(kernels, vae3d, routed, n_dec,
+                                times["auto"])
+    del routed
+    torch.cuda.empty_cache()
+    print(f"[video] phase 38 done at {time.perf_counter() - t0:.1f} s")
+    # ---- 39. the DiT's flow-matching train step -----------------------------
+    train_path, k2_rows, k5_rows = dit_train(kernels, att, T5Config)
+    print(f"[video] phase 39 done at {time.perf_counter() - t0:.1f} s")
+    return k3_rows, f32_rows, k2_rows, k5_rows, {"wan_vae": vae_path,
+                               "wan_vae_stream": stream_path,
+                               "wan_train": train_path}
 
 
 def wan_serve(kernels, att, fa):
@@ -4685,6 +5236,9 @@ def main() -> int:
     f32_bwd, f32_bwd_padded, gsm_train_launches = gsm_train(kernels, att)
     bf16_entries, bf16_padded, k2_gsm, k5_gsm, bf16_launches = \
         gsm_bf16_train(kernels, att)
+    torch.cuda.empty_cache()
+    vae_k3, vae_f32, k2_dit, k5_dit, video_paths = video_leftovers(
+        kernels, att, dense_conv)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -4707,10 +5261,16 @@ def main() -> int:
         report[name]["gsm_bf16_shape"] = row
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           row["max_abs_err"])
-    # the GSM's shapes beside each kernel's own (phase 28)
-    for name, rows in (("flash_attn_f32", gsm_attn),
-                       ("sparse_conv_f32", gsm_k4)):
-        report[name]["gsm_shapes"] = rows
+    # the GSM's shapes (phase 28), the Wan VAE's (phase 36) and the DiT
+    # train step's (phase 39) beside each kernel's own
+    for name, key, rows in (("flash_attn_f32", "gsm_shapes", gsm_attn),
+                            ("sparse_conv_f32", "gsm_shapes", gsm_k4),
+                            ("conv3x3x3_bf16", "vae_shapes", vae_k3),
+                            ("conv3x3x3_f32", "vae_shapes", vae_f32),
+                            ("flash_attn_bf16", "dit_train_shapes", k2_dit),
+                            ("flash_attn_bf16_bwd", "dit_train_shapes",
+                             k5_dit)):
+        report[name][key] = rows
         report[name]["max_abs_err"] = max(
             [report[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows])
     paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
@@ -4718,7 +5278,7 @@ def main() -> int:
              **int8_paths, "stage1_f32": f32_launches,
              "stage2": stage2_launches, "stage3": stage3_launches,
              "gsm_train": gsm_train_launches,
-             "gsm_train_bf16": bf16_launches}
+             "gsm_train_bf16": bf16_launches, **video_paths}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

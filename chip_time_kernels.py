@@ -3,7 +3,7 @@ redesign changes and their guards, at the shapes of ``chip_smoke.py``'s
 paths (CUDA events after warm-up), and the steps those kernels carry (host
 clock around work that ends in a synchronize).
 
-    python3 chip_time_kernels.py <checkout> [--json FILE] [--sparse]
+    python3 chip_time_kernels.py <checkout> [--json FILE] [--sparse | --vae]
 
 - guards, timed first: K2 at d = 96 (N = 4,096 and 512, 8 heads) and
   d = 128 (37,440 x 512, 12 heads), K3 forward at [1,64^3,192]->192, K8
@@ -33,6 +33,11 @@ clock around work that ends in a synchronize).
   included), and the share of one such UNet call's device time (profiler)
   in the f32 conv kernels and in the f32 attention kernels. Random weights,
   null conditions (the dense work does not depend on them).
+
+With ``--sparse`` only the sparse conv's kernels run (``sparse_rows``); with
+``--vae`` only K3 at the Wan VAE's routed conv shapes of ``chip_smoke.py``'s
+phase 36, each beside cuDNN's bf16 conv3d on the same padded input
+(``vae_rows``).
 
 TF32 is off for PyTorch's own calls, so cuDNN and SDPA compute in f32.
 Prints one line of milliseconds and, with ``--json``, writes them there. To
@@ -250,6 +255,34 @@ def sparse_rows(kernels, wc, g):
     return out
 
 
+def vae_rows(kernels, dc, g):
+    """K3 at the Wan VAE's routed conv shapes (``chip_smoke.py`` phase 36:
+    a release decode tile's five, the whole frame's latent level, one of
+    each encode level), each beside cuDNN's bf16 conv3d on the same padded
+    input (channels_last_3d, the layout K3 reads)."""
+    from chip_smoke import (VAE_DECODE_SHAPES, VAE_ENCODE_SHAPES,
+                            VAE_FRAME_SHAPE)
+    out = {}
+    for D_, H_, W_, C, O in VAE_DECODE_SHAPES + (VAE_FRAME_SHAPE,) + \
+            VAE_ENCODE_SHAPES:
+        x = rand((1, D_, H_, W_, C), g)
+        w = (torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") /
+             math.sqrt(27 * C)).to(torch.bfloat16)
+        b = 0.1 * torch.randn(O, generator=g, device="cuda")
+        wp = dc.pack_conv_weight(w)
+        xl = x.permute(0, 4, 1, 2, 3)
+        wl = w.contiguous(memory_format=torch.channels_last_3d)
+        bb = b.to(torch.bfloat16)
+        shape = f"[1,{D_},{H_},{W_},{C}]->{O}"
+        out[f"k3 vae {shape}"] = cuda_ms(
+            lambda: kernels.conv3x3x3_bf16(x, wp, b), 3, 10)
+        out[f"cudnn vae {shape}"] = cuda_ms(
+            lambda: torch.nn.functional.conv3d(xl, wl, bb, padding=1), 3, 10)
+        del x, w, wp, xl, wl
+    torch.cuda.empty_cache()
+    return out
+
+
 def f32_rows(kernels, dc, g):
     """``conv3x3x3_f32`` forward and dgrad beside cuDNN's f32 conv3d
     forward and backward-data; ``flash_attn_f32`` beside f32 SDPA."""
@@ -409,6 +442,9 @@ def main() -> None:
     ap.add_argument("--sparse", action="store_true",
                     help="time only the sparse conv's kernels, f32 and "
                     "bf16, at the GSM's shapes (``sparse_rows``)")
+    ap.add_argument("--vae", action="store_true",
+                    help="time only K3 at the Wan VAE's routed conv shapes "
+                    "beside cuDNN (``vae_rows``)")
     args = ap.parse_args()
     sys.path.insert(0, args.checkout)
     from infinicube_tpu_torch import kernels
@@ -423,6 +459,8 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(0)
     if args.sparse:
         rows = sparse_rows(kernels, window_conv, g)
+    elif args.vae:
+        rows = vae_rows(kernels, dense_conv, g)
     else:
         rows = guard_rows(kernels, dense_conv, fa, window_conv, g)
         rows.update(vae_step_rows(g))

@@ -12,7 +12,9 @@ Dtypes follow the reference: projections in ``cfg.dtype``; norms, adaLN
 modulation, the time MLP and the head in f32; the carried residual in
 ``cfg.residual_dtype``. Self-attention goes through ``mha_quantized`` when
 ``attn_quant`` is set (K1 for ``"qk"``, K8 for ``"qkv"``), else, like
-cross-attention, ``multi_head_attention`` (K2)."""
+cross-attention, ``multi_head_attention`` (K2, and K5 for its gradient).
+With ``attn_quant`` or ``quant_linear`` set the DiT serves only: under a
+gradient it raises."""
 
 from __future__ import annotations
 
@@ -222,6 +224,11 @@ class WanDiT(nn.Module):
 
     def forward(self, latents, t, text_emb, buffer_latents=None):
         cfg = self.cfg
+        if (cfg.attn_quant or cfg.quant_linear) and torch.is_grad_enabled() \
+                and (latents.requires_grad or
+                     any(p.requires_grad for p in self.parameters())):
+            raise ValueError("a DiT with attn_quant or quant_linear serves "
+                             "only: no gradient")
         B, T, H, W, _ = latents.shape
         pt, ph, pw = cfg.patch_size
         gt, gh, gw = T // pt, H // ph, W // pw

@@ -25,6 +25,19 @@ class FlowMatchSchedule:
         s = self.shift * s / (1.0 + (self.shift - 1.0) * s)
         return torch.cat([s, s.new_zeros(1)])
 
+    def timesteps(self, num_steps: int, device=None) -> torch.Tensor:
+        return self.sigmas(num_steps, device)[:-1] * self.num_train_timesteps
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  sigma: torch.Tensor) -> torch.Tensor:
+        """x_t = (1 - sigma) x0 + sigma noise, one sigma per batch row."""
+        sigma = sigma.reshape((-1,) + (1,) * (x0.dim() - 1))
+        return (1.0 - sigma) * x0 + sigma * noise
+
+    def velocity_target(self, x0: torch.Tensor,
+                        noise: torch.Tensor) -> torch.Tensor:
+        return noise - x0
+
 
 def euler_sample(schedule: FlowMatchSchedule,
                  model_fn: Callable[[torch.Tensor, torch.Tensor],

@@ -6,7 +6,12 @@ with umt5 (memoized per prompt), VAE-encodes the two buffer videos into the
 DiT's 32-channel conditioning, denoises with flow-matching Euler steps and
 classifier-free guidance against the negative prompt, and decodes the
 latents to uint8 frames (tiled at serving sizes). All three towers live on
-the card: the H100's 80 GB hold them together."""
+the card: the H100's 80 GB hold them together.
+
+``train_loss`` is the video stage's training objective, the flow-matching
+velocity MSE with text dropout; it differentiates the DiT's parameters when
+the caller enables their gradients (``__init__`` freezes every tower for
+serving)."""
 
 from __future__ import annotations
 
@@ -151,6 +156,43 @@ class WanVideoGenerator:
         sem = enc(norm(semantic_rgb))
         coo = enc(norm(coordinate_rgb))
         return torch.cat([sem, coo], dim=-1)
+
+    # ---- training -----------------------------------------------------------
+    def train_loss(self, video_latents: torch.Tensor, text_emb: torch.Tensor,
+                   buffer_latents: torch.Tensor | None,
+                   text_drop_prob: float = 0.1,
+                   generator: torch.Generator | None = None,
+                   u: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None,
+                   drop: torch.Tensor | None = None):
+        """Flow-matching velocity MSE (the buffer-conditioned finetuning
+        objective): sigma = shift*u / (1 + (shift-1)*u) for u ~ U[0, 1),
+        x_t = (1 - sigma) x0 + sigma noise, target noise - x0, the text
+        embedding zeroed where ``drop`` (u' < ``text_drop_prob``), the DiT at
+        t = 1000 sigma. The draws u [B], noise (like the latents) and drop
+        [B] come from ``generator`` in that order, or are injected (the
+        tests hand both implementations the same numbers). Returns
+        (loss, {"fm_mse": loss})."""
+        B = video_latents.shape[0]
+        dev = video_latents.device
+        sch = self.schedule
+        if u is None:
+            u = torch.rand((B,), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(video_latents.shape, generator=generator,
+                                device=dev)
+        if drop is None:
+            drop = torch.rand((B,), generator=generator,
+                              device=dev) < text_drop_prob
+        u, noise = u.to(dev, torch.float32), noise.to(dev, torch.float32)
+        sigma = sch.shift * u / (1.0 + (sch.shift - 1) * u)
+        x_t = sch.add_noise(video_latents, noise, sigma)
+        target = sch.velocity_target(video_latents, noise)
+        ctx = text_emb.masked_fill(drop.to(dev)[:, None, None], 0.0)
+        pred = self.dit(x_t, sigma * sch.num_train_timesteps, ctx,
+                        buffer_latents)
+        loss = torch.mean((pred - target) ** 2)
+        return loss, {"fm_mse": loss}
 
     # ---- sampling -----------------------------------------------------------
     @torch.no_grad()
