@@ -214,10 +214,12 @@ Then training the GSM (stage 3's models freed first):
 32. kernel checks: ``flash_attn_f32`` with its log-sum-exp store against
     ``attention_plain``'s output and lse (within 1e-5), then
     ``flash_attn_f32_bwd`` (the f32 flash-attention backward, 3xTF32 on
-    ``mma.sync``) against ``attention_bwd_plain`` at the GSM's train shape
-    (3 views, N = 5,280, 4 heads of 64), at d = 96 and 128 with Nq != Nk and
-    at 37 x 21: dq, dk and dv each within 1e-4 * max|ref|, two runs
-    bit-identical; timed beside the plain version, its bounds and the f32
+    tf32 ``wgmma`` fed by TMA; where its 64-row items are fewer than the
+    SMs, its streamed axis in ranges, printed) against
+    ``attention_bwd_plain`` at the GSM's train shape (3 views, N = 5,280,
+    4 heads of 64), at d = 96 and 128 with Nq != Nk and at 37 x 21: dq, dk
+    and dv each within 1e-4 * max|ref|, two runs bit-identical; timed
+    beside the plain version, its bounds and the f32
     backward of ``scaled_dot_product_attention``; then d = 40 through
     ``multi_head_attention``'s padding with a gradient;
 33. the GSM trainer: ``train.main`` on ``configs/train_gsm.yaml`` (the
@@ -242,8 +244,10 @@ branches in bf16, as ``benchmarks/bench_gsm_train.py`` runs it):
     ``sparse_conv_plain`` and ``sparse_conv_bwd_plain`` at the voxel
     branch's seven shapes on the three levels of the bench's 65,536-slot
     grid (64->64, 64->128, 128->128, 128->256, 256->256, 384->128,
-    192->64): every element within one bf16 ulp (floor 2^-16 of
-    max|ref|), the bit-equal share printed, two runs bit-identical, timed
+    192->64; the work items with a stage, of all the persistent blocks
+    walk, printed from ``kernels.sparse_conv_schedule``): every element
+    within one bf16 ulp (floor 2^-16 of max|ref|), the bit-equal share
+    printed, two runs bit-identical, timed
     beside the plain versions and their bounds (bf16 operations at 989
     TFLOP/s against the bytes); 30->62 through the padding with a
     gradient; a poisoned batch element; then K2 with its lse store and K5
@@ -532,10 +536,12 @@ def profile_step(gen, text, null, num_frames, seed):
             f"{num_frames}f CFG step")
 
 
-def profile(fn, label):
+def profile(fn, label, shares=None):
     """``fn()`` under ``torch.profiler``: the kernels that take the most
     device time, and the device's busy share of the wall time (the
-    profiler's own host cost included)."""
+    profiler's own host cost included); with ``shares`` ({label: kernel
+    name parts}) also the device time of the kernels whose names hold one
+    of the parts, and its share of the busy time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
@@ -566,6 +572,11 @@ def profile(fn, label):
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % "
               f"x{n:<5d} {name[:90]}")
+    for what, parts in (shares or {}).items():
+        ms = sum(m for name, (m, _) in by_name.items()
+                 if any(p in name for p in parts))
+        print(f"[profile]   {what}: {ms:.3f} ms, {100 * ms / busy_ms:.2f} % "
+              f"of the busy time")
 
 
 # ---------------------------------------------------------------------------
@@ -3822,6 +3833,11 @@ def f32_bwd_checks(kernels, att):
         flops = 10.0 * nq * nk * d * h * B
         nbytes = 4 * B * h * (d * (3 * nq + 4 * nk) + 2 * nq)
         b_ms, b_by, core_ms = tf32x3_bounds(flops, nbytes)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = tuple(kernels.f32_bwd_splits(B, h, nq, nk, d, sms, dkv)
+                       for dkv in (True, False))
+        print(f"[f32 bwd] {shape}: ranges of the streamed axis (dK/dV pass, "
+              f"dQ pass) {splits}")
         print(f"[f32 bwd] {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
               f" TFLOP/s of the 5 products counted, {100 * b_ms / ms:.1f} % "
               f"of its bound), kernel + delta {with_delta:.4f} ms, plain "
@@ -3833,6 +3849,7 @@ def f32_bwd_checks(kernels, att):
         rows.append(dict(shape=shape, max_abs_err=max(errs), ms=ms,
                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib, library_backend=backend,
+                         splits=splits,
                          f32_core_bound_ms=core_ms, with_delta_ms=with_delta,
                          forward_ms=fwd_ms, forward_with_lse_ms=fwd_lse_ms,
                          forward_o_max_abs_err=o_err,
@@ -4184,7 +4201,10 @@ def gsm_train_time(kernels, bf16=False):
     print(f"{tag} {mean:.1f} ms a step ({1e3 / mean:.3f} "
           f"steps/s), peak {peak:.2f} GiB")
     profile(step, "GSM train step (release scene"
-            f"{', gsm_bf16_config' if bf16 else ''})")
+            f"{', gsm_bf16_config' if bf16 else ''})",
+            {"sparse_conv_bf16 (forward and dx)":
+             ("sparse_conv_kernel<(anonymous namespace)::Bf16",)}
+            if bf16 else {"flash_attn_f32_bwd": ("f32_bwd_",)})
     if bf16:
         del model, state, params, lpips
         torch.cuda.empty_cache()
@@ -4345,6 +4365,11 @@ def bf16_sparse_checks(kernels, ws, levels):
                *ws.sparse_conv_bwd_plain(plan, x, w, cot))
         pairs = int((plan.nbr >= 0).sum())
         flops = 2.0 * pairs * F * Fo
+        stages, _ = kernels.sparse_conv_schedule(
+            plan.nbr, plan.violations, F, Fo, bf)
+        active = int((stages > 0).sum())
+        print(f"[bf16 conv] {shape} fwd: {active} of {stages.numel()} work "
+              f"items have a stage, {int(stages.clamp_min(0).sum())} stages")
         bounds = [bound_ms([(flops, PEAK_BF16)], sparse_conv_bytes(
             kind, int(grid.mask.sum()), grid.capacity, F, Fo, 2, pack))
             for kind, pack in (("fwd", 2 * 27 * F * Fo),

@@ -35,9 +35,15 @@ clock around work that ends in a synchronize).
   null conditions (the dense work does not depend on them).
 
 With ``--sparse`` only the sparse conv's kernels run (``sparse_rows``); with
-``--vae`` only K3 at the Wan VAE's routed conv shapes of ``chip_smoke.py``'s
-phase 36, each beside cuDNN's bf16 conv3d on the same padded input
-(``vae_rows``).
+``--f32-bwd`` only ``flash_attn_f32_bwd`` at the three timed shapes of
+``chip_smoke.F32_BWD_SHAPES`` (the GSM's train shape [3, 5,280, 4, 64],
+N = 4,096 with 8 heads of 96, 1,000 x 777 with 4 heads of 128), called
+through its Python signature on the forward's lse and ``attention_delta``,
+each host-timed and as device time alone beside the backward of
+``scaled_dot_product_attention`` on f32 inputs with the memory-efficient
+backend pinned (``f32_bwd_rows``); the two options combine. With ``--vae``
+only K3 at the Wan VAE's routed conv shapes of ``chip_smoke.py``'s phase 36,
+each beside cuDNN's bf16 conv3d on the same padded input (``vae_rows``).
 
 TF32 is off for PyTorch's own calls, so cuDNN and SDPA compute in f32.
 Prints one line of milliseconds and, with ``--json``, writes them there. To
@@ -255,6 +261,42 @@ def sparse_rows(kernels, wc, g):
     return out
 
 
+def f32_bwd_rows(kernels, att, g):
+    """``flash_attn_f32_bwd`` beside SDPA's f32 backward (efficient backend
+    pinned, TF32 off), host-timed and as device time alone."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from chip_smoke import F32_BWD_SHAPES
+    out = {}
+    for B, nq, nk, h, d in F32_BWD_SHAPES[:3]:
+        q, k, v, do = (rand((B, n, h, d), g, torch.float32)
+                       for n in (nq, nk, nk, nq))
+        scale = d ** -0.5
+        o, lse = kernels.flash_attn_f32(q, k, v, scale, return_lse=True)
+        delta = att.attention_delta(o, do)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            ref = torch.nn.functional.scaled_dot_product_attention(qt, kt,
+                                                                   vt)
+
+        def ours():
+            return kernels.flash_attn_f32_bwd(q, k, v, do, lse, delta, scale)
+
+        def sdpa():
+            return torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        key = f"B{B} {nq}x{nk} h{h} d{d}"
+        out[f"f32 attn bwd {key}"] = cuda_ms(ours, 2, 10)
+        out[f"f32 attn bwd {key} device"] = device_ms(ours, 10)
+        out[f"sdpa f32 bwd {key}"] = cuda_ms(sdpa, 2, 10)
+        out[f"sdpa f32 bwd {key} device"] = device_ms(sdpa, 10)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def vae_rows(kernels, dc, g):
     """K3 at the Wan VAE's routed conv shapes (``chip_smoke.py`` phase 36:
     a release decode tile's five, the whole frame's latent level, one of
@@ -442,12 +484,16 @@ def main() -> None:
     ap.add_argument("--sparse", action="store_true",
                     help="time only the sparse conv's kernels, f32 and "
                     "bf16, at the GSM's shapes (``sparse_rows``)")
+    ap.add_argument("--f32-bwd", action="store_true",
+                    help="time only flash_attn_f32_bwd beside SDPA's f32 "
+                    "backward (``f32_bwd_rows``); combines with --sparse")
     ap.add_argument("--vae", action="store_true",
                     help="time only K3 at the Wan VAE's routed conv shapes "
                     "beside cuDNN (``vae_rows``)")
     args = ap.parse_args()
     sys.path.insert(0, args.checkout)
     from infinicube_tpu_torch import kernels
+    from infinicube_tpu_torch.ops import attention as att
     from infinicube_tpu_torch.ops import dense_conv
     from infinicube_tpu_torch.ops import flash_attention as fa
     from infinicube_tpu_torch.ops import window_conv
@@ -457,8 +503,10 @@ def main() -> None:
     kernels.build()
     built = time.perf_counter() - t0
     g = torch.Generator(device="cuda").manual_seed(0)
-    if args.sparse:
-        rows = sparse_rows(kernels, window_conv, g)
+    if args.sparse or args.f32_bwd:
+        rows = sparse_rows(kernels, window_conv, g) if args.sparse else {}
+        if args.f32_bwd:
+            rows.update(f32_bwd_rows(kernels, att, g))
     elif args.vae:
         rows = vae_rows(kernels, dense_conv, g)
     else:

@@ -575,7 +575,8 @@ struct WgmmaS8<128> {
 // above. tf32 has no transpose bit: B is K-major in shared memory, and a k8
 // step is 32 bytes, as for the other types.
 //   ss: A K-major in shared memory too (descriptor da). Written out at
-//       N = 16 .. 192 (K4's and the f32 conv's N tiles).
+//       N = 16 .. 192 (K4's and the f32 conv's N tiles) and 8 (the f32
+//       attention backward's narrowest streamed tile).
 //   rs: A from registers, the m16n8k8 tf32 fragment of each warp's 16 rows:
 //       a[0] (row lane/4, column lane%4), a[1] (row lane/4 + 8, same
 //       column), a[2] and a[3] the same rows at column lane%4 + 4. Written
@@ -583,6 +584,19 @@ struct WgmmaS8<128> {
 //       128 (its head dims).
 template <int N>
 struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<8> {
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <>
 struct WgmmaTf32<16> {

@@ -29,14 +29,13 @@
 // f32 work, 2.5x the CUDA cores' peak.
 // - The TPU kernel's window plan (directional windows, one-hot selection
 //   matmuls, a miss list with an exact fallback) worked around the TPU's
-//   slow gathers. Here a tile of 128 voxel rows loads its 27 x 128
-//   neighbour indices into shared memory and skips every tap none of its
-//   rows has; nothing is missed and no fallback exists.
+//   slow gathers. Here a tile of 128 voxel rows walks only the taps some of
+//   its rows have; nothing is missed and no fallback exists.
 // - TMA cannot gather rows on Hopper, so a producer warpgroup gathers them:
-//   each of its 128 threads copies its row's 32 features of the stage (128
-//   bytes, eight 16-byte cp.async, src-size 0 for an absent neighbour) into
-//   a ring of stages, straight into the K-major 128-byte-swizzled layout
-//   wgmma reads, and signals the stage's mbarrier when its copies land.
+//   each of its 128 threads copies its row's 128 bytes of the stage (eight
+//   16-byte cp.async, src-size 0 for an absent neighbour) into a ring of
+//   stages, straight into the K-major 128-byte-swizzled layout wgmma reads,
+//   and signals the stage's mbarrier when its copies land.
 // - tf32 wgmma takes both operands K-major, so the weights come packed
 //   [2, 27, N, K] (hi and lo of w[t]^T, made once per weight version by the
 //   caller), one 2-D TMA box each per stage on the same mbarrier.
@@ -49,6 +48,16 @@
 //   added into f32 sums with a rounded add every 32 k8 steps and restarted
 //   (scale-d 0), as the f32 conv and K6 do. Both sums live in registers;
 //   the producer hands its registers to the consumers (setmaxnreg).
+// - Blocks are persistent, one an SM, and take work items (batch element,
+//   row tile, N tile) from a queue, each 8 stages before the end of the
+//   item they run (its rows of the neighbour table load into registers
+//   meanwhile); a block takes an item only as it frees up, so the last
+//   items go to the SMs that finish first. For each item the producer
+//   warpgroup ORs the taps present over the tile and hands the stage count
+//   to the consumers through a two-slot mbarrier handshake; a tile of
+//   padding slots (no tap) costs no stage, and its rows get zeros (NaN for
+//   a poisoned element). The ring runs on from one item to the next, so a
+//   tile's gathers overlap the previous tile's products and store.
 //
 // sparse_conv_bf16 replaces the same `_conv_core` on bf16 features (the
 // GSM's voxel branch in gsm_bf16_config: ten convs a forward at (F, Fo) in
@@ -56,18 +65,31 @@
 // input gradient `_wc_bwd`'s dx on a bf16 output gradient. It computes what
 // `_conv_kernel` computes: every tap's bf16 product added into f32 sums,
 // rounded to bf16 once (window_conv.py:173). Bound by operations (2 * F *
-// Fo per present pair at 989 TFLOP/s against (F + Fo) * 2 bytes a row).
-// Design: one kernel template over the element type (Tf32x3, Bf16 below):
-// K4's gather, tile, tap list, ring, flushes and store, without the split:
+// Fo per present pair at 989 TFLOP/s against (F + Fo) * 2 bytes a row),
+// a few microseconds on the GSM's levels. What holds it back is data
+// movement from L2: each row is gathered again for each of its up to 27
+// neighbours and each N tile, and each tile reads every tap's weights
+// again, so at the levels where tiles are many a stage moves 24-32 KB
+// and the SMs together run near L2's rate; where tiles are few, the
+// latency of a tile's stages one after another; one block a tile (512 row
+// tiles at every level, however few are active) and a producer thread that
+// waits for its own copies would add to it. Design: one kernel
+// template over the element type (Tf32x3, Bf16 below): K4's gather,
+// persistent walk, ring, flushes and store, without the split:
 // - each producer thread gathers its row's 64 features of a stage (128
-//   bytes) with cp.async into the same swizzled K-major layout; wgmma
-//   reads shared memory through the async proxy, so a thread signals a
-//   stage only after its copies have landed (cp.async groups, two stages
-//   in flight) and a proxy fence (in f32 the consumers' split writes the
-//   operands wgmma reads, and fence them themselves);
+//   bytes) with cp.async into the same swizzled K-major layout and, as in
+//   f32, the stage's barrier counts its arrival once the copies land
+//   (cp.async.mbarrier.arrive): a thread never waits for its own copies,
+//   so it keeps as many stages in flight as the ring has free; wgmma reads
+//   shared memory through the async proxy, so a consumer fences the proxy
+//   after the barrier made the copies visible to it;
 // - the weights come packed [27, N, K] bf16 (w[t]^T per tap, made once
 //   per weight version by the caller), one 2-D TMA box per stage;
-// - one wgmma m64nNk16 .f32.bf16.bf16 per k16 step, four a stage; the
+// - one wgmma m64nNk16 .f32.bf16.bf16 per k16 step, four a stage, chained
+//   from stage to stage with nothing touching the accumulators between a
+//   stage's issue and the next wait; the conditions of the loops around
+//   them are warp votes (conditions on values read from shared memory made
+//   ptxas take the path as divergent and serialize every wgmma, C7518); the
 //   wgmma sums are added into f32 sums with a rounded add every 32 k16
 //   steps, as K4 does, and rounded to bf16 once at the store.
 // The entry points return cudaGetLastError() (or cudaErrorInvalidValue for
@@ -89,10 +111,11 @@ constexpr int kSpan = 128;      // bytes of a stage's row
 constexpr int kRing = 196608;   // bytes of shared memory for the ring
 constexpr int kFlushSteps = 32;  // k steps between flushes of the sums
 constexpr int kFlush = kFlushSteps / (kSpan / 32);  // stages between them
-// registers a thread after the hand-over: the producer keeps 40, each
-// consumer takes 232 (2 x 128 x 232 + 128 x 40 = 384 x 168, the pool of a
+// registers a thread after the hand-over: the producer keeps 72 (its row of
+// the next tile's neighbour table, 27, rides through a tile), each
+// consumer takes 216 (2 x 128 x 216 + 128 x 72 = 384 x 168, the pool of a
 // block launched with 168 a thread)
-constexpr int kProducerRegs = 40, kConsumerRegs = 232, kLaunchRegs = 168;
+constexpr int kProducerRegs = 72, kConsumerRegs = 216, kLaunchRegs = 168;
 
 // The element types. A k step reads 32 bytes of a row: k8 in f32, k16 in
 // bf16, four a stage either way.
@@ -100,7 +123,6 @@ struct Tf32x3 {  // f32 features: each operand as tf32 hi and lo
   using E = float;
   static constexpr int kParts = 2;  // weight packs and A copies (hi, lo)
   static constexpr int kMaxStages = 6;
-  static constexpr int kLag = 0;    // stages signalled by cp.async itself
   static constexpr CUtensorMapDataType kMap =
       CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
@@ -109,7 +131,6 @@ struct Bf16 {  // bf16 features, one product a k step
   using E = __nv_bfloat16;
   static constexpr int kParts = 1;
   static constexpr int kMaxStages = 8;
-  static constexpr int kLag = 2;    // stages a producer thread keeps in flight
   static constexpr CUtensorMapDataType kMap =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
@@ -125,11 +146,18 @@ struct K4Tile {
   static constexpr int kStages = kRing / kStage > Op::kMaxStages
                                      ? Op::kMaxStages
                                      : kRing / kStage;
-  // ring, barriers, neighbour table, tap list, and room to align to 1 KB
-  static constexpr int kSmem = kStages * kStage + 2 * 8 * kStages +
-                               4 * (kTaps * kRows + kTaps + 2) + 1024;
-  static_assert(kStages >= Op::kLag + 2, "the producer's lag needs the ring");
+  // ring, stage and tile barriers, the producer's neighbour table, the
+  // items' indices and stage counts, the tap masks, and room to align to
+  // 1 KB
+  static constexpr int kSmem = kStages * kStage + 8 * (2 * kStages + 4) +
+                               4 * (kTaps * kRows + 6 + 8) + 1024;
 };
+
+// The persistent blocks' work queue: [0] the next work item, [1] the blocks
+// done. The last block of a launch puts both back to 0 for the next launch
+// on the stream (the port launches these kernels on its current stream;
+// launches on two streams of one card at once would share the queue).
+__device__ unsigned int g_work_queue[2];
 
 template <typename E>
 struct K4Args {
@@ -138,7 +166,7 @@ struct K4Args {
   const int* poison;  // int32 [B]
   E* out;           // [B, C, N]
   int C, K, N;      // rows per batch element, input and output features
-  int m_tiles, n_tiles, kc;
+  int m_tiles, n_tiles, kc, n_work;
 };
 
 __device__ __forceinline__ float tf32_trunc(float v) {
@@ -158,12 +186,16 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-__device__ __forceinline__ void store_nan(float* p) { *p = nanf(""); }
-
-__device__ __forceinline__ void store_nan(__nv_bfloat16* p) {
-  *p = __float2bfloat16(nanf(""));
-}
-
+// Work item w: (batch element, 128-row tile, N tile), the N tile fastest.
+// Persistent blocks take the items from a queue as they free up (the
+// tiles' stage counts vary from 0 to 27 x K chunks, so a fixed share of
+// items per block, or one taken a whole item ahead, leaves some SMs idle
+// while others run);
+// the ring of stages runs on from one item to the next, so one tile's
+// gathers overlap the previous tile's products and store. For each item
+// the producer warpgroup finds the taps some row has (its stages: taps x
+// K chunks; none for a tile of padding slots or of a poisoned element) and
+// hands the count to the consumers, which store zeros, NaN or the sums.
 template <class Op, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     sparse_conv_kernel(const __grid_constant__ CUtensorMap tmw_hi,
@@ -177,200 +209,249 @@ __global__ void __launch_bounds__(kThreads, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
   uint64_t* empty = full + T::kStages;
-  int* sN = reinterpret_cast<int*>(empty + T::kStages);  // [27][128]
-  int* sTaps = sN + kTaps * kRows;   // the taps some row has, in order
-  int* sCount = sTaps + kTaps;
-  unsigned* sMask = reinterpret_cast<unsigned*>(sCount + 1);
+  uint64_t* tfull = empty + T::kStages;  // [2] an item's stage count is set
+  uint64_t* tempty = tfull + 2;          // [2] ... and was read
+  int* sN = reinterpret_cast<int*>(tempty + 2);  // [27][128], the producer's
+  int* sIters = sN + kTaps * kRows;      // [2] stages of an item, -1 poisoned
+  int* sItem = sIters + 2;               // [2] the item, -1 when none is left
+  int* sWork = sItem + 2;                // [2] the producer's next item
+  unsigned* sMask = reinterpret_cast<unsigned*>(sWork + 2);  // [2][4]
 
   const int tid = threadIdx.x;
-  int bid = blockIdx.x;
-  const int nt = bid % a.n_tiles;
-  bid /= a.n_tiles;
-  const int mt = bid % a.m_tiles;
-  const int b = bid / a.m_tiles;
-  const int m0 = mt * kRows, n0 = nt * BN;
-  const long long row0 = (long long)b * a.C;
-
-  if (a.poison[b]) {
-    for (int i = tid; i < kRows * BN; i += kThreads) {
-      const int m = m0 + i / BN, n = n0 + i % BN;
-      if (m < a.C && n < a.N) store_nan(a.out + (row0 + m) * a.N + n);
-    }
-    return;
-  }
   if (tid == 0) {
-    *sMask = 0;
     for (int s = 0; s < T::kStages; ++s) {
       hop::mbar_init(&full[s], kRows + 1);  // 128 gathers, the weights' tx
       hop::mbar_init(&empty[s], 8);         // lane 0 of each consumer warp
     }
+    for (int i = 0; i < 2; ++i) {
+      hop::mbar_init(&tfull[i], 1);
+      hop::mbar_init(&tempty[i], 8);
+    }
     hop::fence_barrier_init();
   }
-  for (int i = tid; i < kTaps * kRows; i += kThreads) {
-    const int r = i / kTaps, t = i % kTaps;
-    sN[t * kRows + r] =
-        m0 + r < a.C ? a.nbr[(row0 + m0 + r) * kTaps + t] : -1;
-  }
   __syncthreads();
-  if (tid < kRows) {
-    unsigned bits = 0;
-    for (int t = 0; t < kTaps; ++t)
-      if (sN[t * kRows + tid] >= 0) bits |= 1u << t;
-    if (bits) atomicOr(sMask, bits);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int t = 0; t < kTaps; ++t)
-      if (*sMask >> t & 1u) sTaps[n++] = t;
-    *sCount = n;
-  }
-  __syncthreads();
-  const int iters = *sCount * a.kc;
 
   const int wg = tid / 128;
   if (wg == 2) {
     // ---- producer: every thread gathers its row, thread 0 the weights ----
     hop::setmaxnreg_dec<kProducerRegs>();
-    const int p = tid - 256;
+    const int p = tid - 256, lane = p % 32;
     if (p == 0) {
       hop::prefetch_map(&tmw_hi);
       if constexpr (kP == 2) hop::prefetch_map(&tmw_lo);
     }
-    constexpr int kPiece = 16 / sizeof(E);  // features a 16-byte cp.async
-    int stage = 0, signal = 0;
-    uint32_t phase = 0;
-    for (int it = 0; it < iters; ++it) {
-      hop::mbar_wait(&empty[stage], phase ^ 1);
-      const int t = sTaps[it / a.kc];
-      const int k0 = (it % a.kc) * kChunk<Op>;
-      uint8_t* st = ring + stage * T::kStage;
-      if (p == 0) {
-        uint8_t* sb = st + kP * T::kA;
-        hop::mbar_expect_tx(&full[stage], kP * T::kB);
-        hop::tma_load_2d(sb, &tmw_hi, &full[stage], k0, t * a.N + n0);
-        if constexpr (kP == 2)
-          hop::tma_load_2d(sb + T::kB, &tmw_lo, &full[stage], k0,
-                           t * a.N + n0);
-      }
-      const int src = sN[t * kRows + p];
-      const E* row = a.feats + (row0 + (src >= 0 ? src : 0)) * a.K + k0;
-      uint8_t* dst = st + p * kSpan;
+    // this thread's row of item w's neighbour table (-1: absent, or a row
+    // past C)
+    int nxt[kTaps];
+    auto load_row = [&](int w) {
+      const int mt = w / a.n_tiles % a.m_tiles, b = w / a.n_tiles / a.m_tiles;
+      const int m = mt * kRows + p;
+      const int* src = a.nbr + ((long long)b * a.C + m) * kTaps;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {  // 16-byte chunk j at j ^ (row % 8)
-        const bool ok = src >= 0 && k0 + kPiece * j < a.K;
-        hop::cp_async16(dst + ((j ^ (p % 8)) * 16),
-                        ok ? row + kPiece * j : a.feats, ok);
+      for (int t = 0; t < kTaps; ++t) nxt[t] = m < a.C ? src[t] : -1;
+    };
+    constexpr int kPiece = 16 / sizeof(E);  // features a 16-byte cp.async
+    int stage = 0;
+    uint32_t phase = 0;
+    // thread 0 takes the next item from the queue kAhead stages before the
+    // current item's last (at once after an item without stages), so that
+    // its rows load while those stages go out and the queue still hands
+    // items to the blocks that free up first
+    constexpr int kAhead = 8;
+    int wn = 0;
+    auto take_next = [&](int slot) {
+      if (p == 0)
+        sWork[slot] = static_cast<int>(atomicAdd(&g_work_queue[0], 1u));
+      hop::named_barrier(3, 128);
+      wn = sWork[slot];
+      if (wn < a.n_work) load_row(wn);
+    };
+    take_next(0);
+    int w = wn;
+    int i = 0;
+    for (; w < a.n_work; ++i) {
+      const int nt = w % a.n_tiles, b = w / a.n_tiles / a.m_tiles;
+      const int n0 = nt * BN;
+      const long long row0 = (long long)b * a.C;
+      unsigned bits = 0;
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) {
+        sN[t * kRows + p] = nxt[t];
+        bits |= (nxt[t] >= 0 ? 1u : 0u) << t;
       }
-      if constexpr (Op::kLag == 0) {
+      bits = __reduce_or_sync(0xffffffffu, bits);
+      if (lane == 0) sMask[(i & 1) * 4 + p / 32] = bits;
+      hop::named_barrier(3, 128);
+      const unsigned* mk = sMask + (i & 1) * 4;
+      const bool poisoned = a.poison[b] != 0;
+      const unsigned mask = poisoned ? 0u : mk[0] | mk[1] | mk[2] | mk[3];
+      const int iters = __popc(mask) * a.kc;
+      if (p == 0) {
+        hop::mbar_wait(&tempty[i & 1], ((i >> 1) & 1) ^ 1);
+        sIters[i & 1] = poisoned ? -1 : iters;
+        sItem[i & 1] = w;
+        hop::mbar_arrive(&tfull[i & 1]);
+      }
+      const int take_at = iters > kAhead ? iters - kAhead : 0;
+      if (iters == 0) take_next((i + 1) & 1);
+      unsigned rest = mask;
+      int t = 0;
+      for (int it = 0; it < iters; ++it) {
+        if (it == take_at) take_next((i + 1) & 1);
+        if (it % a.kc == 0) {  // the next present tap
+          t = __ffs(rest) - 1;
+          rest &= rest - 1;
+        }
+        const int k0 = (it % a.kc) * kChunk<Op>;
+        hop::mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = ring + stage * T::kStage;
+        if (p == 0) {
+          uint8_t* sb = st + kP * T::kA;
+          hop::mbar_expect_tx(&full[stage], kP * T::kB);
+          hop::tma_load_2d(sb, &tmw_hi, &full[stage], k0, t * a.N + n0);
+          if constexpr (kP == 2)
+            hop::tma_load_2d(sb + T::kB, &tmw_lo, &full[stage], k0,
+                             t * a.N + n0);
+        }
+        const int src = sN[t * kRows + p];
+        const E* row = a.feats + (row0 + (src >= 0 ? src : 0)) * a.K + k0;
+        uint8_t* dst = st + p * kSpan;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // 16-byte chunk j at j ^ (row % 8)
+          const bool ok = src >= 0 && k0 + kPiece * j < a.K;
+          hop::cp_async16(dst + ((j ^ (p % 8)) * 16),
+                          ok ? row + kPiece * j : a.feats, ok);
+        }
+        // the stage's barrier counts this thread's arrival once its
+        // copies have landed; the thread goes on to the next stage
         hop::cp_async_arrive(&full[stage]);
-      } else {
-        hop::cp_async_commit();
-        if (it >= Op::kLag) {  // stage it - kLag has landed: hand it over
-          hop::cp_async_wait<Op::kLag>();
-          hop::fence_proxy_async();
-          hop::mbar_arrive(&full[signal]);
-          if (++signal == T::kStages) signal = 0;
+        if (++stage == T::kStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      if (++stage == T::kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
+      w = wn;
     }
-    if constexpr (Op::kLag > 0) {
-      hop::cp_async_wait<0>();
-      hop::fence_proxy_async();
-      for (int it = iters > Op::kLag ? iters - Op::kLag : 0; it < iters;
-           ++it) {
-        hop::mbar_arrive(&full[signal]);
-        if (++signal == T::kStages) signal = 0;
+    if (p == 0) {
+      hop::mbar_wait(&tempty[i & 1], ((i >> 1) & 1) ^ 1);
+      sItem[i & 1] = -1;  // the consumers are done
+      hop::mbar_arrive(&tfull[i & 1]);
+      // this block takes no more items: the last block to finish resets
+      // the queue
+      __threadfence();
+      if (atomicAdd(&g_work_queue[1], 1u) == gridDim.x - 1) {
+        atomicExch(&g_work_queue[0], 0u);
+        atomicExch(&g_work_queue[1], 0u);
       }
     }
   } else {
     // ---- consumers: 64 rows each, all BN output features ----
     hop::setmaxnreg_inc<kConsumerRegs>();
     float acc[BN / 2], sum[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
     const int wt = tid % 128, lane = tid % 32;
+    const int w = wt / 32, g = lane / 4, q = lane % 4;
     int stage = 0, prev = 0;
     uint32_t phase = 0;
-    for (int it = 0; it < iters; ++it) {
-      const bool first = it % kFlush == 0;  // the products restart the sums
-      hop::mbar_wait(&full[stage], phase);
-      uint8_t* st = ring + stage * T::kStage;
-      uint8_t* sa = st + wg * 64 * kSpan;
-      const uint8_t* sb = st + kP * T::kA;
-      if constexpr (kP == 2) {
-        // this warpgroup's 64 rows: hi in place, lo beside (the swizzle is
-        // the same in both, so elementwise work ignores it)
-        float4* ahi = reinterpret_cast<float4*>(sa);
-        float4* alo = reinterpret_cast<float4*>(sa + T::kA);
+    for (int i = 0;; ++i) {
+      hop::mbar_wait(&tfull[i & 1], (i >> 1) & 1);
+      const int wk = sItem[i & 1], iters = sIters[i & 1];
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&tempty[i & 1]);
+      if (__any_sync(0xffffffffu, wk < 0)) break;
+      const int nt = wk % a.n_tiles, mt = wk / a.n_tiles % a.m_tiles;
+      const int b = wk / a.n_tiles / a.m_tiles;
+      const int m0 = mt * kRows, n0 = nt * BN;
+      // the stage loop and its flushes hold wgmma instructions: their
+      // conditions are warp votes, which ptxas knows to be uniform (a
+      // condition on a value read from shared memory is divergent to it,
+      // and it serializes every wgmma behind such a branch, C7518)
+      const float init = iters < 0 ? nanf("") : 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = wt + 128 * j;
-          const float4 v = ahi[i];
-          float4 h, l;
-          split_tf32(v.x, h.x, l.x);
-          split_tf32(v.y, h.y, l.y);
-          split_tf32(v.z, h.z, l.z);
-          split_tf32(v.w, h.w, l.w);
-          ahi[i] = h;
-          alo[i] = l;
-        }
-        hop::fence_proxy_async();
-        hop::named_barrier(1 + wg, 128);
-      }
-      hop::fence_regs(acc);
-      hop::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kSpan / 32; ++kk) {  // a k step is 32 bytes
-        const int restart = first && kk == 0 ? 0 : 1;
-        const uint64_t dh = hop::make_desc(sa + 32 * kk, kSpan, 16, 8 * kSpan);
-        const uint64_t dbh =
-            hop::make_desc(sb + 32 * kk, kSpan, 16, 8 * kSpan);
+      for (int k = 0; k < BN / 2; ++k) sum[k] = init;
+      for (int it = 0; __any_sync(0xffffffffu, it < iters); ++it) {
+        const bool first = it % kFlush == 0;  // the products restart the sums
+        hop::mbar_wait(&full[stage], phase);
+        // bf16: the producer's cp.async wrote the stage through the generic
+        // proxy and wgmma reads it through the async proxy; the barrier
+        // made the writes visible to this thread, the fence orders them
+        // before its wgmma (f32: the split below reads and writes the
+        // operands itself and fences them)
+        if constexpr (kP == 1) hop::fence_proxy_async();
+        uint8_t* st = ring + stage * T::kStage;
+        uint8_t* sa = st + wg * 64 * kSpan;
+        const uint8_t* sb = st + kP * T::kA;
         if constexpr (kP == 2) {
-          const uint64_t dl =
-              hop::make_desc(sa + T::kA + 32 * kk, kSpan, 16, 8 * kSpan);
-          const uint64_t dbl =
-              hop::make_desc(sb + T::kB + 32 * kk, kSpan, 16, 8 * kSpan);
-          // the small terms first
-          hop::WgmmaTf32<BN>::ss(acc, dl, dbh, restart);
-          hop::WgmmaTf32<BN>::ss(acc, dh, dbl, 1);
-          hop::WgmmaTf32<BN>::ss(acc, dh, dbh, 1);
-        } else {
-          hop::Wgmma<BN>::ss(acc, dh, dbh, restart);
+          // this warpgroup's 64 rows: hi in place, lo beside (the swizzle is
+          // the same in both, so elementwise work ignores it)
+          float4* ahi = reinterpret_cast<float4*>(sa);
+          float4* alo = reinterpret_cast<float4*>(sa + T::kA);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = wt + 128 * j;
+            const float4 v = ahi[e];
+            float4 h, l;
+            split_tf32(v.x, h.x, l.x);
+            split_tf32(v.y, h.y, l.y);
+            split_tf32(v.z, h.z, l.z);
+            split_tf32(v.w, h.w, l.w);
+            ahi[e] = h;
+            alo[e] = l;
+          }
+          hop::fence_proxy_async();
+          hop::named_barrier(1 + wg, 128);
+        }
+        // no access to acc between here and the wait below: the products
+        // of consecutive stages chain into it while the previous ones run
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSpan / 32; ++kk) {  // a k step is 32 bytes
+          const int restart = first && kk == 0 ? 0 : 1;
+          const uint64_t dh = hop::make_desc(sa + 32 * kk, kSpan, 16, 8 * kSpan);
+          const uint64_t dbh =
+              hop::make_desc(sb + 32 * kk, kSpan, 16, 8 * kSpan);
+          if constexpr (kP == 2) {
+            const uint64_t dl =
+                hop::make_desc(sa + T::kA + 32 * kk, kSpan, 16, 8 * kSpan);
+            const uint64_t dbl =
+                hop::make_desc(sb + T::kB + 32 * kk, kSpan, 16, 8 * kSpan);
+            // the small terms first
+            hop::WgmmaTf32<BN>::ss(acc, dl, dbh, restart);
+            hop::WgmmaTf32<BN>::ss(acc, dh, dbl, 1);
+            hop::WgmmaTf32<BN>::ss(acc, dh, dbh, 1);
+          } else {
+            hop::Wgmma<BN>::ss(acc, dh, dbh, restart);
+          }
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();  // the previous stage's products are done
+        if (it > 0 && lane == 0) hop::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == T::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (__any_sync(0xffffffffu,
+                       (it + 1) % kFlush == 0 || it == iters - 1)) {
+          hop::wgmma_wait<0>();
+          hop::fence_regs(acc);
+#pragma unroll
+          for (int k = 0; k < BN / 2; ++k) sum[k] = __fadd_rn(sum[k], acc[k]);
         }
       }
-      hop::wgmma_commit();
-      hop::wgmma_wait<1>();  // the previous stage's products are done
-      hop::fence_regs(acc);
-      if (it > 0 && lane == 0) hop::mbar_arrive(&empty[prev]);
-      prev = stage;
-      if (++stage == T::kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-      if ((it + 1) % kFlush == 0 || it == iters - 1) {
-        hop::wgmma_wait<0>();
-        hop::fence_regs(acc);
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
-      }
-    }
+      hop::wgmma_wait<0>();  // (done at the last flush; said for ptxas)
+      if (iters > 0 && lane == 0) hop::mbar_arrive(&empty[prev]);
 
-    const int w = wt / 32, g = lane / 4, q = lane % 4;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wg * 64 + w * 16 + g + 8 * h;
-      if (m >= a.C) continue;
-      E* orow = a.out + (row0 + m) * a.N;
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wg * 64 + w * 16 + g + 8 * h;
+        if (m >= a.C) continue;
+        E* orow = a.out + ((long long)b * a.C + m) * a.N;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * q;
-        if (n < a.N)
-          store2(orow + n, sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + 8 * j + 2 * q;
+          if (n < a.N)
+            store2(orow + n, sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+        }
       }
     }
   }
@@ -410,8 +491,11 @@ int launch_k4(const void* feats, const void* nbr, const void* w_pack,
   a.m_tiles = (C + kRows - 1) / kRows;
   a.n_tiles = (N + bn - 1) / bn;
   a.kc = (K + kChunk<Op> - 1) / kChunk<Op>;
-  const long long blocks = (long long)B * a.m_tiles * a.n_tiles;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long work = (long long)B * a.m_tiles * a.n_tiles;
+  if (work >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  a.n_work = static_cast<int>(work);
+  const int sms = hop_host::sm_count();
+  const long long blocks = work < sms ? work : sms;
   const E* hi = static_cast<const E*>(w_pack);
   const E* lo = hi + (Op::kParts - 1) * (long long)kTaps * N * K;
   const uint64_t dims[2] = {(uint64_t)K, (uint64_t)kTaps * N};

@@ -49,7 +49,8 @@ SIGNATURES = {
         "flash_attn_f32_splits": [_I] * 6,
     },
     "flash_attention_f32_bwd": {
-        "flash_attn_f32_bwd": [_P] * 9 + [_I] * 5 + [_L] * 21 + [_F, _P],
+        "flash_attn_f32_bwd": [_P] * 11 + [_I] * 6 + [_L] * 21 + [_F, _P],
+        "flash_attn_f32_bwd_splits": [_I] * 7,
     },
     "dense_conv": {"conv3x3x3_bf16": [_P] * 5 + [_I] * 8 + [_P],
                    "conv3x3x3_bf16_splits": [_I] * 7,
@@ -76,7 +77,8 @@ K4_DGRAD = "sparse_conv_f32_dgrad"
 K4_BF16_DGRAD = "sparse_conv_bf16_dgrad"
 # the split plan queries launch nothing
 _NOT_COUNTED = ("conv3x3x3_bf16_splits", "conv3x3x3_f32_splits",
-                "conv3x3x3_int8_splits", "flash_attn_f32_splits")
+                "conv3x3x3_int8_splits", "flash_attn_f32_splits",
+                "flash_attn_f32_bwd_splits")
 launches: dict[str, int] = {name: 0 for fns in SIGNATURES.values()
                             for name in fns if name not in _NOT_COUNTED} | \
     {K3_DGRAD: 0, K4_DGRAD: 0, K4_BF16_DGRAD: 0}
@@ -312,11 +314,16 @@ def flash_attn_f32_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Nq, h, d] (the output's gradient), 16-byte aligned strides; lse f32
     [B, h, Nq] as the forward stored it; delta f32 [B, h, Nq] = sum_d o *
     dout. Returns (dq, dk, dv), f32, shaped like q, k, v, bit-identical
-    from run to run. One call launches the dK/dV kernel and the dQ kernel
-    and counts once."""
+    from run to run. One call launches the prologue (the tf32 parts of q,
+    k, v and dout as they lie and of q, dout and k token-major,
+    ``f32_bwd_prologue_plain``'s layout, into scratch allocated here), the
+    dK/dV kernel and the dQ kernel and, for a pass whose streamed axis is
+    split into ranges (``f32_bwd_splits``), the pass that adds the ranges;
+    it counts once."""
     _check_qkv(q, k, v, torch.float32, "flash_attn_f32_bwd")
     _check_cuda(q, dout, lse, delta)
     B, nq, h, d = q.shape
+    nk = k.shape[1]
     if dout.shape != q.shape or dout.dtype != torch.float32:
         raise ValueError(f"dout must be f32 {tuple(q.shape)}, got "
                          f"{dout.dtype} {tuple(dout.shape)}")
@@ -326,16 +333,59 @@ def flash_attn_f32_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * h > 65535:
         raise ValueError(f"too many (batch, head) pairs for one launch: "
                          f"{B * h}")
-    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=q.device)
+    dev = q.device
+    sms = _sm_count(dev)
+    s_kv, s_q = (f32_bwd_splits(B, h, nq, nk, d, sms, dkv)
+                 for dkv in (True, False))
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=dev)
                   for t in (q, k, v))
-    _run("flash_attention_f32_bwd", "flash_attn_f32_bwd", q.device,
+    # the prologue's copies: [2, B*h, N, d] of q, k, v, dout, then
+    # [2, B*h, d, N rounded up to 8] of q, dout, k; the ranges' partial sums
+    # (dK and dV, then dQ) where a pass takes more than one
+    bh, nqp, nkp = B * h, -(-nq // 8) * 8, -(-nk // 8) * 8
+    scratch = torch.empty(2 * bh * d * (2 * nq + 2 * nk + 2 * nqp + nkp),
+                          dtype=torch.float32, device=dev)
+    n_part = (2 * s_kv * bh * nk * d if s_kv > 1 else 0) + \
+        (s_q * bh * nq * d if s_q > 1 else 0)
+    part = torch.empty(n_part, dtype=torch.float32, device=dev) \
+        if n_part else None
+    _run("flash_attention_f32_bwd", "flash_attn_f32_bwd", dev,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-         dv.data_ptr(), B, h, nq, k.shape[1], d, *q.stride()[:3],
-         *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
-         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-         float(sm_scale))
+         dv.data_ptr(), scratch.data_ptr(),
+         part.data_ptr() if part is not None else None, B, h, nq, nk, d,
+         sms, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+         *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+         *dv.stride()[:3], float(sm_scale))
     return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def f32_bwd_splits(B: int, h: int, nq: int, nk: int, d: int, sms: int,
+                   dkv: bool) -> int:
+    """The number of ranges ``flash_attn_f32_bwd`` splits the streamed axis
+    of its dK/dV pass (``dkv``: the queries) or its dQ pass (the keys) into
+    on a card with ``sms`` SMs (1: none), from the kernel's own plan."""
+    return _fn("flash_attention_f32_bwd", "flash_attn_f32_bwd_splits")(
+        B, h, nq, nk, d, sms, int(dkv))
+
+
+def f32_bwd_prologue_plain(x: torch.Tensor):
+    """What ``flash_attn_f32_bwd``'s prologue writes for one of its inputs
+    x [B, N, h, d] (f32): its tf32 hi and lo as it lies, [2, B*h, N, d],
+    and token-major, [2, B*h, d, Np] (Np = N rounded up to 8, zeros past N),
+    the tokens of each 8 in the order 0, 2, 4, 6, 1, 3, 5, 7, so that a
+    row of P or dS taken from the accumulators is an A fragment."""
+    from ..ops.window_conv import tf32_split
+    B, n, h, d = x.shape
+    rows = x.float().permute(0, 2, 1, 3).reshape(B * h, n, d)
+    dm = tf32_split(rows)
+    n_p = -(-n // 8) * 8
+    tok = torch.nn.functional.pad(rows, (0, 0, 0, n_p - n))
+    order = torch.tensor((0, 2, 4, 6, 1, 3, 5, 7))
+    idx = (torch.arange(n_p) // 8 * 8).reshape(-1, 8) + order
+    tm = tf32_split(tok[:, idx.reshape(-1)].transpose(1, 2).contiguous())
+    return dm, tm
 
 
 def flash_attn_int8qk(q8: torch.Tensor, k8: torch.Tensor, qscale: torch.Tensor,
@@ -696,6 +746,31 @@ def sparse_conv_bf16(feats: torch.Tensor, nbr: torch.Tensor,
     conv's input gradient and is counted under ``K4_BF16_DGRAD``."""
     return _sparse_conv("sparse_conv_bf16", torch.bfloat16, feats, nbr,
                         w_pack, poison, K4_BF16_DGRAD if dgrad else None)
+
+
+def sparse_conv_schedule(nbr: torch.Tensor, poison: torch.Tensor, K: int,
+                         N: int, dtype: torch.dtype):
+    """The work items the sparse conv kernels (``sparse_conv_f32``,
+    ``sparse_conv_bf16``) walk, in their order: (batch element, 128-row
+    tile, N tile of 32, 64 or 128 features), the N tile fastest, handed
+    to the persistent blocks one by one. An item's stages are the taps
+    some row of its tile has, times K's chunks of 128 bytes; 0 where no row
+    has one (a tile of padding slots, whose rows get zeros) and -1 for a
+    poisoned element (NaN). Returns (stages, tap masks), int64 [items];
+    the kernel finds the same on the card, item by item."""
+    B, C, _ = nbr.shape
+    bn = 32 if N <= 32 else 64 if N <= 64 else 128
+    m_tiles, n_tiles = -(-C // 128), -(-N // bn)
+    kc = -(-K * torch.empty((), dtype=dtype).element_size() // 128)
+    has = torch.nn.functional.pad((nbr >= 0).to(torch.int64),
+                                  (0, 0, 0, m_tiles * 128 - C))
+    present = has.reshape(B, m_tiles, 128, 27).amax(2)
+    bad = poison.to(torch.int64).ne(0)[:, None]
+    masks = torch.where(bad, 0, (present << torch.arange(
+        27, device=nbr.device)).sum(-1))
+    stages = torch.where(bad, -1, present.sum(-1) * kc)
+    return (stages.repeat_interleave(n_tiles, 1).reshape(-1),
+            masks.repeat_interleave(n_tiles, 1).reshape(-1))
 
 
 # K6's voxel rows a stage and at most a range (csrc/sparse_conv_bwd.cu);

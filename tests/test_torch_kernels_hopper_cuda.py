@@ -485,6 +485,44 @@ def test_f32_attention_with_a_gradient_raises(gen):
         multi_head_attention(x, x, x)
 
 
+@pytest.mark.parametrize("nq,nk,h,d", [(300, 200, 2, 64), (77, 130, 1, 96),
+                                       (1000, 777, 4, 128), (5, 9, 1, 64)])
+def test_f32_bwd_ranges_where_items_are_few(gen, nq, nk, h, d):
+    """``flash_attn_f32_bwd`` where its 64-row items are fewer than the SMs,
+    so each pass splits its streamed axis into ranges added in order
+    (``f32_bwd_splits``), Nq != Nk off the tiles: dq, dk and dv within
+    1e-4 * max|ref| of ``attention_bwd_plain``, two runs bit-identical."""
+    q, do = (_rand((1, nq, h, d), gen, torch.float32) for _ in range(2))
+    k, v = (_rand((1, nk, h, d), gen, torch.float32) for _ in range(2))
+    scale = d ** -0.5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert max(kernels.f32_bwd_splits(1, h, nq, nk, d, sms, dkv)
+               for dkv in (True, False)) > 1 or nq < 16
+    o, lse = attention_plain(q, k, v, scale, return_lse=True)
+    delta = attention_delta(o, do)
+    got = kernels.flash_attn_f32_bwd(q, k, v, do, lse, delta, scale)
+    ref = attention_bwd_plain(q, k, v, o, do, lse, scale)
+    for a, b in zip(got, ref):
+        _f32_gate(a, b)
+    again = kernels.flash_attn_f32_bwd(q, k, v, do, lse, delta, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_f32_bwd_takes_strided_views(gen):
+    """q, k, v and dout as views of fused projections: the gradients of
+    contiguous copies, bit for bit."""
+    qkv = _rand((2, 300, 3, 4, 64), gen, torch.float32)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = _rand((2, 300, 2, 4, 64), gen, torch.float32)[:, :, 1]
+    o, lse = attention_plain(q, k, v, 0.125, return_lse=True)
+    delta = attention_delta(o, do)
+    got = kernels.flash_attn_f32_bwd(q, k, v, do, lse, delta, 0.125)
+    want = kernels.flash_attn_f32_bwd(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), do.contiguous(), lse,
+                                      delta, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_f32_unet_with_self_attention_matches_the_cpu(gen):
     """An f32 UNet with SelfAttention3D at ds 4 and 8 (d = 64) on a 16^3
     cube: the card (``conv3x3x3_f32``, ``flash_attn_f32``) against the CPU

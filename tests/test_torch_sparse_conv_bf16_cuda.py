@@ -3,7 +3,10 @@
 against their plain versions at the GSM voxel branch's widths on the three
 levels of a 65,536-slot scene grid (0.4 m, bench_gsm_train.py's kind of
 scene), through a padded width (30 -> 62) and a poisoned batch element,
-two runs bit-identical. Gate: one bf16 ulp per element of the larger of
+two runs bit-identical; a table whose few active tiles lie scattered
+among tiles of padding slots, and a call with no active tile (the
+kernel's persistent blocks walk every tile and gather only where a tap is
+present, ``kernels.sparse_conv_schedule``). Gate: one bf16 ulp per element of the larger of
 the two values, with a floor of 2^-16 of the largest reference value (the
 two sum in f32 in different orders; where an element's terms cancel the
 order alone moves it by more than its own ulp). Needs an NVIDIA GPU and
@@ -132,3 +135,64 @@ def test_bf16_kernels_refuse_what_they_do_not_take(plans):
         kernels.sparse_conv_bf16_wgrad(x, plan.nbr, x)
     with pytest.raises(ValueError):
         kernels.sparse_conv_bf16(x.float(), plan.nbr, pack, poison)
+
+
+def _scattered(C, tiles, seed):
+    """nbr int32 [1, C, 27]: -1 but in the given 128-row tiles, whose rows
+    have random taps among the rows of other active tiles."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nbr = torch.full((1, C, 27), -1, dtype=torch.int32, device="cuda")
+    rows = torch.cat([torch.arange(t * 128, t * 128 + 128, device="cuda")
+                      for t in tiles])
+    pick = torch.randint(0, rows.numel(), (rows.numel(), 27), generator=g,
+                         device="cuda")
+    keep = torch.rand((rows.numel(), 27), generator=g, device="cuda") < 0.4
+    nbr[0, rows] = torch.where(keep, rows[pick], -1).int()
+    return nbr
+
+
+@pytest.mark.parametrize("F,Fo", [(64, 64), (128, 256), (384, 128)])
+def test_bf16_few_scattered_active_tiles(plans, F, Fo):
+    """Four active tiles among 512 (the rest padding slots): forward and
+    dx within one bf16 ulp of the plain version, zeros in the padding
+    tiles, two runs bit-identical."""
+    C, tiles = 1 << 16, (3, 200, 201, 511)
+    nbr = _scattered(C, tiles, F + Fo)
+    poison = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stages, _ = kernels.sparse_conv_schedule(nbr, poison, F, Fo,
+                                             torch.bfloat16)
+    assert (stages > 0).sum().item() == len(tiles) * -(-Fo // 128)
+    g = torch.Generator(device="cuda").manual_seed(F)
+    x = torch.randn((1, C, F), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((27, F, Fo), generator=g, device="cuda") /
+         (27 * F) ** 0.5).bfloat16()
+    cot = torch.randn((1, C, Fo), generator=g, device="cuda").bfloat16()
+    plan = wc.ConvPlan(nbr, poison)
+    runs = [(kernels.sparse_conv_bf16(x, nbr, wc.pack_sparse_weight(w),
+                                      poison),
+             kernels.sparse_conv_bf16(cot, nbr,
+                                      wc.pack_sparse_weight(w, True), poison,
+                                      dgrad=True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = wc.sparse_conv_plain(plan, x, w)
+    ref_dx = wc.sparse_conv_plain(plan, cot, wc.rev_w(w))
+    for got, want in zip(runs[0], (ref, ref_dx)):
+        hold_ulp(got, want)
+        assert (got[0, :128 * 3] == 0).all()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_bf16_call_with_no_active_tile(plans):
+    """A table of padding slots only: zeros, or NaN for a poisoned element,
+    and no stage walked."""
+    nbr = torch.full((2, 5000, 27), -1, dtype=torch.int32, device="cuda")
+    poison = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    stages, _ = kernels.sparse_conv_schedule(nbr, poison, 64, 64,
+                                             torch.bfloat16)
+    assert (stages <= 0).all()
+    x = torch.randn((2, 5000, 64), device="cuda").bfloat16()
+    w = (torch.randn((27, 64, 64), device="cuda") / 40).bfloat16()
+    out = kernels.sparse_conv_bf16(x, nbr, wc.pack_sparse_weight(w), poison)
+    torch.cuda.synchronize()
+    assert (out[0] == 0).all() and torch.isnan(out[1]).all()
