@@ -106,7 +106,9 @@ Then int8 serving (the VAE trainer freed first):
     ``int8_conv_quantize_w``) bit-equal to their plain versions and to
     ``quantize_for_conv`` + ``pad_channels`` + ``pack_int8_weight``, from
     the f32 weights, the CFG pair's halves at other ranges, each timed
-    beside its plain version and its byte bound; K8 (int8-PV flash
+    beside its plain version and its byte bound, host-timed and as device
+    time alone with its share of that bound (amax beside
+    ``torch.linalg.vector_norm`` timed both ways); K8 (int8-PV flash
     attention) against ``int8qkv_attention_plain`` at N = 7,800 and 37,440
     (a scale per 1,536-row block of q and k and per channel of v), timed
     beside K1 on the same inputs, each with its share of its bound;
@@ -122,7 +124,8 @@ Then int8 serving (the VAE trainer freed first):
     directory, and one 17-frame, 4-step video request with int8-PV
     self-attention (K8 240 launches, K1 none);
 21. where the time goes: one CFG DDIM step at batch 2, int8 and bf16,
-    timed, profiled and with peak memory; the final-latent cosine of a
+    timed, profiled (with the device time of K7's quantize prologue and of
+    K7) and with peak memory; the final-latent cosine of a
     DDIM-10 chunk, int8 against bf16, from the same noise.
 
 Then every width and f32 (the int8 models freed first):
@@ -357,6 +360,27 @@ def cuda_ms(fn, warmup=2, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters=20):
+    """The device's time per call of ``fn`` with the host out of the way:
+    ``iters`` calls queued behind ``torch.cuda._sleep``, which keeps the
+    card busy while the host issues them, timed by CUDA events from the end
+    of the sleep to the end of the last call; NaN where issuing them took
+    the host as long as the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if host_ms < 5.0 else math.nan
 
 
 def bound_ms(flops_by_peak, nbytes):
@@ -1965,6 +1989,18 @@ GUIDANCE = 2.0      # the tracked stage-1 configuration serves with CFG
 INT8_CONVS = 23     # int8 convs of one release UNet call (the port's rule)
 
 
+def k7_prologue_inputs(g, n, C, O):
+    """bf16 x [2, n, n, n, C] with its own range in every channel and a CFG
+    pair whose halves differ, and the f32 weight parameter [O, C, 3, 3,
+    3]."""
+    x = torch.randn((2, n, n, n, C), generator=g, device="cuda") * \
+        torch.logspace(-1, 1, C, device="cuda")
+    x[1] *= 4.0                     # the CFG pair's halves differ
+    wf = torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") / \
+        math.sqrt(27 * C)           # the f32 parameter
+    return x.to(torch.bfloat16), wf
+
+
 def k7_checks(kernels, dc):
     """K7 against ``conv3x3x3_int8_plain`` on the same int8 inputs (one
     prologue, so the integer sums are exact on both sides; each input
@@ -1976,19 +2012,14 @@ def k7_checks(kernels, dc):
     their plain versions (bit-equal) and against ``quantize_for_conv``
     followed by ``pad_channels`` and ``pack_int8_weight``, from the f32
     parameter, with a CFG pair whose halves have other ranges; each timed
-    beside its plain version and its bound (bytes). Returns the rows of K7
-    and of each prologue kernel."""
+    beside its plain version and its bound (bytes), host-timed and as device
+    time alone. Returns the rows of K7 and of each prologue kernel."""
     g = torch.Generator(device="cuda").manual_seed(12)
     rows = []
     pro = {"int8_conv_amax": [], "int8_conv_quantize_x": [],
            "int8_conv_quantize_w": []}
     for n, C, O in K7_SHAPES:
-        x = torch.randn((2, n, n, n, C), generator=g, device="cuda") * \
-            torch.logspace(-1, 1, C, device="cuda")
-        x[1] *= 4.0                     # the CFG pair's halves differ
-        x = x.to(torch.bfloat16)
-        wf = torch.randn((O, C, 3, 3, 3), generator=g, device="cuda") / \
-            math.sqrt(27 * C)           # the f32 parameter
+        x, wf = k7_prologue_inputs(g, n, C, O)
         w = wf.to(torch.bfloat16)
         b = 0.1 * torch.randn(O, generator=g, device="cuda")
         x8, w8, sw = dc.quantize_for_conv(x, w)
@@ -2064,21 +2095,39 @@ def k7_checks(kernels, dc):
                 cuda_ms(lambda: dc.int8_conv_quantize_w_plain(wf, ref_amax),
                         1, 3),
                 4 * 27 * C * O + 4 * C + 27 * C * O + 12 * O, None)}
+        # and as device time alone (the host-timed calls above include the
+        # host's time to issue them; the profiler's kernel records, which
+        # chip_time_kernels.py sums, read below the bytes bound in this
+        # long-lived process, so the calls are queued behind a sleep)
+        pro_dev = {
+            "int8_conv_amax": queued_ms(lambda: kernels.int8_conv_amax(x)),
+            "int8_conv_quantize_x": queued_ms(
+                lambda: kernels.int8_conv_quantize_x(x, amax)),
+            "int8_conv_quantize_w": queued_ms(
+                lambda: kernels.int8_conv_quantize_w(wf, amax))}
+        norm_dev = queued_ms(lambda: torch.linalg.vector_norm(
+            x, float("inf"), dim=(0, 1, 2, 3)))
         for name, (k_ms, p_ms, nbytes, lib_ms) in pro_ms.items():
             pb_ms, pb_by = bound_ms([], nbytes)
             pro[name].append(dict(
                 shape=shape, max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                bound_ms=pb_ms, bound_by=pb_by, library_ms=lib_ms))
+                bound_ms=pb_ms, bound_by=pb_by, library_ms=lib_ms,
+                device_ms=pro_dev[name],
+                device_bound_share=pb_ms / pro_dev[name],
+                **({"library_device_ms": norm_dev} if lib_ms else {})))
         print(f"[k7] {shape}: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} "
               f"TOP/s, {100 * b_ms / ms:.1f} % of its bound), with the "
               f"quantize prologue {full_ms:.3f} ms, plain {plain:.2f} ms, "
               f"bound {b_ms:.3f} ms ({b_by}); K3 {k3:.3f} ms, cudnn bf16 "
-              f"{lib:.3f} ms; prologue "
-              + ", ".join(f"{k} {v[0]:.3f} ms (plain {v[1]:.3f}, bytes "
-                          f"bound {bound_ms([], v[2])[0]:.3f})"
-                          for k, v in pro_ms.items())
+              f"{lib:.3f} ms")
+        print(f"[k7 prologue] {shape}: " + ", ".join(
+            f"{k} {v[0]:.4f} ms, device alone {pro_dev[k]:.4f} ms "
+            f"({100 * bound_ms([], v[2])[0] / pro_dev[k]:.1f} % of its bytes "
+            f"bound {bound_ms([], v[2])[0]:.4f}; plain {v[1]:.3f})"
+            for k, v in pro_ms.items())
               + f"; amax as torch.linalg.vector_norm "
-              f"{pro_ms['int8_conv_amax'][3]:.3f} ms")
+              f"{pro_ms['int8_conv_amax'][3]:.4f} ms, device alone "
+              f"{norm_dev:.4f} ms")
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                          k3_ms=k3, with_prologue_ms=full_ms, splits=splits,
@@ -2306,7 +2355,11 @@ def int8_time(diffusion, gen, mods):
         print(f"[time] one CFG DDIM step (batch 2, 64^3), {label}: "
               f"{np.mean(times):.1f} ms (runs {[round(v, 1) for v in times]}"
               f"), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile(step, f"CFG DDIM step, {label}")
+        profile(step, f"CFG DDIM step, {label}", shares={
+            "K7's quantize prologue (its three kernels)": (
+                "int8_conv_amax", "int8_conv_quantize"),
+            "K7 (and its split-K reduce)": ("conv3x3x3_wgmma_kernel<1,",
+                                            "int8_splitk")})
     bf16 = mods.VoxelDiffusion(mods.DiffusionConfig(), device="cuda")
     bf16.load_params(diffusion.unet.state_dict())
     x_T = torch.randn((1, 64, 64, 64, 8), generator=g, device="cuda")

@@ -3,7 +3,8 @@ redesign changes and their guards, at the shapes of ``chip_smoke.py``'s
 paths (CUDA events after warm-up), and the steps those kernels carry (host
 clock around work that ends in a synchronize).
 
-    python3 chip_time_kernels.py <checkout> [--json FILE] [--sparse | --vae]
+    python3 chip_time_kernels.py <checkout> [--json FILE]
+        [--sparse] [--f32-bwd] [--int8-prologue] | [--vae]
 
 - guards, timed first: K2 at d = 96 (N = 4,096 and 512, 8 heads) and
   d = 128 (37,440 x 512, 12 heads), K3 forward at [1,64^3,192]->192, K8
@@ -41,7 +42,17 @@ N = 4,096 with 8 heads of 96, 1,000 x 777 with 4 heads of 128), called
 through its Python signature on the forward's lse and ``attention_delta``,
 each host-timed and as device time alone beside the backward of
 ``scaled_dot_product_attention`` on f32 inputs with the memory-efficient
-backend pinned (``f32_bwd_rows``); the two options combine. With ``--vae``
+backend pinned (``f32_bwd_rows``). With ``--int8-prologue`` only K7's
+quantize prologue: ``int8_conv_amax``, ``int8_conv_quantize_x`` and
+``int8_conv_quantize_w`` at the six ``chip_smoke.K7_SHAPES`` (CFG batch 2,
+the f32 weight parameter), each host-timed as ``chip_smoke.py``'s phase 18
+times them (CUDA events around 5 back-to-back calls) and as device time
+alone (``device_ms``), beside ``torch.linalg.vector_norm(x, inf, dim=(0,
+1, 2, 3))`` timed both ways, and K7 with its prologue as the UNet calls it
+(``conv3x3x3(quant=True)``); then one CFG DDIM step (batch 2, 64^3) of the
+release UNet with ``serve_quant``, host-timed, and its device time with
+the parts in the three prologue kernels and in K7 (``int8_prologue_rows``).
+The three options combine. With ``--vae``
 only K3 at the Wan VAE's routed conv shapes of ``chip_smoke.py``'s phase 36,
 each beside cuDNN's bf16 conv3d on the same padded input (``vae_rows``).
 
@@ -63,7 +74,7 @@ import torch
 
 from chip_smoke import (D, D96, F32_ATTN_SHAPES, H, H96, K3_SHAPES,
                         K7_SHAPES, N_RELEASE, N_SERVE, TEXT_LEN, VAE_POINTS,
-                        cuda_ms, rand, vae_points)
+                        cuda_ms, k7_prologue_inputs, rand, vae_points)
 
 # the VAE's conv widths at the training batch's levels: (level, F, Fo)
 TRAIN_CONVS = ((0, 32, 64), (0, 64, 64), (1, 128, 128), (1, 256, 128),
@@ -297,6 +308,60 @@ def f32_bwd_rows(kernels, att, g):
     return out
 
 
+def int8_prologue_rows(kernels, dc, g):
+    """K7's quantize prologue at ``K7_SHAPES`` beside ``vector_norm``, and
+    K7 with it (``conv3x3x3(quant=True)``, the f32 parameter); then one
+    int8 CFG DDIM step of the release UNet with its device time split
+    (kernel names: the three prologue kernels; K7's int8 instantiation of
+    the conv template and its split-K reduce)."""
+    from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
+                                                             DiffusionConfig,
+                                                             VoxelDiffusion)
+    out = {}
+    for n, C, O in K7_SHAPES:
+        x, wf = k7_prologue_inputs(g, n, C, O)
+        amax = kernels.int8_conv_amax(x)
+        fns = {"amax": lambda: kernels.int8_conv_amax(x),
+               "quantize_x": lambda: kernels.int8_conv_quantize_x(x, amax),
+               "quantize_w": lambda: kernels.int8_conv_quantize_w(wf, amax),
+               "vector_norm": lambda: torch.linalg.vector_norm(
+                   x, float("inf"), dim=(0, 1, 2, 3))}
+        b = torch.zeros(O, device="cuda")
+
+        def k7_with_prologue():
+            with torch.no_grad():
+                return dc.conv3x3x3(x, wf, b, quant=True)
+        fns["k7 with prologue"] = k7_with_prologue
+        shape = f"[2,{n}^3] {C}->{O}"
+        for name, fn in fns.items():
+            out[f"{name} {shape}"] = cuda_ms(fn, 2, 5)
+            out[f"{name} {shape} device"] = device_ms(fn)
+        del x, wf, amax, b
+    torch.cuda.empty_cache()
+    diffusion = VoxelDiffusion(DiffusionConfig(serve_quant=True),
+                               device="cuda")
+    diffusion.init_params(g, zero_init_layers=False)
+    x = torch.randn((2, 64, 64, 64, 8), generator=g, device="cuda")
+    cond = CondCubes.null(2, diffusion.cfg, "cuda")
+    t = torch.tensor([500, 500], device="cuda")
+
+    def step():
+        with torch.no_grad():
+            return diffusion.denoise(x, t, cond, serve=True)
+    out["int8 cfg step"] = _host_ms(step)
+    by_name = _device_by_name(step)
+    out["int8 cfg step device"] = sum(by_name.values()) / 1e3
+    out["int8 cfg step prologue"] = sum(
+        v for k, v in by_name.items()
+        if "int8_conv_amax" in k or "int8_conv_quantize" in k) / 1e3
+    out["int8 cfg step k7"] = sum(
+        v for k, v in by_name.items()
+        if "conv3x3x3_wgmma_kernel<1," in k or "int8_splitk" in k) / 1e3
+    del diffusion, x, cond
+    torch.cuda.empty_cache()
+    return out
+
+
 def vae_rows(kernels, dc, g):
     """K3 at the Wan VAE's routed conv shapes (``chip_smoke.py`` phase 36:
     a release decode tile's five, the whole frame's latent level, one of
@@ -487,6 +552,11 @@ def main() -> None:
     ap.add_argument("--f32-bwd", action="store_true",
                     help="time only flash_attn_f32_bwd beside SDPA's f32 "
                     "backward (``f32_bwd_rows``); combines with --sparse")
+    ap.add_argument("--int8-prologue", action="store_true",
+                    help="time only K7's quantize prologue beside "
+                    "vector_norm and one int8 CFG UNet step "
+                    "(``int8_prologue_rows``); combines with --sparse and "
+                    "--f32-bwd")
     ap.add_argument("--vae", action="store_true",
                     help="time only K3 at the Wan VAE's routed conv shapes "
                     "beside cuDNN (``vae_rows``)")
@@ -503,10 +573,12 @@ def main() -> None:
     kernels.build()
     built = time.perf_counter() - t0
     g = torch.Generator(device="cuda").manual_seed(0)
-    if args.sparse or args.f32_bwd:
+    if args.sparse or args.f32_bwd or args.int8_prologue:
         rows = sparse_rows(kernels, window_conv, g) if args.sparse else {}
         if args.f32_bwd:
             rows.update(f32_bwd_rows(kernels, att, g))
+        if args.int8_prologue:
+            rows.update(int8_prologue_rows(kernels, dense_conv, g))
     elif args.vae:
         rows = vae_rows(kernels, dense_conv, g)
     else:

@@ -98,8 +98,12 @@
 // bf16, folded with sc, their per-(dx, o) scales and the padded dx-major
 // pack). Each divides where the reference divides (IEEE division, never a
 // reciprocal) and rounds half to even, so x8, the pack and sw equal the
-// plain prologue's bit for bit. Bounded by bytes: two reads of x, one int8
-// write, the weights read twice.
+// plain prologue's bit for bit. Bounded by bytes: x read once by each of
+// the first two, the weights read once (f32: 4 bytes a value) and the
+// int8 pack written once by the third. amax and the weight pass read with
+// coalesced 16-byte loads, reduce across blocks without contended atomics,
+// and the weight pass writes the pack in 16-byte stores through a
+// transpose in shared memory (the designs at each kernel below).
 //
 // conv3x3x3_f32 is the same function in f32 (f32 input and output), for
 // models that compute in f32 (the reference's Conv3x3x3 serves every
@@ -940,22 +944,103 @@ __device__ __forceinline__ int8_t quantize(float v, float scale) {
   return static_cast<int8_t>(static_cast<int>(rintf(__fdiv_rn(v, scale))));
 }
 
-// amax[c] |= max over all rows of |x[:, c]| (as bits: for non-negative
-// floats the unsigned order is the float order, and a NaN wins as in the
-// reference's amax). Blocks of 32 x 8 threads: a thread owns 8 channels
-// (one 16-byte load a row) and every gridDim.y * 8-th row.
-__global__ void __launch_bounds__(256)
+// quantize(f[j], s) for four values, from r = __frcp_rn(s): q1 = f * r,
+// corrected by one FMA step, is within about an ulp of f / s, and |f / s|
+// <= 127.x here (s is the max over these values / 127), so q1 rounds to
+// the integer the IEEE quotient rounds to unless it lies within 2^-10 of a
+// half-integer or is not finite; then (about 1 in 500 values) all four take
+// quantize's division.
+__device__ __forceinline__ void quantize4(const float (&f)[4],
+                                          const float (&s)[3],
+                                          const float (&r)[3],
+                                          int8_t (&q)[4]) {
+  bool near = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float q0 = __fmul_rn(f[j], r[j % 3]);
+    const float q1 = __fmaf_rn(__fmaf_rn(-q0, s[j % 3], f[j]), r[j % 3], q0);
+    near |= !(fabsf(q1 - floorf(q1) - 0.5f) > 0x1p-10f);
+    q[j] = static_cast<int8_t>(__float2int_rn(q1));
+  }
+  if (near)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = quantize(f[j], s[j % 3]);
+}
+
+// ---- int8_conv_amax: max |x| per channel, one kernel, no atomics on data --
+//
+// A block of vs x rpb threads (kernels.amax_plan: vs 16-byte channel
+// vectors of one slab of the row, rpb rows at a time, vs * rpb a multiple of
+// 32 wherever C allows, so that every lane loads) walks one contiguous range
+// of `rows` rows with kAmaxUnroll loads in flight a thread, keeping eight
+// running maxima. The grid is one wave (two blocks an SM), so that the
+// ranges are equal and no block waits for a second wave. The block's maxima
+// meet in shared memory and go out as one partial row [C] a block; then a
+// tree of last arrivals reduces them: the last block of each group of
+// kAmaxGroup blocks (a counter a group) takes the max of the group's rows,
+// and the last of those (a counter a slab) takes the max of the group maxima
+// into amax. Each block sends one atomic a level, to its own counter, and
+// the counters wrap back to 0 by themselves (atomicInc), so no launch zeroes
+// anything; two calls must not run at once on two streams of one card.
+constexpr int kAmaxUnroll = 8;
+constexpr int kAmaxGroup = 16;       // kernels.AMAX_GROUP
+constexpr int kAmaxThreads = 512;    // kernels.AMAX_THREADS
+constexpr int kAmaxCounters = 1024;  // kernels.AMAX_COUNTERS
+__device__ unsigned int g_amax_count[kAmaxCounters];
+
+__device__ __forceinline__ uint4 umax4(uint4 a, uint4 b) {
+  return make_uint4(max(a.x, b.x), max(a.y, b.y), max(a.z, b.z),
+                    max(a.w, b.w));
+}
+
+// dst[c0 .. c0 + width) = the max over n rows of part (the rows first,
+// first + step, ..., C words each) of those channels; read from L2, where
+// the other blocks' rows are
+__device__ __forceinline__ void amax_rows(const unsigned* part,
+                                          long long first, int n, int step,
+                                          int C, int c0, int width,
+                                          unsigned* dst) {
+  for (int v = threadIdx.x; v < width / 4; v += blockDim.x) {
+    uint4 m = make_uint4(0, 0, 0, 0);
+#pragma unroll 4
+    for (int i = 0; i < n; ++i)
+      m = umax4(m, __ldcg(reinterpret_cast<const uint4*>(
+                             part + (first + (long long)i * step) * C + c0) +
+                         v));
+    reinterpret_cast<uint4*>(dst + c0)[v] = m;
+  }
+}
+
+// amax (uint32 [C], the bits of f32) = max over the M rows of |x[:, c]|:
+// for non-negative floats the unsigned order of the bits is the float
+// order, the sign bit is cleared, and a NaN (above inf) wins as in the
+// reference's max. part: [gridDim.x, C] scratch.
+__global__ void __launch_bounds__(kAmaxThreads, 2)
     int8_conv_amax_kernel(const __nv_bfloat16* __restrict__ x,
-                          unsigned* __restrict__ amax, long long M, int C) {
-  __shared__ unsigned red[8][32][9];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int v = blockIdx.x * 32 + tx;
+                          unsigned* __restrict__ amax,
+                          unsigned* __restrict__ part, long long M, int C,
+                          int vs, int rpb, long long rows) {
+  extern __shared__ uint4 red4[];  // [rpb][vs][2]: eight maxima a thread
+  __shared__ bool s_last;
+  const int tid = threadIdx.x, lv = tid % vs, rg = tid / vs;
+  const int b = blockIdx.x, slab = blockIdx.y, G = gridDim.x;
+  const int cv = slab * vs + lv;
+  const long long vpr = C / 8;
+  const bool active = cv < vpr;
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + cv;
+  const long long r0 = (long long)b * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
   unsigned m[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (v * 8 < C) {
-    for (long long r = (long long)blockIdx.y * 8 + ty; r < M;
-         r += (long long)gridDim.y * 8) {
-      const uint4 qv = *reinterpret_cast<const uint4*>(x + r * C + v * 8);
-      const uint32_t q4[4] = {qv.x, qv.y, qv.z, qv.w};
+  for (long long r = r0 + rg; r < r1; r += (long long)kAmaxUnroll * rpb) {
+    uint4 q[kAmaxUnroll];
+#pragma unroll
+    for (int u = 0; u < kAmaxUnroll; ++u) {
+      const long long rr = r + (long long)u * rpb;
+      q[u] = active && rr < r1 ? __ldg(xv + rr * vpr) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kAmaxUnroll; ++u) {
+      const uint32_t q4[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // bf16 -> f32 bits, sign cleared
         m[2 * i] = max(m[2 * i], (q4[i] << 16) & 0x7fffffffu);
@@ -963,17 +1048,39 @@ __global__ void __launch_bounds__(256)
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) red[ty][tx][i] = m[i];
+  red4[2 * tid] = make_uint4(m[0], m[1], m[2], m[3]);
+  red4[2 * tid + 1] = make_uint4(m[4], m[5], m[6], m[7]);
   __syncthreads();
-  if (ty == 0 && v * 8 < C) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      unsigned mm = red[0][tx][i];
-      for (int k = 1; k < 8; ++k) mm = max(mm, red[k][tx][i]);
-      atomicMax(&amax[v * 8 + i], mm);
-    }
+  const unsigned* red = reinterpret_cast<const unsigned*>(red4);
+  const int c0 = slab * vs * 8;
+  const int width = vs * 8 < C - c0 ? vs * 8 : C - c0;
+  for (int j = tid; j < width; j += blockDim.x) {
+    unsigned mm = red[j];
+    for (int k = 1; k < rpb; ++k) mm = max(mm, red[k * vs * 8 + j]);
+    part[(long long)b * C + c0 + j] = mm;
   }
+  // the tree of last arrivals
+  const int groups = (G + kAmaxGroup - 1) / kAmaxGroup, grp = b / kAmaxGroup;
+  const int n1 = G - grp * kAmaxGroup < kAmaxGroup ? G - grp * kAmaxGroup
+                                                   : kAmaxGroup;
+  unsigned* count = g_amax_count + slab * (groups + 1);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicInc(&count[grp], n1 - 1) == n1 - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const long long first = (long long)grp * kAmaxGroup;
+  amax_rows(part, first, n1, 1, C, c0, width,
+            groups == 1 ? amax : part + first * C);
+  if (groups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicInc(&count[groups], groups - 1) == groups - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  amax_rows(part, 0, groups, kAmaxGroup, C, c0, width, amax);
 }
 
 // x8 [M, Cp] = rint(x / sc[c]) for c < C, 0 for the padded channels; eight
@@ -1015,68 +1122,397 @@ __device__ __forceinline__ float bf16_value(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float bf16_value(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// ---- int8_conv_quantize_w: the weight pass -----------------------------
+//
+// The weights of output channel o are one contiguous run of 27 * C values
+// [C, dz, dy, dx]; the pack wants them dx-major, k = (dx*9 + dz*3 + dy)*Cp
+// + c: a transpose of [C, 27] to [27, Cp]. A cluster of ks blocks (at most
+// 8) takes one o at a time, each block a slab of cpb channels of it (a
+// multiple of 32; ks is larger where the slab would not fit kQwSlabBytes
+// or where the output channels are few, so that the card fills). Where
+// the clusters of all Op do not fit on the card at once, they are
+// persistent, as many as fit, each walking the output channels n_clusters
+// apart. A block copies the slab of its o into shared memory with cp.async
+// (16-byte pieces where C and the alignment of w allow, all in flight at
+// once) and, while it works on it, has the next o's slab brought into L2
+// (cp.async.bulk.prefetch.L2), from which the next copy comes: the weights
+// are read from device memory once, and the reads overlap the arithmetic.
+// Three blocks an SM. A slab is walked twice: first for the three
+// per-dx maxima of |wf|, wf = bf16(w) * sc[c] (warp shuffles, the warps,
+// then the cluster's blocks through distributed shared memory), writing
+// f32 weights over with wf; then to quantize each value into a staging
+// [27][kQwStride] bytes, from which each chunk of kQwChunk channels of the
+// pack goes out in 16-byte stores. In a chunk a thread takes the four
+// elements at (tid + u * kQwThreads) * 4, u = 0, 1, 2: a chunk is 27 * 128
+// = 3 * 288 * 4 of them, so the tap t = e % 27 (t = dz*9 + dy*3 + dx) of
+// each of a thread's elements is the same in every chunk, and where each
+// goes in the staging (row (t%3)*9 + t/3, the pack's tap) and which channel
+// scale it takes are worked out once, before the loops; the dx of element
+// j is (tid * 4 + j) % 3, so the per-dx maxima and scales sit in registers
+// by j % 3. No division in the element loops. Rows o >= O, channels c >= C
+// and sw past O are zeros.
+constexpr int kQwThreads = 288;
+constexpr int kQwChunk = 128;            // 27 * 128 == 3 * 288 * 4
+constexpr int kQwStride = kQwChunk + 4;  // a word more: the taps' rows
+                                         // start in 27 banks
+constexpr int kQwSlabBytes = 50 * 1024;  // a slab's weights, at most
+
+// `bytes` (a multiple of `piece`: 16, 8, 4 or 2) from global to shared
+// memory, split over the block's threads: by cp.async from 4-byte pieces
+// on (the caller commits and waits), else by plain copies
+__device__ __forceinline__ void copy_slab(uint8_t* dst, const uint8_t* src,
+                                          int bytes, int piece) {
+  const int tid = threadIdx.x;
+  if (piece == 16) {
+    for (int i = tid * 16; i < bytes; i += kQwThreads * 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       hop::smem_u32(dst + i)),
+                   "l"(src + i)
+                   : "memory");
+  } else if (piece == 8) {
+    for (int i = tid * 8; i < bytes; i += kQwThreads * 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                       hop::smem_u32(dst + i)),
+                   "l"(src + i)
+                   : "memory");
+  } else if (piece == 4) {
+    for (int i = tid * 4; i < bytes; i += kQwThreads * 4)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       hop::smem_u32(dst + i)),
+                   "l"(src + i)
+                   : "memory");
+  } else {
+    for (int i = tid * 2; i < bytes; i += kQwThreads * 2)
+      *reinterpret_cast<unsigned short*>(dst + i) =
+          *reinterpret_cast<const unsigned short*>(src + i);
+  }
 }
 
-// One block a padded output channel o: the weights w[o] (f32 rounded to
-// bf16 here, or bf16) folded with sc, sw[dx, o] = max(amax over (c, dz, dy)
-// of |wf|, 1e-8) / 127, and w8[o] = rint(wf / sw) in the padded dx-major
-// pack, k = (dx*9 + dz*3 + dy)*Cp + c; zeros (and sw 0) past C and O.
+// four weights from shared memory as the f32 values of their bf16
+// roundings
 template <typename TW>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void smem_vec4(const TW* p, float (&v)[4]) {
+  if constexpr (sizeof(TW) == 4) {
+    const float4 r = *reinterpret_cast<const float4*>(p);
+    v[0] = bf16_value(r.x), v[1] = bf16_value(r.y);
+    v[2] = bf16_value(r.z), v[3] = bf16_value(r.w);
+  } else {  // bf16 to f32: the bits in the high half
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(r.x << 16);
+    v[1] = __uint_as_float(r.x & 0xffff0000u);
+    v[2] = __uint_as_float(r.y << 16);
+    v[3] = __uint_as_float(r.y & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the word at `local` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ unsigned cluster_load(const unsigned* local,
+                                                 unsigned rank) {
+  unsigned addr, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(hop::smem_u32(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// dynamic shared memory: the slab [27 * cpb] TW, then its scales [cpb] f32
+// (three blocks an SM: at most 72 registers a thread)
+template <typename TW>
+__global__ void __launch_bounds__(kQwThreads, 3)
     int8_conv_quantize_w_kernel(const TW* __restrict__ w,
                                 const unsigned* __restrict__ amax,
                                 int8_t* __restrict__ w8,
                                 float* __restrict__ sw, int C, int O, int Cp,
-                                int Op) {
-  extern __shared__ float sc[];
-  __shared__ unsigned red[3][8];
+                                int Op, int cpb, int piece) {
+  extern __shared__ __align__(16) uint8_t qw_smem[];
+  __shared__ __align__(16) uint8_t stage[27 * kQwStride];
+  __shared__ unsigned red[3][kQwThreads / 32];
+  __shared__ unsigned s_max[2][3];
   __shared__ float s_sw[3];
-  const int o = blockIdx.x, tid = threadIdx.x;
-  const long long K = 27LL * Cp;
-  int8_t* row = w8 + o * K;
-  if (o >= O) {
-    for (long long k = tid; k < K; k += blockDim.x) row[k] = 0;
-    if (tid < 3) sw[tid * Op + o] = 0.f;
-    return;
-  }
-  for (int c = tid; c < C; c += blockDim.x) sc[c] = int8_scale(amax[c]);
-  __syncthreads();
-  const TW* wr = w + (long long)o * 27 * C;  // [C, dz, dy, dx]
-  unsigned m[3] = {0, 0, 0};
-  for (int i = tid; i < 27 * C; i += blockDim.x) {
-    const float f = __fmul_rn(bf16_value(wr[i]), sc[i / 27]);
-    const int dx = i % 3;
-    m[dx] = max(m[dx], __float_as_uint(f) & 0x7fffffffu);
-  }
-  const int lane = tid % 32, warp = tid / 32;
+  const int ks = static_cast<int>(cluster_size());
+  const int kr = static_cast<int>(cluster_rank());
+  const int n_clusters = gridDim.x / ks, tid = threadIdx.x;
+  const int c_lo = kr * cpb;                           // < C: ks*cpb < Cp+cpb
+  const int cw_slab = min(cpb, Cp - c_lo), cn_slab = min(cpb, C - c_lo);
+  const int slab_bytes = 27 * cpb * static_cast<int>(sizeof(TW));
+  const int copy_bytes = 27 * cn_slab * static_cast<int>(sizeof(TW));
+  TW* const slab = reinterpret_cast<TW*>(qw_smem);
+  float* sc = reinterpret_cast<float*>(qw_smem + slab_bytes);
+  // the cluster's output channels: o0, o0 + n_clusters, ...
+  const int o0 = blockIdx.x / ks;
+  auto src = [&](int i) {
+    return reinterpret_cast<const uint8_t*>(
+        w + (long long)(o0 + i * n_clusters) * 27 * C + 27LL * c_lo);
+  };
+  // the slab of the cluster's i-th o into shared memory, if it is real;
+  // and one o further on into L2, so that device memory stays busy
+  auto prefetch = [&](int i) {
+    if (o0 + i * n_clusters < O)
+      copy_slab(reinterpret_cast<uint8_t*>(slab), src(i), copy_bytes, piece);
+    hop::cp_async_commit();
+    if (tid == 0 && piece == 16 && o0 + (i + 1) * n_clusters < O)
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
+                       src(i + 1)),
+                   "r"(copy_bytes)
+                   : "memory");
+  };
+  prefetch(0);
+  for (int c = tid; c < cn_slab; c += kQwThreads)
+    sc[c] = int8_scale(amax[c_lo + c]);
+  // the thread's twelve elements of a chunk: the channel and the staging
+  // row of each
+  int ch[3][4], srow[3][4];
 #pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    unsigned v = m[dx];
-    for (int off = 16; off > 0; off /= 2)
-      v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) red[dx][warp] = v;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    unsigned v = red[tid][0];
-    for (int k = 1; k < 8; ++k) v = max(v, red[tid][k]);
-    s_sw[tid] = int8_scale(v);
-    sw[tid * Op + o] = s_sw[tid];
-  }
-  __syncthreads();
-  for (long long k = tid; k < K; k += blockDim.x) {
-    const int tp = static_cast<int>(k / Cp), c = static_cast<int>(k % Cp);
-    int8_t qv = 0;
-    if (c < C) {
-      const int dx = tp / 9, dz = tp / 3 % 3, dy = tp % 3;
-      const float f =
-          __fmul_rn(bf16_value(wr[c * 27 + dz * 9 + dy * 3 + dx]), sc[c]);
-      qv = quantize(f, s_sw[dx]);
+  for (int u = 0; u < 3; ++u) {
+    const int e = (tid + u * kQwThreads) * 4, c = e / 27, t0 = e - 27 * c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = t0 + j < 27 ? t0 + j : t0 + j - 27;
+      ch[u][j] = t0 + j < 27 ? c : c + 1;
+      srow[u][j] = (t % 3 * 9 + t / 3) * kQwStride;
     }
-    row[k] = qv;
   }
+  const int phase = tid * 4 % 3, lane = tid % 32, warp = tid / 32;
+  for (int i = 0; o0 + i * n_clusters < Op; ++i) {
+    const int o = o0 + i * n_clusters;
+    uint4* row = reinterpret_cast<uint4*>(w8 + (long long)o * 27 * Cp);
+    hop::cp_async_wait<0>();    // this o's pieces of this thread
+    __syncthreads();            // ... and of every thread; the scales
+    if (o >= O) {               // the whole cluster: nothing to share
+      const int segs = cw_slab / 16;
+      for (int k = tid; k < 27 * segs; k += kQwThreads) {
+        const int tp = k / segs;
+        row[(tp * Cp + c_lo) / 16 + k - tp * segs] = make_uint4(0, 0, 0, 0);
+      }
+      if (kr == 0 && tid < 3) sw[tid * Op + o] = 0.f;
+      continue;
+    }
+    TW* const b0 = slab;
+    // walk 1: the per-dx maxima, by the element's place j % 3; f32
+    // weights are replaced by their folded values wf, which walk 2 reads
+    unsigned mj[3] = {0, 0, 0};
+    for (int c0 = 0; c0 < cn_slab; c0 += kQwChunk) {
+      const int end = 27 * min(kQwChunk, cn_slab - c0);
+      TW* b = b0 + 27 * c0;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const int e = (tid + u * kQwThreads) * 4;
+        if (e >= end) break;
+        const int valid = end - e;  // >= 4 but at the run's end
+        float v[4];
+        smem_vec4<TW>(b + e, v);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = __fmul_rn(v[j], sc[c0 + ch[u][j]]);
+          if (j < valid)
+            mj[j % 3] = max(mj[j % 3], __float_as_uint(v[j]) & 0x7fffffffu);
+        }
+        if constexpr (sizeof(TW) == 4)
+          *reinterpret_cast<float4*>(b + e) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    // the maxima of the block, then of the cluster (s_max by the parity
+    // of i: a block writes the next one only after every block has arrived
+    // past its reads of this one); the scales by slot
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int k = (dx - phase + 3) % 3;  // the slot j % 3 of this dx
+      unsigned v = k == 0 ? mj[0] : k == 1 ? mj[1] : mj[2];
+      for (int off = 16; off > 0; off /= 2)
+        v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (lane == 0) red[dx][warp] = v;
+    }
+    __syncthreads();
+    if (tid < 3) {
+      unsigned v = red[tid][0];
+      for (int k = 1; k < kQwThreads / 32; ++k) v = max(v, red[tid][k]);
+      s_max[i & 1][tid] = v;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (tid < 3) {
+      unsigned v = 0;
+      for (int r = 0; r < ks; ++r)
+        v = max(v, cluster_load(&s_max[i & 1][tid], r));
+      s_sw[tid] = int8_scale(v);
+      if (kr == 0) sw[tid * Op + o] = s_sw[tid];
+    }
+    __syncthreads();
+    float sk[3], rk[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sk[k] = s_sw[(phase + k) % 3];
+      rk[k] = __frcp_rn(sk[k]);
+    }
+    // walk 2: quantize a chunk into the staging, then store it
+    for (int c0 = 0; c0 < cw_slab; c0 += kQwChunk) {
+      const int cw = min(kQwChunk, cw_slab - c0);  // a multiple of 32
+      const int cn = min(cw, cn_slab - c0);        // >= 1
+      const int end = 27 * cn;
+      if (cn < cw)  // the padded channels stay 0
+        for (int k = tid; k < 27 * kQwStride / 4; k += kQwThreads)
+          reinterpret_cast<unsigned*>(stage)[k] = 0;
+      __syncthreads();
+      const TW* b = b0 + 27 * c0;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const int e = (tid + u * kQwThreads) * 4;
+        if (e >= end) break;
+        const int valid = end - e;
+        float f[4];
+        if constexpr (sizeof(TW) == 4) {  // folded by walk 1
+          const float4 r = *reinterpret_cast<const float4*>(b + e);
+          f[0] = r.x, f[1] = r.y, f[2] = r.z, f[3] = r.w;
+        } else {
+          smem_vec4<TW>(b + e, f);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            f[j] = __fmul_rn(f[j], sc[c0 + ch[u][j]]);
+        }
+        int8_t q[4];
+        quantize4(f, sk, rk, q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < valid) stage[srow[u][j] + ch[u][j]] = q[j];
+      }
+      __syncthreads();
+      const int segs = cw / 16;
+      for (int k = tid; k < 27 * segs; k += kQwThreads) {
+        const int tp = k / segs, sg = k - tp * segs;
+        const unsigned* p = reinterpret_cast<const unsigned*>(
+            stage + tp * kQwStride + 16 * sg);
+        row[(tp * Cp + c_lo + c0) / 16 + sg] =
+            make_uint4(p[0], p[1], p[2], p[3]);
+      }
+      __syncthreads();  // the staging and the slab are free
+    }
+    prefetch(i + 1);  // into the slab buffer, now free; from L2
+  }
+  cluster_arrive();  // no block leaves while another reads its maxima
+  cluster_wait();
+}
+
+// the weight pass's grid for one (card, width, dtype): asked of the
+// occupancy calculator once and kept, since every call of a serving step
+// asks again
+struct QwPlan {
+  int dev, C, Op, esize, ks, cpb, n_clusters;
+};
+
+template <typename TW>
+cudaError_t quantize_w_plan(int C, int Cp, int Op, QwPlan* plan) {
+  constexpr int kE = sizeof(TW);
+  static QwPlan cache[64];
+  static int cached = 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  for (int i = 0; i < cached; ++i)
+    if (cache[i].dev == dev && cache[i].C == C && cache[i].Op == Op &&
+        cache[i].esize == kE) {
+      *plan = cache[i];
+      return cudaSuccess;
+    }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // every launch may take as much dynamic shared memory as a block can
+  const auto kernel = int8_conv_quantize_w_kernel<TW>;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
+  if (e != cudaSuccess) return e;
+  auto smem = [&](int cpb) { return 27 * cpb * kE + 4 * cpb; };
+  auto per_sm = [&](int bytes) {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &n, kernel, kQwThreads, bytes) == cudaSuccess ? n : 0;
+  };
+  // the slab: as wide as kQwSlabBytes allows, at most 8 blocks an output
+  // channel (wider slabs past 8 * kQwSlabBytes)
+  const int lanes = Cp / 32;
+  auto split = [&](int ks, int& cpb) {
+    if (ks > 8) ks = 8;
+    if (ks > lanes) ks = lanes;
+    cpb = (lanes + ks - 1) / ks * 32;
+    return (Cp + cpb - 1) / cpb;
+  };
+  int cpb = kQwSlabBytes / (27 * kE) / 32 * 32;
+  int ks = split((Cp + cpb - 1) / cpb, cpb);
+  // one wave where every o's cluster fits on the card at once, its slabs
+  // narrowed while more blocks fit; else as many persistent clusters as
+  // fit, walking the o's n_clusters apart
+  int n_clusters = Op;
+  const int cap = sms * per_sm(smem(cpb));
+  if (Op * ks <= cap) {
+    if (cap / Op > ks) ks = split(cap / Op, cpb);
+  } else {
+    n_clusters = cap / ks;
+  }
+  if (n_clusters < 1) return cudaErrorInvalidValue;
+  *plan = QwPlan{dev, C, Op, kE, ks, cpb, n_clusters};
+  if (cached < 64) cache[cached++] = *plan;
+  return cudaSuccess;
+}
+
+template <typename TW>
+cudaError_t launch_quantize_w(const TW* w, const unsigned* amax, int8_t* w8,
+                              float* sw, int C, int O, int Cp, int Op,
+                              cudaStream_t st) {
+  constexpr int kE = sizeof(TW);
+  QwPlan p;
+  const cudaError_t e = quantize_w_plan<TW>(C, Cp, Op, &p);
+  if (e != cudaSuccess) return e;
+  // pieces of the slab copy: 16 bytes where every row's slab starts on 16
+  const int row_bytes = 27 * C * kE;
+  int piece = 16;
+  while (piece > kE &&
+         (row_bytes % piece || reinterpret_cast<uintptr_t>(w) % piece))
+    piece /= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.n_clusters * p.ks));
+  cfg.blockDim = dim3(kQwThreads);
+  cfg.dynamicSmemBytes = 27 * p.cpb * kE + 4 * p.cpb;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_conv_quantize_w_kernel<TW>, w, amax,
+                            w8, sw, C, O, Cp, Op, p.cpb, piece);
 }
 
 }  // namespace
@@ -1134,21 +1570,28 @@ int conv3x3x3_int8(const void* x8, const void* w8, const void* sw,
 }
 
 // amax (uint32 [C], the bits of f32) = max |x| per channel of bf16 x
-// [M, C] (zeroed here first). C a multiple of 8.
-int int8_conv_amax(const void* x, void* amax, long long M, int C,
+// [M, C], C a multiple of 8, through part (uint32 [blocks, C] scratch) on
+// the plan of kernels.amax_plan: `slabs` slabs of vs channel vectors, blocks
+// of vs x rpb threads, each over `rows` rows.
+int int8_conv_amax(const void* x, void* amax, void* part, long long M, int C,
+                   int vs, int rpb, int slabs, int blocks, long long rows,
                    void* stream) {
-  if (M <= 0 || C <= 0 || C % 8 || reinterpret_cast<uintptr_t>(x) % 16)
+  const long long vpr = C / 8;
+  const int groups = (blocks + kAmaxGroup - 1) / kAmaxGroup;
+  if (M <= 0 || C <= 0 || C % 8 || vs <= 0 || rpb <= 0 || slabs <= 0 ||
+      blocks <= 0 || rows <= 0 || vs * rpb > kAmaxThreads ||
+      (long long)slabs * vs < vpr || (long long)(slabs - 1) * vs >= vpr ||
+      blocks * rows < M || (long long)(blocks - 1) * rows >= M ||
+      (long long)slabs * (groups + 1) > kAmaxCounters ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(amax) % 16 ||
+      reinterpret_cast<uintptr_t>(part) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cudaMemsetAsync(amax, 0, sizeof(unsigned) * C, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int gx = (C / 8 + 31) / 32;
-  long long gy = (M + 7) / 8;
-  const long long want = gx >= 1056 ? 1 : 1056 / gx;  // ~8 blocks an SM
-  if (gy > want) gy = want;
-  int8_conv_amax_kernel<<<dim3(gx, static_cast<unsigned>(gy)), dim3(32, 8),
-                          0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                   static_cast<unsigned*>(amax), M, C);
+  int8_conv_amax_kernel<<<dim3(blocks, slabs), vs * rpb,
+                          sizeof(uint4) * 2 * vs * rpb,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<unsigned*>(amax),
+      static_cast<unsigned*>(part), M, C, vs, rpb, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1173,25 +1616,25 @@ int int8_conv_quantize_x(const void* x, const void* amax, void* x8,
 
 // w8 int8 [Op, 27*Cp] (dx-major) and sw f32 [3, Op] from the weights w
 // [O, C, 3, 3, 3] (f32, rounded to bf16 first, or bf16 when w_bf16) and
-// int8_conv_amax's amax; Cp >= C and Op >= O multiples of 32.
+// int8_conv_amax's amax; Cp >= C and Op >= O multiples of 32, w aligned to
+// its element, w8 to 16 bytes.
 int int8_conv_quantize_w(const void* w, int w_bf16, const void* amax,
                          void* w8, void* sw, int C, int O, int Cp, int Op,
                          void* stream) {
   if (C <= 0 || O <= 0 || Cp % 32 || Op % 32 || Cp < C || Op < O ||
-      C > 12288)
+      C > 12288 || reinterpret_cast<uintptr_t>(w) % (w_bf16 ? 2 : 4) ||
+      reinterpret_cast<uintptr_t>(w8) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * C;
-  if (w_bf16)
-    int8_conv_quantize_w_kernel<__nv_bfloat16><<<Op, 256, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<const unsigned*>(amax), static_cast<int8_t*>(w8),
-        static_cast<float*>(sw), C, O, Cp, Op);
-  else
-    int8_conv_quantize_w_kernel<float><<<Op, 256, smem, st>>>(
-        static_cast<const float*>(w), static_cast<const unsigned*>(amax),
-        static_cast<int8_t*>(w8), static_cast<float*>(sw), C, O, Cp, Op);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned* am = static_cast<const unsigned*>(amax);
+  int8_t* q = static_cast<int8_t*>(w8);
+  float* s = static_cast<float*>(sw);
+  const cudaError_t e =
+      w_bf16 ? launch_quantize_w(static_cast<const __nv_bfloat16*>(w), am, q,
+                                 s, C, O, Cp, Op, st)
+             : launch_quantize_w(static_cast<const float*>(w), am, q, s, C,
+                                 O, Cp, Op, st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -18,11 +18,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -58,7 +60,7 @@ SIGNATURES = {
                    "conv3x3x3_f32_splits": [_I] * 7,
                    "conv3x3x3_int8": [_P] * 6 + [_I] * 8 + [_P],
                    "conv3x3x3_int8_splits": [_I] * 7,
-                   "int8_conv_amax": [_P, _P, _L, _I, _P],
+                   "int8_conv_amax": [_P] * 3 + [_L] + [_I] * 5 + [_L, _P],
                    "int8_conv_quantize_x": [_P] * 3 + [_L] + [_I] * 2 + [_P],
                    "int8_conv_quantize_w": [_P, _I] + [_P] * 3 + [_I] * 4
                    + [_P]},
@@ -613,21 +615,64 @@ def k7_splits(B: int, D: int, H: int, W: int, C: int, O: int,
     return _fn("dense_conv", "conv3x3x3_int8_splits")(B, D, H, W, C, O, sms)
 
 
+# int8_conv_amax's plan (csrc/dense_conv.cu kAmaxThreads, kAmaxGroup,
+# kAmaxCounters): threads a block at most (two blocks an SM), the blocks
+# whose partial rows one last arrival reduces, the counters of the tree
+AMAX_THREADS = 512
+AMAX_GROUP = 16
+AMAX_COUNTERS = 1024
+
+
+class AmaxPlan(NamedTuple):
+    vs: int        # 16-byte channel vectors of a slab (a block's width)
+    rpb: int       # rows a block loads at a time: vs * rpb threads
+    slabs: int     # slabs of vs vectors across the row
+    blocks: int    # row ranges (grid x)
+    rows: int      # rows of a range
+
+
+@functools.lru_cache(maxsize=None)
+def amax_plan(M: int, C: int, sms: int) -> AmaxPlan:
+    """How ``int8_conv_amax`` covers x [M, C] (C a multiple of 8) on a card
+    with ``sms`` SMs. A block is vs 16-byte channel vectors wide (the whole
+    row, or a slab of it past AMAX_THREADS vectors) and rpb rows deep, with
+    vs * rpb a multiple of 32 where that fits in AMAX_THREADS threads, so
+    that every lane of every warp loads; the blocks (two an SM, one wave)
+    split the rows into equal ranges."""
+    vpr = C // 8
+    slabs = -(-vpr // AMAX_THREADS)
+    vs = -(-vpr // slabs)
+    q = 32 // math.gcd(vs, 32)
+    rpb = AMAX_THREADS // (vs * q) * q or AMAX_THREADS // vs
+    blocks = max(1, min(-(-2 * sms // slabs), -(-M // rpb)))
+    rows = -(-M // blocks)
+    blocks = -(-M // rows)
+    if slabs * (-(-blocks // AMAX_GROUP) + 1) > AMAX_COUNTERS:
+        raise ValueError(f"int8_conv_amax cannot take C = {C}")
+    return AmaxPlan(vs, rpb, slabs, blocks, rows)
+
+
 def int8_conv_amax(x: torch.Tensor) -> torch.Tensor:
     """K7's prologue, first pass: max |x| per channel over the whole batch
     (a CFG pair shares it), x bf16 [B, D, H, W, C] contiguous with C a
-    multiple of 8. Returns f32 [C] (``int8_conv_amax_plain``)."""
+    multiple of 8. Returns f32 [C] (``int8_conv_amax_plain``): the head of
+    one buffer whose tail is the kernel's partial rows [blocks, C] (one
+    allocation a call)."""
     _check_cuda(x)
     if x.dim() != 5 or x.shape[-1] % 8 or x.numel() == 0:
         raise ValueError(f"int8_conv_amax takes [B, D, H, W, C] with C a "
                          f"multiple of 8, got {tuple(x.shape)}")
     _check_dense(x, "x", tuple(x.shape), torch.bfloat16)
     C = x.shape[-1]
-    amax = torch.empty(C, dtype=torch.int32, device=x.device)
+    M = x.numel() // C
+    plan = amax_plan(M, C, _sm_count(x.device))
+    buf = torch.empty((1 + plan.blocks) * C, dtype=torch.int32,
+                      device=x.device)
     _run("dense_conv", "int8_conv_amax", x.device, x.data_ptr(),
-         amax.data_ptr(), x.numel() // C, C)
+         buf.data_ptr(), buf[C:].data_ptr(), M, C, plan.vs, plan.rpb,
+         plan.slabs, plan.blocks, plan.rows)
     # the bits of non-negative floats
-    return amax.view(torch.float32)
+    return buf[:C].view(torch.float32)
 
 
 def _padded(n: int) -> int:

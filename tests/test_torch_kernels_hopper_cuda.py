@@ -661,6 +661,88 @@ def test_int8_prologue_wrappers_refuse_what_they_do_not_take(gen):
                         device="cuda"), amax)
 
 
+# (B, D, H, W, C, O) at the edges of int8_conv_amax's plan and of the
+# weight pass: one row (M = 1) at the narrowest C, row counts that are not
+# multiples of a block's rows, three slabs of a row at the widest C
+INT8_PROLOGUE_EDGES = ((1, 1, 1, 1, 8, 1), (1, 3, 5, 7, 192, 40),
+                       (2, 5, 6, 7, 384, 40), (1, 2, 3, 5, 12288, 1),
+                       (2, 16, 16, 16, 384, 768))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D,H,W,C,O", INT8_PROLOGUE_EDGES)
+def test_int8_amax_and_weight_pass_at_the_edges(gen, B, D, H, W, C, O,
+                                                w_dtype):
+    """int8_conv_amax and int8_conv_quantize_w against their plain versions,
+    bit for bit (amax and sw as bits), two runs bit-identical, one launch
+    count a call however many CUDA kernels it runs."""
+    x = (torch.randn((B, D, H, W, C), generator=gen, device="cuda") *
+         torch.logspace(-1, 1, C, device="cuda")).to(torch.bfloat16)
+    w = (torch.randn((O, C, 3, 3, 3), generator=gen, device="cuda") /
+         (27 * C) ** 0.5).to(w_dtype)
+    before = dict(kernels.launches)
+    amax = kernels.int8_conv_amax(x)
+    w8p, sw = kernels.int8_conv_quantize_w(w, amax)
+    assert kernels.launches["int8_conv_amax"] == \
+        before["int8_conv_amax"] + 1
+    assert kernels.launches["int8_conv_quantize_w"] == \
+        before["int8_conv_quantize_w"] + 1
+    amax2 = kernels.int8_conv_amax(x)
+    w8p2, sw2 = kernels.int8_conv_quantize_w(w, amax2)
+    ref_amax = int8_conv_amax_plain(x)
+    ref_w8p, ref_sw = int8_conv_quantize_w_plain(w, ref_amax)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(amax), _bits(ref_amax))
+    assert torch.equal(_bits(amax2), _bits(amax))
+    assert torch.equal(w8p, ref_w8p) and torch.equal(w8p2, w8p)
+    assert torch.equal(_bits(sw), _bits(ref_sw))
+    assert torch.equal(_bits(sw2), _bits(sw))
+
+
+@pytest.mark.parametrize("C", [6, 13, 20, 300])
+def test_int8_weight_pass_at_widths_that_narrow_its_loads(gen, C):
+    """The weight pass at C not a multiple of 4 (f32) or 8 (bf16), where
+    the rows of w do not start 16 bytes apart and the kernel takes 8-, 4-
+    or 2-byte loads: bit-equal to the plain version, the padding zeros."""
+    amax = torch.rand(C, generator=gen, device="cuda") * 3
+    amax[1] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        w = (torch.randn((40, C, 3, 3, 3), generator=gen, device="cuda") /
+             (27 * C) ** 0.5).to(dtype)
+        w8p, sw = kernels.int8_conv_quantize_w(w, amax)
+        ref_w8p, ref_sw = int8_conv_quantize_w_plain(w, amax)
+        torch.cuda.synchronize()
+        assert torch.equal(w8p, ref_w8p)
+        assert torch.equal(_bits(sw), _bits(ref_sw))
+
+
+def test_int8_amax_with_nan_inf_and_negative_zero(gen):
+    """int8_conv_amax where x holds NaN, +-inf and -0.0: NaN at the plain
+    version's channels (a NaN wins over inf), every other value bit-equal;
+    two runs bit-identical."""
+    x = _rand((2, 5, 6, 7, 384), gen)
+    x[0, 1, 2, 3, 5] = float("nan")
+    x[1, 4, 5, 6, 200] = -float("nan")
+    x[1, 2, 3, 4, 7] = float("inf")
+    x[0, 2, 1, 0, 8] = -float("inf")
+    x[..., 9] = -0.0
+    x[0, 0, 0, 0, 10] = float("nan")
+    x[1, 1, 1, 1, 10] = float("inf")
+    got = kernels.int8_conv_amax(x)
+    again = kernels.int8_conv_amax(x)
+    ref = int8_conv_amax_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.isnan(got[[5, 200, 10]]).all()
+    keep = ~torch.isnan(ref)
+    assert torch.equal(_bits(got)[keep], _bits(ref)[keep])
+    assert torch.equal(_bits(again), _bits(got))
+
+
 def _sparse_table(g, rows, cap):
     """An int32 [1, rows, 27] neighbour table with tiles of every kind:
     rows 0-127 with every tap absent, 128-255 with only the centre tap
