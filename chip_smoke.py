@@ -252,8 +252,15 @@ branches in bf16, as ``benchmarks/bench_gsm_train.py`` runs it):
     within one bf16 ulp (floor 2^-16 of max|ref|), the bit-equal share
     printed, two runs bit-identical, timed
     beside the plain versions and their bounds (bf16 operations at 989
-    TFLOP/s against the bytes); 30->62 through the padding with a
-    gradient; a poisoned batch element; then K2 with its lse store and K5
+    TFLOP/s against the bytes), the weight gradient also as device time
+    alone (calls queued behind ``torch.cuda._sleep``) with its share of the
+    bound; 30->62 through the padding with a gradient; a poisoned batch
+    element; the weight gradient on tables its walk over the present (row,
+    tap) pairs meets (``kernels.sparse_wgrad_plan``): 3,712 voxels at the
+    front of 65,536 slots at the seven shapes, two batch elements of
+    unequal fills, taps no row has (their dW exactly 0) and a table with no
+    voxel (dW all 0), each twice bit-identical and within one bf16 ulp of
+    ``sparse_conv_bwd_plain``; then K2 with its lse store and K5
     in bf16 at the pixel branch's training bottleneck [3, 5,280, 4, 64]
     at their gates, twice bit-identical, beside
     ``scaled_dot_product_attention``;
@@ -4320,6 +4327,9 @@ def gsm_train(kernels, att):
 # padding
 BF16_CONV_SHAPES = ((64, 64, 0), (64, 128, 1), (128, 128, 1), (128, 256, 2),
                     (256, 256, 2), (384, 128, 1), (192, 64, 0))
+# how many of the ten convs of a train step run at each shape (enc0 and
+# dec0's second convs at 64 -> 64, enc1 and dec1's at 128 -> 128)
+BF16_CONV_STEP_COUNTS = (3, 1, 2, 1, 1, 1, 1)
 BF16_CONV_PADDED = (30, 62, 0)
 # the pixel branch's bottleneck in training: 3 views of 480x704 at 60 x 88
 # tokens, 4 heads of 64
@@ -4443,10 +4453,19 @@ def bf16_sparse_checks(kernels, ws, levels):
                   f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % "
                   f"of its bound {b_ms:.4f} ms, {b_by}), plain {plain:.3f} "
                   f"ms; {pairs} pairs; no single library call")
-            rows[key].append(dict(shape=shape, max_abs_err=err,
-                                  bit_equal=equal, ms=ms, plain_ms=plain,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=None, pairs=pairs))
+            row = dict(shape=shape, max_abs_err=err, bit_equal=equal, ms=ms,
+                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, pairs=pairs)
+            if key == "dw":
+                dev = queued_ms(fn)
+                wp = kernels.sparse_wgrad_plan(plan.nbr, F, Fo)
+                print(f"[bf16 conv] {shape} dw: device alone {dev:.4f} ms, "
+                      f"{100 * b_ms / dev:.1f} % of its bound; tile "
+                      f"({wp.mt}, {wp.bn}), {wp.stages} stages of "
+                      f"{kernels.WGRAD_PAIRS} pairs in {wp.ranges} ranges of "
+                      f"{wp.length}, {len(wp.pieces)} pieces")
+                row["device_ms"] = dev
+            rows[key].append(row)
         del x, w, cot, pack, dpack, got, ref
     # 30 -> 62 through the padding, with a gradient
     F, Fo, level = BF16_CONV_PADDED
@@ -4484,6 +4503,60 @@ def bf16_sparse_checks(kernels, ws, levels):
           "the gate")
     torch.cuda.empty_cache()
     return rows, padded
+
+
+def bf16_wgrad_cases(kernels, ws):
+    """Phase 34 (b): ``sparse_conv_bf16_wgrad`` on tables that its walk over
+    the present (row, tap) pairs meets, each against
+    ``sparse_conv_bwd_plain`` within one bf16 ulp and twice bit-identical:
+    3,712 voxels at the front of 65,536 slots (the bench grid's level-2
+    fill) at the seven shapes, two batch elements of 15,000 and 2,000 of
+    20,000 slots, taps no row has (their dW exactly 0) and a table with no
+    voxel (dW all 0). Returns the largest error."""
+    g = torch.Generator(device="cuda").manual_seed(341)
+
+    def front(C, active, seed):
+        gg = torch.Generator(device="cuda").manual_seed(seed)
+        nbr = torch.full((1, C, 27), -1, dtype=torch.int32, device="cuda")
+        pick = torch.randint(0, active, (active, 27), generator=gg,
+                             device="cuda")
+        on = torch.rand((active, 27), generator=gg, device="cuda") < 0.7
+        nbr[0, :active] = torch.where(on, pick, -1).int()
+        return nbr
+
+    def hold(nbr, F, Fo, label):
+        B, C, _ = nbr.shape
+        x = torch.randn((B, C, F), generator=g, device="cuda").bfloat16()
+        cot = torch.randn((B, C, Fo), generator=g, device="cuda").bfloat16()
+        runs = [kernels.sparse_conv_bf16_wgrad(x, nbr, cot) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]), f"[bf16 dw] {label}: two runs "
+              "differ")
+        w = torch.zeros((27, F, Fo), dtype=torch.bfloat16, device="cuda")
+        ref = ws.sparse_conv_bwd_plain(ws.ConvPlan(nbr, torch.zeros(
+            B, dtype=torch.int32, device="cuda")), x, w, cot)[1]
+        if not (ref != 0).any():
+            check(not (runs[0] != 0).any(), f"[bf16 dw] {label}: not 0")
+            print(f"[bf16 dw] {label}: all 0, twice bit-identical")
+            return runs[0], 0.0
+        err, _ = bf16_ulp_gate(runs[0].bfloat16(), ref, f"[bf16 dw] {label}")
+        return runs[0], err
+
+    worst = 0.0
+    nbr = front(1 << 16, 3712, 1)
+    for F, Fo, _ in BF16_CONV_SHAPES:
+        worst = max(worst, hold(nbr, F, Fo, f"3,712 of 65,536 ({F}->{Fo})")[1])
+    two = torch.cat([front(20_000, 15_000, 2), front(20_000, 2_000, 3)])
+    worst = max(worst, hold(two, 64, 128, "B = 2 of 15,000 and 2,000")[1])
+    nbr[..., 5] = -1
+    nbr[..., 26] = -1
+    dw, err = hold(nbr, 128, 128, "taps 5 and 26 absent")
+    check(not (dw[5] != 0).any() and not (dw[26] != 0).any(),
+          "[bf16 dw] an absent tap's dW is not 0")
+    worst = max(worst, err)
+    hold(torch.full((2, 5000, 27), -1, dtype=torch.int32, device="cuda"), 64,
+         64, "no voxel")
+    return worst
 
 
 def attn_train_rows(kernels, att, g, B, nq, nk, h, d, tag):
@@ -4645,6 +4718,9 @@ def gsm_bf16_train(kernels, att):
     levels = gsm_bf16_levels()
     rows, padded = bf16_sparse_checks(kernels, ws, levels)
     del levels
+    cases_err = bf16_wgrad_cases(kernels, ws)
+    print(f"[gsm bf16] the weight gradient's walk cases: max_abs_err "
+          f"{cases_err:.3e}")
     k2_row, k5_row = bf16_attn_checks(kernels, att)
     print(f"[gsm bf16] phase 34 done at {time.perf_counter() - t0:.1f} s")
     # ---- 35. the GSM trainer in gsm_bf16_config --------------------------

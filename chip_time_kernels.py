@@ -35,7 +35,11 @@ clock around work that ends in a synchronize).
   in the f32 conv kernels and in the f32 attention kernels. Random weights,
   null conditions (the dense work does not depend on them).
 
-With ``--sparse`` only the sparse conv's kernels run (``sparse_rows``); with
+With ``--sparse`` only the sparse conv's kernels run (``sparse_rows``:
+host-timed, and the weight gradients also as device time alone, summed over
+a bf16 GSM train step's ten launches by their shapes'
+``chip_smoke.BF16_CONV_STEP_COUNTS``, the bf16 one split into its pairs,
+products and reduce kernels); with
 ``--f32-bwd`` only ``flash_attn_f32_bwd`` at the three timed shapes of
 ``chip_smoke.F32_BWD_SHAPES`` (the GSM's train shape [3, 5,280, 4, 64],
 N = 4,096 with 8 heads of 96, 1,000 x 777 with 4 heads of 128), called
@@ -245,14 +249,19 @@ def sparse_rows(kernels, wc, g):
     """K4 (forward and input gradient) and K6 in f32 and in bf16 at the
     GSM voxel branch's seven conv shapes on ``bench_gsm_train.py``'s scene
     grid and its two coarser levels (``chip_smoke.BF16_CONV_SHAPES``): the
-    two instantiations of each kernel template."""
-    from chip_smoke import BF16_CONV_SHAPES, gsm_bf16_levels
+    two instantiations of K4's kernel template, K6 and
+    ``sparse_conv_bf16_wgrad``; the weight gradients also as device time
+    alone, and summed over a train step's launches (``... gsm step``)."""
+    from chip_smoke import (BF16_CONV_SHAPES, BF16_CONV_STEP_COUNTS,
+                            gsm_bf16_levels)
     levels = gsm_bf16_levels()
     out = {}
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         conv = getattr(kernels, f"sparse_conv_{name}")
         wgrad = getattr(kernels, f"sparse_conv_{name}_wgrad")
-        for F, Fo, level in BF16_CONV_SHAPES:
+        step = step_device = 0.0
+        for (F, Fo, level), count in zip(BF16_CONV_SHAPES,
+                                         BF16_CONV_STEP_COUNTS):
             grid, plan = levels[level]
             m = grid.mask[..., None]
             x, cot = (torch.where(m, torch.randn(
@@ -269,6 +278,26 @@ def sparse_rows(kernels, wc, g):
                 lambda: conv(cot, plan.nbr, dpack, zero, dgrad=True), 3, 20)
             out[f"k6 {shape}"] = cuda_ms(
                 lambda: wgrad(x, plan.nbr, cot), 3, 20)
+            out[f"k6 {shape} device"] = device_ms(
+                lambda: wgrad(x, plan.nbr, cot))
+            if name == "bf16":
+                # the call's three kernels (a checkout whose weight
+                # gradient is one kernel gives its time under "products")
+                def ten():
+                    for _ in range(10):
+                        wgrad(x, plan.nbr, cot)
+                wgrad(x, plan.nbr, cot)
+                parts = {"pairs": 0.0, "products": 0.0, "reduce": 0.0}
+                for k, us in _device_by_name(ten).items():
+                    part = "pairs" if "pairs" in k else \
+                        "reduce" if "reduce" in k else "products"
+                    parts[part] += us / 10 / 1e3
+                for part, ms in parts.items():
+                    out[f"k6 {shape} {part}"] = ms
+            step += count * out[f"k6 {shape}"]
+            step_device += count * out[f"k6 {shape} device"]
+        out[f"k6 {name} gsm step"] = step
+        out[f"k6 {name} gsm step device"] = step_device
     return out
 
 

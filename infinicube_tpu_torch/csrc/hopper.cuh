@@ -145,6 +145,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4-byte copy global -> shared (zeros when !pred), through L1: .ca is the
+// only mode for copies under 16 bytes.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
 // One arrival on `bar` once every cp.async this thread issued before has
 // landed (counted among the barrier's expected arrivals).
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {

@@ -1,6 +1,6 @@
 // Weight gradient of the sparse submanifold 3x3x3 convolution on voxel rows
-// for Hopper (sm_90a), f32 in and out, behind a plain C interface (loaded
-// with ctypes by infinicube_tpu_torch/kernels).
+// for Hopper (sm_90a), behind a plain C interface (loaded with ctypes by
+// infinicube_tpu_torch/kernels).
 //
 // sparse_conv_f32_wgrad (K6) replaces the TPU kernel
 //   infinicube_tpu/ops/window_conv.py:252 `_dw_core` (reached from `_wc_bwd`,
@@ -53,24 +53,60 @@
 //   s = 0 .. S-1. No atomics: the result is bit-identical from run to run.
 //
 // sparse_conv_bf16_wgrad replaces the same `_dw_core` on bf16 operands (the
-// GSM's voxel branch in gsm_bf16_config): bf16 feats and output gradient,
-// every product added into f32 sums, dw f32 (the wrapper rounds it to the
-// weight's bf16 as window_conv.py:342 does). bf16 wgmma has a transpose bit
-// for both operands, so neither needs a prologue:
-// - A = the gathered feats rows, M (features) contiguous: the producer
-//   warpgroup gathers each stage's 64 neighbour rows with cp.async into
-//   panels of 64 rows x 64 features in the 128-byte-swizzled layout that a
-//   TMA box of the same shape would write, read MN-major;
-// - B = the output gradient's 64 rows as they lie in memory, N contiguous:
-//   one 2-D TMA box per 64 output features, read MN-major;
-// - a thread signals a stage only after its copies have landed and a proxy
-//   fence (wgmma reads through the async proxy), two stages in flight;
-// - sums flushed into f32 sums every 32 k16 steps, the blocks, row ranges
-//   and the ordered sum of partials as in the f32 kernel, so the result is
-//   bit-identical from run to run.
-// Both are one kernel template over the element type (Tf32x3, Bf16 below):
-// the chunk list, ring, flushes, the F-tile-64 merge and the store are
-// shared; the operands' loads and the products are the type's own.
+// GSM's voxel branch in gsm_bf16_config: ten convs a train step at seven
+// (F, Fo) shapes from 64 -> 64 to 384 -> 128 on 65,536-slot levels of which
+// 3,712 .. 65,536 rows are voxels): bf16 feats and output gradient, every
+// product added into f32 sums, dw f32 (the wrapper rounds it to the weight's
+// bf16 as window_conv.py:342 does). Bound by operations (2 * F * Fo per
+// present pair at 989 TFLOP/s) against a few MB; what holds it back is
+// gathering the operands' rows from L2, since each row is gathered again for
+// each of its up to 27 neighbours (and each tile). Measured on an NVIDIA
+// H100 80GB HBM3 at its 700 W limit, cp.async row gathers move about 25-34
+// KB/us an SM whatever the ring depth (a warp's copy of 4 rows of 128 bytes
+// at a time), one-row TMA boxes about 10 KB/us, and the two together no
+// more than cp.async alone; so the design
+// gathers every operand row once a present pair and tile, in long stages,
+// with two producer warpgroups. One call = three kernels:
+// - wgrad_pairs (the neighbour table read once, coalesced): blocks over
+//   fixed segments of rows compact, per tap, the (row, neighbour row) pairs
+//   whose tap is present, in row order, into the segment's slice of the
+//   tap's list, and write the segment's count;
+// - wgrad_bf16 (the products): a stage is 128 consecutive pairs of one tap
+//   (stages of 64 ran 14-20 % slower at the widest tile on that card); a
+//   unit is (F tile, N tile, tap), the stages of its pairs; the stages of
+//   all units, in that order, are cut into equal ranges (at most
+//   `ranges`, a constant of the wrapper), so every range holds the same
+//   number of stages and the cuts depend on the per-tap counts and the
+//   shape alone. Persistent blocks, one an SM, each walk their ranges
+//   (block b: b, b + grid, ...); no block exists for padding slots, and no
+//   stage holds an absent tap. Each block first reads the segments' counts
+//   and takes their prefix per tap. The first producer warpgroup copies the
+//   stages' pairs, 1,024 at a time, into shared memory with cp.async, a
+//   batch ahead (a cursor over the segments finds each pair's place); then
+//   both producer warpgroups gather each stage's feats rows (A, the F
+//   tile's features) and output-gradient rows (B, the N tile's) with
+//   cp.async, 8 lanes a 128-byte row, into panels of 64 features in the
+//   128-byte-swizzled layout, both read MN-major through bf16 wgmma's
+//   transpose bits; a stage's barrier counts a producer thread once its
+//   copies land (cp.async.mbarrier.arrive), so every free stage of the ring
+//   is in flight. g is gathered over the present pairs only: pairs x Fo x
+//   2 bytes a F tile. The tile (64 * MT features x BN outputs, from the
+//   wrapper: the one that gathers the fewest bytes a pair) is split between
+//   the two consumer warpgroups by features (MT = 2), by output panels
+//   (MT = 1, BN = 128) or by k16 steps (MT = 1, BN = 64; each warpgroup
+//   then writes a partial of its own). Consumers keep one wgmma group in
+//   flight and release a stage after the next wait; the wgmma sums are
+//   added into f32 sums every 32 k16 steps and at the end of each piece
+//   (the stages of one unit within one range), and a piece's sums go to
+//   its own slot of f32 partials (slot unit + range: unique, since the
+//   units of later ranges never come before those of earlier ones); loop
+//   conditions around wgmma are warp votes (no C7518);
+// - wgrad_bf16_reduce: dw[t][f][o] = the unit's pieces' partials added in
+//   range order (and warpgroup order), zero for a tap no row has.
+// No float atomics: the result is bit-identical from run to run. A tap
+// absent at a row adds nothing at all, so a non-finite g value at a row
+// reaches only the taps the row has (the plain version's dense product
+// would spread it to every tap).
 // The entry points return cudaGetLastError() (or cudaErrorInvalidValue for
 // what they do not take).
 
@@ -84,59 +120,40 @@ namespace {
 
 constexpr int kTaps = 27;
 constexpr int kThreads = 384;   // warpgroups 0, 1 consume, 2 gathers
-constexpr int kRing = 204800;   // bytes of shared memory for the ring
 constexpr int kFlushSteps = 32;  // k steps between flushes of the sums
-constexpr int kPanel = 64 * 128;  // bf16: 64 rows x 64 features, swizzled
+
+// ---- sparse_conv_f32_wgrad (K6) --------------------------------------------
+
+constexpr int kRing = 204800;   // bytes of shared memory for the ring
 // registers a thread after the hand-over: the producer keeps 40, each
 // consumer takes 232 (2 x 128 x 232 + 128 x 40 = 384 x 168, the pool of a
 // block launched with 168 a thread)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232, kLaunchRegs = 168;
-
-// The element types. Each range of rows is walked in chunks of kRows, one
-// stage each, and holds at most kMaxChunks of them (16,384 rows).
-struct Tf32x3 {  // f32 operands as tf32 hi and lo
-  using E = float;
-  static constexpr int kParts = 2;  // the B boxes (hi, lo) a stage
-  static constexpr int kRows = 32;  // one 128-byte span of g^T's pack
-  static constexpr int kMaxChunks = 512;
-  static constexpr int kLag = 0;    // stages signalled by cp.async itself
-};
-
-struct Bf16 {  // bf16 operands, both MN-major
-  using E = __nv_bfloat16;
-  static constexpr int kParts = 1;
-  static constexpr int kRows = 64;  // four k16 steps
-  static constexpr int kMaxChunks = 256;
-  static constexpr int kLag = 2;    // stages a producer thread keeps in flight
-};
+constexpr int kRows = 32;        // voxel rows a stage: one 128-byte span of
+                                 // g^T's pack
+constexpr int kMaxChunks = 512;  // stages a range holds at most (16,384 rows)
 
 // FT features (A, M) and BN output features (B, N) a block. A stage holds
-// in f32 the B boxes' hi and lo (BN x 32 rows each) and then the gathered
-// rows, FT + 8 floats a row; in bf16 the gathered rows' FT / 64 panels and
-// then B's BN / 64.
-template <class Op, int FT, int BN>
+// the B boxes' hi and lo (BN x 32 rows each) and then the gathered rows,
+// FT + 8 floats a row.
+template <int FT, int BN>
 struct K6Tile {
-  static constexpr bool kF32 = Op::kParts == 2;
-  static constexpr int kPitch = FT + 8;  // floats a staged f32 row
-  static constexpr int kA =
-      kF32 ? Op::kRows * kPitch * 4 : (FT / 64) * kPanel;
-  static constexpr int kB = kF32 ? BN * 128 : (BN / 64) * kPanel;
-  static constexpr int kAOff = kF32 ? 2 * kB : 0;
-  static constexpr int kBOff = kF32 ? 0 : kA;
-  static constexpr int kStage = kA + Op::kParts * kB;
+  static constexpr int kPitch = FT + 8;  // floats a staged row
+  static constexpr int kA = kRows * kPitch * 4;
+  static constexpr int kB = BN * 128;
+  static constexpr int kAOff = 2 * kB;
+  static constexpr int kStage = kA + 2 * kB;
   static constexpr int kStages = kRing / kStage > 8 ? 8 : kRing / kStage;
   // k steps of a stage each consumer warpgroup takes
   static constexpr int kSteps = FT == 128 ? 4 : 2;
   // ring, barriers, chunk list and its count, room to align to 1 KB
   static constexpr int kSmem =
-      kStages * kStage + 2 * 8 * kStages + 4 * (Op::kMaxChunks + 1) + 1024;
+      kStages * kStage + 2 * 8 * kStages + 4 * (kMaxChunks + 1) + 1024;
   static_assert(kStage % 1024 == 0, "B boxes need 1 KB alignment");
-  static_assert(kStages >= Op::kLag + 1, "the producer's lag needs the ring");
 };
 
-template <typename E>
 struct K6Args {
-  const E* feats;      // [B, C, F]
+  const float* feats;  // [B, C, F]
   const int* nbr;      // int32 [B, C, 27]
   float* out;          // f32 [S, 27, F, Fo] partials, or dw where S == 1
   long long rows;      // B * C
@@ -149,20 +166,19 @@ __device__ __forceinline__ float tf32_trunc(float v) {
   return __uint_as_float(__float_as_uint(v) & 0xffffe000u);
 }
 
-template <class Op, int FT, int BN>
+template <int FT, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     sparse_wgrad_kernel(const __grid_constant__ CUtensorMap tmg,
-                        const K6Args<typename Op::E> a) {
-  using T = K6Tile<Op, FT, BN>;
-  using E = typename Op::E;
-  constexpr int kR = Op::kRows;
+                        const K6Args a) {
+  using T = K6Tile<FT, BN>;
+  constexpr int kR = kRows;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
   uint64_t* empty = full + T::kStages;
   int* sList = reinterpret_cast<int*>(empty + T::kStages);
-  int* sCount = sList + Op::kMaxChunks;
+  int* sCount = sList + kMaxChunks;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   int bid = blockIdx.x;
@@ -189,13 +205,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // are read before any index of it is written, and indices never pass
   // their flag)
   for (int c = warp; c < n_chunks; c += kThreads / 32) {
-    bool any = false;
-#pragma unroll
-    for (int h = 0; h < kR / 32; ++h) {
-      const long long row = r_begin + (long long)c * kR + 32 * h + lane;
-      const int src = row < r_end ? a.nbr[row * kTaps + t] : -1;
-      any |= __ballot_sync(0xffffffffu, src >= 0) != 0u;
-    }
+    const long long row = r_begin + (long long)c * kR + lane;
+    const int src = row < r_end ? a.nbr[row * kTaps + t] : -1;
+    const bool any = __ballot_sync(0xffffffffu, src >= 0) != 0u;
     if (lane == 0) sList[c] = any;
   }
   __syncthreads();
@@ -215,79 +227,40 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int wg = tid / 128;
   if (wg == 2) {
-    // ---- producer: 128 / kR threads a row, thread 0 the B boxes ----
+    // ---- producer: 4 threads a row, thread 0 the B boxes ----
     hop::setmaxnreg_dec<kProducerRegs>();
     constexpr int kPerRow = 128 / kR;
     const int p = tid - 256, prow = p / kPerRow, part = p % kPerRow;
     if (p == 0) hop::prefetch_map(&tmg);
-    int stage = 0, signal = 0;
+    int stage = 0;
     uint32_t phase = 0;
     for (int it = 0; it < count; ++it) {
       hop::mbar_wait(&empty[stage], phase ^ 1);
       const long long r0 = r_begin + (long long)sList[it] * kR;
       uint8_t* st = ring + stage * T::kStage;
-      uint8_t* sb = st + T::kBOff;
-      if (p == 0) {
-        hop::mbar_expect_tx(&full[stage], Op::kParts * T::kB);
-        if constexpr (T::kF32) {  // g^T's hi and lo: [2, Fo, rows]
-          hop::tma_load_3d(sb, &tmg, &full[stage], static_cast<int>(r0), n0,
-                           0);
-          hop::tma_load_3d(sb + T::kB, &tmg, &full[stage],
-                           static_cast<int>(r0), n0, 1);
-        } else {  // g's rows as they lie, 64 output features a box
-#pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            hop::tma_load_2d(sb + j * kPanel, &tmg, &full[stage], n0 + 64 * j,
-                             static_cast<int>(r0));
-        }
+      if (p == 0) {  // g^T's hi and lo: [2, Fo, rows]
+        hop::mbar_expect_tx(&full[stage], 2 * T::kB);
+        hop::tma_load_3d(st, &tmg, &full[stage], static_cast<int>(r0), n0,
+                         0);
+        hop::tma_load_3d(st + T::kB, &tmg, &full[stage],
+                         static_cast<int>(r0), n0, 1);
       }
       const long long row = r0 + prow;
       const int src = row < r_end ? a.nbr[row * kTaps + t] : -1;
-      const E* frow =
+      const float* frow =
           a.feats + ((row / a.C) * a.C + (src >= 0 ? src : 0)) * a.F + f0;
-      if constexpr (T::kF32) {
-        // row-major staging, a quarter of the row's 16-byte chunks each
-        float* dst = reinterpret_cast<float*>(st + T::kAOff) + prow * T::kPitch;
+      // row-major staging, a quarter of the row's 16-byte chunks each
+      float* dst = reinterpret_cast<float*>(st + T::kAOff) + prow * T::kPitch;
 #pragma unroll
-        for (int j = 0; j < FT / 16; ++j) {
-          const int c = (4 * j + part) * 4;
-          const bool ok = src >= 0 && f0 + c < a.F;
-          hop::cp_async16(dst + c, ok ? frow + c : a.feats, ok);
-        }
-        hop::cp_async_arrive(&full[stage]);
-      } else {
-        // FT = 128: this thread's panel (64 features); FT = 64: half the row
-        constexpr int kPer = FT == 128 ? 8 : 4;
-        uint8_t* panel =
-            st + T::kAOff + (FT == 128 ? part * kPanel : 0) + prow * 128;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int c = FT == 128 ? i : part * 4 + i;         // 16-byte chunk
-          const int f = (FT == 128 ? 64 * part : 0) + 8 * c;  // its feature
-          const bool ok = src >= 0 && f0 + f < a.F;
-          hop::cp_async16(panel + ((c ^ (prow % 8)) * 16),
-                          ok ? frow + f : a.feats, ok);
-        }
-        hop::cp_async_commit();
-        if (it >= Op::kLag) {  // stage it - kLag has landed: hand it over
-          hop::cp_async_wait<Op::kLag>();
-          hop::fence_proxy_async();
-          hop::mbar_arrive(&full[signal]);
-          if (++signal == T::kStages) signal = 0;
-        }
+      for (int j = 0; j < FT / 16; ++j) {
+        const int c = (4 * j + part) * 4;
+        const bool ok = src >= 0 && f0 + c < a.F;
+        hop::cp_async16(dst + c, ok ? frow + c : a.feats, ok);
       }
+      hop::cp_async_arrive(&full[stage]);
       if (++stage == T::kStages) {
         stage = 0;
         phase ^= 1;
-      }
-    }
-    if constexpr (Op::kLag > 0) {
-      hop::cp_async_wait<0>();
-      hop::fence_proxy_async();
-      for (int it = count > Op::kLag ? count - Op::kLag : 0; it < count;
-           ++it) {
-        hop::mbar_arrive(&full[signal]);
-        if (++signal == T::kStages) signal = 0;
       }
     }
   } else {
@@ -307,50 +280,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int it = 0; it < count; ++it) {
       hop::mbar_wait(&full[stage], phase);
       const uint8_t* st = ring + stage * T::kStage;
-      const uint8_t* sb = st + T::kBOff;
-      if constexpr (T::kF32) {
-        const float* sa = reinterpret_cast<const float*>(st + T::kAOff);
-        // the m64k8 A fragments of this warpgroup's k8 steps, split into
-        // tf32 hi and lo: a[0] (feature fa, row k), a[1] (fa + 8, k), a[2]
-        // and a[3] the same features at row k + 4, k = 8 * step + q
-        uint32_t ah[kS][4], al[kS][4];
+      const float* sa = reinterpret_cast<const float*>(st + T::kAOff);
+      // the m64k8 A fragments of this warpgroup's k8 steps, split into
+      // tf32 hi and lo: a[0] (feature fa, row k), a[1] (fa + 8, k), a[2]
+      // and a[3] the same features at row k + 4, k = 8 * step + q
+      uint32_t ah[kS][4], al[kS][4];
 #pragma unroll
-        for (int kk = 0; kk < kS; ++kk) {
-          const float* r = sa + (8 * (k0 + kk) + q) * T::kPitch + fa;
-          const float v[4] = {r[0], r[8], r[4 * T::kPitch],
-                              r[4 * T::kPitch + 8]};
+      for (int kk = 0; kk < kS; ++kk) {
+        const float* r = sa + (8 * (k0 + kk) + q) * T::kPitch + fa;
+        const float v[4] = {r[0], r[8], r[4 * T::kPitch],
+                            r[4 * T::kPitch + 8]};
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float hi = tf32_trunc(v[i]);
-            ah[kk][i] = __float_as_uint(hi);
-            al[kk][i] = __float_as_uint(tf32_trunc(v[i] - hi));
-          }
+        for (int i = 0; i < 4; ++i) {
+          const float hi = tf32_trunc(v[i]);
+          ah[kk][i] = __float_as_uint(hi);
+          al[kk][i] = __float_as_uint(tf32_trunc(v[i] - hi));
         }
-        hop::fence_regs(acc);
-        hop::wgmma_fence();
+      }
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kS; ++kk) {  // a k8 step is 32 bytes of B rows
-          const uint64_t dh =
-              hop::make_desc(sb + 32 * (k0 + kk), 128, 16, 1024);
-          const uint64_t dl =
-              hop::make_desc(sb + T::kB + 32 * (k0 + kk), 128, 16, 1024);
-          // the small terms first; the first product after a flush restarts
-          hop::WgmmaTf32<BN>::rs(acc, al[kk], dh,
-                                 since == 0 && kk == 0 ? 0 : 1);
-          hop::WgmmaTf32<BN>::rs(acc, ah[kk], dl, 1);
-          hop::WgmmaTf32<BN>::rs(acc, ah[kk], dh, 1);
-        }
-      } else {
-        const uint8_t* sa = st + T::kAOff + (FT == 128 ? wg * kPanel : 0);
-        hop::fence_regs(acc);
-        hop::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kS; ++kk) {  // a k16 step is 16 rows, 2 KB
-          const int off = (k0 + kk) * 2048;
-          hop::WgmmaT<BN>::ss(acc, hop::make_desc(sa + off, 128, kPanel, 1024),
-                              hop::make_desc(sb + off, 128, kPanel, 1024),
-                              since == 0 && kk == 0 ? 0 : 1);
-        }
+      for (int kk = 0; kk < kS; ++kk) {  // a k8 step is 32 bytes of B rows
+        const uint64_t dh = hop::make_desc(st + 32 * (k0 + kk), 128, 16, 1024);
+        const uint64_t dl =
+            hop::make_desc(st + T::kB + 32 * (k0 + kk), 128, 16, 1024);
+        // the small terms first; the first product after a flush restarts
+        hop::WgmmaTf32<BN>::rs(acc, al[kk], dh, since == 0 && kk == 0 ? 0 : 1);
+        hop::WgmmaTf32<BN>::rs(acc, ah[kk], dl, 1);
+        hop::WgmmaTf32<BN>::rs(acc, ah[kk], dh, 1);
       }
       hop::wgmma_commit();
       hop::wgmma_wait<0>();
@@ -442,37 +399,571 @@ __global__ void __launch_bounds__(256)
   reinterpret_cast<float4*>(dw)[i] = sum;
 }
 
-template <class Op, int FT, int BN>
+template <int FT, int BN>
 cudaError_t launch_tile(unsigned blocks, cudaStream_t stream,
-                        const CUtensorMap& tmg,
-                        const K6Args<typename Op::E>& a) {
-  return hop_host::launch_handover<&sparse_wgrad_kernel<Op, FT, BN>>(
-      K6Tile<Op, FT, BN>::kSmem, blocks, kThreads, kLaunchRegs, stream, tmg,
-      a);
+                        const CUtensorMap& tmg, const K6Args& a) {
+  return hop_host::launch_handover<&sparse_wgrad_kernel<FT, BN>>(
+      K6Tile<FT, BN>::kSmem, blocks, kThreads, kLaunchRegs, stream, tmg, a);
 }
 
-// The entry points' common body: the checks, the tiles, g's map (made by
-// map_g(&map, rows, bn), which may launch a prologue first), the kernel at
-// F's and Fo's tiles and, where there is more than one range, the ordered
-// sum of the partials.
-template <class Op, class MapG>
-int launch_k6(const void* feats, const void* nbr, void* partial, void* dw,
-              int B, int C, int F, int Fo, int rows_per_split,
-              cudaStream_t st, MapG map_g) {
-  using E = typename Op::E;
-  constexpr int kPiece = 16 / sizeof(E);
-  if (B <= 0 || C <= 0 || F <= 0 || Fo <= 0 || F % kPiece || Fo % kPiece ||
-      rows_per_split <= 0 || rows_per_split % Op::kRows ||
-      rows_per_split > Op::kRows * Op::kMaxChunks ||
-      reinterpret_cast<uintptr_t>(feats) % 16)
+// ---- sparse_conv_bf16_wgrad ------------------------------------------------
+
+namespace bw {
+
+constexpr int kPairs = 128;       // present pairs a stage: eight k16 steps
+constexpr int kChunk = 8;         // stages of pair indices copied at a time
+constexpr int kMaxSegs = 128;     // segments of the pair lists at most
+constexpr int kSlice = 512;       // rows of nbr a pairs block holds at a time
+constexpr int kPairThreads = 1024;  // warp t compacts tap t
+constexpr int kSliceSmem = kSlice * kTaps * 4;
+constexpr int kMaxRanges = 1024;
+constexpr int kRing = 196608;     // bytes of shared memory for the ring
+// warpgroups 0, 1 consume, 2, 3 gather (with one producer warpgroup the
+// gathers ran about 15 % slower on that card); registers a thread after the
+// hand-over: each producer keeps 80, each consumer takes 176 (2 x 128 x 176
+// + 2 x 128 x 80 = 512 x 128, the pool of a block launched with 128 a
+// thread)
+constexpr int kBlockThreads = 512, kProducers = 256;
+constexpr int kProducerRegs = 80, kConsumerRegs = 176, kLaunchRegs = 128;
+
+constexpr int kPanel = kPairs * 128;  // 128 rows x 64 features, swizzled
+
+// 64 * MT features (A) and BN output features (B) a tile; a stage holds the
+// MT A panels, then the BN / 64 B panels.
+template <int MT, int BN>
+struct Tile {
+  static constexpr int kNB = BN / 64;
+  static constexpr int kStage = (MT + kNB) * kPanel;
+  static constexpr int kStages = kRing / kStage;  // 6, 4 or 3
+  // MT = 1, BN = 64: the warpgroups split each stage's k16 steps, and each
+  // writes a partial slot of its own; otherwise they split the tile
+  static constexpr bool kKSplit = MT == 1 && BN == 64;
+  static constexpr int kNW = MT == 2 ? BN : 64;  // N of a warpgroup's product
+  static constexpr int kSteps = kPairs / 16 / (kKSplit ? 2 : 1);  // a stage's
+  static constexpr int kFlush = kFlushSteps / kSteps;  // stages a flush
+  static constexpr int kSlots = kKSplit ? 2 : 1;       // partial slots a piece
+  static constexpr int kIdx = 2 * kChunk * kPairs * 2;  // [2][8][128][2]
+  static constexpr int kTables = kTaps * (kMaxSegs + 1) + 3 * kTaps + 1 + 4;
+  // ring, barriers, pair indices, tables, room to align to 1 KB
+  static constexpr int kSmem = kStages * kStage + 2 * 8 * kStages +
+                               4 * (kIdx + kTables) + 1024;
+  static_assert(kStage % 1024 == 0, "panels need 1 KB alignment");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+struct Args {
+  const __nv_bfloat16* feats;  // [rows, F]
+  const __nv_bfloat16* g;      // [rows, Fo]
+  const int* pairs;            // int32 [27, rows_pad, 2]: (row, source row)
+  const int* segcnt;           // int32 [27, nseg]: pairs a segment
+  int* totals;                 // int32 [27]: pairs a tap
+  float* partial;              // f32 [slots, 64 * MT, BN]
+  long long rows_pad;          // nseg * seg
+  int F, Fo, seg, nseg, n_tiles, combos, ranges;
+};
+
+// The cut: S stages, ranges of L stages (R of them, the last maybe
+// shorter); R = 0 where no pair exists.
+__device__ __forceinline__ void cut(int stap, int combos, int ranges,
+                                    int& S, int& L, int& R) {
+  S = stap * combos;
+  if (S == 0) {
+    L = 1;
+    R = 0;
+    return;
+  }
+  R = min(ranges, S);
+  L = (S + R - 1) / R;
+  R = (S + L - 1) / L;
+}
+
+// Warp 0: from each tap's pairs (lane t's `cnt`), its stages and their
+// first stage within a unit; returns the stages of a unit on every lane.
+__device__ __forceinline__ int tap_table(int cnt, int lane, int* stg,
+                                         int* start) {
+  const int st = lane < kTaps ? (cnt + kPairs - 1) / kPairs : 0;
+  int incl = st;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane < kTaps) {
+    stg[lane] = st;
+    start[lane] = incl - st;
+  }
+  const int stap = __shfl_sync(0xffffffffu, incl, kTaps - 1);
+  if (lane == 0) start[kTaps] = stap;
+  return stap;
+}
+
+// A block's walk over its ranges r = b, b + G, ...: global stage s of range
+// r (ending at `end`), unit (combo c, tap t) with its F and N offsets, stage
+// ls of the unit, and the stages left in the piece (this one included).
+struct Walk {
+  int r, s, end, c, t, ls, left, f0, n0;
+};
+
+struct Cut {
+  const int* stg;
+  const int* start;
+  int stap, S, L, R, G, n_tiles, ft, bn;
+
+  __device__ __forceinline__ void seek(Walk& w) const {
+    w.c = w.s / stap;
+    const int x = w.s - w.c * stap;
+    int t = 0;
+    while (start[t + 1] <= x) ++t;  // past the taps no row has
+    w.t = t;
+    w.ls = x - start[t];
+    w.left = min(w.end - w.s, stg[t] - w.ls);
+    w.f0 = w.c / n_tiles * ft;
+    w.n0 = w.c % n_tiles * bn;
+  }
+  __device__ __forceinline__ void begin(Walk& w, int r) const {
+    w.r = r;
+    if (r < R) {
+      w.s = r * L;
+      w.end = min(S, w.s + L);
+      seek(w);
+    }
+  }
+  // the next stage: a new piece where this one ends (its range or unit)
+  __device__ __forceinline__ void next(Walk& w) const {
+    ++w.s;
+    ++w.ls;
+    if (--w.left == 0) {
+      if (w.s == w.end)
+        begin(w, w.r + G);
+      else
+        seek(w);
+    }
+  }
+};
+
+// Per segment of `seg` rows, per tap: the (row, source row) pairs whose tap
+// is present, in row order, at the segment's slice of the tap's list, and
+// their count. Slices of 512 rows of nbr go to shared memory as 16-byte
+// vectors, all of a thread's loads in flight at once; warp t compacts tap t.
+__global__ void __launch_bounds__(kPairThreads)
+    wgrad_pairs_kernel(const int* __restrict__ nbr, int* __restrict__ pairs,
+                       int* __restrict__ segcnt, int rows, int C, int seg,
+                       int nseg, long long rows_pad) {
+  extern __shared__ int4 sv[];  // [kSlice * 27 / 4]
+  int* sn = reinterpret_cast<int*>(sv);
+  const int k = blockIdx.x, tid = threadIdx.x, lane = tid % 32;
+  const int t = tid / 32;
+  const int r_begin = k * seg, r_end = min(rows, r_begin + seg);
+  int2* out = reinterpret_cast<int2*>(pairs) +
+              (long long)min(t, kTaps - 1) * rows_pad + (long long)k * seg;
+  int count = 0;
+  for (int r0 = r_begin; r0 < r_end; r0 += kSlice) {
+    const int nr = min(kSlice, r_end - r0), n = nr * kTaps;
+    const int* src = nbr + (long long)r0 * kTaps;
+    constexpr int kVec =
+        (kSlice * kTaps / 4 + kPairThreads - 1) / kPairThreads;
+    int4 v[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int i = tid + j * kPairThreads;
+      if (i < n / 4) v[j] = reinterpret_cast<const int4*>(src)[i];
+    }
+    __syncthreads();  // the previous slice is compacted
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int i = tid + j * kPairThreads;
+      if (i < n / 4) sv[i] = v[j];
+    }
+    if (tid < n % 4) sn[n / 4 * 4 + tid] = src[n / 4 * 4 + tid];
+    __syncthreads();
+    if (t < kTaps) {
+#pragma unroll 4
+      for (int j = 0; j < nr; j += 32) {
+        const int i = j + lane;
+        const int nb = i < nr ? sn[i * kTaps + t] : -1;
+        const unsigned bits = __ballot_sync(0xffffffffu, nb >= 0);
+        if (nb >= 0) {
+          const int row = r0 + i;
+          out[count + __popc(bits & ((1u << lane) - 1u))] =
+              make_int2(row, row / C * C + nb);
+        }
+        count += __popc(bits);
+      }
+    }
+  }
+  if (t < kTaps && lane == 0) segcnt[t * nseg + k] = count;
+}
+
+template <int MT, int BN>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    wgrad_bf16_kernel(const Args a) {
+  using T = Tile<MT, BN>;
+  constexpr int kFT = 64 * MT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStage);
+  uint64_t* empty = full + T::kStages;
+  // [2][chunk][pairs][2]
+  int* sIdx = reinterpret_cast<int*>(empty + T::kStages);
+  int* sSeg = sIdx + T::kIdx;         // [27][kMaxSegs + 1]: segment prefix
+  int* sCnt = sSeg + kTaps * (kMaxSegs + 1);  // [27] pairs a tap
+  int* sStg = sCnt + kTaps;           // [27] stages a tap
+  int* sStart = sStg + kTaps;         // [28] a tap's first stage in a unit
+  int* sCut = sStart + kTaps + 1;     // S, L, R
+  constexpr int kSegPitch = kMaxSegs + 1;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid == 0) {
+    for (int i = 0; i < T::kStages; ++i) {
+      hop::mbar_init(&full[i], kProducers);  // the producer threads' copies
+      hop::mbar_init(&empty[i], 8);   // lane 0 of each consumer warp
+    }
+    hop::fence_barrier_init();
+  }
+  // the segments' counts (every load in flight at once), then their prefix
+  // per tap (4 segments a lane), then the taps' stages (warp 0)
+  const int ns = a.nseg;
+  {
+    constexpr int kLoads =
+        (kTaps * kMaxSegs + kBlockThreads - 1) / kBlockThreads;
+    int v[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = tid + j * kBlockThreads;
+      v[j] = i < kTaps * ns ? a.segcnt[i] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = tid + j * kBlockThreads;
+      if (i < kTaps * ns) sSeg[(i / ns) * kSegPitch + i % ns + 1] = v[j];
+    }
+  }
+  if (tid < kTaps) sSeg[tid * kSegPitch] = 0;
+  __syncthreads();
+  for (int t = warp; t < kTaps; t += kBlockThreads / 32) {
+    int* row = sSeg + t * kSegPitch + 1;
+    int v[4], local = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * lane + e;
+      local += k < ns ? row[k] : 0;
+      v[e] = local;
+    }
+    int incl = local;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * lane + e;
+      if (k < ns) row[k] = incl - local + v[e];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int cnt = lane < kTaps ? sSeg[lane * kSegPitch + ns] : 0;
+    if (lane < kTaps) {
+      sCnt[lane] = cnt;
+      if (blockIdx.x == 0) a.totals[lane] = cnt;
+    }
+    const int stap = tap_table(cnt, lane, sStg, sStart);
+    if (lane == 0) {
+      int S, L, R;
+      cut(stap, a.combos, a.ranges, S, L, R);
+      sCut[0] = S;
+      sCut[1] = L;
+      sCut[2] = R;
+    }
+  }
+  __syncthreads();
+  const Cut cutp{sStg,     sStart,    sStart[kTaps], sCut[0], sCut[1],
+                 sCut[2],  static_cast<int>(gridDim.x), a.n_tiles, kFT, BN};
+  if (static_cast<int>(blockIdx.x) >= cutp.R) return;
+
+  const int wg = tid / 128;
+  if (wg >= 2) {
+    // ---- producers: each 128-byte row of a stage's panels by 8 lanes (one
+    // 16-byte chunk each), so that a warp's copy touches 4 rows: thread p
+    // copies chunk p % 8 of rows p / 8 + 32 k of every panel ----
+    hop::setmaxnreg_dec<kProducerRegs>();
+    const int p = tid - 256, pp = p % kPairs, c8 = p % 8, r8 = p / 8;
+    const bool side_a = p < kPairs;
+    constexpr int kRowStep = kProducers / 8, kRowsEach = kPairs / kRowStep;
+    // the stages' pairs (row, source row), 8 stages at a time into
+    // sIdx[buf][stage][128] (int2): thread p copies the row (p >= 128) or
+    // the source row of pair p % 128 from the compacted lists: pair q of
+    // tap t lies in segment k, the last whose prefix is <= q; a cursor
+    // (unit, k) moves with q and is found anew by bisection where the walk
+    // enters another unit
+    Walk iw;
+    cutp.begin(iw, blockIdx.x);
+    int cu = -1, ck = 0;
+    auto copy_chunk = [&](int buf) {
+#pragma unroll 1
+      for (int i = 0; i < kChunk; ++i) {
+        int* dst = sIdx + 2 * ((buf * kChunk + i) * kPairs + pp) + side_a;
+        const int* src = a.pairs;
+        bool ok = false;
+        if (iw.r < cutp.R) {
+          const int q = kPairs * iw.ls + pp;
+          if (q < sCnt[iw.t]) {
+            const int* so = sSeg + iw.t * kSegPitch;
+            const int unit = iw.c * kTaps + iw.t;
+            if (unit != cu) {
+              cu = unit;
+              int lo = 0, hi = ns - 1;
+              while (lo < hi) {
+                const int mid = (lo + hi + 1) / 2;
+                if (so[mid] <= q)
+                  lo = mid;
+                else
+                  hi = mid - 1;
+              }
+              ck = lo;
+            }
+            while (so[ck + 1] <= q) ++ck;
+            src = a.pairs + 2 * ((long long)iw.t * a.rows_pad +
+                                 (long long)ck * a.seg + (q - so[ck])) +
+                  side_a;
+            ok = true;
+          }
+          cutp.next(iw);
+        }
+        hop::cp_async4(dst, src, ok);
+      }
+      hop::cp_async_commit();
+    };
+    copy_chunk(0);
+    Walk w;
+    cutp.begin(w, blockIdx.x);
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    for (; w.r < cutp.R; ++it) {
+      const int i = it % kChunk, buf = (it / kChunk) & 1;
+      if (i == 0) {
+        // this chunk's indices have landed (the last group committed, with
+        // the gathers of the chunk before the last, holds them), for every
+        // producer thread
+        hop::cp_async_wait<0>();
+        hop::named_barrier(1, kProducers);
+      }
+      const int2* ids =
+          reinterpret_cast<const int2*>(sIdx) + (buf * kChunk + i) * kPairs;
+      const int n_valid = sCnt[w.t] - kPairs * w.ls;  // pairs of the stage
+      hop::mbar_wait(&empty[stage], phase ^ 1);
+      uint8_t* st = ring + stage * T::kStage;
+#pragma unroll
+      for (int k = 0; k < kRowsEach; ++k) {
+        const int r = r8 + kRowStep * k;
+        const int2 id = ids[r];
+        const bool valid = r < n_valid;
+        uint8_t* at = st + r * 128 + ((c8 ^ (r8 % 8)) * 16);  // swizzled
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int f = w.f0 + 64 * m + 8 * c8;
+          const bool ok = valid && f < a.F;
+          hop::cp_async16(at + m * kPanel,
+                          ok ? a.feats + (long long)id.y * a.F + f : a.feats,
+                          ok);
+        }
+#pragma unroll
+        for (int m = 0; m < T::kNB; ++m) {
+          const int o = w.n0 + 64 * m + 8 * c8;
+          const bool ok = valid && o < a.Fo;
+          hop::cp_async16(at + (MT + m) * kPanel,
+                          ok ? a.g + (long long)id.x * a.Fo + o : a.g, ok);
+        }
+      }
+      // the stage's barrier counts this thread once its copies have
+      // landed; the thread goes on to the next stage
+      hop::cp_async_arrive(&full[stage]);
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      // the next chunk's indices, into the other buffer, which every
+      // producer thread has read (they all passed this chunk's barrier)
+      if (i == 0) copy_chunk(buf ^ 1);
+      cutp.next(w);
+    }
+    hop::cp_async_wait<0>();  // the index copies past the walk
+  } else {
+    // ---- consumers ----
+    hop::setmaxnreg_inc<kConsumerRegs>();
+    constexpr int kNW = T::kNW;
+    const int wt = tid % 128, w4 = wt / 32, g = lane / 4, q = lane % 4;
+    // this warpgroup's A panel, B panel and first k16 step of a stage
+    const int ap = MT == 2 ? wg : 0;
+    const int bp = MT == 1 && BN == 128 ? wg : 0;
+    const int k0 = T::kKSplit ? T::kSteps * wg : 0;
+    float acc[kNW / 2], sum[kNW / 2];
+#pragma unroll
+    for (int i = 0; i < kNW / 2; ++i) acc[i] = sum[i] = 0.f;
+    Walk w;
+    cutp.begin(w, blockIdx.x);
+    int stage = 0, prev = 0, since = 0, it = 0;
+    uint32_t phase = 0;
+    // the loop and its flushes hold wgmma instructions: their conditions
+    // are warp votes, which ptxas knows to be uniform (C7518)
+    for (; __any_sync(0xffffffffu, w.r < cutp.R); ++it) {
+      const bool last = w.left == 1;
+      hop::mbar_wait(&full[stage], phase);
+      // the producer's cp.async wrote the stage through the generic proxy
+      // and wgmma reads it through the async proxy
+      hop::fence_proxy_async();
+      const uint8_t* sa = ring + stage * T::kStage + ap * kPanel;
+      const uint8_t* sb = ring + stage * T::kStage + (MT + bp) * kPanel;
+      // no access to acc between here and the wait below: the products of
+      // consecutive stages chain into it while the previous ones run
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::kSteps; ++kk) {  // a k16 step is 16 rows
+        const int off = (k0 + kk) * 2048;
+        hop::WgmmaT<kNW>::ss(acc, hop::make_desc(sa + off, 128, kPanel, 1024),
+                             hop::make_desc(sb + off, 128, kPanel, 1024),
+                             since == 0 && kk == 0 ? 0 : 1);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the previous stage's products are done
+      if (it > 0 && lane == 0) hop::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == T::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      ++since;
+      if (__any_sync(0xffffffffu, since == T::kFlush || last)) {
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < kNW / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+        since = 0;
+      }
+      if (__any_sync(0xffffffffu, last)) {
+        // the piece's sums to its slot (unit + range): features 64 ap +
+        // 16 w4 + g (+ 8), outputs 64 bp + 8 j + 2 q (+ 1) of the tile
+        const int slot = (w.c * kTaps + w.t + w.r) * T::kSlots +
+                         (T::kKSplit ? wg : 0);
+        float* out = a.partial + (long long)slot * kFT * BN;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* orow = out + (64 * ap + 16 * w4 + g + 8 * h) * BN + 64 * bp;
+#pragma unroll
+          for (int j = 0; j < kNW / 8; ++j) {
+            *reinterpret_cast<float2*>(orow + 8 * j + 2 * q) =
+                make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kNW / 2; ++i) sum[i] = 0.f;
+      }
+      cutp.next(w);
+    }
+    hop::wgmma_wait<0>();  // (done at the last flush; said for ptxas)
+    if (it > 0 && lane == 0) hop::mbar_arrive(&empty[prev]);
+  }
+}
+
+// dw[t][f][o], 4 outputs a thread: the pieces of unit
+// (F tile, N tile, t) in range order, each piece's slots in order; 0 for a
+// tap no row has.
+__global__ void __launch_bounds__(256)
+    wgrad_bf16_reduce_kernel(const float* __restrict__ partial,
+                             const int* __restrict__ totals,
+                             float* __restrict__ dw, int F, int Fo, int ft,
+                             int bn, int n_tiles, int combos, int ranges,
+                             int slots) {
+  __shared__ int sStg[kTaps], sStart[kTaps + 1], sL;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int stap = tap_table(lane < kTaps ? totals[lane] : 0, lane, sStg,
+                               sStart);
+    if (lane == 0) {
+      int S, L, R;
+      cut(stap, combos, ranges, S, L, R);
+      sL = L;
+    }
+  }
+  __syncthreads();
+  const int stap = sStart[kTaps], L = sL;
+  const long long n4 = (long long)kTaps * F * Fo / 4;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * 256) {
+    const long long e = 4 * i;
+    const int t = static_cast<int>(e / ((long long)F * Fo));
+    const int rem = static_cast<int>(e - (long long)t * F * Fo);
+    const int f = rem / Fo, o = rem % Fo;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (sStg[t] > 0) {
+      const int c = f / ft * n_tiles + o / bn;
+      const int first = c * stap + sStart[t];
+      const int r0 = first / L, r1 = (first + sStg[t] - 1) / L;
+      // the unit's slots, in order: (unit + r) * slots + h for r = r0 ..
+      // r1, h < slots; 4 loads in flight at a time
+      const float* base = partial + (f % ft) * bn + o % bn +
+                          ((long long)(c * kTaps + t + r0) * slots) * ft * bn;
+      const int n = (r1 - r0 + 1) * slots;
+      for (int j0 = 0; j0 < n; j0 += 4) {
+        float4 v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j0 + j < n)
+            v[j] = *reinterpret_cast<const float4*>(
+                base + (long long)(j0 + j) * ft * bn);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j0 + j >= n) break;
+          if (j0 + j == 0) {
+            sum = v[j];
+          } else {
+            sum.x += v[j].x;
+            sum.y += v[j].y;
+            sum.z += v[j].z;
+            sum.w += v[j].w;
+          }
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(dw + e) = sum;
+  }
+}
+
+template <int MT, int BN>
+cudaError_t launch(unsigned blocks, cudaStream_t stream, const Args& a) {
+  return hop_host::launch_handover<&wgrad_bf16_kernel<MT, BN>>(
+      Tile<MT, BN>::kSmem, blocks, kBlockThreads, kLaunchRegs, stream, a);
+}
+
+}  // namespace bw
+
+}  // namespace
+
+extern "C" {
+
+// feats f32 [B, C, F], nbr int32 [B, C, 27], g f32 [B, C, Fo] -> dw f32
+// [27, F, Fo]; pack is scratch of 2 * Fo * ld floats (ld = B * C rounded up
+// to 4), partial of [S, 27, F, Fo] floats with S = ceil(B * C /
+// rows_per_split) (unused, and may be null, where S == 1); rows_per_split is
+// a multiple of 32 and at most 16,384.
+int sparse_conv_f32_wgrad(const void* feats, const void* nbr, const void* g,
+                          void* pack, void* partial, void* dw, int B, int C,
+                          int F, int Fo, int rows_per_split, void* stream) {
+  if (B <= 0 || C <= 0 || F <= 0 || Fo <= 0 || F % 4 || Fo % 4 ||
+      rows_per_split <= 0 || rows_per_split % kRows ||
+      rows_per_split > kRows * kMaxChunks ||
+      reinterpret_cast<uintptr_t>(feats) % 16 ||
+      reinterpret_cast<uintptr_t>(pack) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = (long long)B * C;
   const long long S = (rows + rows_per_split - 1) / rows_per_split;
   if (rows >= (1LL << 31) || (S > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ft = F <= 64 ? 64 : 128, bn = Fo <= 64 ? 64 : 128;
-  K6Args<E> a;
-  a.feats = static_cast<const E*>(feats);
+  K6Args a;
+  a.feats = static_cast<const float*>(feats);
   a.nbr = static_cast<const int*>(nbr);
   a.out = static_cast<float*>(S == 1 ? dw : partial);
   a.rows = rows;
@@ -484,14 +975,27 @@ int launch_k6(const void* feats, const void* nbr, void* partial, void* dw,
   a.n_tiles = (Fo + bn - 1) / bn;
   const long long blocks = S * kTaps * a.f_tiles * a.n_tiles;
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tmg;
-  cudaError_t e = map_g(&tmg, rows, bn);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // g^T's tf32 hi and lo, and its map: boxes of 32 rows by the N tile
+  const long long ld = (rows + 3) / 4 * 4;
+  sparse_wgrad_pack_kernel<<<dim3(static_cast<unsigned>((ld + 31) / 32),
+                                  static_cast<unsigned>((Fo + 31) / 32)),
+                             dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(g), static_cast<float*>(pack), rows, Fo, ld);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)Fo, 2};
+  const uint64_t strides[2] = {(uint64_t)ld * 4, (uint64_t)ld * Fo * 4};
+  const uint32_t box[3] = {(uint32_t)kRows, (uint32_t)bn, 1};
+  CUtensorMap tmg;
+  if (!hop_host::make_map(&tmg, pack, 3, dims, strides, box, 128,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned nb = static_cast<unsigned>(blocks);
-  e = ft == 64 ? (bn == 64 ? launch_tile<Op, 64, 64>(nb, st, tmg, a)
-                           : launch_tile<Op, 64, 128>(nb, st, tmg, a))
-               : (bn == 64 ? launch_tile<Op, 128, 64>(nb, st, tmg, a)
-                           : launch_tile<Op, 128, 128>(nb, st, tmg, a));
+  e = ft == 64 ? (bn == 64 ? launch_tile<64, 64>(nb, st, tmg, a)
+                           : launch_tile<64, 128>(nb, st, tmg, a))
+               : (bn == 64 ? launch_tile<128, 64>(nb, st, tmg, a)
+                           : launch_tile<128, 128>(nb, st, tmg, a));
   if (e != cudaSuccess || S == 1) return static_cast<int>(e);
   const long long n4 = (long long)kTaps * F * Fo / 4;
   sparse_wgrad_reduce_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256,
@@ -501,63 +1005,81 @@ int launch_k6(const void* feats, const void* nbr, void* partial, void* dw,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// feats [B, C, F], nbr int32 [B, C, 27], g [B, C, Fo] -> dw [27, F, Fo];
-// pack is scratch of 2 * Fo * ld floats (ld = B * C rounded up to 4),
-// partial of [S, 27, F, Fo] floats with S = ceil(B * C / rows_per_split)
-// (unused, and may be null, where S == 1); rows_per_split is a multiple of
-// 32 and at most 16,384.
-int sparse_conv_f32_wgrad(const void* feats, const void* nbr, const void* g,
-                          void* pack, void* partial, void* dw, int B, int C,
-                          int F, int Fo, int rows_per_split, void* stream) {
-  if (reinterpret_cast<uintptr_t>(pack) % 16)
+// feats bf16 [B, C, F], nbr int32 [B, C, 27], g bf16 [B, C, Fo] -> dw f32
+// [27, F, Fo]; F and Fo multiples of 8. The plan comes from the wrapper:
+// the tile mt in {1, 2}, bn in {64, 128} (64 * mt features by bn outputs),
+// segments of `seg` rows (a multiple of 512, at most 128 of them) and at
+// most `ranges` ranges (1 .. 1,024). work is int32 scratch of 2 * 27 *
+// rows_pad (the pair lists, rows_pad = ceil(B * C / seg) * seg) + 27 *
+// nseg (the segments' counts) + 27 (the totals) ints; partial is f32
+// scratch of (27 * combos + ranges) * slots * 64 * mt * bn floats (combos =
+// F tiles x N tiles, slots 2 for mt = 1, bn = 64, else 1).
+int sparse_conv_bf16_wgrad(const void* feats, const void* nbr, const void* g,
+                           void* work, void* partial, void* dw, int B, int C,
+                           int F, int Fo, int mt, int bn, int seg, int ranges,
+                           void* stream) {
+  const long long rows = (long long)B * C;
+  const bool tile_ok = (mt == 1 || mt == 2) && (bn == 64 || bn == 128);
+  if (B <= 0 || C <= 0 || F <= 0 || Fo <= 0 || F % 8 || Fo % 8 || !tile_ok ||
+      rows >= (1LL << 31) || seg <= 0 || seg % bw::kSlice ||
+      ranges < 1 || ranges > bw::kMaxRanges)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {feats, nbr, g, static_cast<const void*>(work),
+                        static_cast<const void*>(partial),
+                        static_cast<const void*>(dw)})
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const long long nseg = (rows + seg - 1) / seg;
+  const int f_tiles = (F + 64 * mt - 1) / (64 * mt);
+  const int n_tiles = (Fo + bn - 1) / bn;
+  const long long combos = (long long)f_tiles * n_tiles;
+  // stage indices (and piece slots) are ints
+  if (nseg > bw::kMaxSegs ||
+      combos * kTaps * ((rows + 63) / 64) + ranges >=
+          (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto map_g = [&](CUtensorMap* tmg, long long rows, int bn) {
-    const long long ld = (rows + 3) / 4 * 4;
-    sparse_wgrad_pack_kernel<<<dim3(static_cast<unsigned>((ld + 31) / 32),
-                                    static_cast<unsigned>((Fo + 31) / 32)),
-                               dim3(32, 8), 0, st>>>(
-        static_cast<const float*>(g), static_cast<float*>(pack), rows, Fo,
-        ld);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)Fo, 2};
-    const uint64_t strides[2] = {(uint64_t)ld * 4, (uint64_t)ld * Fo * 4};
-    const uint32_t box[3] = {(uint32_t)Tf32x3::kRows, (uint32_t)bn, 1};
-    return hop_host::make_map(tmg, pack, 3, dims, strides, box, 128,
-                              CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
-               ? cudaSuccess
-               : cudaErrorInvalidValue;
-  };
-  return launch_k6<Tf32x3>(feats, nbr, partial, dw, B, C, F, Fo,
-                           rows_per_split, st, map_g);
-}
-
-// feats bf16 [B, C, F], nbr int32 [B, C, 27], g bf16 [B, C, Fo] -> dw f32
-// [27, F, Fo]; partial is scratch of [S, 27, F, Fo] floats with S =
-// ceil(B * C / rows_per_split) (unused, and may be null, where S == 1);
-// F and Fo multiples of 8; rows_per_split a multiple of 64, at most 16,384.
-int sparse_conv_bf16_wgrad(const void* feats, const void* nbr, const void* g,
-                           void* partial, void* dw, int B, int C, int F,
-                           int Fo, int rows_per_split, void* stream) {
-  if (reinterpret_cast<uintptr_t>(g) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto map_g = [&](CUtensorMap* tmg, long long rows, int) {
-    const uint64_t dims[2] = {(uint64_t)Fo, (uint64_t)rows};
-    const uint64_t strides[1] = {(uint64_t)Fo * 2};
-    const uint32_t box[2] = {64, (uint32_t)Bf16::kRows};
-    return hop_host::make_map(tmg, g, 2, dims, strides, box, 128,
-                              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)
-               ? cudaSuccess
-               : cudaErrorInvalidValue;
-  };
-  return launch_k6<Bf16>(feats, nbr, partial, dw, B, C, F, Fo,
-                         rows_per_split, static_cast<cudaStream_t>(stream),
-                         map_g);
+  bw::Args a;
+  a.feats = static_cast<const __nv_bfloat16*>(feats);
+  a.g = static_cast<const __nv_bfloat16*>(g);
+  a.rows_pad = nseg * seg;
+  int* pairs = static_cast<int*>(work);
+  int* segcnt = pairs + 2 * kTaps * a.rows_pad;
+  a.pairs = pairs;
+  a.segcnt = segcnt;
+  a.totals = segcnt + kTaps * nseg;
+  a.partial = static_cast<float*>(partial);
+  a.F = F;
+  a.Fo = Fo;
+  a.seg = seg;
+  a.nseg = static_cast<int>(nseg);
+  a.n_tiles = n_tiles;
+  a.combos = static_cast<int>(combos);
+  a.ranges = ranges;
+  static const cudaError_t attr =
+      hop_host::allow_smem(bw::wgrad_pairs_kernel, bw::kSliceSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  bw::wgrad_pairs_kernel<<<static_cast<unsigned>(nseg), bw::kPairThreads,
+                           bw::kSliceSmem, st>>>(
+      static_cast<const int*>(nbr), pairs, segcnt, static_cast<int>(rows), C,
+      seg, a.nseg, a.rows_pad);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int sms = hop_host::sm_count();
+  const unsigned blocks = static_cast<unsigned>(sms < ranges ? sms : ranges);
+  e = mt == 1 ? (bn == 64 ? bw::launch<1, 64>(blocks, st, a)
+                          : bw::launch<1, 128>(blocks, st, a))
+              : (bn == 64 ? bw::launch<2, 64>(blocks, st, a)
+                          : bw::launch<2, 128>(blocks, st, a));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n4 = (long long)kTaps * F * Fo / 4;
+  const long long rblocks = (n4 + 255) / 256;
+  bw::wgrad_bf16_reduce_kernel<<<static_cast<unsigned>(rblocks), 256, 0,
+                                 st>>>(
+      static_cast<const float*>(partial), a.totals, static_cast<float*>(dw), F,
+      Fo, 64 * mt, bn, n_tiles, a.combos, ranges,
+      mt == 1 && bn == 64 ? 2 : 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

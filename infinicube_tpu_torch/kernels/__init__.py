@@ -67,7 +67,7 @@ SIGNATURES = {
     "sparse_conv": {"sparse_conv_f32": [_P] * 5 + [_I] * 4 + [_P],
                     "sparse_conv_bf16": [_P] * 5 + [_I] * 4 + [_P]},
     "sparse_conv_bwd": {"sparse_conv_f32_wgrad": [_P] * 6 + [_I] * 5 + [_P],
-                        "sparse_conv_bf16_wgrad": [_P] * 5 + [_I] * 5
+                        "sparse_conv_bf16_wgrad": [_P] * 6 + [_I] * 8
                         + [_P]},
 }
 
@@ -818,10 +818,8 @@ def sparse_conv_schedule(nbr: torch.Tensor, poison: torch.Tensor, K: int,
             masks.repeat_interleave(n_tiles, 1).reshape(-1))
 
 
-# K6's voxel rows a stage and at most a range (csrc/sparse_conv_bwd.cu);
-# the bf16 kernel's stages hold 64 rows
+# K6's voxel rows a stage and at most a range (csrc/sparse_conv_bwd.cu)
 _K6_CHUNK, _K6_MAX_ROWS = 32, 32 * 512
-_K6_BF16_CHUNK = 64
 
 
 def _k6_tiles(F: int, Fo: int) -> int:
@@ -831,16 +829,98 @@ def _k6_tiles(F: int, Fo: int) -> int:
                                                          128))
 
 
-def wgrad_rows_per_split(rows: int, F: int, Fo: int,
-                         chunk: int = _K6_CHUNK) -> int:
-    """Voxel rows per range of K6 (a multiple of ``chunk``, its rows a
-    stage, and at most 16,384): as many ranges as take about 512 blocks of
-    (tap, F tile, N tile, range) over the card, none under 1,024 rows. A
-    function of the shape only, so the summation order is fixed."""
+def wgrad_rows_per_split(rows: int, F: int, Fo: int) -> int:
+    """Voxel rows per range of K6 (a multiple of 32, its rows a stage, and
+    at most 16,384): as many ranges as take about 512 blocks of (tap, F
+    tile, N tile, range) over the card, none under 1,024 rows. A function
+    of the shape only, so the summation order is fixed."""
     splits = max(-(-rows // _K6_MAX_ROWS),
                  min(-(-512 // (27 * _k6_tiles(F, Fo))), -(-rows // 1024)))
     per = -(-rows // splits)
-    return -(-per // chunk) * chunk
+    return -(-per // _K6_CHUNK) * _K6_CHUNK
+
+
+# sparse_conv_bf16_wgrad's plan (csrc/sparse_conv_bwd.cu): present (row,
+# tap) pairs a stage; the equal ranges of stages at most (one a block on an
+# H100 SXM's 132 SMs, and a constant, so that the cuts depend on nbr and the
+# shape alone); the rows of a segment of the pair lists, a multiple of 512,
+# and at most 128 segments
+WGRAD_PAIRS = 128
+WGRAD_RANGES = 132
+_WGRAD_SEG_ROWS, _WGRAD_MAX_SEGS = 512, 128
+
+
+def wgrad_bf16_tile(F: int, Fo: int) -> tuple[int, int]:
+    """``sparse_conv_bf16_wgrad``'s tile (MT, BN): 64 * MT features by BN
+    outputs, MT in {1, 2} and BN in {64, 128} (the consumers' registers
+    hold no larger), the one that gathers the fewest bytes a present pair
+    (F for each N tile, Fo for each F tile; zero-filled columns cost none),
+    the smaller where two tie."""
+    return min((F * -(-Fo // bn) + Fo * -(-F // (64 * mt)), mt * bn, mt, bn)
+               for mt in (1, 2) for bn in (64, 128))[2:]
+
+
+def wgrad_bf16_segments(rows: int) -> tuple[int, int]:
+    """(rows a segment, segments) of ``sparse_conv_bf16_wgrad``'s pair
+    lists for ``rows`` voxel rows."""
+    seg = _WGRAD_SEG_ROWS * -(-rows // (_WGRAD_MAX_SEGS * _WGRAD_SEG_ROWS))
+    return seg, -(-rows // seg)
+
+
+class WgradPlan(NamedTuple):
+    mt: int               # the tile: 64 * mt features ...
+    bn: int               # ... by bn outputs
+    counts: torch.Tensor  # int64 [27]: present pairs a tap
+    stages: int           # S: the stages of all units
+    length: int           # L: stages a range (the last may hold fewer)
+    ranges: int           # R: ranges (0 where no pair is present)
+    # int64 [pieces, 8], in the order the blocks walk them: range, combo (F
+    # tile * N tiles + N tile), tap, first and end stage (global), first and
+    # end pair of the tap's list, partial slot (unit + range)
+    pieces: torch.Tensor
+
+
+def sparse_wgrad_plan(nbr: torch.Tensor, F: int, Fo: int,
+                      ranges: int = WGRAD_RANGES) -> WgradPlan:
+    """The work of ``sparse_conv_bf16_wgrad`` on nbr [B, C, 27], as the
+    kernel finds it on the card. Each tap's present pairs, in row order, are
+    cut into stages of ``WGRAD_PAIRS``; a unit is (F tile, N tile,
+    tap), units in that order, and holds its tap's stages; the S stages of
+    all units are cut into R ranges of L = ceil(S / min(ranges, S)) stages
+    (every range but the last exactly L); a piece is the stages of one unit
+    within one range, and its sums go to partial slot unit + range, which
+    the last pass adds in range order."""
+    mt, bn = wgrad_bf16_tile(F, Fo)
+    combos = -(-F // (64 * mt)) * -(-Fo // bn)
+    counts = (nbr >= 0).reshape(-1, 27).sum(0).to(torch.int64).cpu()
+    stg = -(-counts // WGRAD_PAIRS)
+    start = torch.cumsum(stg, 0) - stg
+    stap = int(stg.sum())
+    S = stap * combos
+    if S == 0:
+        return WgradPlan(mt, bn, counts, 0, 1, 0,
+                         torch.zeros((0, 8), dtype=torch.int64))
+    R = min(ranges, S)
+    L = -(-S // R)
+    R = -(-S // L)
+    c = torch.arange(combos).repeat_interleave(27)
+    t = torch.arange(27).repeat(combos)
+    keep = stg[t] > 0
+    c, t = c[keep], t[keep]
+    first = c * stap + start[t]
+    end = first + stg[t]
+    n = (end - 1) // L - first // L + 1
+    u = torch.repeat_interleave(torch.arange(c.numel()), n)
+    r = first[u] // L + torch.arange(int(n.sum())) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    s0 = torch.maximum(first[u], r * L)
+    s1 = torch.minimum(end[u], (r + 1) * L)
+    p0 = (s0 - first[u]) * WGRAD_PAIRS
+    p1 = torch.minimum((s1 - first[u]) * WGRAD_PAIRS, counts[t[u]])
+    pieces = torch.stack([r, c[u], t[u], s0, s1, p0, p1, c[u] * 27 + t[u] + r],
+                         1)
+    return WgradPlan(mt, bn, counts, S, L, R,
+                     pieces[torch.argsort(r * S + s0)])
 
 
 def _wgrad_shapes(name: str, dtype: torch.dtype, feats: torch.Tensor,
@@ -900,20 +980,30 @@ def sparse_conv_bf16_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     g[b, m] over present taps, every bf16 product added into f32 sums.
     feats bf16 [B, C, F]; nbr int32 [B, C, 27]; g bf16 [B, C, Fo]; F and Fo
     multiples of 8. Returns f32 [27, F, Fo] (the caller rounds it to the
-    weight's dtype), bit-identical from run to run: partial sums over the
-    fixed row ranges of ``wgrad_rows_per_split`` (64-row chunks), then,
-    where there is more than one range, their sum in range order. One call
-    counts once; the scratch for the partials is allocated here."""
+    weight's dtype), bit-identical from run to run. One call launches the
+    kernel that compacts each tap's present pairs, the persistent kernel
+    that walks them (partial sums over the pieces of ``sparse_wgrad_plan``,
+    whose cuts it finds on the card) and the sum of each unit's pieces in
+    range order; it counts once. The scratch for the pair lists and the
+    partials (sized for the most pieces the shape can have) is allocated
+    here."""
     B, C, F, Fo = _wgrad_shapes("sparse_conv_bf16_wgrad", torch.bfloat16,
                                 feats, nbr, g)
     rows = B * C
-    per = wgrad_rows_per_split(rows, F, Fo, _K6_BF16_CHUNK)
-    splits = -(-rows // per)
-    partial = torch.empty((splits, 27, F, Fo) if splits > 1 else (0,),
-                          dtype=torch.float32, device=feats.device)
+    mt, bn = wgrad_bf16_tile(F, Fo)
+    seg, nseg = wgrad_bf16_segments(rows)
+    combos = -(-F // (64 * mt)) * -(-Fo // bn)
+    slots = (27 * combos + WGRAD_RANGES) * (2 if (mt, bn) == (1, 64) else 1)
+    # one scratch buffer: the partials [slots, 64 * mt, bn] f32, then the
+    # int32 pair lists [27, nseg * seg, 2], segment counts [27, nseg] and
+    # per-tap totals [27]
+    n_part = slots * 64 * mt * bn
+    n_work = 2 * 27 * nseg * seg + 27 * nseg + 27
+    scratch = torch.empty(n_part + n_work, dtype=torch.float32,
+                          device=feats.device)
     dw = torch.empty((27, F, Fo), dtype=torch.float32, device=feats.device)
     _run("sparse_conv_bwd", "sparse_conv_bf16_wgrad", feats.device,
          feats.data_ptr(), nbr.data_ptr(), g.data_ptr(),
-         partial.data_ptr() if splits > 1 else None, dw.data_ptr(),
-         B, C, F, Fo, per)
+         scratch.data_ptr() + 4 * n_part, scratch.data_ptr(), dw.data_ptr(),
+         B, C, F, Fo, mt, bn, seg, WGRAD_RANGES)
     return dw

@@ -6,11 +6,15 @@ scene), through a padded width (30 -> 62) and a poisoned batch element,
 two runs bit-identical; a table whose few active tiles lie scattered
 among tiles of padding slots, and a call with no active tile (the
 kernel's persistent blocks walk every tile and gather only where a tap is
-present, ``kernels.sparse_conv_schedule``). Gate: one bf16 ulp per element of the larger of
-the two values, with a floor of 2^-16 of the largest reference value (the
-two sum in f32 in different orders; where an element's terms cancel the
-order alone moves it by more than its own ulp). Needs an NVIDIA GPU and
-skips without one; imports no JAX:
+present, ``kernels.sparse_conv_schedule``); the weight gradient alone on
+tables that exercise its walk over the present (row, tap) pairs
+(``kernels.sparse_wgrad_plan``): 3,712 active rows at the front of 65,536
+slots, two batch elements of unequal fills, taps no row has (their dW
+exactly 0) and a table with no active row (dW all 0). Gate: one bf16 ulp
+per element of the larger of the two values, with a floor of 2^-16 of the
+largest reference value (the two sum in f32 in different orders; where an
+element's terms cancel the order alone moves it by more than its own ulp).
+Needs an NVIDIA GPU and skips without one; imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_sparse_conv_bf16_cuda.py -m cuda -q
@@ -196,3 +200,83 @@ def test_bf16_call_with_no_active_tile(plans):
     out = kernels.sparse_conv_bf16(x, nbr, wc.pack_sparse_weight(w), poison)
     torch.cuda.synchronize()
     assert (out[0] == 0).all() and torch.isnan(out[1]).all()
+
+
+def _front(C, active, seed, keep=0.7, device="cuda"):
+    """nbr int32 [1, C, 27]: rows 0 .. active-1 are voxels whose taps are
+    present with probability ``keep``, each pointing at a random voxel;
+    the rest padding slots (the grid's active rows come first)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nbr = torch.full((1, C, 27), -1, dtype=torch.int32, device=device)
+    pick = torch.randint(0, active, (active, 27), generator=g, device=device)
+    on = torch.rand((active, 27), generator=g, device=device) < keep
+    nbr[0, :active] = torch.where(on, pick, -1).int()
+    return nbr
+
+
+def _hold_wgrad(nbr, F, Fo, seed):
+    """``sparse_conv_bf16_wgrad`` on random bf16 feats and g over ``nbr``:
+    two runs bit-identical, within one bf16 ulp of
+    ``sparse_conv_bwd_plain``'s dW once rounded as the backward rounds it.
+    Returns the kernel's f32 dW."""
+    B, C, _ = nbr.shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, C, F), generator=g, device="cuda").bfloat16()
+    cot = torch.randn((B, C, Fo), generator=g, device="cuda").bfloat16()
+    runs = []
+    for _ in range(2):
+        before = kernels.launches["sparse_conv_bf16_wgrad"]
+        runs.append(kernels.sparse_conv_bf16_wgrad(x, nbr, cot))
+        assert kernels.launches["sparse_conv_bf16_wgrad"] == before + 1
+    torch.cuda.synchronize()
+    assert runs[0].dtype == torch.float32 and runs[0].shape == (27, F, Fo)
+    assert torch.equal(runs[0], runs[1])
+    w = torch.zeros((27, F, Fo), dtype=torch.bfloat16, device="cuda")
+    poison = torch.zeros(B, dtype=torch.int32, device="cuda")
+    ref = wc.sparse_conv_bwd_plain(wc.ConvPlan(nbr, poison), x, w, cot)[1]
+    hold_ulp(runs[0].bfloat16(), ref)
+    return runs[0]
+
+
+@pytest.mark.parametrize("F,Fo", [(64, 64), (64, 128), (128, 256),
+                                  (256, 256), (192, 64), (384, 128)])
+def test_bf16_wgrad_few_rows_at_the_front(plans, F, Fo):
+    """3,712 voxels at the front of 65,536 slots (the bench grid's level 2):
+    every tile and split of the walk."""
+    nbr = _front(1 << 16, 3712, F + Fo)
+    plan = kernels.sparse_wgrad_plan(nbr, F, Fo)
+    assert 0 < plan.ranges <= kernels.WGRAD_RANGES
+    assert (plan.ranges - 1) * plan.length < plan.stages
+    _hold_wgrad(nbr, F, Fo, F * Fo)
+
+
+def test_bf16_wgrad_two_elements_of_unequal_fills(plans):
+    """B = 2: 15,000 and 2,000 voxels of 20,000 slots, each pointing within
+    its own element."""
+    nbr = torch.cat([_front(20_000, 15_000, 1), _front(20_000, 2_000, 2)])
+    assert (nbr[1, 2_000:] == -1).all()
+    _hold_wgrad(nbr, 64, 128, 3)
+
+
+def test_bf16_wgrad_taps_no_row_has(plans):
+    """dW of a tap no row has is exactly 0, beside taps that every range
+    cut passes through; scattered rows too."""
+    nbr = _front(1 << 16, 3712, 4)
+    nbr[..., 5] = -1
+    nbr[..., 26] = -1
+    dw = _hold_wgrad(nbr, 128, 128, 5)
+    assert (dw[5] == 0).all() and (dw[26] == 0).all()
+    assert (dw[13] != 0).any()
+    nbr = _scattered(1 << 16, (3, 200, 201, 511), 6)
+    nbr[..., 0] = -1
+    assert (_hold_wgrad(nbr, 64, 64, 7)[0] == 0).all()
+
+
+def test_bf16_wgrad_call_with_no_active_row(plans):
+    """A table of padding slots only: no stage, dW all 0."""
+    nbr = torch.full((2, 5000, 27), -1, dtype=torch.int32, device="cuda")
+    assert kernels.sparse_wgrad_plan(nbr, 64, 64).ranges == 0
+    x = torch.randn((2, 5000, 64), device="cuda").bfloat16()
+    dw = kernels.sparse_conv_bf16_wgrad(x, nbr, x)
+    torch.cuda.synchronize()
+    assert (dw == 0).all()
