@@ -304,6 +304,22 @@ Then the video stage's last three paths (the bf16 GSM freed first):
     60 and K5 60 a step exactly) split into forward, backward and
     optimizer, peak memory, one step under ``torch.profiler``.
 
+Then the chained pipeline and stage 3's frozen towers:
+
+40. ``examples.e2e_pipeline.run_pipeline`` at the release profile, cut as
+    phases 4 and 8 cut it: the release UNet with the sparse VAE's structure
+    decode at DDIM-2, 17 buffer frames at 480x832, the serving video stage
+    at 4 steps, the release GSM on 16 views; then
+    ``e2e_stage3_resume.resume`` on the artifacts; each stage's seconds
+    and peak memory, the artifact set, the resume's gaussians against the
+    chain's where it read the chain's frames, exact launches (the ``e2e``
+    path of every kernel);
+41. on phase 30's 16 views: a release-width GSM with ``encoders=("conv",
+    "dav2")`` (``DAv2Config.vits()``) timed with exact launches, the DAv2
+    refiner's output card against CPU on one view (cosine >= 0.9999);
+    SegFormer b0's sky masks of the 16 frames card against CPU, equal but
+    at near ties of the top two logits (within 1e-4), both timed.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -3767,8 +3783,8 @@ def stage3_time(sg, gsm, folder):
 
 def stage3(kernels, att, world_path):
     """Phases 28-31 on phase 26's world with its 4 cars. Returns the rows
-    of ``flash_attn_f32`` and K4 at the GSM's shapes and the stage-3 path's
-    launches."""
+    of ``flash_attn_f32`` and K4 at the GSM's shapes, the stage-3 path's
+    launches and phase 30's 16 views (phase 41's input)."""
     from infinicube_tpu_torch.inference import feedforward_reconstruction as ff
     from infinicube_tpu_torch.inference import guidance_buffer_generation as gb
     from infinicube_tpu_torch.inference import scene_gaussian_generation as sg
@@ -3795,10 +3811,11 @@ def stage3(kernels, att, world_path):
         # ---- 31. where the time goes -------------------------------------
         stage3_time(sg, gsm, folder)
         done("phase 31")
+        views = sg.load_buffer_folder(folder, STAGE3_FRAMES, STAGE3_STRIDE)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    return attn_rows, k4_rows, launches
+    return attn_rows, k4_rows, launches, views
 
 
 # ---------------------------------------------------------------------------
@@ -5255,6 +5272,240 @@ def video_leftovers(kernels, att, dense_conv):
                                "wan_train": train_path}
 
 
+# ---------------------------------------------------------------------------
+# the chained pipeline (phase 40) and stage 3's frozen towers (phase 41)
+# ---------------------------------------------------------------------------
+
+# the e2e release profile cut as phases 4 and 8 cut it: DDIM-2 chunks, the
+# video at 17 frames and 4 steps; stage 3 on 16 of the 17 frames
+E2E_DDIM, E2E_FRAMES, E2E_STEPS = 2, 17, 4
+K1_PER_REQUEST = 30 * 2 * E2E_STEPS      # layers x sequential CFG x steps
+SKY_TIE = 1e-4                           # top-two logit gap of a near tie
+
+
+def e2e_want(chunks, gsm_cfg, views, dyn):
+    """Exact launches of the chain and the resume: per stage-1 chunk 48 K3
+    and 10 K2 a DDIM step and the VAE decode's 12 K4; the video request's
+    K1 and K2 (30 layers x 2 CFG passes x 4 steps, the VAE on
+    ``F.conv3d``); two stage-3 reconstructions (the chain's and the
+    resume's), each with its dynamic pass where the views hold dynamic
+    instances."""
+    want = {k: 0 for k in ("conv3x3x3_bf16", "flash_attn_bf16",
+                           "sparse_conv_f32", "flash_attn_int8qk",
+                           "flash_attn_f32")}
+    want["conv3x3x3_bf16"] = chunks * 48 * E2E_DDIM
+    want["flash_attn_bf16"] = chunks * 10 * E2E_DDIM + K1_PER_REQUEST
+    want["sparse_conv_f32"] = chunks * 12
+    want["flash_attn_int8qk"] = K1_PER_REQUEST
+    for k, v in gsm_launches(gsm_cfg, views, 1 + dyn).items():
+        want[k] += 2 * v
+    return want
+
+
+def e2e_chain(kernels):
+    """Phase 40: ``examples.e2e_pipeline.run_pipeline`` at the release
+    profile on the card (the release UNet with the sparse VAE's structure
+    decode at DDIM-2, 17 buffer frames at 480x832, the serving video stage
+    at 4 steps, the release GSM on 16 views), then
+    ``e2e_stage3_resume.resume`` on the artifacts it wrote; each stage's
+    seconds and peak memory, the artifact set, the outputs' shapes and
+    finiteness, the resume's gaussians against the chain's where it read
+    the chain's frames, exact launches. Returns the path's launches."""
+    from infinicube_tpu_torch.examples import e2e_pipeline as e2e
+    from infinicube_tpu_torch.examples.e2e_stage3_resume import resume
+    from infinicube_tpu_torch.inference import scene_gaussian_generation as sg
+    from infinicube_tpu_torch.models.wan.pipeline import WanPipelineConfig
+    dcfg, vcfg, gsm_cfg, _ = e2e.profile_configs("release")
+    wan_cfg = WanPipelineConfig.serving(num_frames=E2E_FRAMES,
+                                        num_steps=E2E_STEPS)
+    views = e2e.Stage3Views(16, 1, 16)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = e2e.run_pipeline(tmp, dcfg, vcfg, gsm_cfg, wan_cfg, views,
+                               frames=E2E_FRAMES, hw=(480, 832),
+                               ddim_steps=E2E_DDIM, device="cuda")
+        chain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = resume(tmp, gsm_cfg, views, device="cuda")
+        resume_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        files = sorted(os.listdir(tmp))
+        bufs = sorted(os.listdir(os.path.join(tmp, "buffers")))
+        inst = sg.load_buffer_folder(os.path.join(tmp, "buffers"),
+                                     views.num_frames)["instance"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, rec in list(res["seconds"].items()) + list(
+            again["seconds"].items()):
+        print(f"[e2e] {label}: {rec['cold_s']:.3f} s, peak "
+              f"{rec['peak_gib']:.2f} GiB")
+    print(f"[e2e] the chain {chain_s:.2f} s, the resume {resume_s:.2f} s; "
+          f"{res['chunks']} stage-1 chunks, {res['world'].num_voxels} voxels,"
+          f" {len(res['static_gs']['means'])} static gaussians; outputs "
+          f"{files}, buffers/ {bufs}")
+    for name in ("world.npz", "decoded_gs_static.pkl",
+                 "decoded_gs_static.splat", "render0.png", "buffers"):
+        check(name in files, f"e2e wrote no {name}: {files}")
+    check("video.mp4" in files or "video" in files, f"no video: {files}")
+    for name in ("depth.tar", "instance.tar", "semantic.tar", "pose.tar",
+                 "intrinsic.tar", "dynamic_object_info.tar", "world.npz"):
+        check(name in bufs, f"buffers/ has no {name}: {bufs}")
+    check(any(b.startswith("semantic") for b in bufs if not
+              b.endswith(".tar")), f"no previews: {bufs}")
+    v = res["video"]
+    check(v.shape == (E2E_FRAMES, 480, 832, 3) and np.isfinite(v).all()
+          and v.min() != v.max(), f"e2e video {v.shape}")
+    for label, out in (("chain", res), ("resume", again)):
+        gs = out["static_gs"]
+        rgb = out["out"]["render"]["rgb"]
+        check(len(gs["means"]) > 0 and all(np.isfinite(a).all()
+                                            for a in gs.values()),
+              f"{label} gaussians")
+        check(tuple(rgb.shape) == (16, 480, 832, 3) and
+              torch.isfinite(rgb).all().item(), f"{label} renders")
+    if again["video"]:
+        # the resume read the chain's frames back: the same scene, each
+        # field within 1e-3 of its scale
+        a, b = res["static_gs"], again["static_gs"]
+        check(len(a["means"]) == len(b["means"]),
+              "the resume's gaussian count differs from the chain's")
+        err = {k: float(np.abs(a[k] - b[k]).max() /
+                        max(np.abs(a[k]).max(), 1e-30)) for k in a}
+        print(f"[e2e] the resume read the video/ frames back: its gaussians "
+              f"against the chain's, max |diff| / max |value| {err}")
+        check(max(err.values()) <= 1e-3, f"resume against chain {err}")
+    else:
+        print("[e2e] the chain wrote video.mp4: the resume took random "
+              "frames, as the reference's")
+    dyn = bool((inst >= sg.DYNAMIC_ID_BASE).any())
+    want = e2e_want(res["chunks"], gsm_cfg, views.max_views, dyn)
+    got = {k: launches[k] for k in want}
+    others = {k: n for k, n in launches.items() if n and k not in want}
+    print(f"[e2e] launches {got} (want {want})")
+    check(got == want and not others,
+          f"e2e launches {got}, want {want}; others {others}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sky_logit_shift(model, frames):
+    """The sky class's bias raised so that it wins on about a third of the
+    pixels of ``frames`` (random weights make it win nowhere)."""
+    from infinicube_tpu_torch.models.gsm import segformer as seg
+    x = (frames - frames.new_tensor(seg.IMAGENET_MEAN)) / frames.new_tensor(
+        seg.IMAGENET_STD)
+    with torch.inference_mode():
+        logits = model(x)
+    sky = seg.CITYSCAPES_SKY_ID
+    others = torch.cat([logits[..., :sky], logits[..., sky + 1:]], -1)
+    gap = (others.amax(-1) - logits[..., sky]).flatten().float()
+    with torch.no_grad():
+        model.classifier.bias[sky] += torch.quantile(gap[::97], 0.33)
+
+
+def frozen_towers(kernels, data):
+    """Phase 41, on phase 30's 16 views of 480x832: a release-width GSM
+    with ``encoders=("conv", "dav2")`` (``DAv2Config.vits()``, target
+    252x336) timed with exact launches and its peak, the DAv2 refiner's
+    output card against CPU on one view (cosine >= 0.9999); then SegFormer
+    b0 over the 16 frames, card against CPU: masks equal except at pixels
+    whose top two logits lie within 1e-4, those counted, both timed."""
+    from infinicube_tpu_torch.inference import scene_gaussian_generation as sg
+    from infinicube_tpu_torch.models.gsm import model as gsm
+    from infinicube_tpu_torch.models.gsm import segformer as seg
+    from infinicube_tpu_torch.models.gsm.dav2 import DAv2Config
+    from infinicube_tpu_torch.models.gsm.encoders import (
+        DAV2FeatureEncoder, UnifiedEncoderConfig, nchw, resize)
+    cfg = gsm.GSMConfig(encoder=UnifiedEncoderConfig(
+        encoders=("conv", "dav2"), dav2_config=DAv2Config.vits()),
+        **STAGE3_CROP)
+    model = gsm.GSM(cfg, device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(41))
+    batch = stage3_batch(sg, data, "cuda", STAGE3_VIEWS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model(batch)                                   # warm-up
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = model(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = dict(model.last_phase_seconds)
+    want = gsm_launches(cfg, STAGE3_VIEWS, 1)
+    got = {k: kernels.launches[k] for k in want}
+    g = out["gaussians"]
+    print(f"[towers] release GSM with the DAv2 encoder, {STAGE3_VIEWS} views "
+          f"of 480x832: {wall:.3f} s (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in split.items()) + f"), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{int(g['valid'].sum())} valid gaussians, launches {got}")
+    check(got == want, f"DAv2 GSM launches {got}, want {want}")
+    check(all(torch.isfinite(v[g["valid"]]).all().item() for k, v in
+              g.items() if k != "valid" and v.dtype.is_floating_point),
+          "DAv2 GSM gaussians not finite")
+    enc = model.encoder.dav2
+    images = batch["images"]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        feats = enc(images)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        cpu = DAV2FeatureEncoder(cfg.encoder.dav2_width,
+                                 cfg.encoder.dav2_target_hw,
+                                 DAv2Config.vits(), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()})
+        t0 = time.perf_counter()
+        ref = cpu(images[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+    c = cos(feats[:1].cpu(), ref)
+    print(f"[towers] the DAv2 encoder alone on {STAGE3_VIEWS} views: "
+          f"{enc_s:.3f} s; its output on view 0 card vs CPU cosine "
+          f"{c:.7f} (CPU {cpu_s:.2f} s), |out| max "
+          f"{ref.abs().max().item():.3f}")
+    check(c >= 0.9999, f"DAv2 encoder card vs CPU cosine {c}")
+    del model, out, g, batch, feats
+    torch.cuda.empty_cache()
+
+    frames = torch.as_tensor(data["video"][:STAGE3_VIEWS])
+    hw = tuple(frames.shape[1:3])
+    card = seg.Segformer(seg.SegformerConfig.b0(), device="cuda")
+    card.init_params(torch.Generator(device="cuda").manual_seed(41))
+    sky_logit_shift(card, frames[:2].cuda())
+    cpu = seg.Segformer(seg.SegformerConfig.b0(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    segment = seg.make_segformer_sky_segmenter(
+        card.state_dict(), seg.SegformerConfig.b0(), device="cuda")
+    segment.batch(frames[:1].numpy())                   # warm-up
+    t0 = time.perf_counter()
+    masks = segment.batch(frames.numpy())
+    card_s = time.perf_counter() - t0
+    x = (frames - frames.new_tensor(seg.IMAGENET_MEAN)) / frames.new_tensor(
+        seg.IMAGENET_STD)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits = torch.cat([cpu(x[i:i + 4]) for i in range(0, len(x), 4)])
+        cpu_s = time.perf_counter() - t0
+        up = resize(nchw(logits), hw, "bilinear")
+    ref = (up.argmax(1) == seg.CITYSCAPES_SKY_ID).to(torch.uint8).numpy()
+    top2 = up.topk(2, dim=1).values
+    ties = ((top2[:, 0] - top2[:, 1]) <= SKY_TIE).numpy()
+    differ = masks != ref
+    print(f"[towers] SegFormer b0 sky masks of {len(frames)} frames at "
+          f"{hw[0]}x{hw[1]}: card {card_s:.3f} s, CPU {cpu_s:.2f} s; sky "
+          f"share {ref.mean():.3f}; {int(differ.sum())} pixels differ, all "
+          f"among the {int(ties.sum())} near ties: "
+          f"{not (differ & ~ties).any()}")
+    check(masks.shape == ref.shape and masks.dtype == np.uint8,
+          f"sky masks {masks.shape} {masks.dtype}")
+    check(not (differ & ~ties).any(), "sky masks differ off the near ties")
+    check(0.05 < ref.mean() < 0.95, f"sky share {ref.mean()}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -5384,7 +5635,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     try:
         stage2_launches = stage2(kernels, world_path)
-        gsm_attn, gsm_k4, stage3_launches = stage3(kernels, att, world_path)
+        gsm_attn, gsm_k4, stage3_launches, stage3_views = stage3(
+            kernels, att, world_path)
     finally:
         shutil.rmtree(world_dir, ignore_errors=True)
     f32_bwd, f32_bwd_padded, gsm_train_launches = gsm_train(kernels, att)
@@ -5393,6 +5645,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     vae_k3, vae_f32, k2_dit, k5_dit, video_paths = video_leftovers(
         kernels, att, dense_conv)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e2e_launches = e2e_chain(kernels)
+    print(f"[e2e] phase 40 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frozen_towers(kernels, stage3_views)
+    del stage3_views
+    print(f"[towers] phase 41 done in {time.perf_counter() - t0:.1f} s")
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -5432,7 +5692,8 @@ def main() -> int:
              **int8_paths, "stage1_f32": f32_launches,
              "stage2": stage2_launches, "stage3": stage3_launches,
              "gsm_train": gsm_train_launches,
-             "gsm_train_bf16": bf16_launches, **video_paths}
+             "gsm_train_bf16": bf16_launches, **video_paths,
+             "e2e": e2e_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

@@ -5,7 +5,8 @@ scene; counterpart of
 Loads the stage-2 buffer folder (the voxel world ``world.npz``, the pose /
 intrinsic / depth / instance tars, the video as ``video.mp4`` or as the
 directory of png frames that ``utils.fileio.write_video`` falls back to),
-builds the 4-channel GSM masks (sky from the depth buffer: depth == 0;
+builds the 4-channel GSM masks (sky from the SegFormer with
+``--segformer-ckpt``, else from the depth buffer: depth == 0;
 dynamic pixels from instance ids >= 10000), runs the static reconstruction
 with the buffer depth as the pixel branch's prior, then the dynamic pass:
 every pixel's gaussians (``decode_all_pixels``), kept per dynamic instance
@@ -222,6 +223,24 @@ def reconstruct_scene(data: dict, params: dict | None = None,
     return static_gs, object_gs, out, model, model.state_dict()
 
 
+def segment_sky(video: np.ndarray, ckpt: str, variant: str = "b0",
+                device="cuda", chunk: int = 4) -> np.ndarray:
+    """Sky masks [V, H, W] uint8 (1 = sky) of the video frames [V, H, W, 3]
+    in [0, 1] by the SegFormer (the reference runs the cityscapes SegFormer
+    here). ``ckpt``: an HF-layout state dict (.pth / .pt;
+    ``weights.convert.load_torch_state_dict``), converted by
+    ``convert_segformer_hf``; ``chunk`` frames a call."""
+    from infinicube_tpu_torch.models.gsm.segformer import (
+        SegformerConfig, convert_segformer_hf, make_segformer_sky_segmenter)
+    from infinicube_tpu_torch.weights.convert import load_torch_state_dict
+    cfg = getattr(SegformerConfig, variant)()
+    params = convert_segformer_hf(load_torch_state_dict(ckpt), cfg)
+    seg = make_segformer_sky_segmenter(params, cfg, device=device)
+    return np.concatenate([seg.batch(video[i:i + chunk])
+                           for i in range(0, len(video), chunk)]
+                          ).astype(np.uint8)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--buffer_folder", required=True)
@@ -229,21 +248,20 @@ def main(argv=None):
     ap.add_argument("--num_frames", type=int, default=16)
     ap.add_argument("--max_views", type=int, default=8)
     ap.add_argument("--segformer-ckpt", default=None,
-                    help="SegFormer weights for sky masks from segmentation "
-                         "(not ported yet); default: the depth == 0 sky")
+                    help="SegFormer weights (.pth, HF layout): sky masks "
+                         "from segmentation instead of the depth == 0 sky")
     ap.add_argument("--segformer-variant", default="b0")
     ap.add_argument("--device", default="cuda",
                     help="where the scene is reconstructed")
     args = ap.parse_args(argv)
-    if args.segformer_ckpt:
-        raise NotImplementedError(
-            "--segformer-ckpt: the SegFormer sky segmenter is not ported "
-            "yet (ROADMAP section 1 item 4); run without it for the "
-            "depth == 0 sky")
     set_float32_precision()
     device = resolve_device(args.device)
 
     data = load_buffer_folder(args.buffer_folder, args.num_frames)
+    if args.segformer_ckpt and data.get("video") is not None and \
+            data.get("sky_seg") is None:
+        data["sky_seg"] = segment_sky(data["video"], args.segformer_ckpt,
+                                      args.segformer_variant, device=device)
     static_gs, object_gs, out, _, _ = reconstruct_scene(
         data, max_views=args.max_views, device=device)
     outdir = Path(args.output)

@@ -2,23 +2,24 @@
 ``infinicube_tpu/models/gsm/convnext.py``: a frozen ConvNeXt backbone whose
 last-stage features feed a trainable conv refiner, resized back to the
 pixel grid. Submodule names are the flax module's (which follow the
-HuggingFace ``ConvNextModel`` layout). Converting HuggingFace checkpoints
-comes with the converters."""
+HuggingFace ``ConvNextModel`` layout); ``convert_convnext_hf`` maps an HF
+``ConvNextModel`` state dict straight to ``ConvNextTower``'s
+``state_dict``."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infinicube_tpu_torch.models.gsm.encoders import nchw, nhwc, resize
+from infinicube_tpu_torch.models.gsm.encoders import (IMAGENET_MEAN,
+                                                      IMAGENET_STD, Refiner,
+                                                      nchw, nhwc, resize)
 from infinicube_tpu_torch.nn.layers import Conv2d
-
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,25 +85,46 @@ class ConvNextTower(nn.Module):
         return x
 
 
-class ConvNextFeatureEncoder(nn.Module):
+class ConvNextFeatureEncoder(Refiner):
     """Frozen ConvNeXt tower (no gradient) + trainable conv refiner,
     resized back to the pixel grid; channels-last in and out."""
 
     def __init__(self, width: int = 64, cfg: ConvNextConfig = ConvNextConfig(),
                  device=None):
-        super().__init__()
+        super().__init__(cfg.hidden_sizes[-1], width, device=device)
         self.tower = ConvNextTower(cfg, device=device)
-        c = cfg.hidden_sizes[-1]
-        self.up0 = Conv2d(c, width, 3, device=device)
-        self.up1 = Conv2d(width, width, 3, device=device)
-        self.up2 = Conv2d(width, width, 3, device=device)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:  # [B, H, W, 3]
         B, H, W, _ = images.shape
         mean = images.new_tensor(IMAGENET_MEAN)
         std = images.new_tensor(IMAGENET_STD)
         f = self.tower(nchw((images - mean) / std)).detach()
-        h = self.up0(f)
-        r = F.relu(self.up1(F.relu(h)))
-        h = h + self.up2(r)
-        return nhwc(resize(h, (H, W), "bilinear"))
+        return nhwc(resize(self.refine(f), (H, W), "bilinear"))
+
+
+def convert_convnext_hf(sd, cfg: ConvNextConfig) -> dict[str, torch.Tensor]:
+    """HuggingFace ``ConvNextModel`` state dict -> ``ConvNextTower``
+    ``state_dict`` (HF's final pooled LayerNorm is not part of the tower)."""
+    out: dict = {}
+
+    def copy(src, dst):
+        for leaf in ("weight", "bias"):
+            x = sd[f"{src}.{leaf}"]
+            out[f"{dst}.{leaf}"] = torch.as_tensor(np.array(
+                x.detach().cpu().numpy() if hasattr(x, "detach") else x))
+
+    copy("embeddings.patch_embeddings", "patch_embed")
+    copy("embeddings.layernorm", "embed_ln")
+    for s, depth in enumerate(cfg.depths):
+        if s > 0:
+            p = f"encoder.stages.{s}.downsampling_layer"
+            copy(f"{p}.0", f"down_ln{s}")
+            copy(f"{p}.1", f"down_conv{s}")
+        for i in range(depth):
+            p, q = f"encoder.stages.{s}.layers.{i}", f"stage{s}_block{i}"
+            for n in ("dwconv", "layernorm", "pwconv1", "pwconv2"):
+                copy(f"{p}.{n}", f"{q}.{n}")
+            x = sd[f"{p}.layer_scale_parameter"]
+            out[f"{q}.layer_scale"] = torch.as_tensor(np.array(
+                x.detach().cpu().numpy() if hasattr(x, "detach") else x))
+    return out

@@ -78,6 +78,8 @@ def feature_width(cfg: UnifiedEncoderConfig) -> int:
     """Channels of the encoder's concatenated per-pixel features."""
     return sum(w for kind, w in (("conv", cfg.conv_width),
                                  ("vit", cfg.vit_width),
+                                 ("dav2", cfg.dav2_width),
+                                 ("dino", cfg.dino_width),
                                  ("convnext", cfg.convnext_width),
                                  ("plucker", cfg.plucker_width))
                if kind in cfg.encoders)
@@ -123,7 +125,8 @@ class GSM(nn.Module):
                     fan_in = m.weight[0].numel()
                     m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                      generator=generator)
-                    m.bias.zero_()
+                    if m.bias is not None:
+                        m.bias.zero_()
             for name, p in self.named_parameters():
                 if name.endswith(("sky_query", ".pos")):
                     p.normal_(0.0, 0.02, generator=generator)

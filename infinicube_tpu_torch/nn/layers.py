@@ -89,23 +89,30 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv(dtype)`` in 2-D (SAME padding, ``feature_group_count``)
-    on NCHW tensors, weight [O, I / groups, kh, kw] (``weights/from_jax.py``
+    """flax ``nn.Conv(dtype)`` in 2-D (SAME padding, or a symmetric
+    ``padding`` given; ``feature_group_count``; ``use_bias``) on NCHW
+    tensors, weight [O, I / groups, kh, kw] (``weights/from_jax.py``
     re-lays out flax's HWIO kernels), computing in ``dtype`` (``None``
     promotes as flax does)."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, groups: int = 1, device=None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, bias: bool = True,
+                 padding: int | None = None):
         super().__init__()
         self.stride, self.groups, self.dtype = stride, groups, dtype
+        self.padding = padding
         self.weight = nn.Parameter(torch.empty(
             (features, in_features // groups, kernel, kernel), device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) \
+            if bias else None
 
     def same_pad(self, x: torch.Tensor):
-        """(x, padding): SAME padding as the conv's symmetric ``padding``
-        argument, or applied to x where it is uneven (padding 0 then)."""
+        """(x, padding): SAME padding (or the ``padding`` given) as the
+        conv's symmetric ``padding`` argument, or applied to x where it is
+        uneven (padding 0 then)."""
+        if self.padding is not None:
+            return x, (self.padding, self.padding)
         k, s = self.weight.shape[-1], self.stride
         (hl, hh), (wl, wh) = (same_padding(n, k, s) for n in x.shape[-2:])
         if hl != hh or wl != wh:
@@ -115,7 +122,8 @@ class Conv2d(nn.Module):
     def operands(self, x: torch.Tensor):
         """x, weight and bias in the compute dtype."""
         dt = compute_dtype(x, self.weight, self.dtype)
-        return x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return x.to(dt), self.weight.to(dt), bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = self.operands(x)

@@ -193,10 +193,16 @@ def _flatten_attention(tree: dict) -> dict:
 
 
 def gsm_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """GSM params (or any of its submodules', such as the sky model's): 2-D
-    convs HWIO -> OIHW, Dense kernels transposed, the attention modules'
-    per-head kernels flattened, the sparse convs' [27, F_in, F_out] kept,
-    norms' ``scale`` -> ``weight``."""
+    """GSM params (or any of its submodules', such as the sky model's or
+    the frozen towers' under ``encoder/dav2`` and ``encoder/dino``; also
+    the standalone ``ConvNextTower``'s and ``Segformer``'s, whose attention
+    layers are plain Dense kernels and whose BatchNorm statistics are flax
+    params of the same names): 2-D
+    convs HWIO -> OIHW (the DPT neck's transposed convs too: the port's
+    ``dav2.ConvTranspose2d`` takes flax's kernel in a conv's layout),
+    Dense kernels transposed, the attention modules' per-head kernels
+    flattened, the sparse convs' [27, F_in, F_out] kept, norms' ``scale``
+    -> ``weight``, ``layer{i}`` -> ``layers.{i}``."""
     return _convert(_flatten_attention(_params(tree)))
 
 
@@ -228,6 +234,13 @@ def gsm_to_jax(model: torch.nn.Module) -> dict:
     tree: dict = {}
     for key, p in model.state_dict().items():
         *path, leaf = key.split(".")
+        parent = ".".join(path[:-1])
+        # ``layers.{i}`` / ``blocks.{i}`` -> flax's ``layer{i}`` / ``block{i}``
+        path = [f"{path[i - 1][:-1]}{part}" if part.isdigit()
+                and path[i - 1] in ("layers", "blocks") else part
+                for i, part in enumerate(path)
+                if not (part in ("layers", "blocks") and i + 1 < len(path)
+                        and path[i + 1].isdigit())]
         a = p.detach().cpu().numpy()
         if leaf == "weight":
             if a.ndim == 1:
@@ -237,7 +250,6 @@ def gsm_to_jax(model: torch.nn.Module) -> dict:
                 a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)
             else:
                 raise ValueError(f"{key}: weight of rank {a.ndim}")
-        parent = ".".join(path[:-1])
         if parent in heads:
             h = heads[parent]
             if path[-1] == "out":

@@ -131,8 +131,22 @@ def test_unified_encoder_features_and_masks():
 
 @pytest.mark.parametrize("kind", ["dav2", "dino"])
 def test_frozen_tower_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tenc.UnifiedEncoder(tenc.UnifiedEncoderConfig(encoders=(kind,)))
+    """A frozen tower kind beside a kind the reference lacks raises (the
+    frozen kinds themselves build: test_frozen_tower_kinds_build)."""
+    with pytest.raises(ValueError, match="unknown encoder kinds"):
+        tenc.UnifiedEncoder(tenc.UnifiedEncoderConfig(
+            encoders=(kind, f"{kind}_v3")))
+
+
+@pytest.mark.parametrize("kind", ["dav2", "dino"])
+def test_frozen_tower_kinds_build(kind):
+    """The frozen tower kinds build (their parity is in
+    tests/test_torch_dav2.py)."""
+    from infinicube_tpu_torch.models.gsm.dav2 import DAv2Config
+    enc = tenc.UnifiedEncoder(tenc.UnifiedEncoderConfig(
+        encoders=(kind,), dav2_config=DAv2Config.tiny(),
+        dino_config=DAv2Config.tiny()))
+    assert hasattr(enc, kind)
 
 
 # -------------------------------------------------------------------- sky

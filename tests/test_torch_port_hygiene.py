@@ -16,7 +16,7 @@ from infinicube_tpu_torch import kernels
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "infinicube_tpu_torch"
-FORBIDDEN = ("jax", "flax", "infinicube_tpu")
+FORBIDDEN = ("jax", "flax", "transformers", "infinicube_tpu")
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -287,9 +287,15 @@ def test_clis_run_on_the_cpu(folder, tmp_path, monkeypatch):
               str(tmp_path / "eval"), "--save_gs", "--device", "cpu"])
     assert sorted(p.name for p in (tmp_path / "eval").iterdir()) == \
         ["gs.pkl"] + [f"render_{i:03d}.png" for i in range(FRAMES)]
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # --segformer-ckpt reads an HF-layout .pth (tests/test_torch_segformer.py
+    # runs it); a missing file and a flax .msgpack are refused
+    with pytest.raises(FileNotFoundError):
         tsg.main(["--buffer_folder", str(folder[0]), "--output", str(out),
-                  "--segformer-ckpt", "x.pth", "--device", "cpu"])
+                  "--segformer-ckpt", str(tmp_path / "x.pth"),
+                  "--device", "cpu"])
+    with pytest.raises(ValueError, match="from_jax"):
+        tsg.main(["--buffer_folder", str(folder[0]), "--output", str(out),
+                  "--segformer-ckpt", "x.msgpack", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tsg.main(["--buffer_folder", str(folder[0]), "--output",
