@@ -320,11 +320,44 @@ Then the chained pipeline and stage 3's frozen towers:
     SegFormer b0's sky masks of the 16 frames card against CPU, equal but
     at near ties of the top two logits (within 1e-4), both timed.
 
+Then stage 1's leftovers (the towers freed first):
+
+42. the alternative conditioning at the release width: the condition
+    encoders' extra cube on the 64^3 cube from 3 views at 480x832, card
+    against CPU in f32, for LSS and for lift3d; the release-width UNet on
+    a 16^3 cube with every condition on (in_conv 40 wide, cross-attention
+    on a 77 x 768 context, 10 classes), card against CPU at phase 7's gate
+    and its int8 twin at phase 19's; ``VoxelDiffusion.sample`` on the
+    release 64^3 cube after one ``encode_extra`` (a semantic cube, a
+    20,000-point scan, 3 views through LSS, a class and the context), CFG
+    2.0 as the doubled batch, DDIM-10, in bf16 and through the int8 twin,
+    with seconds a step, peak memory and exact launches a step (K3 48 and
+    K2 10; int8: K7 and each prologue kernel 23, K3 25, K2 10), no plain
+    version called; ``train.main`` on configs/train_diffusion.yaml with the
+    same ``diffusion.*`` keys, batch 1, 3 steps, exact launches a step (K3
+    48, K3-dgrad 47, K2 10, K5 10), the UNet moved and the condition
+    encoders not (the synthetic stream's conditions are the null ones),
+    the checkpoint read back;
+43. the sparse side: ``sparse_attention``'s card route (each sample's
+    active rows through ``flash_attn_f32`` or K2) against its plain version
+    on the CPU at the VAE's level-2 width, f32 and bf16, one sample without
+    an active row; the release-width VAE with ``attention_levels=(2,)`` and
+    the normal and color heads, loss and every gradient card against CPU;
+    ``SparseUNet(SparseUNetConfig())`` card against CPU without and with a
+    context; ``train.main`` on configs/train_vae.yaml at 200,000 points
+    with those ``vae.*`` keys, 3 steps, exact launches a step (K4,
+    K4-dgrad and K6 24 each, ``flash_attn_f32`` 2 and its backward 2) and
+    the peak against the 17 GB of one sample's dense level-2 logits;
+    ``SparseUNet`` on that scene's hash-tree levels 1-2 timed with exact
+    launches (K4 10, ``flash_attn_f32`` 2); one ``conv_backend="brick"``
+    VAE forward against the ``ConvPlan`` one.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -1692,17 +1725,22 @@ def sparse_bwd_checks(kernels, mods, dec_grids, vcfg):
     return dx_rows, dw_rows
 
 
-def vae_grad_check(mods):
+def vae_grad_check(mods, extra=None, prepare=None, outputs_only=()):
     """``vae_loss`` and every parameter's gradient of the release-width VAE
     (f_maps 64) on a small scene with reduced capacities: card (K4,
     K4-dgrad, K6) against the CPU (plain versions), same weights, batch and
-    reparametrize noise. f32 on both sides."""
+    reparametrize noise. f32 on both sides. ``extra``: more config fields;
+    ``prepare(model)`` edits the CPU model's weights; the parameters named
+    by the ``outputs_only`` prefixes get no gradient on either side."""
     cfg = mods.SparseVAEConfig(neck_dims=(8, 8, 16), neck_ijk_min=(-4, -4, -8),
                                capacities=(8192, 4096, 1024),
                                dense_lookup_ijk_min=(-18, -18, -18),
-                               dense_lookup_dims=(36, 36, 36))
+                               dense_lookup_dims=(36, 36, 36),
+                               **(extra or {}))
     cpu = mods.SparseStructureVAE(cfg, device="cpu")
     cpu.init_params(torch.Generator().manual_seed(16))
+    if prepare is not None:
+        prepare(cpu)
     card = mods.SparseStructureVAE(cfg, device="cuda")
     card.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(16)
@@ -1729,12 +1767,20 @@ def vae_grad_check(mods):
         check(all(int(gr.num_dropped.sum()) == 0 for gr in grids),
               "the scene overflows a capacity")
         sizes = n_vox
-    grads_cpu = {k: p.grad for k, p in cpu.named_parameters()}
+    for name, model in (("cpu", cpu), ("card", card)):
+        got = [k for k, p in model.named_parameters()
+               if k.startswith(outputs_only) and p.grad is not None]
+        check(not got, f"{name}: output-only parameters with a gradient "
+              f"{got}")
+    grads_cpu = {k: p.grad for k, p in cpu.named_parameters()
+                 if not k.startswith(outputs_only)}
     g_max = max(gr.abs().max().item() for gr in grads_cpu.values())
     floor = 1e-6 * g_max
     cosines, zero, bad = {}, {}, []
     for k, p in card.named_parameters():
         gr = p.grad
+        if k.startswith(outputs_only):
+            continue
         if gr is None or not torch.isfinite(gr).all():
             bad.append(k)
         elif grads_cpu[k].abs().max().item() < floor:
@@ -1747,7 +1793,8 @@ def vae_grad_check(mods):
     order = sorted(cosines, key=cosines.get)
     vals = np.array([cosines[k] for k in order])
     rel = abs(losses["card"][0] - losses["cpu"][0]) / abs(losses["cpu"][0])
-    print(f"[model] release-width VAE, voxels per level {sizes} (batch {B}),"
+    print(f"[model] release-width VAE {extra or ''}, voxels per level "
+          f"{sizes} (batch {B}),"
           f" vae_loss: card {losses['card'][0]:.6f} vs cpu "
           f"{losses['cpu'][0]:.6f} (relative {rel:.2e}; cpu "
           f"{losses['cpu'][1]:.1f} s); {len(cosines)} parameter tensors with "
@@ -5506,6 +5553,681 @@ def frozen_towers(kernels, data):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# stage 1's leftovers: the alternative conditioning (phase 42) and the sparse
+# side (phase 43)
+# ---------------------------------------------------------------------------
+
+# every alternative condition on, at the release width: the extra cube
+# (semantic 8 + single scan 8 + LSS 8 channels: in_conv takes 16 + 24 = 40),
+# an adm class one-hot of 10 and a text-like context of 77 x 768
+ALT_CFG = dict(use_semantic_cond=True, use_single_scan_cond=True,
+               use_image_cond="lss", num_classes=10, context_dim=768)
+ALT_VIEWS, ALT_HW, ALT_SCAN, ALT_CTX = 3, (480, 832), 20_000, 77
+# the plain versions that a CUDA tensor must never reach
+PLAIN_FUNCS = (("ops.dense_conv", "conv3x3x3_plain"),
+               ("ops.dense_conv", "conv3x3x3_int8_plain"),
+               ("ops.attention", "attention_plain"),
+               ("ops.attention", "attention_bwd_plain"),
+               ("ops.window_conv", "sparse_conv_plain"),
+               ("ops.window_conv", "sparse_conv_bwd_plain"),
+               ("nn.sparse", "_attention_plain"))
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Every kernel's plain version (and the sparse attention's einsum)
+    raises while the block runs: the main path's proof that no CUDA tensor
+    took one."""
+    import importlib
+    saved = []
+
+    def refuse(name):
+        def fn(*a, **kw):
+            raise RuntimeError(f"{name}: a plain version ran on the card")
+        return fn
+
+    for mod, name in PLAIN_FUNCS:
+        m = importlib.import_module(f"infinicube_tpu_torch.{mod}")
+        saved.append((m, name, getattr(m, name)))
+        setattr(m, name, refuse(name))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def alt_views(B=1):
+    """3 views at 480x832 looking along +x, -y and +y from the cube's
+    centre (axis-permutation rotations: the lifted world points are exact
+    on every device), with the release camera's intrinsics."""
+    K = np.array([[600.0, 0, 416.3], [0, 600.0, 240.7], [0, 0, 1]],
+                 np.float32)
+    fwd = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float32)
+    turn = {"+x": np.eye(3, dtype=np.float32),
+            "-y": np.array([[0, 1, 0], [-1, 0, 0], [0, 0, 1]], np.float32),
+            "+y": np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]], np.float32)}
+    T = np.tile(np.eye(4, dtype=np.float32), (ALT_VIEWS, 1, 1))
+    for i, r in enumerate(turn.values()):
+        T[i, :3, :3] = r @ fwd
+        T[i, :3, 3] = [0.3, -0.2, 1.7]
+    return (np.broadcast_to(K, (B, ALT_VIEWS, 3, 3)).copy(),
+            np.broadcast_to(T, (B, ALT_VIEWS, 4, 4)).copy())
+
+
+def alt_raw(cfg, seed, B=1):
+    """Raw alternative conditions (CPU tensors): a semantic cube, a
+    20,000-point scan, 3 views at 480x832."""
+    rng = np.random.default_rng(seed)
+    D, H, W = cfg.cube_dims
+    half = np.array(cfg.cube_dims) * np.array(cfg.latent_voxel_size) / 2
+    Ks, Ts = alt_views(B)
+    raw = dict(
+        semantics=rng.integers(0, 23, (B, D, H, W)).astype(np.int32),
+        scan_points=rng.uniform(-half, half, (B, ALT_SCAN, 3)).astype(
+            np.float32),
+        scan_mask=rng.random((B, ALT_SCAN)) < 0.95,
+        images=rng.uniform(size=(B, ALT_VIEWS) + ALT_HW + (3,)).astype(
+            np.float32),
+        Ks=Ks, cam_to_worlds=Ts)
+    return {k: torch.from_numpy(v) for k, v in raw.items()}
+
+
+def alt_cond(mods, cfg, extra, seed, B=1):
+    """A full condition: random map and box cubes, the extra cube, a class
+    one-hot and a 77-token context."""
+    rng = np.random.default_rng(seed)
+    D, H, W = cfg.cube_dims
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32))
+
+    dev = extra.device
+    return mods.CondCubes(
+        (arr(B, D, H, W, cfg.num_map_types) > 1.0).float().to(dev),
+        (arr(B, D, H, W, 2) > 1.5).float().to(dev), extra_cube=extra,
+        class_oh=torch.eye(cfg.num_classes)[
+            rng.integers(0, cfg.num_classes, B)].to(dev),
+        context=arr(B, ALT_CTX, cfg.context_dim).to(dev))
+
+
+def alt_encoder_checks(mods):
+    """The condition encoders' extra cube on the release 64^3 cube from 3
+    views at 480x832, card against CPU in f32, for the LSS config and a
+    lift3d one."""
+    for image in ("lss", "lift3d"):
+        cfg = mods.DiffusionConfig(**dict(ALT_CFG, use_image_cond=image))
+        cpu = mods.CondEncoders(cfg, device="cpu")
+        mods.init_alt(cpu, torch.Generator().manual_seed(42))
+        card = mods.CondEncoders(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        raw = alt_raw(cfg, 42)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = cpu(**raw)
+            cpu_s = time.perf_counter() - t0
+            got = card(**raw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = card(**raw).cpu()
+            card_s = time.perf_counter() - t0
+        gate(got, ref, f"[alt] CondEncoders ({image}) extra cube "
+             f"{tuple(ref.shape)} card vs cpu (card {card_s * 1e3:.1f} ms, "
+             f"cpu {cpu_s:.1f} s)")
+        check((ref[..., -cfg.image_cond_dim:] != 0).float().mean() > 0.01,
+              f"{image}: the image lift reached no cell")
+
+
+def alt_unet_checks(mods):
+    """The release-width UNet on a 16^3 cube with every condition on
+    (in_conv 40 wide, cross-attention on a 77 x 768 context, 10 classes):
+    card (bf16; K3, K2) against the CPU (f32, plain versions) at phase 7's
+    gate, and the int8 serving twin (K7) against the CPU's (bf16, the plain
+    versions) and the card's bf16 forward at phase 19's."""
+    base = mods.DiffusionConfig(cube_dims=(16, 16, 16), serve_quant=True,
+                                **ALT_CFG)
+    card = mods.VoxelDiffusion(base, device="cuda")
+    card.init_params(torch.Generator(device="cuda").manual_seed(43),
+                     zero_init_layers=False)
+    cpu = mods.VoxelDiffusion(dataclasses.replace(base, dtype=torch.float32),
+                              device="cpu")
+    cpu8 = mods.VoxelDiffusion(base, device="cpu")
+    for m in (cpu, cpu8):
+        m.load_params(card.named_parameters())
+    rng = np.random.default_rng(43)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 16, 16, 8),
+                                             dtype=np.float32))
+    extra = torch.from_numpy(rng.standard_normal(
+        (1, 16, 16, 16, base.extra_cond_channels), dtype=np.float32))
+    cond = alt_cond(mods, base, extra, 43)
+    t = torch.tensor([500])
+    card_cond = mods.CondCubes(*(None if v is None else v.cuda()
+                                 for v in dataclasses.astuple(cond)))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = cpu.denoise(x, t, cond)
+        ref8 = cpu8.denoise(x, t, cond, serve=True)
+        cpu_s = time.perf_counter() - t0
+        got = card.denoise(x.cuda(), t.cuda(), card_cond).cpu()
+        got8 = card.denoise(x.cuda(), t.cuda(), card_cond, serve=True).cpu()
+    c, c8, c_full = cos(got, ref), cos(got8, ref8), cos(got8, got)
+    print(f"[alt] release-width UNet with every condition on 16^3 "
+          f"(in_conv {base.latent_channels + base.cond_channels} wide, "
+          f"context {ALT_CTX} x {base.context_dim}, {base.num_classes} "
+          f"classes): card vs cpu cosine {c:.6f} (gate 0.999), |out| max "
+          f"{ref.abs().max().item():.3f}; int8 twin card vs cpu {c8:.7f} "
+          f"(gate 0.9995), int8 vs bf16 on the card {c_full:.6f} (gate "
+          f"0.999) (cpu {cpu_s:.1f} s)")
+    check(torch.isfinite(got).all().item() and
+          torch.isfinite(got8).all().item(), "alt UNet not finite")
+    check(c >= 0.999 and c8 >= 0.9995 and c_full >= 0.999,
+          f"alt UNet cosines {c}, {c8}, {c_full}")
+    del cpu, cpu8, card
+
+
+ALT_CONVS = {"stage1_alt": {"conv3x3x3_int8": 0, "conv3x3x3_bf16": 48},
+             "stage1_alt_int8": {"conv3x3x3_int8": 23,
+                                 "conv3x3x3_bf16": 25}}
+
+
+def alt_call_launches(diffusion):
+    """Exact launches of one UNet call of the serving twin at CFG batch 2,
+    derived with the port's rule: hooks on its 3x3x3 convs record whether
+    each quantizes and ``int8_conv_applies`` holds for its input (K7), else
+    K3; every SelfAttention3D block is one K2."""
+    from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3,
+                                                     int8_conv_applies)
+    cfg = diffusion.cfg
+    net = diffusion.unet_serve
+    seen = []
+
+    def hook(m, args):
+        x = args[0]
+        seen.append(m.quant and int8_conv_applies(x.shape[:4], x.shape[-1],
+                                                  m.weight.shape[0]))
+    hooks = [m.register_forward_pre_hook(hook) for m in net.modules()
+             if isinstance(m, Conv3x3x3)]
+    D, H, W = cfg.cube_dims
+    try:
+        with torch.no_grad():
+            net(torch.zeros((2, D, H, W, cfg.latent_channels +
+                             cfg.cond_channels), device="cuda"),
+                torch.tensor([500, 500], device="cuda"),
+                context=torch.zeros((2, ALT_CTX, cfg.context_dim),
+                                    device="cuda"),
+                y_emb=torch.zeros((2, cfg.num_classes), device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    n_int8 = sum(seen)
+    return {"conv3x3x3_int8": n_int8, **{k: n_int8 for k in INT8_PROLOGUE},
+            "conv3x3x3_bf16": len(seen) - n_int8,
+            "flash_attn_bf16": net._counts[1]}
+
+
+def alt_serve(kernels, mods):
+    """Phase 42's serving: ``VoxelDiffusion.sample`` on the release 64^3
+    cube with every condition on, CFG 2.0 as the doubled batch, DDIM-10,
+    bf16 and then through the int8 serving twin; the conditions encoded
+    once by ``encode_extra``. Seconds a step, peak memory, exact launches a
+    step, no plain version called. Returns the launches of each path."""
+    cfg = mods.DiffusionConfig(**ALT_CFG)
+    t0 = time.perf_counter()
+    diffusion = mods.VoxelDiffusion(cfg, device="cuda")
+    diffusion.init_params(torch.Generator(device="cuda").manual_seed(44),
+                          zero_init_layers=False)
+    n_unet = sum(p.numel() for p in diffusion.unet.parameters())
+    n_enc = sum(p.numel() for p in diffusion.cond_enc.parameters())
+    torch.cuda.synchronize()
+    print(f"[alt serve] UNet {n_unet:,} parameters (the release 750,431,048 "
+          f"with in_conv 40 wide, the 12 blocks' cross-attention and "
+          f"y_proj) and condition encoders {n_enc:,}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_unet > 750_431_048, f"{n_unet} UNet parameters")
+    raw = alt_raw(cfg, 44)
+    paths = {}
+    for label, twin in (("stage1_alt", None), ("stage1_alt_int8", True)):
+        if twin:
+            diffusion.unet_serve = diffusion.unet.serving_twin()
+        want1 = alt_call_launches(diffusion)
+        # the reference's plan predicate at these shapes: 23 of the 48
+        # convs int8 on the twin, in_conv (40 wide) among the 25 bf16 ones
+        # (tests/test_torch_dense_conv_int8.py holds the rule against it)
+        convs = {k: want1[k] for k in ALT_CONVS[label]}
+        check(convs == ALT_CONVS[label],
+              f"{label} convs a call {convs}, want {ALT_CONVS[label]}")
+        want = {k: v * STAGE1_DDIM for k, v in want1.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with no_plain_versions():
+            t0 = time.perf_counter()
+            extra = diffusion.encode_extra(**raw)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            cond = alt_cond(mods, cfg, extra, 45)
+            g = torch.Generator(device="cuda").manual_seed(45)
+            t0 = time.perf_counter()
+            lat = diffusion.sample(cond, num_steps=STAGE1_DDIM,
+                                   guidance_scale=GUIDANCE, generator=g)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: launches[k] for k in want}
+        others = {k: n for k, n in launches.items() if n and k not in want}
+        print(f"[alt serve] {label}: encode_extra (semantic cube, "
+              f"{ALT_SCAN:,}-point scan, {ALT_VIEWS} views of "
+              f"{ALT_HW[0]}x{ALT_HW[1]} through LSS) {enc_s:.3f} s, then "
+              f"DDIM-{STAGE1_DDIM} with CFG {GUIDANCE} at batch 2: "
+              f"{wall:.2f} s ({wall / STAGE1_DDIM * 1e3:.1f} ms a step), "
+              f"peak {peak:.2f} GiB; launches a step {want1}, in all {got}")
+        check(lat.shape == (1, 64, 64, 64, 8) and
+              torch.isfinite(lat).all().item(), f"{label} latents")
+        check(got == want and not others,
+              f"{label} launches {got}, want {want}; others {others}")
+        paths[label] = launches
+    del diffusion
+    torch.cuda.empty_cache()
+    return paths
+
+
+def alt_train(kernels):
+    """Phase 42's training: ``train.main`` on configs/train_diffusion.yaml
+    with the same ``diffusion.*`` keys, batch 1, 3 steps: finite losses,
+    exact launches a step, the UNet moved, the condition encoders not (the
+    synthetic stream's conditions are the null ones), the checkpoint read
+    back. Returns the path's launches."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.training import loop
+    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
+    keys = [f"diffusion.{k}={str(v).lower() if isinstance(v, bool) else v}"
+            for k, v in ALT_CFG.items()]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_alt_")
+    per_step, undo = counting_steps(kernels, loop)
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            state = train_cli.main(
+                [os.path.join(ROOT, "configs", "train_diffusion.yaml"),
+                 "--name", "alt", "--logdir", tmp, "--exec", "batch_size=1",
+                 f"max_steps={TRAIN_STEPS}", "log_every=1",
+                 f"ckpt_dir={tmp}/ck", *keys])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logs = [json.loads(line) for line in
+                open(os.path.join(tmp, "alt.jsonl"))]
+        print(f"[alt train] {sum(p.numel() for p in state.params.values()):,}"
+              f" parameters, {TRAIN_STEPS} steps at batch 1 through "
+              f"train.main with {keys} in {wall:.1f} s (model build, steps "
+              f"and the final checkpoint), peak {peak:.1f} GiB")
+        for r, delta in zip(logs, per_step):
+            print(f"[alt train] step {r['step']}: loss {r['loss']:.6f}, "
+                  f"{r['steps_per_sec']:.3f} steps/s; launches "
+                  f"{ {k: v for k, v in delta.items() if v} }")
+            check(math.isfinite(r["loss"]) and r["grad_finite"] == 1.0,
+                  f"step {r['step']}: {r}")
+            check(delta == STEP_LAUNCHES,
+                  f"step {r['step']} launches {delta}, want {STEP_LAUNCHES}")
+        check(len(per_step) == len(logs) == TRAIN_STEPS,
+              f"{len(per_step)} steps counted, {len(logs)} logged")
+        moved = {k for k, p in state.params.items()
+                 if not torch.equal(p.detach(), state.ema.params[k])}
+        stepped = {k for k, p in state.params.items()
+                   if state.opt.state.get(p)}
+        enc = {k for k in state.params if k.startswith("cond_enc.")}
+        print(f"[alt train] {len(moved)} of {len(state.params)} parameter "
+              f"tensors moved; the optimizer never stepped the {len(enc)} "
+              f"condition-encoder tensors (no gradient on the null "
+              f"conditions, as in JAX): {not stepped & enc}")
+        check("unet.out_conv.weight" in moved and
+              "unet.middle_transformer.blocks.0.cross_o.weight" in moved and
+              not stepped & enc, f"moved: {sorted(moved)[:5]}")
+        mgr = CheckpointManager(os.path.join(tmp, "ck"))
+        # the parameters read back through a memory map (the moments and
+        # the EMA shadow are held read back by phase 12)
+        sd = torch.load(mgr._path(mgr.latest_step()), map_location="cpu",
+                        mmap=True, weights_only=True)
+        same = all(torch.equal(sd["params"][k], p.detach().cpu())
+                   for k, p in state.params.items())
+        print(f"[alt train] final checkpoint "
+              f"{os.path.getsize(mgr._path(TRAIN_STEPS)) / 1e9:.2f} GB, its "
+              f"parameters read back {'identical' if same else 'DIFFER'}")
+        check(same and sd["step"] == TRAIN_STEPS, "checkpoint differs")
+        del sd, state
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def alt_conditioning(kernels):
+    """Phase 42. Returns the launches of its three paths."""
+    from infinicube_tpu_torch.models.diffusion import alt_encoders
+    from infinicube_tpu_torch.models.diffusion.model import (CondCubes,
+                                                             CondEncoders,
+                                                             DiffusionConfig,
+                                                             VoxelDiffusion)
+    mods = types.SimpleNamespace(
+        CondCubes=CondCubes, CondEncoders=CondEncoders,
+        DiffusionConfig=DiffusionConfig, VoxelDiffusion=VoxelDiffusion,
+        init_alt=alt_encoders.init_params)
+    t0 = time.perf_counter()
+    alt_encoder_checks(mods)
+    alt_unet_checks(mods)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    paths = alt_serve(kernels, mods)
+    t2 = time.perf_counter()
+    paths["stage1_alt_train"] = alt_train(kernels)
+    print(f"[alt] checks {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, training "
+          f"{time.perf_counter() - t2:.1f} s")
+    return paths
+
+
+# the VAE's attention level and heads, as phase 43 trains them
+VAE_ATTN = dict(attention_levels=(2,), use_normal_head=True,
+                use_color_head=True)
+VAE_ATTN_STEP = {**VAE_STEP_LAUNCHES, "flash_attn_f32": 2,
+                 "flash_attn_f32_bwd": 2}
+# SparseUNetConfig() a forward: 5 res blocks of two convs, 2 attentions
+SPARSE_UNET_CALL = {"sparse_conv_f32": 10, "flash_attn_f32": 2}
+
+
+def sparse_attention_checks():
+    """``sparse_attention``'s card route against its plain version on the
+    CPU at the VAE's level-2 width (256, 4 heads of 64) over 4,096 slots,
+    three samples, the middle one without an active row: f32 at
+    ``flash_attn_f32``'s gate (max |err| <= 1e-4 max |ref|), bf16 no
+    further from the f32 result than twice the plain bf16 one."""
+    from infinicube_tpu_torch.nn import sparse
+    from infinicube_tpu_torch.nn.layers import Dense
+    g = torch.Generator().manual_seed(46)
+    C, F = 4096, 256
+    mask = torch.zeros((3, C), dtype=torch.bool)
+    mask[0, :2500] = True
+    mask[2, 300:4000] = True
+    feats = torch.where(mask[..., None], torch.randn((3, C, F), generator=g),
+                        torch.zeros(()))
+    qkv, proj = Dense(F, 3 * F, compute_dtype=None), \
+        Dense(F, F, compute_dtype=None)
+    for m in (qkv, proj):
+        torch.nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(F),
+                              generator=g)
+    qkv_c, proj_c = (copy.deepcopy(m).cuda() for m in (qkv, proj))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for m in (qkv, proj, qkv_c, proj_c):
+            m.compute_dtype = dt              # bf16 q, k, v: K2's route
+        x = feats.to(dt)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = sparse.sparse_attention(x, mask, 4, qkv, proj).float()
+            cpu_s = time.perf_counter() - t0
+            got = sparse.sparse_attention(x.cuda(), mask.cuda(), 4, qkv_c,
+                                          proj_c).float().cpu()
+        out[dt] = (got, ref, cpu_s)
+    got, ref, cpu_s = out[torch.float32]
+    err = (got - ref).abs().max().item()
+    lim = 1e-4 * ref.abs().max().item()
+    print(f"[sparse attn] f32, [3, {C}, {F}] with 2500, 0 and 3700 active "
+          f"rows: card vs plain max_abs_err {err:.3e} (limit {lim:.3e}; "
+          f"plain {cpu_s:.1f} s); the empty sample "
+          f"{'zero' if not got[1].any() else 'NOT ZERO'}")
+    check(err <= lim and not got[1].any(), "f32 sparse attention")
+    b16, b16_ref, _ = out[torch.bfloat16]
+    d_card, d_plain = (b16 - ref).norm().item(), (b16_ref - ref).norm().item()
+    print(f"[sparse attn] bf16: distance to the f32 result card {d_card:.3e}"
+          f", plain {d_plain:.3e} (bound twice the plain's)")
+    check(d_card <= 2 * d_plain + 1e-6 * ref.norm().item(),
+          "bf16 sparse attention")
+
+
+def vae_attn_grad_check(mods):
+    """The release-width VAE with the attention level and heads on phase
+    15's small scene: ``vae_loss`` and every gradient, card (K4, K4-dgrad,
+    K6, ``flash_attn_f32`` and its backward) against the CPU (plain
+    versions), the attention's zero-init ``proj`` filled so that every
+    tensor but the heads (outputs only) gets a gradient."""
+    def fill(model):
+        g = torch.Generator().manual_seed(47)
+        with torch.no_grad():
+            for side in ("enc", "dec"):
+                w = getattr(model, f"attn2_{side}_proj").weight
+                w.copy_(torch.randn(w.shape, generator=g) /
+                        math.sqrt(w.shape[1]))
+    vae_grad_check(mods, VAE_ATTN, prepare=fill,
+                   outputs_only=("normal_head.", "color_head."))
+
+
+def vae_attn_train_main_path(kernels):
+    """``train.main`` on configs/train_vae.yaml with 200,000 points per
+    sample and the attention level and heads, 3 steps: exact launches a
+    step, no plain version called, peak memory far below the 17 GB of one
+    sample's dense [h, C, C] logits at level 2. Returns the launches."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.training import loop
+    keys = ["vae.attention_levels=(2,)", "vae.use_normal_head=true",
+            "vae.use_color_head=true"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vae_attn_")
+    per_step, undo = counting_steps(kernels, loop)
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            state = train_cli.main(
+                [os.path.join(ROOT, "configs", "train_vae.yaml"), "--name",
+                 "attn", "--logdir", tmp, "--exec",
+                 f"max_steps={TRAIN_STEPS}", f"points_per_sample={VAE_POINTS}",
+                 "log_every=1", "ckpt_every=1000", f"ckpt_dir={tmp}/ck",
+                 *keys])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logs = [json.loads(line) for line in
+                open(os.path.join(tmp, "attn.jsonl"))]
+        dense = 4 * 32768 ** 2 * 4 / 1e9
+        print(f"[vae attn train] {TRAIN_STEPS} steps at batch 1, "
+              f"{VAE_POINTS:,} points, {keys}, through train.main in "
+              f"{wall:.1f} s, peak {peak:.2f} GiB (one sample's dense f32 "
+              f"logits at level 2 would take {dense:.1f} GB)")
+        for r, delta in zip(logs, per_step):
+            vox = [int(r[f"voxels{l}"]) for l in range(3)]
+            print(f"[vae attn train] step {r['step']}: loss "
+                  f"{r['loss']:.4f}, {r['steps_per_sec']:.3f} steps/s, "
+                  f"active voxels {vox}; launches "
+                  f"{ {k: v for k, v in delta.items() if v} }")
+            check(math.isfinite(r["loss"]) and r["grad_finite"] == 1.0,
+                  f"step {r['step']}: {r}")
+            check(delta == VAE_ATTN_STEP,
+                  f"step {r['step']} launches {delta}, want {VAE_ATTN_STEP}")
+        check(len(per_step) == len(logs) == TRAIN_STEPS, "steps counted")
+        # the einsum route would hold the dense logits on top of all this
+        check(peak * 2**30 / 1e9 < dense, f"peak {peak} GiB")
+        moved = {k for k, p in state.params.items()
+                 if not torch.equal(p.detach(), state.ema.params[k])}
+        still = sorted(k for k, p in state.params.items()
+                       if not state.opt.state.get(p))
+        print(f"[vae attn train] {len(moved)} of {len(state.params)} "
+              f"parameter tensors moved; never stepped (no gradient): "
+              f"{still}")
+        check(all(k.startswith(("normal_head.", "color_head.")) for k in
+                  still) and "attn2_enc_qkv.weight" in moved,
+              f"parameters that did not move: {still}")
+        del state
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sparse_unet_checks(mods):
+    """``SparseUNet(SparseUNetConfig())`` on a small two-level scene, card
+    (K4, ``flash_attn_f32``) against the CPU, without and with a 7-token
+    context: max |err| within 1e-3 of the largest output."""
+    rng = np.random.default_rng(48)
+    pts = torch.from_numpy(rng.uniform(-6, 6, (2, 3000, 3)).astype(
+        np.float32))
+    mask = torch.ones((2, 3000), dtype=torch.bool)
+    mask[1, 1200:] = False
+    x = torch.from_numpy(rng.standard_normal((2, 4096, 8), dtype=np.float32))
+    t = torch.tensor([10, 600])
+    ctx = torch.from_numpy(rng.standard_normal((2, 7, 64), dtype=np.float32))
+    for context in (None, ctx):
+        cpu = mods.SparseUNet(mods.SparseUNetConfig(), device="cpu",
+                              context_dim=None if context is None else 64)
+        cpu.init_params(torch.Generator().manual_seed(48))
+        with torch.no_grad():       # the zero-init output layers filled
+            for name, p in cpu.named_parameters():
+                if name.startswith(("out.", "xo.")) or ".proj." in name:
+                    p.normal_(0.0, 0.05)
+        card = mods.SparseUNet(mods.SparseUNetConfig(), device="cuda",
+                               context_dim=None if context is None else 64)
+        card.load_state_dict(cpu.state_dict())
+        outs = []
+        for dev in ("cpu", "cuda"):
+            g0 = mods.grid_from_points(pts.to(dev), mask.to(dev), 0.4, 0.2,
+                                       capacity=4096)
+            grids = [g0, mods.coarsened_grid(g0, 2, capacity=2048)]
+            model = cpu if dev == "cpu" else card
+            with torch.no_grad():
+                outs.append(model(grids, x.to(dev), t.to(dev), None
+                                  if context is None else context.to(dev)
+                                  ).cpu())
+        ref, got = outs
+        err = (got - ref).abs().max().item()
+        lim = 1e-3 * ref.abs().max().item()
+        print(f"[sparse unet] SparseUNetConfig() on 4,096 / 2,048 slots "
+              f"({int(mask.sum())} points), context "
+              f"{None if context is None else tuple(context.shape)}: card "
+              f"vs cpu max_abs_err {err:.3e} (limit {lim:.3e})")
+        check(torch.isfinite(got).all().item() and err <= lim,
+              "SparseUNet card vs cpu")
+
+
+def sparse_unet_main_path(kernels, mods):
+    """``SparseUNet`` on a 200,000-point scene's hash-tree levels 1-2
+    (65,536 and 32,768 slots, 8 latent channels): a warm-up, then a timed
+    forward with exact launches and no plain version. Returns the
+    launches."""
+    vcfg = mods.SparseVAEConfig()
+    pts, _ = vae_points(49)
+    grids = mods.build_hash_tree(vcfg, pts.cuda(),
+                                 torch.ones(pts.shape[:2], dtype=torch.bool,
+                                            device="cuda"))[1:]
+    model = mods.SparseUNet(mods.SparseUNetConfig(), device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(49))
+    x = torch.randn((1, grids[0].capacity, 8), device="cuda")
+    t = torch.tensor([300], device="cuda")
+    with torch.no_grad(), no_plain_versions():
+        model(grids, x, t)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = model(grids, x, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    got = {k: launches[k] for k in SPARSE_UNET_CALL}
+    others = {k: n for k, n in launches.items()
+              if n and k not in SPARSE_UNET_CALL}
+    print(f"[sparse unet] on the levels 1-2 of a {VAE_POINTS:,}-point scene "
+          f"({[int(g.mask.sum()) for g in grids]} active of "
+          f"{[g.capacity for g in grids]}): {wall * 1e3:.1f} ms a forward; "
+          f"launches {got}")
+    check(out.shape == x.shape and torch.isfinite(out).all().item(),
+          "SparseUNet output")
+    check(got == SPARSE_UNET_CALL and not others,
+          f"SparseUNet launches {got}, others {others}")
+    return launches
+
+
+def brick_check(mods):
+    """One teacher-forced forward of phase 15's small-scene VAE with
+    ``conv_backend="brick"`` against the same weights on the ``ConvPlan``:
+    its semantic logits within 1e-3 of their largest value."""
+    base = mods.SparseVAEConfig(
+        neck_dims=(8, 8, 16), neck_ijk_min=(-4, -4, -8),
+        capacities=(8192, 4096, 1024), dense_lookup_ijk_min=(-18, -18, -18),
+        dense_lookup_dims=(36, 36, 36))
+    outs = []
+    rng = np.random.default_rng(50)
+    pts = torch.from_numpy(rng.uniform(-3, 3, (1, 3000, 3)).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 23, (1, 3000)).astype(
+        np.int32)).cuda()
+    noise = torch.randn((1, 8, 8, 16, 8), device="cuda")
+    mask = torch.ones((1, 3000), dtype=torch.bool, device="cuda")
+    state = None
+    for backend in ("auto", "brick"):
+        model = mods.SparseStructureVAE(dataclasses.replace(
+            base, conv_backend=backend), device="cuda")
+        if state is None:
+            model.init_params(torch.Generator(device="cuda").manual_seed(50))
+            state = model.state_dict()
+        model.load_state_dict(state)
+        grids = mods.build_hash_tree(model.cfg, pts, mask)
+        sem = mods.majority_label(grids[0], pts, labels, mask, 23)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(grids, sem, noise=noise)
+            torch.cuda.synchronize()
+            outs.append((out["semantic_logits"][grids[0].mask],
+                         time.perf_counter() - t0))
+    (ref, ref_s), (got, got_s) = outs
+    err = (got - ref).abs().max().item()
+    lim = 1e-3 * ref.abs().max().item()
+    print(f"[brick] VAE forward with conv_backend='brick' ({got_s * 1e3:.1f}"
+          f" ms) against the ConvPlan one ({ref_s * 1e3:.1f} ms): semantic "
+          f"logits max_abs_err {err:.3e} (limit {lim:.3e})")
+    check(err <= lim, "brick VAE forward")
+
+
+def sparse_leftovers(kernels):
+    """Phase 43. Returns the launches of its two paths."""
+    from infinicube_tpu_torch.grid.build import (coarsened_grid,
+                                                 grid_from_points)
+    from infinicube_tpu_torch.grid.ops import majority_label
+    from infinicube_tpu_torch.models.diffusion.unet_sparse import (
+        SparseUNet, SparseUNetConfig)
+    from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig,
+                                                       build_hash_tree)
+    mods = types.SimpleNamespace(
+        SparseStructureVAE=SparseStructureVAE,
+        SparseVAEConfig=SparseVAEConfig, build_hash_tree=build_hash_tree,
+        majority_label=majority_label, VAELossConfig=VAELossConfig,
+        vae_loss=vae_loss, SparseUNet=SparseUNet,
+        SparseUNetConfig=SparseUNetConfig, grid_from_points=grid_from_points,
+        coarsened_grid=coarsened_grid)
+    t0 = time.perf_counter()
+    sparse_attention_checks()
+    vae_attn_grad_check(mods)
+    sparse_unet_checks(mods)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    paths = {"vae_attn_train": vae_attn_train_main_path(kernels),
+             "sparse_unet": sparse_unet_main_path(kernels, mods)}
+    t2 = time.perf_counter()
+    brick_check(mods)
+    torch.cuda.empty_cache()
+    print(f"[sparse] checks {t1 - t0:.1f} s, main paths {t2 - t1:.1f} s, "
+          f"brick {time.perf_counter() - t2:.1f} s")
+    return paths
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -5653,6 +6375,12 @@ def main() -> int:
     frozen_towers(kernels, stage3_views)
     del stage3_views
     print(f"[towers] phase 41 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    alt_paths = alt_conditioning(kernels)
+    print(f"[alt] phase 42 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sparse_paths = sparse_leftovers(kernels)
+    print(f"[sparse] phase 43 done in {time.perf_counter() - t0:.1f} s")
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -5693,7 +6421,7 @@ def main() -> int:
              "stage2": stage2_launches, "stage3": stage3_launches,
              "gsm_train": gsm_train_launches,
              "gsm_train_bf16": bf16_launches, **video_paths,
-             "e2e": e2e_launches}
+             "e2e": e2e_launches, **alt_paths, **sparse_paths}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

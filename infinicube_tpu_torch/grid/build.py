@@ -1,5 +1,6 @@
-"""Grid constructors; counterpart of ``infinicube_tpu/grid/build.py`` for
-what the sparse VAE uses.
+"""Grid constructors; counterpart of ``infinicube_tpu/grid/build.py``: from
+keys, points, the 8 voxels nearest each point, ijk and dense blocks, the
+coarsened and subdivided grids, and the union of two grids.
 
 Output capacity is fixed by the caller; overflow drops the HIGHEST keys, in
 the JAX package's key order, and reports the count in ``Grid.num_dropped``.
@@ -13,6 +14,10 @@ import torch
 
 from infinicube_tpu_torch.grid import keys as K
 from infinicube_tpu_torch.grid.grid import Grid, as_vec3
+from infinicube_tpu_torch.utils.casts import saturating_int32
+
+# the 8 corners of the trilinear stencil, (0, 0, 0) to (1, 1, 1) row-major
+CORNERS = tuple(itertools.product((0, 1), repeat=3))
 
 
 def _unique_sorted_keys(qkeys: torch.Tensor, capacity: int):
@@ -63,6 +68,62 @@ def grid_from_ijk(ijk: torch.Tensor, mask: torch.Tensor, voxel_size, origin,
                   capacity: int) -> Grid:
     """fvdb gridbatch_from_ijk. ijk int [B, N, 3], mask bool [B, N]."""
     return grid_from_keys(K.pack(ijk, mask), capacity, voxel_size, origin)
+
+
+def grid_from_nearest_voxels_to_points(points: torch.Tensor,
+                                       point_mask: torch.Tensor, voxel_size,
+                                       origin, capacity: int) -> Grid:
+    """fvdb gridbatch_from_nearest_voxels_to_points: the 8 voxels nearest
+    to each point (the trilinear-splat stencil) are active."""
+    vs, org = as_vec3(voxel_size, points.device), \
+        as_vec3(origin, points.device)
+    base = saturating_int32(torch.floor((points - org) / vs))
+    corners = torch.tensor(CORNERS, dtype=torch.int32, device=points.device)
+    ijk8 = base[:, :, None, :] + corners[None, None]        # [B, N, 8, 3]
+    mask8 = point_mask[:, :, None].expand(ijk8.shape[:3])
+    B = points.shape[0]
+    return grid_from_keys(K.pack(ijk8, mask8).reshape(B, -1), capacity, vs,
+                          org)
+
+
+def dense_ijk(dense_dims, ijk_min, device=None) -> torch.Tensor:
+    """int32 [D*H*W, 3] row-major coordinates of a dense block."""
+    D, H, W = dense_dims
+    ii, jj, kk = torch.meshgrid(torch.arange(D, device=device),
+                                torch.arange(H, device=device),
+                                torch.arange(W, device=device),
+                                indexing="ij")
+    ijk = torch.stack([ii, jj, kk], dim=-1).reshape(-1, 3)
+    return (ijk + torch.as_tensor(ijk_min, device=device)).to(torch.int32)
+
+
+def grid_from_dense(batch_size: int, dense_dims, ijk_min, voxel_size, origin,
+                    occupancy: torch.Tensor | None = None,
+                    capacity: int | None = None, device=None) -> Grid:
+    """fvdb gridbatch_from_dense: the whole dense block active, or the
+    voxels where ``occupancy`` (bool [B, D, H, W]) holds."""
+    D, H, W = dense_dims
+    n = D * H * W
+    if occupancy is not None:
+        device = occupancy.device
+    ijk = dense_ijk(dense_dims, ijk_min, device)[None].expand(batch_size, n,
+                                                              3)
+    mask = torch.ones((batch_size, n), dtype=torch.bool, device=device) \
+        if occupancy is None else occupancy.reshape(batch_size, n)
+    return grid_from_ijk(ijk, mask, voxel_size, origin,
+                         capacity=capacity or n)
+
+
+def merge_grids(a: Grid, b: Grid, capacity: int | None = None) -> Grid:
+    """Union of two grids with the same voxel_size and origin (overflow
+    drops the highest keys)."""
+    inv = torch.full_like(a.keys, K.INVALID_KEY)
+    qkeys = torch.cat([torch.where(a.mask, a.keys, inv),
+                       torch.where(b.mask, b.keys,
+                                   torch.full_like(b.keys, K.INVALID_KEY))],
+                      dim=1)
+    return grid_from_keys(qkeys, capacity or (a.capacity + b.capacity),
+                          a.voxel_size, a.origin)
 
 
 def _factor3(factor) -> tuple[int, int, int]:

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from infinicube_tpu_torch.grid import keys as K
+from infinicube_tpu_torch.utils.casts import saturating_int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,14 +40,18 @@ class Grid:
     def capacity(self) -> int:
         return self.ijk.shape[1]
 
+    def world_to_grid(self, points: torch.Tensor) -> torch.Tensor:
+        """Continuous grid coordinates of world points (..., 3)."""
+        return (points - self.origin) / self.voxel_size
+
     def grid_to_world(self, ijk: torch.Tensor) -> torch.Tensor:
         return ijk * self.voxel_size + self.origin
 
     def world_to_ijk(self, points: torch.Tensor) -> torch.Tensor:
         """Voxel coordinates containing world points (..., 3): round half to
-        even, as ``jnp.round``, of the f32 grid coordinates."""
-        return torch.round((points - self.origin) / self.voxel_size).to(
-            torch.int32)
+        even, as ``jnp.round``, of the f32 grid coordinates, cast to int32
+        as XLA casts (saturating)."""
+        return saturating_int32(torch.round(self.world_to_grid(points)))
 
     def voxel_centers(self) -> torch.Tensor:
         """f32 [B, C, 3] world centers of all slots (padding included)."""
@@ -66,6 +71,13 @@ class Grid:
             (qkeys != K.INVALID_KEY)
         return torch.where(hit, pos_c, torch.full_like(pos_c, -1)).to(
             torch.int32)
+
+    def points_in_active_voxel(self, points: torch.Tensor,
+                               valid: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+        """bool [B, N]: whether each world point [B, N, 3] lies in an
+        active voxel."""
+        return self.ijk_to_index(self.world_to_ijk(points), valid) >= 0
 
     def bbox_ijk(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(min_ijk, max_ijk) int32 [B, 3] over active voxels (inclusive)."""

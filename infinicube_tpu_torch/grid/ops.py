@@ -1,9 +1,9 @@
-"""Data-carrying grid ops; counterpart of ``infinicube_tpu/grid/ops.py`` for
-what the sparse VAE and the sparse convs use: dense <-> sparse gathers and
-scatters, same-position index maps, the 3x3x3 neighbour table, point ->
-voxel reductions, max pooling into a coarser grid and nearest upsampling
-onto a subdivided grid. Parent indices are floor divisions, since voxel
-coordinates go negative."""
+"""Data-carrying grid ops; counterpart of ``infinicube_tpu/grid/ops.py``:
+dense <-> sparse gathers and scatters, same-position index maps, filling
+one grid from another through world space, trilinear splats and samples,
+the 3x3x3 neighbour table, point -> voxel reductions, max and average
+pooling into a coarser grid and nearest upsampling onto a subdivided grid.
+Parent indices are floor divisions, since voxel coordinates go negative."""
 
 from __future__ import annotations
 
@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from infinicube_tpu_torch.grid import keys as K
-from infinicube_tpu_torch.grid.build import coarsened_grid, subdivided_grid
+from infinicube_tpu_torch.grid.build import (CORNERS, coarsened_grid,
+                                             subdivided_grid)
 from infinicube_tpu_torch.grid.grid import Grid
+from infinicube_tpu_torch.utils.casts import saturating_int32
 
 
 # Masked-max sentinel. Finite, so that no arithmetic on an empty row makes a
@@ -116,6 +118,66 @@ def index_map(dst: Grid, src: Grid) -> torch.Tensor:
     (equal voxel_size/origin assumed); -1 where missing."""
     return src.key_to_index(torch.where(
         dst.mask, dst.keys, torch.full_like(dst.keys, K.INVALID_KEY)))
+
+
+def _gather_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """data [B, C, F] at rows idx [B, N] (-1 -> 0) -> [B, N, F]."""
+    idx = idx.long()
+    got = torch.gather(data, 1, idx.clamp_min(0)[..., None].expand(
+        -1, -1, data.shape[-1]))
+    return torch.where((idx >= 0)[..., None], got, torch.zeros_like(got))
+
+
+def fill_from_grid(dst: Grid, src: Grid, src_data: torch.Tensor
+                   ) -> torch.Tensor:
+    """fvnn.FillFromGrid: each dst voxel takes the data of the src voxel
+    whose cell holds the dst voxel's centre (0 where none), through world
+    space, so the two grids may differ in voxel size and origin."""
+    idx = src.ijk_to_index(src.world_to_ijk(dst.voxel_centers()), dst.mask)
+    return _gather_rows(src_data, idx)
+
+
+def _trilinear_stencil(grid: Grid, points: torch.Tensor,
+                       point_mask: torch.Tensor):
+    """The 8 voxels around each point [B, N, 3]: their slots int32
+    [B, N, 8] (-1 absent) and trilinear weights [B, N, 8]."""
+    gc = grid.world_to_grid(points)
+    base = saturating_int32(torch.floor(gc))
+    frac = gc - base
+    corners = torch.tensor(CORNERS, dtype=torch.int32, device=points.device)
+    ijk8 = base[:, :, None, :] + corners[None, None]          # [B, N, 8, 3]
+    w = torch.where(corners[None, None].bool(), frac[:, :, None, :],
+                    1.0 - frac[:, :, None, :]).prod(dim=-1)
+    B = grid.batch_size
+    idx = grid.ijk_to_index(ijk8.reshape(B, -1, 3),
+                            point_mask.repeat_interleave(8, dim=-1))
+    return idx.reshape(ijk8.shape[:3]), w
+
+
+def splat_trilinear(grid: Grid, points: torch.Tensor,
+                    point_feats: torch.Tensor,
+                    point_mask: torch.Tensor) -> torch.Tensor:
+    """fvdb splat_trilinear: point features [B, N, F] added to the 8
+    nearest voxel centres with trilinear weights -> [B, C, F]."""
+    idx, w = _trilinear_stencil(grid, points, point_mask)
+    w = torch.where((idx >= 0) & point_mask[:, :, None], w,
+                    torch.zeros_like(w))
+    B, F = grid.batch_size, point_feats.shape[-1]
+    contrib = (w[..., None] * point_feats[:, :, None, :]).reshape(B, -1, F)
+    flat = torch.where(idx >= 0, idx, grid.capacity).reshape(B, -1).long()
+    return _scatter_sum(flat, contrib.to(point_feats.dtype), grid.capacity)
+
+
+def sample_trilinear(grid: Grid, data: torch.Tensor, points: torch.Tensor,
+                     point_mask: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of voxel data [B, C, F] at world points
+    -> [B, N, F]; absent neighbours contribute 0 (fvdb
+    sample_trilinear)."""
+    idx, w = _trilinear_stencil(grid, points, point_mask)
+    B, N = idx.shape[:2]
+    got = _gather_rows(data, idx.reshape(B, -1)).reshape(B, N, 8, -1)
+    w = torch.where(idx >= 0, w, torch.zeros_like(w))
+    return (w[..., None] * got).sum(dim=2)
 
 
 def neighbor_offsets(kernel_size=3) -> np.ndarray:
@@ -246,5 +308,28 @@ def max_pool(grid: Grid, data: torch.Tensor, factor,
     ok = (pidx >= 0) & grid.mask
     flat = torch.where(ok, pidx, torch.full_like(pidx, coarse.capacity))
     out = _masked_max(flat, ok, data, coarse.capacity).to(data.dtype)
+    return coarse, torch.where(coarse.mask[..., None], out,
+                               torch.zeros_like(out))
+
+
+def avg_pool(grid: Grid, data: torch.Tensor, factor,
+             coarse: Grid | None = None, capacity: int | None = None):
+    """fvnn.AvgPool: coarsen the grid and average child data [B, C, F] over
+    each parent's present children, in f32, returned in data's dtype.
+    Returns (coarse grid, coarse data)."""
+    f3 = tuple(int(x) for x in np.broadcast_to(np.asarray(factor), (3,)))
+    if coarse is None:
+        coarse = coarsened_grid(grid, f3, capacity=capacity or grid.capacity)
+    f = torch.tensor(f3, dtype=torch.int32, device=grid.ijk.device)
+    pidx = coarse.ijk_to_index(torch.div(grid.ijk, f, rounding_mode="floor"),
+                               grid.mask).long()
+    ok = (pidx >= 0) & grid.mask
+    Cc = coarse.capacity
+    flat = torch.where(ok, pidx, torch.full_like(pidx, Cc))
+    vals = torch.where(ok[..., None], data.float(),
+                       torch.zeros((), device=data.device))
+    total = _scatter_sum(flat, vals, Cc)
+    cnt = _scatter_sum(flat, ok[..., None].float(), Cc)
+    out = (total / cnt.clamp_min(1.0)).to(data.dtype)
     return coarse, torch.where(coarse.mask[..., None], out,
                                torch.zeros_like(out))

@@ -4,8 +4,13 @@ of ``infinicube_tpu/models/diffusion/unet3d.py``.
 Submodules carry the flax auto-names (``ResBlock3D_{n}``,
 ``SelfAttention3D_{n}``, ``Dense_0/1``, ``GroupNorm32_0`` with a nested
 ``GroupNorm_0``, ``down{l}``, ``up{l}``, ``in_conv``, ``out_conv``,
-``middle_transformer.blocks.{i}``) so that ``weights/from_jax.unet_from_jax``
-is a re-layout. Layout is NDHWC throughout, as in JAX.
+``middle_transformer.blocks.{i}``, with a context ``cross_q/k/v/o``,
+``y_proj`` with ``num_classes``) so that ``weights/from_jax.unet_from_jax``
+is a re-layout. Layout is NDHWC throughout, as in JAX. With ``context_dim``
+the middle transformer's blocks cross-attend to the context tokens (JAX
+unrolls them into ``block{i}`` then, and the converter takes both
+layouts); with ``num_classes`` the class one-hot's ``y_proj`` is added to
+the time embedding.
 
 Dtypes follow the reference: activations in ``dtype`` (bf16 at release)
 with f32 parameters cast per call, GroupNorm and softmax in f32, the f32
@@ -14,7 +19,8 @@ card, forward and input gradient) and the UNet's ``SelfAttention3D`` goes
 through ``multi_head_attention`` (K2 forward, K5 backward, head dim 96 at
 release). The stride-2 ``down{l}``, the 1x1 ``skip`` and ``out_conv`` were
 flax ``nn.Conv`` (XLA) in JAX and are ``torch.nn.functional.conv3d`` here;
-so are the Dense layers and the middle transformer's einsum attention.
+so are the Dense layers and the middle transformer's einsum attention
+(self and cross).
 ``remat`` recomputes each ``ResBlock3D`` and the middle transformer in the
 backward pass instead of keeping their activations (flax ``nn.remat`` over
 the same two block kinds). ``conv_quant`` makes every ``Conv3x3x3`` int8
@@ -153,13 +159,16 @@ class _LayerNorm(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN self-attention + GEGLU MLP (no cross-attention: the release
-    has no context). The einsum attention stays plain PyTorch."""
+    """Pre-LN self-attention, with ``context_dim`` a cross-attention on the
+    context tokens (``LayerNorm_2``, ``cross_q/k/v/o``; the MLP's norm is
+    then ``LayerNorm_3``), and a GEGLU MLP. The einsum attention stays plain
+    PyTorch, as it is an einsum in the reference."""
 
     def __init__(self, ch: int, num_heads: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, context_dim: int | None = None):
         super().__init__()
         self.heads, self.dtype = num_heads, dtype
+        self.cross = context_dim is not None
 
         def dense(cin, cout):
             return Dense(cin, cout, compute_dtype=dtype, device=device)
@@ -168,42 +177,61 @@ class TransformerBlock(nn.Module):
         self.LayerNorm_1 = _LayerNorm(ch, dtype, device)
         self.self_q, self.self_k, self.self_v, self.self_o = (
             dense(ch, ch) for _ in range(4))
-        self.LayerNorm_2 = _LayerNorm(ch, dtype, device)
+        norms = 2
+        if self.cross:
+            self.LayerNorm_2 = _LayerNorm(ch, dtype, device)
+            self.cross_q, self.cross_o = dense(ch, ch), dense(ch, ch)
+            self.cross_k, self.cross_v = (dense(context_dim, ch)
+                                          for _ in range(2))
+            norms = 3
+        self.mlp_norm = f"LayerNorm_{norms}"
+        setattr(self, self.mlp_norm, _LayerNorm(ch, dtype, device))
         self.geglu = dense(ch, 8 * ch)
         self.mlp_out = dense(4 * ch, ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, C = x.shape
+    def _mha(self, q_in: torch.Tensor, kv_in: torch.Tensor,
+             name: str) -> torch.Tensor:
+        B, N, C = q_in.shape
         hd = C // self.heads
-        q = self.self_q(self.LayerNorm_0(x)).reshape(B, N, self.heads, hd)
-        kv_in = self.LayerNorm_1(x)
-        k = self.self_k(kv_in).reshape(B, N, self.heads, hd)
-        v = self.self_v(kv_in).reshape(B, N, self.heads, hd)
+        q = getattr(self, f"{name}_q")(q_in).reshape(B, N, self.heads, hd)
+        k = getattr(self, f"{name}_k")(kv_in).reshape(B, -1, self.heads, hd)
+        v = getattr(self, f"{name}_v")(kv_in).reshape(B, -1, self.heads, hd)
         a = torch.einsum("bqhc,bkhc->bhqk", q, k).float()
         a = torch.softmax(a / math.sqrt(hd), dim=-1).to(self.dtype)
         o = torch.einsum("bhqk,bkhc->bqhc", a, v).reshape(B, N, C)
-        x = x + self.self_o(o)
-        a, b = self.geglu(self.LayerNorm_2(x)).chunk(2, dim=-1)
+        return getattr(self, f"{name}_o")(o)
+
+    def forward(self, x: torch.Tensor,
+                context: torch.Tensor | None = None) -> torch.Tensor:
+        x = x + self._mha(self.LayerNorm_0(x), self.LayerNorm_1(x), "self")
+        if self.cross:
+            if context is None:
+                raise ValueError("this transformer block cross-attends: it "
+                                 "needs a context")
+            x = x + self._mha(self.LayerNorm_2(x), context, "cross")
+        a, b = self.geglu(getattr(self, self.mlp_norm)(x)).chunk(2, dim=-1)
         return x + self.mlp_out(a * F.gelu(b, approximate="tanh"))
 
 
 class SpatialTransformer3D(nn.Module):
     def __init__(self, ch: int, depth: int, num_heads: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 context_dim: int | None = None):
         super().__init__()
         self.dtype = dtype
         self.GroupNorm32_0 = GroupNorm32(ch, device=device)
         self.proj_in = Dense(ch, ch, compute_dtype=dtype, device=device)
         self.blocks = nn.ModuleList(
-            TransformerBlock(ch, num_heads, dtype, device)
+            TransformerBlock(ch, num_heads, dtype, device, context_dim)
             for _ in range(depth))
         self.proj_out = Dense(ch, ch, compute_dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                context: torch.Tensor | None = None) -> torch.Tensor:
         B, C = x.shape[0], x.shape[-1]
         h = self.proj_in(self.GroupNorm32_0(x).reshape(B, -1, C))
         for blk in self.blocks:
-            h = blk(h)
+            h = blk(h, context)
         return x + self.proj_out(h).reshape(x.shape)
 
 
@@ -234,7 +262,8 @@ class UNet3D(nn.Module):
                  num_res_blocks: int = 2, attention_ds=(4, 8),
                  num_heads: int = 8, transformer_depth: int = 12,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 device=None, conv_quant: bool = False):
+                 device=None, conv_quant: bool = False,
+                 context_dim: int | None = None, num_classes: int = 0):
         super().__init__()
         self.dtype, self.remat, self.conv_quant = dtype, remat, conv_quant
         self.channel_mult, self.num_res_blocks = channel_mult, num_res_blocks
@@ -243,6 +272,9 @@ class UNet3D(nn.Module):
         emb = 4 * ch
         self.Dense_0 = Dense(ch, emb, compute_dtype=dtype, device=device)
         self.Dense_1 = Dense(emb, emb, compute_dtype=dtype, device=device)
+        # the adm class one-hot's projection, added to the time embedding
+        self.y_proj = Dense(num_classes, emb, compute_dtype=dtype,
+                            device=device) if num_classes else None
         self.in_conv = Conv3x3x3(in_channels, ch, dtype, device=device,
                                  quant=conv_quant)
         res, att = [], []
@@ -268,7 +300,7 @@ class UNet3D(nn.Module):
                 skips.append(c)
         resblock(c, c)
         self.middle_transformer = SpatialTransformer3D(
-            c, transformer_depth, num_heads, dtype, device)
+            c, transformer_depth, num_heads, dtype, device, context_dim)
         resblock(c, c)
         for level, mult in reversed(list(enumerate(channel_mult))):
             for _ in range(num_res_blocks + 1):
@@ -337,11 +369,19 @@ class UNet3D(nn.Module):
             return lambda *a: checkpoint(block, *a, use_reentrant=False)
         return block
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                context: torch.Tensor | None = None,
+                y_emb: torch.Tensor | None = None) -> torch.Tensor:
+        """x [B, D, H, W, in] and timesteps t [B]; with the cross-attending
+        middle transformer the context [B, L, context_dim], with
+        ``num_classes`` the one-hot y_emb [B, num_classes] (left out, no
+        class enters)."""
         dt = self.dtype
         ch = self.Dense_0.in_features
         emb = self.Dense_0(timestep_embedding(t, ch))
         emb = self.Dense_1(F.silu(emb))
+        if y_emb is not None:
+            emb = emb + self.y_proj(y_emb)
         n_res, n_att = self._counts
         res = (self._block(getattr(self, f"ResBlock3D_{i}"))
                for i in range(n_res))
@@ -361,7 +401,7 @@ class UNet3D(nn.Module):
                 ds *= 2
                 skips.append(h)
         h = next(res)(h, emb)
-        h = self._block(self.middle_transformer)(h)
+        h = self._block(self.middle_transformer)(h, context)
         h = next(res)(h, emb)
         for level, _ in reversed(list(enumerate(self.channel_mult))):
             for _ in range(self.num_res_blocks + 1):

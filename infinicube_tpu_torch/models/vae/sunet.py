@@ -9,12 +9,17 @@ with max pooling into the hash tree's next level, then the dense neck), ``repara
 with injectable noise, both branches of ``decode`` (inference: per-level
 struct decisions grow a capacity-bounded sparse grid, under ``no_grad``;
 training: teacher forcing on the hash tree's grids and plans, returning the
-per-level struct triples) and ``forward``. The normal and color heads, the
-attention levels and the featurizer's ``extra_feats`` (all off at release)
-wait.
+per-level struct triples) and ``forward``; and, all off at release, the
+attention levels (``attn{l}_{enc,dec}_qkv`` / ``_proj``: ``sparse_attention``
+after a level's encoder blocks and, in f32, after its decoder blocks), the
+normal head and the color head behind a sigmoid (outputs only: the loss
+does not read them), the featurizer's extra per-voxel inputs (its width a
+constructor argument, since the VAE itself never passes them), and the
+``conv_backend`` and ``dense_lookup`` switches of every conv plan.
 
-The sparse convs are K4 on the card, their gradients K4 again and K6; the
-release VAE computes in f32 end to end."""
+The sparse convs are K4 on the card, their gradients K4 again and K6, and
+the attention levels ``flash_attn_f32`` and its backward; the release VAE
+computes in f32 end to end."""
 
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from infinicube_tpu_torch.grid.ops import (index_map, max_pool,
                                            upsample_nearest)
 from infinicube_tpu_torch.nn.layers import Dense, conv3d_ndhwc, lecun_normal_
 from infinicube_tpu_torch.nn.sparse import (GroupNormSparse, SparseConv3d,
-                                            SparseResBlock, conv_plan)
+                                            SparseResBlock, conv_plan,
+                                            sparse_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,10 +59,17 @@ class SparseVAEConfig:
     capacities: tuple = (131072, 65536, 32768)
     finest_voxel_size: tuple = (0.2, 0.2, 0.2)
     origin: tuple = (0.1, 0.1, 0.1)
+    use_normal_head: bool = False
+    use_color_head: bool = False
+    attention_levels: tuple = ()          # levels with sparse attention
+    attn_heads: int = 4
     unstable_cutoff: bool = True
     unstable_cutoff_threshold: float = 0.4
-    # the level-0 ijk cube that covers every voxel of the data crop; the
-    # sparse convs' neighbour lookup goes through a slot volume over it
+    conv_backend: str = "auto"            # nn.sparse.conv_plan's backend
+    # the level-0 ijk cube that covers every voxel of the data crop; with
+    # dense_lookup the sparse convs' neighbour lookup goes through a slot
+    # volume over it
+    dense_lookup: bool = True
     dense_lookup_ijk_min: tuple = (-132, -132, -68)
     dense_lookup_dims: tuple = (264, 264, 136)
     dtype: torch.dtype = torch.float32
@@ -70,7 +83,10 @@ class SparseVAEConfig:
 
     def level_dense_bounds(self, level: int):
         """Static (ijk_min, dims) covering level ``level``: the level-0 cube
-        pushed through the floor-div coarsening."""
+        pushed through the floor-div coarsening; None when dense_lookup is
+        off."""
+        if not self.dense_lookup:
+            return None
         mn = np.asarray(self.dense_lookup_ijk_min, np.int64)
         mx = mn + np.asarray(self.dense_lookup_dims, np.int64) - 1
         for f in self.pooling_factors[:level]:
@@ -104,17 +120,22 @@ def posenc(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
 
 
 class VoxelFeaturizer(nn.Module):
-    """posenc(world xyz) + semantic embedding -> c_dim features per voxel."""
+    """posenc(world xyz) + semantic embedding [+ extra per-voxel inputs,
+    such as normals, intensity or color, ``extra_dim`` wide] -> c_dim
+    features per voxel."""
 
-    def __init__(self, cfg: SparseVAEConfig, device=None):
+    def __init__(self, cfg: SparseVAEConfig, device=None,
+                 extra_dim: int = 0):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.extra_dim = cfg, extra_dim
         self.Embed_0 = nn.Embedding(cfg.num_semantic, cfg.sem_embed_dim,
                                     device=device)
         self.Dense_0 = Dense(3 * (1 + 2 * cfg.posenc_freqs) +
-                             cfg.sem_embed_dim, cfg.c_dim, device=device)
+                             cfg.sem_embed_dim + extra_dim, cfg.c_dim,
+                             device=device)
 
-    def forward(self, grid: Grid, semantics: torch.Tensor) -> torch.Tensor:
+    def forward(self, grid: Grid, semantics: torch.Tensor,
+                extra_feats: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
         dev = grid.ijk.device
         # normalize by the crop extent for stable scales
@@ -124,7 +145,13 @@ class VoxelFeaturizer(nn.Module):
                          device=dev) * 4.0
         pe = posenc(grid.voxel_centers() / extent, cfg.posenc_freqs)
         sem = self.Embed_0(semantics.long().clamp(0, cfg.num_semantic - 1))
-        h = self.Dense_0(torch.cat([pe, sem], dim=-1))
+        parts = [pe, sem]
+        if (extra_feats is not None) != bool(self.extra_dim):
+            raise ValueError(f"this featurizer takes {self.extra_dim} extra "
+                             "input channels")
+        if extra_feats is not None:
+            parts.append(extra_feats.to(pe.device, pe.dtype))
+        h = self.Dense_0(torch.cat(parts, dim=-1))
         return torch.where(grid.mask[..., None], h, torch.zeros_like(h))
 
 
@@ -202,6 +229,17 @@ class SparseStructureVAE(nn.Module):
                 fin, fout = lf(l), 2
             setattr(self, f"struct{l}", Dense(fin, fout, device=dev))
         self.sem_head = Dense(lf(0), cfg.num_semantic, device=dev)
+        if cfg.use_normal_head:
+            self.normal_head = Dense(lf(0), 3, device=dev)
+        if cfg.use_color_head:
+            self.color_head = Dense(lf(0), 3, device=dev)
+        for l in cfg.attention_levels:
+            for side in ("enc", "dec"):
+                setattr(self, f"attn{l}_{side}_qkv",
+                        Dense(lf(l), 3 * lf(l), compute_dtype=None,
+                              device=dev))
+                setattr(self, f"attn{l}_{side}_proj",
+                        Dense(lf(l), lf(l), compute_dtype=None, device=dev))
 
     def enc_blocks(self, level: int) -> list[SparseResBlock]:
         return [getattr(self, f"enc{level}_{i}") for i in range(2)]
@@ -212,9 +250,22 @@ class SparseStructureVAE(nn.Module):
     def struct_head(self, level: int) -> Dense:
         return getattr(self, f"struct{level}")
 
+    def _attend(self, h: torch.Tensor, grid: Grid, level: int,
+                side: str) -> torch.Tensor:
+        """The level's sparse attention (its ``side``'s Dense pair) where
+        the config attends at ``level``; the decoder's in f32."""
+        if level not in self.cfg.attention_levels:
+            return h
+        if side == "dec":
+            h = h.float()
+        return sparse_attention(h, grid.mask, self.cfg.attn_heads,
+                                getattr(self, f"attn{level}_{side}_qkv"),
+                                getattr(self, f"attn{level}_{side}_proj"))
+
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
-        """Random weights with the JAX module's initializer scales."""
+        """Random weights with the JAX module's initializer scales (the
+        attention levels' ``proj`` kernels at zero)."""
         for m in self.modules():
             if isinstance(m, (Dense, nn.Conv3d)):
                 fan_in = m.weight[0].numel()
@@ -228,6 +279,9 @@ class SparseStructureVAE(nn.Module):
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim),
                                  generator=generator)
+        for l in self.cfg.attention_levels:
+            for side in ("enc", "dec"):
+                getattr(self, f"attn{l}_{side}_proj").weight.zero_()
 
     def _level_voxel_size(self, level: int):
         vs = np.asarray(self.cfg.finest_voxel_size, np.float64)
@@ -241,8 +295,12 @@ class SparseStructureVAE(nn.Module):
 
     def level_plans(self, grids: list[Grid]) -> list:
         """The conv plan of every level of a hash tree."""
-        return [conv_plan(g, dense_bounds=self.cfg.level_dense_bounds(l))
-                for l, g in enumerate(grids)]
+        return [self._plan(g, l) for l, g in enumerate(grids)]
+
+    def _plan(self, grid: Grid, level: int):
+        cfg = self.cfg
+        return conv_plan(grid, dense_bounds=cfg.level_dense_bounds(level),
+                         backend=cfg.conv_backend)
 
     # ------------------------------------------------------------------ enc
     def encode(self, grids: list[Grid], semantics: torch.Tensor,
@@ -256,6 +314,7 @@ class SparseStructureVAE(nn.Module):
         for l, g in enumerate(grids):
             for blk in self.enc_blocks(l):
                 h = blk(h.to(cfg.dtype), plans[l], g.mask)
+            h = self._attend(h, g, l, "enc")
             if l < len(cfg.pooling_factors):
                 _, h = max_pool(g, h, cfg.pooling_factors[l],
                                 coarse=grids[l + 1])
@@ -320,9 +379,10 @@ class SparseStructureVAE(nn.Module):
         grids = [grid]
         for l in range(L - 1, -1, -1):
             plan = guide_plans[l] if forced and guide_plans is not None \
-                else conv_plan(grid, dense_bounds=cfg.level_dense_bounds(l))
+                else self._plan(grid, l)
             for blk in self.dec_blocks(l):
                 h = blk(h.to(cfg.dtype), plan, grid.mask)
+            h = self._attend(h, grid, l, "dec")
             if l == 0:
                 break
             factor = cfg.pooling_factors[l - 1]
@@ -356,9 +416,14 @@ class SparseStructureVAE(nn.Module):
             h = torch.where((move >= 0)[..., None], h, torch.zeros_like(h))
             grid = new_grid
             grids.append(grid)
-        return {"grid": grid, "grids": grids,
-                "semantic_logits": self.sem_head(h.float()), "features": h,
-                "struct": struct_out}
+        out = {"grid": grid, "grids": grids,
+               "semantic_logits": self.sem_head(h.float()), "features": h,
+               "struct": struct_out}
+        if cfg.use_normal_head:
+            out["normals"] = self.normal_head(h.float())
+        if cfg.use_color_head:
+            out["colors"] = torch.sigmoid(self.color_head(h.float()))
+        return out
 
     def _pruned_grid(self, logits: torch.Tensor, cand: Grid,
                      level: int) -> Grid:

@@ -72,7 +72,11 @@ def build_diffusion(cfg: Config, device: torch.device):
                                 params=params)
 
     def synthetic_batches():
-        # synthetic latents stream for smoke training without data
+        # synthetic latents stream for smoke training without data; its
+        # conditions are the null ones of the config (with the extra cube,
+        # class one-hot and one context token where it takes them), as the
+        # JAX CLI's, so the condition encoders' parameters get no gradient
+        # and do not move on this stream
         rng = np.random.default_rng(0)
         B = cfg.get_path("batch_size", 2)
         D, H, W = dc.cube_dims

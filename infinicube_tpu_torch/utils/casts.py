@@ -16,7 +16,9 @@ _TOP = 2147483520.0
 
 def saturating_int32(x: torch.Tensor) -> torch.Tensor:
     """x (float) truncated toward zero to int32, NaN -> 0 and values past
-    the range clamped (the top at 2^31 - 128, the largest float32 below
-    2^31)."""
-    return torch.nan_to_num(x, nan=0.0).clamp(-2147483648.0, _TOP).to(
-        torch.int32)
+    the range clamped to its ends, as XLA's cast: a float at or above 2^31
+    gives 2^31 - 1 (it is clamped to the largest float32 below 2^31 for
+    the cast, then put at the top)."""
+    x = torch.nan_to_num(x, nan=0.0)
+    out = x.clamp(-2147483648.0, _TOP).to(torch.int32)
+    return torch.where(x > _TOP, torch.full_like(out, 2147483647), out)

@@ -90,11 +90,31 @@ def dit_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
 
 def unet_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """UNet3D params (flax auto-names); the scan-stacked
-    ``middle_transformer/blocks`` is unstacked into ``blocks.{i}``."""
+    """UNet3D params (flax auto-names) in either layout of the middle
+    transformer: scan-stacked ``blocks`` (no context) unstacked into
+    ``blocks.{i}``, or unrolled ``block{i}`` (with a cross-attention
+    context) renamed to them."""
     p = dict(_params(tree))
     p["middle_transformer"] = _unstack_blocks(p["middle_transformer"])
     return _convert(p)
+
+
+def diffusion_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """``VoxelDiffusion`` params, as ``VoxelDiffusion.load_params`` takes
+    them: the UNet's alone, or, where the config has condition encoders,
+    the ``{"unet": ..., "cond_enc": ...}`` tree as ``unet.*`` and
+    ``cond_enc.*``."""
+    p = _params(tree)
+    if set(p) != {"unet", "cond_enc"}:
+        return unet_from_jax(p)
+    return {**{f"unet.{k}": v for k, v in unet_from_jax(p["unet"]).items()},
+            **{f"cond_enc.{k}": v
+               for k, v in _convert(p["cond_enc"]).items()}}
+
+
+def sparse_unet_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """``SparseUNet`` params (``models/diffusion/unet_sparse.py``)."""
+    return _convert(_params(tree))
 
 
 def _train_state_from_jax(convert, params: dict, mu: dict, nu: dict,
@@ -117,17 +137,19 @@ def diffusion_train_state_from_jax(params: dict, mu: dict, nu: dict,
                                    ema_step: int = 0) -> dict:
     """A JAX ``TrainState`` of the voxel-diffusion trainer, given as numpy
     trees, as the ``state_dict`` that the port's
-    ``training.state.TrainState.load_state_dict`` takes: the UNet parameters,
+    ``training.state.TrainState.load_state_dict`` takes: the parameters
+    (``diffusion_from_jax``'s names),
     the optax AdamW moments ``mu`` / ``nu`` (same tree as the parameters)
     with their ``count``, the EMA shadow with its step, ``step`` and
     ``num_nan_skips``. The port derives Adam's count as ``step -
     num_nan_skips``, so ``count`` must equal it."""
-    return _train_state_from_jax(unet_from_jax, params, mu, nu, count, step,
-                                 num_nan_skips, ema_params, ema_step)
+    return _train_state_from_jax(diffusion_from_jax, params, mu, nu, count,
+                                 step, num_nan_skips, ema_params, ema_step)
 
 
 def sparse_vae_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """SparseStructureVAE params."""
+    """SparseStructureVAE params (with its attention levels' ``attn*`` and
+    its normal and color heads where the config has them)."""
     return _convert(_params(tree))
 
 

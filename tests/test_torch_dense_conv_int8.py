@@ -12,6 +12,7 @@ from infinicube_tpu.ops.dense_conv import _quantize_for_conv
 from infinicube_tpu.ops.dense_conv import conv3x3x3 as jax_conv3x3x3
 from infinicube_tpu.ops.dense_conv import conv_plan_feasible
 from infinicube_tpu_torch import kernels
+from infinicube_tpu_torch.models.diffusion.model import DiffusionConfig
 from infinicube_tpu_torch.ops.dense_conv import (Conv3x3x3, conv3x3x3_plain,
                                                  conv3x3x3_int8_plain,
                                                  int8_conv_applies,
@@ -90,6 +91,25 @@ def test_int8_rule_matches_reference_on_the_release_unet(batch):
                     (32, 576, 384), (32, 768, 384), (32, 768, 768),
                     (32, 1152, 384), (64, 192, 192), (64, 384, 192),
                     (64, 384, 384), (64, 576, 192)]
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_int8_rule_matches_reference_on_the_alt_conditioned_unet(batch):
+    """The release UNet with every alternative condition on: in_conv takes
+    the latent, the 16 release condition channels and the extra cube's 24
+    (40 in all); the reference's plan predicate decides all 48 convs as the
+    port's rule does, and the int8 set stays the release one (23; in_conv
+    bf16)."""
+    cfg = DiffusionConfig(use_semantic_cond=True, use_single_scan_cond=True,
+                          use_image_cond="lss", num_classes=10,
+                          context_dim=768)
+    in_ch = cfg.latent_channels + cfg.cond_channels
+    assert in_ch == 40
+    shapes = release_conv_shapes(in_ch=in_ch)
+    got = [int8_conv_applies((batch, s, s, s), C, O) for s, C, O in shapes]
+    ref = [conv_plan_feasible((batch, s, s, s), C, O, jnp.bfloat16,
+                              quant=True) is not None for s, C, O in shapes]
+    assert got == ref and sum(got) == 23 and not got[0]
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 8, 16, 64, 64),

@@ -241,7 +241,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    "train_loop", "train_cli",
                                    "train_vae_cli", "voxel_vae_cli",
                                    "single_chunk_cli",
-                                   "serve_quant_diffusion"])
+                                   "serve_quant_diffusion", "sparse_unet",
+                                   "cond_encoders", "alt_diffusion",
+                                   "brick_vae"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -266,9 +268,15 @@ def test_entry_points_default_to_the_card(entry):
     from infinicube_tpu_torch.training.state import TrainConfig
     tiny_vae = VideoVAEConfig(latent_channels=4, base_channels=8,
                               channel_mult=(1, 2), num_res_blocks=1)
+    from infinicube_tpu_torch.models.diffusion.model import CondEncoders
+    from infinicube_tpu_torch.models.diffusion.unet_sparse import (
+        SparseUNet, SparseUNetConfig)
     tiny_unet = DiffusionConfig(cube_dims=(4, 4, 4), model_channels=32,
                                 channel_mult=(1,), attention_ds=(),
                                 transformer_depth=1)
+    alt_unet = dataclasses.replace(tiny_unet, use_semantic_cond=True,
+                                   use_image_cond="lss", num_classes=2,
+                                   context_dim=8)
     build = {
         "dit": lambda: WanDiT(WanDiTConfig(dim=64, ffn_dim=64, num_layers=1,
                                            num_heads=1)),
@@ -302,6 +310,14 @@ def test_entry_points_default_to_the_card(entry):
             ["--output", "unused", "--ddim_steps", "1"]),
         "serve_quant_diffusion": lambda: VoxelDiffusion(
             dataclasses.replace(tiny_unet, serve_quant=True)),
+        "sparse_unet": lambda: SparseUNet(SparseUNetConfig(model_channels=8)),
+        "cond_encoders": lambda: CondEncoders(alt_unet),
+        "alt_diffusion": lambda: VoxelDiffusion(alt_unet),
+        # the brick plan follows its grid's device; the model that builds
+        # it, on its default device, refuses to start without a card
+        "brick_vae": lambda: SparseStructureVAE(SparseVAEConfig(
+            f_maps=8, neck_dims=(4, 4, 4), capacities=(64, 32, 16),
+            conv_backend="brick")),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
@@ -560,3 +576,57 @@ def test_bf16_sparse_conv_on_the_card_goes_through_the_bf16_kernels(
     assert conv.kernel.grad.dtype == torch.float32
     torch.testing.assert_close(conv.kernel.grad, ref_dw.float(), rtol=0,
                                atol=0)
+
+
+def test_sparse_attention_on_the_card_goes_through_the_kernels(monkeypatch):
+    """``sparse_attention`` on a CUDA tensor: each sample's active rows go
+    through ``flash_attn_f32`` (and ``flash_attn_f32_bwd`` for a gradient),
+    a sample without an active row through nothing, and neither the einsum
+    nor a plain attention ever runs. Checked without a card: the tensors
+    claim to be on one, and stand-ins that record their calls take the
+    wrappers' place."""
+    from infinicube_tpu_torch.nn import sparse
+    from infinicube_tpu_torch.nn.layers import Dense
+    from infinicube_tpu_torch.ops import attention
+
+    def plain(t):
+        return t.as_subclass(torch.Tensor)
+
+    plain_attn, plain_bwd = (attention.attention_plain,
+                             attention.attention_bwd_plain)
+    calls = []
+
+    def fake_fwd(q, k, v, scale, return_lse=False):
+        calls.append(("fwd", q.shape[1], q.shape[-1]))
+        out = plain_attn(plain(q), plain(k), plain(v), scale, return_lse)
+        return out
+
+    def fake_bwd(q, k, v, do, lse, delta, scale):
+        calls.append(("bwd", q.shape[1], q.shape[-1]))
+        o = plain_attn(plain(q), plain(k), plain(v), scale)
+        return plain_bwd(plain(q), plain(k), plain(v), o, plain(do),
+                         plain(lse), scale)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain attention ran on a CUDA tensor")
+
+    monkeypatch.setattr(attention.kernels, "flash_attn_f32", fake_fwd)
+    monkeypatch.setattr(attention.kernels, "flash_attn_f32_bwd", fake_bwd)
+    monkeypatch.setattr(attention, "attention_plain", refuse)
+    monkeypatch.setattr(sparse, "_attention_plain", refuse)
+    g = torch.Generator().manual_seed(0)
+    F = 64
+    qkv, proj = Dense(F, 3 * F, compute_dtype=None), \
+        Dense(F, F, compute_dtype=None)
+    mask = torch.zeros((3, 30), dtype=torch.bool)
+    mask[0, :17] = True
+    mask[2, 5:26] = True
+    x = torch.randn((3, 30, F), generator=g).as_subclass(_OnCard)
+    x.requires_grad_()
+    out = sparse.sparse_attention(x, mask, 4, qkv, proj)
+    assert [c[:2] for c in calls] == [("fwd", 17), ("fwd", 21)]
+    assert all(c[2] == 64 for c in calls)     # d = 16 padded to 64
+    calls.clear()
+    out.sum().backward()
+    assert sorted(c[:2] for c in calls) == [("bwd", 17), ("bwd", 21)]
+    assert torch.isfinite(plain(x.grad)).all()
