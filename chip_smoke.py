@@ -352,6 +352,30 @@ Then stage 1's leftovers (the towers freed first):
     launches (K4 10, ``flash_attn_f32`` 2); one ``conv_backend="brick"``
     VAE forward against the ``ConvPlan`` one.
 
+Then training on real clips (phase 43's models freed first):
+
+44. a Waymo-scale clip from a seeded numpy frame source (8 frames of about
+    200,000 LiDAR points with Waymo semantics: road, sidewalk, building
+    walls, trees and 6 cars, 2 of them driving; the map polylines; the
+    three front cameras at 480x704) through ``waymo2shards.convert_clip``,
+    ``process_clip`` (without voxel buffers) and ``generate_voxel_buffers``
+    for 2 frames on the card, each timed; ``WaymoClipDataset`` over it with
+    the exact sample count; ``knn_bruteforce`` card against CPU, 65,536
+    queries against one frame's points (4,096 of them on the CPU):
+    distances within 1e-5 relative (or 2 f32 ulps of the terms that
+    cancel), the nearest index equal but at top-two ties within 1e-6;
+    ``sdf_from_points`` and ``gt_surface_loss`` with their gradients card
+    against CPU at cosine >= 0.9999; then ``train.main`` with
+    ``data.root`` on the clip, a warm-up step and 3 more each, no plain
+    version called, exact launches a step (batch making and step): the
+    release VAE (K4, K4-dgrad, K6 24 each), the release UNet at batch 1 on
+    the frozen VAE's latents (that VAE's checkpoint; the encode's K4 12,
+    K3 48, K3-dgrad 47, K2 10, K5 10), ``scale_factor.json`` within 1e-4
+    relative of 1 / numpy's float64 std of the first batch's latents, and the release GSM on the three
+    views (phase 33's counts at 3 views); ms a step split into batch
+    making and the rest, steps/s as logged, peak GiB. Its launches are the
+    ``real_data`` path of every kernel.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -6228,6 +6252,425 @@ def sparse_leftovers(kernels):
     return paths
 
 
+
+# ---- phase 44: training on real clips ----------------------------------------
+REAL_FRAMES, REAL_POINTS = 8, 200_000
+REAL_VIEWS = ("front", "front_left", "front_right")
+REAL_SAMPLES = 4                  # samples_per_shard of the one clip
+REAL_STEPS = 3                    # timed, after a warm-up step
+REAL_KNN_QUERIES, REAL_KNN_CPU, REAL_KNN_K = 65_536, 4_096, 8
+# the release VAE's encode: two sparse convs in each of its 6 encoder
+# SparseResBlocks, K4 12 (counted through the plain version on the CPU)
+VAE_ENCODE_K4 = 12
+# Waymo semantics of the synthetic clip (utils/semantic.WAYMO_CATEGORY_NAMES)
+ROAD, SIDEWALK, BUILDING, VEGETATION, CAR = 18, 22, 14, 15, 1
+
+
+def real_box_points(rng, n, lwh, pose):
+    """n points on the surface of a box of extent lwh at pose."""
+    p = rng.uniform(-0.5, 0.5, (n, 3))
+    face = rng.integers(0, 3, n)
+    p[np.arange(n), face] = np.sign(p[np.arange(n), face]) * 0.5
+    p = p * lwh
+    return p @ pose[:3, :3].T + pose[:3, 3]
+
+
+def real_frames(FrameRecord, seed=44, n_frames=REAL_FRAMES, n_points=REAL_POINTS,
+                hw=GSM_TRAIN_HW):
+    """A Waymo-scale clip from a seeded numpy frame source: the ego drives
+    along +x at 12 m/s (10 Hz); per frame about ``n_points`` LiDAR returns
+    within 75 m, denser near the ego (road and sidewalk, building walls at
+    y = +-15 m, tree crowns, the cars' surfaces) in scan order (shuffled);
+    6 cars, 2 of them driving; the lane, road-edge and road-line
+    polylines; the three front cameras at ``hw``."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    K = np.array([[520.0, 0, w / 2], [0, 520.0, h / 2], [0, 0, 1]],
+                 np.float32)
+    cars = {f"parked{i}": (x, y, 0.0) for i, (x, y) in enumerate(
+        ((12.0, -5.5), (27.0, 5.5), (41.0, -5.5), (58.0, 5.5)))}
+    cars.update(driving0=(5.0, -2.0, 0.8), driving1=(-10.0, 2.0, 1.4))
+    lwh = np.array([4.5, 1.9, 1.6])
+    polylines = {
+        "lane": [np.stack([np.linspace(-60, 160, 45), np.full(45, y),
+                           np.zeros(45)], -1) for y in (-2.0, 2.0)],
+        "road_edge": [np.stack([np.linspace(-60, 160, 45), np.full(45, y),
+                                np.zeros(45)], -1) for y in (-7.0, 7.0)],
+        "road_line": [np.stack([np.linspace(-60, 160, 45), np.zeros(45),
+                                np.zeros(45)], -1)],
+    }
+    n_walls, n_trees, n_car = n_points * 9 // 40, n_points // 10, 2500
+    out = []
+    for f in range(n_frames):
+        ego = np.array([1.2 * f, 0.0, 0.0])
+        r = 2.5 + 72.5 * rng.uniform(size=n_points) ** 2
+        a = rng.uniform(-np.pi, np.pi, n_points)
+        n_ground = n_points - n_walls - n_trees - 6 * n_car
+        ground = np.stack([ego[0] + r[:n_ground] * np.cos(a[:n_ground]),
+                           r[:n_ground] * np.sin(a[:n_ground]),
+                           rng.normal(0, 0.02, n_ground)], -1)
+        ground_sem = np.where(np.abs(ground[:, 1]) < 7.0, ROAD, SIDEWALK)
+        side = rng.choice([-15.0, 15.0], n_walls)
+        walls = np.stack([ego[0] + rng.uniform(-70, 70, n_walls),
+                          side + rng.normal(0, 0.05, n_walls),
+                          rng.uniform(0, 12, n_walls)], -1)
+        crowns = np.stack([np.arange(-60, 160, 11.0),
+                           np.tile([-11.0, 11.0], 10), np.full(20, 5.0)], -1)
+        near = crowns[np.abs(crowns[:, 0] - ego[0]) < 70]
+        d = rng.normal(size=(n_trees, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        trees = near[rng.integers(0, len(near), n_trees)] + \
+            d * rng.uniform(1.5, 2.5, (n_trees, 1))
+        objects, car_pts = {}, []
+        for gid, (x, y, v) in cars.items():
+            pose = np.eye(4)
+            pose[:3, 3] = [x + v * f, y, 0.8]
+            objects[gid] = {"pose": pose, "lwh": lwh, "type": "vehicle"}
+            car_pts.append(real_box_points(rng, n_car, lwh, pose))
+        pts = np.concatenate([ground, walls, trees, *car_pts])
+        sem = np.concatenate([ground_sem, np.full(n_walls, BUILDING),
+                              np.full(n_trees, VEGETATION),
+                              np.full(6 * n_car, CAR)]).astype(np.int32)
+        order = rng.permutation(len(pts))
+        pts, sem = pts[order].astype(np.float32), sem[order]
+        cams = {}
+        for view, yaw in zip(REAL_VIEWS, (0.0, 0.8, -0.8)):
+            c, s_ = np.cos(yaw), np.sin(yaw)
+            T = np.eye(4)
+            # OpenCV camera (x right, y down, z forward) turned by yaw
+            T[:3, :3] = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1.0]]) @ \
+                np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float64)
+            T[:3, 3] = ego + [1.5, 0.0, 1.6]
+            img = np.empty((h, w, 3), np.uint8)
+            img[: h // 3] = (150, 190, 230)                    # sky
+            img[h // 3:] = rng.integers(40, 200, (h - h // 3, w, 3))
+            cams[view] = {"pose": T.astype(np.float32), "intrinsic": K,
+                          "image": img}
+        road = ground[np.abs(ground[:, 1]) < 7.0]
+        out.append(FrameRecord(
+            index=f, cam_to_world_opencv=cams["front"]["pose"], intrinsic=K,
+            image=cams["front"]["image"], points=pts, point_semantics=sem,
+            objects=objects,
+            map_points={"road_edge": np.concatenate(
+                polylines["road_edge"]).astype(np.float32),
+                "road_line": polylines["road_line"][0].astype(np.float32),
+                "road_surface": road[:20_000].astype(np.float32)},
+            map_polylines=polylines if f == 0 else None, cameras=cams))
+    return out
+
+
+def real_clip(root):
+    """Phase 44's clip, converted and processed on the card; the seconds of
+    each step. Returns the frames."""
+    from pathlib import Path
+    from infinicube_tpu_torch.data_process import \
+        generate_additional_attributes as gaa
+    from infinicube_tpu_torch.data_process import waymo2shards as w2s
+
+    class Source(w2s.FrameSource):
+        def __init__(self, frames):
+            self._frames = frames
+
+        def clips(self):
+            return ["clip0"]
+
+        def frames(self, clip_id):
+            return iter(self._frames)
+
+    t0 = time.perf_counter()
+    frames = real_frames(w2s.FrameRecord)
+    t1 = time.perf_counter()
+    w2s.convert_clip(Source(frames), "clip0", Path(root))
+    t2 = time.perf_counter()
+    gaa.process_clip(Path(root), "clip0", write_buffers=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    gaa.generate_voxel_buffers(
+        Path(root), "clip0", np.stack([f.cam_to_world_opencv
+                                       for f in frames[:2]]),
+        frames[0].intrinsic, GSM_TRAIN_HW,
+        np.concatenate([f.points for f in frames]),
+        np.concatenate([f.point_semantics for f in frames]))
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+    tars = sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+    print(f"[real] clip of {len(frames)} frames, "
+          f"{sum(len(f.points) for f in frames):,} LiDAR points, 3 views of "
+          f"{GSM_TRAIN_HW[0]}x{GSM_TRAIN_HW[1]}: frames made in "
+          f"{t1 - t0:.2f} s, convert_clip {t2 - t1:.2f} s, process_clip "
+          f"(no voxel buffers) {t3 - t2:.2f} s, generate_voxel_buffers for 2 "
+          f"frames {t4 - t3:.2f} s; {len(tars)} tars, {size / 1e6:.1f} MB")
+    check(len(tars) == 18 + 3, f"tars {tars}")
+    return frames
+
+
+def real_dataset_check(root):
+    """The clip's samples through ``WaymoClipDataset``: the exact count, and
+    what one holds."""
+    from infinicube_tpu_torch.data.specs import DatasetSpec as DS
+    from infinicube_tpu_torch.data.waymo_dataset import (WaymoClipDataset,
+                                                         WaymoDatasetConfig)
+    t0 = time.perf_counter()
+    samples = list(WaymoClipDataset(WaymoDatasetConfig(
+        root=root, frame_end=REAL_FRAMES, samples_per_shard=REAL_SAMPLES,
+        views=REAL_VIEWS)))
+    dt = time.perf_counter() - t0
+    check(len(samples) == REAL_SAMPLES,
+          f"{len(samples)} samples, want {REAL_SAMPLES}")
+    s = samples[0]
+    n_pts = [len(x[DS.INPUT_PC]) for x in samples]
+    boxes = [len(x.get(DS.BOXES_3D, {}).get("poses", ())) for x in samples]
+    print(f"[real] WaymoClipDataset: {len(samples)} samples in {dt:.2f} s "
+          f"({dt / len(samples) * 1e3:.0f} ms a sample), crop points "
+          f"{n_pts}, boxes {boxes}, images "
+          f"{tuple(s[DS.IMAGES_INPUT].shape)}")
+    check(all(n > 65_536 for n in n_pts) and all(b >= 4 for b in boxes) and
+          s[DS.IMAGES_INPUT].shape == (3,) + GSM_TRAIN_HW + (3,),
+          f"samples: points {n_pts}, boxes {boxes}")
+
+
+def real_knn_checks(frames):
+    """``knn_bruteforce`` card against CPU on one frame's points, then
+    ``sdf_from_points`` and ``gt_surface_loss`` with their gradients."""
+    from infinicube_tpu_torch.models.vae import nksr_loss as nl
+    from infinicube_tpu_torch.ops.knn import knn_bruteforce
+    rng = np.random.default_rng(45)
+    ref = torch.from_numpy(frames[0].points)
+    q = torch.from_numpy(frames[1].points[:REAL_KNN_QUERIES] + rng.normal(
+        0, 0.05, (REAL_KNN_QUERIES, 3)).astype(np.float32))
+    refc, qc = ref.cuda(), q.cuda()
+    knn_bruteforce(qc[:4096], refc, k=REAL_KNN_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, i = knn_bruteforce(qc, refc, k=REAL_KNN_K)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n = REAL_KNN_CPU
+    t0 = time.perf_counter()
+    dr, ir = knn_bruteforce(q[:n], ref, k=REAL_KNN_K)
+    cpu_s = time.perf_counter() - t0
+    d, i = d[:n].cpu(), i[:n].cpu()
+    err = (d - dr).abs()
+    rel = (err / dr.abs().clamp_min(1e-12)).max().item()
+    # the rounding of the two terms that cancel, |q|^2 + |r|^2, in f32
+    scale = (q[:n, None, :] ** 2).sum(-1) + (ref[ir.long()] ** 2).sum(-1)
+    floor = 2 * torch.finfo(torch.float32).eps * scale
+    tie = (dr[:, 1] - dr[:, 0]) <= 1e-6
+    same_idx = (i[:, 0] == ir[:, 0]) | tie
+    print(f"[real] knn_bruteforce k={REAL_KNN_K}: {REAL_KNN_QUERIES:,} "
+          f"queries against {len(ref):,} points in {card_s * 1e3:.1f} ms on "
+          f"the card; {n:,} of them on the CPU in {cpu_s:.2f} s: distances "
+          f"bit-equal {(err == 0).float().mean().item():.6f}, max relative "
+          f"{rel:.3e}, max |err| {err.max().item():.3e}; nearest equal "
+          f"{(i[:, 0] == ir[:, 0]).float().mean().item():.6f} "
+          f"({int(tie.sum())} rows at a top-two tie within 1e-6)")
+    check(bool((err <= 1e-5 * dr.abs() + floor).all()),
+          f"knn distances: max relative {rel:.3e}")
+    check(bool(same_idx.all()), f"knn nearest index differs on "
+          f"{int((~same_idx).sum())} rows without a tie")
+
+    # the IMLS distance and the surface loss, card against CPU, with
+    # gradients: a small field's parameters, the same draws on both
+    nrm = rng.normal(size=(len(ref), 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    params = {"w1": rng.normal(0, 0.1, (3, 32)), "b1": rng.normal(0, 0.1, 32),
+              "w2": rng.normal(0, 0.1, 32), "b2": np.array(0.01)}
+    u = torch.from_numpy(rng.uniform(size=4096).astype(np.float32))
+    cfg = nl.NKSRLossConfig(voxel_size=0.2, surface_subsample=4096)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: torch.tensor(v, dtype=torch.float32, device=dev,
+                             requires_grad=True) for k, v in params.items()}
+
+        def field(x):
+            return torch.tanh(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+        x = q[:4096].to(dev).requires_grad_(True)
+        r, nr = ref.to(dev), torch.from_numpy(nrm).to(dev)
+        sdf = nl.sdf_from_points(x, r, nr, k=cfg.sdf_knn, stdv=cfg.sdf_stdv)
+        gx, = torch.autograd.grad(sdf.sum(), x)
+        v, nloss = nl.gt_surface_loss(cfg, field, r, nr, u_slot=u.to(dev))
+        grads = torch.autograd.grad(v + nloss, list(p.values()))
+        out[dev] = (sdf.detach().cpu(), gx.cpu(), (v + nloss).item(),
+                    torch.cat([g.flatten() for g in grads]).cpu())
+    (s1, g1, l1, pg1), (s2, g2, l2, pg2) = out["cuda"], out["cpu"]
+    cs = [cos(s1, s2), cos(g1, g2), cos(pg1, pg2)]
+    print(f"[real] sdf_from_points on 4,096 queries: cosine {cs[0]:.7f}, "
+          f"its query gradient {cs[1]:.7f}; gt_surface_loss {l1:.6f} card, "
+          f"{l2:.6f} CPU, its parameter gradient {cs[2]:.7f}")
+    check(min(cs) >= 0.9999 and abs(l1 - l2) <= 1e-4 * abs(l2),
+          f"sdf / surface loss card against CPU: {cs}, {l1} vs {l2}")
+
+
+@contextlib.contextmanager
+def fenced_trainer(kernels, kind):
+    """While the block runs, every batch the ``kind`` builder's stream makes
+    and every train step are fenced by ``torch.cuda.synchronize`` and
+    recorded as (seconds, launches). Yields the two lists."""
+    from infinicube_tpu_torch import train as train_cli
+    from infinicube_tpu_torch.training import loop
+    made, stepped = [], []
+    build, make_step = train_cli.BUILDERS[kind], loop.make_train_step
+
+    def fenced(fn, out):
+        torch.cuda.synchronize()
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0,
+                    {k: v - before[k] for k, v in kernels.launches.items()}))
+        return res
+
+    def fenced_build(cfg, device):
+        params, loss_fn, stream = build(cfg, device)
+
+        def batches():
+            it = iter(stream)
+            while True:
+                yield fenced(lambda: next(it), made)
+        return params, loss_fn, batches()
+
+    def fenced_make_step(cfg, loss_fn):
+        step = make_step(cfg, loss_fn)
+        return lambda *a: fenced(lambda: step(*a), stepped)
+
+    train_cli.BUILDERS[kind] = fenced_build
+    loop.make_train_step = fenced_make_step
+    try:
+        yield made, stepped
+    finally:
+        train_cli.BUILDERS[kind] = build
+        loop.make_train_step = make_step
+
+
+def real_train_run(kernels, kind, config, name, tmp, extra, want):
+    """``train.main`` on ``config`` with ``data.root`` on the clip for a
+    warm-up step and REAL_STEPS more, no plain version allowed: exact
+    launches a step (batch making and step), ms a step split, steps/s as
+    logged, peak GiB. Returns the run's launches and its state."""
+    from infinicube_tpu_torch import train as train_cli
+    steps = REAL_STEPS + 1
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with fenced_trainer(kernels, kind) as (made, stepped), \
+            no_plain_versions():
+        state = train_cli.main(
+            [os.path.join(ROOT, "configs", config), "--name", name,
+             "--logdir", tmp, "--exec", f"max_steps={steps}", "log_every=1",
+             f"ckpt_dir={tmp}/{name}", *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logs = [json.loads(line) for line in
+            open(os.path.join(tmp, f"{name}.jsonl"))]
+    check(len(made) == len(stepped) == len(logs) == steps,
+          f"{len(made)} batches, {len(stepped)} steps, {len(logs)} logged")
+    for (mt, ml), (st, sl), r in zip(made, stepped, logs):
+        per = {k: ml[k] + sl[k] for k in sl}
+        print(f"[real {kind}] step {r['step']}: loss {r['loss']:.5f}, "
+              f"batch {mt * 1e3:.1f} ms, step {st * 1e3:.1f} ms, "
+              f"{r['steps_per_sec']:.3f} steps/s; launches "
+              f"{ {k: v for k, v in per.items() if v} }")
+        check(math.isfinite(r["loss"]) and r["grad_finite"] == 1.0,
+              f"{kind} step {r['step']}: {r}")
+        check(per == want, f"{kind} step {r['step']} launches {per}, want "
+              f"{ {k: v for k, v in want.items() if v} }")
+    check(state.step == steps and state.num_nan_skips == 0,
+          f"{kind}: step {state.step}, {state.num_nan_skips} skipped")
+    bm = [m[0] * 1e3 for m in made[1:]]
+    sm = [s[0] * 1e3 for s in stepped[1:]]
+    sps = [r["steps_per_sec"] for r in logs[1:]]
+    print(f"[real {kind}] {sum(p.numel() for p in state.params.values()):,} "
+          f"parameters, {steps} steps through train.main in {wall:.1f} s "
+          f"(build, steps, final checkpoint); after the warm-up a step "
+          f"{np.mean(bm) + np.mean(sm):.1f} ms: batch making (host and its "
+          f"device work) {min(bm):.1f}-{max(bm):.1f} ms, the rest "
+          f"{min(sm):.1f}-{max(sm):.1f} ms; {min(sps):.3f}-{max(sps):.3f} "
+          f"steps/s logged; peak {peak:.2f} GiB")
+    return launches, state
+
+
+def real_trainers(kernels, root):
+    """The three trainers on the clip. Returns the launches of the path."""
+    from infinicube_tpu_torch.models.gsm.model import GSMConfig
+    from infinicube_tpu_torch.training import data_glue
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_train_")
+    data = [f"data.root={root}", f"data.frame_end={REAL_FRAMES}"]
+    total = {k: 0 for k in kernels.launches}
+    try:
+        vae_l, state = real_train_run(kernels, "vae", "train_vae.yaml", "vae",
+                                      tmp, data, VAE_STEP_LAUNCHES)
+        del state
+        torch.cuda.empty_cache()
+        # the frozen VAE's first latents, before scale_by_std scales them
+        first, batches = [], data_glue.diffusion_batches
+
+        def recording(*a, **kw):
+            for latents, cond in batches(*a, **kw):
+                if not first:
+                    first.append(latents.clone())
+                yield latents, cond
+
+        data_glue.diffusion_batches = recording
+        try:
+            diff_l, state = real_train_run(
+                kernels, "diffusion", "train_diffusion.yaml", "diff", tmp,
+                [*data, "batch_size=1", f"vae_checkpoint={tmp}/vae"],
+                {**STEP_LAUNCHES, "sparse_conv_f32": VAE_ENCODE_K4})
+        finally:
+            data_glue.diffusion_batches = batches
+        del state
+        torch.cuda.empty_cache()
+        sf = json.loads(open(os.path.join(tmp, "diff",
+                                          "scale_factor.json")).read())
+        # held against numpy's float64 population std of the same latents
+        lat = first[0].float().cpu().numpy().astype(np.float64)
+        want_sf = 1.0 / max(float(np.std(lat)), 1e-6)
+        rel = abs(sf["scale_factor"] - want_sf) / want_sf
+        print(f"[real diffusion] scale_factor.json {sf['scale_factor']:.6f}"
+              f", 1 / the float64 std of the first batch's latents "
+              f"{want_sf:.6f}: {rel:.2e} relative (gate 1e-4; latents "
+              f"{tuple(first[0].shape)})")
+        check(rel <= 1e-4, f"scale factor {sf} vs {want_sf}")
+        gsm_l, state = real_train_run(
+            kernels, "gsm", "train_gsm.yaml", "gsm", tmp,
+            [*data, f"data.views={REAL_VIEWS}", "lpips_checkpoint=random"],
+            gsm_step_launches(kernels, GSMConfig(), len(REAL_VIEWS)))
+        del state
+        for run in (vae_l, diff_l, gsm_l):
+            for k, v in run.items():
+                total[k] += v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return total
+
+
+def real_data(kernels):
+    """Phase 44. Returns the launches of its path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    try:
+        root = os.path.join(tmp, "waymo")
+        t0 = time.perf_counter()
+        frames = real_clip(root)
+        real_dataset_check(root)
+        t1 = time.perf_counter()
+        real_knn_checks(frames)
+        del frames
+        t2 = time.perf_counter()
+        launches = real_trainers(kernels, root)
+        print(f"[real] clip and dataset {t1 - t0:.1f} s, knn and loss checks "
+              f"{t2 - t1:.1f} s, trainers {time.perf_counter() - t2:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -6381,6 +6824,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sparse_paths = sparse_leftovers(kernels)
     print(f"[sparse] phase 43 done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    real_launches = real_data(kernels)
+    print(f"[real] phase 44 done in {time.perf_counter() - t0:.1f} s")
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -6421,7 +6868,8 @@ def main() -> int:
              "stage2": stage2_launches, "stage3": stage3_launches,
              "gsm_train": gsm_train_launches,
              "gsm_train_bf16": bf16_launches, **video_paths,
-             "e2e": e2e_launches, **alt_paths, **sparse_paths}
+             "e2e": e2e_launches, **alt_paths, **sparse_paths,
+             "real_data": real_launches}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

@@ -8,6 +8,8 @@ the caller passes ``device="cpu"``; on CPU tensors every kernel is replaced
 by its plain PyTorch version.
 
 Ported so far: the Wan video stage (``models/wan``), stage 1 and its
-trainers (``models/diffusion``, ``models/vae``, ``train.py``), and stage 2,
-the guidance buffers (``inference/guidance_buffer_generation.py``).
+trainers (``models/diffusion``, ``models/vae``, ``train.py``), stage 2, the
+guidance buffers (``inference/guidance_buffer_generation.py``), stage 3
+(``models/gsm``), the chained pipeline (``examples``) and the real-data
+path (``data``, ``data_process``, ``training/data_glue.py``).
 """

@@ -4,8 +4,9 @@
 The png codec is written here on ``zlib`` and ``struct`` (the card's machine
 has no PIL): 8-bit gray, 8-bit RGB(A) and 16-bit gray, big-endian as the
 format has it, so depth and instance pngs keep their uint16 values.
-``decode_member`` reads what ``encode_png`` writes (non-interlaced, row
-filter None)."""
+``encode_png`` writes every row unfiltered; ``decode_png`` reads
+non-interlaced pngs of those kinds with any of the format's five row
+filters, as PIL, cv2 and the reference's converter write them."""
 
 from __future__ import annotations
 
@@ -49,6 +50,39 @@ def encode_png(arr: np.ndarray) -> bytes:
         _chunk(b"IEND", b"")
 
 
+def _unfilter(filters: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Undo the png row filters: ``filters`` uint8 [H], ``rows`` uint8
+    [H, W, bpp] as stored -> the pixel bytes uint8 [H, W, bpp].
+
+    A pixel's predictor reads its reconstructed left (a), up (b) and
+    up-left (c) neighbours: 0 None, 1 Sub a, 2 Up b, 3 Average
+    floor((a + b) / 2), 4 Paeth. Pixels on one anti-diagonal depend on
+    none of each other, so the rows are undone one anti-diagonal at a time,
+    every row by its own filter."""
+    if filters.max(initial=0) > 4:
+        raise ValueError(f"png row filter {int(filters.max())} is not one "
+                         "the format defines")
+    if not filters.any():
+        return np.ascontiguousarray(rows)
+    h, w, _ = rows.shape
+    # reconstructed bytes, with a zero row above and a zero column left
+    out = np.zeros((h + 1, w + 1, rows.shape[2]), np.int32)
+    f = filters.astype(np.int32)[:, None]
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        fy = f[y]
+        pred = np.select([fy == 1, fy == 2, fy == 3, fy == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[y + 1, x + 1] = (rows[y, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """png bytes -> uint8 or uint16 [H, W] (gray) or [H, W, C]."""
     if data[:8] != _PNG_SIG:
@@ -72,10 +106,7 @@ def decode_png(data: bytes) -> np.ndarray:
     bpp = c * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(
         h, 1 + w * bpp)
-    if raw[:, 0].any():
-        raise ValueError("png rows with a filter other than None are not "
-                         "read here")
-    out = np.ascontiguousarray(raw[:, 1:])
+    out = _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, bpp))
     dt = np.dtype(">u2") if depth == 16 else np.dtype(np.uint8)
     img = out.view(dt).reshape(h, w, c).astype(dt.newbyteorder("="))
     return img[..., 0] if c == 1 else img

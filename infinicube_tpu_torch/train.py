@@ -5,12 +5,16 @@ overrides (``ConfigArgumentParser``), model selection by the ``model:`` key,
 logger selection, checkpoint auto-resume. Runs on the card unless
 ``main(argv, device="cpu")``, with TF32 off (``utils/precision.py``).
 
-Ported: the voxel-diffusion trainer on the synthetic latent stream, the
-sparse-VAE trainer on the synthetic point stream and the GSM trainer on its
-synthetic scene (what the JAX CLI trains on when no ``data.root`` is
-configured). Real data (``data.root``: the Waymo clips, ``vae_batches``,
-``diffusion_batches``, ``gsm_batches``, ``scale_by_std``) raises
-``NotImplementedError``.
+Three trainers: the voxel diffusion model, the sparse VAE and the GSM.
+Where ``data.root`` names a directory of converted clips
+(``data_process/waymo2shards.py``, then
+``data_process/generate_additional_attributes.py``), each trains on them
+through ``WaymoClipDataset`` (the ``data.*`` keys are its
+``WaymoDatasetConfig``) and ``training/data_glue.py``: the diffusion trainer
+on the latents of the frozen VAE at ``vae_checkpoint``, scaled by
+``scale_by_std`` (written to ``<ckpt_dir>/scale_factor.json``). Where
+``data.root`` is unset or names no existing path, each trains on its
+synthetic stream, as the JAX CLI does.
 
 Usage:
   python -m infinicube_tpu_torch.train configs/train_diffusion.yaml \\
@@ -19,6 +23,8 @@ Usage:
       --name myvae --exec max_steps=3 points_per_sample=200000
   python -m infinicube_tpu_torch.train configs/train_gsm.yaml \\
       --name mygsm --exec max_steps=3 lpips_checkpoint=random
+  python -m infinicube_tpu_torch.train configs/train_vae.yaml \\
+      --name myvae --exec data.root=data/waymo max_steps=3
 """
 
 from __future__ import annotations
@@ -35,8 +41,6 @@ from infinicube_tpu_torch.training.loop import LoopConfig, train
 from infinicube_tpu_torch.training.state import TrainConfig
 from infinicube_tpu_torch.utils.precision import set_float32_precision
 
-_WAITS = ("not ported yet: {what} (ROADMAP section 1, items 9 and 10: the "
-          "Waymo data path and the training data glue)")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -54,13 +58,67 @@ def _dataclass_kwargs(section) -> dict:
     return kw
 
 
+class _Looping:
+    """The clips of ``dcfg`` pass after pass. A pass that yields no sample
+    raises, naming the root, where looping on would never yield one."""
+
+    def __init__(self, dcfg):
+        self.dcfg = dcfg
+
+    def __iter__(self):
+        from infinicube_tpu_torch.data.waymo_dataset import build_dataset
+        while True:
+            n = 0
+            for sample in build_dataset(self.dcfg):
+                n += 1
+                yield sample
+            if n == 0:
+                raise RuntimeError(
+                    f"data.root {self.dcfg.root}: a whole pass over its "
+                    f"shards yielded no sample")
+
+
+def _real_dataset(cfg: Config):
+    """The clips under ``data.root`` as an endless sample stream, or None
+    where ``data.root`` is unset or names no existing path."""
+    from pathlib import Path
+
+    from infinicube_tpu_torch.data.waymo_dataset import WaymoDatasetConfig
+    root = cfg.get_path("data.root")
+    if not root or not Path(root).exists():
+        return None
+    fields = WaymoDatasetConfig.__dataclass_fields__
+    return _Looping(WaymoDatasetConfig(root=root, **{
+        k: _tuples(v) for k, v in cfg.get_path("data", Config()).items()
+        if k != "root" and k in fields}))
+
+
+def _frozen_vae(cfg: Config, device: torch.device):
+    """The sparse VAE of the ``vae.*`` keys with the parameters of the
+    newest checkpoint at ``vae_checkpoint`` (a random init where that holds
+    none), frozen."""
+    from infinicube_tpu_torch.models.vae.sunet import (SparseStructureVAE,
+                                                       SparseVAEConfig)
+    from infinicube_tpu_torch.training.checkpoint import CheckpointManager
+    ckpt = cfg.get_path("vae_checkpoint")
+    if not ckpt:
+        raise SystemExit("diffusion training on real data requires "
+                         "vae_checkpoint")
+    vcfg = SparseVAEConfig(**_dataclass_kwargs(cfg.get_path("vae", {})))
+    vae = SparseStructureVAE(vcfg, device=device)
+    vae.init_params(torch.Generator(device=device).manual_seed(0))
+    mgr = CheckpointManager(ckpt)
+    if mgr.latest_step() is not None:
+        vae.load_state_dict(mgr.restore()["params"])
+    return vae.eval().requires_grad_(False), vcfg
+
+
 def build_diffusion(cfg: Config, device: torch.device):
-    """(params, loss_fn, batches) of the voxel-diffusion trainer."""
+    """(params, loss_fn, batches) of the voxel-diffusion trainer: the
+    frozen VAE's latents of the clips under ``data.root`` scaled by
+    ``scale_by_std``, or else the synthetic latent stream."""
     from infinicube_tpu_torch.models.diffusion.model import (
         CondCubes, DiffusionConfig, VoxelDiffusion)
-    if cfg.get_path("data.root"):
-        raise NotImplementedError(_WAITS.format(
-            what="diffusion training on real data (data.root)"))
     dc = DiffusionConfig(**_dataclass_kwargs(cfg.get_path("diffusion", {})))
     model = VoxelDiffusion(dc, device=device, trainable=True)
     model.init_params(torch.Generator(device=device).manual_seed(
@@ -70,6 +128,19 @@ def build_diffusion(cfg: Config, device: torch.device):
         latents, cond = batch
         return model.train_loss(latents, cond, generator=generator,
                                 params=params)
+
+    ds = _real_dataset(cfg)
+    if ds is not None:
+        from infinicube_tpu_torch.training.data_glue import (
+            diffusion_batches, scale_by_std)
+        vae, vcfg = _frozen_vae(cfg, device)
+        sf_path = (cfg.get_path("ckpt_dir",
+                                f"checkpoints/{cfg.get_path('name', 'run')}")
+                   + "/scale_factor.json")
+        return model.named_parameters(), loss_fn, scale_by_std(
+            diffusion_batches(ds, model, vae, vcfg,
+                              batch_size=cfg.get_path("batch_size", 2)),
+            save_path=sf_path)
 
     def synthetic_batches():
         # synthetic latents stream for smoke training without data; its
@@ -90,20 +161,19 @@ def build_diffusion(cfg: Config, device: torch.device):
 
 def build_vae(cfg: Config, device: torch.device):
     """(params, loss_fn, batches) of the sparse-VAE trainer: hash-tree
-    batches from uniform points in a +-5 m cube with random labels, drawn
-    from ``numpy.random.default_rng(0)`` in the JAX CLI's order (its first
-    draw shapes the parameters and is not trained on, so it is drawn and
-    dropped here too). The metrics carry the active voxels of every level
-    as ``voxels{l}``."""
+    batches of the clips under ``data.root`` (``vae_batches``, the first
+    ``point_capacity`` points of a sample), or else of uniform points in a
+    +-5 m cube with random labels, drawn from
+    ``numpy.random.default_rng(0)`` in the JAX CLI's order (its first draw
+    shapes the parameters and is not trained on, so it is drawn and dropped
+    here too). The metrics carry the active voxels of every level as
+    ``voxels{l}``."""
     from torch.func import functional_call
 
     from infinicube_tpu_torch.grid.ops import majority_label
     from infinicube_tpu_torch.models.vae.loss import VAELossConfig, vae_loss
     from infinicube_tpu_torch.models.vae.sunet import (
         SparseStructureVAE, SparseVAEConfig, build_hash_tree)
-    if cfg.get_path("data.root"):
-        raise NotImplementedError(_WAITS.format(
-            what="VAE training on real data (data.root)"))
     vc = SparseVAEConfig(**_dataclass_kwargs(cfg.get_path("vae", {})))
     lcfg = VAELossConfig(**cfg.get_path("vae_loss", {}))
     model = SparseStructureVAE(vc, device=device)
@@ -136,6 +206,14 @@ def build_vae(cfg: Config, device: torch.device):
             metrics[f"voxels{l}"] = g.mask.sum() / g.batch_size
         return loss, metrics
 
+    ds = _real_dataset(cfg)
+    if ds is not None:
+        from infinicube_tpu_torch.training.data_glue import vae_batches
+        return dict(model.named_parameters()), loss_fn, vae_batches(
+            ds, vc, batch_size=B,
+            point_capacity=cfg.get_path("point_capacity", 65536),
+            device=device)
+
     def batches():
         while True:
             yield make_batch()
@@ -146,7 +224,8 @@ def build_vae(cfg: Config, device: torch.device):
 def build_gsm(cfg: Config, device: torch.device):
     """(params, loss_fn, batches) of the GSM trainer: the release
     ``GSMConfig()`` (f32) with the dense slot-volume lookup bounds of the
-    training crops, and the JAX CLI's synthetic scene (2,000 uniform points
+    training crops, on the clips under ``data.root`` (``gsm_batches``: their
+    input views) or else the JAX CLI's synthetic scene (2,000 uniform points
     in a 20 m cube as a 0.5 m grid of capacity 4,096, 2 views of 64x96 of
     uniform colors), drawn from ``numpy.random.default_rng(0)`` in its
     order (its first draw shapes the parameters and is not trained on, so
@@ -162,9 +241,6 @@ def build_gsm(cfg: Config, device: torch.device):
     from infinicube_tpu_torch.models.gsm.loss import GSMLossConfig, gsm_loss
     from infinicube_tpu_torch.models.gsm.lpips import load_lpips
     from infinicube_tpu_torch.models.gsm.model import GSM, GSMConfig
-    if cfg.get_path("data.root"):
-        raise NotImplementedError(_WAITS.format(
-            what="GSM training on real data (data.root)"))
     # training runs on per-sample crops (the same recentered +-(25.6, 25.6,
     # 12.8) m cube as the VAE at 0.2 m voxels), so the conv plans can use
     # the dense slot-volume lookup
@@ -210,6 +286,13 @@ def build_gsm(cfg: Config, device: torch.device):
         return gsm_loss(lcfg, out["render"], batch["images"], valid,
                         out["sky_mask"], gaussians=out["gaussians"],
                         lpips=lpips, generator=generator)
+
+    ds = _real_dataset(cfg)
+    if ds is not None:
+        from infinicube_tpu_torch.training.data_glue import gsm_batches
+        return dict(model.named_parameters()), loss_fn, gsm_batches(
+            ds, gc, voxel_capacity=cfg.get_path("voxel_capacity", 65536),
+            device=device)
 
     def batches():
         while True:

@@ -41,17 +41,88 @@ def test_png_round_trip_through_pil(dtype, shape):
     np.testing.assert_array_equal(got, arr)
 
 
-def test_png_decoder_refuses_filtered_rows():
-    """Filtered rows (which other writers use) are refused, not misread."""
-    data = codec.encode_png(np.zeros((2, 3), np.uint8))
+def _png_from_rows(shape, depth, ctype, raw):
+    """A png of the header fields given around the row bytes ``raw``."""
     import struct
     import zlib
-    body = zlib.compress(b"\x01\x00\x00\x00\x01\x00\x00\x00")
-    n, = struct.unpack(">I", data[33:37])
-    chunk = struct.pack(">I", len(body)) + b"IDAT" + body + struct.pack(
-        ">I", zlib.crc32(b"IDAT" + body) & 0xFFFFFFFF)
-    with pytest.raises(ValueError, match="filter"):
-        codec.decode_png(data[:33] + chunk + data[33 + 12 + n:])
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", shape[1], shape[0], depth, ctype, 0, 0, 0)) +
+        chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b""))
+
+
+def _filter_rows(img, bpp, filters):
+    """The png spec's forward filters, byte by byte: uint8 rows [H, n] and
+    a filter type a row -> the stored bytes, each row led by its type."""
+    out, prev = bytearray(), [0] * img.shape[1]
+    for row, ft in zip(img.tolist(), filters):
+        out.append(ft)
+        for i, x in enumerate(row):
+            a = row[i - bpp] if i >= bpp else 0
+            b = prev[i]
+            c = prev[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = [0, a, b, (a + b) // 2,
+                    a if pa <= pb and pa <= pc else b if pb <= pc else c][ft]
+            out.append((x - pred) % 256)
+        prev = row
+    return out
+
+
+def test_png_decoder_refuses_filtered_rows():
+    """A row filter type the format does not define (5 and up) is refused,
+    not misread; the five it defines are read."""
+    img = np.zeros((2, 3), np.uint8)
+    for ft in range(5):
+        data = _png_from_rows(img.shape, 8, 0, _filter_rows(img, 1, [ft] * 2))
+        np.testing.assert_array_equal(codec.decode_png(data), img)
+    raw = _filter_rows(img, 1, [0, 0])
+    raw[4] = 5
+    with pytest.raises(ValueError, match="filter 5"):
+        codec.decode_png(_png_from_rows(img.shape, 8, 0, raw))
+
+
+@pytest.mark.parametrize("dtype,shape", [(np.uint8, (13, 11)),
+                                         (np.uint16, (13, 11)),
+                                         (np.uint8, (9, 14, 3)),
+                                         (np.uint8, (7, 5, 4))])
+def test_png_decoder_undoes_every_row_filter(dtype, shape):
+    """Rows stored under each of the five filters, one type throughout and
+    mixed row by row, decode to the image, as they do through PIL; and a
+    png that PIL writes with its own filter choice (smooth images, so it
+    picks filters other than None) decodes as PIL decodes it."""
+    import io
+
+    from PIL import Image
+    rng = np.random.default_rng(shape[1])
+    img = rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    c = shape[2] if len(shape) == 3 else 1
+    depth = 8 * img.dtype.itemsize
+    ctype = {1: 0, 3: 2, 4: 6}[c]
+    rows = img.astype(img.dtype.newbyteorder(">")).reshape(
+        shape[0], -1).view(np.uint8)
+    bpp = c * depth // 8
+    for filters in [[ft] * shape[0] for ft in range(5)] + [
+            rng.integers(0, 5, shape[0]).tolist()]:
+        data = _png_from_rows(shape, depth, ctype,
+                              _filter_rows(rows, bpp, filters))
+        got = codec.decode_png(data)
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got, img)
+        np.testing.assert_array_equal(jcodec.decode_member("png", data), img)
+    ramp = np.add.outer(np.arange(shape[0]), np.arange(shape[1])) * 3
+    smooth = (ramp if c == 1 else np.stack(
+        [ramp * (k + 1) for k in range(c)], -1)).astype(dtype)
+    buf = io.BytesIO()
+    Image.fromarray(smooth).save(buf, format="PNG")
+    got = codec.decode_png(buf.getvalue())
+    np.testing.assert_array_equal(got, smooth)
+    np.testing.assert_array_equal(
+        got, jcodec.decode_member("png", buf.getvalue()))
 
 
 def test_other_members_and_tars(tmp_path):

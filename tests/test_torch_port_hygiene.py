@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -243,7 +244,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    "single_chunk_cli",
                                    "serve_quant_diffusion", "sparse_unet",
                                    "cond_encoders", "alt_diffusion",
-                                   "brick_vae"])
+                                   "brick_vae", "process_clip",
+                                   "vae_batches", "gsm_batches",
+                                   "lidar_depth_image"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -266,6 +269,9 @@ def test_entry_points_default_to_the_card(entry):
     from infinicube_tpu_torch.train import main as train_main
     from infinicube_tpu_torch.training.loop import LoopConfig, train
     from infinicube_tpu_torch.training.state import TrainConfig
+    from infinicube_tpu_torch.data_process import \
+        generate_additional_attributes as gaa
+    from infinicube_tpu_torch.training import data_glue
     tiny_vae = VideoVAEConfig(latent_channels=4, base_channels=8,
                               channel_mult=(1, 2), num_res_blocks=1)
     from infinicube_tpu_torch.models.diffusion.model import CondEncoders
@@ -318,6 +324,14 @@ def test_entry_points_default_to_the_card(entry):
         "brick_vae": lambda: SparseStructureVAE(SparseVAEConfig(
             f_maps=8, neck_dims=(4, 4, 4), capacities=(64, 32, 16),
             conv_backend="brick")),
+        # the data path: the tensors it builds from host numpy go to the
+        # card unless the caller asks for the CPU
+        "process_clip": lambda: gaa.process_clip(ROOT / "no_clip", "c"),
+        "lidar_depth_image": lambda: gaa.lidar_depth_image(
+            np.zeros((4, 3)), np.eye(4), np.eye(3), (4, 4)),
+        "vae_batches": lambda: next(data_glue.vae_batches(
+            [], SparseVAEConfig())),
+        "gsm_batches": lambda: next(data_glue.gsm_batches([], None)),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()

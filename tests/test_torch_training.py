@@ -315,14 +315,45 @@ def test_train_cli_reads_the_release_yaml(tmp_path):
     assert state.step == 1 and state.num_nan_skips == 0
 
 
+# tests/test_torch_vae_train.py's CLI: 0.8 m voxels keep the +-5 m points
+# of the synthetic stream inside the neck
+SMALL_VAE = ["vae.f_maps=8", "vae.c_dim=8", "vae.sem_embed_dim=4",
+             "vae.neck_dims=(8,8,8)", "vae.neck_ijk_min=(-4,-4,-4)",
+             "vae.capacities=(1024,512,256)",
+             "vae.finest_voxel_size=(0.8,0.8,0.8)", "vae.origin=(0.4,0.4,0.4)",
+             "vae.dense_lookup_ijk_min=(-18,-18,-10)",
+             "vae.dense_lookup_dims=(36,36,20)", "points_per_sample=300"]
+
+
 @pytest.mark.parametrize("overrides", [
-    ["model=vae", "data.root=/data/waymo"],
-    ["model=gsm", "data.root=/data/waymo"], ["data.root=/data/waymo"]])
+    ["model=vae", "data.root={missing}", *SMALL_VAE],
+    ["model=gsm", "data.root={missing}"], ["data.root={missing}"]])
 def test_train_cli_names_what_is_not_ported(tmp_path, overrides):
-    from infinicube_tpu_torch.train import main
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["none", "--logdir", str(tmp_path), "--exec", *overrides,
-              *TINY], device="cpu")
+    """A ``data.root`` that names no existing path trains on the synthetic
+    stream, as the JAX CLI does (its ``_real_dataset`` returns None), for
+    each builder."""
+    from infinicube_tpu_torch import train as train_cli
+    argv = ["none", "--exec", *TINY, *(
+        o.format(missing=tmp_path / "no_such_root") for o in overrides)]
+    cfg = ConfigArgumentParser().parse_config(argv)
+    kind = cfg.get_path("model", "diffusion")
+    params, loss_fn, batches = train_cli.BUILDERS[kind](
+        cfg, torch.device("cpu"))
+    batch = next(iter(batches))
+    if kind == "diffusion":
+        latents, cond = batch
+        assert latents.shape == (2, 8, 8, 8, 2)
+        assert not cond.map_cube.any() and not cond.box_cube.any()
+    elif kind == "vae":
+        grids, _ = batch
+        assert grids[0].capacity == 1024 and grids[0].batch_size == 1
+    else:
+        assert batch["images"].shape == (2, 64, 96, 3)
+    if kind != "gsm":
+        state = train_cli.main(["--logdir", str(tmp_path), *argv,
+                                "max_steps=1", f"ckpt_dir={tmp_path}/ck"],
+                               device="cpu")
+        assert state.step == 1 and state.num_nan_skips == 0
 
 
 def test_default_val_fn_and_topk_monitor(tmp_path):
