@@ -376,6 +376,27 @@ Then training on real clips (phase 43's models freed first):
     making and the rest, steps/s as logged, peak GiB. Its launches are the
     ``real_data`` path of every kernel.
 
+Then the released-weights path (phase 44's models freed first):
+
+45. random weights, seeded, in the released Wan2.1 layouts and files: the
+    DiT mirror (tests/torch_mirrors) at the published 1.3B widths as one
+    f32 ``diffusion_pytorch_model.safetensors`` (written by
+    ``write_safetensors``: the machine has no safetensors package), the
+    VAE mirror at its release defaults as ``Wan2.1_VAE.pth``, and a
+    Wan-layout umt5 at full width but 2 of its 24 blocks in bf16 (its keys
+    from names and shapes) as ``models_t5_umt5-xxl-enc-bf16.pth``;
+    ``python -m infinicube_tpu_torch.convert`` in a process of its own
+    (seconds to read, convert and write each tower, its peak host memory);
+    ``WanVideoGenerator.from_checkpoint`` with the serving profile (seconds,
+    peak device memory), every loaded tensor equal to the in-memory
+    conversion bit for bit; the loaded DiT in f32 against the mirror on one
+    latent frame at 480p (1,560 tokens; cosine >= 0.99999, max-abs <= 1e-3
+    of max|ref|; ``flash_attn_f32`` 60 launches) and in bf16 (cosine >=
+    0.99, max-abs <= 0.1 of max|ref|; K2 60), their launches the
+    ``weights_dit`` path; then one request of 93 frames at 480x832, 2
+    steps, from the checkpoint with exact launches (K1 and K2 120 each, K3
+    0), its phase seconds and peak: the ``weights`` path.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -6671,6 +6692,279 @@ def real_data(kernels):
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
+
+# ---------------------------------------------------------------------------
+# the released-weights path
+# ---------------------------------------------------------------------------
+
+# the published Wan2.1-T2V-1.3B widths, with the buffer embedder
+RELEASE_DIT = dict(dim=1536, ffn_dim=8960, num_layers=30, num_heads=12,
+                   in_dim=16, out_dim=16, text_dim=4096, freq_dim=256,
+                   buffer_dim=32)
+# umt5-xxl at full width (vocab, d_model, d_ff, blocks, heads, head dim),
+# 2 of its 24 blocks: a depth cut only
+RELEASE_UMT5 = (256384, 4096, 10240, 2, 64, 64)
+WEIGHTS_STEPS = 2
+# the loaded DiT against the mirror on one latent frame at 480p: (cosine,
+# max-abs over max|ref|) at f32 (both sides f32, attention by 3xTF32) and
+# with bf16 parameters and compute (K2)
+WEIGHTS_F32_GATE = (0.99999, 1e-3)
+WEIGHTS_BF16_GATE = (0.99, 0.1)
+ST_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16",
+            torch.float16: "F16"}
+# the conversion in a process of its own, for its peak host memory: the
+# max RSS (which counts the mapped source files' resident pages) and the
+# anonymous part, sampled every 50 ms (RssAnon, or statm's resident less
+# shared pages where the kernel's status gives no RssAnon or 0)
+CONVERT = """
+import os, resource, sys, threading, time
+t0 = time.perf_counter()
+peak = [0, "not measured"]
+def anon_kib():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon:") and int(line.split()[1]):
+                return int(line.split()[1]), "RssAnon"
+    with open("/proc/self/statm") as f:
+        _, res, shared = (int(v) for v in f.read().split()[:3])
+    return (res - shared) * os.sysconf("SC_PAGE_SIZE") // 1024, "statm"
+def sample():
+    while True:
+        kib, how = anon_kib()
+        peak[:] = [max(peak[0], kib), how]
+        time.sleep(0.05)
+threading.Thread(target=sample, daemon=True).start()
+from infinicube_tpu_torch.convert import main
+t1 = time.perf_counter()
+main(sys.argv[1:])
+rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print(f"[convert] imports {t1 - t0:.2f} s, main {time.perf_counter() - t1:.2f}"
+      f" s; peak host memory: max RSS {rss / 2**20:.2f} GiB (mapped file "
+      f"pages included), anonymous {peak[0] / 2**20:.2f} GiB ({peak[1]})")
+"""
+
+
+def write_safetensors(path, sd):
+    """``sd`` in the safetensors format (8 bytes of little-endian header
+    length, a JSON header of dtype, shape and data offsets, the raw bytes):
+    the card's machine has no safetensors package."""
+    names = sorted(sd)
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for k in names:
+        n = sd[k].numel() * sd[k].element_size()
+        header[k] = {"dtype": ST_NAMES[sd[k].dtype],
+                     "shape": list(sd[k].shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    body = json.dumps(header).encode()
+    body += b" " * (-len(body) % 8)
+    with open(path, "wb") as f:
+        f.write(len(body).to_bytes(8, "little"))
+        f.write(body)
+        for k in names:
+            f.write(memoryview(sd[k].contiguous().view(torch.uint8).numpy()))
+
+
+def released_files(tmp):
+    """Random weights, seeded, in the released layouts and file formats:
+    the DiT as one f32 ``diffusion_pytorch_model.safetensors``, the VAE as
+    ``Wan2.1_VAE.pth``, umt5 (Wan's keys, bf16) as
+    ``models_t5_umt5-xxl-enc-bf16.pth``. Returns the paths, the state dicts
+    on the CPU and the DiT mirror on the card."""
+    from torch_mirrors.umt5_keys import random_umt5, umt5_shapes
+    from torch_mirrors.wan_dit_torch import WanModelMirror
+    from torch_mirrors.wan_vae_torch import WanVAEMirror
+    paths = {"dit": os.path.join(tmp, "diffusion_pytorch_model.safetensors"),
+             "vae": os.path.join(tmp, "Wan2.1_VAE.pth"),
+             "t5": os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth")}
+    torch.manual_seed(45)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        mirror = WanModelMirror(**RELEASE_DIT).eval().requires_grad_(False)
+        vae = WanVAEMirror().eval()
+    t5 = random_umt5(umt5_shapes(*RELEASE_UMT5),
+                     torch.Generator(device="cuda").manual_seed(45),
+                     dtype=torch.bfloat16, device="cuda")
+    sds = {"dit": {k: v.cpu() for k, v in mirror.state_dict().items()},
+           "vae": {k: v.cpu() for k, v in vae.state_dict().items()},
+           "t5": {k: v.cpu() for k, v in t5.items()}}
+    del vae, t5
+    t1 = time.perf_counter()
+    write_safetensors(paths["dit"], sds["dit"])
+    torch.save(sds["vae"], paths["vae"])
+    torch.save(sds["t5"], paths["t5"])
+    t2 = time.perf_counter()
+    sizes = {k: os.path.getsize(p) / 2**30 for k, p in paths.items()}
+    print(f"[weights] released files made in {t1 - t0:.2f} s, written in "
+          f"{t2 - t1:.2f} s: DiT {sizes['dit']:.2f} GiB f32 safetensors "
+          f"({sum(v.numel() for v in sds['dit'].values()):,} parameters), "
+          f"VAE {sizes['vae']:.3f} GiB, umt5 ({RELEASE_UMT5[3]} of 24 "
+          f"blocks) {sizes['t5']:.2f} GiB bf16")
+    return paths, sds, mirror
+
+
+def convert_released(paths, out):
+    """``python -m infinicube_tpu_torch.convert`` in a process of its own
+    (its peak host memory is the conversion's alone)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", CONVERT, "--wan-dit", paths["dit"],
+         "--wan-vae", paths["vae"], "--umt5", paths["t5"],
+         "--variant", "1.3b", "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in run.stdout.splitlines():
+        print(line)
+    check(run.returncode == 0, f"convert exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    print(f"[weights] the convert CLI took {time.perf_counter() - t0:.2f} s "
+          "with its start-up")
+
+
+def hold_loaded(gen, want):
+    """Every tensor of the loaded towers equals the in-memory conversion
+    (in the dtype the tower holds) bit for bit."""
+    n = 0
+    for tower, sd in want.items():
+        got = getattr(gen, tower).state_dict()
+        check(got.keys() == sd.keys(), f"{tower}: keys differ")
+        for k, v in sd.items():
+            check(torch.equal(got[k], v.to(got[k].device, got[k].dtype)),
+                  f"{tower}.{k} differs from the in-memory conversion")
+            n += 1
+    print(f"[weights] all {n} loaded tensors equal the in-memory conversion "
+          "bit for bit")
+
+
+def dit_against_mirror(kernels, mirror, dit_sd):
+    """The loaded DiT's weights in the port's f32 DiT and then in its bf16
+    one, each against the mirror (f32) on one latent frame at 480p. Returns
+    the gaps and the launches of the two forwards."""
+    from infinicube_tpu_torch.models.wan.dit import WanDiT, WanDiTConfig
+    T, Hl, Wl = 1, 60, 104
+    g = torch.Generator(device="cuda").manual_seed(46)
+    lat = torch.randn((1, 16, T, Hl, Wl), generator=g, device="cuda")
+    buf = torch.randn((1, 32, T, Hl, Wl), generator=g, device="cuda")
+    txt = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+    t = torch.tensor([700.0], device="cuda")
+    with torch.no_grad(), torch.device("cuda"):
+        ref = mirror(lat, t, txt, buf).permute(0, 2, 3, 4, 1)
+    torch.cuda.synchronize()
+
+    def cl(x):
+        return x.permute(0, 2, 3, 4, 1).contiguous()
+
+    n_tok = T * Hl * Wl // 4
+    rows, counts = {}, dict.fromkeys(kernels.launches, 0)
+    for label, cfg, gate, kernel in (
+            ("f32", WanDiTConfig(dtype=torch.float32), WEIGHTS_F32_GATE,
+             "flash_attn_f32"),
+            ("bf16", WanDiTConfig(), WEIGHTS_BF16_GATE, "flash_attn_bf16")):
+        dit = WanDiT(cfg, device="cuda").eval().requires_grad_(False)
+        dit.load_state_dict(dit_sd)
+        if label == "bf16":
+            dit.to(torch.bfloat16)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = dit(cl(lat), t, txt, cl(buf))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        c = cos(got, ref)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        print(f"[weights] loaded 1.3B DiT ({label}) against the mirror (f32)"
+              f" at N = {n_tok} with a {TEXT_LEN}-token text: cosine {c:.7f}"
+              f", max-abs {err:.3e} of max|ref| {scale:.3f} ({err / scale:.2e}"
+              f"; gate cosine >= {gate[0]}, <= {gate[1]}), {ms:.1f} ms cold, "
+              f"launches {launches}")
+        check(torch.isfinite(got).all().item(), f"{label} DiT not finite")
+        check(c >= gate[0] and err <= gate[1] * scale,
+              f"{label} DiT against the mirror: cosine {c}, max-abs {err}")
+        check(launches == {kernel: 2 * 30},
+              f"{label} DiT launches {launches}, want {kernel} 60")
+        rows[label] = dict(cosine=c, max_abs_err=err, ref_max=scale)
+        counts = {k: v + kernels.launches[k] for k, v in counts.items()}
+        del dit, got
+    return rows, counts
+
+
+def weights_phase(kernels):
+    """Phase 45. Returns the launches of its paths: the loaded DiT's two
+    forwards and the request."""
+    from infinicube_tpu_torch.models.wan.dit import WanDiTConfig
+    from infinicube_tpu_torch.models.wan.pipeline import (WanPipelineConfig,
+                                                          WanVideoGenerator)
+    from infinicube_tpu_torch.models.wan.t5 import T5Config
+    from infinicube_tpu_torch.weights.wan_convert import \
+        wan_pipeline_state_dict
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    try:
+        t_phase = time.perf_counter()
+        paths, sds, mirror = released_files(tmp)
+        out = os.path.join(tmp, "ckpt")
+        convert_released(paths, out)
+
+        serve = WanPipelineConfig.serving(
+            t5=T5Config(num_layers=RELEASE_UMT5[3]))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = WanVideoGenerator.from_checkpoint(out, cfg=serve)
+        torch.cuda.synchronize()
+        print(f"[weights] from_checkpoint {time.perf_counter() - t0:.2f} s, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+        t0 = time.perf_counter()
+        want = wan_pipeline_state_dict(dict(sds["dit"]), sds["vae"],
+                                       dict(sds["t5"]),
+                                       WanDiTConfig.wan_1_3b())
+        print(f"[weights] the in-memory conversion "
+              f"{time.perf_counter() - t0:.2f} s")
+        hold_loaded(gen, want)
+        del want, sds
+        rows, dit_launches = dit_against_mirror(kernels, mirror,
+                                                gen.dit.state_dict())
+        del mirror
+        torch.cuda.empty_cache()
+
+        # ---- one request from the loaded checkpoint -------------------------
+        gen.cast_params_bf16()
+        rng = np.random.default_rng(45)
+        sem = rng.integers(0, 256, (93, 480, 832, 3), dtype=np.uint8)
+        coo = rng.integers(0, 256, (93, 480, 832, 3), dtype=np.uint8)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        frames = gen.generate(sem, coo, "a realistic driving scene at dusk",
+                              negative_prompt="blurry", seed=45,
+                              num_steps=WEIGHTS_STEPS)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        phases = " ".join(f"{k}={v:.2f}s"
+                          for k, v in gen.last_phase_seconds.items())
+        print(f"[weights] one request of 93 frames @ 480x832, "
+              f"{WEIGHTS_STEPS} steps, from the checkpoint: {wall:.2f} s "
+              f"({phases}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+        want_k = 30 * 2 * WEIGHTS_STEPS
+        check(isinstance(frames, np.ndarray) and frames.dtype == np.uint8
+              and frames.shape == (93, 480, 832, 3),
+              f"request frames {getattr(frames, 'shape', None)}")
+        check(frames.min() != frames.max(), "request frames constant")
+        check(launches["flash_attn_int8qk"] == launches["flash_attn_bf16"]
+              == want_k and launches["conv3x3x3_bf16"] == 0,
+              f"request launches {launches}, want {want_k} of K1 and K2")
+        del gen, frames
+        torch.cuda.empty_cache()
+        print(f"[weights] phase 45 done in "
+              f"{time.perf_counter() - t_phase:.1f} s; mirror gaps {rows}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"weights_dit": dit_launches, "weights": launches}
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -6828,6 +7122,8 @@ def main() -> int:
     t0 = time.perf_counter()
     real_launches = real_data(kernels)
     print(f"[real] phase 44 done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    weights_paths = weights_phase(kernels)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -6869,7 +7165,7 @@ def main() -> int:
              "gsm_train": gsm_train_launches,
              "gsm_train_bf16": bf16_launches, **video_paths,
              "e2e": e2e_launches, **alt_paths, **sparse_paths,
-             "real_data": real_launches}
+             "real_data": real_launches, **weights_paths}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

@@ -216,17 +216,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--meter_offset", type=float, default=0.0)
     ap.add_argument("--run_video", action="store_true")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint of real video weights (not ported "
-                         "yet); default: random-init pipeline")
+                    help="with --run_video: a checkpoint written by "
+                         "'python -m infinicube_tpu_torch.convert' (the "
+                         "released Wan2.1 weights); default: random weights")
     ap.add_argument("--prompt", default="a realistic driving scene")
     ap.add_argument("--device", default="cuda",
                     help="where the buffers (and the video) are made")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: WanVideoGenerator.from_checkpoint is not ported yet "
-            "(ROADMAP section 1 item 11); run without --ckpt for random "
-            "weights")
     set_float32_precision()
     device = resolve_device(args.device)
 
@@ -259,8 +255,11 @@ def main(argv=None) -> dict:
         from infinicube_tpu_torch.models.wan.pipeline import (
             WanPipelineConfig, WanVideoGenerator)
         from infinicube_tpu_torch.utils.fileio import write_video
-        gen = WanVideoGenerator(WanPipelineConfig(), device=device)
-        gen.init_params(torch.Generator(device=device).manual_seed(0))
+        if args.ckpt:
+            gen = WanVideoGenerator.from_checkpoint(args.ckpt, device=device)
+        else:
+            gen = WanVideoGenerator(WanPipelineConfig(), device=device)
+            gen.init_params(torch.Generator(device=device).manual_seed(0))
         frames = gen.generate(
             (sem_rgb[:VIDEO_FRAMES] * 255).astype(np.uint8),
             coord[:VIDEO_FRAMES], args.prompt)

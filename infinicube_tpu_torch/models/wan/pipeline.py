@@ -81,6 +81,29 @@ class WanVideoGenerator:
         self.last_phase_seconds: dict[str, float] = {}
 
     # ---- parameters --------------------------------------------------------
+    @classmethod
+    def from_checkpoint(cls, path, cfg: WanPipelineConfig | None = None,
+                        device="cuda", tokenizer=None,
+                        generator: torch.Generator | None = None
+                        ) -> "WanVideoGenerator":
+        """A generator from a checkpoint of ``python -m
+        infinicube_tpu_torch.convert`` (the released weights). The config
+        comes from its sidecar unless ``cfg`` is given. Where the checkpoint
+        lacks a tower (a partial conversion, say VAE-only), every tower is
+        first initialized from ``generator`` (by default one on the device
+        seeded with 0) and the checkpoint's towers are loaded over them."""
+        from infinicube_tpu_torch.convert import (load_pipeline_checkpoint,
+                                                  pipeline_config_from_meta)
+        dev = resolve_device(device)
+        state_dicts, meta = load_pipeline_checkpoint(path, device="cpu")
+        gen = cls(cfg or pipeline_config_from_meta(meta), device=dev,
+                  tokenizer=tokenizer)
+        if set(state_dicts) != {"dit", "vae", "t5"}:
+            gen.init_params(generator if generator is not None else
+                            torch.Generator(device=dev).manual_seed(0))
+        gen.load_params(state_dicts)
+        return gen
+
     def init_params(self, generator: torch.Generator) -> None:
         """Random weights for all three towers from one generator (on the
         towers' device)."""

@@ -1,6 +1,10 @@
 """UMT5-style text encoder (umt5-xxl shape by default); counterpart of
 ``infinicube_tpu/models/wan/t5.py``: per-layer relative position bias,
-RMSNorm pre-norm, gated-GELU FFN, masked outputs zeroed."""
+RMSNorm pre-norm, gated-GELU FFN, masked outputs zeroed. The projections'
+weights and the token embedding are held in ``cfg.dtype``, the precision they
+compute in (the JAX tower casts its f32 ones at each call, to the same
+values): the released umt5-xxl is bf16, 11.4 GB so, not 22.7 in f32. The
+norm scales and the position biases stay f32."""
 
 from __future__ import annotations
 
@@ -58,9 +62,10 @@ class T5Attention(nn.Module):
         inner = cfg.num_heads * cfg.head_dim
         for name in ("q", "k", "v"):
             setattr(self, name, Dense(cfg.d_model, inner, bias=False,
-                                      compute_dtype=cfg.dtype, device=device))
+                                      compute_dtype=cfg.dtype, device=device,
+                                      dtype=cfg.dtype))
         self.o = Dense(inner, cfg.d_model, bias=False,
-                       compute_dtype=cfg.dtype, device=device)
+                       compute_dtype=cfg.dtype, device=device, dtype=cfg.dtype)
         self.rel_bias = nn.Parameter(
             torch.zeros(cfg.rel_pos_buckets, cfg.num_heads, device=device))
 
@@ -89,9 +94,12 @@ class T5Block(nn.Module):
         self.ln1 = RMSNorm(d, device=device)
         self.attn = T5Attention(cfg, device=device)
         self.ln2 = RMSNorm(d, device=device)
-        self.wi0 = Dense(d, f, bias=False, compute_dtype=dt, device=device)
-        self.wi1 = Dense(d, f, bias=False, compute_dtype=dt, device=device)
-        self.wo = Dense(f, d, bias=False, compute_dtype=dt, device=device)
+        self.wi0 = Dense(d, f, bias=False, compute_dtype=dt, device=device,
+                         dtype=dt)
+        self.wi1 = Dense(d, f, bias=False, compute_dtype=dt, device=device,
+                         dtype=dt)
+        self.wo = Dense(f, d, bias=False, compute_dtype=dt, device=device,
+                        dtype=dt)
 
     def forward(self, x, mask):
         dt = self.cfg.dtype
@@ -106,7 +114,8 @@ class T5Encoder(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev)
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev,
+                                  dtype=cfg.dtype)
         self.layers = nn.ModuleList(T5Block(cfg, device=dev)
                                     for _ in range(cfg.num_layers))
         self.final_ln = RMSNorm(cfg.d_model, device=dev)
@@ -114,14 +123,15 @@ class T5Encoder(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """The reference's random fill: norm scales 1, everything else
-        N(0, 0.02)."""
+        N(0, 0.02), drawn in f32 and rounded to the dtype held."""
         for mod in self.modules():
             if isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
         for name, p in self.named_parameters():
             if not name.endswith(("ln1.weight", "ln2.weight",
                                   "final_ln.weight")):
-                p.normal_(0.0, 0.02, generator=generator)
+                p.copy_(torch.empty(p.shape, device=p.device).normal_(
+                    0.0, 0.02, generator=generator))
 
     def forward(self, tokens: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:

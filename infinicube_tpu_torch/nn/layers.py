@@ -32,8 +32,9 @@ class Dense(nn.Linear):
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype | None = torch.float32,
-                 device=None):
-        super().__init__(in_features, out_features, bias=bias, device=device)
+                 device=None, dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=dtype)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -181,5 +181,8 @@ def test_cli_runs_on_the_card_unless_asked(worlds, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tgb.main(args)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tgb.main(args + ["--ckpt", "x", "--device", "cpu"])
+    # --ckpt serves the video from a converted checkpoint
+    # (tests/test_torch_convert_cli.py); a missing one raises
+    with pytest.raises(FileNotFoundError, match="pipeline.json"):
+        tgb.main(args + ["--run_video", "--ckpt", str(tmp_path / "none"),
+                         "--device", "cpu"])

@@ -246,7 +246,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    "cond_encoders", "alt_diffusion",
                                    "brick_vae", "process_clip",
                                    "vae_batches", "gsm_batches",
-                                   "lidar_depth_image"])
+                                   "lidar_depth_image", "from_checkpoint",
+                                   "convert_load"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -272,6 +273,7 @@ def test_entry_points_default_to_the_card(entry):
     from infinicube_tpu_torch.data_process import \
         generate_additional_attributes as gaa
     from infinicube_tpu_torch.training import data_glue
+    from infinicube_tpu_torch.convert import load_pipeline_checkpoint
     tiny_vae = VideoVAEConfig(latent_channels=4, base_channels=8,
                               channel_mult=(1, 2), num_res_blocks=1)
     from infinicube_tpu_torch.models.diffusion.model import CondEncoders
@@ -332,6 +334,12 @@ def test_entry_points_default_to_the_card(entry):
         "vae_batches": lambda: next(data_glue.vae_batches(
             [], SparseVAEConfig())),
         "gsm_batches": lambda: next(data_glue.gsm_batches([], None)),
+        # the released-weights path: the card is asked for before any file
+        # is read
+        "from_checkpoint": lambda: WanVideoGenerator.from_checkpoint(
+            ROOT / "no_checkpoint"),
+        "convert_load": lambda: load_pipeline_checkpoint(
+            ROOT / "no_checkpoint"),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()

@@ -101,3 +101,30 @@ def test_temporal_resampling_matches_jax():
         out = port(torch.from_numpy(vid))
     assert out.shape == out_ref.shape == (1, 5, 16, 16, 3)
     np.testing.assert_allclose(out.numpy(), out_ref, **TOL)
+
+
+def test_one_frame_encodes_and_decodes_as_jax():
+    """A clip of one frame (an image): the temporal downsamplings have no
+    whole window, so they pass the first frame alone, as the JAX VAE's VALID
+    convolutions do."""
+    tiny = dict(latent_channels=4, base_channels=4, channel_mult=(1, 1, 1, 1),
+                num_res_blocks=1)
+    vae = JaxVAE(JaxCfg(**tiny, dtype=jnp.float32))
+    params = vae.init(jax.random.PRNGKey(1), jnp.zeros((1, 5, 16, 16, 3)))
+    params = jax.tree.map(np.asarray, flax.linen.meta.unbox(params))
+    port = VideoVAE(VideoVAEConfig(**tiny, dtype=torch.float32),
+                    device="cpu")
+    port.load_state_dict(vae_from_jax(params))
+    vid = np.random.default_rng(2).uniform(
+        -1, 1, (1, 1, 16, 24, 3)).astype(np.float32)
+    z_ref = np.asarray(vae.apply(params, jnp.asarray(vid),
+                                 method=JaxVAE.encode))
+    dec_ref = np.asarray(vae.apply(params, jnp.asarray(z_ref),
+                                   method=JaxVAE.decode))
+    with torch.no_grad():
+        z = port.encode(torch.from_numpy(vid))
+        dec = port.decode(torch.from_numpy(z_ref))
+    assert z.shape == z_ref.shape == (1, 1, 2, 3, 4)
+    np.testing.assert_allclose(z.numpy(), z_ref, **TOL)
+    assert dec.shape == dec_ref.shape == (1, 1, 16, 24, 3)
+    np.testing.assert_allclose(dec.numpy(), dec_ref, **TOL)
