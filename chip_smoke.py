@@ -397,6 +397,29 @@ Then the released-weights path (phase 44's models freed first):
     steps, from the checkpoint with exact launches (K1 and K2 120 each, K3
     0), its phase seconds and peak: the ``weights`` path.
 
+Then sequence and data parallelism and the viewers:
+
+46. (a) ``ops/ring_attention``'s ring of P = 2 and 4 virtual ranks on the
+    card (the module's ``ring_forward`` and ``ring_backward``, the exchange
+    a rotation of the ranks' blocks) at the 1.3B DiT's release shape
+    [1, 37,440, 12, 128] in bf16, and ``ring_attention`` there with no
+    group (one block; its backward through autograd), the output and dq,
+    dk, dv against one K2 and one K5 call over the whole sequence (cosine
+    >= 0.9999, max-abs <= 2e-2 of max|ref|); at N = 4,096 in bf16 and,
+    P = 2, f32 against the plain versions (f32: cosine >= 0.99999, max-abs
+    <= 1e-4 of max|ref|); a rank's share forward and backward and the
+    single calls in device time; exact launches, the ``ring`` path; (b) a
+    world-1 NCCL group through a ``file://`` store, the 1.3B DiT at release
+    width (random weights, bf16) with ``sp_axis`` over it for one 93-frame
+    forward, bit-equal to the local path, K2 60: the ``sp_dit`` path; (c)
+    3 steps of the release diffusion trainer (configs/train_diffusion.yaml
+    as it is: the 750M UNet at batch 2) through ``train.main`` with RANK=0
+    WORLD_SIZE=1 under that group, the losses bit-equal to the same steps
+    run before the group came up, exact launches: the ``ddp_train`` path;
+    (d) ``render_gaussian_scene`` at 640x480 on 200,000 random gaussians,
+    card against CPU (within one step on 99.9 % of the pixels), and
+    ``vis_grid`` on a small world: the ``viewers`` path (no kernel).
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failed check exits non-zero. Without a card it exits 2 and prints
 no result."""
@@ -404,6 +427,7 @@ no result."""
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1409,8 +1433,8 @@ def counting_steps(kernels, loop):
     (the list they go to, the function that undoes the patch)."""
     per_step, make_step = [], loop.make_train_step
 
-    def counted_make_step(cfg, loss_fn):
-        step = make_step(cfg, loss_fn)
+    def counted_make_step(*args):
+        step = make_step(*args)
 
         def counted(state, generator, batch):
             before = dict(kernels.launches)
@@ -6555,8 +6579,8 @@ def fenced_trainer(kernels, kind):
                 yield fenced(lambda: next(it), made)
         return params, loss_fn, batches()
 
-    def fenced_make_step(cfg, loss_fn):
-        step = make_step(cfg, loss_fn)
+    def fenced_make_step(*args):
+        step = make_step(*args)
         return lambda *a: fenced(lambda: step(*a), stepped)
 
     train_cli.BUILDERS[kind] = fenced_build
@@ -6965,6 +6989,335 @@ def weights_phase(kernels):
     return {"weights_dit": dit_launches, "weights": launches}
 
 
+# ---------------------------------------------------------------------------
+# sequence and data parallelism, the viewers (phase 46)
+# ---------------------------------------------------------------------------
+
+RING_WORLDS = (2, 4)
+RING_SMALL_N = 4_096
+# phase 46's diffusion trainer: the release config as it is (the 750M
+# UNet at its batch of 2), 3 steps
+DP_TRAIN = ("log_every=1", "max_steps=3")
+
+
+def ring_share_ms(ring, q, k, v, do, world, scale):
+    """Device ms of one rank's share of the ring, forward and backward: the
+    module's ``ring_forward`` and ``ring_backward`` for ``world`` virtual
+    ranks (the exchange a rotation of their blocks, no device work), timed
+    on the card and divided by ``world``."""
+    qs, ks, vs, dos = (list(x.chunk(world, dim=1)) for x in (q, k, v, do))
+
+    def fwd():
+        return ring.ring_forward(qs, ks, vs, scale, world,
+                                 ring.virtual_exchange)
+
+    res = fwd()
+    outs, lses = [o for o, _ in res], [lse for _, lse in res]
+
+    def bwd():
+        return ring.ring_backward(qs, ks, vs, outs, dos, lses, scale, world,
+                                  ring.virtual_exchange)
+
+    return cuda_ms(fwd, 1, 3) / world, cuda_ms(bwd, 1, 3) / world
+
+
+def ring_hold(label, got, ref, gate=(0.9999, 2e-2)):
+    """cosine and max-abs over max|ref| of the ring's output or gradient
+    against one call over the whole sequence."""
+    got, ref = got.float(), ref.float()
+    c, err = cos(got, ref), (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"[ring] {label}: cosine {c:.7f}, max-abs {err:.3e} of max|ref| "
+          f"{scale:.3f} ({err / scale:.2e}; gates >= {gate[0]}, <= "
+          f"{gate[1]})")
+    check(torch.isfinite(got).all().item() and c >= gate[0] and
+          err <= gate[1] * scale, f"{label}: cosine {c}, max-abs {err}")
+    return err
+
+
+def ring_checks(kernels, att):
+    """Phase 46 (a): the ring of P = 2 and 4 virtual ranks on the card at the
+    1.3B DiT's release shape [1, 37,440, 12, 128] in bf16, and
+    ``ring_attention`` itself with no group (forward and autograd
+    backward), output and gradients against one K2 and one K5 call over
+    the whole sequence; at N = 4,096 in bf16 and f32 against the plain
+    versions; a rank's share and the single calls timed. Returns the rows
+    and the ring's launches."""
+    from infinicube_tpu_torch.ops import ring_attention as ring
+    g = torch.Generator(device="cuda").manual_seed(46)
+    scale = D ** -0.5
+    cases = []
+    for n, dtype in ((N_RELEASE, torch.bfloat16),
+                     (RING_SMALL_N, torch.bfloat16),
+                     (RING_SMALL_N, torch.float32)):
+        cases.append((n, dtype, [rand((1, n, H, D), g, dtype)
+                                 for _ in range(4)]))
+    # the ring's runs: the path; the references after, uncounted
+    kernels.reset_launches()
+    outs = {}
+    for n, dtype, (q, k, v, do) in cases:
+        for world in RING_WORLDS if dtype == torch.bfloat16 else (2,):
+            outs[n, dtype, world] = ring.ring_attention_virtual(
+                q, k, v, world, do=do)
+    # the entry point with no group at the release shape: one block, its
+    # backward through autograd
+    q, k, v, do = cases[0][2]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ring.ring_attention(*leaves)
+    out.backward(do)
+    outs[N_RELEASE, torch.bfloat16, 1] = (out.detach(),
+                                          tuple(t.grad for t in leaves))
+    del leaves, out
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    blocks = {torch.bfloat16: 2 * sum(w * w for w in RING_WORLDS) + 1,
+              torch.float32: 4}
+    want = {"flash_attn_bf16": blocks[torch.bfloat16],
+            "flash_attn_bf16_bwd": blocks[torch.bfloat16],
+            "flash_attn_f32": blocks[torch.float32],
+            "flash_attn_f32_bwd": blocks[torch.float32]}
+    print(f"[ring] launches {({k: v for k, v in launches.items() if v})}")
+    check({k: v for k, v in launches.items() if v} == want,
+          f"ring launches {launches}, want {want}")
+    rows = []
+    for n, dtype, (q, k, v, do) in cases:
+        if n == N_RELEASE:
+            o, lse = kernels.flash_attn_bf16(q, k, v, scale, return_lse=True)
+            ref = (o, *kernels.flash_attn_bf16_bwd(
+                q, k, v, do, lse, att.attention_delta(o, do), scale))
+            what = "one K2 / K5 call"
+        else:
+            qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+            o, lse = att.attention_plain(qf, kf, vf, scale, return_lse=True)
+            ref = (o, *att.attention_bwd_plain(qf, kf, vf, o, dof, lse,
+                                               scale))
+            what = "the plain versions"
+        gate = (0.99999, 1e-4) if dtype == torch.float32 else (0.9999, 2e-2)
+        worlds = RING_WORLDS if dtype == torch.bfloat16 else (2,)
+        for world in (1, *worlds) if n == N_RELEASE else worlds:
+            out, grads = outs[n, dtype, world]
+            tag = f"P={world} N={n} {str(dtype)[6:]} against {what}"
+            if world == 1:
+                same = all(torch.equal(a, b) for a, b in zip((out, *grads),
+                                                             ref))
+                tag = (f"ring_attention with no group (one block) N={n} "
+                       f"against {what}, bit-equal {same}")
+            errs = [ring_hold(f"{name} {tag}", a, b, gate) for name, a, b in
+                    zip(("out", "dq", "dk", "dv"), (out, *grads), ref)]
+            row = dict(world=world, shape=[1, n, H, D], dtype=str(dtype)[6:],
+                       against=what, max_abs_err=max(errs))
+            if world == 1:
+                row.update(entry="ring_attention", bit_equal=same)
+            elif n == N_RELEASE:
+                fwd_ms, bwd_ms = ring_share_ms(ring, q, k, v, do, world,
+                                               scale)
+                k2 = cuda_ms(lambda: kernels.flash_attn_bf16(
+                    q, k, v, scale, return_lse=True), 1, 3)
+                delta = att.attention_delta(o, do)
+                k5 = cuda_ms(lambda: kernels.flash_attn_bf16_bwd(
+                    q, k, v, do, lse, delta, scale), 1, 3)
+                # a rank's share of the work: 1/P of the single call's
+                b_fwd = bound_ms([(4.0 * n * n * D * H / world, PEAK_BF16)],
+                                 8 * n * H * D / world)[0]
+                b_bwd = bound_ms([(10.0 * n * n * D * H / world,
+                                   PEAK_BF16)], 16 * n * H * D / world)[0]
+                print(f"[ring] P={world} at N={n}: a rank's forward "
+                      f"{fwd_ms:.3f} ms (bound {b_fwd:.3f}), backward "
+                      f"{bwd_ms:.3f} ms (bound {b_bwd:.3f}); one K2 call "
+                      f"over the whole sequence {k2:.3f} ms, one K5 "
+                      f"{k5:.3f} ms (device time, CUDA events)")
+                row.update(rank_fwd_ms=fwd_ms, rank_bwd_ms=bwd_ms,
+                           rank_fwd_bound_ms=b_fwd, rank_bwd_bound_ms=b_bwd,
+                           single_k2_ms=k2, single_k5_ms=k5)
+            rows.append(row)
+        del ref, o, lse
+    del cases, outs
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def sp_dit_check(kernels, dist):
+    """Phase 46 (b): the 1.3B DiT at release width, random weights, bf16,
+    ``sp_axis="seq"`` over the world-1 NCCL group, one 93-frame forward,
+    against the same DiT without ``sp_axis`` (``attn_quant`` None, K2
+    without its lse store). Returns its launches."""
+    from infinicube_tpu_torch.models.wan.dit import WanDiT, WanDiTConfig
+    g = torch.Generator(device="cuda").manual_seed(47)
+    cfg = WanDiTConfig()
+    local = WanDiT(cfg, device="cuda").eval().requires_grad_(False)
+    local.init_params(g)
+    fill_zero_init(local, g)
+    sp = WanDiT(dataclasses.replace(cfg, sp_axis="seq"), device="cuda",
+                sp_group=dist.group.WORLD).eval().requires_grad_(False)
+    sp.load_state_dict(local.state_dict())
+    T, Hl, Wl = 24, 60, 104
+    lat = rand((1, T, Hl, Wl, 16), g, torch.float32)
+    buf = rand((1, T, Hl, Wl, 32), g, torch.float32)
+    txt = rand((1, TEXT_LEN, 4096), g, torch.float32)
+    t = torch.tensor([700.0], device="cuda")
+    with torch.no_grad():
+        ref = local(lat, t, txt, buf)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = sp(lat, t, txt, buf)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launches)
+    same = torch.equal(got, ref)
+    c, err = cos(got, ref), (got - ref).abs().max().item()
+    print(f"[sp_dit] 1.3B DiT, sp_axis over a world-1 NCCL group, 93 frames "
+          f"(N = {N_RELEASE}): {ms:.1f} ms, bit-equal to the local path: "
+          f"{same} (cosine {c:.7f}, max-abs {err:.3e}); launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    check(torch.isfinite(got).all().item(), "SP DiT output not finite")
+    # one rank: each layer's ring is one K2 launch with its lse store, the
+    # local path's the same kernel without it; the output's bits are the
+    # same unless the store changes the kernel's arithmetic
+    check(same or (c >= 0.99999 and err <= 1e-3 * ref.abs().max().item()),
+          f"SP DiT against the local path: cosine {c}, max-abs {err}")
+    check({k: v for k, v in launches.items() if v} ==
+          {"flash_attn_bf16": 60}, f"SP DiT launches {launches}")
+    del local, sp, lat, buf, txt, ref, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dp_train_run(kernels, tmp, name):
+    """``train.main`` on configs/train_diffusion.yaml with ``DP_TRAIN``:
+    the logged losses and the launches."""
+    from infinicube_tpu_torch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = train_cli.main(
+        [os.path.join(ROOT, "configs", "train_diffusion.yaml"), "--name",
+         name, "--logdir", tmp, "--exec", *DP_TRAIN,
+         f"ckpt_dir={tmp}/{name}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logs = [json.loads(line) for line in open(os.path.join(tmp,
+                                                           f"{name}.jsonl"))]
+    n_params = sum(p.numel() for p in state.params.values())
+    check(state.step == 3 and len(logs) == 3 and n_params == 750_431_048,
+          f"{name}: {n_params} parameters, {logs}")
+    print(f"[ddp] {name}: {n_params:,} parameters, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the 12 GB checkpoint is not read again
+    shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+    return [r["loss"] for r in logs], dict(kernels.launches), wall
+
+
+def viewers_check(kernels, tmp):
+    """Phase 46 (d): ``render_gaussian_scene`` at 640x480 on 200,000 random
+    gaussians, card against CPU (every pixel within one uint8 step on
+    99.9 % of them, as phase 28's share gate: a last-bit difference can swap
+    two gaussians of one depth), then ``vis_grid`` on a small world on the
+    card. Returns the launches (the viewers launch no kernel)."""
+    from infinicube_tpu_torch.data.codec import decode_png
+    from infinicube_tpu_torch.inference.guidance_buffer_generation import \
+        save_voxel_world
+    from infinicube_tpu_torch.utils.world_grid import WorldGrid
+    from infinicube_tpu_torch.visualize import cli, render
+    rng = np.random.default_rng(46)
+    n = RASTER_GAUSSIANS
+    gd = {"means": rng.uniform(-10, 10, (n, 3)),
+          "quats": rng.normal(size=(n, 4)),
+          "scales": rng.uniform(0.02, 0.2, (n, 3)),
+          "opacities": rng.uniform(0.1, 0.9, n),
+          "colors": rng.uniform(size=(n, 3))}
+    pose = render.orbit_poses(np.zeros(3), 16.0, 6.0, 4)[1]
+    kernels.reset_launches()
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        imgs[dev] = render.render_gaussian_scene(gd, pose, device=dev)
+        print(f"[viewers] render_gaussian_scene, {n} gaussians at 640x480 "
+              f"on {dev}: {1e3 * (time.perf_counter() - t0):.1f} ms")
+    a, b = (imgs[d].astype(int) for d in ("cuda", "cpu"))
+    near = (np.abs(a - b) <= 1).all(-1).mean()
+    print(f"[viewers] card against CPU: {100 * near:.3f} % of the pixels "
+          f"within one step (gate 99.9 %), {(a != b).any(-1).mean():.2e} "
+          f"differ; {100 * (a < 250).any(-1).mean():.1f} % covered")
+    check(near >= 0.999 and (a < 250).any(-1).mean() > 0.3,
+          f"viewer render card against CPU: {near}")
+    w = WorldGrid(0.5)
+    xs, ys = np.meshgrid(np.arange(0, 20, 0.5), np.arange(-5, 5, 0.5))
+    w.merge_points(np.stack([xs.ravel(), ys.ravel(), np.zeros(xs.size)], -1),
+                   np.full(xs.size, 18))
+    save_voxel_world(os.path.join(tmp, "world.npz"), w)
+    t0 = time.perf_counter()
+    cli.main(["grid", os.path.join(tmp, "world.npz"), "--output",
+              os.path.join(tmp, "v"), "--views", "2"])
+    views = sorted(os.listdir(os.path.join(tmp, "v")))
+    with open(os.path.join(tmp, "v", views[0]), "rb") as f:
+        img = decode_png(f.read())
+    print(f"[viewers] vis_grid on the card: {views} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(views == ["view_00.png", "view_01.png"] and img.min() != img.max(),
+          f"vis_grid wrote {views}")
+    return dict(kernels.launches)
+
+
+def parallel_phase(kernels, att):
+    """Phase 46. Returns the ring's rows and the launches of its paths."""
+    import torch.distributed as dist
+
+    from infinicube_tpu_torch.parallel.mesh import init_distributed
+    t_phase = time.perf_counter()
+    rows, ring_launches = ring_checks(kernels, att)
+    print(f"[ring] (a) done in {time.perf_counter() - t_phase:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    try:
+        # (c)'s reference first, with no group
+        check(not dist.is_initialized() and "RANK" not in os.environ,
+              "a process group is up before phase 46")
+        alone, alone_launches, alone_s = dp_train_run(kernels, tmp, "alone")
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        dev = init_distributed("cuda", init_method=f"file://{tmp}/store")
+        print(f"[parallel] world-1 NCCL group through a file store on {dev}"
+              f" in {time.perf_counter() - t0:.2f} s")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"group {dist.get_backend()} of {dist.get_world_size()}")
+        t0 = time.perf_counter()
+        sp_launches = sp_dit_check(kernels, dist)
+        print(f"[sp_dit] (b) done in {time.perf_counter() - t0:.1f} s")
+        grouped, dp_launches, dp_s = dp_train_run(kernels, tmp, "grouped")
+        print(f"[ddp] 3 release diffusion-trainer steps (batch 2) through "
+              f"train.main in a world-1 NCCL group {dp_s:.1f} s, "
+              f"without a group {alone_s:.1f} s; losses "
+              f"{grouped} / {alone}; launches "
+              f"{({k: v for k, v in dp_launches.items() if v})}")
+        check(grouped == alone, f"losses {grouped} against {alone}")
+        want = {k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES.items() if v}
+        check(dp_launches == alone_launches and
+              {k: v for k, v in dp_launches.items() if v} == want,
+              f"launches {dp_launches} against {alone_launches}, want "
+              f"{want}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    try:
+        t0 = time.perf_counter()
+        viewer_launches = viewers_check(kernels, tmp)
+        print(f"[viewers] (d) done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[parallel] phase 46 done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, {"ring": ring_launches, "sp_dit": sp_launches,
+                  "ddp_train": dp_launches, "viewers": viewer_launches}
+
+
 def wan_serve(kernels, att, fa):
     """Phases 2-5. Returns the summary entries of K1 and K2 and the launch
     counts of the video-serving main path."""
@@ -7124,6 +7477,8 @@ def main() -> int:
     print(f"[real] phase 44 done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     weights_paths = weights_phase(kernels)
+    torch.cuda.empty_cache()
+    ring_rows, parallel_paths = parallel_phase(kernels, att)
 
     # ---- summary ----------------------------------------------------------------
     report["flash_attn_bf16"]["d96"] = stage1_report.pop("flash_attn_bf16")
@@ -7158,6 +7513,9 @@ def main() -> int:
         report[name][key] = rows
         report[name]["max_abs_err"] = max(
             [report[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+    # the ring's rows (phase 46) beside K2's and K5's own
+    report["flash_attn_bf16"]["ring"] = ring_rows
+    report["flash_attn_bf16_bwd"]["ring"] = ring_rows
     paths = {"wan_serve": serve_launches, "stage1": stage1_launches,
              "diffusion_train": train_launches, "vae_train": vae_launches,
              **int8_paths, "stage1_f32": f32_launches,
@@ -7165,7 +7523,8 @@ def main() -> int:
              "gsm_train": gsm_train_launches,
              "gsm_train_bf16": bf16_launches, **video_paths,
              "e2e": e2e_launches, **alt_paths, **sparse_paths,
-             "real_data": real_launches, **weights_paths}
+             "real_data": real_launches, **weights_paths,
+             **parallel_paths}
     for name, e in report.items():
         e["paths"] = {p: launches[name] for p, launches in paths.items()}
         e["launches"] = sum(e["paths"].values())

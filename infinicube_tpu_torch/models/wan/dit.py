@@ -10,11 +10,24 @@ half-split RoPE, a per-block ``mod_bias``, the zero-initialized
 
 Dtypes follow the reference: projections in ``cfg.dtype``; norms, adaLN
 modulation, the time MLP and the head in f32; the carried residual in
-``cfg.residual_dtype``. Self-attention goes through ``mha_quantized`` when
-``attn_quant`` is set (K1 for ``"qk"``, K8 for ``"qkv"``), else, like
-cross-attention, ``multi_head_attention`` (K2, and K5 for its gradient).
-With ``attn_quant`` or ``quant_linear`` set the DiT serves only: under a
-gradient it raises."""
+``cfg.residual_dtype``. Self-attention goes, in the JAX module's order,
+through ``ring_attention`` when ``sp_axis`` is set, through
+``mha_quantized`` when ``attn_quant`` is (K1 for ``"qk"``, K8 for
+``"qkv"``), else, like cross-attention, through ``multi_head_attention``
+(K2, and K5 for its gradient). With ``attn_quant`` or ``quant_linear`` set
+the DiT serves only: under a gradient it raises.
+
+Sequence parallelism (``sp_axis`` with ``WanDiT(..., sp_group=group)``, the
+counterpart of the JAX module's ``sp_mesh``): every rank of ``group`` holds
+the whole inputs and runs its contiguous N/P of the tokens through the
+token-wise layers (patch embed, norms, FFN, the cross-attention's queries,
+RoPE at its own tokens' positions and the head), self-attention as the
+ring over the group; the ranks then gather the head's output, so each
+returns the whole velocity, as the JAX module's global array is. The split
+and the gather are differentiable: the inputs' gradients come back whole
+on every rank, and each rank's parameter gradients are its tokens' share
+(their sum over the group is the model's). With ``sp_axis`` set and no
+group, the ring is one block."""
 
 from __future__ import annotations
 
@@ -31,6 +44,8 @@ from infinicube_tpu_torch.nn.layers import Dense, RMSNorm, layer_norm, \
 from infinicube_tpu_torch.nn.quant import QuantLinear
 from infinicube_tpu_torch.ops.attention import multi_head_attention
 from infinicube_tpu_torch.ops.flash_attention import mha_quantized
+from infinicube_tpu_torch.ops.ring_attention import ring_attention
+from infinicube_tpu_torch.parallel.mesh import gather_tokens, split_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +58,7 @@ class WanDiTConfig:
     out_channels: int = 16
     text_dim: int = 4096            # umt5-xxl hidden
     freq_dim: int = 256
-    sp_axis: str | None = None      # ring attention: not ported yet
+    sp_axis: str | None = None      # ring self-attention over sp_group
     attn_quant: str | None = None   # "qk" (K1) / "qkv" (K8): int8 self-attn
     quant_linear: bool = False      # int8 block projections / FFN
     residual_dtype: torch.dtype = torch.float32
@@ -103,9 +118,10 @@ def _dense(cin, cout, cfg, quant=False, device=None):
 
 
 class WanAttention(nn.Module):
-    def __init__(self, cfg: WanDiTConfig, cross: bool = False, device=None):
+    def __init__(self, cfg: WanDiTConfig, cross: bool = False, device=None,
+                 sp_group=None):
         super().__init__()
-        self.cfg, self.cross = cfg, cross
+        self.cfg, self.cross, self.sp_group = cfg, cross, sp_group
         C, qt = cfg.dim, cfg.quant_linear
         if cross:
             self.q = _dense(C, C, cfg, qt, device)
@@ -134,7 +150,9 @@ class WanAttention(nn.Module):
             q = apply_rope(q, rope_angles)
             k = apply_rope(k, rope_angles)
         q, k = q.to(cfg.dtype), k.to(cfg.dtype)
-        if cfg.attn_quant and not self.cross:
+        if cfg.sp_axis and not self.cross:
+            out = ring_attention(q, k, v, self.sp_group)
+        elif cfg.attn_quant and not self.cross:
             out = mha_quantized(q, k, v, quant=cfg.attn_quant)
         else:
             out = multi_head_attention(q, k, v)
@@ -142,12 +160,12 @@ class WanAttention(nn.Module):
 
 
 class WanBlock(nn.Module):
-    def __init__(self, cfg: WanDiTConfig, device=None):
+    def __init__(self, cfg: WanDiTConfig, device=None, sp_group=None):
         super().__init__()
         self.cfg = cfg
         C = cfg.dim
         self.mod_bias = nn.Parameter(torch.zeros(6, C, device=device))
-        self.self_attn = WanAttention(cfg, device=device)
+        self.self_attn = WanAttention(cfg, device=device, sp_group=sp_group)
         self.cross_norm = nn.LayerNorm(C, device=device)
         self.cross_attn = WanAttention(cfg, cross=True, device=device)
         self.ffn_in = _dense(C, cfg.ffn_dim, cfg, cfg.quant_linear, device)
@@ -174,15 +192,16 @@ class WanDiT(nn.Module):
     forward(latents [B, T, H, W, C_in], t [B], text_emb [B, L, text_dim],
             buffer_latents [B, T, H, W, buffer_channels] | None)
     -> velocity f32[B, T, H, W, C_out]
+
+    ``sp_group``: the process group the tokens are split over when
+    ``cfg.sp_axis`` is set (None: one rank).
     """
 
-    def __init__(self, cfg: WanDiTConfig, device="cuda"):
+    def __init__(self, cfg: WanDiTConfig, device="cuda", sp_group=None):
         super().__init__()
-        if cfg.sp_axis:
-            raise NotImplementedError(
-                "sequence-parallel ring attention is not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.sp_group = sp_group if cfg.sp_axis else None
         C = cfg.dim
         patch = cfg.patch_size[0] * cfg.patch_size[1] * cfg.patch_size[2]
         f32 = torch.float32
@@ -196,7 +215,8 @@ class WanDiT(nn.Module):
         self.text_proj_in = Dense(cfg.text_dim, C, compute_dtype=cfg.dtype,
                                   device=dev)
         self.text_proj = Dense(C, C, compute_dtype=cfg.dtype, device=dev)
-        self.blocks = nn.ModuleList(WanBlock(cfg, device=dev)
+        self.blocks = nn.ModuleList(WanBlock(cfg, device=dev,
+                                             sp_group=self.sp_group)
                                     for _ in range(cfg.num_layers))
         self.head_mod = nn.Parameter(torch.zeros(2, C, device=dev))
         self.head = Dense(C, patch * cfg.out_channels, compute_dtype=f32,
@@ -238,9 +258,11 @@ class WanDiT(nn.Module):
             x = x.reshape(B, gt, pt, gh, ph, gw, pw, x.shape[-1])
             return x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, N, -1)
 
-        x = self.patch_embed(patchify(latents))
+        group = self.sp_group
+        x = self.patch_embed(split_tokens(patchify(latents), group))
         if cfg.use_buffer_embedder and buffer_latents is not None:
-            x = x + self.buffer_embed(patchify(buffer_latents))
+            x = x + self.buffer_embed(split_tokens(patchify(buffer_latents),
+                                                   group))
 
         te = timestep_embedding(t, cfg.freq_dim)
         te = self.t_proj1(te)
@@ -249,8 +271,8 @@ class WanDiT(nn.Module):
 
         ctx = self.text_proj(F.gelu(self.text_proj_in(text_emb.to(cfg.dtype)),
                                     approximate="tanh"))
-        angles = rope_3d((gt, gh, gw), cfg.dim // cfg.num_heads,
-                         device=latents.device)
+        angles = split_tokens(rope_3d((gt, gh, gw), cfg.dim // cfg.num_heads,
+                                      device=latents.device), group, dim=0)
         x = x.to(cfg.residual_dtype)
         for blk in self.blocks:
             x = blk(x, t_mod, ctx, angles)
@@ -259,7 +281,9 @@ class WanDiT(nn.Module):
         fin = self.head_mod.float()[None] + te[:, None, :].float()
         sh, sc = fin[:, 0][:, None, :], fin[:, 1][:, None, :]
         x = layer_norm(x) * (1 + sc) + sh
-        x = self.head(x.float())
+        # the head is token-wise: its output (out_channels x patch wide, not
+        # dim) is what the ranks gather
+        x = gather_tokens(self.head(x.float()), group)
         x = x.reshape(B, gt, gh, gw, pt, ph, pw, cfg.out_channels)
         return x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(
             B, T, H, W, cfg.out_channels)

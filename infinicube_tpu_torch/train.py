@@ -16,6 +16,15 @@ on the latents of the frozen VAE at ``vae_checkpoint``, scaled by
 ``data.root`` is unset or names no existing path, each trains on its
 synthetic stream, as the JAX CLI does.
 
+Under torchrun each process trains on its card, data-parallel over the
+mesh's ``data`` axis (``mesh.model`` and ``mesh.seq`` take their share of
+the ranks, as the JAX CLI's mesh does; nothing is sharded over them):
+``python -m torch.distributed.run --nproc_per_node=N -m
+infinicube_tpu_torch.train ...``. Every rank reads the whole stream and the
+loop gives each data rank its rows. The GSM trainer, whose batch is one
+scene's views, refuses a data axis of more than one rank. Without torchrun
+it runs on one device.
+
 Usage:
   python -m infinicube_tpu_torch.train configs/train_diffusion.yaml \\
       --name myrun --exec batch_size=1 max_steps=3
@@ -35,7 +44,10 @@ import numpy as np
 import torch
 
 from infinicube_tpu_torch.config import Config, ConfigArgumentParser
-from infinicube_tpu_torch.device import resolve_device
+from infinicube_tpu_torch.parallel.mesh import (MeshConfig,
+                                                data_parallel_sharding,
+                                                init_distributed, is_lead,
+                                                make_mesh, rank_seed)
 from infinicube_tpu_torch.training.logging import make_logger
 from infinicube_tpu_torch.training.loop import LoopConfig, train
 from infinicube_tpu_torch.training.state import TrainConfig
@@ -59,8 +71,12 @@ def _dataclass_kwargs(section) -> dict:
 
 
 class _Looping:
-    """The clips of ``dcfg`` pass after pass. A pass that yields no sample
-    raises, naming the root, where looping on would never yield one."""
+    """The clips of ``dcfg`` pass after pass, all of them on every rank (the
+    global stream, as the JAX CLI's one process reads it: the loop's
+    ``shard_batch`` gives each data rank its rows, and the ranks of the
+    ``model`` and ``seq`` axes see the same batches). A pass that yields no
+    sample raises, naming the root, where looping on would never yield
+    one."""
 
     def __init__(self, dcfg):
         self.dcfg = dcfg
@@ -69,7 +85,8 @@ class _Looping:
         from infinicube_tpu_torch.data.waymo_dataset import build_dataset
         while True:
             n = 0
-            for sample in build_dataset(self.dcfg):
+            for sample in build_dataset(self.dcfg, host_index=0,
+                                        num_hosts=1):
                 n += 1
                 yield sample
             if n == 0:
@@ -311,10 +328,20 @@ def main(argv=None, device="cuda"):
     parser.add_argument("--logdir", type=str, default="logs")
     cfg = parser.parse_config(argv)
     set_float32_precision()
-    device = resolve_device(device)
+    device = init_distributed(device)
+    mesh = make_mesh(MeshConfig(model=cfg.get_path("mesh.model", 1),
+                                seq=cfg.get_path("mesh.seq", 1)), device)
     model_kind = cfg.get_path("model", "diffusion")
     if model_kind not in BUILDERS:
         raise SystemExit(f"unknown model '{model_kind}'")
+    data = data_parallel_sharding(mesh).size
+    if model_kind == "gsm" and data > 1:
+        # XLA computes the JAX loop's global batch whatever its placement;
+        # here each rank computes on its rows, and the GSM batch's rows
+        # are one scene's views, which the lifter fuses
+        raise SystemExit(f"the GSM trainer takes one scene's views a step: "
+                         f"a data axis of {data} ranks would split them; "
+                         f"set mesh.model or mesh.seq to take the ranks")
     params, loss_fn, batches = BUILDERS[model_kind](cfg, device)
     loop_cfg = LoopConfig(
         max_steps=cfg.get_path("max_steps", 1000),
@@ -327,15 +354,17 @@ def main(argv=None, device="cuda"):
         weight_decay=cfg.get_path("weight_decay", 0.0),
         ema_decay=cfg.get_path("ema_decay", 0.9999),
         use_ema=cfg.get_path("ema", True))
+    lead = is_lead()
     logger = make_logger(cfg.get_path("logger", "jsonl"),
                          cfg.get_path("logdir", "logs"),
-                         cfg.get_path("name", "run"))
+                         cfg.get_path("name", "run")) if lead else None
     generator = torch.Generator(device=device).manual_seed(
-        cfg.get_path("seed", 0))
+        rank_seed(cfg.get_path("seed", 0), mesh))
     state = train(loop_cfg, train_cfg, params, loss_fn, batches, generator,
-                  logger=logger, device=device)
-    print(f"[train] finished at step {int(state.step)} "
-          f"({int(state.num_nan_skips)} NaN-skipped steps)")
+                  logger=logger, device=device, mesh=mesh)
+    if lead:
+        print(f"[train] finished at step {int(state.step)} "
+              f"({int(state.num_nan_skips)} NaN-skipped steps)")
     return state
 
 

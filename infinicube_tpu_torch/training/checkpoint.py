@@ -42,18 +42,25 @@ class CheckpointManager:
         return {int(k): v for k, v in
                 json.loads(self._metrics_path.read_text()).items()}
 
-    def save(self, step: int, state: Any, force: bool = False,
-             metrics: dict | None = None) -> bool:
-        """Save ``state.state_dict()`` at ``step`` when the policy asks for
-        it. Returns whether it did."""
+    def due(self, step: int, force: bool = False,
+            metrics: dict | None = None) -> bool:
+        """Whether the policy saves at ``step``."""
         if step in self.all_steps():
             return False             # already saved (final save after loop)
         if not force and step % self._interval:
             return False
         if self.monitor is not None and metrics is None and not force:
             return False             # top-k-on-metric: unranked saves skipped
+        return True
+
+    def save(self, step: int, state: Any, force: bool = False,
+             metrics: dict | None = None, extra: dict | None = None) -> bool:
+        """Save ``state.state_dict()`` (with ``extra``'s entries) at ``step``
+        when the policy asks for it. Returns whether it did."""
+        if not self.due(step, force, metrics):
+            return False
         tmp = self._path(step).with_suffix(".tmp")
-        torch.save(state.state_dict(), tmp)
+        torch.save({**state.state_dict(), **(extra or {})}, tmp)
         tmp.replace(self._path(step))
         ranks = self._read_metrics()
         if self.monitor is not None and metrics and self.monitor in metrics:

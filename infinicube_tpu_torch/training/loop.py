@@ -1,13 +1,20 @@
 """Generic training loop: metrics, logging, validation, checkpoint cadence;
 counterpart of ``infinicube_tpu/training/loop.py``.
 
-The loop consumes an iterable of host batches, moves each to the device
-(the JAX loop's mesh sharding; data parallelism is not ported yet), runs the
-train step, tracks running means with a NaN assertion, logs scalars, and
-saves checkpoints every N steps with keep-last-k or top-k-on-metric
-retention. The random numbers of the steps come from one
-``torch.Generator`` whose state is saved with every checkpoint, so a resumed
-run continues as the uninterrupted one would."""
+The loop consumes an iterable of host batches and, on a mesh whose data
+axis has more than one rank (``parallel/mesh.py``), is data-parallel as the
+JAX loop is over its mesh: the parameters are broadcast from data rank 0 at
+the start, each rank takes its rows of every batch (``shard_batch``, in
+validation too), the gradients are averaged over the data group before the
+NaN guard, and the metrics are the global mean. It runs the train step,
+tracks running means with a NaN assertion, logs scalars, and saves
+checkpoints every N steps with keep-last-k or top-k-on-metric retention;
+only global rank 0 logs and writes, with a barrier around each write, and
+every rank restores on resume. The random numbers of the steps come from
+one ``torch.Generator`` per rank (seeded from the seed and the data rank,
+``rank_seed``, so a 2-rank run draws other numbers than a 1-rank one) whose
+states are saved with every checkpoint, so a resumed run continues as the
+uninterrupted one would."""
 
 from __future__ import annotations
 
@@ -16,8 +23,15 @@ import time
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 from infinicube_tpu_torch.device import resolve_device
+from infinicube_tpu_torch.parallel.mesh import (all_reduce_mean,
+                                                data_parallel_sharding,
+                                                is_lead, make_mesh,
+                                                map_tensors, rank_seed,
+                                                shard_batch,
+                                                shard_params_replicated)
 from infinicube_tpu_torch.training.checkpoint import CheckpointManager
 from infinicube_tpu_torch.training.state import (TrainConfig, TrainState,
                                                  make_train_step)
@@ -60,18 +74,10 @@ class LoopConfig:
 
 
 def move_batch(batch, device: torch.device):
-    """Every tensor of a batch (tensors, tuples or lists of them, and
+    """Every tensor of a batch (tensors, tuples, lists or dicts of them, and
     dataclasses of tensors such as ``CondCubes``) to ``device``; anything
     else passes through."""
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device)
-    if isinstance(batch, (tuple, list)):
-        return type(batch)(move_batch(b, device) for b in batch)
-    if dataclasses.is_dataclass(batch) and not isinstance(batch, type):
-        return dataclasses.replace(batch, **{
-            f.name: move_batch(getattr(batch, f.name), device)
-            for f in dataclasses.fields(batch)})
-    return batch
+    return map_tensors(lambda t: t.to(device), batch)
 
 
 def _scalars(metrics: dict) -> dict:
@@ -80,12 +86,16 @@ def _scalars(metrics: dict) -> dict:
 
 
 def make_default_val_fn(loss_fn: Callable, val_data: Iterable,
-                        num_batches: int, device: torch.device) -> Callable:
+                        num_batches: int, device: torch.device,
+                        mesh=None) -> Callable:
     """Default validation: run ``loss_fn`` on held-out batches with the EMA
-    parameters when present. Returns mean metrics incl. ``val_loss``.
+    parameters when present, each rank on its rows, the metrics the global
+    mean. Returns mean metrics incl. ``val_loss``.
 
     ``val_data`` may be a re-iterable (list, Dataset) or a zero-arg factory
     returning a fresh iterator (plain generators exhaust after one pass)."""
+    mesh = mesh or make_mesh(device=device)
+    group = data_parallel_sharding(mesh).group
 
     @torch.no_grad()
     def val_fn(state, step):
@@ -98,9 +108,12 @@ def make_default_val_fn(loss_fn: Callable, val_data: Iterable,
                 batch = next(it)
             except StopIteration:
                 break
-            gen = torch.Generator(device=device).manual_seed(i)
-            loss, metrics = loss_fn(params, gen, move_batch(batch, device))
-            meter.update({"val_loss": loss, **_scalars(metrics)})
+            gen = torch.Generator(device=device).manual_seed(
+                rank_seed(i, mesh))
+            loss, metrics = loss_fn(params, gen,
+                                    shard_batch(mesh, batch, device))
+            meter.update(all_reduce_mean(
+                {"val_loss": loss, **_scalars(metrics)}, group, device))
         return meter.means()
 
     return val_fn
@@ -111,10 +124,12 @@ def train(loop_cfg: LoopConfig, train_cfg: TrainConfig, params: dict,
           generator: torch.Generator | None = None,
           logger: Callable[[int, dict], None] | None = None,
           val_fn: Callable | None = None, val_data: Iterable | None = None,
-          device="cuda") -> TrainState:
+          device="cuda", mesh=None) -> TrainState:
     """loss_fn(params, generator, batch) -> (loss, metrics); ``params`` is a
     dict of named leaf tensors on ``device`` (the card unless the caller
-    asks for the CPU), updated in place.
+    asks for the CPU), updated in place. ``mesh``: the ``make_mesh`` the
+    run is data-parallel over (None: the one the process group gives, world
+    1 without one); ``batches`` yields the global batch on every rank.
 
     If ``val_data`` is given without an explicit ``val_fn``, a default
     validation (EMA params, mean loss/metrics over held-out batches) runs
@@ -125,28 +140,55 @@ def train(loop_cfg: LoopConfig, train_cfg: TrainConfig, params: dict,
         if p.device.type != device.type:
             raise ValueError(f"parameter {name} is on {p.device}, the loop "
                              f"runs on {device}")
+    mesh = mesh or make_mesh(device=device)
+    sh = data_parallel_sharding(mesh)
+    lead = is_lead()
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = torch.Generator(device=device).manual_seed(
+            rank_seed(0, mesh))
+    shard_params_replicated(mesh, params)
     state = TrainState.create(train_cfg, params, generator)
+    state.data_rank = sh.rank
     if val_fn is None and val_data is not None:
         val_fn = make_default_val_fn(loss_fn, val_data,
-                                     loop_cfg.val_batches, device)
+                                     loop_cfg.val_batches, device, mesh)
     monitor = loop_cfg.ckpt_monitor
     if monitor and val_fn is None:
         # With a monitor but no validation metrics, save() would skip every
         # unranked periodic checkpoint and a crash would lose the whole run:
         # fall back to keep-last-k retention instead.
-        print(f"[train] WARNING: ckpt_monitor={monitor!r} but no val_fn/"
-              "val_data produces metrics; falling back to keep-last-k "
-              "checkpoint retention")
+        if lead:
+            print(f"[train] WARNING: ckpt_monitor={monitor!r} but no val_fn/"
+                  "val_data produces metrics; falling back to keep-last-k "
+                  "checkpoint retention")
         monitor = None
     mgr = CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.ckpt_keep,
                             loop_cfg.ckpt_every, monitor=monitor,
                             mode=loop_cfg.ckpt_monitor_mode)
     if loop_cfg.resume and mgr.latest_step() is not None:
         mgr.restore(state)
-        print(f"[train] resumed from step {state.step}")
-    step_fn = make_train_step(train_cfg, loss_fn)
+        if lead:
+            print(f"[train] resumed from step {state.step}")
+
+    def save(step, force=False, metrics=None):
+        # every rank asks the policy (the directory is the same for all
+        # since the last barrier); rank 0 writes every data rank's generator
+        if not mgr.due(step, force, metrics):
+            return
+        extra = None
+        if sh.group is not None:
+            states = [None] * sh.size
+            dist.all_gather_object(states, generator.get_state(),
+                                   group=sh.group)
+            extra = {"rng_states": states}
+        if dist.is_initialized():
+            dist.barrier()
+        if lead:
+            mgr.save(step, state, force=force, metrics=metrics, extra=extra)
+        if dist.is_initialized():
+            dist.barrier()
+
+    step_fn = make_train_step(train_cfg, loss_fn, sh.group)
     meter = LossMeter()
     t0 = time.perf_counter()
     it = iter(batches)
@@ -158,29 +200,30 @@ def train(loop_cfg: LoopConfig, train_cfg: TrainConfig, params: dict,
         except StopIteration:
             it = iter(batches)
             continue
-        state, metrics = step_fn(state, generator, move_batch(batch, device))
+        state, metrics = step_fn(state, generator,
+                                 shard_batch(mesh, batch, device))
         step = state.step
-        meter.update(_scalars(metrics))
+        meter.update(all_reduce_mean(_scalars(metrics), sh.group, device))
         if step % loop_cfg.log_every == 0:
             means = meter.means()
             means["steps_per_sec"] = loop_cfg.log_every / \
                 max(time.perf_counter() - t0, 1e-9)
             t0 = time.perf_counter()
-            if logger:
+            if logger and lead:
                 logger(step, means)
-            else:
+            elif lead:
                 print(f"[train] step {step}: " + ", ".join(
                     f"{k}={v:.4f}" for k, v in means.items()))
             meter.reset()
         if val_fn is not None and step % loop_cfg.val_every == 0:
             val_metrics = val_fn(state, step) or {}
             last_val = val_metrics
-            if logger and val_metrics:
+            if logger and val_metrics and lead:
                 logger(step, {f"val/{k}": v for k, v in val_metrics.items()})
-            elif val_metrics:
+            elif val_metrics and lead:
                 print(f"[val] step {step}: " + ", ".join(
                     f"{k}={v:.4f}" for k, v in val_metrics.items()))
-        mgr.save(step, state, metrics=last_val)
-    mgr.save(step, state, force=True)
+        save(step, metrics=last_val)
+    save(step, force=True)
     mgr.wait()
     return state

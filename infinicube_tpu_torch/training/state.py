@@ -12,7 +12,10 @@ PyTorch idiom inside: parameters are a dict of named leaf tensors updated in
 place by ``torch.optim.AdamW`` (the state object is returned, not copied),
 and the NaN guard reads one fused finiteness reduction back to the host and
 skips ``optimizer.step()``, one host synchronisation per step where the JAX
-step selects with ``jnp.where`` on the device."""
+step selects with ``jnp.where`` on the device. With a data-parallel group
+the gradients are averaged over it right after the backward (the JAX step's
+global-batch gradient, which XLA sums over the mesh), so every rank takes the
+same NaN skip, clip, AdamW and EMA step."""
 
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Callable
 import torch
 
 from infinicube_tpu_torch.models.diffusion.ema import EmaState
+from infinicube_tpu_torch.parallel.mesh import all_reduce_grads
 
 Params = dict[str, torch.Tensor]
 
@@ -72,6 +76,9 @@ class TrainState:
     # the generator the steps draw from; its state is saved and restored
     # with the rest, so a resumed run draws what the uninterrupted one would
     generator: torch.Generator | None = None
+    # this rank's index on the data axis: a data-parallel checkpoint holds
+    # every data rank's generator state (``rng_states``) and each takes its own
+    data_rank: int = 0
 
     @staticmethod
     def create(cfg: TrainConfig, params: Params,
@@ -123,8 +130,10 @@ class TrainState:
             for k, e in self.ema.params.items():
                 e.copy_(sd["ema"]["params"][k])
             self.ema.step = int(sd["ema"]["step"])
-        if self.generator is not None and sd.get("rng_state") is not None:
-            self.generator.set_state(sd["rng_state"].cpu())
+        rng = sd["rng_states"][self.data_rank] if sd.get("rng_states") \
+            else sd.get("rng_state")
+        if self.generator is not None and rng is not None:
+            self.generator.set_state(rng.cpu())
 
 
 def grads_finite(grads: list[torch.Tensor]) -> bool:
@@ -138,11 +147,12 @@ def grads_finite(grads: list[torch.Tensor]) -> bool:
 
 def make_train_step(cfg: TrainConfig,
                     loss_fn: Callable[[Params, torch.Generator, object],
-                                      tuple]):
+                                      tuple], group=None):
     """loss_fn(params, generator, batch) -> (loss, metrics). Returns
     step(state, generator, batch) -> (state, metrics) with ``loss``,
-    ``grad_finite`` and the loss function's metrics; ``state`` is updated in
-    place."""
+    ``grad_finite`` and the loss function's metrics (this rank's); ``state``
+    is updated in place. ``group``: the data-parallel group the gradients
+    are averaged over (None: no other rank)."""
 
     def step(state: TrainState, generator: torch.Generator | None, batch):
         params = state.params
@@ -150,13 +160,14 @@ def make_train_step(cfg: TrainConfig,
             p.grad = None
         loss, metrics = loss_fn(params, generator, batch)
         loss.backward()
-        finite = grads_finite([p.grad for p in params.values()
-                               if p.grad is not None])
+        grads = [p.grad for p in params.values() if p.grad is not None]
+        all_reduce_grads(grads, group)
+        finite = grads_finite(grads)
         if finite:
             trained = [params[k] for k in state.trainable]
             torch.nn.utils.clip_grad_value_(trained, cfg.grad_clip_value)
-            for group in state.opt.param_groups:
-                group["lr"] = learning_rate_at(cfg, state.opt_count)
+            for pg in state.opt.param_groups:
+                pg["lr"] = learning_rate_at(cfg, state.opt_count)
             state.opt.step()
         else:
             state.num_nan_skips += 1

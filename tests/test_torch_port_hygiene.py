@@ -76,10 +76,13 @@ def test_cpu_tensors_take_plain_versions():
     from infinicube_tpu_torch.models.wan.dit import WanDiT, WanDiTConfig
     from infinicube_tpu_torch.ops.attention import multi_head_attention
     from infinicube_tpu_torch.ops.flash_attention import mha_quantized
+    from infinicube_tpu_torch.ops.ring_attention import \
+        ring_attention_virtual
     kernels.reset_launches()
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, 40, 2, 64), generator=g) for _ in range(3))
     multi_head_attention(q, k, v)
+    ring_attention_virtual(q, k, v, 2)
     mha_quantized(q, k, v)
     mha_quantized(q, k, v, quant="qkv")
     for quant in ("qk", "qkv"):
@@ -247,7 +250,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    "brick_vae", "process_clip",
                                    "vae_batches", "gsm_batches",
                                    "lidar_depth_image", "from_checkpoint",
-                                   "convert_load"])
+                                   "convert_load", "sp_dit",
+                                   "init_distributed", "make_mesh",
+                                   "batch2device",
+                                   "render_gaussian_scene", "vis_cli"])
 def test_entry_points_default_to_the_card(entry):
     """Built without device="cpu" and with no card present, they raise."""
     if torch.cuda.is_available():
@@ -274,6 +280,11 @@ def test_entry_points_default_to_the_card(entry):
         generate_additional_attributes as gaa
     from infinicube_tpu_torch.training import data_glue
     from infinicube_tpu_torch.convert import load_pipeline_checkpoint
+    from infinicube_tpu_torch.parallel.mesh import (init_distributed,
+                                                    make_mesh)
+    from infinicube_tpu_torch.utils.common import batch2device
+    from infinicube_tpu_torch.visualize.cli import main as vis_main
+    from infinicube_tpu_torch.visualize.render import render_gaussian_scene
     tiny_vae = VideoVAEConfig(latent_channels=4, base_channels=8,
                               channel_mult=(1, 2), num_res_blocks=1)
     from infinicube_tpu_torch.models.diffusion.model import CondEncoders
@@ -340,6 +351,18 @@ def test_entry_points_default_to_the_card(entry):
             ROOT / "no_checkpoint"),
         "convert_load": lambda: load_pipeline_checkpoint(
             ROOT / "no_checkpoint"),
+        # sequence and data parallelism, the utilities and the viewers
+        "sp_dit": lambda: WanDiT(WanDiTConfig(dim=64, ffn_dim=64,
+                                              num_layers=1, num_heads=1,
+                                              sp_axis="seq")),
+        "init_distributed": lambda: init_distributed(),
+        "make_mesh": lambda: make_mesh(),
+        "batch2device": lambda: batch2device({"x": torch.zeros(1)}),
+        "render_gaussian_scene": lambda: render_gaussian_scene(
+            {k: np.zeros((1, n)) for k, n in (("means", 3), ("quats", 4),
+                                              ("scales", 3), ("colors", 3))}
+            | {"opacities": np.zeros(1)}, np.eye(4)),
+        "vis_cli": lambda: vis_main(["grid", str(ROOT / "no_world.npz")]),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()

@@ -2,7 +2,9 @@
 processed by the port): ``train.main`` with ``data.root`` on it takes 2
 finite steps for each model on tiny configs (the VAE's checkpoint then
 frozen for the diffusion trainer, whose scale factor is written); a root
-whose shards yield no sample raises."""
+whose shards yield no sample raises; under two gloo ranks on the ``model``
+axis both ranks read the whole stream and train the one-process run's
+parameters, bit for bit."""
 
 import json
 
@@ -15,6 +17,7 @@ from infinicube_tpu_torch.data_process import (
 from infinicube_tpu_torch.data_process import waymo2shards as tw2s
 
 import torch_clip
+from tests.torch_dist import real_train_rank, run_ranks
 
 CROP = dict(crop_bbox_min=(-12.8, -12.8, -3.2), crop_bbox_max=(12.8, 12.8, 9.6))
 VAE_SMALL = dict(f_maps=8, c_dim=8, sem_embed_dim=8,
@@ -117,3 +120,24 @@ def test_a_root_without_samples_raises(tmp_path):
               f"ckpt_dir={tmp_path}/ck", *_vae_args()], device="cpu")
 
 
+
+
+def test_ranks_of_the_model_axis_train_alike_on_the_clips(tmp_path):
+    """``mesh.model=2`` on 2 ranks: the data axis has one rank, so both
+    ranks read every clip (the loop's ``shard_batch`` is the only split of
+    the stream) and take the steps of a run without a group. Two clips, so
+    that a stream split by rank would give the ranks different batches."""
+    from infinicube_tpu_torch.train import main
+    root = torch_clip.make_root(tmp_path / "waymo", tw2s.FrameRecord,
+                                tw2s.convert_clip, tga.process_clip,
+                                clips=("clip0", "clip1"), device="cpu")
+    argv = ["configs/train_vae.yaml", "--exec", *_data_args(root),
+            *_vae_args(), "point_capacity=4096", "max_steps=1"]
+    ranks = run_ranks(real_train_rank, 2, tmp_path / "ranks",
+                      [*argv, "mesh.model=2"])
+    alone = main([argv[0], "--logdir", str(tmp_path), *argv[1:],
+                  f"ckpt_dir={tmp_path}/alone"], device="cpu")
+    for got in ranks:
+        assert got.keys() == alone.params.keys()
+        for k, p in alone.params.items():
+            assert torch.equal(got[k], p.detach()), k

@@ -145,6 +145,23 @@ def test_euler_sampler_matches_schedule():
     np.testing.assert_allclose(out.numpy(), 0.5, atol=1e-6)
 
 
-def test_sp_axis_not_ported():
-    with pytest.raises(NotImplementedError):
-        WanDiT(WanDiTConfig(**TINY, sp_axis="seq"), device="cpu")
+def test_sp_axis_without_a_group_is_the_local_path():
+    """``sp_axis`` set and no group (one rank): the ring is one block and no
+    collective, so the output equals the local path's bit for bit and the
+    latents' gradient agrees (the ring's hand-written backward against
+    autograd through the plain attention). 2 ranks:
+    ``tests/test_torch_sp_dit.py``."""
+    inputs = _inputs(4)
+    params = _jax_params(JaxCfg(**TINY, dtype=jnp.float32), inputs)
+    outs, grads = [], []
+    for sp in (None, "seq"):
+        dit = WanDiT(WanDiTConfig(**TINY, dtype=torch.float32, sp_axis=sp),
+                     device="cpu")
+        dit.load_state_dict(dit_from_jax(params))
+        lat = torch.from_numpy(inputs[0]).requires_grad_()
+        out = dit(lat, *map(torch.from_numpy, inputs[1:]))
+        out.square().sum().backward()
+        outs.append(out.detach())
+        grads.append(lat.grad)
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-5, rtol=1e-5)
